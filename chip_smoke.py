@@ -1,0 +1,488 @@
+"""Smoke run of ultravox_torch on one CUDA card (H100).
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+  1. build every CUDA kernel of the port from ultravox_torch/ops/kernels/csrc;
+  2. hold each kernel against its plain PyTorch version on the card at the
+     shapes the flagship path gives it (bf16), and time kernel, plain
+     version and, where one exists, a single PyTorch call for the same
+     function (a yardstick only; the port never calls it);
+  3. a small-config check: greedy tokens from the kernel path on the card
+     equal those of the plain path on the CPU (fp32);
+  4. the main path at flagship widths (whisper-small encoder, Llama-3.2-1B
+     decoder, random bf16 weights from a seed): GenerationEngine.generate on
+     4 requests of 10 s synthesized audio, counting every kernel's launches.
+
+It then breaks the main path's time down by phase and, through
+torch.profiler, by kernel.
+
+Prints the card's name and power limit, one JSON line with the kernels'
+numbers, and as its last line {"ok": true, "device": {...}}. Exits non-zero
+without a result when there is no CUDA card or the package is missing.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+SEED = 0
+
+
+def _fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def _time_ms(fn, iters: int = 20, warmup: int = 3, queued: bool = True) -> float:
+    """Mean ms per call between CUDA events. ``queued``: the card first
+    sleeps while the host enqueues every call, so the events time the
+    card's work alone; without it the time includes the host's dispatch
+    whenever that is the slower side."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(100_000_000)  # ~50 ms at 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, kernel: str, iters: int = 20):
+    """From a torch.profiler trace of ``iters`` calls of fn: (device ms per
+    launch of the device kernel named ``kernel``, its launches per call,
+    names of any other device work fn queued). The trace may drop events,
+    so the time is the mean over the launches it did record, and the count
+    may come out below 1; it never invents a launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    mine = [e for e in evs if kernel in e.key]
+    others = [e.key for e in evs if kernel not in e.key]
+    n = sum(e.count for e in mine)
+    ms = sum(e.self_device_time_total for e in mine) / n / 1e3 if n else None
+    return ms, n / iters, others
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _bound(nbytes: int, flops: float, peak: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _flagship_config(tc):
+    """whisper-small encoder + Llama-3.2-1B decoder widths, as the JAX
+    package's flagship (its __graft_entry__._flagship_config)."""
+    return tc.UltravoxConfig(
+        audio_config=tc.WhisperEncoderConfig(
+            num_mel_bins=80, d_model=768, num_layers=12, num_heads=12,
+            ffn_dim=3072, max_source_positions=1500,
+        ),
+        text_config=tc.DecoderConfig(
+            arch="llama", vocab_size=128256, hidden_size=2048,
+            intermediate_size=8192, num_layers=16, num_heads=32,
+            num_kv_heads=8, head_dim=64, rope_theta=500000.0,
+            rms_norm_eps=1e-5, tie_word_embeddings=True,
+            max_position_embeddings=8192,
+        ),
+        hidden_size=3072,
+        projector_ln_mid=True,
+    )
+
+
+def _audio(n: int, seconds: float, rng: np.random.Generator) -> np.ndarray:
+    """(n, samples) chirp + harmonics + noise at 16 kHz."""
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    out = []
+    for i in range(n):
+        f0 = 120.0 + 40.0 * i
+        chirp = 0.3 * np.sin(2 * np.pi * (f0 + 150.0 * t) * t)
+        harm = sum(0.1 / h * np.sin(2 * np.pi * h * f0 * t) for h in (2, 3, 4))
+        out.append(chirp + harm + 0.01 * rng.standard_normal(t.size))
+    return np.stack(out).astype(np.float32)
+
+
+def _batch(cfg, mel: torch.Tensor, prompt_len: int, rng: np.random.Generator):
+    """Collated batch: each row's audio spliced at position 4 of the prompt."""
+    from ultravox_torch.models.projector import num_audio_tokens
+
+    n = mel.shape[0]
+    mel_len = mel.shape[-1]
+    ntok = num_audio_tokens(mel_len, cfg.audio_token_compression)
+    ids = rng.integers(1, cfg.vocab_size, (n, prompt_len)).astype(np.int64)
+    return {
+        "input_ids": ids,
+        "attention_mask": np.ones((n, prompt_len), np.int64),
+        "audio_values": mel.cpu().numpy(),
+        "audio_lens": np.full((n,), mel_len, np.int32),
+        "audio_token_len": np.full((n,), ntok, np.int32),
+        "audio_token_start_idx": np.full((n,), 4, np.int32),
+        "audio_chunk_batch_idx": np.arange(n, dtype=np.int32),
+    }
+
+
+def _check_kernels(fa, ln_mod, dev):
+    """Phase 2: every kernel against its plain version at main-path shapes."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    bf = torch.bfloat16
+    B, T, D, H, Dh = 4, 500, 768, 12, 64  # 10 s audio: 1000 mel frames -> 500
+    # tolerance: the kernels sum in another order than the plain versions,
+    # so bf16 outputs may differ by a few units in the last place (2^-8
+    # relative); 4 ulps of the largest output, with no absolute floor
+    def tol(ref):
+        return 4 * 2.0**-8 * float(ref.abs().max())
+
+    rows = []
+
+    def record(name, kernel, source, replaces, out, ref, k_fn, p_fn, lib_fn, nbytes, flops, peak):
+        err = float((out.float() - ref.float()).abs().max())
+        t = tol(ref)
+        bound_ms, bound_by = _bound(nbytes, flops, peak)
+        device_ms, per_call, others = _device_ms(k_fn, kernel)
+        row = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": 0, "max_abs_err": err, "tol": t,
+            "ms": _time_ms(k_fn), "plain_ms": _time_ms(p_fn),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": _time_ms(lib_fn) if lib_fn is not None else None,
+            "device_ms": device_ms, "device_kernels_per_call": per_call,
+            "wrapper_ms": _time_ms(k_fn, queued=False),
+        }
+        print(f"kernel {name}: max_abs_err {err:.3g} (tol {t:.3g}) ms {row['ms']:.4f} "
+              f"(trace {device_ms} in {per_call:g} kernels/call; with host dispatch "
+              f"{row['wrapper_ms']:.4f}) plain_ms {row['plain_ms']:.4f} "
+              f"library_ms {row['library_ms']} bound_ms {bound_ms:.5f} ({bound_by})", flush=True)
+        if not err <= t:
+            _fail(f"{name} disagrees with its plain version: {err} > {t}")
+        # the wrapper must queue its kernel and nothing else (no casts or
+        # copies); a trace that dropped events can only undercount
+        if per_call > 1 or others:
+            _fail(f"{name}: the trace shows {per_call:g} {kernel} launches per call "
+                  f"and other device work {sorted(set(others))}, expected 1 and none")
+        rows.append(row)
+
+    # 1. LayerNorm of the encoder FFN; scale and bias are fp32, as
+    # fuse_encoder_inference_params stores them
+    x = torch.randn((B, T, D), generator=g, device=dev).to(bf)
+    s = 1 + 0.1 * torch.randn((D,), generator=g, device=dev)
+    b = 0.1 * torch.randn((D,), generator=g, device=dev)
+    s_bf, b_bf = s.to(bf), b.to(bf)
+    out = ln_mod.fused_layer_norm(x, s, b)
+    ref = ln_mod.layer_norm_plain(x, s, b)
+    torch.cuda.synchronize()
+    record(
+        "fused_layer_norm", "layer_norm_kernel", "ultravox_torch/ops/kernels/csrc/layer_norm.cu",
+        "ultravox_tpu/ops/pallas/layer_norm.py:38", out, ref,
+        lambda: ln_mod.fused_layer_norm(x, s, b),
+        lambda: ln_mod.layer_norm_plain(x, s, b),
+        lambda: F.layer_norm(x, (D,), s_bf, b_bf, 1e-5),
+        _nbytes(x, s, b, out), 8.0 * x.numel(), FP32_FLOPS,
+    )
+
+    # 2. LN -> qkv -> head-major
+    C = 3 * D
+    w = (0.02 * torch.randn((D, C), generator=g, device=dev)).to(bf)
+    wb = (0.02 * torch.randn((C,), generator=g, device=dev)).to(bf)
+    out = fa.ln_qkv_head_fused(x, s, b, w, wb, Dh)
+    ref = fa.ln_qkv_head_plain(x, s, b, w, wb, Dh)
+    torch.cuda.synchronize()
+    record(
+        "ln_qkv_head_fused", "ln_qkv_head_kernel", "ultravox_torch/ops/kernels/csrc/ln_qkv_head.cu",
+        "ultravox_tpu/ops/pallas/fused_attention.py:290", out, ref,
+        lambda: fa.ln_qkv_head_fused(x, s, b, w, wb, Dh),
+        lambda: fa.ln_qkv_head_plain(x, s, b, w, wb, Dh),
+        None, _nbytes(x, s, b, w, wb, out), 2.0 * B * T * D * C, BF16_FLOPS,
+    )
+
+    # 3. head-major encoder attention (all 500 keys valid at 10 s). Unit
+    # normal q/k/v give logits of unit spread, so a wrong scale or mask
+    # moves the output by far more than the tolerance.
+    qkv_t = torch.randn((B, 3 * H, T, Dh), generator=g, device=dev).to(bf)
+    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    q3, k3, v3 = qkv_t[:, :H], qkv_t[:, H:2 * H], qkv_t[:, 2 * H:]
+    att = fa.attention_headmajor(qkv_t, lens, n_heads=H)
+    ref = fa.attention_plain(q3, k3, v3, lens, scale=Dh**-0.5)
+    torch.cuda.synchronize()
+    keymask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    record(
+        "attention_headmajor", "attention_kernel", "ultravox_torch/ops/kernels/csrc/attention.cu",
+        "ultravox_tpu/ops/pallas/fused_attention.py:493", att, ref,
+        lambda: fa.attention_headmajor(qkv_t, lens, n_heads=H),
+        lambda: fa.attention_plain(q3, k3, v3, lens, scale=Dh**-0.5),
+        lambda: F.scaled_dot_product_attention(q3, k3, v3, attn_mask=keymask),
+        _nbytes(qkv_t, lens, att), 4.0 * B * H * T * T * Dh, BF16_FLOPS,
+    )
+
+    # 4. causal prefill of a 128-token prompt into a 256-slot cache slab
+    Tp, S, Hq, Hkv = 128, 256, 32, 8
+    q = torch.randn((B, Tp, Hq, Dh), generator=g, device=dev).to(bf)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device=dev).to(bf)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device=dev).to(bf)
+    plen = torch.full((B,), Tp, dtype=torch.int32, device=dev)
+    offs = torch.zeros((B,), dtype=torch.int32, device=dev)
+    att = fa.fused_attention(q, k, v, plen, offs, causal=True, scale=Dh**-0.5)
+    ref = fa.attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), plen, offs,
+        scale=Dh**-0.5, causal=True,
+    ).transpose(1, 2)
+    torch.cuda.synchronize()
+    qh = q.transpose(1, 2)
+    kh = k.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+    vh = v.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+    cols = torch.arange(S, device=dev)
+    rows_pos = offs[:, None] + torch.arange(Tp, device=dev)[None]
+    pmask = (cols[None, None, :] <= rows_pos[:, :, None]) & (cols[None, None, :] < plen[:, None, None])
+    pairs = int(pmask.sum())  # visible (query, key) pairs of this run, per head
+    # keys any row can see: below both the valid length and the last row's
+    # position; the cache slots past them need not be read
+    keys = int(torch.minimum(plen, offs + Tp).clamp(max=S).sum())
+    kv_bytes = 2 * keys * Hkv * Dh * k.element_size()
+    pmask = pmask[:, None]
+    record(
+        "fused_attention", "attention_kernel", "ultravox_torch/ops/kernels/csrc/attention.cu",
+        "ultravox_tpu/ops/pallas/fused_attention.py:124", att, ref,
+        lambda: fa.fused_attention(q, k, v, plen, offs, causal=True, scale=Dh**-0.5),
+        lambda: fa.attention_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), plen, offs,
+            scale=Dh**-0.5, causal=True),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=pmask),
+        _nbytes(q, att, plen, offs) + kv_bytes, 4.0 * Hq * pairs * Dh, BF16_FLOPS,
+    )
+    return rows
+
+
+def _small_parity(tc, uv, TEngine, dev):
+    """Phase 3: kernel path on the card vs plain path on the CPU, fp32."""
+    cfg = tc.UltravoxConfig(
+        audio_config=tc.WhisperEncoderConfig(d_model=128, num_layers=2, num_heads=2, ffn_dim=256),
+        text_config=tc.DecoderConfig(
+            vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2,
+            num_heads=4, num_kv_heads=2, head_dim=64, tie_word_embeddings=True,
+        ),
+        hidden_size=256, projector_ln_mid=True,
+    )
+    params = uv.init_params(cfg, torch.Generator().manual_seed(SEED))
+    # larger weights make greedy tokens vary (the encoder's only 2x: larger
+    # attention logits there amplify fp32 summation-order noise)
+    scale = {"audio_tower": 2.0, "projector": 8.0, "language_model": 8.0}
+    params = {k: _scale(v, scale[k]) for k, v in params.items()}
+    from ultravox_torch.ops.mel import log_mel_spectrogram_np
+
+    rng = np.random.default_rng(SEED)
+    mel = torch.from_numpy(np.stack([log_mel_spectrogram_np(a) for a in _audio(2, 1.5, rng)]))
+    batch = _batch(cfg, mel, 32, rng)
+    toks = {}
+    for device in ("cpu", dev):
+        eng = TEngine(params, cfg, max_cache_len=128, cache_dtype=torch.float32,
+                      encoder_attn_impl="fused", prefill_attn_impl="fused", device=device)
+        toks[device] = eng.generate(batch, max_new_tokens=12).token_ids
+    print(f"small parity: cpu {toks['cpu']} gpu {toks[dev]}", flush=True)
+    if toks["cpu"] != toks[dev]:
+        _fail("greedy tokens of the kernel path differ from the plain path")
+
+
+def _scale(tree, f):
+    if isinstance(tree, dict):
+        return {k: _scale(v, f) for k, v in tree.items()}
+    return tree * f if tree.ndim >= 2 else tree
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        _fail("no CUDA device")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ultravox_torch.inference.engine import GenerationEngine
+    from ultravox_torch.models import config as tc
+    from ultravox_torch.models import ultravox as uv
+    from ultravox_torch.ops.kernels import _build
+    from ultravox_torch.ops.kernels import fused_attention as fa
+    from ultravox_torch.ops.kernels import layer_norm as ln_mod
+    from ultravox_torch.ops.mel import log_mel_spectrogram
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = "cuda"
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}", flush=True)
+
+    # 1. build
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s total", flush=True)
+    for name, info in built.items():
+        print(f"build {name}: {info['seconds']:.2f} s", flush=True)
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
+
+    # 2. kernels against their plain versions
+    rows = _check_kernels(fa, ln_mod, dev)
+
+    # 3. small end-to-end parity
+    _small_parity(tc, uv, GenerationEngine, dev)
+
+    # 4. main path at flagship widths
+    cfg = _flagship_config(tc)
+    t0 = time.perf_counter()
+    params = uv.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), torch.bfloat16, dev)
+    engine = GenerationEngine(
+        params, cfg, max_cache_len=1024, encoder_attn_impl="fused",
+        prefill_attn_impl="fused", device=dev,
+    )
+    del params
+    torch.cuda.synchronize()
+    wbytes = sum(_nbytes(t) for t in _leaves(engine.params))
+    print(f"weights: {wbytes / 1e9:.3f} GB bf16, init {time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(SEED)
+    n_req, seconds, prompt_len, new_tokens = 4, 10.0, 128, 32
+    wav = torch.from_numpy(_audio(n_req, seconds, rng)).to(dev)
+    mel = log_mel_spectrogram(wav)  # (4, 80, 1000) on the card
+    batch = _batch(cfg, mel, prompt_len, rng)
+    engine.generate(batch, max_new_tokens=2)  # warm-up: library handles, allocator
+
+    counters = {
+        "fused_layer_norm": ln_mod.fused_layer_norm,
+        "ln_qkv_head_fused": fa.ln_qkv_head_fused,
+        "attention_headmajor": fa.attention_headmajor,
+        "fused_attention": fa.fused_attention,
+    }
+    L_enc, L_dec = cfg.audio_config.num_layers, cfg.text_config.num_layers
+    expected = {
+        "fused_layer_norm": L_enc, "ln_qkv_head_fused": L_enc,
+        "attention_headmajor": L_enc, "fused_attention": L_dec,
+    }
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    stamps = []
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    result = engine.generate(
+        batch, max_new_tokens=new_tokens,
+        token_callback=lambda step, toks, done: stamps.append(time.perf_counter()),
+    )
+    t_end = time.perf_counter()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"launches: {launches} expected {expected}", flush=True)
+    for name, n in launches.items():
+        if n != expected[name]:
+            _fail(f"{name} launched {n} times on the main path, expected {expected[name]}")
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+
+    ids = result.token_ids
+    if len(ids) != n_req or any(len(r) != new_tokens for r in ids):
+        _fail(f"expected {n_req} x {new_tokens} tokens, got {[len(r) for r in ids]}")
+    if any(not 0 <= t < cfg.vocab_size for r in ids for t in r):
+        _fail("token id out of range")
+    ttft_ms = (stamps[0] - t_start) * 1e3
+    decode_tps = n_req * (new_tokens - 1) / (stamps[-1] - stamps[0])
+    print(f"main path: {n_req} requests x {seconds:.0f} s audio, prompt {prompt_len}, "
+          f"{new_tokens} greedy tokens; TTFT {ttft_ms:.3f} ms; decode {decode_tps:.2f} tok/s; "
+          f"total {(t_end - t_start) * 1e3:.3f} ms; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+    print(f"first tokens: {[r[:8] for r in ids]}", flush=True)
+    _breakdown(engine, batch, new_tokens, (t_end - t_start) * 1e3)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(smi, flush=True)
+    print(json.dumps({"kernels": rows, "ttft_ms": ttft_ms, "decode_tok_s": decode_tps}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+
+
+def _breakdown(engine, batch, new_tokens: int, untraced_ms: float) -> None:
+    """Where the main path's time goes: host-clock times of
+    its phases, then one traced generate: the device's busy time (against
+    the untraced wall time of the same call) and its kernels by self time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ultravox_torch.models import ultravox as uv
+
+    tb = {k: torch.as_tensor(v).to(engine.device) for k, v in engine.pad_batch(batch).items()}
+    B = tb["input_ids"].shape[0]
+
+    def timed(fn, n=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    with torch.inference_mode():
+        enc_ms = timed(lambda: uv.ultravox_embed(
+            engine.params, engine.cfg, tb["input_ids"], tb,
+            encoder_attn_impl=engine.encoder_attn_impl))
+        cache = engine._ensure_cache(None, B, 256)
+        prefill_ms = timed(lambda: engine._prefill(tb, cache, 0))
+        logits, cache, lens = engine._prefill(tb, cache, 0)
+        tok = logits.argmax(-1).to(torch.int32)
+        step_ms = timed(lambda: engine._decode(cache, tok, lens), n=20)
+    print(f"phases: audio embed (mel->encoder->projector->splice) {enc_ms:.3f} ms; "
+          f"prefill incl. audio embed {prefill_ms:.3f} ms; one decode step {step_ms:.3f} ms",
+          flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.generate(batch, max_new_tokens=new_tokens)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (the CPU ops' rows repeat their kernels' time)
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    print(f"profile: device busy {busy_ms:.3f} ms in one generate ({untraced_ms:.3f} ms "
+          f"untraced wall: {100 * busy_ms / untraced_ms:.1f}% busy; {traced_ms:.3f} ms traced)",
+          flush=True)
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}",
+              flush=True)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,123 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs an NVIDIA GPU and nvcc, and skips without them. This
+module imports no JAX, so it also runs on a machine that has none:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
+
+(``--noconftest`` skips tests/conftest.py, which configures JAX.)
+Tolerances: fp32 1e-5 absolute (summation order only); bf16 4 ulps of the
+largest output (4 * 2^-8 * max|ref|), since a different summation order can
+move an output across a bf16 rounding boundary.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ultravox_torch.inference import engine as tengine
+from ultravox_torch.models import config as tc
+from ultravox_torch.models import ultravox as tuv
+from ultravox_torch.ops import mel as tmel
+from ultravox_torch.ops.kernels import fused_attention as tfa
+from ultravox_torch.ops.kernels import layer_norm as tln
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def cuda_device():
+    """The CUDA card, or a skip."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+def _audio_batch(compression: int):
+    """Two requests of synthetic audio (1.5 s, 1.0 s) spliced at position 4
+    of 32-token prompts. Self-contained: this module runs where the rest of
+    tests/ cannot be imported."""
+    rng = np.random.default_rng(0)
+    mels = []
+    for i, sec in enumerate((1.5, 1.0)):
+        t = np.arange(int(sec * 16000)) / 16000
+        wav = 0.3 * np.sin(2 * np.pi * (150 + 30 * i + 300 * t) * t)
+        mels.append(tmel.log_mel_spectrogram_np(wav + 0.02 * rng.standard_normal(t.size)))
+    av = np.zeros((2, 80, mels[0].shape[1]), np.float32)
+    for i, m in enumerate(mels):
+        av[i, :, : m.shape[1]] = m
+    lens = np.array([m.shape[1] for m in mels], np.int32)
+    return {
+        "input_ids": rng.integers(1, 512, (2, 32)).astype(np.int32),
+        "attention_mask": np.ones((2, 32), np.int32),
+        "audio_values": av,
+        "audio_lens": lens,
+        "audio_token_len": (-(-lens // compression)).astype(np.int32),
+        "audio_token_start_idx": np.array([4, 4], np.int32),
+        "audio_chunk_batch_idx": np.array([0, 1], np.int32),
+    }
+
+
+def _case(name, dev, dtype):
+    """(kernel call, plain call) on ragged shapes: no dimension is a tile
+    multiple, so the kernels' edge masking is exercised."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+    if name == "layer_norm":
+        x, s, b = r(3, 77, 200), r(200), r(200)
+        return (lambda: tln.fused_layer_norm(x, s, b), lambda: tln.layer_norm_plain(x, s, b))
+    if name == "ln_qkv_head":
+        x, s, b, w, pb = r(2, 77, 96), r(96), r(96), 0.1 * r(96, 192), r(192)
+        return (lambda: tfa.ln_qkv_head_fused(x, s, b, w, pb, 32),
+                lambda: tfa.ln_qkv_head_plain(x, s, b, w, pb, 32))
+    if name == "attention_headmajor":
+        qkv, lens = r(2, 6, 77, 64), torch.tensor([50, 77], device=dev)
+        return (lambda: tfa.attention_headmajor(qkv, lens, n_heads=2, latency_block=16),
+                lambda: tfa.attention_plain(qkv[:, :2], qkv[:, 2:4], qkv[:, 4:], lens,
+                                            scale=0.125, latency_block=16))
+    q, k, v = r(2, 40, 4, 128), r(2, 96, 2, 128), r(2, 96, 2, 128)
+    lens, offs = torch.tensor([50, 96], device=dev), torch.tensor([10, 56], device=dev)
+    return (lambda: tfa.fused_attention(q, k, v, lens, offs, causal=True),
+            lambda: tfa.attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                        lens, offs, scale=128**-0.5, causal=True).transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("name", ["layer_norm", "ln_qkv_head", "attention_headmajor", "fused_attention"])
+def test_kernel_matches_plain(cuda_device, name, dt):
+    kernel, plain = _case(name, cuda_device, DTYPES[dt])
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    tol = 1e-5 if dt == "float32" else 4 * 2.0**-8 * float(ref.abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_generate_on_cuda_matches_cpu(cuda_device):
+    """Kernel path on the card vs plain path on the CPU, fp32: the same
+    greedy tokens, and every kernel of the path launched."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tc.UltravoxConfig(
+        audio_config=tc.WhisperEncoderConfig(d_model=128, num_layers=2, num_heads=2, ffn_dim=256),
+        text_config=tc.DecoderConfig(
+            vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2,
+            num_heads=4, num_kv_heads=2, head_dim=64, tie_word_embeddings=True,
+        ),
+        hidden_size=256, projector_ln_mid=True,
+    )
+    params = tuv.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = _audio_batch(cfg.audio_token_compression)
+    kw = dict(max_cache_len=128, cache_dtype=torch.float32, encoder_attn_impl="fused",
+              prefill_attn_impl="fused")
+    counters = (tln.fused_layer_norm, tfa.ln_qkv_head_fused, tfa.attention_headmajor,
+                tfa.fused_attention)
+    before = [f.launches for f in counters]
+    gpu = tengine.GenerationEngine(params, cfg, device=cuda_device, **kw).generate(
+        batch, max_new_tokens=12)
+    assert all(f.launches > n for f, n in zip(counters, before))
+    cpu = tengine.GenerationEngine(params, cfg, device="cpu", **kw).generate(
+        batch, max_new_tokens=12)
+    assert gpu.token_ids == cpu.token_ids

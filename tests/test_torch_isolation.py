@@ -1,0 +1,56 @@
+"""ultravox_torch and chip_smoke.py stand alone: no module imports jax or
+the JAX package (the machine with the card has no JAX), and importing the
+package builds or loads no kernel."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "ultravox_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "ultravox_tpu", "flax", "optax")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_package_imports_without_jax_and_builds_nothing():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'ultravox_tpu', 'triton'):\n"
+        "    sys.modules[m] = None\n"
+        "import ultravox_torch\n"
+        "import ultravox_torch.inference.engine\n"
+        "import ultravox_torch.models.weights\n"
+        "from ultravox_torch.ops.kernels import _build\n"
+        "assert _build.library.cache_info().currsize == 0\n"
+        "assert not any(m.startswith('ultravox_tpu') or m == 'jax' for m in sys.modules"
+        " if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -1,0 +1,260 @@
+"""Generation engine: bucketed prefill into a KV cache, then per-token decode.
+
+The PyTorch counterpart of the JAX package's ``GenerationEngine.generate``:
+the same batch format, bucketing and results, and the attention options
+(``encoder_attn_impl``, ``prefill_attn_impl``) that this slice ports. It runs
+on the CUDA card unless the caller passes ``device="cpu"``; there is no
+silent fallback, and a failed kernel build or launch raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ultravox_torch.models import decoder as decoder_lib
+from ultravox_torch.models import ultravox as uv
+from ultravox_torch.models.config import UltravoxConfig
+from ultravox_torch.models.whisper_encoder import fuse_encoder_inference_params
+from ultravox_torch.ops.sampling import sample_token
+
+CACHE_BUCKET = 256
+
+
+def _bucket(n: int, buckets: Tuple[int, ...]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"{n} exceeds largest bucket {buckets[-1]}")
+
+
+def _cache_bucket(need: int, cap: int) -> int:
+    """Needed cache length rounded up to a multiple of CACHE_BUCKET (at most
+    ``cap``), so decode reads only the KV it can use."""
+    return min(cap, -(-need // CACHE_BUCKET) * CACHE_BUCKET)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA card; raises when there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: ultravox_torch runs on the GPU by default; "
+                "pass device='cpu' to run the plain versions on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return torch.as_tensor(tree).to(device)
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    token_ids: List[List[int]]  # generated ids per sequence (no prompt)
+    prompt_lens: List[int]
+    cache: Any = None  # with return_cache=True (conversation reuse)
+    cache_lens: Any = None  # np (B,) valid cache entries per row
+
+
+class GenerationEngine:
+    """Owns the inference parameters, the KV cache budget and the sampler."""
+
+    def __init__(
+        self,
+        params: Any,
+        cfg: UltravoxConfig,
+        *,
+        max_cache_len: int = 2048,
+        batch_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64),
+        chunk_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64, 128),
+        cache_dtype=torch.bfloat16,
+        stop_token_ids: Tuple[int, ...] = (),
+        encoder_attn_impl: str = "xla",
+        prefill_attn_impl: str = "xla",
+        device=None,
+        seed: int = 0,
+    ):
+        if encoder_attn_impl not in ("xla", "fused"):
+            raise NotImplementedError(f"encoder_attn_impl={encoder_attn_impl!r} is not ported yet")
+        if prefill_attn_impl not in ("xla", "fused"):
+            raise ValueError(f"unknown prefill_attn_impl={prefill_attn_impl!r}")
+        decoder_lib.check_supported(cfg.text_config)
+        self.device = resolve_device(device)
+        params = _to_device(params, self.device)
+        self.params = dict(params)
+        self.params["language_model"] = decoder_lib.fuse_inference_params(
+            params["language_model"], cfg.text_config
+        )
+        if encoder_attn_impl == "fused" and "audio_tower" in self.params:
+            self.params["audio_tower"] = fuse_encoder_inference_params(self.params["audio_tower"])
+        self.cfg = cfg
+        self.max_cache_len = max_cache_len
+        self.batch_buckets = batch_buckets
+        self.chunk_buckets = chunk_buckets
+        self.cache_dtype = cache_dtype
+        self.stop_token_ids = tuple(stop_token_ids)
+        self.encoder_attn_impl = encoder_attn_impl
+        self.prefill_kernel = prefill_attn_impl == "fused"
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _check_cache_budget(self, prompt_len: int, max_new_tokens: int, start_pos: int = 0) -> None:
+        # the last sampled token is never written, so the last written
+        # position is start + prompt + max_new - 2
+        if start_pos + prompt_len + max_new_tokens > self.max_cache_len + 1:
+            raise ValueError(
+                f"prompt ({prompt_len} tokens at offset {start_pos}) + "
+                f"max_new_tokens ({max_new_tokens}) exceeds max_cache_len "
+                f"({self.max_cache_len}); raise max_cache_len or truncate."
+            )
+
+    def _ensure_cache(self, cache: Optional[decoder_lib.KVCache], batch: int, length: int):
+        """A fresh cache of ``length`` slots, or a conversation cache grown to it."""
+        if cache is not None and cache.max_len >= length:
+            return cache
+        new = decoder_lib.KVCache.zeros(
+            self.cfg.text_config, batch, length, self.cache_dtype, self.device
+        )
+        if cache is not None:
+            n = cache.max_len
+            new.k[:, :, :n] = cache.k
+            new.v[:, :, :n] = cache.v
+        return new
+
+    def pad_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Pad batch rows and audio chunk counts up to bucket sizes."""
+        batch = dict(batch)
+        B = batch["input_ids"].shape[0]
+        Bp = _bucket(B, self.batch_buckets)
+        if Bp != B:
+            for key in ("input_ids", "attention_mask", "labels"):
+                if key in batch:
+                    pad = np.zeros((Bp - B,) + batch[key].shape[1:], batch[key].dtype)
+                    batch[key] = np.concatenate([batch[key], pad])
+        if "audio_values" in batch:
+            N = batch["audio_values"].shape[0]
+            Np = _bucket(N, self.chunk_buckets)
+            if Np != N:
+                av = batch["audio_values"]
+                batch["audio_values"] = np.concatenate(
+                    [av, np.zeros((Np - N,) + av.shape[1:], av.dtype)]
+                )
+                for key, fill in (
+                    ("audio_lens", 1),
+                    ("audio_token_len", 0),  # 0 tokens: nothing is spliced
+                    ("audio_token_start_idx", 0),
+                    ("audio_chunk_batch_idx", 0),
+                ):
+                    pad = np.full((Np - N,), fill, batch[key].dtype)
+                    batch[key] = np.concatenate([batch[key], pad])
+        return batch
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        batch: Dict[str, np.ndarray],
+        *,
+        max_new_tokens: int = 256,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        min_p: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+        token_callback=None,
+        cache: Optional[decoder_lib.KVCache] = None,
+        start_pos: int = 0,
+        return_cache: bool = False,
+    ) -> GenerationResult:
+        """Autoregressive generation for a collated batch (numpy arrays:
+        input_ids, attention_mask and optionally audio_values, audio_lens,
+        audio_token_start_idx, audio_token_len, audio_chunk_batch_idx).
+        ``token_callback(step, tokens (B,), done)`` is the streaming hook.
+        For conversation reuse pass the previous ``cache`` and ``start_pos``
+        (tokens already cached); the batch then holds only the suffix."""
+        true_B = batch["input_ids"].shape[0]
+        prompt_lens = [int(x) for x in np.asarray(batch["attention_mask"]).sum(-1)][:true_B]
+        self._check_cache_budget(max(prompt_lens), max_new_tokens, start_pos)
+        batch = self.pad_batch({k: np.asarray(v) for k, v in batch.items()})
+        tbatch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+        B = batch["input_ids"].shape[0]
+        need = start_pos + batch["input_ids"].shape[1] + max_new_tokens
+        cache = self._ensure_cache(cache, B, _cache_bucket(need, self.max_cache_len))
+        logits, cache, cache_len = self._prefill(tbatch, cache, start_pos)
+        if generator is None:
+            generator = self.generator
+
+        done = np.zeros(B, dtype=bool)
+        done[true_B:] = True
+        out_ids: List[List[int]] = [[] for _ in range(B)]
+        for step in range(max_new_tokens):
+            next_tok = sample_token(
+                logits, generator, temperature=temperature, top_k=top_k,
+                top_p=top_p, min_p=min_p,
+            )
+            tok_np = next_tok.cpu().numpy()
+            for b in range(true_B):
+                if not done[b]:
+                    if int(tok_np[b]) in self.stop_token_ids:
+                        done[b] = True
+                    else:
+                        out_ids[b].append(int(tok_np[b]))
+            if token_callback is not None:
+                token_callback(step, tok_np, done.copy())
+            if done.all() or step == max_new_tokens - 1:
+                break
+            logits, cache, cache_len = self._decode(cache, next_tok, cache_len)
+        result = GenerationResult(token_ids=out_ids[:true_B], prompt_lens=prompt_lens)
+        if return_cache:
+            result.cache = cache
+            result.cache_lens = cache_len.cpu().numpy()
+        return result
+
+    def _prefill(self, batch, cache, start_pos: int):
+        """Embed (with audio), write the prompt's k/v at [start_pos, ...),
+        and return the logits of each row's last valid position."""
+        cfg = self.cfg
+        input_ids = batch["input_ids"]
+        B, T = input_ids.shape
+        dev = self.device
+        inputs_embeds = uv.ultravox_embed(
+            self.params, cfg, input_ids, batch, encoder_attn_impl=self.encoder_attn_impl
+        )
+        positions = start_pos + torch.arange(T, device=dev)[None].expand(B, T)
+        seq_lens = start_pos + batch["attention_mask"].sum(dim=-1).to(torch.int32)
+        hidden, cache = decoder_lib.decoder_forward(
+            self.params["language_model"], cfg.text_config,
+            inputs_embeds=inputs_embeds,
+            positions=positions,
+            kv_valid_len=seq_lens,
+            cache=cache,
+            write_pos=torch.full((B,), start_pos, dtype=torch.int32, device=dev),
+            return_hidden=True,
+            prefill_kernel=self.prefill_kernel,
+        )
+        last = torch.clamp(seq_lens - start_pos - 1, min=0).long()
+        last_hidden = hidden[torch.arange(B, device=dev), last]
+        logits = decoder_lib.compute_logits(
+            self.params["language_model"], cfg.text_config, last_hidden
+        )
+        return logits, cache, seq_lens
+
+    def _decode(self, cache, tokens, cache_pos):
+        """One step: embed ``tokens``, write them at ``cache_pos``, return
+        the next logits."""
+        lm = self.params["language_model"]
+        embeds = decoder_lib.embed_lookup(lm, tokens)[:, None]
+        logits, cache = decoder_lib.decoder_forward(
+            lm, self.cfg.text_config,
+            inputs_embeds=embeds,
+            positions=cache_pos[:, None],
+            kv_valid_len=cache_pos + 1,
+            cache=cache,
+            write_pos=cache_pos,
+        )
+        return logits[:, 0], cache, cache_pos + 1

@@ -1,0 +1,216 @@
+"""Attention kernels of the encoder and of causal prefill, with plain versions.
+
+- ``ln_qkv_head_fused`` (``csrc/ln_qkv_head.cu``) replaces
+  ``ultravox_tpu/ops/pallas/fused_attention.py:ln_qkv_head_fused``.
+- ``attention_headmajor`` and ``fused_attention`` (both ``csrc/attention.cu``)
+  replace ``fused_attention.py:attention_headmajor`` (``_headmajor_kernel``)
+  and ``fused_attention.py:fused_attention`` (``_attn_kernel``).
+
+Each wrapper takes its plain version for CPU tensors and launches its
+kernel for CUDA tensors; ``<wrapper>.launches`` counts kernel launches.
+What bounds each kernel on the card, and what its design does about it, is
+noted at the top of its CUDA source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ultravox_torch.ops.attention import NEG_INF
+from ultravox_torch.ops.kernels import _build
+
+LOG2E = 1.4426950408889634
+HEAD_DIMS = (64, 128)  # head dims the attention kernel is instantiated for
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+
+def ln_qkv_head_plain(x, ln_scale, ln_bias, kernel, bias, head_dim: int, eps: float = 1e-5):
+    """(B, T, D) -> (B, C / head_dim, T, head_dim): LN in fp32, cast to x's
+    dtype, fp32-accumulated product, cast, then + bias in that dtype."""
+    B, T, D = x.shape
+    C = kernel.shape[-1]
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    h = (xc * torch.rsqrt(var + eps) * ln_scale.float() + ln_bias.float()).to(x.dtype)
+    acc = torch.matmul(h.float(), kernel.float())
+    qkv = acc.to(x.dtype) + bias.to(x.dtype)
+    return qkv.reshape(B, T, C // head_dim, head_dim).permute(0, 2, 1, 3).contiguous()
+
+
+def attention_plain(
+    q: torch.Tensor,  # (B, H, T, D)
+    k: torch.Tensor,  # (B, Hkv, S, D)
+    v: torch.Tensor,  # (B, Hkv, S, D)
+    lengths: Optional[torch.Tensor] = None,
+    row_offsets: Optional[torch.Tensor] = None,
+    *,
+    scale: float,
+    causal: bool = False,
+    latency_block: int = 0,
+) -> torch.Tensor:
+    """Head-major attention in the TPU kernels' arithmetic: fp32 logits times
+    scale*log2(e), masked entries set to NEG_INF, exp2 against the row max,
+    probabilities rounded to v's dtype before PV, division by the row sum
+    last. Returns (B, H, T, D) in q's dtype."""
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    group = H // k.shape[1]
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.repeat_interleave(group, dim=1)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * (scale * LOG2E)
+    dev = q.device
+    cols = torch.arange(S, device=dev)[None, None, None, :]
+    rows = torch.arange(T, device=dev)[None, :]
+    if row_offsets is not None:
+        rows = rows + row_offsets.to(dev).long()[:, None]
+    rows = rows[:, None, :, None]  # (B|1, 1, T, 1)
+    hidden = torch.zeros((1, 1, 1, S), dtype=torch.bool, device=dev)
+    if lengths is not None:
+        hidden = hidden | (cols >= lengths.to(dev).long()[:, None, None, None])
+    if causal:
+        hidden = hidden | (cols > rows)
+    if latency_block > 0:
+        hidden = hidden | (cols // latency_block > rows // latency_block)
+    s = s.masked_fill(hidden, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp2(s - m)
+    z = e.sum(dim=-1, keepdim=True)
+    o = torch.matmul(e.to(v.dtype).float(), vf.float())
+    return (o / z).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# kernels
+# --------------------------------------------------------------------------
+
+
+def ln_qkv_head_fused(x, ln_scale, ln_bias, kernel, bias, head_dim: int, *, eps: float = 1e-5):
+    """LayerNorm -> (T, D) x (D, C) + bias -> head-major (B, C/Dh, T, Dh)."""
+    if x.device.type == "cpu":
+        return ln_qkv_head_plain(x, ln_scale, ln_bias, kernel, bias, head_dim, eps)
+    _build.require_cuda(x, ln_scale, ln_bias, kernel, bias)
+    B, T, D = x.shape
+    C = kernel.shape[-1]
+    if kernel.shape != (D, C) or bias.shape != (C,) or C % head_dim:
+        raise ValueError(f"bad shapes for ln_qkv_head_fused: {x.shape} x {kernel.shape} + {bias.shape}")
+    if kernel.dtype != x.dtype:
+        raise TypeError(f"kernel dtype {kernel.dtype} != activation dtype {x.dtype}")
+    x = x.contiguous()
+    w = kernel.contiguous()
+    b = bias.to(x.dtype).contiguous()
+    s32 = ln_scale.float().contiguous()
+    b32 = ln_bias.float().contiguous()
+    out = torch.empty((B, C // head_dim, T, head_dim), dtype=x.dtype, device=x.device)
+    lib = _build.library("ln_qkv_head")
+    rc = lib.uv_ln_qkv_head(
+        _build.ptr(x), _build.ptr(s32), _build.ptr(b32), _build.ptr(w), _build.ptr(b),
+        _build.ptr(out), B, T, D, C, head_dim, eps, _build.dtype_code(x),
+        _build.stream_ptr(x.device),
+    )
+    _build.check("ln_qkv_head", rc)
+    ln_qkv_head_fused.launches += 1
+    return out
+
+
+ln_qkv_head_fused.launches = 0
+
+
+def _launch_attention(q, k, v, o, lengths, row_offsets, scale, causal, latency_block):
+    """q, o: (B, H, T, D) views; k, v: (B, Hkv, S, D) views; the last axis
+    must be contiguous, the others may have any strides."""
+    B, H, T, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if H % Hkv:
+        raise ValueError(f"query heads {H} not a multiple of kv heads {Hkv}")
+    if not (q.dtype == k.dtype == v.dtype == o.dtype):
+        raise TypeError("q, k, v and the output must share one dtype")
+    for t in (q, k, v, o):
+        if t.stride(-1) != 1:
+            raise ValueError("the head dimension must be contiguous")
+    _build.require_cuda(q, k, v, o, lengths, row_offsets)
+    lens = lengths.to(torch.int32).contiguous() if lengths is not None else None
+    offs = row_offsets.to(torch.int32).contiguous() if row_offsets is not None else None
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, o) for s in t.stride()[:3])
+    )
+    lib = _build.library("attention")
+    rc = lib.uv_attention(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o), strides,
+        B, H, H // Hkv, T, S, D, scale * LOG2E, _build.ptr(lens), _build.ptr(offs),
+        int(causal), int(latency_block), _build.dtype_code(q), _build.stream_ptr(q.device),
+    )
+    _build.check("attention", rc)
+
+
+def attention_headmajor(
+    qkv_t: torch.Tensor,  # (B, 3H, T, D)
+    lengths: torch.Tensor,  # (B,) valid keys
+    *,
+    n_heads: int,
+    scale: Optional[float] = None,
+    latency_block: int = 0,
+) -> torch.Tensor:
+    """Encoder self-attention over the packed head-major array (q, k, v at
+    head offsets 0, H, 2H), key-length mask and optional block-causal
+    latency mask. Returns (B, H, T, D)."""
+    B, G, T, D = qkv_t.shape
+    H = n_heads
+    if G != 3 * H:
+        raise ValueError(f"expected {3 * H} packed heads, got {G}")
+    if scale is None:
+        scale = D**-0.5
+    q, k, v = qkv_t[:, :H], qkv_t[:, H : 2 * H], qkv_t[:, 2 * H :]
+    if qkv_t.device.type == "cpu":
+        return attention_plain(q, k, v, lengths, scale=scale, latency_block=latency_block)
+    out = torch.empty((B, H, T, D), dtype=qkv_t.dtype, device=qkv_t.device)
+    _launch_attention(q, k, v, out, lengths, None, scale, False, latency_block)
+    attention_headmajor.launches += 1
+    return out
+
+
+attention_headmajor.launches = 0
+
+
+def fused_attention(
+    q: torch.Tensor,  # (B, T, H, D)
+    k: torch.Tensor,  # (B, S, Hkv, D)
+    v: torch.Tensor,  # (B, S, Hkv, D)
+    lengths: Optional[torch.Tensor] = None,  # (B,) valid key length
+    row_offsets: Optional[torch.Tensor] = None,  # (B,) absolute pos of row 0
+    *,
+    scale: Optional[float] = None,
+    causal: bool = False,
+    latency_block: int = 0,
+) -> torch.Tensor:
+    """Attention with GQA and scalar masks. Returns (B, T, H, D)."""
+    B, T, H, D = q.shape
+    if scale is None:
+        scale = D**-0.5
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    if q.device.type == "cpu":
+        out = attention_plain(
+            qh, kh, vh, lengths, row_offsets, scale=scale, causal=causal,
+            latency_block=latency_block,
+        )
+        return out.transpose(1, 2)
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    _launch_attention(
+        qh, kh, vh, out.transpose(1, 2), lengths, row_offsets, scale, causal, latency_block
+    )
+    fused_attention.launches += 1
+    return out
+
+
+fused_attention.launches = 0
+
