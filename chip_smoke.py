@@ -3,19 +3,28 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build every CUDA kernel of the port from ultravox_torch/ops/kernels/csrc;
+  1. build every CUDA kernel of the port from ultravox_torch/ops/kernels/csrc
+     (one nvcc per source, all at once);
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes the flagship path gives it (bf16), and time kernel, plain
-     version and, where one exists, a single PyTorch call for the same
-     function (a yardstick only; the port never calls it);
-  3. a small-config check: greedy tokens from the kernel path on the card
-     equal those of the plain path on the CPU (fp32);
-  4. the main path at flagship widths (whisper-small encoder, Llama-3.2-1B
-     decoder, random bf16 weights from a seed): GenerationEngine.generate on
-     4 requests of 10 s synthesized audio, counting every kernel's launches.
+     shapes the flagship path gives it (bf16; the decode kernels also in
+     fp32, with ragged lengths, windows, and junk past each row's length),
+     and time kernel, plain version and, where one exists, a single PyTorch
+     call for the same function (a yardstick only; the port never calls it);
+  3. small configs (a llama-family speech model and a gemma-3-style decoder
+     with sliding windows): greedy tokens from the kernel paths on the card
+     equal those of the plain paths on the CPU (fp32) for generate with the
+     decode kernel, generate_fused, and the segmented scan with its kernel;
+  4. the main paths at flagship widths (whisper-small encoder, Llama-3.2-1B
+     decoder, random bf16 weights from a seed) on 4 requests of 10 s
+     synthesized audio, each with every kernel's launch count set to 0
+     just before it and checked just after:
+       generate(decode_attn_impl="kernel")   12/12/12/16 + 496 decode_attention
+       generate_fused (plain merged attention) 12/12/12/16
+       prefill + segmented_decode_scan(attn_impl="kernel")
+                                               12/12/12/16 + 496 segment_tail_attention
 
-It then breaks the main path's time down by phase and, through
-torch.profiler, by kernel.
+It then breaks the time of generate and generate_fused down by phase and,
+through torch.profiler, by kernel.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits non-zero
@@ -149,20 +158,16 @@ def _batch(cfg, mel: torch.Tensor, prompt_len: int, rng: np.random.Generator):
     }
 
 
-def _check_kernels(fa, ln_mod, dev):
-    """Phase 2: every kernel against its plain version at main-path shapes."""
-    import torch.nn.functional as F
+def _bf16_tol(ref) -> float:
+    """The kernels sum in another order than the plain versions, so bf16
+    outputs may differ by a few units in the last place (2^-8 relative):
+    4 ulps of the largest output, with no absolute floor."""
+    return 4 * 2.0**-8 * float(ref.abs().max())
 
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    bf = torch.bfloat16
-    B, T, D, H, Dh = 4, 500, 768, 12, 64  # 10 s audio: 1000 mel frames -> 500
-    # tolerance: the kernels sum in another order than the plain versions,
-    # so bf16 outputs may differ by a few units in the last place (2^-8
-    # relative); 4 ulps of the largest output, with no absolute floor
-    def tol(ref):
-        return 4 * 2.0**-8 * float(ref.abs().max())
 
-    rows = []
+def _recorder(rows, tol):
+    """record(...): hold one kernel against its plain version, time kernel,
+    plain version and library call, check the trace, append its row."""
 
     def record(name, kernel, source, replaces, out, ref, k_fn, p_fn, lib_fn, nbytes, flops, peak):
         err = float((out.float() - ref.float()).abs().max())
@@ -190,6 +195,19 @@ def _check_kernels(fa, ln_mod, dev):
             _fail(f"{name}: the trace shows {per_call:g} {kernel} launches per call "
                   f"and other device work {sorted(set(others))}, expected 1 and none")
         rows.append(row)
+
+    return record
+
+
+def _check_kernels(fa, ln_mod, dev):
+    """Phase 2: every kernel against its plain version at main-path shapes."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    bf = torch.bfloat16
+    B, T, D, H, Dh = 4, 500, 768, 12, 64  # 10 s audio: 1000 mel frames -> 500
+    rows = []
+    record = _recorder(rows, _bf16_tol)
 
     # 1. LayerNorm of the encoder FFN; scale and bias are fp32, as
     # fuse_encoder_inference_params stores them
@@ -281,34 +299,221 @@ def _check_kernels(fa, ln_mod, dev):
     return rows
 
 
-def _small_parity(tc, uv, TEngine, dev):
-    """Phase 3: kernel path on the card vs plain path on the CPU, fp32."""
-    cfg = tc.UltravoxConfig(
-        audio_config=tc.WhisperEncoderConfig(d_model=128, num_layers=2, num_heads=2, ffn_dim=256),
-        text_config=tc.DecoderConfig(
-            vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2,
-            num_heads=4, num_kv_heads=2, head_dim=64, tie_word_embeddings=True,
-        ),
-        hidden_size=256, projector_ln_mid=True,
+def _check_decode_kernels(da, sa, dev):
+    """Phase 2, continued: decode_attention and segment_tail_attention at the
+    main path's mid-decode shapes (B=4, 32 q / 8 kv heads, head_dim 64, a
+    256-slot cache). Each case runs in bf16 and fp32, with ragged lengths
+    and windows, and again with 1e4 in every slot a row cannot see: the
+    output must not move, which shows those slots never enter the kernel.
+    The main shape is then timed in bf16."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    B, H, Hkv, D, S = 4, 32, 8, 64, 256
+    scale = D**-0.5
+    rows = []
+    record = _recorder(rows, _bf16_tol)
+
+    def ints(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def junk(a, hidden):
+        """A copy of a (..., B, S, Hkv, D) with 1e4 where hidden (B, S) holds."""
+        out = a.clone()
+        out[..., hidden, :, :] = 1e4
+        return out
+
+    def check(name, fn, plain, args, hidden):
+        """fn(*args) against plain(*args) in bf16 and fp32, and against itself
+        with junk in the hidden slots. hidden: {arg index: (B, S*) bool}."""
+        for dtype in (torch.bfloat16, torch.float32):
+            a = [x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x for x in args]
+            out, ref = fn(*a), plain(*a)
+            for i, h in hidden.items():
+                a[i] = junk(a[i], h)
+            out_j = fn(*a)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            t = _bf16_tol(ref) if dtype == torch.bfloat16 else 1e-5
+            print(f"check {name} {str(dtype)[6:]}: max_abs_err {err:.3g} (tol {t:.3g}); "
+                  f"junk past the lengths moves it {float((out_j.float() - out.float()).abs().max())}",
+                  flush=True)
+            if not err <= t:
+                _fail(f"{name} ({dtype}) disagrees with its plain version: {err} > {t}")
+            if not torch.equal(out, out_j):
+                _fail(f"{name} ({dtype}) reads slots past the lengths")
+
+    kpos = torch.arange(S, device=dev)
+
+    # 8. decode_attention: one query per row against one layer's cache slab
+    q = torch.randn((B, H, D), generator=g, device=dev)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=dev)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=dev)
+    for case, lens, w in (("mid-decode", ints(144, 144, 144, 144), 0),
+                          ("ragged", ints(1, 129, 200, 256), 0),
+                          ("ragged+window32", ints(1, 129, 200, 256), 32)):
+        lo = torch.clamp(lens - w, min=0) if w else torch.zeros_like(lens)
+        hidden = (kpos[None] >= lens[:, None]) | (kpos[None] < lo[:, None])
+        check(f"decode_attention {case}",
+              lambda q, k, v, lens=lens, w=w: da.decode_attention(q, k, v, lens, w, scale=scale),
+              lambda q, k, v, lens=lens, w=w: da.decode_attention_plain(q, k, v, lens, w, scale=scale),
+              [q, k, v], {1: hidden, 2: hidden})
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    lens = ints(144, 144, 144, 144)
+    out = da.decode_attention(qb, kb, vb, lens)
+    ref = da.decode_attention_plain(qb, kb, vb, lens, scale=scale)
+    torch.cuda.synchronize()
+    visible = kpos[None] < lens[:, None]  # (B, S)
+    kv_bytes = 2 * int(visible.sum()) * Hkv * D * kb.element_size()
+    record(
+        "decode_attention", "decode_attention_kernel",
+        "ultravox_torch/ops/kernels/csrc/decode_attention.cu",
+        "ultravox_tpu/ops/pallas/decode_attention.py:163", out, ref,
+        lambda: da.decode_attention(qb, kb, vb, lens),
+        lambda: da.decode_attention_plain(qb, kb, vb, lens, scale=scale),
+        lambda: F.scaled_dot_product_attention(
+            qb[:, :, None], kb.transpose(1, 2), vb.transpose(1, 2),
+            attn_mask=visible[:, None, None], enable_gqa=True),
+        _nbytes(qb, out, lens) + kv_bytes, 4.0 * H * int(visible.sum()) * D, BF16_FLOPS,
     )
-    params = uv.init_params(cfg, torch.Generator().manual_seed(SEED))
+
+    # 11. segment_tail_attention: the scan's step against layer 7 of a
+    # 16-layer stacked cache plus a 31-slot tail
+    L, layer, Ts = 16, 7, 31
+    kc = torch.randn((L, B, S, Hkv, D), generator=g, device=dev)
+    vc = torch.randn((L, B, S, Hkv, D), generator=g, device=dev)
+    tk = torch.randn((B, Ts, Hkv, D), generator=g, device=dev)
+    tv = torch.randn((B, Ts, Hkv, D), generator=g, device=dev)
+    tslot = torch.arange(Ts, device=dev)
+
+    def seg_masks(lens, written, T, w):
+        """(prompt (B, T, S), tail (B, T, Ts)) visibility, as the kernel's."""
+        t = torch.arange(T, device=dev)[None, :, None]
+        n, wr = lens[:, None, None], written[:, None, None]
+        q_abs = n + wr + t
+        ok_p = kpos < n
+        ok_t = tslot <= wr + t
+        if w:
+            ok_p = ok_p & (q_abs - kpos < w)
+            ok_t = ok_t & (q_abs - (n + tslot) < w)
+        return ok_p, ok_t
+
+    for case, T, lens, written, w in (
+        ("scan step", 1, ints(128, 128, 128, 128), ints(15, 15, 15, 15), 0),
+        ("T=3 ragged", 3, ints(1, 60, 128, 200), ints(0, 5, 15, 28), 0),
+        ("T=3 ragged+window32", 3, ints(1, 60, 128, 200), ints(0, 5, 15, 28), 32),
+        ("scan step+window8", 1, ints(128, 128, 128, 128), ints(15, 15, 15, 15), 8),
+    ):
+        qs = torch.randn((B, T, H, D), generator=g, device=dev)
+        ok_p, ok_t = seg_masks(lens, written, T, w)
+        check(f"segment_tail_attention {case}",
+              lambda q, kc, vc, tk, tv, lens=lens, wr=written, w=w: sa.segment_tail_attention(
+                  q, kc, vc, layer, lens, tk, tv, wr, w, scale=scale),
+              lambda q, kc, vc, tk, tv, lens=lens, wr=written, w=w: sa.segment_tail_attention_plain(
+                  q, kc, vc, layer, lens, tk, tv, wr, w, scale=scale),
+              [qs, kc, vc, tk, tv],
+              {1: ~ok_p.any(1), 2: ~ok_p.any(1), 3: ~ok_t.any(1), 4: ~ok_t.any(1)})
+    qb = torch.randn((B, 1, H, D), generator=g, device=dev).to(torch.bfloat16)
+    kcb, vcb, tkb, tvb = (x.to(torch.bfloat16) for x in (kc, vc, tk, tv))
+    lens, written = ints(128, 128, 128, 128), ints(15, 15, 15, 15)
+    out = sa.segment_tail_attention(qb, kcb, vcb, layer, lens, tkb, tvb, written)
+    ref = sa.segment_tail_attention_plain(qb, kcb, vcb, layer, lens, tkb, tvb, written, scale=scale)
+    torch.cuda.synchronize()
+    ok_p, ok_t = seg_masks(lens, written, 1, 0)
+    keys = int(ok_p.any(1).sum() + ok_t.any(1).sum())  # slots any query of a row sees
+    pairs = int(ok_p.sum() + ok_t.sum())  # visible (query, key) pairs, per head
+    k_cat = torch.cat([kcb[layer], tkb], dim=1).transpose(1, 2)
+    v_cat = torch.cat([vcb[layer], tvb], dim=1).transpose(1, 2)
+    mask = torch.cat([ok_p, ok_t], dim=-1)[:, None]
+    record(
+        "segment_tail_attention", "segment_attention_kernel",
+        "ultravox_torch/ops/kernels/csrc/segment_attention.cu",
+        "ultravox_tpu/ops/pallas/segment_attention.py:203", out, ref,
+        lambda: sa.segment_tail_attention(qb, kcb, vcb, layer, lens, tkb, tvb, written),
+        lambda: sa.segment_tail_attention_plain(qb, kcb, vcb, layer, lens, tkb, tvb, written,
+                                                scale=scale),
+        lambda: F.scaled_dot_product_attention(
+            qb.transpose(1, 2), k_cat, v_cat, attn_mask=mask, enable_gqa=True),
+        _nbytes(qb, out, lens, written) + 2 * keys * Hkv * D * 2, 4.0 * H * pairs * D, BF16_FLOPS,
+    )
+    return rows
+
+
+def _scan_tokens(engine, batch, n_steps: int, attn_impl: str) -> torch.Tensor:
+    """Greedy (B, n_steps + 1) tokens of the engine's prefill and first
+    token, then one segmented_decode_scan of n_steps."""
+    from ultravox_torch.inference.engine import _cache_bucket
+    from ultravox_torch.models.decoder import segmented_decode_scan
+
+    def greedy(logits):
+        return logits.argmax(-1).to(torch.int32)
+
+    tb = {k: torch.as_tensor(v).to(engine.device) for k, v in engine.pad_batch(batch).items()}
+    B, T = tb["input_ids"].shape
+    with torch.inference_mode():
+        cache = engine._ensure_cache(None, B, _cache_bucket(T + n_steps + 1, engine.max_cache_len))
+        logits, cache, lens = engine._prefill(tb, cache, 0)
+        return segmented_decode_scan(
+            engine.params["language_model"], engine.cfg.text_config, cache, lens, greedy(logits),
+            n_steps=n_steps, sample_fn=greedy, attn_impl=attn_impl,
+        ).cpu()
+
+
+def _small_parity(tc, uv, TEngine, dev):
+    """Phase 3: kernel paths on the card vs plain paths on the CPU, fp32,
+    greedy tokens identical. For each config: generate (fused encoder and
+    prefill kernels, decode kernel), generate_fused, and the segmented scan
+    with the segment kernel on the card against its plain form on the CPU.
+    The configs: the llama-family speech model, and a gemma-3-style decoder
+    (window 8 on every other layer, qk-norm, post-norms, local rope, final
+    softcap) whose local layers send the runtime window into both decode
+    kernels."""
+    from ultravox_torch.ops.kernels.decode_attention import decode_attention
+    from ultravox_torch.ops.kernels.segment_attention import segment_tail_attention
+    from ultravox_torch.ops.mel import log_mel_spectrogram_np
+
+    text = dict(vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2,
+                num_heads=4, num_kv_heads=2, head_dim=64, tie_word_embeddings=True)
+    llama = tc.UltravoxConfig(
+        audio_config=tc.WhisperEncoderConfig(d_model=128, num_layers=2, num_heads=2, ffn_dim=256),
+        text_config=tc.DecoderConfig(**text), hidden_size=256, projector_ln_mid=True,
+    )
+    gemma = tc.UltravoxConfig(text_config=tc.DecoderConfig(**dict(
+        text, arch="gemma3", num_layers=4, sliding_window=8, sliding_window_pattern=2,
+        qk_norm=True, use_post_norms=True, scale_embeddings=True, rope_theta=1e6,
+        rope_local_base_freq=10000.0, final_logit_softcapping=30.0,
+        hidden_act="gelu_pytorch_tanh")), llm_only_training=True)
+    rng = np.random.default_rng(SEED)
+    mel = torch.from_numpy(np.stack([log_mel_spectrogram_np(a) for a in _audio(2, 1.5, rng)]))
+    ids = rng.integers(1, 512, (2, 24)).astype(np.int64)
+    mask = np.ones_like(ids)
+    mask[1, 20:] = 0
     # larger weights make greedy tokens vary (the encoder's only 2x: larger
     # attention logits there amplify fp32 summation-order noise)
     scale = {"audio_tower": 2.0, "projector": 8.0, "language_model": 8.0}
-    params = {k: _scale(v, scale[k]) for k, v in params.items()}
-    from ultravox_torch.ops.mel import log_mel_spectrogram_np
-
-    rng = np.random.default_rng(SEED)
-    mel = torch.from_numpy(np.stack([log_mel_spectrogram_np(a) for a in _audio(2, 1.5, rng)]))
-    batch = _batch(cfg, mel, 32, rng)
-    toks = {}
-    for device in ("cpu", dev):
-        eng = TEngine(params, cfg, max_cache_len=128, cache_dtype=torch.float32,
-                      encoder_attn_impl="fused", prefill_attn_impl="fused", device=device)
-        toks[device] = eng.generate(batch, max_new_tokens=12).token_ids
-    print(f"small parity: cpu {toks['cpu']} gpu {toks[dev]}", flush=True)
-    if toks["cpu"] != toks[dev]:
-        _fail("greedy tokens of the kernel path differ from the plain path")
+    for name, cfg, batch in (("llama", llama, _batch(llama, mel, 32, rng)),
+                             ("gemma3", gemma, {"input_ids": ids, "attention_mask": mask})):
+        params = uv.init_params(cfg, torch.Generator().manual_seed(SEED))
+        params = {k: _scale(v, scale[k]) for k, v in params.items()}
+        toks = {}
+        for device in ("cpu", dev):
+            eng = TEngine(params, cfg, max_cache_len=128, cache_dtype=torch.float32,
+                          encoder_attn_impl="fused", prefill_attn_impl="fused",
+                          decode_attn_impl="kernel", device=device)
+            before = (decode_attention.launches, segment_tail_attention.launches)
+            toks[device] = {
+                "generate": eng.generate(batch, max_new_tokens=12).token_ids,
+                "generate_fused": eng.generate_fused(batch, max_new_tokens=12).token_ids,
+                "segmented_decode_scan": _scan_tokens(
+                    eng, batch, 11, "xla" if device == "cpu" else "kernel").tolist(),
+            }
+            if device != "cpu" and not (decode_attention.launches > before[0]
+                                        and segment_tail_attention.launches > before[1]):
+                _fail(f"small parity {name}: a decode kernel was not launched on the card")
+        for path, cpu in toks["cpu"].items():
+            print(f"small parity {name} {path}: cpu {cpu} gpu {toks[dev][path]}", flush=True)
+            if cpu != toks[dev][path]:
+                _fail(f"{name} {path}: greedy tokens on the card differ from the CPU's")
 
 
 def _scale(tree, f):
@@ -325,8 +530,10 @@ def main() -> None:
     from ultravox_torch.models import config as tc
     from ultravox_torch.models import ultravox as uv
     from ultravox_torch.ops.kernels import _build
+    from ultravox_torch.ops.kernels import decode_attention as da
     from ultravox_torch.ops.kernels import fused_attention as fa
     from ultravox_torch.ops.kernels import layer_norm as ln_mod
+    from ultravox_torch.ops.kernels import segment_attention as sa
     from ultravox_torch.ops.mel import log_mel_spectrogram
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -346,7 +553,7 @@ def main() -> None:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     # 2. kernels against their plain versions
-    rows = _check_kernels(fa, ln_mod, dev)
+    rows = _check_kernels(fa, ln_mod, dev) + _check_decode_kernels(da, sa, dev)
 
     # 3. small end-to-end parity
     _small_parity(tc, uv, GenerationEngine, dev)
@@ -357,7 +564,7 @@ def main() -> None:
     params = uv.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), torch.bfloat16, dev)
     engine = GenerationEngine(
         params, cfg, max_cache_len=1024, encoder_attn_impl="fused",
-        prefill_attn_impl="fused", device=dev,
+        prefill_attn_impl="fused", decode_attn_impl="kernel", device=dev,
     )
     del params
     torch.cuda.synchronize()
@@ -365,69 +572,145 @@ def main() -> None:
     print(f"weights: {wbytes / 1e9:.3f} GB bf16, init {time.perf_counter() - t0:.2f} s", flush=True)
     rng = np.random.default_rng(SEED)
     n_req, seconds, prompt_len, new_tokens = 4, 10.0, 128, 32
+    steps = new_tokens - 1
     wav = torch.from_numpy(_audio(n_req, seconds, rng)).to(dev)
     mel = log_mel_spectrogram(wav)  # (4, 80, 1000) on the card
     batch = _batch(cfg, mel, prompt_len, rng)
-    engine.generate(batch, max_new_tokens=2)  # warm-up: library handles, allocator
+    # warm-up: library handles, allocator, every path once
+    engine.generate(batch, max_new_tokens=2)
+    engine.generate_fused(batch, max_new_tokens=2)
+    _scan_tokens(engine, batch, 1, "kernel")
 
     counters = {
         "fused_layer_norm": ln_mod.fused_layer_norm,
         "ln_qkv_head_fused": fa.ln_qkv_head_fused,
         "attention_headmajor": fa.attention_headmajor,
         "fused_attention": fa.fused_attention,
+        "decode_attention": da.decode_attention,
+        "segment_tail_attention": sa.segment_tail_attention,
     }
     L_enc, L_dec = cfg.audio_config.num_layers, cfg.text_config.num_layers
-    expected = {
+    prefill = {
         "fused_layer_norm": L_enc, "ln_qkv_head_fused": L_enc,
         "attention_headmajor": L_enc, "fused_attention": L_dec,
     }
-    for fn in counters.values():
-        fn.launches = 0
+
+    def run(label, fn, expected):
+        """fn() with every count set to 0 just before and read just after."""
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = {name: c.launches for name, c in counters.items()}
+        want = {name: expected.get(name, 0) for name in counters}
+        print(f"launches, {label}: {launches} expected {want}", flush=True)
+        for name, n in launches.items():
+            if n != want[name]:
+                _fail(f"{name} launched {n} times in {label}, expected {want[name]}")
+        return out, t_start, t_end, launches
+
+    def check_tokens(label, ids):
+        if len(ids) != n_req or any(len(r) != new_tokens for r in ids):
+            _fail(f"{label}: expected {n_req} x {new_tokens} tokens, got {[len(r) for r in ids]}")
+        if any(not 0 <= t < cfg.vocab_size for r in ids for t in r):
+            _fail(f"{label}: token id out of range")
+
+    # 4.1 generate, decode through the decode_attention kernel
     torch.cuda.reset_peak_memory_stats()
     stamps = []
-    torch.cuda.synchronize()
-    t_start = time.perf_counter()
-    result = engine.generate(
-        batch, max_new_tokens=new_tokens,
-        token_callback=lambda step, toks, done: stamps.append(time.perf_counter()),
+    result, t_start, t_end, launches = run(
+        "generate(decode_attn_impl='kernel')",
+        lambda: engine.generate(
+            batch, max_new_tokens=new_tokens,
+            token_callback=lambda step, toks, done: stamps.append(time.perf_counter())),
+        dict(prefill, decode_attention=L_dec * steps),
     )
-    t_end = time.perf_counter()
-    launches = {name: fn.launches for name, fn in counters.items()}
-    print(f"launches: {launches} expected {expected}", flush=True)
-    for name, n in launches.items():
-        if n != expected[name]:
-            _fail(f"{name} launched {n} times on the main path, expected {expected[name]}")
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-
     ids = result.token_ids
-    if len(ids) != n_req or any(len(r) != new_tokens for r in ids):
-        _fail(f"expected {n_req} x {new_tokens} tokens, got {[len(r) for r in ids]}")
-    if any(not 0 <= t < cfg.vocab_size for r in ids for t in r):
-        _fail("token id out of range")
+    check_tokens("generate", ids)
     ttft_ms = (stamps[0] - t_start) * 1e3
-    decode_tps = n_req * (new_tokens - 1) / (stamps[-1] - stamps[0])
+    decode_tps = n_req * steps / (stamps[-1] - stamps[0])
     print(f"main path: {n_req} requests x {seconds:.0f} s audio, prompt {prompt_len}, "
           f"{new_tokens} greedy tokens; TTFT {ttft_ms:.3f} ms; decode {decode_tps:.2f} tok/s; "
           f"total {(t_end - t_start) * 1e3:.3f} ms; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
-    print(f"first tokens: {[r[:8] for r in ids]}", flush=True)
-    _breakdown(engine, batch, new_tokens, (t_end - t_start) * 1e3)
+
+    # 4.2 generate_fused: one segmented scan with the plain merged attention,
+    # as the JAX engine's generate_fused runs it
+    fused, f_start, f_end, _ = run(
+        "generate_fused", lambda: engine.generate_fused(batch, max_new_tokens=new_tokens), prefill)
+    check_tokens("generate_fused", fused.token_ids)
+    fused_ttft_ms = _first_token_ms(engine, batch)
+    fused_tps = n_req * steps / ((f_end - f_start) - fused_ttft_ms / 1e3)
+    print(f"generate_fused: total {(f_end - f_start) * 1e3:.3f} ms; prefill to first token "
+          f"{fused_ttft_ms:.3f} ms (timed apart); decode {fused_tps:.2f} tok/s", flush=True)
+
+    # 4.3 the segmented scan through the segment_tail_attention kernel
+    seg, s_start, s_end, seg_launches = run(
+        "segmented_decode_scan(attn_impl='kernel')",
+        lambda: _scan_tokens(engine, batch, steps, "kernel"),
+        dict(prefill, segment_tail_attention=L_dec * steps),
+    )
+    seg = seg.tolist()[:n_req]
+    check_tokens("segmented scan", seg)
+    seg_tps = n_req * steps / ((s_end - s_start) - fused_ttft_ms / 1e3)
+    print(f"segmented scan (kernel): total {(s_end - s_start) * 1e3:.3f} ms; decode "
+          f"{seg_tps:.2f} tok/s (prefill to first token as in generate_fused)", flush=True)
+    for row in rows:
+        row["launches"] = (seg_launches if row["name"] == "segment_tail_attention"
+                           else launches)[row["name"]]
+    paths = {"generate": ids, "generate_fused": fused.token_ids, "segmented scan": seg}
+    for name, toks in paths.items():
+        same = sum(a == b for r, s_ in zip(toks, ids) for a, b in zip(r, s_))
+        print(f"first tokens, {name}: {[r[:8] for r in toks]} ({same} of "
+              f"{n_req * new_tokens} equal to generate's)", flush=True)
+    if len({tuple(r[0] for r in toks) for toks in paths.values()}) != 1:
+        _fail("the first token differs between paths that share one prefill")
+
+    _breakdown(engine, batch, new_tokens, {
+        "generate": (t_end - t_start) * 1e3, "generate_fused": (f_end - f_start) * 1e3})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(smi, flush=True)
-    print(json.dumps({"kernels": rows, "ttft_ms": ttft_ms, "decode_tok_s": decode_tps}), flush=True)
+    print(json.dumps({
+        "kernels": rows, "ttft_ms": ttft_ms, "decode_tok_s": decode_tps,
+        "fused_first_token_ms": fused_ttft_ms, "fused_decode_tok_s": fused_tps,
+        "scan_kernel_decode_tok_s": seg_tps,
+    }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 
 
-def _breakdown(engine, batch, new_tokens: int, untraced_ms: float) -> None:
-    """Where the main path's time goes: host-clock times of
-    its phases, then one traced generate: the device's busy time (against
-    the untraced wall time of the same call) and its kernels by self time."""
+def _first_token_ms(engine, batch) -> float:
+    """Host ms from the batch to the first greedy token on the host:
+    upload, audio embed, prefill, LM head, argmax. Mean of 3."""
+    from ultravox_torch.inference.engine import _cache_bucket
+
+    B, T = engine.pad_batch(batch)["input_ids"].shape
+    times = []
+    with torch.inference_mode():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tb = {k: torch.as_tensor(v).to(engine.device) for k, v in engine.pad_batch(batch).items()}
+            cache = engine._ensure_cache(None, B, _cache_bucket(T + 32, engine.max_cache_len))
+            logits, _, _ = engine._prefill(tb, cache, 0)
+            logits.argmax(-1).cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return sum(times) / len(times)
+
+
+def _breakdown(engine, batch, new_tokens: int, untraced_ms) -> None:
+    """Where the main paths' time goes: host-clock times of the phases, then
+    one traced generate and one traced generate_fused: the device's busy
+    time (against the untraced wall time of the same call), its kernels by
+    self time, and what is left of the plain decode's cache copies
+    (direct_copy_kernel) and fp32 gemv (gemmSN_NN)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -455,25 +738,33 @@ def _breakdown(engine, batch, new_tokens: int, untraced_ms: float) -> None:
         tok = logits.argmax(-1).to(torch.int32)
         step_ms = timed(lambda: engine._decode(cache, tok, lens), n=20)
     print(f"phases: audio embed (mel->encoder->projector->splice) {enc_ms:.3f} ms; "
-          f"prefill incl. audio embed {prefill_ms:.3f} ms; one decode step {step_ms:.3f} ms",
-          flush=True)
+          f"prefill incl. audio embed {prefill_ms:.3f} ms; one decode step (decode kernel) "
+          f"{step_ms:.3f} ms", flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine.generate(batch, max_new_tokens=new_tokens)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (the CPU ops' rows repeat their kernels' time)
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
-    print(f"profile: device busy {busy_ms:.3f} ms in one generate ({untraced_ms:.3f} ms "
-          f"untraced wall: {100 * busy_ms / untraced_ms:.1f}% busy; {traced_ms:.3f} ms traced)",
-          flush=True)
-    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}",
-              flush=True)
+    for label, fn in (
+        ("generate", lambda: engine.generate(batch, max_new_tokens=new_tokens)),
+        ("generate_fused", lambda: engine.generate_fused(batch, max_new_tokens=new_tokens)),
+    ):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        # device-side events only (the CPU ops' rows repeat their kernels' time)
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
+        wall = untraced_ms[label]
+        print(f"profile {label}: device busy {busy_ms:.3f} ms ({wall:.3f} ms untraced wall: "
+              f"{100 * busy_ms / wall:.1f}% busy; {traced_ms:.3f} ms traced)", flush=True)
+        for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:15]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}",
+                  flush=True)
+        for name in ("direct_copy_kernel", "gemmSN_NN"):
+            mine = [e for e in evs if name in e.key]
+            print(f"  {label}: {name} x{sum(e.count for e in mine)}, "
+                  f"{sum(e.self_device_time_total for e in mine) / 1e3:.3f} ms", flush=True)
 
 
 def _leaves(tree):

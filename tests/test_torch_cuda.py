@@ -19,8 +19,11 @@ from ultravox_torch.inference import engine as tengine
 from ultravox_torch.models import config as tc
 from ultravox_torch.models import ultravox as tuv
 from ultravox_torch.ops import mel as tmel
+from ultravox_torch.models import decoder as tdec
+from ultravox_torch.ops.kernels import decode_attention as tda
 from ultravox_torch.ops.kernels import fused_attention as tfa
 from ultravox_torch.ops.kernels import layer_norm as tln
+from ultravox_torch.ops.kernels import segment_attention as tsa
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -75,6 +78,19 @@ def _case(name, dev, dtype):
         return (lambda: tfa.attention_headmajor(qkv, lens, n_heads=2, latency_block=16),
                 lambda: tfa.attention_plain(qkv[:, :2], qkv[:, 2:4], qkv[:, 4:], lens,
                                             scale=0.125, latency_block=16))
+    if name == "decode_attention":  # ragged lengths 1..S, window 20
+        q, k, v = r(3, 8, 128), r(3, 70, 2, 128), r(3, 70, 2, 128)
+        lens = torch.tensor([1, 33, 70], dtype=torch.int32, device=dev)
+        return (lambda: tda.decode_attention(q, k, v, lens, 20),
+                lambda: tda.decode_attention_plain(q, k, v, lens, 20, scale=128**-0.5))
+    if name == "segment_tail_attention":  # T=3 at layer 2 of 3, window 40
+        q, kc, vc = r(3, 3, 8, 64), r(3, 3, 70, 2, 64), r(3, 3, 70, 2, 64)
+        tk, tv = r(3, 37, 2, 64), r(3, 37, 2, 64)
+        lens = torch.tensor([1, 33, 70], dtype=torch.int32, device=dev)
+        written = torch.tensor([0, 20, 34], dtype=torch.int32, device=dev)
+        return (lambda: tsa.segment_tail_attention(q, kc, vc, 2, lens, tk, tv, written, 40),
+                lambda: tsa.segment_tail_attention_plain(q, kc, vc, 2, lens, tk, tv, written, 40,
+                                                         scale=0.125))
     q, k, v = r(2, 40, 4, 128), r(2, 96, 2, 128), r(2, 96, 2, 128)
     lens, offs = torch.tensor([50, 96], device=dev), torch.tensor([10, 56], device=dev)
     return (lambda: tfa.fused_attention(q, k, v, lens, offs, causal=True),
@@ -84,7 +100,8 @@ def _case(name, dev, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("name", ["layer_norm", "ln_qkv_head", "attention_headmajor", "fused_attention"])
+@pytest.mark.parametrize("name", ["layer_norm", "ln_qkv_head", "attention_headmajor", "fused_attention",
+                                  "decode_attention", "segment_tail_attention"])
 def test_kernel_matches_plain(cuda_device, name, dt):
     kernel, plain = _case(name, cuda_device, DTYPES[dt])
     out, ref = kernel(), plain()
@@ -121,3 +138,45 @@ def test_generate_on_cuda_matches_cpu(cuda_device):
     cpu = tengine.GenerationEngine(params, cfg, device="cpu", **kw).generate(
         batch, max_new_tokens=12)
     assert gpu.token_ids == cpu.token_ids
+
+
+@pytest.mark.cuda
+def test_decode_paths_on_cuda_match_cpu(cuda_device):
+    """generate with the decode kernel, generate_fused, and the segmented
+    scan with its kernel, on the card, against the plain paths on the CPU,
+    fp32: the same greedy tokens, and both decode kernels launched."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tc.UltravoxConfig(
+        text_config=tc.DecoderConfig(
+            arch="gemma3", vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=4,
+            num_heads=4, num_kv_heads=2, head_dim=64, tie_word_embeddings=True,
+            sliding_window=8, sliding_window_pattern=2, qk_norm=True, use_post_norms=True,
+            scale_embeddings=True, rope_local_base_freq=10000.0, final_logit_softcapping=30.0,
+            hidden_act="gelu_pytorch_tanh",
+        ),
+        llm_only_training=True,
+    )
+    params = tuv.init_params(cfg, torch.Generator().manual_seed(0))
+    ids = np.random.default_rng(0).integers(1, 512, (2, 24)).astype(np.int32)
+    batch = {"input_ids": ids, "attention_mask": np.ones_like(ids)}
+    kw = dict(max_cache_len=128, cache_dtype=torch.float32, decode_attn_impl="kernel")
+
+    def greedy(logits):
+        return logits.argmax(-1).to(torch.int32)
+
+    def paths(device, scan_impl):
+        eng = tengine.GenerationEngine(params, cfg, device=device, **kw)
+        tb = {k: torch.as_tensor(v).to(eng.device) for k, v in batch.items()}
+        logits, cache, lens = eng._prefill(tb, eng._ensure_cache(None, 2, 128), 0)
+        scan = tdec.segmented_decode_scan(
+            eng.params["language_model"], cfg.text_config, cache, lens, greedy(logits),
+            n_steps=11, sample_fn=greedy, attn_impl=scan_impl)
+        return (eng.generate(batch, max_new_tokens=12).token_ids,
+                eng.generate_fused(batch, max_new_tokens=12).token_ids, scan.cpu().tolist())
+
+    before = (tda.decode_attention.launches, tsa.segment_tail_attention.launches)
+    gpu = paths(cuda_device, "kernel")
+    assert tda.decode_attention.launches > before[0]
+    assert tsa.segment_tail_attention.launches > before[1]
+    assert gpu == paths("cpu", "xla")

@@ -1,10 +1,13 @@
-"""Generation engine: bucketed prefill into a KV cache, then per-token decode.
+"""Generation engine: bucketed prefill into a KV cache, then decode.
 
-The PyTorch counterpart of the JAX package's ``GenerationEngine.generate``:
-the same batch format, bucketing and results, and the attention options
-(``encoder_attn_impl``, ``prefill_attn_impl``) that this slice ports. It runs
-on the CUDA card unless the caller passes ``device="cpu"``; there is no
-silent fallback, and a failed kernel build or launch raises.
+The PyTorch counterpart of the JAX package's ``GenerationEngine``: the same
+batch format, bucketing and results. ``generate`` decodes one token per
+step through the whole cache; ``generate_fused`` runs the decode loop as
+one segmented scan (``decoder.segmented_decode_scan``) with no host
+synchronisation until its token matrix is read. The attention options are
+``encoder_attn_impl``, ``prefill_attn_impl`` and ``decode_attn_impl``. It
+runs on the CUDA card unless the caller passes ``device="cpu"``; there is
+no silent fallback, and a failed kernel build or launch raises.
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ class GenerationEngine:
         stop_token_ids: Tuple[int, ...] = (),
         encoder_attn_impl: str = "xla",
         prefill_attn_impl: str = "xla",
+        decode_attn_impl: str = "xla",  # "kernel" = the decode_attention kernel
         device=None,
         seed: int = 0,
     ):
@@ -85,7 +89,9 @@ class GenerationEngine:
             raise NotImplementedError(f"encoder_attn_impl={encoder_attn_impl!r} is not ported yet")
         if prefill_attn_impl not in ("xla", "fused"):
             raise ValueError(f"unknown prefill_attn_impl={prefill_attn_impl!r}")
-        decoder_lib.check_supported(cfg.text_config)
+        if decode_attn_impl not in ("xla", "kernel"):
+            raise ValueError(f"unknown decode_attn_impl={decode_attn_impl!r}")
+        decoder_lib.check_supported(params["language_model"])
         self.device = resolve_device(device)
         params = _to_device(params, self.device)
         self.params = dict(params)
@@ -102,6 +108,7 @@ class GenerationEngine:
         self.stop_token_ids = tuple(stop_token_ids)
         self.encoder_attn_impl = encoder_attn_impl
         self.prefill_kernel = prefill_attn_impl == "fused"
+        self.decode_kernel = decode_attn_impl == "kernel"
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     def _check_cache_budget(self, prompt_len: int, max_new_tokens: int, start_pos: int = 0) -> None:
@@ -215,6 +222,55 @@ class GenerationEngine:
             result.cache_lens = cache_len.cpu().numpy()
         return result
 
+    @torch.inference_mode()
+    def generate_fused(
+        self,
+        batch: Dict[str, np.ndarray],
+        *,
+        max_new_tokens: int = 256,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        min_p: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+    ) -> GenerationResult:
+        """Offline generation with the decode loop as one segmented scan:
+        prefill, the first token, then ``max_new_tokens - 1`` scan steps,
+        with sampling on the device and one read of the token matrix at the
+        end. Draws come from ``generator`` in the order of ``generate``, so
+        the same seed gives the same samples on both paths. Stop tokens cut
+        each row on the host afterwards."""
+        true_B = batch["input_ids"].shape[0]
+        prompt_lens = [int(x) for x in np.asarray(batch["attention_mask"]).sum(-1)][:true_B]
+        self._check_cache_budget(max(prompt_lens), max_new_tokens)
+        batch = self.pad_batch({k: np.asarray(v) for k, v in batch.items()})
+        tbatch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+        B = batch["input_ids"].shape[0]
+        need = batch["input_ids"].shape[1] + max_new_tokens
+        cache = self._ensure_cache(None, B, _cache_bucket(need, self.max_cache_len))
+        logits, cache, seq_lens = self._prefill(tbatch, cache, 0)
+        if generator is None:
+            generator = self.generator
+        kw = dict(temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p)
+        first = sample_token(logits, generator, **kw)
+        all_toks = self._decode_scan_segmented(
+            cache, first, seq_lens, generator, n_steps=max_new_tokens - 1, **kw
+        ).cpu().numpy()
+        out_ids: List[List[int]] = []
+        for b in range(true_B):
+            ids = []
+            for t in all_toks[b]:
+                if int(t) in self.stop_token_ids:
+                    break
+                ids.append(int(t))
+            out_ids.append(ids)
+        return GenerationResult(token_ids=out_ids, prompt_lens=prompt_lens)
+
+    def generate_greedy_fused(
+        self, batch: Dict[str, np.ndarray], *, max_new_tokens: int = 256
+    ) -> GenerationResult:
+        return self.generate_fused(batch, max_new_tokens=max_new_tokens)
+
     def _prefill(self, batch, cache, start_pos: int):
         """Embed (with audio), write the prompt's k/v at [start_pos, ...),
         and return the logits of each row's last valid position."""
@@ -256,5 +312,25 @@ class GenerationEngine:
             kv_valid_len=cache_pos + 1,
             cache=cache,
             write_pos=cache_pos,
+            decode_kernel=self.decode_kernel,
         )
         return logits[:, 0], cache, cache_pos + 1
+
+    def _decode_scan_segmented(
+        self, cache, tokens, cache_pos, generator, *, n_steps: int, temperature: float = 0.0,
+        top_k: int = 0, top_p: float = 1.0, min_p: float = 0.0,
+    ):
+        """``n_steps`` decode steps in one segmented scan after the sampled
+        ``tokens``; returns the (B, n_steps + 1) token matrix on the device.
+        Each step draws from ``generator`` once, after the caller's draw for
+        ``tokens``: the order of ``generate``."""
+
+        def sample_fn(logits):
+            return sample_token(
+                logits, generator, temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p
+            )
+
+        return decoder_lib.segmented_decode_scan(
+            self.params["language_model"], self.cfg.text_config, cache, cache_pos, tokens,
+            n_steps=n_steps, sample_fn=sample_fn,
+        )

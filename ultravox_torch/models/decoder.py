@@ -1,4 +1,5 @@
-"""Decoder-only text LLM (llama / mistral family) over a parameter dict.
+"""Decoder-only text LLM (llama / mistral / gemma-2/3 / qwen-2/3 families)
+over a parameter dict.
 
 Parameters keep the JAX package's layout (per-layer weights stacked on a
 leading axis, kernels as (in, out)); the KV cache is (L, B, S_max, Hkv, Dh).
@@ -6,15 +7,20 @@ Unlike the JAX package's immutable arrays, the cache is updated in place:
 ``decoder_forward`` writes the new k/v rows into the cache it is given and
 returns that same object.
 
-Gemma / Qwen-3 family features (logit softcaps, qk-norm, post-norms, local
-rope bases, embedding scaling) raise ``NotImplementedError``; they are a
-later slice.
+Family differences are config flags, as in the JAX package: gemma's
+plus-one RMSNorm, embedding scaling, post-attention/FFN norms, qk-norm,
+alternating local (sliding-window) / global layers with their own rope
+bases, attention and final logit softcaps; qwen-2's attention bias and
+qwen-3's qk-norm.
+
+``segmented_decode_scan`` is the one-call decode loop: a read-only prompt
+cache plus a small carried tail of the new tokens' k/v.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +29,9 @@ import torch.nn.functional as F
 from ultravox_torch.models.config import DecoderConfig
 from ultravox_torch.models.lora import proj_apply
 from ultravox_torch.ops.attention import NEG_INF, mha
+from ultravox_torch.ops.kernels.decode_attention import decode_attention
 from ultravox_torch.ops.kernels.fused_attention import fused_attention
+from ultravox_torch.ops.kernels.segment_attention import segment_tail_attention
 from ultravox_torch.ops.norms import rms_norm
 from ultravox_torch.ops.rope import apply_rope, rope_cos_sin, rope_frequencies
 
@@ -50,20 +58,18 @@ class KVCache:
         )
 
 
-def check_supported(cfg: DecoderConfig) -> None:
-    """Raise for the family features this port does not run yet."""
-    unsupported = {
-        "attn_logit_softcapping": cfg.attn_logit_softcapping is not None,
-        "final_logit_softcapping": bool(cfg.final_logit_softcapping),
-        "qk_norm": cfg.qk_norm,
-        "use_post_norms": cfg.use_post_norms,
-        "rope_local_base_freq": cfg.rope_local_base_freq is not None,
-        "scale_embeddings": cfg.scale_embeddings,
-        "query_pre_attn_scalar": cfg.query_pre_attn_scalar is not None,
-    }
-    bad = [k for k, on in unsupported.items() if on]
+def check_supported(params: Params) -> None:
+    """Raise for the decoder trees this port does not run yet: int8 weights
+    (``kernel_q``, ``embed_tokens_q``) and LoRA adapters."""
+    def keys(tree):
+        for k, v in tree.items():
+            yield k
+            if isinstance(v, dict):
+                yield from keys(v)
+
+    bad = sorted({k for k in keys(params) if k in ("kernel_q", "embed_tokens_q", "lora_a")})
     if bad:
-        raise NotImplementedError(f"decoder features not ported yet: {bad}")
+        raise NotImplementedError(f"decoder weights not ported yet: {bad}")
 
 
 def is_local_layer(cfg: DecoderConfig) -> np.ndarray:
@@ -105,6 +111,12 @@ def init_params(cfg: DecoderConfig, generator: torch.Generator, dtype=torch.floa
     if cfg.attention_bias:
         for name, width in (("q_proj", Hq * Dh), ("k_proj", Hkv * Dh), ("v_proj", Hkv * Dh)):
             layers[name]["bias"] = torch.zeros((L, width), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        layers["q_norm"] = ones(L, Dh)
+        layers["k_norm"] = ones(L, Dh)
+    if cfg.use_post_norms:
+        layers["pre_ffn_ln"] = ones(L, D)
+        layers["post_ffn_ln"] = ones(L, D)
     params: Params = {"embed_tokens": dn(cfg.vocab_size, D), "layers": layers, "norm": ones(D)}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = {"kernel": dn(D, cfg.vocab_size)}
@@ -144,6 +156,65 @@ def _layer(layers: Params, l: int) -> Params:
     return {k: _layer(v, l) if isinstance(v, dict) else v[l] for k, v in layers.items()}
 
 
+def _plus_one(cfg: DecoderConfig) -> bool:
+    """Gemma's ``(1 + w)`` RMSNorm convention."""
+    return cfg.arch in ("gemma2", "gemma3")
+
+
+def _scale_embeddings(cfg: DecoderConfig, x: torch.Tensor) -> torch.Tensor:
+    """Gemma's embedding scaling by sqrt(hidden), the factor in x's dtype."""
+    if not cfg.scale_embeddings:
+        return x
+    return x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype)
+
+
+def _inv_freqs(cfg: DecoderConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rope inverse frequencies of the global and the local layers (the same
+    tensor when the config has no local rope base)."""
+    inv_g = torch.as_tensor(rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling), device=device)
+    if cfg.rope_local_base_freq is None:
+        return inv_g, inv_g
+    return inv_g, torch.as_tensor(rope_frequencies(cfg.head_dim, cfg.rope_local_base_freq), device=device)
+
+
+def _window(cfg: DecoderConfig, is_local: bool) -> int:
+    """A layer's sliding window as the kernels take it: 0 means none."""
+    return cfg.sliding_window if (is_local and cfg.sliding_window is not None) else 0
+
+
+def _layer_forward(
+    cfg: DecoderConfig,
+    x: torch.Tensor,  # (B, T, D)
+    p: Params,  # one layer's parameters
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    attend: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
+) -> torch.Tensor:
+    """One decoder layer. ``attend(q, k, v)`` takes the roped (B, T, H|Hkv,
+    Dh) heads, stores k/v wherever its caller keeps them and returns the
+    attention output (B, T, H, Dh)."""
+    B, T, _ = x.shape
+    eps, plus_one = cfg.rms_norm_eps, _plus_one(cfg)
+    h = rms_norm(x, p["input_ln"], eps, plus_one=plus_one)
+    q, k, v = _qkv(cfg, h, p)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], eps, plus_one=plus_one)
+        k = rms_norm(k, p["k_norm"], eps, plus_one=plus_one)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    attn = proj_apply(attend(q, k, v).reshape(B, T, -1), p["o_proj"])
+    if cfg.use_post_norms:
+        x = x + rms_norm(attn, p["post_attn_ln"], eps, plus_one=plus_one)
+        h = rms_norm(x, p["pre_ffn_ln"], eps, plus_one=plus_one)
+    else:
+        x = x + attn
+        h = rms_norm(x, p["post_attn_ln"], eps, plus_one=plus_one)
+    mlp = _mlp(cfg, h, p)
+    if cfg.use_post_norms:
+        mlp = rms_norm(mlp, p["post_ffn_ln"], eps, plus_one=plus_one)
+    return x + mlp
+
+
 def make_attention_bias(
     cfg: DecoderConfig,
     q_positions: torch.Tensor,  # (B, T) absolute query positions
@@ -174,14 +245,20 @@ def embed_lookup(params: Params, ids: torch.Tensor) -> torch.Tensor:
 
 
 def compute_logits(params: Params, cfg: DecoderConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """LM head: hidden (..., D) -> fp32 logits (..., V). The product runs in
-    the weights' dtype and is then widened, as in the reference."""
+    """LM head: hidden (..., D) -> fp32 logits (..., V), with gemma's final
+    softcap. The product runs in the weights' dtype and is then widened, as
+    in the reference."""
     head = params.get("lm_head")
     if head is not None and "kernel_q" in head:
         raise NotImplementedError("int8 LM heads are not ported yet")
     if head is None or cfg.tie_word_embeddings:
-        return (hidden @ params["embed_tokens"].T).float()
-    return (hidden @ head["kernel"]).float()
+        logits = (hidden @ params["embed_tokens"].T).float()
+    else:
+        logits = (hidden @ head["kernel"]).float()
+    if cfg.final_logit_softcapping:
+        cap = cfg.final_logit_softcapping
+        logits = torch.tanh(logits / cap) * cap
+    return logits
 
 
 def fuse_inference_params(params: Params, cfg: DecoderConfig) -> Params:
@@ -237,6 +314,7 @@ def decoder_forward(
     cache: Optional[KVCache] = None,
     write_pos: Optional[torch.Tensor] = None,  # (B,) cache write offset
     return_hidden: bool = False,
+    decode_kernel: bool = False,
     prefill_kernel: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (logits (B, T, V) fp32, cache), or with ``return_hidden`` the
@@ -244,50 +322,194 @@ def decoder_forward(
     at ``write_pos`` first and attention runs over the whole cache; without
     one it is causal self-attention over the T inputs.
 
-    ``prefill_kernel`` runs attention of multi-token steps into a cache
-    through the ``fused_attention`` kernel (causal, valid-length and
-    absolute-position masks from scalars) when the config has no sliding
-    window; other steps use ``mha`` with an additive bias."""
-    check_supported(cfg)
+    ``decode_kernel`` runs T=1 steps into a cache through the
+    ``decode_attention`` kernel (valid length and each layer's window from
+    scalars). ``prefill_kernel`` runs multi-token steps into a cache through
+    the ``fused_attention`` kernel (causal, valid-length and absolute-position
+    masks) when the config has no sliding window. Neither kernel softcaps, so
+    both are taken only without an attention softcap; other steps use
+    ``mha`` with an additive bias."""
     x = embed_lookup(params, input_ids) if inputs_embeds is None else inputs_embeds
+    x = _scale_embeddings(cfg, x)
     B, T, _ = x.shape
-    dev = x.device
     kv_len = cache.max_len if cache is not None else T
+    no_softcap = cfg.attn_logit_softcapping is None
+    use_decode_kernel = decode_kernel and cache is not None and T == 1 and no_softcap
     use_prefill_kernel = (
-        prefill_kernel and cache is not None and T > 1 and cfg.sliding_window is None
+        prefill_kernel and cache is not None and T > 1 and cfg.sliding_window is None and no_softcap
     )
-    if not use_prefill_kernel:
+    if use_decode_kernel:
+        lengths = kv_valid_len.to(torch.int32).contiguous()
+    elif not use_prefill_kernel:
         bias_global, bias_local = make_attention_bias(cfg, positions, kv_len, kv_valid_len)
     local = is_local_layer(cfg)
-    inv_freq = torch.as_tensor(
-        rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling), device=dev
-    )
-    cos, sin = rope_cos_sin(positions, inv_freq)
-    eps = cfg.rms_norm_eps
+    inv_g, inv_l = _inv_freqs(cfg, x.device)
+    rope_g = rope_cos_sin(positions, inv_g)
+    rope_l = rope_cos_sin(positions, inv_l) if inv_l is not inv_g else rope_g
     layers = params["layers"]
     slots = _cache_slots(cache, write_pos, T) if cache is not None else None
 
     for l in range(cfg.num_layers):
-        p = _layer(layers, l)
-        h = rms_norm(x, p["input_ln"], eps)
-        q, k, v = _qkv(cfg, h, p)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        if cache is not None:
-            _write_cache(cache, l, k, v, slots)
-            k, v = cache.k[l], cache.v[l]
-        if use_prefill_kernel:
-            attn = fused_attention(
-                q, k, v, kv_valid_len, write_pos, causal=True, scale=cfg.attn_scale
-            )
-        else:
-            bias = bias_local if (bias_local is not None and local[l]) else bias_global
-            attn = mha(q, k, v, bias=bias, scale=cfg.attn_scale)
-        x = x + proj_apply(attn.reshape(B, T, -1), p["o_proj"])
-        h = rms_norm(x, p["post_attn_ln"], eps)
-        x = x + _mlp(cfg, h, p)
 
-    x = rms_norm(x, params["norm"], eps)
+        def attend(q, k, v):
+            if cache is not None:
+                _write_cache(cache, l, k, v, slots)
+                k, v = cache.k[l], cache.v[l]
+            if use_decode_kernel:
+                return decode_attention(
+                    q[:, 0], k, v, lengths, _window(cfg, local[l]), scale=cfg.attn_scale
+                )[:, None]
+            if use_prefill_kernel:
+                return fused_attention(
+                    q, k, v, kv_valid_len, write_pos, causal=True, scale=cfg.attn_scale
+                )
+            bias = bias_local if (bias_local is not None and local[l]) else bias_global
+            return mha(q, k, v, bias=bias, scale=cfg.attn_scale, softcap=cfg.attn_logit_softcapping)
+
+        x = _layer_forward(cfg, x, _layer(layers, l), *(rope_l if local[l] else rope_g), attend)
+
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps, plus_one=_plus_one(cfg))
     if return_hidden:
         return x, cache
     return compute_logits(params, cfg, x), cache
+
+
+# --------------------------------------------------------------------------
+# Segmented decode (read-only prompt cache + small carried tail)
+# --------------------------------------------------------------------------
+
+
+def _merged_attention(q, kp, vp, bias_p, kt, vt, bias_t, scale, softcap=None):
+    """Attention over two KV segments without concatenating them: the
+    (large, read-only) prompt cache ``kp/vp`` and the (small) decode tail
+    ``kt/vt``. Their fp32 logits are softmaxed jointly, the probabilities
+    rounded to v's dtype, and the two PV products summed.
+    q (B, T, H, D); kp (B, S, Hkv, D); kt (B, Ts, Hkv, D); bias_*
+    broadcastable to (B, 1, S*). Returns (B, T, H, D) in q's dtype."""
+    B, T, H, D = q.shape
+    Hkv = kp.shape[2]
+    qf = (q * scale).reshape(B, T, Hkv, H // Hkv, D).float()
+    lp = torch.einsum("bthgd,bshd->bhgts", qf, kp.float())
+    lt = torch.einsum("bthgd,bshd->bhgts", qf, kt.float())
+    if softcap is not None:  # gemma-2: softcap before masking
+        lp = torch.tanh(lp / softcap) * softcap
+        lt = torch.tanh(lt / softcap) * softcap
+    lp = lp + bias_p[:, None, None].float()
+    lt = lt + bias_t[:, None, None].float()
+    probs = torch.softmax(torch.cat([lp, lt], dim=-1), dim=-1)
+    S = kp.shape[1]
+    pp = probs[..., :S].to(vp.dtype).float()
+    pt = probs[..., S:].to(vt.dtype).float()
+    out = torch.einsum("bhgts,bshd->bthgd", pp, vp.float()) + torch.einsum(
+        "bhgts,bshd->bthgd", pt, vt.float()
+    )
+    return out.reshape(B, T, H, D).to(q.dtype)
+
+
+def _segment_kernel_attention(
+    cfg: DecoderConfig, q, prompt_cache: KVCache, layer: int, prompt_lens, tail_k_l, tail_v_l,
+    written, is_local: bool,
+):
+    """One layer's segmented attention through the ``segment_tail_attention``
+    kernel, which reads the stacked cache at ``layer`` in place (no per-layer
+    slice is made). q is (B, T, H, D)."""
+    return segment_tail_attention(
+        q, prompt_cache.k, prompt_cache.v, layer, prompt_lens, tail_k_l, tail_v_l, written,
+        _window(cfg, is_local), scale=cfg.attn_scale,
+    )
+
+
+def segmented_decode_scan(
+    params: Params,
+    cfg: DecoderConfig,
+    prompt_cache: KVCache,  # (L, B, S, Hkv, Dh), read-only here
+    prompt_lens: torch.Tensor,  # (B,) valid prompt positions in the cache
+    first_tokens: torch.Tensor,  # (B,) int32, already sampled
+    *,
+    n_steps: int,
+    sample_fn: Callable[[torch.Tensor], torch.Tensor],  # logits (B, V) -> (B,) int32
+    return_tail: bool = False,
+    attn_impl: str = "xla",  # "kernel" = the segment_tail_attention kernel
+    page_table: Optional[torch.Tensor] = None,
+):
+    """``n_steps`` decode steps with segmented KV. The prompt cache is only
+    read; each step's new k/v go to slot ``step`` of an (L, B, n_steps, Hkv,
+    Dh) tail, the same slot for every row. Sampling stays on the device (the
+    caller's ``sample_fn`` draws from its own generator, one call per step)
+    and the loop never synchronises with the host.
+
+    ``attn_impl="xla"`` attends with ``_merged_attention`` (additive masks,
+    probabilities rounded to v's dtype); ``"kernel"`` runs each layer's
+    attention in ``segment_tail_attention``, which does not softcap.
+
+    Returns the (B, n_steps + 1) token matrix: column 0 is ``first_tokens``,
+    then the sampled tokens. With ``return_tail`` also the tail KVCache,
+    whose slot t holds the k/v of token column t."""
+    if page_table is not None:
+        raise NotImplementedError("paged segmented decode is slice 3")
+    if attn_impl not in ("xla", "kernel"):
+        raise ValueError(f"unknown attn_impl={attn_impl!r}")
+    use_kernel = attn_impl == "kernel"
+    if use_kernel and cfg.attn_logit_softcapping is not None:
+        raise ValueError("the segment kernel does not softcap; use attn_impl='xla'")
+    L, B, S, Hkv, Dh = prompt_cache.k.shape
+    dev = prompt_cache.k.device
+    local = is_local_layer(cfg)
+    inv_g, inv_l = _inv_freqs(cfg, dev)
+    layers = params["layers"]
+    tail = KVCache(
+        k=torch.zeros((L, B, n_steps, Hkv, Dh), dtype=prompt_cache.k.dtype, device=dev),
+        v=torch.zeros((L, B, n_steps, Hkv, Dh), dtype=prompt_cache.v.dtype, device=dev),
+    )
+    toks = torch.empty((B, n_steps + 1), dtype=torch.int32, device=dev)
+    toks[:, 0] = first_tokens
+    lens = prompt_lens.to(device=dev, dtype=torch.int32).contiguous()
+    steps = torch.arange(n_steps, dtype=torch.int32, device=dev)
+    if use_kernel:
+        written = steps[:, None].expand(n_steps, B).contiguous()  # row i: step i
+    else:
+        kpos = torch.arange(S, device=dev)[None]  # (1, S)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+        def bias(ok):
+            return torch.where(ok, zero, NEG_INF)[:, None]
+
+    for i in range(n_steps):
+        x = _scale_embeddings(cfg, embed_lookup(params, toks[:, i])[:, None])  # (B, 1, D)
+        positions = (lens + i)[:, None]
+        rope_g = rope_cos_sin(positions, inv_g)
+        rope_l = rope_cos_sin(positions, inv_l) if inv_l is not inv_g else rope_g
+        if not use_kernel:
+            # prompt key j visible iff j < prompt_len; tail slot t iff t <= i
+            ok_p = kpos < lens[:, None]
+            ok_t = steps[None] <= i
+            biases = {False: (bias(ok_p), bias(ok_t))}
+            if cfg.sliding_window is not None:
+                w = cfg.sliding_window
+                biases[True] = (
+                    bias(ok_p & (lens[:, None] + i - kpos < w)), bias(ok_t & (i - steps[None] < w))
+                )
+
+        for l in range(L):
+            is_loc = bool(local[l])
+
+            def attend(q, k, v):
+                tail.k[l, :, i] = k[:, 0]
+                tail.v[l, :, i] = v[:, 0]
+                if use_kernel:
+                    return _segment_kernel_attention(
+                        cfg, q, prompt_cache, l, lens, tail.k[l], tail.v[l], written[i], is_loc
+                    )
+                b_p, b_t = biases[is_loc and cfg.sliding_window is not None]
+                return _merged_attention(
+                    q, prompt_cache.k[l], prompt_cache.v[l], b_p, tail.k[l], tail.v[l], b_t,
+                    cfg.attn_scale, softcap=cfg.attn_logit_softcapping,
+                )
+
+            x = _layer_forward(cfg, x, _layer(layers, l), *(rope_l if is_loc else rope_g), attend)
+
+        x = rms_norm(x, params["norm"], cfg.rms_norm_eps, plus_one=_plus_one(cfg))
+        toks[:, i + 1] = sample_fn(compute_logits(params, cfg, x[:, 0]))
+    if return_tail:
+        return toks, tail
+    return toks

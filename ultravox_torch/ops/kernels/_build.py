@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("layer_norm", "ln_qkv_head", "attention")
+SOURCES = ("layer_norm", "ln_qkv_head", "attention", "decode_attention", "segment_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -41,6 +41,14 @@ _SIGNATURES = {
     "attention": (
         _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
         _I, _I, _I, _I, _I, _I, _F, _P, _P, _I, _I, _I, _P,
+    ),
+    "decode_attention": (
+        _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _P, _I,
+        _I, _I, _I, _I, _I, _F, _I, _P,
+    ),
+    "segment_attention": (
+        _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _P, _P, _I,
+        _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ),
 }
 

@@ -1,0 +1,50 @@
+// Segmented decode attention: T queries per row against a read-only prompt
+// cache plus a small carried tail, in one kernel.
+//
+// Replaces the TPU kernel ultravox_tpu/ops/pallas/segment_attention.py:
+// segment_tail_attention (_seg_kernel): q (B, T, H, D) against the stacked
+// (L, B, S, Hkv, D) cache at a runtime `layer` (rows layer * B + b, read in
+// place, no per-layer copy) and the tail (B, Ts, Hkv, D). Query t sits at
+// absolute position q_abs = n + written + t, n = lengths[b]:
+//   prompt key j visible  iff j < n and (window <= 0 or q_abs - j < window);
+//   tail slot s visible   iff s <= written + t and
+//                             (window <= 0 or q_abs - (n + s) < window).
+// The prompt is folded first, over keys [min_t win_lo, n) with
+// win_lo = max(q_abs - window + 1, 0), then the tail, through one online
+// softmax (kv_attention.cuh). T = 1 is the segmented decode scan's step;
+// small T > 1 is a speculative verify forward.
+//
+// Bound on the card: bytes, as decode_attention.cu: each row reads its
+// visible prompt keys/values and tail slots once; ~1 flop per byte in bf16.
+// Design: one block per (row, kv head, chunk of (t, g) columns); the
+// columns share each 32-key K/V tile in shared memory.
+#include "kv_attention.cuh"
+
+UV_KV_ATTENTION_KERNEL(segment_attention_kernel)
+
+// strides: 10 element strides: q (batch, query, head), cache (layer, batch,
+// seq, head; k and v share them), tail (batch, slot, head; tail k and v
+// share them); every head dimension is contiguous. lengths, written: (B,)
+// int32. Writes o (B, T, H, D) contiguous in q's dtype.
+UV_EXPORT int uv_segment_attention(const void* q, const void* k, const void* v, const void* tk,
+                                   const void* tv, void* o, const long long* strides,
+                                   const void* lengths, const void* written, int layer,
+                                   int window, int B, int T, int H, int G, int S, int Ts, int D,
+                                   float scale, int dtype, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || G <= 0 || H % G || S <= 0 || Ts <= 0 || layer < 0)
+    return cudaErrorInvalidValue;
+  kvattn::Params p = {};
+  p.q = q, p.o = o, p.k = k, p.v = v, p.tk = tk, p.tv = tv;
+  p.q_b = strides[0], p.q_t = strides[1], p.q_h = strides[2];
+  p.o_b = static_cast<long long>(T) * H * D, p.o_t = static_cast<long long>(H) * D, p.o_h = D;
+  p.c_l = strides[3], p.c_b = strides[4], p.c_s = strides[5], p.c_h = strides[6];
+  p.t_b = strides[7], p.t_s = strides[8], p.t_h = strides[9];
+  p.lengths = static_cast<const int*>(lengths);
+  p.written = static_cast<const int*>(written);
+  p.layer = layer, p.window = window, p.T = T, p.G = G, p.S = S, p.Ts = Ts, p.decode = 0;
+  p.scale = scale;
+  return segment_attention_kernel_dispatch(dtype, D, p, B, H / G,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+UV_DEFINE_ERROR_STRING(uv_segment_attention)

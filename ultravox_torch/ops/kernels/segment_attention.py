@@ -1,0 +1,134 @@
+"""Segmented decode attention kernel (``csrc/segment_attention.cu``) and its
+plain version.
+
+``segment_tail_attention`` replaces ``ultravox_tpu/ops/pallas/
+segment_attention.py:segment_tail_attention``: T queries per row against the
+stacked (L, B, S, Hkv, D) prompt cache at a runtime ``layer`` plus a carried
+(B, Ts, Hkv, D) tail. Query t sits at absolute position
+q_abs = n + written + t (n = ``lengths[b]``):
+
+    prompt key j visible  iff  j < n and (window <= 0 or q_abs - j < window)
+    tail slot s visible   iff  s <= written + t and
+                               (window <= 0 or q_abs - (n + s) < window)
+
+The wrapper takes its plain version for CPU tensors and launches the kernel
+for CUDA tensors; ``segment_tail_attention.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ultravox_torch.ops.kernels import _build
+from ultravox_torch.ops.kernels.decode_attention import (
+    HEAD_DIMS,
+    online_softmax_plain,
+    rounded_scale,
+)
+
+
+def segment_tail_attention_plain(
+    q: torch.Tensor,  # (B, T, H, D)
+    k_cache: torch.Tensor,  # (L, B, S, Hkv, D) or (B, S, Hkv, D)
+    v_cache: torch.Tensor,
+    layer: int,
+    lengths: torch.Tensor,  # (B,) prompt length
+    tail_k: torch.Tensor,  # (B, Ts, Hkv, D)
+    tail_v: torch.Tensor,
+    written: torch.Tensor,  # (B,) tail slots filled before these queries
+    window: int = 0,
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Plain PyTorch in the kernel's arithmetic. Returns (B, T, H, D)."""
+    if k_cache.ndim == 5:
+        k_cache, v_cache = k_cache[layer], v_cache[layer]
+    B, T, H, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    Ts = tail_k.shape[1]
+    G = H // Hkv
+    dev = q.device
+    qs = (q * torch.tensor(scale, dtype=q.dtype)).reshape(B, T, Hkv, G, D).float()
+    n = lengths.to(dev).long()[:, None, None]  # (B, 1, 1)
+    wr = written.to(dev).long()[:, None, None]
+    t = torch.arange(T, device=dev)[None, :, None]  # (1, T, 1)
+    q_abs = n + wr + t  # (B, T, 1)
+    kpos = torch.arange(S, device=dev)[None, None, :]
+    slot = torch.arange(Ts, device=dev)[None, None, :]
+    ok_p = kpos < n  # (B, T, S)
+    ok_t = slot <= wr + t  # (B, T, Ts)
+    if window > 0:
+        ok_p = ok_p & (q_abs - kpos < window)
+        ok_t = ok_t & (q_abs - (n + slot) < window)
+    segments = []
+    for keys, vals, ok in ((k_cache, v_cache, ok_p), (tail_k, tail_v, ok_t)):
+        s = torch.einsum("btkgd,bskd->bkgts", qs, keys.float())  # (B, Hkv, G, T, S*)
+        v = vals.float().permute(0, 2, 1, 3)[:, :, None, None]  # (B, Hkv, 1, 1, S*, D)
+        segments.append((s, ok[:, None, None], v))
+    out = online_softmax_plain(segments, q.dtype)  # (B, Hkv, G, T, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D)
+
+
+def segment_tail_attention(
+    q: torch.Tensor,  # (B, T, H, D)
+    k_cache: torch.Tensor,  # (L, B, S, Hkv, D) stacked, or (B, S, Hkv, D) with layer 0
+    v_cache: torch.Tensor,
+    layer: int,
+    lengths: torch.Tensor,  # (B,) int32 prompt length
+    tail_k: torch.Tensor,  # (B, Ts, Hkv, D)
+    tail_v: torch.Tensor,
+    written: torch.Tensor,  # (B,) int32
+    window: int = 0,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """T-query attention over the prompt cache at ``layer`` plus the tail.
+    Returns (B, T, H, D) in q's dtype."""
+    B, T, H, D = q.shape
+    if scale is None:
+        scale = D**-0.5
+    if q.device.type == "cpu":
+        return segment_tail_attention_plain(
+            q, k_cache, v_cache, layer, lengths, tail_k, tail_v, written, window, scale=scale
+        )
+    _build.require_cuda(q, k_cache, v_cache, lengths, tail_k, tail_v, written)
+    kc, vc = (k_cache, v_cache) if k_cache.ndim == 5 else (k_cache[None], v_cache[None])
+    L, _, S, Hkv, _ = kc.shape
+    Ts = tail_k.shape[1]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if (kc.shape != (L, B, S, Hkv, D) or vc.shape != kc.shape or H % Hkv
+            or tail_k.shape != (B, Ts, Hkv, D) or tail_v.shape != tail_k.shape):
+        raise ValueError(
+            f"bad shapes for segment_tail_attention: q {q.shape}, cache {k_cache.shape}, "
+            f"tail {tail_k.shape}")
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} outside the cache's {L} layers")
+    if not (q.dtype == kc.dtype == vc.dtype == tail_k.dtype == tail_v.dtype):
+        raise TypeError("q, the cache and the tail must share one dtype")
+    if (q.stride(-1) != 1 or kc.stride(-1) != 1 or tail_k.stride(-1) != 1
+            or kc.stride() != vc.stride() or tail_k.stride() != tail_v.stride()):
+        raise ValueError("head dims must be contiguous; k and v must share strides")
+    for t in (lengths, written):
+        if t.shape != (B,) or t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError(f"lengths and written must be contiguous int32 ({B},) tensors")
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 10)(
+        *q.stride()[:3], *kc.stride()[:4], *tail_k.stride()[:3]
+    )
+    lib = _build.library("segment_attention")
+    rc = lib.uv_segment_attention(
+        _build.ptr(q), _build.ptr(kc), _build.ptr(vc), _build.ptr(tail_k), _build.ptr(tail_v),
+        _build.ptr(out), strides, _build.ptr(lengths), _build.ptr(written), int(layer),
+        int(window), B, T, H, H // Hkv, S, Ts, D, rounded_scale(scale, q.dtype),
+        _build.dtype_code(q), _build.stream_ptr(q.device),
+    )
+    _build.check("segment_attention", rc)
+    segment_tail_attention.launches += 1
+    return out
+
+
+segment_tail_attention.launches = 0
