@@ -4,16 +4,19 @@
 
 Phases, each fatal on failure:
   1. build every CUDA kernel of the port from ultravox_torch/ops/kernels/csrc
-     (one nvcc per source, all at once);
+     (one nvcc per source, all seven at once);
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes the flagship path gives it (bf16; the decode kernels also in
-     fp32, with ragged lengths, windows, and junk past each row's length),
-     and time kernel, plain version and, where one exists, a single PyTorch
-     call for the same function (a yardstick only; the port never calls it);
+     shapes the flagship paths give it (bf16; the decode and paged kernels
+     also in fp32, with ragged lengths, windows, page size 16, shuffled page
+     ids, sentinel entries, a pageless row, and junk in every slot a row
+     cannot see), and time kernel, plain version and, where one exists, a
+     single PyTorch call for the same function (a yardstick only; the port
+     never calls it);
   3. small configs (a llama-family speech model and a gemma-3-style decoder
      with sliding windows): greedy tokens from the kernel paths on the card
      equal those of the plain paths on the CPU (fp32) for generate with the
-     decode kernel, generate_fused, and the segmented scan with its kernel;
+     decode kernel, generate_fused, the segmented scan with its kernel, and
+     the ServingEngine in slots and paged modes with both block attentions;
   4. the main paths at flagship widths (whisper-small encoder, Llama-3.2-1B
      decoder, random bf16 weights from a seed) on 4 requests of 10 s
      synthesized audio, each with every kernel's launch count set to 0
@@ -22,9 +25,17 @@ Phases, each fatal on failure:
        generate_fused (plain merged attention) 12/12/12/16
        prefill + segmented_decode_scan(attn_impl="kernel")
                                                12/12/12/16 + 496 segment_tail_attention
-
-It then breaks the time of generate and generate_fused down by phase and,
-through torch.profiler, by kernel.
+     then breaks the time of generate and generate_fused down by phase and,
+     through torch.profiler, by kernel;
+  5. the ServingEngine at flagship widths: 8 greedy requests (10 s of audio
+     in a 128-token prompt, 32 tokens each) on 4 slots, in three engines
+     run in turn: paged with the segment kernel in decode blocks
+     (paged_decode_attention + paged_segment_tail_attention), paged with the
+     gathered view (paged_decode_attention + gather_pages), and slots with
+     the segment kernel (decode_attention + segment_tail_attention). The
+     launch counts are checked against the engine's own counters, and TTFT,
+     throughput, the loop's dispatch and fetch time, peak memory and (for
+     the first) the device's busy share are printed.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits non-zero
@@ -439,6 +450,180 @@ def _check_decode_kernels(da, sa, dev):
     return rows
 
 
+def _check_paged_kernels(pa, pg, sa, dev):
+    """Phase 2, continued: the paged kernels at the shapes the flagship
+    paged engine of phase 5 gives them: 4 slots, a pool of 32 pages of 256
+    tokens, 16 layers, 8 kv heads of 64, 8 table entries per row, bf16.
+    paged_decode_attention and paged_segment_tail_attention run in bf16 and
+    fp32 on ragged lengths (up to 1900), windows, page size 16, shuffled
+    page ids, sentinel entries and a pageless row of length 1, and again
+    with 1e4 in every pool slot (and tail slot) no row can see: the output
+    must not move. gather_pages must equal its plain version bit for bit.
+    The engine's shapes are then timed in bf16."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    B, H, Hkv, D, L, layer, S = 4, 32, 8, 64, 16, 7, 2048
+    scale = D**-0.5
+    rows = []
+    record = _recorder(rows, _bf16_tol)
+
+    def ints(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def table_of(lens, ps, P, seed):
+        """(B, S / ps) int32: ceil(n / ps) shuffled pages per row (none for a
+        row of length 1, the pageless inactive slot), sentinel P after."""
+        order = np.random.default_rng(seed).permutation(P).tolist()
+        table = np.full((B, S // ps), P, np.int32)
+        for b, n in enumerate(lens.tolist()):
+            for i in range(-(-n // ps) if n > 1 else 0):
+                table[b, i] = order.pop()
+        return torch.from_numpy(table).to(dev)
+
+    def seen_slots(table, lens, lo, ps, P):
+        """(P, ps) bool: pool slots some row reads, keys [lo_b, n_b) through
+        the clamped table."""
+        seen = torch.zeros((P, ps), dtype=torch.bool, device=dev)
+        for b, (n, l0) in enumerate(zip(lens.tolist(), lo)):
+            j = torch.arange(max(l0, 0), n, device=dev)
+            seen[table[b, j // ps].long().clamp(max=P - 1), j % ps] = True
+        return seen
+
+    def check(name, fn, plain, args, junk_at):
+        """fn(*args) against plain(*args) in bf16 and fp32, and against
+        itself with 1e4 where junk_at {arg index: bool mask} holds."""
+        for dtype in (torch.bfloat16, torch.float32):
+            a = [x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x for x in args]
+            out, ref = fn(*a), plain(*a)
+            for i, m in junk_at.items():
+                a[i] = a[i].clone()
+                a[i][m] = 1e4
+            out_j = fn(*a)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            t = _bf16_tol(ref) if dtype == torch.bfloat16 else 1e-5
+            print(f"check {name} {str(dtype)[6:]}: max_abs_err {err:.3g} (tol {t:.3g}); junk in "
+                  f"unseen slots moves it {float((out_j.float() - out.float()).abs().max())}",
+                  flush=True)
+            if not err <= t:
+                _fail(f"{name} ({dtype}) disagrees with its plain version: {err} > {t}")
+            if not torch.equal(out, out_j) or not torch.isfinite(out).all():
+                _fail(f"{name} ({dtype}) reads slots no row can see")
+
+    engine_lens = ints(129, 150, 171, 190)
+    long_lens = ints(1900, 700, 256, 1)
+    cases = (  # name, page size, pages, lengths, window
+        ("engine", 256, 32, engine_lens, 0),
+        ("long+pageless", 256, 32, long_lens, 0),
+        ("long+pageless+window100", 256, 32, long_lens, 100),
+        ("ps16+window37", 16, 512, ints(1900, 333, 17, 1), 37),
+    )
+
+    # 9. paged_decode_attention: one query per row against layer 7's pool
+    q = torch.randn((B, H, D), generator=g, device=dev)
+    for case, ps, P, lens, w in cases:
+        table = table_of(lens, ps, P, SEED)
+        kp = torch.randn((P, ps, Hkv, D), generator=g, device=dev)
+        vp = torch.randn((P, ps, Hkv, D), generator=g, device=dev)
+        lo = [n - w if w else 0 for n in lens.tolist()]
+        hide = ~seen_slots(table, lens, lo, ps, P)
+        check(f"paged_decode_attention {case}",
+              lambda q, k, v, t=table, n=lens, w=w: pa.paged_decode_attention(q, k, v, t, n, w),
+              lambda q, k, v, t=table, n=lens, w=w: pa.paged_decode_attention_plain(
+                  q, k, v, t, n, w, scale=scale),
+              [q, kp, vp], {1: hide, 2: hide})
+
+    # 12. paged_segment_tail_attention: queries at layer 7 of the stacked
+    # pool plus an 8-slot tail
+    Ts = 8
+    tk = torch.randn((B, Ts, Hkv, D), generator=g, device=dev)
+    tv = torch.randn((B, Ts, Hkv, D), generator=g, device=dev)
+    for (case, ps, P, lens, w), T, written in zip(
+        cases, (1, 3, 3, 1), (ints(0, 3, 5, 7), ints(0, 2, 5, 4), ints(5, 0, 3, 1), ints(7, 0, 3, 1))
+    ):
+        w = 8 if case.startswith("ps16") else w
+        table = table_of(lens, ps, P, SEED + 1)
+        kp = torch.randn((L, P, ps, Hkv, D), generator=g, device=dev)
+        vp = torch.randn((L, P, ps, Hkv, D), generator=g, device=dev)
+        qs = torch.randn((B, T, H, D), generator=g, device=dev)
+        lo = [n + wr - w + 1 if w else 0 for n, wr in zip(lens.tolist(), written.tolist())]
+        hide = (~seen_slots(table, lens, lo, ps, P))[None].expand(L, P, ps)
+        slot = torch.arange(Ts, device=dev)[None]
+        hide_t = slot > (written + T - 1)[:, None]
+        if w:
+            hide_t |= slot < (written - w + 1)[:, None]
+        check(f"paged_segment_tail_attention T={T} {case} window{w}",
+              lambda q, k, v, a, b, t=table, n=lens, wr=written, w=w:
+                  sa.paged_segment_tail_attention(q, k, v, layer, t, n, a, b, wr, w),
+              lambda q, k, v, a, b, t=table, n=lens, wr=written, w=w:
+                  sa.paged_segment_tail_attention_plain(q, k, v, layer, t, n, a, b, wr, w,
+                                                        scale=scale),
+              [qs, kp, vp, tk, tv], {1: hide, 2: hide, 3: hide_t, 4: hide_t})
+
+    # timed at the engine's shapes, bf16
+    bf = torch.bfloat16
+    P, ps = 32, 256
+    table = table_of(engine_lens, ps, P, SEED)
+    kp = torch.randn((L, P, ps, Hkv, D), generator=g, device=dev).to(bf)
+    vp = torch.randn((L, P, ps, Hkv, D), generator=g, device=dev).to(bf)
+    qb = q.to(bf)
+    keys = int(engine_lens.sum())  # visible keys of all rows
+    out = pa.paged_decode_attention(qb, kp[layer], vp[layer], table, engine_lens)
+    ref = pa.paged_decode_attention_plain(qb, kp[layer], vp[layer], table, engine_lens, scale=scale)
+    torch.cuda.synchronize()
+    record(
+        "paged_decode_attention", "paged_decode_attention_kernel",
+        "ultravox_torch/ops/kernels/csrc/paged_attention.cu",
+        "ultravox_tpu/ops/pallas/paged_attention.py:150", out, ref,
+        lambda: pa.paged_decode_attention(qb, kp[layer], vp[layer], table, engine_lens),
+        lambda: pa.paged_decode_attention_plain(qb, kp[layer], vp[layer], table, engine_lens,
+                                                scale=scale),
+        None, _nbytes(qb, out, engine_lens, table) + 2 * keys * Hkv * D * 2,
+        4.0 * H * keys * D, BF16_FLOPS,
+    )
+
+    written = ints(0, 3, 5, 7)
+    tkb, tvb = tk.to(bf), tv.to(bf)
+    qsb = torch.randn((B, 1, H, D), generator=g, device=dev).to(bf)
+    out = sa.paged_segment_tail_attention(qsb, kp, vp, layer, table, engine_lens, tkb, tvb, written)
+    ref = sa.paged_segment_tail_attention_plain(qsb, kp, vp, layer, table, engine_lens, tkb, tvb,
+                                                written, scale=scale)
+    torch.cuda.synchronize()
+    keys_t = keys + int((written + 1).sum())  # prompt keys + tail slots 0..written
+    record(
+        "paged_segment_tail_attention", "paged_segment_attention_kernel",
+        "ultravox_torch/ops/kernels/csrc/segment_attention.cu",
+        "ultravox_tpu/ops/pallas/segment_attention.py:392", out, ref,
+        lambda: sa.paged_segment_tail_attention(qsb, kp, vp, layer, table, engine_lens, tkb, tvb,
+                                                written),
+        lambda: sa.paged_segment_tail_attention_plain(qsb, kp, vp, layer, table, engine_lens, tkb,
+                                                      tvb, written, scale=scale),
+        None, _nbytes(qsb, out, engine_lens, written, table) + 2 * keys_t * Hkv * D * 2,
+        4.0 * H * keys_t * D, BF16_FLOPS,
+    )
+
+    # 10. gather_pages: the whole pool to the (16, 4, 2048, 8, 64) views a
+    # paged block reads (each row owns one page; its 7 sentinel entries copy
+    # page P - 1)
+    ko, vo = pg.gather_pages(kp, vp, table)
+    rk = pa.gather_pages_plain(kp, table)
+    rv = pa.gather_pages_plain(vp, table)
+    torch.cuda.synchronize()
+    if not (torch.equal(ko, rk) and torch.equal(vo, rv)):
+        _fail("gather_pages differs from its plain version")
+    ids = table.long().clamp(max=P - 1).reshape(-1)
+    pages_read = int(torch.unique(ids).numel())
+    page_bytes = ps * Hkv * D * 2
+    record(
+        "gather_pages", "paged_gather_kernel", "ultravox_torch/ops/kernels/csrc/paged_gather.cu",
+        "ultravox_tpu/ops/pallas/paged_gather.py:69", ko, rk,
+        lambda: pg.gather_pages(kp, vp, table),
+        lambda: (pa.gather_pages_plain(kp, table), pa.gather_pages_plain(vp, table)),
+        lambda: (torch.index_select(kp, 1, ids), torch.index_select(vp, 1, ids)),
+        _nbytes(ko, vo, table) + 2 * L * pages_read * page_bytes, 0.0, BF16_FLOPS,
+    )
+    return rows
+
+
 def _scan_tokens(engine, batch, n_steps: int, attn_impl: str) -> torch.Tensor:
     """Greedy (B, n_steps + 1) tokens of the engine's prefill and first
     token, then one segmented_decode_scan of n_steps."""
@@ -514,6 +699,90 @@ def _small_parity(tc, uv, TEngine, dev):
             print(f"small parity {name} {path}: cpu {cpu} gpu {toks[dev][path]}", flush=True)
             if cpu != toks[dev][path]:
                 _fail(f"{name} {path}: greedy tokens on the card differ from the CPU's")
+        _small_serving_parity(name, params, cfg, [_row(batch, i) for i in range(2)], dev)
+
+
+def _row(batch, i: int):
+    """Row i of a collated batch as a one-request batch."""
+    out = {k: batch[k][i: i + 1] for k in ("input_ids", "attention_mask")}
+    if "audio_values" in batch:
+        n = batch["audio_chunk_batch_idx"] == i
+        out.update({k: batch[k][n] for k in (
+            "audio_values", "audio_lens", "audio_token_len", "audio_token_start_idx")})
+        out["audio_chunk_batch_idx"] = np.zeros((int(n.sum()),), np.int32)
+    return out
+
+
+def _serve(engine, batches, max_tokens: int):
+    """Submit every batch at once; (tokens, finish reason, ttft_s) of each."""
+    reqs = [engine.submit(dict(b), max_tokens=max_tokens) for b in batches]
+    out = []
+    for r in reqs:
+        ids, end = [], None
+        for ev in engine.stream(r, timeout=600):
+            if ev.token_id is None:
+                end = ev
+                break
+            ids.append(ev.token_id)
+        out.append((ids, end.finish_reason, end.ttft_s))
+    return out
+
+
+def _check_pages(engine, label: str) -> None:
+    """Paged mode: every page owned once or free, and the tables agree."""
+    if not engine.paged:
+        return
+    owned = [p for pages in engine._slot_pages for p in pages]
+    ok = (len(owned) + len(engine._free_pages) == engine.num_pages
+          and len(set(owned) | set(engine._free_pages)) == engine.num_pages)
+    for slot, pages in enumerate(engine._slot_pages):
+        ok &= engine._table_np[slot, : len(pages)].tolist() == pages
+        ok &= bool((engine._table_np[slot, len(pages):] == engine.num_pages).all())
+    if not ok:
+        _fail(f"{label}: page accounting broken")
+
+
+def _small_serving_parity(name, params, cfg, requests, dev):
+    """The ServingEngine on the card against the same engine on the CPU,
+    fp32, greedy tokens identical, in slots and paged modes (pages of 16, a
+    pool smaller than the slots' tokens) with both block attentions. Each
+    card run must launch its mode's kernels."""
+    from ultravox_torch.inference.serving.engine import ServingEngine
+    from ultravox_torch.ops.kernels import decode_attention as da
+    from ultravox_torch.ops.kernels import paged_attention as pa
+    from ultravox_torch.ops.kernels import paged_gather as pg
+    from ultravox_torch.ops.kernels import segment_attention as sa
+
+    kernels = {
+        ("slots", "xla"): (da.decode_attention,),
+        ("slots", "kernel"): (da.decode_attention, sa.segment_tail_attention),
+        ("paged", "xla"): (pa.paged_decode_attention, pg.gather_pages),
+        ("paged", "kernel"): (pa.paged_decode_attention, sa.paged_segment_tail_attention),
+    }
+    for (mode, impl), counters in kernels.items():
+        toks = {}
+        for device in ("cpu", dev):
+            before = [c.launches for c in counters]
+            srv = ServingEngine(
+                params, cfg, num_slots=4, max_seq_len=128, cache_dtype=torch.float32,
+                cache_mode=mode, page_size=16, num_pages=20 if mode == "paged" else None,
+                prefill_len_buckets=(64, 128), mel_len_buckets=(400,), prefill_chunk_tokens=16,
+                decode_block_steps=4, encoder_attn_impl="fused", prefill_attn_impl="fused",
+                decode_attn_impl="kernel", block_attn_impl=impl, device=device)
+            srv.start()
+            try:
+                out = _serve(srv, requests, 12)
+                _check_pages(srv, f"small serving {name} {mode}/{impl}")
+            finally:
+                srv.stop()
+            toks[device] = [ids for ids, _, _ in out]
+            if any(f != "length" for _, f, _ in out):
+                _fail(f"small serving {name} {mode}/{impl}: finish reasons {[o[1] for o in out]}")
+            if device != "cpu" and not all(c.launches > n for c, n in zip(counters, before)):
+                _fail(f"small serving {name} {mode}/{impl}: a kernel of the mode was not launched")
+        print(f"small serving {name} {mode}/{impl}: cpu {toks['cpu']} gpu {toks[dev]}", flush=True)
+        if toks["cpu"] != toks[dev]:
+            _fail(f"small serving {name} {mode}/{impl}: greedy tokens on the card differ from the CPU's")
 
 
 def _scale(tree, f):
@@ -533,6 +802,8 @@ def main() -> None:
     from ultravox_torch.ops.kernels import decode_attention as da
     from ultravox_torch.ops.kernels import fused_attention as fa
     from ultravox_torch.ops.kernels import layer_norm as ln_mod
+    from ultravox_torch.ops.kernels import paged_attention as pa
+    from ultravox_torch.ops.kernels import paged_gather as pg
     from ultravox_torch.ops.kernels import segment_attention as sa
     from ultravox_torch.ops.mel import log_mel_spectrogram
 
@@ -553,7 +824,8 @@ def main() -> None:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     # 2. kernels against their plain versions
-    rows = _check_kernels(fa, ln_mod, dev) + _check_decode_kernels(da, sa, dev)
+    rows = (_check_kernels(fa, ln_mod, dev) + _check_decode_kernels(da, sa, dev)
+            + _check_paged_kernels(pa, pg, sa, dev))
 
     # 3. small end-to-end parity
     _small_parity(tc, uv, GenerationEngine, dev)
@@ -659,8 +931,9 @@ def main() -> None:
     print(f"segmented scan (kernel): total {(s_end - s_start) * 1e3:.3f} ms; decode "
           f"{seg_tps:.2f} tok/s (prefill to first token as in generate_fused)", flush=True)
     for row in rows:
-        row["launches"] = (seg_launches if row["name"] == "segment_tail_attention"
-                           else launches)[row["name"]]
+        if row["name"] in launches:
+            row["launches"] = (seg_launches if row["name"] == "segment_tail_attention"
+                               else launches)[row["name"]]
     paths = {"generate": ids, "generate_fused": fused.token_ids, "segmented scan": seg}
     for name, toks in paths.items():
         same = sum(a == b for r, s_ in zip(toks, ids) for a, b in zip(r, s_))
@@ -672,6 +945,17 @@ def main() -> None:
     _breakdown(engine, batch, new_tokens, {
         "generate": (t_end - t_start) * 1e3, "generate_fused": (f_end - f_start) * 1e3})
 
+    # 5. the ServingEngine at flagship widths, on the same weights
+    counters.update({
+        "paged_decode_attention": pa.paged_decode_attention,
+        "paged_segment_tail_attention": sa.paged_segment_tail_attention,
+        "gather_pages": pg.gather_pages,
+    })
+    serving, serve_launches = _serving_main_path(engine, cfg, counters, prefill, dev)
+    for row in rows:
+        if row["name"] in serve_launches:
+            row["launches"] = serve_launches[row["name"]]
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -680,10 +964,184 @@ def main() -> None:
     print(json.dumps({
         "kernels": rows, "ttft_ms": ttft_ms, "decode_tok_s": decode_tps,
         "fused_first_token_ms": fused_ttft_ms, "fused_decode_tok_s": fused_tps,
-        "scan_kernel_decode_tok_s": seg_tps,
+        "scan_kernel_decode_tok_s": seg_tps, "serving": serving,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+
+
+def _serving_main_path(engine, cfg, counters, per_call, dev):
+    """Phase 5: the ServingEngine at flagship widths on the weights of
+    phase 4's engine. 8 greedy requests (10 s of audio spliced into a
+    128-token prompt, 32 tokens each) on 4 slots: the first four prefill in
+    two 64-token chunks each while the others wait (single decode steps),
+    then 8-step blocks run in steady state. Three engines in turn, each
+    warmed up on two other prompts, then with every launch count set to 0
+    just before its 8 requests and checked just after against its own
+    counters:
+
+        blocks  = (decode steps - decode dispatches) / 7
+        singles = dispatches - blocks
+        single-step kernel = 16 x singles, block kernel = 16 x 8 x blocks,
+        gather_pages = blocks (paged, gathered view),
+        fused_attention = 16 x prefill chunks,
+        each encoder kernel = its per-call count of phase 4 x admissions.
+
+    Returns (metrics per engine, launches of the new kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import inspect
+
+    from ultravox_torch.inference.serving.engine import ServingEngine
+    from ultravox_torch.ops.mel import log_mel_spectrogram
+
+    n_req, seconds, prompt_len, new_tokens, K = 8, 10.0, 128, 32, 8
+    L_dec = cfg.text_config.num_layers
+    rng = np.random.default_rng(SEED + 5)
+    mel = log_mel_spectrogram(torch.from_numpy(_audio(n_req, seconds, rng)).to(dev))
+    batch = _batch(cfg, mel, prompt_len, rng)
+    warm_ids = batch["input_ids"][:2] % (cfg.vocab_size - 1) + 1  # other prompts: no reuse
+    warm = [_row(dict(batch, input_ids=warm_ids), i) for i in range(2)]
+    requests = [_row(batch, i) for i in range(n_req)]
+    with torch.inference_mode():
+        ref = engine.generate(batch, max_new_tokens=new_tokens).token_ids
+    fetch = ServingEngine._process_oldest_decode_inner
+    lines, first = inspect.getsourcelines(fetch)
+    fetch_lines = {(inspect.getsourcefile(fetch), first + i) for i in range(len(lines))}
+
+    engines = (  # label, cache mode, block attention, single-step kernel, block kernel
+        ("paged+kernel", "paged", "kernel", "paged_decode_attention", "paged_segment_tail_attention"),
+        ("paged+xla", "paged", "xla", "paged_decode_attention", None),
+        ("slots+kernel", "slots", "kernel", "decode_attention", "segment_tail_attention"),
+    )
+    metrics, new_launches, served = {}, {}, {}
+    for label, mode, impl, single_k, block_k in engines:
+        srv = ServingEngine(
+            engine.params, cfg, num_slots=4, max_seq_len=2048, page_size=256, cache_mode=mode,
+            prefill_chunk_tokens=64, decode_block_steps=K, encoder_attn_impl="fused",
+            prefill_attn_impl="fused", decode_attn_impl="kernel", block_attn_impl=impl, device=dev,
+        )
+        srv.start()
+        try:
+            _serve(srv, warm, 12)
+            # the same prompts again (now reused from the retained caches)
+            # with CUDA sync debugging on: only the loop's fetch may wait
+            # (the sleep lets the loop finish the bookkeeping that follows
+            # each request's last event)
+            sites = _sync_sites(lambda: (_serve(srv, warm, 12), time.sleep(0.5)))
+            bad = [site for site in sites if site not in fetch_lines]
+            print(f"serving {label}: {len(sites)} host waits for the card, "
+                  f"{len(sites) - len(bad)} in the fetch, others at {sorted(set(bad))}", flush=True)
+            if bad:
+                _fail(f"serving {label}: the loop waits for the card outside its fetch at {bad}")
+            for c in counters.values():
+                c.launches = 0
+            for stat in ("stat_decode_dispatches", "stat_decode_steps", "stat_prefill_chunks"):
+                setattr(srv, stat, 0)
+            srv.stat_fetch_wait_s = srv.stat_dispatch_s = 0.0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = _serve(srv, requests, new_tokens)
+            wall = time.perf_counter() - t0
+            launches = {name: c.launches for name, c in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            disp, steps, chunks = (srv.stat_decode_dispatches, srv.stat_decode_steps,
+                                   srv.stat_prefill_chunks)
+            dispatch_s, fetch_s = srv.stat_dispatch_s, srv.stat_fetch_wait_s
+            _check_pages(srv, label)
+            busy = None
+            if label == "paged+kernel":
+                # a second, traced run of other prompts: the device's busy share
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t1 = time.perf_counter()
+                    _serve(srv, [_row(dict(batch, input_ids=batch["input_ids"][::-1].copy()), i)
+                                 for i in range(n_req)], new_tokens)
+                    torch.cuda.synchronize()
+                    traced = time.perf_counter() - t1
+                evs = [e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+                busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
+                busy = busy_ms / (traced * 1e3)
+                print(f"serving {label} profile: device busy {busy_ms:.3f} ms of {traced * 1e3:.3f} "
+                      f"ms traced ({100 * busy:.1f}% busy)", flush=True)
+                for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:12]:
+                    print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
+                          f"{e.key[:90]}", flush=True)
+        finally:
+            srv.stop()
+        del srv
+        torch.cuda.empty_cache()
+
+        if (steps - disp) % (K - 1):
+            _fail(f"serving {label}: {steps} steps in {disp} dispatches is no mix of 1 and {K}")
+        blocks = (steps - disp) // (K - 1)
+        singles = disp - blocks
+        want = {name: 0 for name in counters}
+        want.update({name: per_call[name] * n_req for name in
+                     ("fused_layer_norm", "ln_qkv_head_fused", "attention_headmajor")})
+        want["fused_attention"] = L_dec * chunks
+        want[single_k] = L_dec * singles
+        if block_k is not None:
+            want[block_k] = L_dec * K * blocks
+        else:
+            want["gather_pages"] = blocks
+        print(f"serving {label}: {disp} decode dispatches ({singles} single steps, {blocks} "
+              f"blocks of {K}), {chunks} prefill chunks; launches {launches} expected {want}",
+              flush=True)
+        for name, n in launches.items():
+            if n != want[name]:
+                _fail(f"serving {label}: {name} launched {n} times, expected {want[name]}")
+        if blocks == 0 or singles == 0:
+            _fail(f"serving {label}: expected both single steps and blocks")
+        for i, (ids, finish, _) in enumerate(out):
+            if finish != "length" or len(ids) != new_tokens:
+                _fail(f"serving {label}: request {i} finished {finish!r} with {len(ids)} tokens")
+            if any(not 0 <= t < cfg.vocab_size for t in ids):
+                _fail(f"serving {label}: token id out of range")
+        ttft = sorted(t * 1e3 for _, _, t in out)
+        agree = [sum(a == b for a, b in zip(ids, r)) for (ids, _, _), r in zip(out, ref)]
+        served[label] = [ids for ids, _, _ in out]
+        metrics[label] = {
+            "ttft_p50_ms": float(np.median(ttft)), "ttft_max_ms": ttft[-1],
+            "output_tok_s": n_req * new_tokens / wall, "wall_ms": wall * 1e3,
+            "stat_dispatch_s": dispatch_s, "stat_fetch_wait_s": fetch_s, "peak_memory_gb": peak,
+            "decode_dispatches": disp, "single_steps": singles, "blocks": blocks,
+            "prefill_chunks": chunks, "device_busy_share": busy,
+            "tokens_equal_to_generate": agree,
+            "first_tokens_equal_to_generate": sum(ids[0] == r[0] for (ids, _, _), r in zip(out, ref)),
+        }
+        print(f"serving {label}: {n_req} requests x {new_tokens} tokens in {wall * 1e3:.3f} ms "
+              f"({n_req * new_tokens / wall:.2f} tok/s); TTFT p50 {np.median(ttft):.3f} ms, max "
+              f"{ttft[-1]:.3f} ms; loop dispatch {dispatch_s * 1e3:.3f} ms, fetch wait "
+              f"{fetch_s * 1e3:.3f} ms; peak memory {peak:.3f} GB; tokens equal to generate's "
+              f"per request {agree} of {new_tokens} (first tokens "
+              f"{metrics[label]['first_tokens_equal_to_generate']} of {n_req})", flush=True)
+        for name in (single_k, block_k or "gather_pages"):
+            if name in ("paged_decode_attention", "paged_segment_tail_attention", "gather_pages"):
+                new_launches.setdefault(name, launches[name])
+    for label in ("paged+xla", "slots+kernel"):
+        same = sum(a == b for x, y in zip(served[label], served["paged+kernel"])
+                   for a, b in zip(x, y))
+        print(f"serving {label}: {same} of {n_req * new_tokens} tokens equal to paged+kernel's",
+              flush=True)
+    return metrics, new_launches
+
+
+def _sync_sites(fn):
+    """Run fn with CUDA sync debugging on: the (file, line) of every
+    Python call that made the host wait for the card, on any thread."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return [(w.filename, w.lineno) for w in caught if "synchroniz" in str(w.message)]
 
 
 def _first_token_ms(engine, batch) -> float:

@@ -23,7 +23,10 @@ from ultravox_torch.models import decoder as tdec
 from ultravox_torch.ops.kernels import decode_attention as tda
 from ultravox_torch.ops.kernels import fused_attention as tfa
 from ultravox_torch.ops.kernels import layer_norm as tln
+from ultravox_torch.ops.kernels import paged_attention as tpa
+from ultravox_torch.ops.kernels import paged_gather as tpg
 from ultravox_torch.ops.kernels import segment_attention as tsa
+from ultravox_torch.inference.serving import engine as tserve
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -180,3 +183,129 @@ def test_decode_paths_on_cuda_match_cpu(cuda_device):
     assert tda.decode_attention.launches > before[0]
     assert tsa.segment_tail_attention.launches > before[1]
     assert gpu == paths("cpu", "xla")
+
+
+def _paged_case(dev, dtype):
+    """A 2-layer pool of 12 pages of 16 tokens: shuffled ids, rows with 1, 3
+    and 5 pages, sentinel entries (12) after them, and a pageless row of
+    length 1. Returns tensors and a (P, ps) mask per layer of the pool slots
+    no row can see (window 0), which may hold anything."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+    L, P, ps, Hkv, D, n_per = 2, 12, 16, 2, 64, 5
+    kp, vp = r(L, P, ps, Hkv, D), r(L, P, ps, Hkv, D)
+    order = np.random.default_rng(2).permutation(P).tolist()
+    table = np.full((4, n_per), P, np.int32)
+    for b, used in enumerate((1, 3, 5, 0)):
+        for i in range(used):
+            table[b, i] = order.pop()
+    lens = [9, 40, 77, 1]
+    seen = np.zeros((P, ps), bool)
+    for b, n in enumerate(lens):
+        for j in range(n):
+            seen[min(table[b, j // ps], P - 1), j % ps] = True
+    return (kp, vp, torch.from_numpy(table).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev), torch.from_numpy(~seen).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("window", [0, 20])
+def test_paged_kernels_match_plain_and_skip_hidden_slots(cuda_device, dt, window):
+    """paged_decode_attention and paged_segment_tail_attention (T=2, layer
+    1) against their plain versions; with window 0, 1e4 in every pool slot
+    no row can see (and in every unwritten tail slot) moves no output."""
+    dtype = DTYPES[dt]
+    kp, vp, table, lens, hidden = _paged_case(cuda_device, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn((4, 8, 64), generator=g, device=cuda_device).to(dtype)
+    qs = torch.randn((4, 2, 8, 64), generator=g, device=cuda_device).to(dtype)
+    tk, tv = (torch.randn((4, 6, 2, 64), generator=g, device=cuda_device).to(dtype) for _ in range(2))
+    written = torch.tensor([0, 2, 4, 1], dtype=torch.int32, device=cuda_device)
+    runs = {
+        "decode": (lambda k, v, tk, tv: tpa.paged_decode_attention(q, k[1], v[1], table, lens, window),
+                   lambda k, v, tk, tv: tpa.paged_decode_attention_plain(
+                       q, k[1], v[1], table, lens, window, scale=0.125)),
+        "segment": (lambda k, v, tk, tv: tsa.paged_segment_tail_attention(
+                        qs, k, v, 1, table, lens, tk, tv, written, window),
+                    lambda k, v, tk, tv: tsa.paged_segment_tail_attention_plain(
+                        qs, k, v, 1, table, lens, tk, tv, written, window, scale=0.125)),
+    }
+    jk, jv, jtk, jtv = kp.clone(), vp.clone(), tk.clone(), tv.clone()
+    jk[:, hidden], jv[:, hidden] = 1e4, 1e4
+    for b, w in enumerate(written.tolist()):
+        jtk[b, w + 2:], jtv[b, w + 2:] = 1e4, 1e4  # past the last query's slot
+    for name, (kernel, plain) in runs.items():
+        out, ref = kernel(kp, vp, tk, tv), plain(kp, vp, tk, tv)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        tol = 1e-5 if dt == "float32" else 4 * 2.0**-8 * float(ref.abs().max())
+        assert float((out.float() - ref.float()).abs().max()) <= tol, name
+        if window == 0:
+            assert torch.equal(kernel(jk, jv, jtk, jtv), out), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_gather_pages_is_bit_equal(cuda_device, dt):
+    kp, vp, table, _, _ = _paged_case(cuda_device, DTYPES[dt])
+    before = tpg.gather_pages.launches
+    k, v = tpg.gather_pages(kp, vp, table)
+    torch.cuda.synchronize()
+    assert tpg.gather_pages.launches == before + 1
+    assert torch.equal(k, tpa.gather_pages_plain(kp, table))
+    assert torch.equal(v, tpa.gather_pages_plain(vp, table))
+    bad = torch.zeros((1, 4, 1, 1, 3), dtype=DTYPES[dt], device=cuda_device)  # 6- or 12-byte pages
+    with pytest.raises(ValueError, match="16-byte"):
+        tpg.gather_pages(bad, bad, table)
+
+
+@pytest.mark.cuda
+def test_serving_engine_on_cuda_matches_cpu(cuda_device):
+    """Slots and paged modes with both block attentions, fp32: the card's
+    greedy tokens equal the CPU's, and each mode launched its kernels."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tc.UltravoxConfig(
+        text_config=tc.DecoderConfig(
+            vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2, num_heads=4,
+            num_kv_heads=2, head_dim=64, tie_word_embeddings=True,
+        ),
+        llm_only_training=True,
+    )
+
+    def scaled(tree):  # larger weights make greedy tokens vary
+        if isinstance(tree, dict):
+            return {k: scaled(v) for k, v in tree.items()}
+        return tree * 8 if tree.ndim >= 2 else tree
+
+    params = scaled(tuv.init_params(cfg, torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 512, (1, n)).astype(np.int32) for n in (20, 33, 9)]
+
+    def serve(device, mode, impl):
+        eng = tserve.ServingEngine(
+            params, cfg, num_slots=4, max_seq_len=128, cache_dtype=torch.float32,
+            cache_mode=mode, page_size=16, num_pages=20 if mode == "paged" else None,
+            prefill_len_buckets=(64, 128), prefill_chunk_tokens=16, decode_block_steps=4,
+            decode_attn_impl="kernel", block_attn_impl=impl, prefill_attn_impl="fused",
+            device=device)
+        eng.start()
+        try:
+            reqs = [eng.submit({"input_ids": p, "attention_mask": np.ones_like(p)}, max_tokens=12)
+                    for p in prompts]
+            out = []
+            for r in reqs:
+                out.append([ev.token_id for ev in eng.stream(r, timeout=300)])
+        finally:
+            eng.stop()
+        return out
+
+    kernels = {("paged", "kernel"): (tpa.paged_decode_attention, tsa.paged_segment_tail_attention),
+               ("paged", "xla"): (tpa.paged_decode_attention, tpg.gather_pages),
+               ("slots", "kernel"): (tda.decode_attention, tsa.segment_tail_attention)}
+    for (mode, impl), counters in kernels.items():
+        before = [c.launches for c in counters]
+        gpu = serve(cuda_device, mode, impl)
+        assert all(c.launches > n for c, n in zip(counters, before)), (mode, impl)
+        assert gpu == serve("cpu", mode, impl), (mode, impl)

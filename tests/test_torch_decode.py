@@ -267,10 +267,11 @@ def test_segmented_decode_scan_matches_jax(llama, pallas_interpret, attn_impl):
     for t, j in ((ttail.k, jtail.k), (ttail.v, jtail.v)):
         j = np.asarray(j)
         np.testing.assert_allclose(t.numpy(), j, rtol=1e-4, atol=1e-4 * np.abs(j).max())
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    # a page table needs the kernel (the XLA form takes a gathered view), as in JAX
+    with pytest.raises(ValueError, match="attn_impl='kernel'"):
         tdec.segmented_decode_scan(
             tp, td, tcache, torch.from_numpy(lens), torch.from_numpy(first), n_steps=2,
-            sample_fn=_greedy, attn_impl="kernel", page_table=torch.zeros((2, 1), dtype=torch.int32),
+            sample_fn=_greedy, attn_impl="xla", page_table=torch.zeros((2, 1), dtype=torch.int32),
         )
 
 

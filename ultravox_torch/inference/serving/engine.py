@@ -1,0 +1,1352 @@
+"""Continuous-batching serving engine with chunked prefill.
+
+The PyTorch counterpart of the JAX package's ``ServingEngine``: the same
+scheduler, requests, events and finish reasons. A fixed pool of
+``num_slots`` sequences decodes together; a background thread runs the
+serving loop, and each iteration
+
+1. retires cancelled requests;
+2. admits pending requests to free slots: the prompt is embedded once
+   (audio tower + projector + splice) and queued as a chunked prefill job;
+3. dispatches one decode call for every active slot (a single step, or a
+   K-step block in steady state), with per-slot greedy / temperature /
+   top-k / top-p / min-p sampling on the card;
+4. runs up to ``prefill_tokens_per_tick`` prompt tokens of the head prefill
+   job through the LLM, straight into its cache row (or, in paged mode, a
+   contiguous scratch row that is published to the pool's pages once the
+   prompt is complete).
+
+``cache_mode="slots"`` gives each slot a ``max_seq_len`` cache row;
+``"paged"`` shares a pool of pages through per-slot page tables, reserved at
+admission, with copy-on-adopt conversation-prefix caching and backpressure
+when the pool runs out. Decode dispatches are pipelined: up to two are in
+flight, and their tokens are read back one to two dispatches behind.
+
+Unlike the JAX package, which donates its buffers to jitted programs, the
+device programs here are eager functions that update the caches in place.
+All device work runs on one CUDA stream (the loop enters it), so freed pages
+that a later admission reuses are safe by in-order execution (see
+``_decode_tick``). Nothing inside a dispatch reads a value back from the
+card: sampling branches, masks and tables are decided on the host, and host
+arrays reach the card through pinned, non-blocking copies of private
+buffers (``_upload``).
+
+Out of scope (each raises ``NotImplementedError``): speculative decoding,
+LoRA adapters, int8 weights and meshes at construction; penalties,
+``logit_bias``, logprobs, seeded sampling at a temperature above 0, LoRA
+selection and precomputed ``audio_embeds`` at ``submit``.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import hashlib
+import itertools
+import logging
+import queue
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ultravox_torch.inference.engine import _to_device, resolve_device
+from ultravox_torch.models import decoder as decoder_lib
+from ultravox_torch.models import ultravox as uv
+from ultravox_torch.models.config import UltravoxConfig
+from ultravox_torch.models.whisper_encoder import fuse_encoder_inference_params
+from ultravox_torch.ops.kernels.paged_gather import gather_pages
+from ultravox_torch.ops.sampling import sample_slots, sampling_flags
+
+logger = logging.getLogger(__name__)
+
+# the batch keys the prompt embedding reads
+_EMBED_KEYS = (
+    "input_ids", "audio_values", "audio_lens", "audio_token_start_idx", "audio_token_len",
+    "audio_chunk_batch_idx",
+)
+
+
+@dataclasses.dataclass
+class Request:
+    request_id: int
+    batch: Dict[str, np.ndarray]  # single-row collated features
+    max_tokens: int = 256
+    temperature: float = 0.0
+    top_k: int = 0  # 0 = disabled
+    top_p: float = 1.0  # 1.0 = disabled
+    min_p: float = 0.0  # 0 = disabled
+    cancelled: bool = False  # set via ServingEngine.cancel()
+    stop_token_ids: Tuple[int, ...] = ()
+    out_queue: "queue.Queue" = dataclasses.field(default_factory=queue.Queue)
+    submit_time: float = dataclasses.field(default_factory=time.monotonic)
+    # filled by the engine
+    slot: int = -1
+    prompt_len: int = 0
+    generated: int = 0
+    first_token_time: Optional[float] = None
+    finish_time: Optional[float] = None  # when the terminal event was emitted
+    emitted_ids: List[int] = dataclasses.field(default_factory=list)
+    reused_prefix: int = 0  # tokens served from a retained slot cache
+    token_ids: Any = None  # (prompt_len,) np.int32, filled at admission
+    audio_spans: Tuple = ()
+
+
+@dataclasses.dataclass
+class RetainedCache:
+    """A finished request's slot cache, kept for conversation-prefix reuse."""
+
+    token_ids: np.ndarray  # tokens whose k/v live in the slot cache
+    # audio chunks inside those tokens: (start_idx, token_len, sha1-hex)
+    audio_spans: Tuple[Tuple[int, int, str], ...]
+
+
+@dataclasses.dataclass
+class StreamEvent:
+    token_id: Optional[int]  # None => end of stream
+    finish_reason: Optional[str] = None
+    ttft_s: Optional[float] = None
+
+
+@dataclasses.dataclass
+class PrefillJob:
+    """A request whose prompt is being prefilled chunk by chunk into its
+    cache row (decode steps interleave between chunks)."""
+
+    req: Request
+    embeds: Any  # (1, T_padded, D) prompt embeddings (audio spliced in)
+    chunk: int  # chunk size ((T_padded - start) is a multiple of it)
+    pos: int = 0  # next position to prefill (starts at the reused prefix)
+    # paged mode: the reused prefix lives in pool pages and is loaded into
+    # the contiguous prefill scratch before the first chunk runs
+    needs_scratch_load: bool = False
+    # copy-on-adopt prefix caching: when >= 0 the prefix loads from this
+    # (still retained) slot's pages; the request's own slot gets a copy
+    # through the end-of-prefill page scatter, so the retained conversation
+    # survives for further reuse
+    prefix_src_slot: int = -1
+
+
+def _request_tokens_and_spans(batch: Dict[str, np.ndarray]):
+    """Valid prompt token ids + audio-chunk fingerprints (start_idx,
+    token_len, sha1) for prefix matching."""
+    ids = np.asarray(batch["input_ids"]).reshape(-1)
+    n = int(np.asarray(batch["attention_mask"]).sum())
+    ids = np.ascontiguousarray(ids[:n])
+    spans = []
+    if batch.get("audio_values") is not None:
+        vals = np.asarray(batch["audio_values"])
+        starts = np.asarray(batch["audio_token_start_idx"]).reshape(-1)
+        lens = np.asarray(batch["audio_token_len"]).reshape(-1)
+        for i in range(vals.shape[0]):
+            sha = hashlib.sha1(np.ascontiguousarray(vals[i]).tobytes()).hexdigest()
+            spans.append((int(starts[i]), int(lens[i]), sha))
+    return ids, tuple(spans)
+
+
+def _match_prefix(tokens, spans, retained: RetainedCache) -> int:
+    """Longest reusable prefix: common token ids, never splitting or
+    mismatching an audio chunk on either side (audio placeholder tokens are
+    identical repeats, so token equality alone would match different audio;
+    hence the content fingerprints)."""
+    a, b = tokens, retained.token_ids
+    lim = min(len(a), len(b))
+    neq = np.nonzero(a[:lim] != b[:lim])[0]
+    m = int(neq[0]) if len(neq) else lim
+    both = set(spans) & set(retained.audio_spans)
+    changed = True
+    while changed and m > 0:
+        changed = False
+        for s, l, sha in tuple(spans) + tuple(retained.audio_spans):
+            if s < m and ((s, l, sha) not in both or s + l > m):
+                m = s
+                changed = True
+    return m
+
+
+def _bucket(n: int, buckets) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"{n} exceeds largest bucket {buckets[-1]}")
+
+
+def _resolve_auto(
+    cache_mode, decode_attn_impl, prefill_attn_impl, encoder_attn_impl, block_attn_impl,
+    decode_block_steps, max_seq_len, text_config, on_card: bool,
+):
+    """Per-workload defaults for the ``"auto"`` options, with the JAX
+    package's gates: the cache mode by advertised context length; the
+    kernels only on the card, the decode and block kernels by the per-layer
+    KV bytes a decode step streams (kv_heads x head_dim x max_seq_len, the
+    quantity both context length and model width scale), and the block
+    kernel never with an attention softcap (it does not softcap). The
+    thresholds are the reference's; where they cross over on an H100 is not
+    measured yet. ``on_card`` plays the part of the reference's TPU test."""
+    tc = text_config
+    kv_layer_bytes = 2 * tc.num_kv_heads * tc.head_dim * max_seq_len * 2
+    if cache_mode == "auto":
+        cache_mode = "paged" if max_seq_len >= 1024 else "slots"
+    if decode_attn_impl == "auto":
+        decode_attn_impl = "kernel" if (on_card and kv_layer_bytes >= 4 * 1024 * 1024) else "xla"
+    if prefill_attn_impl == "auto":
+        prefill_attn_impl = "fused" if (on_card and max_seq_len >= 1024) else "xla"
+    if encoder_attn_impl == "auto":
+        encoder_attn_impl = "fused" if on_card else "xla"
+    if block_attn_impl == "auto":
+        block_attn_impl = (
+            "kernel"
+            if (on_card and kv_layer_bytes >= 16 * 1024 * 1024 and tc.attn_logit_softcapping is None)
+            else "xla"
+        )
+    if decode_block_steps is None:
+        # blocks engage only in steady-state decode (the loop prefers
+        # admission and prefill work), so a block size is safe to default
+        decode_block_steps = 8
+    return (
+        cache_mode, decode_attn_impl, prefill_attn_impl, encoder_attn_impl, block_attn_impl,
+        decode_block_steps,
+    )
+
+
+class ServingEngine:
+    def __init__(
+        self,
+        params: Any,
+        cfg: UltravoxConfig,
+        *,
+        num_slots: int = 16,
+        max_seq_len: int = 2048,
+        cache_dtype=torch.bfloat16,
+        cache_mode: str = "auto",  # "slots" or "paged" (shared pool + page tables)
+        page_size: int = 256,
+        num_pages: Optional[int] = None,  # default: the slot mode's token count
+        prefill_len_buckets: Optional[Tuple[int, ...]] = None,
+        mel_len_buckets: Tuple[int, ...] = (400, 1000, 2000, 3000),
+        max_prefills_per_step: int = 2,
+        prefill_chunk_tokens: int = 256,
+        decode_block_steps: Optional[int] = None,  # None = auto (8)
+        encoder_attn_impl: str = "auto",
+        decode_attn_impl: str = "auto",  # "kernel": decode_attention / paged_decode_attention
+        block_attn_impl: str = "auto",  # "kernel": the segment kernels inside blocks
+        prefill_attn_impl: str = "auto",  # "fused": the fused_attention prefill kernel
+        quantize: Optional[str] = None,
+        lora_adapters: Optional[Dict[str, Any]] = None,
+        spec_decode: Optional[str] = None,
+        mesh=None,
+        device=None,
+    ):
+        """Runs on the CUDA card unless ``device="cpu"``. ``"auto"`` options
+        resolve in ``_resolve_auto``; explicit values override."""
+        unported = [
+            name for name, on in (
+                ("quantize (int8 serving)", quantize is not None),
+                ("lora_adapters (multi-LoRA serving)", bool(lora_adapters)),
+                ("spec_decode (speculative decoding)", spec_decode not in (None, "none", "")),
+                ("mesh (sharded serving)", mesh is not None),
+            ) if on
+        ]
+        if unported:
+            raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
+        self.device = resolve_device(device)
+        (cache_mode, decode_attn_impl, prefill_attn_impl, encoder_attn_impl, block_attn_impl,
+         decode_block_steps) = _resolve_auto(
+            cache_mode, decode_attn_impl, prefill_attn_impl, encoder_attn_impl, block_attn_impl,
+            decode_block_steps, max_seq_len, cfg.text_config, self.device.type == "cuda",
+        )
+        if encoder_attn_impl not in ("xla", "fused"):
+            raise NotImplementedError(f"encoder_attn_impl={encoder_attn_impl!r} is not ported yet")
+        for name, value, allowed in (
+            ("prefill_attn_impl", prefill_attn_impl, ("xla", "fused")),
+            ("decode_attn_impl", decode_attn_impl, ("xla", "kernel")),
+            ("block_attn_impl", block_attn_impl, ("xla", "kernel")),
+        ):
+            if value not in allowed:
+                raise ValueError(f"unknown {name}={value!r}")
+        decoder_lib.check_supported(params["language_model"])
+        params = _to_device(params, self.device)
+        self.params = dict(params)
+        self.params["language_model"] = decoder_lib.fuse_inference_params(
+            params["language_model"], cfg.text_config
+        )
+        if encoder_attn_impl == "fused" and "audio_tower" in self.params:
+            self.params["audio_tower"] = fuse_encoder_inference_params(self.params["audio_tower"])
+        self.cfg = cfg
+        self.num_slots = num_slots
+        self.max_seq_len = max_seq_len
+        if prefill_len_buckets is None:
+            # powers of two up to the cache length, so the advertised context
+            # is actually prefillable
+            buckets = [64]
+            while buckets[-1] < max_seq_len:
+                buckets.append(min(buckets[-1] * 2, max_seq_len))
+            prefill_len_buckets = tuple(buckets)
+        self.prefill_len_buckets = prefill_len_buckets
+        self.mel_len_buckets = mel_len_buckets
+        self.max_prefills_per_step = max_prefills_per_step
+        self.prefill_chunk_tokens = prefill_chunk_tokens
+        # prompt tokens dispatched per scheduler tick: several chunks per
+        # tick amortise the tick's fixed dispatch and fetch latency
+        self.prefill_tokens_per_tick = 4 * prefill_chunk_tokens
+        self.encoder_attn_impl = encoder_attn_impl
+        self.prefill_kernel = prefill_attn_impl == "fused"
+        self.decode_kernel = decode_attn_impl == "kernel"
+
+        tc = cfg.text_config
+        dev = self.device
+        self.cache_mode = cache_mode
+        self.paged = cache_mode == "paged"
+        if self.paged:
+            if max_seq_len % page_size:
+                raise ValueError(
+                    f"max_seq_len {max_seq_len} must be a multiple of page_size {page_size}"
+                )
+            self.page_size = page_size
+            self.pages_per_seq = max_seq_len // page_size
+            if num_pages is None:
+                num_pages = num_slots * self.pages_per_seq
+            self.num_pages = num_pages
+            self.cache = decoder_lib.PagedKVCache.zeros(tc, num_pages, page_size, cache_dtype, dev)
+            # host-side allocator state: exclusive page ownership per slot
+            self._free_pages: List[int] = list(range(num_pages))
+            self._slot_pages: List[List[int]] = [[] for _ in range(num_slots)]
+            self._table_np = np.full((num_slots, self.pages_per_seq), num_pages, np.int32)
+            self.page_table = self._upload(self._table_np)
+            # chunked prefill runs against a contiguous one-row scratch cache
+            # (the fused prefill kernel applies, no page gather per chunk);
+            # the finished prompt scatters into the pool as whole pages once
+            Ts = min(self.prefill_len_buckets[-1], max_seq_len)
+            self._scratch = decoder_lib.KVCache.zeros(tc, 1, Ts, cache_dtype, dev, spare=1)
+        elif cache_mode == "slots":
+            self.cache = decoder_lib.KVCache.zeros(
+                tc, num_slots, max_seq_len, cache_dtype, dev, spare=1
+            )
+        else:
+            raise ValueError(f"unknown cache_mode={cache_mode!r}")
+        self.cache_lens = torch.zeros((num_slots,), dtype=torch.int32, device=dev)
+        self.last_tokens = torch.zeros((num_slots,), dtype=torch.int32, device=dev)
+        self.generator = torch.Generator(device=dev).manual_seed(0)
+        self._stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+        # K decode steps per dispatch in steady state (multi-step scheduling)
+        self.decode_block_steps = max(1, decode_block_steps)
+        self._seg_attn_impl = block_attn_impl
+        if block_attn_impl == "kernel" and tc.attn_logit_softcapping is not None:
+            logger.warning(
+                "block_attn_impl='kernel' ignored: attn_logit_softcapping is set and the "
+                "segment kernels do not softcap"
+            )
+            self._seg_attn_impl = "xla"
+        self.resolved_flags = {
+            "cache_mode": cache_mode,
+            "decode_attn_impl": decode_attn_impl,
+            "prefill_attn_impl": prefill_attn_impl,
+            "encoder_attn_impl": encoder_attn_impl,
+            "block_attn_impl": self._seg_attn_impl,
+            "decode_block_steps": decode_block_steps,
+        }
+
+        # loop accounting: enough to attribute the loop's time to prefill
+        # work, host fetch waits and dispatch
+        self.stat_decode_dispatches = 0  # decode dispatches
+        self.stat_decode_steps = 0  # decode steps across those dispatches
+        self.stat_prefill_chunks = 0  # prompt chunks dispatched
+        self.stat_fetch_wait_s = 0.0  # host time blocked fetching results
+        self.stat_dispatch_s = 0.0  # host time issuing decode dispatches
+        # optional measurement hook: set to a list and _emit appends one
+        # monotonic timestamp per emitted token, on the loop thread
+        self.token_time_log: Optional[list] = None
+
+        self._pending: "queue.Queue[Request]" = queue.Queue()
+        self._cancels: "queue.Queue[int]" = queue.Queue()
+        self._active: Dict[int, Request] = {}  # slot -> request
+        self._prefilling: List[PrefillJob] = []  # chunked prefill queue
+        # pipelined decode: dispatched, not yet fetched decode calls (device
+        # results + the active-set snapshot they were dispatched against)
+        self._inflight: "collections.deque" = collections.deque()
+        self._max_inflight = 2
+        self._mask_cache = None  # (key, active mask, samp, sampled, filtered)
+        self._free_slots = list(range(num_slots))
+        # conversation-prefix reuse: finished slots keep their cache rows
+        # until reallocated; min_reuse_tokens gates trivial matches
+        self._retained: Dict[int, RetainedCache] = {}
+        # paged copy-on-adopt: source slots whose pages a queued prefill will
+        # read, protected from eviction and reallocation until loaded;
+        # counted, since several queued prefills may share one source
+        self._pinned: Dict[int, int] = {}
+        self.min_reuse_tokens = 8
+        self.reused_prefix_tokens = 0  # cumulative counter
+        self._requests: Dict[int, Request] = {}
+        self._id_counter = itertools.count()
+        self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._running = False
+        self._thread: Optional[threading.Thread] = None
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device. On the card the copy is
+        non-blocking from a private pinned buffer, which the caching host
+        allocator keeps until the copy has run; a blocking copy from
+        pageable memory would wait for the whole stream."""
+        t = torch.from_numpy(np.array(arr, copy=True))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    # -- paged-pool bookkeeping (host side; serving thread only) -------------
+
+    def _pages_needed(self, tokens: int) -> int:
+        return -(-max(int(tokens), 1) // self.page_size)
+
+    def _push_table(self):
+        # _upload copies _table_np, which later bookkeeping mutates
+        self.page_table = self._upload(self._table_np)
+
+    def _release_slot_pages(self, slot: int):
+        if self._slot_pages[slot]:
+            self._free_pages.extend(self._slot_pages[slot])
+            self._slot_pages[slot] = []
+            self._table_np[slot, :] = self.num_pages
+            self._push_table()
+
+    def _trim_slot_pages(self, slot: int, keep_tokens: int):
+        """Keep only the pages covering positions [0, keep_tokens)."""
+        keep = self._pages_needed(keep_tokens) if keep_tokens > 0 else 0
+        extra = self._slot_pages[slot][keep:]
+        if extra:
+            self._slot_pages[slot] = self._slot_pages[slot][:keep]
+            self._free_pages.extend(extra)
+            self._table_np[slot, keep:] = self.num_pages
+            self._push_table()
+
+    def _evict_retained_pages(self, needed: int):
+        """Free retained conversations' pages (free slots only) until
+        ``needed`` pages are available."""
+        for slot in list(self._retained):
+            if len(self._free_pages) >= needed:
+                break
+            if slot in self._free_slots and slot not in self._pinned and self._slot_pages[slot]:
+                self._retained.pop(slot, None)
+                self._release_slot_pages(slot)
+
+    def _reserve_pages(self, slot: int, total_tokens: int) -> bool:
+        """Grow the slot's page list to cover ``total_tokens`` logical
+        positions (reserved at admission, so a decode step never allocates).
+        False: the pool is exhausted even after evicting retained
+        conversations."""
+        need = self._pages_needed(total_tokens)
+        have = len(self._slot_pages[slot])
+        grow = need - have
+        if grow <= 0:
+            return True
+        if len(self._free_pages) < grow:
+            self._evict_retained_pages(grow)
+        if len(self._free_pages) < grow:
+            return False
+        new = [self._free_pages.pop() for _ in range(grow)]
+        self._slot_pages[slot].extend(new)
+        self._table_np[slot, have:need] = new
+        self._push_table()
+        return True
+
+    def _pin(self, slot: int):
+        self._pinned[slot] = self._pinned.get(slot, 0) + 1
+
+    def _unpin(self, slot: int):
+        n = self._pinned.get(slot, 0) - 1
+        if n <= 0:
+            self._pinned.pop(slot, None)
+        else:
+            self._pinned[slot] = n
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.num_pages - len(self._free_pages) if self.paged else 0
+
+    # -- public API ----------------------------------------------------------
+
+    def start(self):
+        if self._running:
+            return
+        self._running = True
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        self._running = False
+        self._wake.set()
+        if self._thread:
+            self._thread.join(timeout=30)
+
+    def submit(
+        self,
+        batch: Dict[str, np.ndarray],
+        *,
+        max_tokens: int = 256,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        min_p: float = 0.0,
+        presence_penalty: float = 0.0,
+        frequency_penalty: float = 0.0,
+        repetition_penalty: float = 1.0,
+        logit_bias=(),
+        seed: Optional[int] = None,
+        lora: Optional[str] = None,
+        logprobs: bool = False,
+        top_logprobs: int = 0,
+        stop_token_ids: Tuple[int, ...] = (),
+        audio_embeds=None,
+        audio_spans: Optional[Tuple] = None,
+    ) -> Request:
+        """Queue one request (a single-row collated batch). Per-request
+        temperature / top_k / top_p / min_p apply slot-wise inside the shared
+        decode call. ``audio_spans`` supplies the prefix-matching content
+        fingerprints otherwise derived from ``audio_values``. A ``seed`` is
+        accepted for greedy requests only, where it draws nothing."""
+        unported = [
+            name for name, on in (
+                ("presence_penalty", presence_penalty != 0.0),
+                ("frequency_penalty", frequency_penalty != 0.0),
+                ("repetition_penalty", repetition_penalty != 1.0),
+                ("logit_bias", bool(logit_bias)),
+                ("logprobs", bool(logprobs) or int(top_logprobs) > 0),
+                ("seeded sampling (seed with temperature > 0)",
+                 seed is not None and temperature > 0),
+                ("lora", lora is not None),
+                ("precomputed audio_embeds", audio_embeds is not None),
+            ) if on
+        ]
+        if unported:
+            raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
+        req = Request(
+            request_id=next(self._id_counter),
+            batch=batch,
+            max_tokens=max_tokens,
+            temperature=float(temperature),
+            top_k=int(top_k),
+            top_p=float(top_p),
+            min_p=float(min_p),
+            stop_token_ids=tuple(stop_token_ids),
+        )
+        if audio_spans is not None:
+            req.audio_spans = tuple(audio_spans)
+        # registration and enqueue are atomic with respect to
+        # _fail_all_requests' drain and clear
+        with self._lock:
+            self._requests[req.request_id] = req
+            self._pending.put(req)
+        self._wake.set()
+        return req
+
+    def stream(self, req: Request, timeout: Optional[float] = None):
+        """Yield StreamEvents until the request finishes. If the loop can no
+        longer finish the request (thread dead, engine stopped, request
+        gone without a terminal event), or ``timeout`` seconds pass between
+        two events, a terminal error event is yielded instead of blocking."""
+        waited = 0.0
+        while True:
+            try:
+                event: StreamEvent = req.out_queue.get(timeout=1.0)
+                waited = 0.0
+            except queue.Empty:
+                waited += 1.0
+                thread = self._thread
+                loop_dead = not self._running or thread is None or not thread.is_alive()
+                timed_out = timeout is not None and waited >= timeout
+                if loop_dead or timed_out or req.request_id not in self._requests:
+                    # drain anything that raced in before giving up
+                    try:
+                        event = req.out_queue.get_nowait()
+                        waited = 0.0
+                    except queue.Empty:
+                        yield StreamEvent(token_id=None, finish_reason="error")
+                        return
+                else:
+                    continue
+            yield event
+            if event.token_id is None:
+                return
+
+    def cancel(self, req_or_id) -> None:
+        """Abort a request (thread-safe, idempotent; unknown or finished ids
+        are ignored). The loop retires it at the next safe point: pending
+        requests finish "cancelled" instead of admitting, prefilling jobs
+        drop (slot and pages freed, adoption pins released), active slots
+        stop decoding and free at once."""
+        rid = req_or_id.request_id if isinstance(req_or_id, Request) else int(req_or_id)
+        self._cancels.put(rid)
+        self._wake.set()
+
+    # -- serving loop --------------------------------------------------------
+
+    def _loop(self):
+        # inference mode and the current device and stream are per thread
+        with torch.inference_mode():
+            if self._stream is not None:
+                with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+                    self._loop_body()
+            else:
+                self._loop_body()
+
+    def _loop_body(self):
+        while self._running:
+            try:
+                self._loop_tick()
+            except Exception:  # noqa: BLE001 - the scheduler itself raised
+                # a dead loop thread would leave every stream() consumer
+                # blocked: fail every known request and keep serving
+                logger.exception("serving loop tick failed; failing all requests")
+                try:
+                    self._fail_all_requests()
+                except Exception:  # noqa: BLE001 - last resort below
+                    logger.exception("scheduler reset failed; stopping loop")
+                    self._running = False
+                    for req in list(self._requests.values()):
+                        req.out_queue.put(StreamEvent(token_id=None, finish_reason="error"))
+                    self._requests.clear()
+        # loop exit (stop()): deliver whatever was already computed
+        try:
+            self._drain_decodes()
+        except Exception:  # noqa: BLE001 - shutdown must not raise
+            self._inflight.clear()
+
+    def _fail_all_requests(self):
+        """Terminal-error every tracked request and reset scheduling state
+        (slots, pages, pins, retained prefixes, in-flight dispatches)."""
+        self._inflight.clear()
+        self._mask_cache = None
+        with self._lock:
+            while not self._pending.empty():
+                try:
+                    self._pending.get_nowait()
+                except queue.Empty:
+                    break
+            while not self._cancels.empty():
+                try:
+                    self._cancels.get_nowait()
+                except queue.Empty:
+                    break
+            self._prefilling.clear()
+            self._active.clear()
+            for req in list(self._requests.values()):
+                req.out_queue.put(StreamEvent(token_id=None, finish_reason="error"))
+            self._requests.clear()
+        self._retained.clear()
+        self._pinned.clear()
+        if self.paged:
+            for slot in range(self.num_slots):
+                self._release_slot_pages(slot)
+        self._free_slots = list(range(self.num_slots))
+        self.cache_lens = torch.zeros((self.num_slots,), dtype=torch.int32, device=self.device)
+
+    def _loop_tick(self):
+        did_work = False
+        # admissions and cancellations change slot and page ownership:
+        # retire in-flight decode work first, so lagged finishes free their
+        # slots and pages and cancelled requests get their final tokens
+        if self._inflight and not (self._pending.empty() and self._cancels.empty()):
+            self._drain_decodes()
+        while not self._cancels.empty():
+            try:
+                self._cancel_one(self._cancels.get_nowait())
+            except queue.Empty:  # pragma: no cover - single consumer
+                break
+            did_work = True
+        # admit new requests: embed the prompt and queue a chunked prefill
+        admitted = 0
+        while (
+            admitted < self.max_prefills_per_step and self._free_slots
+            and not self._pending.empty()
+        ):
+            try:
+                req = self._pending.get_nowait()
+            except queue.Empty:
+                break
+            try:
+                self._admit(req)
+            except Exception:  # noqa: BLE001 - fail the request, not the loop
+                logger.exception("admit failed for request %d", req.request_id)
+                if req.slot >= 0:
+                    self._free_slots.append(req.slot)
+                    req.slot = -1
+                req.out_queue.put(StreamEvent(token_id=None, finish_reason="error"))
+                self._requests.pop(req.request_id, None)
+            admitted += 1
+            did_work = True
+
+        if self._active:
+            try:
+                self._decode_tick()
+            except Exception:  # noqa: BLE001 - fail active requests, keep serving
+                logger.exception("decode step failed; failing active requests")
+                self._inflight.clear()  # results are worthless now
+                self._mask_cache = None
+                for slot, req in list(self._active.items()):
+                    req.out_queue.put(StreamEvent(token_id=None, finish_reason="error"))
+                    del self._active[slot]
+                    self._free_slots.append(slot)
+                    if self.paged:
+                        self._release_slot_pages(slot)
+                    self.cache_lens[slot].fill_(0)
+                    self._requests.pop(req.request_id, None)
+            did_work = True
+
+        # advance the head prefill job by up to prefill_tokens_per_tick
+        # tokens (several chunk dispatches)
+        if self._prefilling:
+            job = self._prefilling[0]
+            try:
+                budget = self.prefill_tokens_per_tick
+                finished = False
+                while budget > 0 and not finished:
+                    budget -= job.chunk
+                    finished = self._prefill_one_chunk(job)
+            except Exception:  # noqa: BLE001
+                logger.exception("prefill chunk failed for request %d", job.req.request_id)
+                self._prefilling.pop(0)
+                if self.paged:
+                    self._release_slot_pages(job.req.slot)
+                if job.prefix_src_slot >= 0:
+                    self._unpin(job.prefix_src_slot)
+                self._free_slots.append(job.req.slot)
+                job.req.slot = -1
+                job.req.out_queue.put(StreamEvent(token_id=None, finish_reason="error"))
+                self._requests.pop(job.req.request_id, None)
+            else:
+                if finished:
+                    self._prefilling.pop(0)
+            did_work = True
+
+        if not did_work:
+            # nothing to dispatch: deliver in-flight tokens now rather than
+            # sleeping on them
+            if self._inflight:
+                self._drain_decodes()
+                return
+            self._wake.wait(timeout=0.01)
+            self._wake.clear()
+
+    def _pad_request(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        batch = dict(batch)
+        T = batch["input_ids"].shape[-1]
+        Tp = _bucket(T, self.prefill_len_buckets)
+        for key in ("input_ids", "attention_mask"):
+            arr = np.asarray(batch[key]).reshape(1, -1)
+            batch[key] = np.pad(arr, ((0, 0), (0, Tp - T)))
+        if batch.get("audio_values") is not None:
+            mel = np.asarray(batch["audio_values"])
+            Tm = mel.shape[-1]
+            Tmp = _bucket(Tm, self.mel_len_buckets)
+            batch["audio_values"] = np.pad(mel, ((0, 0), (0, 0), (0, Tmp - Tm)))
+            if "audio_chunk_batch_idx" not in batch:
+                batch["audio_chunk_batch_idx"] = np.zeros((mel.shape[0],), np.int32)
+        return batch
+
+    def _admit(self, req: Request):
+        if req.cancelled:
+            self._finish_cancelled(req)
+            return
+        prompt_len = int(np.asarray(req.batch["attention_mask"]).sum())
+        # a prompt of max_seq_len - 1 is servable (one token, then
+        # cache_full); anything beyond that, or beyond the largest prefill
+        # bucket, cannot be prefilled
+        limit = min(self.max_seq_len - 1, self.prefill_len_buckets[-1])
+        if prompt_len > limit:
+            req.out_queue.put(StreamEvent(token_id=None, finish_reason="prompt_too_long"))
+            self._requests.pop(req.request_id, None)
+            return
+        # conversation-prefix reuse: prefer a retained slot whose cache
+        # already holds a long prefix of this prompt
+        req.token_ids, spans = _request_tokens_and_spans(req.batch)
+        if not req.audio_spans:  # submit() may have supplied fingerprints
+            req.audio_spans = spans
+        best_slot, best_m = None, 0
+        for slot_r, entry in self._retained.items():
+            if slot_r not in self._free_slots:
+                continue
+            m = _match_prefix(req.token_ids, req.audio_spans, entry)
+            if m > best_m:
+                best_m, best_slot = m, slot_r
+        start = 0
+        src_slot = -1
+        adopting = best_slot is not None and best_m >= self.min_reuse_tokens
+        if adopting:
+            # at least one suffix token must prefill to produce logits
+            start = min(best_m, prompt_len - 1)
+            adopting = start > 0
+
+        def defer_or_fail():
+            """Backpressure: requeue while in-flight work can still free
+            slots or pages; fail only when nothing could satisfy this."""
+            if self._active or self._prefilling:
+                self._pending.put(req)
+            else:
+                req.out_queue.put(StreamEvent(token_id=None, finish_reason="pool_exhausted"))
+                self._requests.pop(req.request_id, None)
+
+        if adopting and self.paged:
+            # copy-on-adopt: place the request on a different slot when one
+            # is free; the source's pages are read into the prefill scratch
+            # and published into the new slot's own pages, so the retained
+            # conversation survives for further reuse
+            cands = [s for s in self._free_slots if s not in self._pinned]
+            if not cands:
+                defer_or_fail()  # pins are transient; retry shortly
+                return
+            others = [s for s in cands if s != best_slot]
+            non_ret = [s for s in others if s not in self._retained]
+            if non_ret:
+                slot = non_ret[-1]
+            elif others:
+                slot = others[-1]
+            else:
+                slot = best_slot  # forced: fall back to transfer semantics
+            self._free_slots.remove(slot)
+            if slot != best_slot:
+                src_slot = best_slot
+        elif adopting:
+            slot = best_slot
+            self._free_slots.remove(slot)
+        else:
+            # prefer slots with no retained conversation, so one unrelated
+            # request does not evict a reusable prefix
+            cands = [s for s in self._free_slots if s not in self._pinned]
+            if not cands:
+                defer_or_fail()
+                return
+            non_retained = [s for s in cands if s not in self._retained]
+            slot = non_retained[-1] if non_retained else cands[-1]
+            self._free_slots.remove(slot)
+        if self.paged:
+            # reserve the request's full footprint up front against a
+            # snapshot of the destination slot; transfer mode (src_slot < 0)
+            # keeps the reused prefix pages, copy mode evicts the
+            # destination's own (unrelated) retained pages
+            if src_slot >= 0:
+                # pin before reserving: the reservation's eviction pass must
+                # not consume the adoption source
+                self._pin(src_slot)
+            keep = start if (adopting and src_slot < 0) else 0
+            saved_pages = list(self._slot_pages[slot])
+            saved_entry = self._retained.pop(slot, None)
+            self._trim_slot_pages(slot, keep)
+            total = min(prompt_len + req.max_tokens, self.max_seq_len)
+            ok = self._reserve_pages(slot, total)
+            if not ok and src_slot >= 0:
+                # the pool cannot hold the request and the pinned source:
+                # admit without reuse, evicting the source only if no other
+                # queued adopter still needs its pages
+                self._unpin(src_slot)
+                if src_slot not in self._pinned:
+                    self._retained.pop(src_slot, None)
+                    self._release_slot_pages(src_slot)
+                src_slot = -1
+                adopting = False
+                start = 0
+                ok = self._reserve_pages(slot, total)
+            if not ok:
+                # a transient failure must not destroy cached state: restore
+                # the snapshot (the freed pages are still on the free list)
+                for p in saved_pages[len(self._slot_pages[slot]):]:
+                    self._free_pages.remove(p)
+                self._slot_pages[slot] = saved_pages
+                self._table_np[slot, : len(saved_pages)] = saved_pages
+                self._table_np[slot, len(saved_pages):] = self.num_pages
+                self._push_table()
+                if saved_entry is not None:
+                    self._retained[slot] = saved_entry
+                elif self._slot_pages[slot]:
+                    self._release_slot_pages(slot)
+                if src_slot >= 0:
+                    self._unpin(src_slot)
+                self._free_slots.append(slot)
+                defer_or_fail()
+                return
+        else:
+            self._retained.pop(slot, None)  # the row gets overwritten now
+        try:
+            req.slot = slot
+            req.prompt_len = prompt_len
+            req.reused_prefix = start
+            self.reused_prefix_tokens += start
+            padded = self._pad_request(req.batch)
+            batch = {k: self._upload(np.asarray(padded[k])) for k in _EMBED_KEYS
+                     if padded.get(k) is not None}
+            # one call embeds the whole prompt (audio tower + projector +
+            # splice); the LLM prefill then proceeds in chunks
+            embeds = _embed_prompt(self.params, batch, cfg=self.cfg,
+                                   encoder_attn_impl=self.encoder_attn_impl)
+            T_padded = embeds.shape[1]
+            # short suffixes take a single chunk; longer ones chunk at
+            # prefill_chunk_tokens
+            chunk = min(self.prefill_chunk_tokens, T_padded - start)
+            if (T_padded - start) % chunk:
+                Tp = start + (-(-(T_padded - start) // chunk)) * chunk
+                embeds = F.pad(embeds, (0, 0, 0, Tp - T_padded))
+        except Exception:
+            if self.paged:
+                self._release_slot_pages(slot)
+            if src_slot >= 0:
+                self._unpin(src_slot)
+            self._free_slots.append(slot)  # the slot must not leak
+            req.slot = -1
+            raise
+        self._prefilling.append(
+            PrefillJob(
+                req=req, embeds=embeds, chunk=chunk, pos=start,
+                needs_scratch_load=self.paged and start > 0, prefix_src_slot=src_slot,
+            )
+        )
+
+    def _prefill_one_chunk(self, job: PrefillJob) -> bool:
+        """Run one prompt chunk through the LLM into the job's cache row.
+        Returns True when the prompt is fully prefilled (request active)."""
+        req = job.req
+        C = job.chunk
+        T_padded = job.embeds.shape[1]
+        start = job.pos
+        chunk = job.embeds[:, start: start + C]
+        if self.paged:
+            if job.needs_scratch_load:
+                # conversation reuse: the retained prefix lives in pages, the
+                # request's own (transfer) or a retained source slot's (copy)
+                src = job.prefix_src_slot if job.prefix_src_slot >= 0 else req.slot
+                _pages_to_scratch(self.cache, self.page_table[src][None], self._scratch)
+                job.needs_scratch_load = False
+            if job.prefix_src_slot >= 0:
+                # unpin keyed off the source field itself, so a pin can never
+                # outlive its job
+                self._unpin(job.prefix_src_slot)
+                job.prefix_src_slot = -1
+            logits_last = _prefill_chunk_scratch_impl(
+                self.params, self._scratch, chunk, start, req.prompt_len, cfg=self.cfg,
+                prefill_kernel=self.prefill_kernel,
+            )
+        else:
+            logits_last = _prefill_chunk_impl(
+                self.params, self.cache, chunk, req.slot, start, req.prompt_len, cfg=self.cfg,
+                prefill_kernel=self.prefill_kernel,
+            )
+        job.pos = start + C
+        self.stat_prefill_chunks += 1
+        if job.pos < min(req.prompt_len, T_padded):
+            return False
+        if self.paged:
+            # prompt complete: publish the scratch into the slot's pages
+            _scratch_to_pages(self.cache, self._scratch, self.page_table[req.slot][None])
+        # prompt complete: sample the first token and activate the slot. The
+        # token stays on the card (last_tokens takes it there); its fetch and
+        # emit ride the in-flight queue. (Scalars go to the card through
+        # fill_: an item assignment from a Python number would copy it from
+        # host memory and wait for the stream.)
+        samp1 = np.array([[req.temperature, req.top_k, req.top_p, req.min_p]], np.float32)
+        sampled, filtered = sampling_flags(samp1)
+        tok = _sample_slots(logits_last, self._upload(samp1), self.generator, sampled, filtered)
+        self.cache_lens[req.slot].fill_(req.prompt_len)
+        self.last_tokens[req.slot] = tok[0]
+        self._active[req.slot] = req
+        self._mask_cache = None  # active set changed
+        req.first_token_time = time.monotonic()
+        self._inflight.append(("first", tok, req))
+        return True
+
+    def _decode_tick(self):
+        """One scheduler decision: dispatch the next decode call (a K-step
+        block in steady state, else a single step) without waiting for its
+        tokens, and fetch the oldest in-flight result once more than
+        ``_max_inflight`` dispatches are outstanding.
+
+        Safety of the lag: a request that finishes inside an in-flight
+        dispatch keeps decoding wasted columns, which processing drops.
+        Cache writes stay in bounds because the dispatch guard reserves
+        (in-flight + next) steps of headroom against max_seq_len. Freed pages
+        that a later admission reuses cannot be corrupted by an in-flight
+        block's stray writes: the card runs one stream in order, so the
+        adopting request's later prefill publish lands after them, and
+        positions beyond cache_lens are never read."""
+        # blocks engage only in steady-state decode (no prefill work, nothing
+        # queued): under churn they would delay admissions by K steps
+        churn = bool(self._prefilling) or not self._pending.empty()
+        lag = sum(e[3] for e in self._inflight if e[0] == "decode")
+        cap = self.max_seq_len - 1 - max(
+            r.prompt_len + r.generated for r in self._active.values()
+        )
+        n_steps = 1
+        if self.decode_block_steps > 1 and not churn and cap - lag >= self.decode_block_steps:
+            # the capacity bound must hold for the whole block plus the
+            # in-flight lag; per-request token budgets need not (mid-block
+            # stop or length finishes drop the leftover columns)
+            n_steps = self.decode_block_steps
+        elif cap - lag < 1:
+            # near the cache edge the host view lags too far to prove the
+            # next write in bounds: retire in-flight work and re-decide
+            if not self._inflight:
+                # unreachable: _emit finishes any request reaching
+                # max_seq_len - 1, so the lag-free cap is always >= 1
+                logger.error("no cache headroom with nothing in flight")
+                return
+            self._drain_decodes()
+            if not self._active:
+                return
+            return self._decode_tick()
+        self._dispatch_decode(n_steps)
+        while len(self._inflight) > self._max_inflight:
+            self._process_oldest_decode()
+
+    def _dispatch_decode(self, n_steps: int):
+        """Queue one decode call (single step or K-step block) for the
+        current active set; its device result and the active-set snapshot go
+        on ``_inflight`` for lagged processing."""
+        t_disp = time.monotonic()
+        self.stat_decode_dispatches += 1
+        self.stat_decode_steps += n_steps
+        slots = sorted(self._active)
+        snapshot = [(s, self._active[s]) for s in slots]
+        key = (
+            tuple(slots),
+            tuple((r.temperature, r.top_k, r.top_p, r.min_p) for _, r in snapshot),
+        )
+        if self._mask_cache is None or self._mask_cache[0] != key:
+            active_mask = np.zeros((self.num_slots,), bool)
+            active_mask[slots] = True
+            # per-slot sampling parameters [temperature, top_k, top_p, min_p]
+            samp = np.zeros((self.num_slots, 4), np.float32)
+            samp[:, 2] = 1.0
+            for s, req in snapshot:
+                samp[s] = (req.temperature, req.top_k, req.top_p, req.min_p)
+            self._mask_cache = (
+                key, self._upload(active_mask), self._upload(samp), *sampling_flags(samp)
+            )
+        _, mask_dev, samp_dev, sampled, filtered = self._mask_cache
+        lm = self.params["language_model"]
+        tc = self.cfg.text_config
+        if n_steps == 1:
+            toks, self.cache_lens, self.last_tokens = _decode_all_slots(
+                lm, tc, self.cache, self.last_tokens, self.cache_lens, mask_dev, samp_dev,
+                self.generator, sampled, filtered,
+                page_table=self.page_table if self.paged else None,
+                decode_kernel=self.decode_kernel,
+            )
+        else:
+            block = _decode_block_paged if self.paged else _decode_block
+            extra = (self.page_table,) if self.paged else ()
+            toks, self.cache_lens, self.last_tokens = block(
+                lm, tc, self.cache, self.last_tokens, self.cache_lens, mask_dev, samp_dev,
+                self.generator, sampled, filtered, *extra,
+                n_steps=n_steps, attn_impl=self._seg_attn_impl,
+            )
+        self.stat_dispatch_s += time.monotonic() - t_disp
+        self._inflight.append(("decode", toks, snapshot, n_steps))
+
+    def _process_oldest_decode(self):
+        """Fetch the oldest in-flight result and emit its tokens. Slots whose
+        request finished in an earlier (lagged) dispatch, or was replaced by
+        a newer admission, drop their columns."""
+        t_fetch = time.monotonic()
+        try:
+            self._process_oldest_decode_inner()
+        finally:
+            # the read-back waits for the card: this is where the loop
+            # waits; everything else is dispatch
+            self.stat_fetch_wait_s += time.monotonic() - t_fetch
+
+    def _process_oldest_decode_inner(self):
+        entry = self._inflight.popleft()
+        if entry[0] == "first":
+            # a prefill-completion token (stream order holds: the queue is
+            # FIFO and this was appended before any decode of the slot)
+            _, tok, req = entry
+            tok_i = int(tok.cpu()[0])
+            if self._active.get(req.slot) is req:
+                self._emit(req, tok_i)
+            return
+        _, toks, snapshot, _ = entry
+        toks_np = toks.cpu().numpy()
+        if toks_np.ndim == 1:
+            toks_np = toks_np[:, None]
+        for s, req in snapshot:
+            for j in range(toks_np.shape[1]):
+                if self._active.get(s) is not req:
+                    break  # finished; later columns are dropped
+                self._emit(req, int(toks_np[s, j]))
+
+    def _drain_decodes(self):
+        while self._inflight:
+            self._process_oldest_decode()
+
+    def _cancel_one(self, rid: int):
+        req = self._requests.get(rid)
+        if req is None:
+            return  # already finished (or never existed)
+        req.cancelled = True  # pending requests drop at admission
+        for i, job in enumerate(self._prefilling):
+            if job.req.request_id == rid:
+                self._prefilling.pop(i)
+                if self.paged:
+                    self._release_slot_pages(req.slot)
+                if job.prefix_src_slot >= 0:
+                    self._unpin(job.prefix_src_slot)
+                self._free_slots.append(req.slot)
+                req.slot = -1
+                self._finish_cancelled(req)
+                return
+        if self._active.get(req.slot) is req:
+            del self._active[req.slot]
+            self._free_slots.append(req.slot)
+            if self.paged:
+                self._release_slot_pages(req.slot)
+            self.cache_lens[req.slot].fill_(0)
+            self._finish_cancelled(req)
+            return
+        # still pending (queued, no slot): acknowledge now; the stale queue
+        # entry drops at admission
+        self._finish_cancelled(req)
+
+    def _finish_cancelled(self, req: Request):
+        if req.request_id not in self._requests:
+            return  # already acknowledged
+        # event before untracking: stream() treats an untracked request with
+        # an empty queue as lost
+        req.out_queue.put(StreamEvent(token_id=None, finish_reason="cancelled"))
+        self._requests.pop(req.request_id, None)
+
+    def _emit(self, req: Request, token_id: int):
+        finish = None
+        if token_id in req.stop_token_ids:
+            finish = "stop"
+        else:
+            req.generated += 1
+            req.emitted_ids.append(token_id)
+            log = self.token_time_log  # read once: another thread may reset it
+            if log is not None:
+                log.append(time.monotonic())
+            req.out_queue.put(StreamEvent(token_id=token_id))
+            if req.generated >= req.max_tokens:
+                finish = "length"
+            if finish is None and req.prompt_len + req.generated >= self.max_seq_len - 1:
+                finish = "cache_full"
+        if finish is None:
+            return
+        req.finish_time = time.monotonic()
+        ttft = req.first_token_time - req.submit_time if req.first_token_time else None
+        req.out_queue.put(StreamEvent(token_id=None, finish_reason=finish, ttft_s=ttft))
+        if req.slot in self._active:
+            del self._active[req.slot]
+            self._free_slots.append(req.slot)
+            self.cache_lens[req.slot].fill_(0)
+            # retain the slot's cache for conversation-prefix reuse. Its rows
+            # hold the prompt and every emitted token on "stop" (the stop
+            # token was sampled but never written), else the prompt and all
+            # but the last emitted token (sampled, not yet written)
+            if req.token_ids is not None:
+                kept = req.emitted_ids if finish == "stop" else req.emitted_ids[:-1]
+                entry = RetainedCache(
+                    token_ids=np.concatenate(
+                        [req.token_ids, np.asarray(kept, req.token_ids.dtype)]
+                    ),
+                    audio_spans=req.audio_spans,
+                )
+                self._retained[req.slot] = entry
+                if self.paged:
+                    # keep only the pages covering resident tokens: the
+                    # decode reserve was never written
+                    self._trim_slot_pages(req.slot, len(entry.token_ids))
+            elif self.paged:
+                self._release_slot_pages(req.slot)
+        self._requests.pop(req.request_id, None)
+
+
+# --------------------------------------------------------------------------
+# device programs (eager; caches are updated in place)
+# --------------------------------------------------------------------------
+
+
+def _embed_prompt(params, batch, *, cfg: UltravoxConfig, encoder_attn_impl: str = "xla"):
+    """Prompt embeddings (1, T, D) with the audio embeddings spliced in: the
+    audio tower runs once per request; the LLM prefill is chunked."""
+    return uv.ultravox_embed(params, cfg, batch["input_ids"], batch,
+                             encoder_attn_impl=encoder_attn_impl)
+
+
+def _prefill_chunk_impl(
+    params, cache, embeds_chunk, slot: int, start_pos: int, prompt_len: int, *, cfg,
+    prefill_kernel: bool = False,
+):
+    """Prefill one chunk of prompt embeddings into row ``slot`` of the slot
+    cache (through a view of the row, so the writes land in the cache).
+    Returns the logits of the last valid prompt position (meaningful on the
+    final chunk)."""
+    row = decoder_lib.KVCache(
+        k=cache.k[:, slot: slot + 1], v=cache.v[:, slot: slot + 1], spare=cache.spare
+    )
+    return _prefill_chunk_scratch_impl(
+        params, row, embeds_chunk, start_pos, prompt_len, cfg=cfg, prefill_kernel=prefill_kernel,
+    )
+
+
+def _prefill_chunk_scratch_impl(
+    params, scratch, embeds_chunk, start_pos: int, prompt_len: int, *, cfg,
+    prefill_kernel: bool = False,
+):
+    """One prompt chunk (1, C, D) at positions [start_pos, start_pos + C)
+    into a one-row contiguous cache: a slot row, or paged mode's scratch.
+    Padding past prompt_len is written but masked by the valid length (and
+    later by cache_lens)."""
+    tc = cfg.text_config
+    C = embeds_chunk.shape[1]
+    dev = embeds_chunk.device
+    positions = (start_pos + torch.arange(C, device=dev))[None]
+    valid = min(start_pos + C, prompt_len)
+    hidden, _ = decoder_lib.decoder_forward(
+        params["language_model"], tc,
+        inputs_embeds=embeds_chunk,
+        positions=positions,
+        kv_valid_len=torch.full((1,), valid, dtype=torch.int32, device=dev),
+        cache=scratch,
+        write_pos=torch.full((1,), start_pos, dtype=torch.int32, device=dev),
+        return_hidden=True,
+        prefill_kernel=prefill_kernel,
+    )
+    last_idx = min(max(prompt_len - 1 - start_pos, 0), C - 1)
+    return decoder_lib.compute_logits(params["language_model"], tc, hidden[:, last_idx])
+
+
+def _pages_to_scratch(pool, table_row, scratch):
+    """Load a retained prefix from the pool into the contiguous scratch: the
+    request's pages in table order, as many as the scratch holds. Positions
+    past the resident tokens are garbage that prompt_len masks."""
+    Ts = scratch.max_len
+    P, ps = pool.num_pages, pool.page_size
+    n_need = -(-Ts // ps)
+    ids = table_row[0, :n_need].long().clamp(0, P - 1)
+    L, Hkv, Dh = pool.k.shape[0], pool.k.shape[3], pool.k.shape[4]
+    for src, dst in ((pool.k, scratch.k), (pool.v, scratch.v)):
+        pages = src[:, ids].reshape(L, n_need * ps, Hkv, Dh)
+        dst[:, 0, :Ts] = pages[:, :Ts]
+
+
+def _scratch_to_pages(pool, scratch, table_row):
+    """Scatter the scratch row into the pool as whole pages through the
+    request's table row. Sentinel (unallocated) entries go to the write-only
+    page; reserved decode pages beyond the prompt take scratch garbage,
+    which decode overwrites before it becomes visible."""
+    L, _, ps, Hkv, Dh = pool.k.shape
+    P = pool.num_pages
+    n_per = table_row.shape[1]
+    Ts = scratch.max_len
+    ids = table_row[0].long().clamp(0, P)
+    for dst, src in ((pool.k, scratch.k), (pool.v, scratch.v)):
+        s = src[:, 0, :Ts]
+        pad = n_per * ps - Ts
+        s = F.pad(s, (0, 0, 0, 0, 0, pad)) if pad > 0 else s[:, : n_per * ps]
+        dst[:, ids] = s.reshape(L, n_per, ps, Hkv, Dh).to(dst.dtype)
+
+
+def _sample_slots(logits, samp, generator, sampled: bool, filtered: bool):
+    """Per-slot sampling: greedy where temperature == 0, with per-slot
+    top-k / top-p / min-p; the branches are the host's."""
+    return sample_slots(logits, samp, generator, sampled=sampled, filtered=filtered)
+
+
+def _decode_all_slots(
+    lm, tc, cache, tokens, cache_lens, active_mask, samp, generator, sampled: bool,
+    filtered: bool, *, page_table=None, decode_kernel: bool = False,
+):
+    """One decode step for every slot with per-slot sampling. Inactive slots
+    keep their length and last token; their logits are computed and
+    ignored, and their k/v writes go to spare storage (a freed slot's length
+    is 0, so a live write would clobber position 0 of its retained cache).
+    Returns (sampled (B,), new lengths, new last tokens)."""
+    if page_table is not None:
+        max_len = page_table.shape[1] * cache.page_size
+    else:
+        max_len = cache.max_len
+    embeds = decoder_lib.embed_lookup(lm, tokens)[:, None]
+    write_pos = torch.where(active_mask, cache_lens, max_len)
+    logits, _ = decoder_lib.decoder_forward(
+        lm, tc,
+        inputs_embeds=embeds,
+        positions=cache_lens[:, None],
+        kv_valid_len=cache_lens + 1,
+        cache=cache,
+        page_table=page_table,
+        write_pos=write_pos,
+        decode_kernel=decode_kernel,
+    )
+    toks = _sample_slots(logits[:, 0], samp, generator, sampled, filtered)
+    new_lens = torch.where(active_mask, cache_lens + 1, cache_lens)
+    new_last = torch.where(active_mask, toks, tokens)
+    return toks, new_lens, new_last
+
+
+def _decode_block(
+    lm, tc, cache, tokens, cache_lens, active_mask, samp, generator, sampled: bool,
+    filtered: bool, *, n_steps: int, attn_impl: str = "xla",
+):
+    """``n_steps`` decode steps for every slot in one dispatch: the
+    segmented scan against the slot cache (read-only; new k/v go to a small
+    tail), then the tail is scattered back at per-slot offsets. Inactive
+    slots' tail writes go to the spare positions. Returns (tokens (B,
+    n_steps), new lengths, new last tokens)."""
+    toks, tail = decoder_lib.segmented_decode_scan(
+        lm, tc, cache, cache_lens, tokens, n_steps=n_steps,
+        sample_fn=lambda logits: _sample_slots(logits, samp, generator, sampled, filtered),
+        return_tail=True, attn_impl=attn_impl,
+    )
+    B = tokens.shape[0]
+    dev = tokens.device
+    bidx = torch.arange(B, device=dev)[:, None]
+    steps = torch.arange(n_steps, device=dev)[None]
+    tpos = torch.where(active_mask[:, None], cache_lens.long()[:, None] + steps,
+                       cache.max_len + steps).clamp(max=cache.k.shape[2] - 1)
+    cache.k[:, bidx, tpos] = tail.k
+    cache.v[:, bidx, tpos] = tail.v
+    new_toks = toks[:, 1:]
+    new_lens = torch.where(active_mask, cache_lens + n_steps, cache_lens)
+    new_last = torch.where(active_mask, new_toks[:, -1], tokens)
+    return new_toks, new_lens, new_last
+
+
+def _paged_view(pool, page_table):
+    """Contiguous (L, B, n_per * page_size, Hkv, Dh) views of every row's
+    pages: the ``gather_pages`` kernel for CUDA tensors, its plain version
+    (the clamped ``index_select``) for CPU ones."""
+    k, v = pool.pool()
+    return gather_pages(k, v, page_table)
+
+
+def _decode_block_paged(
+    lm, tc, pool, tokens, cache_lens, active_mask, samp, generator, sampled: bool,
+    filtered: bool, page_table, *, n_steps: int, attn_impl: str = "xla",
+):
+    """Paged multi-step decode: ``n_steps`` steps in one dispatch. With
+    ``attn_impl="kernel"`` the paged segment kernel reads each row's live
+    pages directly; otherwise the pool's pages are gathered once per block
+    into a contiguous view and the scan runs against it as in slot mode.
+    Either way the tail publishes into the pool as one per-token page
+    scatter at the end; tokens past a reservation and inactive slots go to
+    the write-only page."""
+    P, ps = pool.num_pages, pool.page_size
+    S = page_table.shape[1] * ps
+    if attn_impl == "kernel":
+        prompt_cache, scan_table = pool, page_table
+    else:
+        vk, vv = _paged_view(pool, page_table)
+        prompt_cache, scan_table = decoder_lib.KVCache(k=vk, v=vv), None
+    toks, tail = decoder_lib.segmented_decode_scan(
+        lm, tc, prompt_cache, cache_lens, tokens, n_steps=n_steps,
+        sample_fn=lambda logits: _sample_slots(logits, samp, generator, sampled, filtered),
+        return_tail=True, attn_impl=attn_impl, page_table=scan_table,
+    )
+    write_pos = torch.where(active_mask, cache_lens, S)
+    page, off = decoder_lib.paged_write_indices(page_table, write_pos, n_steps, ps, P)
+    pool.k[:, page, off] = tail.k.to(pool.k.dtype)
+    pool.v[:, page, off] = tail.v.to(pool.v.dtype)
+    new_toks = toks[:, 1:]
+    new_lens = torch.where(active_mask, cache_lens + n_steps, cache_lens)
+    new_last = torch.where(active_mask, new_toks[:, -1], tokens)
+    return new_toks, new_lens, new_last

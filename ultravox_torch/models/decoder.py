@@ -2,10 +2,13 @@
 over a parameter dict.
 
 Parameters keep the JAX package's layout (per-layer weights stacked on a
-leading axis, kernels as (in, out)); the KV cache is (L, B, S_max, Hkv, Dh).
-Unlike the JAX package's immutable arrays, the cache is updated in place:
-``decoder_forward`` writes the new k/v rows into the cache it is given and
-returns that same object.
+leading axis, kernels as (in, out)); the KV cache is (L, B, S_max, Hkv, Dh),
+or a ``PagedKVCache`` pool of pages read through a (B, pages_per_seq) page
+table. Unlike the JAX package's immutable arrays, the cache is updated in
+place: ``decoder_forward`` writes the new k/v rows into the cache it is
+given and returns that same object. Writes the JAX package drops with
+``mode="drop"`` land in write-only storage instead (see ``KVCache.spare``
+and ``PagedKVCache``).
 
 Family differences are config flags, as in the JAX package: gemma's
 plus-one RMSNorm, embedding scaling, post-attention/FFN norms, qk-norm,
@@ -20,6 +23,7 @@ cache plus a small carried tail of the new tokens' k/v.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -31,7 +35,14 @@ from ultravox_torch.models.lora import proj_apply
 from ultravox_torch.ops.attention import NEG_INF, mha
 from ultravox_torch.ops.kernels.decode_attention import decode_attention
 from ultravox_torch.ops.kernels.fused_attention import fused_attention
-from ultravox_torch.ops.kernels.segment_attention import segment_tail_attention
+from ultravox_torch.ops.kernels.paged_attention import (
+    gather_pages_plain,
+    paged_decode_attention,
+)
+from ultravox_torch.ops.kernels.segment_attention import (
+    paged_segment_tail_attention,
+    segment_tail_attention,
+)
 from ultravox_torch.ops.norms import rms_norm
 from ultravox_torch.ops.rope import apply_rope, rope_cos_sin, rope_frequencies
 
@@ -40,22 +51,112 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass
 class KVCache:
-    """Static-shape per-layer KV cache: k, v of (L, B, S_max, Hkv, Dh)."""
+    """Static-shape per-layer KV cache: k, v of (L, B, S_max + spare, Hkv, Dh).
+
+    ``spare`` trailing positions of each row take the writes that the JAX
+    package drops (``mode="drop"``, positions >= S_max): such a write lands
+    there and no read ever sees it, so no write needs a host-side check. A
+    cache without spare positions (``spare=0``) drops them by selecting the
+    in-range writes, which reads a count back from the card."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    spare: int = 0
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2] - self.spare
+
+    def live(self, l: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Views of the S_max live positions: (L, B, S_max, Hkv, Dh), or
+        layer ``l``'s (B, S_max, Hkv, Dh)."""
+        S = self.max_len
+        if l is None:
+            return self.k[:, :, :S], self.v[:, :, :S]
+        return self.k[l, :, :S], self.v[l, :, :S]
+
+    @classmethod
+    def zeros(cls, cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None,
+              spare: int = 0):
+        shape = (cfg.num_layers, batch, max_len + spare, cfg.num_kv_heads, cfg.head_dim)
+        return cls(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+            spare=spare,
+        )
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Paged per-layer KV cache: pools of ``num_pages`` pages of ``page_size``
+    tokens, shared by every sequence through an external (B, pages_per_seq)
+    int32 page table: entry i of row b is the pool page of logical block i
+    of sequence b, and unallocated entries hold the sentinel ``num_pages``.
+
+    ``k`` and ``v`` are (L, num_pages + 1, page_size, Hkv, Dh): the last
+    page is write-only. Every write the JAX package drops (sentinel entries,
+    positions past the table, inactive rows) lands in it; every read clamps
+    page ids to ``num_pages - 1``, as the JAX package's gathers clip, so it
+    is never read. ``pool()`` gives the (L, num_pages, ...) views."""
 
     k: torch.Tensor
     v: torch.Tensor
 
     @property
-    def max_len(self) -> int:
+    def page_size(self) -> int:
         return self.k.shape[2]
 
+    @property
+    def num_pages(self) -> int:
+        return self.k.shape[1] - 1
+
+    @property
+    def max_len(self) -> int:
+        # tokens resident if one sequence owned the whole pool
+        return self.num_pages * self.page_size
+
+    def pool(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        P = self.num_pages
+        return self.k[:, :P], self.v[:, :P]
+
     @classmethod
-    def zeros(cls, cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    def zeros(cls, cfg: DecoderConfig, num_pages: int, page_size: int, dtype=torch.bfloat16,
+              device=None):
+        shape = (cfg.num_layers, num_pages + 1, page_size, cfg.num_kv_heads, cfg.head_dim)
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
         )
+
+
+def paged_write_indices(
+    page_table: torch.Tensor,  # (B, pages_per_seq) int32, sentinel-padded
+    write_pos: torch.Tensor,  # (B,) first logical position to write
+    T: int,
+    page_size: int,
+    num_pages: int,
+):
+    """(write_page, write_off), each (B, T) int64: pool page and in-page
+    offset of the T new tokens. Out-of-range logical positions and positions
+    in unallocated table entries go to the write-only page ``num_pages``."""
+    pos = write_pos.long()[:, None] + torch.arange(T, device=write_pos.device)[None]
+    return paged_positions_to_indices(page_table, pos, page_size, num_pages)
+
+
+def paged_positions_to_indices(
+    page_table: torch.Tensor,  # (B, pages_per_seq) int32, sentinel-padded
+    pos: torch.Tensor,  # (B, T) logical positions; negative = drop
+    page_size: int,
+    num_pages: int,
+):
+    """Arbitrary-position form of :func:`paged_write_indices`."""
+    n_per = page_table.shape[1]
+    pos = pos.long()
+    blk = torch.div(pos, page_size, rounding_mode="floor")
+    in_range = (pos >= 0) & (blk < n_per)
+    pid = torch.gather(page_table.long(), 1, blk.clamp(0, n_per - 1))
+    valid = in_range & (pid >= 0) & (pid < num_pages)
+    return torch.where(valid, pid, num_pages), torch.remainder(pos, page_size)
 
 
 def check_supported(params: Params) -> None:
@@ -168,13 +269,19 @@ def _scale_embeddings(cfg: DecoderConfig, x: torch.Tensor) -> torch.Tensor:
     return x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype)
 
 
-def _inv_freqs(cfg: DecoderConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
+@functools.lru_cache(maxsize=None)
+def _inv_freqs(cfg: DecoderConfig, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rope inverse frequencies of the global and the local layers (the same
-    tensor when the config has no local rope base)."""
-    inv_g = torch.as_tensor(rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling), device=device)
-    if cfg.rope_local_base_freq is None:
-        return inv_g, inv_g
-    return inv_g, torch.as_tensor(rope_frequencies(cfg.head_dim, cfg.rope_local_base_freq), device=device)
+    tensor when the config has no local rope base). Made once per config and
+    device: a copy from host memory waits for the card's queue to drain, so
+    it must not run on every step."""
+    with torch.inference_mode(False):
+        inv_g = torch.as_tensor(
+            rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling), device=device)
+        if cfg.rope_local_base_freq is None:
+            return inv_g, inv_g
+        return inv_g, torch.as_tensor(
+            rope_frequencies(cfg.head_dim, cfg.rope_local_base_freq), device=device)
 
 
 def _window(cfg: DecoderConfig, is_local: bool) -> int:
@@ -287,12 +394,16 @@ def fuse_inference_params(params: Params, cfg: DecoderConfig) -> Params:
 
 def _cache_slots(cache: KVCache, write_pos: torch.Tensor, T: int):
     """Where ``_write_cache`` puts a step's T tokens: (batch index, slot,
-    token index into the flattened (B * T) step) of each token that lands
-    inside the cache. Positions past S_max drop, as in the reference."""
+    token index into the flattened (B * T) step). Positions past S_max drop,
+    as in the reference: into the spare positions when the cache has them,
+    else by selecting the in-range tokens (one host sync per forward)."""
     B = write_pos.shape[0]
     dev = write_pos.device
     tpos = (write_pos.long()[:, None] + torch.arange(T, device=dev)[None]).flatten()
-    sel = torch.nonzero(tpos < cache.max_len).squeeze(1)  # one host sync per forward
+    if cache.spare:
+        flat = torch.arange(B * T, device=dev)
+        return flat // T, tpos.clamp(max=cache.k.shape[2] - 1), flat
+    sel = torch.nonzero(tpos < cache.max_len).squeeze(1)
     return sel // T, tpos[sel], sel
 
 
@@ -311,7 +422,8 @@ def decoder_forward(
     inputs_embeds: Optional[torch.Tensor] = None,  # (B, T, D)
     positions: torch.Tensor,  # (B, T) absolute positions
     kv_valid_len: torch.Tensor,  # (B,) valid key count incl. the current tokens
-    cache: Optional[KVCache] = None,
+    cache: Optional[KVCache | PagedKVCache] = None,
+    page_table: Optional[torch.Tensor] = None,  # (B, pages_per_seq), with a PagedKVCache
     write_pos: Optional[torch.Tensor] = None,  # (B,) cache write offset
     return_hidden: bool = False,
     decode_kernel: bool = False,
@@ -323,20 +435,32 @@ def decoder_forward(
     one it is causal self-attention over the T inputs.
 
     ``decode_kernel`` runs T=1 steps into a cache through the
-    ``decode_attention`` kernel (valid length and each layer's window from
-    scalars). ``prefill_kernel`` runs multi-token steps into a cache through
+    ``decode_attention`` kernel, or the ``paged_decode_attention`` kernel for
+    a PagedKVCache (valid length and each layer's window from scalars).
+    ``prefill_kernel`` runs multi-token steps into a contiguous cache through
     the ``fused_attention`` kernel (causal, valid-length and absolute-position
     masks) when the config has no sliding window. Neither kernel softcaps, so
     both are taken only without an attention softcap; other steps use
-    ``mha`` with an additive bias."""
+    ``mha`` with an additive bias, over the gathered (pages_per_seq *
+    page_size) view of each row's pages for a PagedKVCache."""
     x = embed_lookup(params, input_ids) if inputs_embeds is None else inputs_embeds
     x = _scale_embeddings(cfg, x)
     B, T, _ = x.shape
-    kv_len = cache.max_len if cache is not None else T
+    paged = isinstance(cache, PagedKVCache)
+    if paged:
+        if page_table is None:
+            raise ValueError("a PagedKVCache needs a page_table")
+        kv_len = page_table.shape[1] * cache.page_size
+        write_page, write_off = paged_write_indices(
+            page_table, write_pos, T, cache.page_size, cache.num_pages
+        )
+    else:
+        kv_len = cache.max_len if cache is not None else T
     no_softcap = cfg.attn_logit_softcapping is None
     use_decode_kernel = decode_kernel and cache is not None and T == 1 and no_softcap
     use_prefill_kernel = (
-        prefill_kernel and cache is not None and T > 1 and cfg.sliding_window is None and no_softcap
+        prefill_kernel and cache is not None and not paged and T > 1
+        and cfg.sliding_window is None and no_softcap
     )
     if use_decode_kernel:
         lengths = kv_valid_len.to(torch.int32).contiguous()
@@ -347,14 +471,25 @@ def decoder_forward(
     rope_g = rope_cos_sin(positions, inv_g)
     rope_l = rope_cos_sin(positions, inv_l) if inv_l is not inv_g else rope_g
     layers = params["layers"]
-    slots = _cache_slots(cache, write_pos, T) if cache is not None else None
+    slots = _cache_slots(cache, write_pos, T) if cache is not None and not paged else None
 
     for l in range(cfg.num_layers):
 
         def attend(q, k, v):
-            if cache is not None:
+            if paged:
+                cache.k[l, write_page, write_off] = k.to(cache.k.dtype)
+                cache.v[l, write_page, write_off] = v.to(cache.v.dtype)
+                P = cache.num_pages
+                pool_k, pool_v = cache.k[l, :P], cache.v[l, :P]
+                if use_decode_kernel:
+                    return paged_decode_attention(
+                        q[:, 0], pool_k, pool_v, page_table, lengths, _window(cfg, local[l]),
+                        scale=cfg.attn_scale,
+                    )[:, None]
+                k, v = gather_pages_plain(pool_k, page_table), gather_pages_plain(pool_v, page_table)
+            elif cache is not None:
                 _write_cache(cache, l, k, v, slots)
-                k, v = cache.k[l], cache.v[l]
+                k, v = cache.live(l)
             if use_decode_kernel:
                 return decode_attention(
                     q[:, 0], k, v, lengths, _window(cfg, local[l]), scale=cfg.attn_scale
@@ -407,22 +542,32 @@ def _merged_attention(q, kp, vp, bias_p, kt, vt, bias_t, scale, softcap=None):
 
 
 def _segment_kernel_attention(
-    cfg: DecoderConfig, q, prompt_cache: KVCache, layer: int, prompt_lens, tail_k_l, tail_v_l,
-    written, is_local: bool,
+    cfg: DecoderConfig, q, prompt_cache, page_table, layer: int, prompt_lens, tail_k_l,
+    tail_v_l, written, is_local: bool,
 ):
     """One layer's segmented attention through the ``segment_tail_attention``
     kernel, which reads the stacked cache at ``layer`` in place (no per-layer
-    slice is made). q is (B, T, H, D)."""
+    slice is made), or with a page table through
+    ``paged_segment_tail_attention``, which reads the stacked pool's pages.
+    q is (B, T, H, D)."""
+    window = _window(cfg, is_local)
+    if page_table is not None:
+        pool_k, pool_v = prompt_cache.pool()
+        return paged_segment_tail_attention(
+            q, pool_k, pool_v, layer, page_table, prompt_lens, tail_k_l, tail_v_l, written,
+            window, scale=cfg.attn_scale,
+        )
+    k, v = prompt_cache.live()
     return segment_tail_attention(
-        q, prompt_cache.k, prompt_cache.v, layer, prompt_lens, tail_k_l, tail_v_l, written,
-        _window(cfg, is_local), scale=cfg.attn_scale,
+        q, k, v, layer, prompt_lens, tail_k_l, tail_v_l, written, window, scale=cfg.attn_scale,
     )
 
 
 def segmented_decode_scan(
     params: Params,
     cfg: DecoderConfig,
-    prompt_cache: KVCache,  # (L, B, S, Hkv, Dh), read-only here
+    prompt_cache,  # KVCache (L, B, S, Hkv, Dh), read-only here, or with
+    # ``page_table`` a PagedKVCache pool read by the kernel
     prompt_lens: torch.Tensor,  # (B,) valid prompt positions in the cache
     first_tokens: torch.Tensor,  # (B,) int32, already sampled
     *,
@@ -430,7 +575,7 @@ def segmented_decode_scan(
     sample_fn: Callable[[torch.Tensor], torch.Tensor],  # logits (B, V) -> (B,) int32
     return_tail: bool = False,
     attn_impl: str = "xla",  # "kernel" = the segment_tail_attention kernel
-    page_table: Optional[torch.Tensor] = None,
+    page_table: Optional[torch.Tensor] = None,  # kernel-only paged mode
 ):
     """``n_steps`` decode steps with segmented KV. The prompt cache is only
     read; each step's new k/v go to slot ``step`` of an (L, B, n_steps, Hkv,
@@ -440,19 +585,31 @@ def segmented_decode_scan(
 
     ``attn_impl="xla"`` attends with ``_merged_attention`` (additive masks,
     probabilities rounded to v's dtype); ``"kernel"`` runs each layer's
-    attention in ``segment_tail_attention``, which does not softcap.
+    attention in ``segment_tail_attention``, which does not softcap, or with
+    ``page_table`` in ``paged_segment_tail_attention``, which reads each
+    row's live pool pages (the XLA form takes a gathered contiguous view
+    instead, so a page table with ``attn_impl="xla"`` raises ValueError).
 
     Returns the (B, n_steps + 1) token matrix: column 0 is ``first_tokens``,
     then the sampled tokens. With ``return_tail`` also the tail KVCache,
     whose slot t holds the k/v of token column t."""
-    if page_table is not None:
-        raise NotImplementedError("paged segmented decode is slice 3")
     if attn_impl not in ("xla", "kernel"):
         raise ValueError(f"unknown attn_impl={attn_impl!r}")
     use_kernel = attn_impl == "kernel"
     if use_kernel and cfg.attn_logit_softcapping is not None:
         raise ValueError("the segment kernel does not softcap; use attn_impl='xla'")
-    L, B, S, Hkv, Dh = prompt_cache.k.shape
+    if page_table is not None:
+        if not use_kernel:
+            raise ValueError(
+                "the paged segmented scan needs attn_impl='kernel'; the XLA form takes a "
+                "gathered contiguous view"
+            )
+        L, _, _, Hkv, Dh = prompt_cache.k.shape
+        B = first_tokens.shape[0]
+        S = page_table.shape[1] * prompt_cache.page_size
+    else:
+        L, B, _, Hkv, Dh = prompt_cache.k.shape
+        S = prompt_cache.max_len
     dev = prompt_cache.k.device
     local = is_local_layer(cfg)
     inv_g, inv_l = _inv_freqs(cfg, dev)
@@ -498,11 +655,13 @@ def segmented_decode_scan(
                 tail.v[l, :, i] = v[:, 0]
                 if use_kernel:
                     return _segment_kernel_attention(
-                        cfg, q, prompt_cache, l, lens, tail.k[l], tail.v[l], written[i], is_loc
+                        cfg, q, prompt_cache, page_table, l, lens, tail.k[l], tail.v[l],
+                        written[i], is_loc,
                     )
                 b_p, b_t = biases[is_loc and cfg.sliding_window is not None]
+                kp, vp = prompt_cache.live(l)
                 return _merged_attention(
-                    q, prompt_cache.k[l], prompt_cache.v[l], b_p, tail.k[l], tail.v[l], b_t,
+                    q, kp, vp, b_p, tail.k[l], tail.v[l], b_t,
                     cfg.attn_scale, softcap=cfg.attn_logit_softcapping,
                 )
 

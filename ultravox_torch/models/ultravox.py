@@ -38,7 +38,9 @@ def splice_audio_embeds(
 ) -> torch.Tensor:
     """Overwrite each chunk's placeholder span with its first
     ``audio_token_len`` audio embeddings. Destinations outside the batch are
-    dropped. The reference writes the same values through a one-hot matmul."""
+    dropped: they land in one spare row past the batch, so the write needs no
+    host-side selection (which would wait for the card). The reference
+    writes the same values through a one-hot matmul."""
     B, T, D = inputs_embeds.shape
     N, Ta, _ = audio_embeds.shape
     dev = inputs_embeds.device
@@ -49,10 +51,9 @@ def splice_audio_embeds(
         + t[None]
     )
     valid = (t[None] < audio_token_len.long()[:, None]) & (dest >= 0) & (dest < B * T)
-    out = inputs_embeds.reshape(B * T, D).clone()
-    src = audio_embeds.reshape(N * Ta, D)[valid.reshape(-1)]
-    out[dest[valid]] = src.to(out.dtype)
-    return out.reshape(B, T, D)
+    out = torch.cat([inputs_embeds.reshape(B * T, D), inputs_embeds.new_zeros((1, D))])
+    out[torch.where(valid, dest, B * T).reshape(-1)] = audio_embeds.reshape(N * Ta, D).to(out.dtype)
+    return out[: B * T].reshape(B, T, D)
 
 
 def prepare_audio_embeds(

@@ -24,7 +24,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("layer_norm", "ln_qkv_head", "attention", "decode_attention", "segment_attention")
+SOURCES = (
+    "layer_norm", "ln_qkv_head", "attention", "decode_attention", "segment_attention",
+    "paged_attention", "paged_gather",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -33,8 +36,10 @@ NVCC_FLAGS = (
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature of each library's entry point uv_<name> (see the .cu sources)
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# the entry points of each library that has more than its uv_<name>
+ENTRY_POINTS = {"segment_attention": ("segment_attention", "paged_segment_attention")}
+# C signature of each entry point uv_<entry> (see the .cu sources)
 _SIGNATURES = {
     "layer_norm": (_P, _P, _P, _P, ctypes.c_longlong, _I, _F, _I, _P),
     "ln_qkv_head": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
@@ -50,6 +55,15 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _P, _P, _I,
         _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ),
+    "paged_segment_attention": (
+        _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _P, _P, _P, _I,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+    ),
+    "paged_attention": (
+        _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _P, _P, _I,
+        _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+    ),
+    "paged_gather": (_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P),
 }
 
 
@@ -114,9 +128,10 @@ def library(name: str) -> ctypes.CDLL:
     if not path.exists():
         build_all([name])
     lib = ctypes.CDLL(str(path))
-    fn = getattr(lib, f"uv_{name}")
-    fn.argtypes = list(_SIGNATURES[name])
-    fn.restype = ctypes.c_int
+    for entry in ENTRY_POINTS.get(name, (name,)):
+        fn = getattr(lib, f"uv_{entry}")
+        fn.argtypes = list(_SIGNATURES[entry])
+        fn.restype = ctypes.c_int
     getattr(lib, f"uv_{name}_error_string").restype = ctypes.c_char_p
     getattr(lib, f"uv_{name}_error_string").argtypes = [ctypes.c_int]
     return lib

@@ -1,7 +1,14 @@
 // Attention of a few queries per row against a KV cache (and an optional
-// carried tail), with an online softmax. Shared by decode_attention.cu and
-// segment_attention.cu, which each wrap `attend` in their own __global__ so
-// the two show under their own names in a trace.
+// carried tail), with an online softmax. Shared by decode_attention.cu,
+// segment_attention.cu and paged_attention.cu, which each wrap `attend` in
+// their own __global__ so each shows under its own name in a trace.
+//
+// The cache is either contiguous per row (key j of row b at b * c_b + j * c_s)
+// or paged: with a page table, key j of row b sits in pool page
+// min(table[b, j / page_size], num_pages - 1) at row j % page_size (page
+// stride c_p). The table is read per key, not per tile, so any page size
+// works, and sentinel (unallocated) ids clamp into the pool as the TPU
+// kernels clamp them (ops/pallas/paged_attention.py:73-78).
 //
 // A block owns one (batch row, kv head) and up to max_cols<D>() "columns",
 // one per (query t, query head g of the group): the G = H / Hkv query heads
@@ -43,6 +50,11 @@ struct Params {
   long long c_l, c_b, c_s, c_h, t_b, t_s, t_h;
   const int* lengths;  // (B,) valid cache entries
   const int* written;  // (B,) tail slots filled before these queries, or null
+  // paged cache: (B, n_per) int32 page ids, or null for a contiguous cache;
+  // then the cache strides are layer c_l, page c_p, row in page c_s, head c_h
+  const int* table;
+  long long c_p;
+  int n_per, page_size, num_pages;
   int layer, window, T, G, S, Ts;
   // 1: the query sits at position n - 1 (lengths count it, decode);
   // 0: query t sits at n + written + t (segmented decode, after the prompt)
@@ -84,17 +96,19 @@ __device__ __forceinline__ void attend(const Params& p) {
 #pragma unroll
   for (int r = 0; r < kPairs; ++r) acc[r] = 0.f;
 
-  // Fold keys [lo, hi) of one segment (rows `st` elements apart) into the
-  // columns' running max, sum and accumulator. visible(column, key).
-  auto fold = [&](const T* kb, const T* vb, long long st, int lo, int hi, auto visible) {
+  // Fold keys [lo, hi) of one segment into the columns' running max, sum
+  // and accumulator. row(j): element offset of key j from kb / vb;
+  // visible(column, key).
+  auto fold = [&](const T* kb, const T* vb, auto row, int lo, int hi, auto visible) {
     for (int k0 = lo; k0 < hi; k0 += BK) {
       const int len = min(BK, hi - k0);
       __syncthreads();  // the previous tile is consumed (and Qs is written)
       for (int e = tid; e < BK * D; e += kThreads) {
         const int j = e / D, d = e % D;
         const bool in = j < len;
-        Ks[j * (D + 1) + d] = in ? to_f32(kb[(k0 + j) * st + d]) : 0.f;
-        Vs[j * D + d] = in ? to_f32(vb[(k0 + j) * st + d]) : 0.f;
+        const long long off = in ? row(k0 + j) + d : 0;
+        Ks[j * (D + 1) + d] = in ? to_f32(kb[off]) : 0.f;
+        Vs[j * D + d] = in ? to_f32(vb[off]) : 0.f;
       }
       __syncthreads();
       // one warp per column: lane j scores key k0 + j
@@ -133,10 +147,22 @@ __device__ __forceinline__ void attend(const Params& p) {
   // the cache segment: key j is visible to query t iff j < n and, with a
   // window, qbase + t - j < w
   {
-    const long long base = p.layer * p.c_l + b * p.c_b + hk * p.c_h;
     const int lo = w > 0 ? max(qbase + t_first - w + 1, 0) : 0;
-    fold(static_cast<const T*>(p.k) + base, static_cast<const T*>(p.v) + base, p.c_s, lo, n,
-         [&](int c, int j) { return w <= 0 || j >= qbase + c / p.G - w + 1; });
+    auto visible = [&](int c, int j) { return w <= 0 || j >= qbase + c / p.G - w + 1; };
+    if (p.table) {
+      const long long base = p.layer * p.c_l + hk * p.c_h;
+      const int* tb = p.table + static_cast<long long>(b) * p.n_per;
+      fold(static_cast<const T*>(p.k) + base, static_cast<const T*>(p.v) + base,
+           [&](int j) {
+             const int page = min(max(tb[j / p.page_size], 0), p.num_pages - 1);
+             return page * p.c_p + (j % p.page_size) * p.c_s;
+           },
+           lo, n, visible);
+    } else {
+      const long long base = p.layer * p.c_l + b * p.c_b + hk * p.c_h;
+      fold(static_cast<const T*>(p.k) + base, static_cast<const T*>(p.v) + base,
+           [&](int j) { return j * p.c_s; }, lo, n, visible);
+    }
   }
   // the tail: slot s (absolute position n + s) is visible to query t iff
   // s <= written + t and, with a window, written + t - s < w
@@ -144,7 +170,8 @@ __device__ __forceinline__ void attend(const Params& p) {
     const long long base = b * p.t_b + hk * p.t_h;
     const int lo = w > 0 ? max(wr + t_first - w + 1, 0) : 0;
     const int hi = min(p.Ts, wr + t_last + 1);
-    fold(static_cast<const T*>(p.tk) + base, static_cast<const T*>(p.tv) + base, p.t_s, lo, hi,
+    fold(static_cast<const T*>(p.tk) + base, static_cast<const T*>(p.tv) + base,
+         [&](int s) { return s * p.t_s; }, lo, hi,
          [&](int c, int s) {
            const int t = c / p.G;
            return s <= wr + t && (w <= 0 || wr + t - s < w);

@@ -11,8 +11,14 @@ q_abs = n + written + t (n = ``lengths[b]``):
     tail slot s visible   iff  s <= written + t and
                                (window <= 0 or q_abs - (n + s) < window)
 
-The wrapper takes its plain version for CPU tensors and launches the kernel
-for CUDA tensors; ``segment_tail_attention.launches`` counts kernel launches.
+``paged_segment_tail_attention`` replaces ``segment_attention.py:
+paged_segment_tail_attention``: the same with the prompt segment in the
+stacked (L, P, page_size, Hkv, D) pool at ``layer``, through a (B, n_per)
+int32 page table whose ids clamp to P - 1. Its kernel is a second
+``__global__`` of the same source.
+
+Each wrapper takes its plain version for CPU tensors and launches its kernel
+for CUDA tensors; ``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from ultravox_torch.ops.kernels.decode_attention import (
     online_softmax_plain,
     rounded_scale,
 )
+from ultravox_torch.ops.kernels.paged_attention import gather_pages_plain
 
 
 def segment_tail_attention_plain(
@@ -132,3 +139,94 @@ def segment_tail_attention(
 
 
 segment_tail_attention.launches = 0
+
+
+def paged_segment_tail_attention_plain(
+    q: torch.Tensor,  # (B, T, H, D)
+    k_pool: torch.Tensor,  # (L, P, ps, Hkv, D)
+    v_pool: torch.Tensor,
+    layer: int,
+    page_table: torch.Tensor,  # (B, n_per) int32
+    lengths: torch.Tensor,  # (B,) prompt length
+    tail_k: torch.Tensor,  # (B, Ts, Hkv, D)
+    tail_v: torch.Tensor,
+    written: torch.Tensor,  # (B,)
+    window: int = 0,
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Plain PyTorch: the clamped page gather of ``layer``, then
+    ``segment_tail_attention_plain``. Returns (B, T, H, D)."""
+    k = gather_pages_plain(k_pool[layer], page_table)
+    v = gather_pages_plain(v_pool[layer], page_table)
+    return segment_tail_attention_plain(
+        q, k, v, 0, lengths, tail_k, tail_v, written, window, scale=scale
+    )
+
+
+def paged_segment_tail_attention(
+    q: torch.Tensor,  # (B, T, H, D)
+    k_pool: torch.Tensor,  # (L, P, ps, Hkv, D) stacked pool
+    v_pool: torch.Tensor,
+    layer: int,
+    page_table: torch.Tensor,  # (B, n_per) int32
+    lengths: torch.Tensor,  # (B,) int32 prompt length
+    tail_k: torch.Tensor,  # (B, Ts, Hkv, D)
+    tail_v: torch.Tensor,
+    written: torch.Tensor,  # (B,) int32
+    window: int = 0,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """T-query attention over row b's pool pages at ``layer`` plus the tail.
+    Returns (B, T, H, D) in q's dtype."""
+    B, T, H, D = q.shape
+    if scale is None:
+        scale = D**-0.5
+    if q.device.type == "cpu":
+        return paged_segment_tail_attention_plain(
+            q, k_pool, v_pool, layer, page_table, lengths, tail_k, tail_v, written, window,
+            scale=scale,
+        )
+    _build.require_cuda(q, k_pool, v_pool, page_table, lengths, tail_k, tail_v, written)
+    L, P, ps, Hkv, _ = k_pool.shape
+    n_per = page_table.shape[1]
+    Ts = tail_k.shape[1]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if (k_pool.shape != (L, P, ps, Hkv, D) or v_pool.shape != k_pool.shape or H % Hkv
+            or tail_k.shape != (B, Ts, Hkv, D) or tail_v.shape != tail_k.shape
+            or page_table.shape != (B, n_per)):
+        raise ValueError(
+            f"bad shapes for paged_segment_tail_attention: q {q.shape}, pool {k_pool.shape}, "
+            f"table {page_table.shape}, tail {tail_k.shape}")
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} outside the pool's {L} layers")
+    if not (q.dtype == k_pool.dtype == v_pool.dtype == tail_k.dtype == tail_v.dtype):
+        raise TypeError("q, the pool and the tail must share one dtype")
+    if (q.stride(-1) != 1 or k_pool.stride(-1) != 1 or tail_k.stride(-1) != 1
+            or k_pool.stride() != v_pool.stride() or tail_k.stride() != tail_v.stride()):
+        raise ValueError("head dims must be contiguous; k and v must share strides")
+    if page_table.dtype != torch.int32 or not page_table.is_contiguous():
+        raise TypeError("page_table must be a contiguous int32 tensor")
+    for t in (lengths, written):
+        if t.shape != (B,) or t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError(f"lengths and written must be contiguous int32 ({B},) tensors")
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 10)(
+        *q.stride()[:3], *k_pool.stride()[:4], *tail_k.stride()[:3]
+    )
+    lib = _build.library("segment_attention")
+    rc = lib.uv_paged_segment_attention(
+        _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool), _build.ptr(tail_k),
+        _build.ptr(tail_v), _build.ptr(out), strides, _build.ptr(page_table),
+        _build.ptr(lengths), _build.ptr(written), int(layer), int(window), B, T, H, H // Hkv,
+        n_per, ps, P, Ts, D, rounded_scale(scale, q.dtype), _build.dtype_code(q),
+        _build.stream_ptr(q.device),
+    )
+    _build.check("segment_attention", rc)
+    paged_segment_tail_attention.launches += 1
+    return out
+
+
+paged_segment_tail_attention.launches = 0
