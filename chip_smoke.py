@@ -4,19 +4,24 @@
 
 Phases, each fatal on failure:
   1. build every CUDA kernel of the port from ultravox_torch/ops/kernels/csrc
-     (one nvcc per source, all seven at once);
+     (one nvcc per source, all eight at once);
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the flagship paths give it (bf16; the decode and paged kernels
      also in fp32, with ragged lengths, windows, page size 16, shuffled page
      ids, sentinel entries, a pageless row, and junk in every slot a row
      cannot see), and time kernel, plain version and, where one exists, a
      single PyTorch call for the same function (a yardstick only; the port
-     never calls it);
+     never calls it); flash_attention's forward and backward kernels run in
+     fp32 and bf16 on ragged lengths, a row of length 0, windows, the
+     latency block and head_dim 128, with junk past the lengths, and are
+     timed at the decoder's and the encoder's training shapes;
   3. small configs (a llama-family speech model and a gemma-3-style decoder
      with sliding windows): greedy tokens from the kernel paths on the card
      equal those of the plain paths on the CPU (fp32) for generate with the
      decode kernel, generate_fused, the segmented scan with its kernel, and
      the ServingEngine in slots and paged modes with both block attentions;
+     and two KL train steps with an audio LoRA through the flash_attention
+     kernels on the card against the same steps on the CPU;
   4. the main paths at flagship widths (whisper-small encoder, Llama-3.2-1B
      decoder, random bf16 weights from a seed) on 4 requests of 10 s
      synthesized audio, each with every kernel's launch count set to 0
@@ -35,7 +40,13 @@ Phases, each fatal on failure:
      the segment kernel (decode_attention + segment_tail_attention). The
      launch counts are checked against the engine's own counters, and TTFT,
      throughput, the loop's dispatch and fetch time, peak memory and (for
-     the first) the device's busy share are printed.
+     the first) the device's busy share are printed;
+  6. the training step of the v0.6 recipe at flagship widths (KL
+     distillation, projector + audio LoRA r 8 trainable, remat, chunked
+     vocabulary, flash attention in both towers) on bench.py's batch of 8 x
+     10 s audio: 72 forward and 28 backward flash_attention calls per step
+     checked, loss, grad_norm, step time, samples/s, MFU, peak memory, the
+     device's busy share, a kernel breakdown, and no host wait in a step.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits non-zero
@@ -176,15 +187,34 @@ def _bf16_tol(ref) -> float:
     return 4 * 2.0**-8 * float(ref.abs().max())
 
 
+# A bound on the relative RMS error of a bf16 flash_attention output or
+# gradient: 2^-10, a quarter of what every element off by one ulp would
+# give (most elements agree bit for bit). It stands beside _bf16_tol, which
+# one large entry (a causal row 0 that copies v[0]) can make loose for the
+# typical entry.
+FLASH_RMS_TOL = 2.0**-10
+
+
+def _rel_rms(out, ref) -> float:
+    """||out - ref|| / ||ref|| over every element, in fp32."""
+    ref = ref.float()
+    return float((out.float() - ref).norm() / ref.norm().clamp(min=1e-30))
+
+
 def _recorder(rows, tol):
     """record(...): hold one kernel against its plain version, time kernel,
     plain version and library call, check the trace, append its row."""
 
-    def record(name, kernel, source, replaces, out, ref, k_fn, p_fn, lib_fn, nbytes, flops, peak):
+    def record(name, kernel, source, replaces, out, ref, k_fn, p_fn, lib_fn, nbytes, flops, peak,
+               calls=1, extra=None):
+        """``calls``: device kernels one call launches (their names all hold
+        ``kernel``); ``device_ms`` is then the trace's time per call."""
         err = float((out.float() - ref.float()).abs().max())
         t = tol(ref)
         bound_ms, bound_by = _bound(nbytes, flops, peak)
         device_ms, per_call, others = _device_ms(k_fn, kernel)
+        if device_ms is not None:
+            device_ms *= calls
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": 0, "max_abs_err": err, "tol": t,
@@ -192,7 +222,7 @@ def _recorder(rows, tol):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": _time_ms(lib_fn) if lib_fn is not None else None,
             "device_ms": device_ms, "device_kernels_per_call": per_call,
-            "wrapper_ms": _time_ms(k_fn, queued=False),
+            "wrapper_ms": _time_ms(k_fn, queued=False), **(extra or {}),
         }
         print(f"kernel {name}: max_abs_err {err:.3g} (tol {t:.3g}) ms {row['ms']:.4f} "
               f"(trace {device_ms} in {per_call:g} kernels/call; with host dispatch "
@@ -202,10 +232,11 @@ def _recorder(rows, tol):
             _fail(f"{name} disagrees with its plain version: {err} > {t}")
         # the wrapper must queue its kernel and nothing else (no casts or
         # copies); a trace that dropped events can only undercount
-        if per_call > 1 or others:
+        if per_call > calls or others:
             _fail(f"{name}: the trace shows {per_call:g} {kernel} launches per call "
-                  f"and other device work {sorted(set(others))}, expected 1 and none")
+                  f"and other device work {sorted(set(others))}, expected {calls} and none")
         rows.append(row)
+        return row
 
     return record
 
@@ -624,6 +655,462 @@ def _check_paged_kernels(pa, pg, sa, dev):
     return rows
 
 
+def _flash_grads(fn, q, k, v, dout, lens, kw):
+    """(out, dq, dk, dv) of fn's forward and its backward under dout."""
+    x = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*x, lens, **kw)
+    out.backward(dout)
+    return (out.detach(), *(t.grad for t in x))
+
+
+def _check_flash(fl, dev):
+    """Phase 2, continued: flash_attention's forward kernel and its three
+    backward kernels against the plain autograd Function (the JAX custom
+    VJP's formulas). First in fp32 and bf16 on ragged lengths, a row of
+    length 0, a sliding window (whose padding rows past length + window see
+    no key), the latency block and head_dim 128, every output finite; then
+    with 1e4 in every key and value past each row's length, which must move
+    neither the output nor any gradient (dk and dv of those keys stay 0).
+    Then forward and backward are timed in bf16 at the flagship training
+    shapes: the decoder's (8, 190, 32/8 heads, 64), causal, and the
+    encoder's (8, 500, 12, 64) with a key-length mask."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows = []
+    scale = 64**-0.5
+
+    def make(B, T, H, Hkv, D, lengths, dtype):
+        r = [torch.randn(s, generator=g, device=dev).to(dtype)
+             for s in ((B, T, H, D), (B, T, Hkv, D), (B, T, Hkv, D), (B, T, H, D))]
+        return (*r, torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+    def plain(q, k, v, lens, causal=False, window=0, latency_block=0):
+        return fl._FlashPlain.apply(q, k, v, lens, q.shape[-1] ** -0.5, causal, window,
+                                    latency_block)
+
+    cases = (  # name, B, T, H, Hkv, D, lengths, causal, window, latency block
+        ("decoder causal ragged", 4, 190, 32, 8, 64, [190, 77, 1, 0], True, 0, 0),
+        ("decoder causal window 32", 4, 190, 32, 8, 64, [190, 120, 50, 3], True, 32, 0),
+        ("encoder latency 16 ragged", 4, 500, 12, 12, 64, [500, 311, 64, 0], False, 0, 16),
+        ("head_dim 128 gqa 4", 2, 77, 8, 2, 128, [77, 30], False, 0, 0),
+    )
+    for name, B, T, H, Hkv, D, lengths, causal, window, lb in cases:
+        kw = dict(causal=causal, window=window, latency_block=lb)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout, lens = make(B, T, H, Hkv, D, lengths, dtype)
+            got = _flash_grads(fl.flash_attention, q, k, v, dout, lens, kw)
+            ref = _flash_grads(plain, q, k, v, dout, lens, kw)
+            torch.cuda.synchronize()
+            errs = []
+            for what, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+                err = float((a.float() - b.float()).abs().max())
+                if dtype == torch.float32:
+                    t = 1e-5 if what == "out" else 1e-4
+                else:
+                    t = _bf16_tol(b) + (0.0 if what == "out" else 1e-6)
+                    rms = _rel_rms(a, b)
+                    errs.append(f"{what} rel_rms {rms:.3g} (tol {FLASH_RMS_TOL:.3g})")
+                    if not rms <= FLASH_RMS_TOL:
+                        _fail(f"flash_attention {name} ({dtype}) {what}: relative RMS error "
+                              f"{rms} > {FLASH_RMS_TOL}")
+                errs.append(f"{what} {err:.3g} (tol {t:.3g})")
+                if not err <= t or not torch.isfinite(a).all():
+                    _fail(f"flash_attention {name} ({dtype}) {what} disagrees with its plain "
+                          f"version: {err} > {t}")
+            print(f"check flash_attention {name} {str(dtype)[6:]}: {'; '.join(errs)}", flush=True)
+
+    for name, T, H, Hkv, lengths, causal, lb in (
+        ("decoder causal", 190, 32, 8, [190, 77, 3, 1], True, 0),
+        ("encoder latency 16", 500, 12, 12, [500, 311, 64, 9], False, 16),
+    ):
+        kw = dict(causal=causal, latency_block=lb)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout, lens = make(4, T, H, Hkv, 64, lengths, dtype)
+            past = torch.arange(T, device=dev)[None] >= lens[:, None]
+            jk, jv = k.clone(), v.clone()
+            jk[past], jv[past] = 1e4, 1e4
+            got = _flash_grads(fl.flash_attention, q, k, v, dout, lens, kw)
+            junk = _flash_grads(fl.flash_attention, q, jk, jv, dout, lens, kw)
+            torch.cuda.synchronize()
+            moved = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, junk)]
+            print(f"check flash_attention junk past the lengths, {name} {str(dtype)[6:]}: "
+                  f"moves out/dq/dk/dv by {moved}", flush=True)
+            if not all(torch.equal(a, b) for a, b in zip(got, junk)):
+                _fail(f"flash_attention ({name}, {dtype}) reads keys past the lengths")
+
+    def timed(label, B, T, H, Hkv, causal):
+        """Forward and backward rows at one shape (bf16, every key valid)."""
+        q, k, v, dout, lens = make(B, T, H, Hkv, 64, [T] * B, torch.bfloat16)
+        kw = dict(scale=scale, causal=causal)
+        pairs = B * (T * (T + 1) // 2 if causal else T * T)  # visible (query, key) pairs per head
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        out, stats = fl.flash_forward(q, k, v, lens, **kw)
+        ref = fl.flash_forward_plain(q, k, v, lens, **kw)
+        torch.cuda.synchronize()
+        rec_rows = []
+        rec = _recorder(rec_rows, _bf16_tol)
+
+        def check_rms(what, a, b):
+            rms = _rel_rms(a, b)
+            print(f"check flash_attention ({label}) {what}: rel_rms {rms:.3g} "
+                  f"(tol {FLASH_RMS_TOL:.3g})", flush=True)
+            if not rms <= FLASH_RMS_TOL:
+                _fail(f"flash_attention ({label}) {what}: relative RMS error {rms} > "
+                      f"{FLASH_RMS_TOL}")
+            return rms
+
+        rel_rms = check_rms("out", out, ref)
+        rec(f"flash_attention ({label})", "flash_fwd_kernel",
+            "ultravox_torch/ops/kernels/csrc/flash_attention.cu",
+            "ultravox_tpu/ops/pallas/flash_attention.py:274 (_fwd_kernel :78)", out, ref,
+            lambda: fl.flash_forward(q, k, v, lens, **kw),
+            lambda: fl.flash_forward_plain(q, k, v, lens, **kw),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, enable_gqa=True),
+            _nbytes(q, k, v, out, stats, lens), 4.0 * 64 * H * pairs, BF16_FLOPS,
+            extra={"rel_rms_err": rel_rms})
+        grads = fl.flash_backward(q, k, v, out, stats, dout, lens, **kw)
+        refs = fl.flash_backward_plain(q, k, v, out, dout, lens, **kw)
+        torch.cuda.synchronize()
+        rel_rms = 0.0
+        for what, a, b in zip(("dq", "dk", "dv"), grads, refs):
+            err = float((a.float() - b.float()).abs().max())
+            print(f"check flash_attention backward ({label}) {what}: max_abs_err {err:.3g} "
+                  f"(tol {_bf16_tol(b):.3g})", flush=True)
+            if not err <= _bf16_tol(b):
+                _fail(f"flash_attention backward ({label}) {what} disagrees: {err}")
+            rel_rms = max(rel_rms, check_rms(what, a, b))
+        x = [t.detach().clone().requires_grad_() for t in (qh, kh, vh)]
+        doh = dout.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(*x, is_causal=causal, enable_gqa=True).backward(doh)
+
+        # the library's backward alone: PyTorch's flash-attention backward op
+        # on k/v expanded over the GQA group (it takes no groups; summing its
+        # dk/dv over the group is left out), with the logsumexp of its own
+        # forward at the same inputs
+        ke, ve = (t.repeat_interleave(H // Hkv, dim=1) for t in (kh, vh))
+        fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+            qh, ke, ve, 0.0, causal, False, scale=scale)
+        o_lib, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
+
+        def library_bwd():
+            return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                doh, qh, ke, ve, o_lib, lse, cq, ck, mq, mk, 0.0, causal, seed, offset,
+                scale=scale)
+
+        rec(f"flash_attention_bwd ({label})", "flash_d",
+            "ultravox_torch/ops/kernels/csrc/flash_attention.cu",
+            "ultravox_tpu/ops/pallas/flash_attention.py:274 (_bwd_kernel :104)",
+            torch.cat([t.flatten() for t in grads]), torch.cat([t.flatten() for t in refs]),
+            lambda: fl.flash_backward(q, k, v, out, stats, dout, lens, **kw),
+            lambda: fl.flash_backward_plain(q, k, v, out, dout, lens, **kw), library_bwd,
+            _nbytes(q, k, v, out, stats, dout, lens, *grads), 10.0 * 64 * H * pairs, BF16_FLOPS,
+            calls=fl.BWD_LAUNCHES, extra={"sdpa_fwd_bwd_ms": _time_ms(sdpa_fwd_bwd),
+                                          "rel_rms_err": rel_rms})
+        return rec_rows
+
+    dec = timed("decoder (8,190,32/8,64) causal", 8, 190, 32, 8, True)
+    enc = timed("encoder (8,500,12,64)", 8, 500, 12, 12, False)
+    for name, d, e in zip(("flash_attention", "flash_attention_bwd"), dec, enc):
+        row = dict(d, name=name, shape="decoder (8,190,32/8,64) causal, lengths 190")
+        row["encoder_shape"] = {k_: e[k_] for k_ in (
+            "max_abs_err", "tol", "rel_rms_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms", "wrapper_ms")
+            + (("sdpa_fwd_bwd_ms",) if "sdpa_fwd_bwd_ms" in e else ())}
+        rows.append(row)
+    return rows
+
+
+TRAINABLE = (r".*projector/.*", r".*audio_tower/.*lora_[ab]$")
+
+
+def _small_train_parity(tc, dev):
+    """Phase 3, continued: two KL train steps (remat, vocab_chunk 16) of the
+    small llama speech model (weights scaled as in the parity tests) with a
+    rank-4 audio LoRA on q_proj/v_proj (lora_b away from 0), projector and
+    LoRA trainable, fp32: on the card
+    through the flash_attention kernels against the same steps on the CPU
+    through their plain versions. Loss and param_norm within rtol 1e-5,
+    grad_norm within 1e-4 and each leaf's step-0 gradient within 1e-3 of its
+    largest element (the card's cuBLAS and flash kernels sum the backward in
+    other orders than the CPU, and a KL gradient is a small difference of
+    large terms); frozen leaves unchanged; the updated trainable leaves
+    within 1e-5 where the clipped CPU gradient exceeds 1e-7, as in
+    tests/test_torch_train.py."""
+    from ultravox_torch.models import lora
+    from ultravox_torch.models import ultravox as uv
+    from ultravox_torch.ops.kernels import flash_attention as fl
+    from ultravox_torch.ops.mel import log_mel_spectrogram_np
+    from ultravox_torch.training import train_step as ts
+
+    cfg = tc.UltravoxConfig(
+        audio_config=tc.WhisperEncoderConfig(d_model=128, num_layers=2, num_heads=2, ffn_dim=256),
+        text_config=tc.DecoderConfig(
+            vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2, num_heads=4,
+            num_kv_heads=2, head_dim=64, rope_theta=500000.0, rope_scaling=(32.0, 1.0, 4.0, 8192),
+            tie_word_embeddings=True),
+        hidden_size=256, projector_ln_mid=True,
+    )
+    params = uv.init_params(cfg, torch.Generator().manual_seed(SEED))
+    # the weights of tests/torch_parity.make_params: a KL loss near 0 would
+    # leave only rounding noise to compare
+    scale = {"audio_tower": 2.0, "projector": 8.0, "language_model": 8.0}
+    params = {k: _scale(v, scale[k]) for k, v in params.items()}
+    params = lora.apply_lora_to_model(
+        params, tc.LoraConfig(), tc.LoraConfig(r=4, target_modules=("q_proj", "v_proj")),
+        torch.Generator().manual_seed(SEED + 1))
+    gen = torch.Generator().manual_seed(SEED + 2)
+    for name in ("q_proj", "v_proj"):
+        p = params["audio_tower"]["layers"][name]
+        p["lora_b"] = 0.05 * torch.randn(p["lora_b"].shape, generator=gen)
+    rng = np.random.default_rng(SEED)
+    mel = torch.from_numpy(np.stack([log_mel_spectrogram_np(a) for a in _audio(2, 1.5, rng)]))
+    batch = _batch(cfg, mel, 32, rng)
+    batch["audio_lens"][1] = 100  # a ragged encoder length mask
+    batch["audio_token_len"][1] = -(-100 // cfg.audio_token_compression)
+    batch["attention_mask"][1, 28:] = 0
+    B, T, T2 = 2, 32, 20
+    labels = np.full((B, T), -100, np.int64)
+    labels[0, 20:32] = batch["input_ids"][0, 20:32]
+    labels[1, 20:28] = batch["input_ids"][1, 20:28]
+    alt_labels = np.full((B, T2), -100, np.int64)
+    alt_labels[0, 8:20] = labels[0, 20:32]
+    alt_labels[1, 8:15] = labels[1, 21:28]
+    alt_mask = np.ones((B, T2), np.int64)
+    alt_mask[1, 18:] = 0
+    batch.update(labels=labels, alt_input_ids=rng.integers(1, 512, (B, T2)),
+                 alt_attention_mask=alt_mask, alt_labels=alt_labels)
+    lc = tc.LossConfig(loss_function=tc.LossFunction.KL_DIVERGENCE)
+    opt_kw = dict(warmup_steps=1, total_steps=10, weight_decay=0.01, max_grad_norm=0.05)
+    out = {}
+    for device in ("cpu", dev):
+        opt = ts.make_optimizer(1e-3, **opt_kw)
+        state, template = ts.init_train_state(params, opt, TRAINABLE, device=device)
+        frozen0 = {k: v.clone() for k, v in state.frozen.items()}
+        tb = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        grads = torch.autograd.grad(uv.ultravox_loss(  # the step-0 gradient
+            ts.merge_params(template, state.trainable, state.frozen), cfg, tb, lc, remat=True,
+            attn_impl="flash", vocab_chunk=16), list(state.trainable.values()))
+        step = ts.make_train_step(cfg, lc, opt, template, remat=True, attn_impl="flash",
+                                  vocab_chunk=16)
+        before = (fl.flash_attention.launches, fl.flash_attention.bwd_launches)
+        metrics = []
+        for _ in range(2):
+            state, m = step(state, tb)
+            metrics.append({k: float(v) for k, v in m.items()})
+        if device != "cpu" and not (fl.flash_attention.launches > before[0]
+                                    and fl.flash_attention.bwd_launches > before[1]):
+            _fail("small train step: the flash_attention kernels were not launched on the card")
+        if any(not torch.equal(v.cpu(), frozen0[k].cpu()) for k, v in state.frozen.items()):
+            _fail(f"small train step on {device}: a frozen leaf changed")
+        out[device] = (metrics, {k: v.detach().cpu() for k, v in state.trainable.items()},
+                       [g_.cpu() for g_ in grads])
+    (m_cpu, p_cpu, g_cpu), (m_gpu, p_gpu, g_gpu) = out["cpu"], out[dev]
+    print(f"small train step: cpu {m_cpu} gpu {m_gpu}", flush=True)
+    for a, b in zip(m_cpu, m_gpu):
+        for k in a:
+            rtol = 1e-4 if k == "grad_norm" else 1e-5
+            if not abs(a[k] - b[k]) <= rtol * abs(a[k]):
+                _fail(f"small train step: {k} on the card {b[k]} vs the CPU {a[k]}")
+    rel = {k: float((a - b).abs().max() / a.abs().max()) for k, a, b in zip(p_cpu, g_cpu, g_gpu)}
+    print(f"small train step: step-0 gradient, card vs CPU, max error over max |g| per leaf {rel}",
+          flush=True)
+    if not all(r <= 1e-3 for r in rel.values()):
+        _fail(f"small train step: gradients on the card differ from the CPU's: {rel}")
+    clip = min(1.0, opt_kw["max_grad_norm"] / m_cpu[0]["grad_norm"])
+    worst = 0.0
+    for g_, (k, a) in zip(g_cpu, p_cpu.items()):
+        big = g_.abs() * clip > 1e-7
+        worst = max(worst, float((a - p_gpu[k])[big].abs().max()))
+    print(f"small train step: updated trainable leaves differ by at most {worst:.3g}", flush=True)
+    if not worst <= 1e-5:
+        _fail(f"small train step: updated parameters differ by {worst}")
+
+
+def _train_step_flops(cfg, B, T, T2, mel_frames) -> float:
+    """Model matmul FLOPs of one KL train step at these shapes: the cost
+    model of the JAX package's bench.py (_train_step_flops), plus the
+    encoder's activation gradients, which this recipe adds (its LoRA
+    adapters train, so the backward runs through every encoder layer).
+    Remat's recomputation is not counted (model FLOPs).
+    - encoder: forward + dgrad; student decoder layers: forward + dgrad
+      (frozen weights get no wgrad); projector: forward + dgrad + wgrad;
+      teacher decoder and its LM head: forward; the student's chunked LM
+      head: forward + dgrad; attention's QK^T and PV at their quadratic cost."""
+    tc_, ac = cfg.text_config, cfg.audio_config
+    T_e = mel_frames // 2  # the conv stem downsamples 2x
+    d_attn_dec = (tc_.hidden_size * tc_.num_heads * tc_.head_dim * 2
+                  + tc_.hidden_size * tc_.num_kv_heads * tc_.head_dim * 2)
+    p_dec_layers = tc_.num_layers * (d_attn_dec + 3 * tc_.hidden_size * tc_.intermediate_size)
+    p_enc_layers = ac.num_layers * (4 * ac.d_model**2 + 2 * ac.d_model * ac.ffn_dim)
+    p_lm_head = tc_.hidden_size * tc_.vocab_size
+
+    def attn_quad(n_layers, n_heads, head_dim, t):
+        return n_layers * 4 * t * t * n_heads * head_dim
+
+    fwd_student = 2 * p_dec_layers * B * T + B * attn_quad(
+        tc_.num_layers, tc_.num_heads, tc_.head_dim, T)
+    fwd_teacher = 2 * p_dec_layers * B * T2 + B * attn_quad(
+        tc_.num_layers, tc_.num_heads, tc_.head_dim, T2)
+    fwd_encoder = 2 * p_enc_layers * B * T_e + B * attn_quad(
+        ac.num_layers, ac.num_heads, ac.d_model // ac.num_heads, T_e)
+    n_audio_tok = T_e // cfg.stack_factor
+    p_proj = ac.d_model * cfg.stack_factor * cfg.hidden_size + cfg.hidden_size // 2 * tc_.hidden_size
+    fwd_proj = 2 * p_proj * B * n_audio_tok
+    return (2 * fwd_student + fwd_teacher + 2 * fwd_encoder + 3 * fwd_proj
+            + 2 * 2 * p_lm_head * B * T + 2 * p_lm_head * B * T2)
+
+
+def _train_main_path(tc, uv, dev):
+    """Phase 6: the training step of the v0.6 recipe at flagship widths.
+    bf16 weights from the seed plus an fp32 audio LoRA (r 8, alpha 8) on
+    q_proj/v_proj; projector and LoRA trainable; KL distillation against the
+    text-only teacher, remat, vocab_chunk 256, attn_impl "flash";
+    make_optimizer(1e-4, warmup_steps=0, total_steps=100). The batch of the
+    JAX package's bench.py (_train_metrics): 8 rows, 10 s of synthesized
+    audio each (1000 mel frames, 62 audio tokens at position 4), T 190, T2
+    128, 40 labelled tokens. After two warm-up steps the launch counts are
+    set to 0 and N steps run: each step must launch flash_attention's
+    forward 2 x 12 + 3 x 16 = 72 times (encoder forward and remat
+    recompute, student forward and recompute, teacher forward) and its
+    backward 12 + 16 = 28 times (x BWD_LAUNCHES kernels). Then one traced
+    step (busy share, kernels by time) and one step with CUDA sync
+    debugging, which fails on any host wait."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ultravox_torch.models import lora
+    from ultravox_torch.ops.kernels import flash_attention as fl
+    from ultravox_torch.ops.mel import log_mel_spectrogram
+    from ultravox_torch.training import train_step as ts
+
+    cfg = _flagship_config(tc)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = uv.init_params(cfg, gen, torch.bfloat16, dev)
+    params = lora.apply_lora_to_model(
+        params, tc.LoraConfig(), tc.LoraConfig(r=8, lora_alpha=8.0, target_modules=("q_proj", "v_proj")),
+        gen)
+    opt = ts.make_optimizer(1e-4, warmup_steps=0, total_steps=100)
+    holder = {}
+    holder["state"], template = ts.init_train_state(params, opt, TRAINABLE, device=dev)
+    del params
+    step = ts.make_train_step(cfg, tc.LossConfig(loss_function=tc.LossFunction.KL_DIVERGENCE), opt,
+                              template, remat=True, attn_impl="flash", vocab_chunk=256)
+    B, mel_frames = 8, 1000
+    n_tok = mel_frames // 2 // 8
+    T, T2 = 64 + n_tok + 64, 128
+    rng = np.random.default_rng(SEED + 6)
+    labels = np.full((B, T), -100, np.int64)
+    labels[:, -40:] = rng.integers(1, cfg.vocab_size, (B, 40))
+    alt_labels = np.full((B, T2), -100, np.int64)
+    alt_labels[:, -40:] = labels[:, -40:]
+    mel = log_mel_spectrogram(torch.from_numpy(_audio(B, 10.0, rng)).to(dev))
+    if mel.shape != (B, 80, mel_frames):
+        _fail(f"phase 6: expected mel (8, 80, 1000), got {tuple(mel.shape)}")
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in {
+        "input_ids": rng.integers(1, cfg.vocab_size, (B, T)),
+        "attention_mask": np.ones((B, T), np.int64),
+        "labels": labels,
+        "alt_input_ids": rng.integers(1, cfg.vocab_size, (B, T2)),
+        "alt_attention_mask": np.ones((B, T2), np.int64),
+        "alt_labels": alt_labels,
+        "audio_lens": np.full((B,), mel_frames, np.int32),
+        "audio_token_len": np.full((B,), n_tok, np.int32),
+        "audio_token_start_idx": np.full((B,), 4, np.int32),
+        "audio_chunk_batch_idx": np.arange(B, dtype=np.int32),
+    }.items()}
+    batch["audio_values"] = mel
+
+    def one():
+        holder["state"], m = step(holder["state"], batch)
+        return m
+
+    for _ in range(2):  # warm-up: allocator, optimizer state
+        one()
+    torch.cuda.synchronize()
+
+    n_steps = 5
+    L_enc, L_dec = cfg.audio_config.num_layers, cfg.text_config.num_layers
+    fwd_per_step, bwd_per_step = 2 * L_enc + 3 * L_dec, L_enc + L_dec
+    fl.flash_attention.launches = fl.flash_attention.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, enqueue, metrics = [], [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(one())
+        enqueue.append(time.perf_counter() - t0)  # the host's part: the step never waits
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {"flash_attention": fl.flash_attention.launches,
+                "flash_attention_bwd": fl.flash_attention.bwd_launches}
+    want = {"flash_attention": n_steps * fwd_per_step,
+            "flash_attention_bwd": n_steps * bwd_per_step * fl.BWD_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"launches, {n_steps} train steps: {launches} expected {want} ({fwd_per_step} forward "
+          f"calls and {bwd_per_step} backward calls x {fl.BWD_LAUNCHES} kernels per step)",
+          flush=True)
+    if launches != want:
+        _fail(f"phase 6: flash_attention launches {launches}, expected {want}")
+    vals = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for i, m in enumerate(vals):
+        print(f"train step {i}: loss {m['loss']:.6f} grad_norm {m['grad_norm']:.6f} "
+              f"param_norm {m['param_norm']:.6f} ({times[i] * 1e3:.3f} ms)", flush=True)
+        if not (np.isfinite(m["loss"]) and m["grad_norm"] > 0 and np.isfinite(m["grad_norm"])):
+            _fail(f"phase 6: step {i} has loss {m['loss']} and grad_norm {m['grad_norm']}")
+    step_s = float(np.median(times))
+    flops = _train_step_flops(cfg, B, T, T2, mel_frames)
+    mfu = flops / step_s / BF16_FLOPS
+    enqueue_s = float(np.median(enqueue))
+    print(f"train step (B {B}, 10 s audio, T {T}, T2 {T2}): median {step_s * 1e3:.3f} ms, "
+          f"{B / step_s:.3f} samples/s, model FLOPs {flops / 1e12:.3f} T per step, MFU "
+          f"{100 * mfu:.2f}% of 989 TFLOP/s, peak memory {peak:.3f} GB; the host returns from "
+          f"the step after {enqueue_s * 1e3:.3f} ms (median) of queueing it", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    runtime_launches = sum(e.count for e in prof.key_averages()
+                           if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    print(f"train step profile: device busy {busy_ms:.3f} ms of {traced_ms:.3f} ms traced "
+          f"({100 * busy_ms / traced_ms:.1f}% busy); {sum(e.count for e in evs)} device "
+          f"kernels, {runtime_launches} kernel launch calls on the host", flush=True)
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:15]
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}", flush=True)
+    flash_ms = {name: sum(e.self_device_time_total for e in evs if f"::{name}<" in e.key) / 1e3
+                for name in ("flash_fwd_kernel", "flash_delta_kernel", "flash_dkdv_kernel",
+                             "flash_dq_kernel")}
+    print(f"train step profile: flash_attention kernels {flash_ms} ms, "
+          f"{sum(flash_ms.values()):.3f} ms in all", flush=True)
+
+    sites = _sync_sites(one)
+    torch.cuda.synchronize()
+    print(f"train step: {len(sites)} host waits for the card inside a step {sorted(set(sites))}",
+          flush=True)
+    if sites:
+        _fail(f"phase 6: a train step waits for the card at {sorted(set(sites))}")
+    result = {
+        "step_ms_median": step_s * 1e3, "step_ms": [t * 1e3 for t in times],
+        "samples_per_s": B / step_s, "model_tflop_per_step": flops / 1e12, "mfu": mfu,
+        "host_enqueue_ms_median": enqueue_s * 1e3, "host_enqueue_ms": [t * 1e3 for t in enqueue],
+        "peak_memory_gb": peak, "device_busy_ms": busy_ms, "traced_ms": traced_ms,
+        "device_busy_share": busy_ms / traced_ms, "runtime_launches": runtime_launches,
+        "flash_kernels_ms": flash_ms,
+        "losses": [m["loss"] for m in vals], "grad_norms": [m["grad_norm"] for m in vals],
+        "top_kernels": [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top],
+    }
+    return result, launches
+
+
 def _scan_tokens(engine, batch, n_steps: int, attn_impl: str) -> torch.Tensor:
     """Greedy (B, n_steps + 1) tokens of the engine's prefill and first
     token, then one segmented_decode_scan of n_steps."""
@@ -800,6 +1287,7 @@ def main() -> None:
     from ultravox_torch.models import ultravox as uv
     from ultravox_torch.ops.kernels import _build
     from ultravox_torch.ops.kernels import decode_attention as da
+    from ultravox_torch.ops.kernels import flash_attention as fl
     from ultravox_torch.ops.kernels import fused_attention as fa
     from ultravox_torch.ops.kernels import layer_norm as ln_mod
     from ultravox_torch.ops.kernels import paged_attention as pa
@@ -825,10 +1313,11 @@ def main() -> None:
 
     # 2. kernels against their plain versions
     rows = (_check_kernels(fa, ln_mod, dev) + _check_decode_kernels(da, sa, dev)
-            + _check_paged_kernels(pa, pg, sa, dev))
+            + _check_paged_kernels(pa, pg, sa, dev) + _check_flash(fl, dev))
 
     # 3. small end-to-end parity
     _small_parity(tc, uv, GenerationEngine, dev)
+    _small_train_parity(tc, dev)
 
     # 4. main path at flagship widths
     cfg = _flagship_config(tc)
@@ -956,6 +1445,14 @@ def main() -> None:
         if row["name"] in serve_launches:
             row["launches"] = serve_launches[row["name"]]
 
+    # 6. the training step at flagship widths, on weights of its own
+    del engine
+    torch.cuda.empty_cache()
+    training, train_launches = _train_main_path(tc, uv, dev)
+    for row in rows:
+        if row["name"] in train_launches:
+            row["launches"] = train_launches[row["name"]]
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -964,7 +1461,7 @@ def main() -> None:
     print(json.dumps({
         "kernels": rows, "ttft_ms": ttft_ms, "decode_tok_s": decode_tps,
         "fused_first_token_ms": fused_ttft_ms, "fused_decode_tok_s": fused_tps,
-        "scan_kernel_decode_tok_s": seg_tps, "serving": serving,
+        "scan_kernel_decode_tok_s": seg_tps, "serving": serving, "training": training,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -309,3 +309,103 @@ def test_serving_engine_on_cuda_matches_cpu(cuda_device):
         gpu = serve(cuda_device, mode, impl)
         assert all(c.launches > n for c, n in zip(counters, before)), (mode, impl)
         assert gpu == serve("cpu", mode, impl), (mode, impl)
+
+
+# name, T, H, Hkv, lengths (None = no length mask), causal, window, latency
+# block. Every mask, GQA 1 and 4, T in {1, 17, 190, 500}; rows of length 0
+# and, with the window, padding rows past length + window see no key.
+FLASH_CASES = [
+    ("plain-T17-gqa1", 17, 4, 4, None, False, 0, 0),
+    ("lengths+latency-T500-gqa4", 500, 4, 1, [500, 123, 0], False, 0, 16),
+    ("causal+lengths-T190-gqa4", 190, 8, 2, [190, 77, 0], True, 0, 0),
+    ("causal+window-T190-gqa4", 190, 4, 1, [190, 50, 1], True, 32, 0),
+    ("causal-T1-gqa4", 1, 4, 1, [1, 0], True, 0, 0),
+]
+
+
+def _flash_inputs(dev, dtype, T, H, Hkv, D, lengths, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lengths) if lengths is not None else 2
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev) if lengths is not None else None
+    return r(B, T, H, D), r(B, T, Hkv, D), r(B, T, Hkv, D), r(B, T, H, D), lens
+
+
+def _flash_run(fn, q, k, v, dout, lens, **kw):
+    """(out, dq, dk, dv) of fn's forward and backward under the gradient dout."""
+    q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v, lens, **kw)
+    out.backward(dout)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
+def test_flash_attention_matches_plain(cuda_device, case, D, dt):
+    """Forward and backward kernels against the plain autograd Function
+    (the JAX custom VJP's formulas) on the card: fp32 within 1e-5 (output)
+    and 1e-4 (gradients), bf16 within 4 ulps of max|ref|; every output
+    finite, rows with no visible key included. A bf16 gradient may also be
+    off by 1e-6: at T=1 dq is 0 in exact arithmetic (one key, p = 1, so
+    dp = rowsum(do o)) and both versions give fp32 rounding noise."""
+    from ultravox_torch.ops.kernels import flash_attention as tfl
+
+    _, T, H, Hkv, lengths, causal, window, lb = case
+    dtype = DTYPES[dt]
+    q, k, v, dout, lens = _flash_inputs(cuda_device, dtype, T, H, Hkv, D, lengths)
+    kw = dict(causal=causal, window=window, latency_block=lb)
+    before = (tfl.flash_attention.launches, tfl.flash_attention.bwd_launches)
+    got = _flash_run(tfl.flash_attention, q, k, v, dout, lens, **kw)
+    assert (tfl.flash_attention.launches, tfl.flash_attention.bwd_launches) == (
+        before[0] + 1, before[1] + tfl.BWD_LAUNCHES)
+    def plain(q, k, v, lens, causal, window, latency_block):
+        return tfl._FlashPlain.apply(q, k, v, lens, D**-0.5, causal, window, latency_block)
+
+    ref = _flash_run(plain, q, k, v, dout, lens, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.isfinite(a).all(), name
+        if dt == "float32":
+            tol = 1e-5 if name == "out" else 1e-4
+        else:
+            tol = 4 * 2.0**-8 * float(b.abs().max()) + (0.0 if name == "out" else 1e-6)
+        assert float((a.float() - b.float()).abs().max()) <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_flash_attention_ignores_keys_past_lengths(cuda_device, dt):
+    """1e4 in every key and value past each row's length moves neither the
+    output nor dq, and the gradient of those keys and values is exactly 0."""
+    from ultravox_torch.ops.kernels import flash_attention as tfl
+
+    dtype = DTYPES[dt]
+    for T, H, Hkv, lengths, causal, lb in ((500, 4, 1, [500, 123, 7], False, 16),
+                                           (190, 8, 2, [190, 77, 3], True, 0)):
+        q, k, v, dout, lens = _flash_inputs(cuda_device, dtype, T, H, Hkv, 64, lengths, seed=1)
+        past = torch.arange(T, device=cuda_device)[None, :] >= lens[:, None].long()
+        jk, jv = k.clone(), v.clone()
+        jk[past], jv[past] = 1e4, 1e4
+        kw = dict(causal=causal, latency_block=lb)
+        out, dq, _, _ = _flash_run(tfl.flash_attention, q, k, v, dout, lens, **kw)
+        jout, jdq, jdk, jdv = _flash_run(tfl.flash_attention, q, jk, jv, dout, lens, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, jout) and torch.equal(dq, jdq)
+        assert not jdk[past].any() and not jdv[past].any()
+
+
+@pytest.mark.cuda
+def test_flash_attention_raises_on_what_the_kernel_lacks(cuda_device):
+    from ultravox_torch.ops.kernels import flash_attention as tfl
+
+    x = torch.zeros((1, 8, 2, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfl.flash_attention(x, x, x)
+    x = torch.zeros((1, 8, 2, 64), dtype=torch.float16, device=cuda_device)
+    with pytest.raises(TypeError):
+        tfl.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="self-attention"):
+        tfl.flash_attention(x, x[:, :4], x[:, :4])

@@ -7,9 +7,39 @@ defaults as the JAX package, so a configuration means the same model in both.
 from __future__ import annotations
 
 import dataclasses
+import enum
 import json
 import os
 from typing import Any, Dict, Optional, Tuple
+
+
+class LossFunction(str, enum.Enum):
+    CROSS_ENTROPY = "ce"
+    KL_DIVERGENCE = "kl"
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    loss_function: LossFunction = LossFunction.CROSS_ENTROPY
+    kl_temperature: float = 2.0
+    initial_tokens_to_ignore: int = 0
+    eot_loss_weight: float = 1.0
+
+    @property
+    def requires_alt_fields(self) -> bool:
+        return self.loss_function == LossFunction.KL_DIVERGENCE
+
+
+@dataclasses.dataclass(frozen=True)
+class LoraConfig:
+    """Low-rank adaptation config; ``r == 0`` means "freeze the model".
+    ``unfreeze_layers`` are regex patterns of parameter paths to keep
+    trainable when r == 0."""
+
+    r: int = 0
+    lora_alpha: float = 8.0
+    target_modules: Tuple[str, ...] = ("k_proj", "q_proj", "linear_k", "linear_q")
+    unfreeze_layers: Tuple[str, ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,8 +88,8 @@ class WhisperEncoderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
-    """Decoder-only text LLM. One dataclass with family flags; this port runs
-    the llama/mistral family and rejects the others' flags at forward time."""
+    """Decoder-only text LLM. One dataclass with family flags covering the
+    llama/mistral, gemma-2/3 and qwen-2/3 families, as in the JAX package."""
 
     arch: str = "llama"
     vocab_size: int = 32000

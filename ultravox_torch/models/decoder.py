@@ -32,8 +32,10 @@ import torch.nn.functional as F
 
 from ultravox_torch.models.config import DecoderConfig
 from ultravox_torch.models.lora import proj_apply
+from ultravox_torch.models.remat import remat as checkpoint_remat
 from ultravox_torch.ops.attention import NEG_INF, mha
 from ultravox_torch.ops.kernels.decode_attention import decode_attention
+from ultravox_torch.ops.kernels.flash_attention import flash_attention
 from ultravox_torch.ops.kernels.fused_attention import fused_attention
 from ultravox_torch.ops.kernels.paged_attention import (
     gather_pages_plain,
@@ -160,8 +162,9 @@ def paged_positions_to_indices(
 
 
 def check_supported(params: Params) -> None:
-    """Raise for the decoder trees this port does not run yet: int8 weights
-    (``kernel_q``, ``embed_tokens_q``) and LoRA adapters."""
+    """Raise for the decoder trees the inference engines do not run yet:
+    int8 weights (``kernel_q``, ``embed_tokens_q``) and LoRA adapters (LoRA
+    serving is a later slice; ``decoder_forward`` itself runs LoRA trees)."""
     def keys(tree):
         for k, v in tree.items():
             yield k
@@ -425,9 +428,11 @@ def decoder_forward(
     cache: Optional[KVCache | PagedKVCache] = None,
     page_table: Optional[torch.Tensor] = None,  # (B, pages_per_seq), with a PagedKVCache
     write_pos: Optional[torch.Tensor] = None,  # (B,) cache write offset
+    remat: bool = False,
     return_hidden: bool = False,
     decode_kernel: bool = False,
     prefill_kernel: bool = False,
+    attn_impl: str = "xla",  # "flash" = the differentiable kernel (cache-less)
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (logits (B, T, V) fp32, cache), or with ``return_hidden`` the
     final hidden states (B, T, D). With a cache the current k/v are written
@@ -442,7 +447,16 @@ def decoder_forward(
     masks) when the config has no sliding window. Neither kernel softcaps, so
     both are taken only without an attention softcap; other steps use
     ``mha`` with an additive bias, over the gathered (pages_per_seq *
-    page_size) view of each row's pages for a PagedKVCache."""
+    page_size) view of each row's pages for a PagedKVCache.
+
+    ``attn_impl="flash"`` runs the cache-less forward (T > 1, no attention
+    softcap) through the differentiable ``flash_attention`` kernel: causal,
+    ``kv_valid_len`` as the key lengths and each layer's window, with the
+    query row index as the absolute position. Gemma-2's softcap keeps
+    ``mha``. ``remat`` checkpoints each layer of the cache-less forward: its
+    activations are recomputed in the backward."""
+    if attn_impl not in ("xla", "flash"):
+        raise ValueError(f"unknown attn_impl={attn_impl!r}")
     x = embed_lookup(params, input_ids) if inputs_embeds is None else inputs_embeds
     x = _scale_embeddings(cfg, x)
     B, T, _ = x.shape
@@ -462,7 +476,11 @@ def decoder_forward(
         prefill_kernel and cache is not None and not paged and T > 1
         and cfg.sliding_window is None and no_softcap
     )
-    if use_decode_kernel:
+    # the kernel runs at any T (it loops over key tiles), so unlike the JAX
+    # package's VMEM fit test only the conditions that change the function
+    # gate it
+    use_flash = attn_impl == "flash" and cache is None and T > 1 and no_softcap
+    if use_decode_kernel or use_flash:
         lengths = kv_valid_len.to(torch.int32).contiguous()
     elif not use_prefill_kernel:
         bias_global, bias_local = make_attention_bias(cfg, positions, kv_len, kv_valid_len)
@@ -475,7 +493,7 @@ def decoder_forward(
 
     for l in range(cfg.num_layers):
 
-        def attend(q, k, v):
+        def attend(q, k, v, l=l):  # l bound now: remat calls it again in the backward
             if paged:
                 cache.k[l, write_page, write_off] = k.to(cache.k.dtype)
                 cache.v[l, write_page, write_off] = v.to(cache.v.dtype)
@@ -498,10 +516,19 @@ def decoder_forward(
                 return fused_attention(
                     q, k, v, kv_valid_len, write_pos, causal=True, scale=cfg.attn_scale
                 )
+            if use_flash:
+                return flash_attention(
+                    q, k, v, lengths, causal=True, window=_window(cfg, local[l]),
+                    scale=cfg.attn_scale,
+                )
             bias = bias_local if (bias_local is not None and local[l]) else bias_global
             return mha(q, k, v, bias=bias, scale=cfg.attn_scale, softcap=cfg.attn_logit_softcapping)
 
-        x = _layer_forward(cfg, x, _layer(layers, l), *(rope_l if local[l] else rope_g), attend)
+        args = (cfg, x, _layer(layers, l), *(rope_l if local[l] else rope_g), attend)
+        if remat and cache is None:
+            x = checkpoint_remat(_layer_forward, *args)
+        else:
+            x = _layer_forward(*args)
 
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps, plus_one=_plus_one(cfg))
     if return_hidden:

@@ -2,10 +2,14 @@
 
 Parameters keep the JAX package's layout: per-layer weights stacked on a
 leading axis (``layers/<name>`` of shape (L, ...)), linear kernels as
-(in, out), conv kernels as (K, C_in, C_out). Two paths:
+(in, out), conv kernels as (K, C_in, C_out). Three paths:
 
 - ``attn_impl="xla"``: the plain path (exact-erf GELU, additive-bias masks,
   ``mha``), the differentiable reference;
+- ``attn_impl="flash"``: the training path, the plain path with attention
+  in the differentiable ``flash_attention`` kernel (length and latency
+  masks from scalars, no bias tensor); q/k/v stay unfused, so LoRA trees
+  run here;
 - ``attn_impl="fused"``: the forward-only inference path. With a fused
   ``qkv_proj`` tree (``fuse_encoder_inference_params``) every layer runs
   ``ln_qkv_head_fused`` -> ``attention_headmajor`` -> out-projection read
@@ -24,7 +28,9 @@ import torch.nn.functional as F
 
 from ultravox_torch.models.config import WhisperEncoderConfig
 from ultravox_torch.models.lora import proj_apply
+from ultravox_torch.models.remat import remat as checkpoint_remat
 from ultravox_torch.ops.attention import block_causal_bias, length_mask_bias, mha
+from ultravox_torch.ops.kernels.flash_attention import flash_attention
 from ultravox_torch.ops.kernels.fused_attention import (
     attention_headmajor,
     fused_attention,
@@ -166,17 +172,19 @@ def encoder_forward(
     mel_lens: Optional[torch.Tensor] = None,  # (B,) valid mel frames
     *,
     latency_block_size: Optional[int] = None,
+    remat: bool = False,
     attn_impl: str = "xla",
 ) -> torch.Tensor:
     """Mel features -> (B, T_out, d_model) hidden states. Positions past a
     row's ``feat_extract_output_length(mel_lens)`` are finite garbage that
-    the audio token count excludes downstream."""
+    the audio token count excludes downstream. ``remat`` checkpoints each
+    layer: its activations are recomputed in the backward."""
     if mel.shape[-1] > cfg.max_context_length:
         raise ValueError(
             f"mel length {mel.shape[-1]} exceeds encoder context "
             f"{cfg.max_context_length}; chunk the audio first."
         )
-    if attn_impl not in ("xla", "fused"):
+    if attn_impl not in ("xla", "fused", "flash"):
         raise NotImplementedError(f"encoder attn_impl={attn_impl!r} is not ported yet")
     fused = attn_impl == "fused"
     gelu = "tanh" if fused else "none"
@@ -196,7 +204,15 @@ def encoder_forward(
     scale = cfg.head_dim**-0.5
 
     bias = attn_fn = attn_qkv_fn = ln_fn = None
-    if fused:
+    if attn_impl == "flash":
+        feat_lens = (
+            feat_extract_output_length(mel_lens).to(x.device)
+            if mel_lens is not None else None
+        )
+        attn_fn = lambda q, k, v: flash_attention(  # noqa: E731
+            q, k, v, feat_lens, scale=scale, latency_block=lat
+        )
+    elif fused:
         feat_lens = (
             feat_extract_output_length(mel_lens).to(x.device)
             if mel_lens is not None else None
@@ -219,9 +235,16 @@ def encoder_forward(
             blk = block_causal_bias(T, lat, device=x.device)
             bias = blk if bias is None else torch.minimum(bias, blk)
 
-    for l in range(cfg.num_layers):
-        x = _encoder_layer(
-            cfg, x, bias, _layer(layers, l),
+    def layer_fn(x, p):
+        return _encoder_layer(
+            cfg, x, bias, p,
             attn_fn=attn_fn, attn_qkv_fn=attn_qkv_fn, ln_fn=ln_fn, approx_gelu=fused,
         )
+
+    for l in range(cfg.num_layers):
+        p = _layer(layers, l)
+        if remat:
+            x = checkpoint_remat(layer_fn, x, p)
+        else:
+            x = layer_fn(x, p)
     return layer_norm(x, params["layer_norm"]["scale"], params["layer_norm"]["bias"])

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = (
     "layer_norm", "ln_qkv_head", "attention", "decode_attention", "segment_attention",
-    "paged_attention", "paged_gather",
+    "paged_attention", "paged_gather", "flash_attention",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -38,7 +38,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # the entry points of each library that has more than its uv_<name>
-ENTRY_POINTS = {"segment_attention": ("segment_attention", "paged_segment_attention")}
+ENTRY_POINTS = {
+    "segment_attention": ("segment_attention", "paged_segment_attention"),
+    "flash_attention": ("flash_attention", "flash_attention_bwd"),
+}
 # C signature of each entry point uv_<entry> (see the .cu sources)
 _SIGNATURES = {
     "layer_norm": (_P, _P, _P, _P, ctypes.c_longlong, _I, _F, _I, _P),
@@ -64,6 +67,11 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ),
     "paged_gather": (_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P),
+    "flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P),
+    "flash_attention_bwd": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P,
+    ),
 }
 
 
