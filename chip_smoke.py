@@ -4,7 +4,7 @@
 
 Phases, each fatal on failure:
   1. build every CUDA kernel of the port from ultravox_torch/ops/kernels/csrc
-     (one nvcc per source, all eight at once);
+     (one nvcc per source, all nine at once);
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the flagship paths give it (bf16; the decode and paged kernels
      also in fp32, with ragged lengths, windows, page size 16, shuffled page
@@ -15,13 +15,21 @@ Phases, each fatal on failure:
      fp32 and bf16 on ragged lengths, a row of length 0, windows, the
      latency block and head_dim 128, with junk past the lengths, and are
      timed at the decoder's and the encoder's training shapes;
+     qkv_head_transpose is bit-equal in bf16 and fp32 at (4, 500, 2304),
+     (1, 500, 2304) and a ragged T with head_dim 128, and timed at B 1 and 4;
   3. small configs (a llama-family speech model and a gemma-3-style decoder
      with sliding windows): greedy tokens from the kernel paths on the card
      equal those of the plain paths on the CPU (fp32) for generate with the
      decode kernel, generate_fused, the segmented scan with its kernel, and
      the ServingEngine in slots and paged modes with both block attentions;
      and two KL train steps with an audio LoRA through the flash_attention
-     kernels on the card against the same steps on the CPU;
+     kernels on the card against the same steps on the CPU; the multi-LoRA
+     ServingEngine (text and audio adapters, fused encoder) in slots and
+     paged modes, tokens equal to the CPU's with qkv_head_transpose
+     launched; GenerationEngine(quantize="int8"): every int8 projection on
+     the card against the CPU (w8a8 bit-equal), prefill logits within a
+     relative RMS of 0.05 and 0.1 of the largest logit of the CPU's, beside
+     two faults planted on the CPU, token agreement printed;
   4. the main paths at flagship widths (whisper-small encoder, Llama-3.2-1B
      decoder, random bf16 weights from a seed) on 4 requests of 10 s
      synthesized audio, each with every kernel's launch count set to 0
@@ -46,7 +54,15 @@ Phases, each fatal on failure:
      vocabulary, flash attention in both towers) on bench.py's batch of 8 x
      10 s audio: 72 forward and 28 backward flash_attention calls per step
      checked, loss, grad_norm, step time, samples/s, MFU, peak memory, the
-     device's busy share, a kernel breakdown, and no host wait in a step.
+     device's busy share, a kernel breakdown, and no host wait in a step;
+  7. multi-LoRA and int8 at flagship widths on phase 4's weights and batch
+     (see _lora_int8_main_path): a paged ServingEngine with two v0.6-style
+     adapters (24 fused_layer_norm, 12 qkv_head_transpose, 12
+     attention_headmajor, 0 ln_qkv_head_fused per admission), an int8
+     GenerationEngine (the same encoder counts per generate, TTFT, tok/s,
+     weight bytes, tokens against phase 4's, and what w8a16's per-call cast
+     of the int8 weight costs) and an int8 + multi-LoRA ServingEngine in
+     slots mode, then the phase's and the script's time.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits non-zero
@@ -55,6 +71,8 @@ without a result when there is no CUDA card or the package is missing.
 
 from __future__ import annotations
 
+import collections
+import itertools
 import json
 import os
 import subprocess
@@ -338,6 +356,49 @@ def _check_kernels(fa, ln_mod, dev):
         lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=pmask),
         _nbytes(q, att, plen, offs) + kv_bytes, 4.0 * Hq * pairs * Dh, BF16_FLOPS,
     )
+
+    # 5. head-major relayout of the fused encoder's int8 / LoRA q/k/v
+    # product: bit-equal in bf16 and fp32 at both main-path shapes (B 1, one
+    # serving admission; B 4, int8 generate) and a ragged T with head_dim
+    # 128; timed at B 1, with the B 4 time beside it
+    G = 3 * H
+    for dtype in (bf, torch.float32):
+        for shape in ((4, T, G, Dh), (1, T, G, Dh), (2, 77, 6, 128)):
+            Bq, Tq, Gq, Dq = shape
+            qkv = torch.randn((Bq, Tq, Gq * Dq), generator=g, device=dev).to(dtype)
+            out, ref = fa.qkv_head_transpose(qkv, Dq), fa.qkv_head_transpose_plain(qkv, Dq)
+            torch.cuda.synchronize()
+            print(f"check qkv_head_transpose {shape} {str(dtype)[6:]}: bit-equal "
+                  f"{torch.equal(out, ref)}", flush=True)
+            if not torch.equal(out, ref):
+                _fail(f"qkv_head_transpose {shape} {dtype} differs from its plain version")
+    # Each timed call reads an input and writes an output that the previous
+    # 31 calls did not touch (the 50 MB L2 holds a B 4 input and output), so
+    # the times are HBM times, comparable with the bound.
+    exact = _recorder(rows, lambda ref: 0.0)  # a copy: bit-equal or wrong
+    times = {}
+    for Bq in (4, 1):
+        inputs = [torch.randn((Bq, T, G * Dh), generator=g, device=dev).to(bf) for _ in range(32)]
+        qkv = inputs[0]
+        out = fa.qkv_head_transpose(qkv, Dh)
+        ref = fa.qkv_head_transpose_plain(qkv, Dh)
+        torch.cuda.synchronize()
+        nxt = itertools.cycle(inputs).__next__
+        keep = collections.deque(maxlen=len(inputs)).append
+        args = ("qkv_head_transpose", "qkv_head_transpose_kernel",
+                "ultravox_torch/ops/kernels/csrc/qkv_head_transpose.cu",
+                "ultravox_tpu/ops/pallas/fused_attention.py:258", out, ref,
+                lambda: keep(fa.qkv_head_transpose(nxt(), Dh)),
+                lambda: keep(fa.qkv_head_transpose_plain(nxt(), Dh)),
+                lambda: keep(nxt().view(Bq, T, G, Dh).transpose(1, 2).contiguous()),
+                _nbytes(qkv, out), 0.0, BF16_FLOPS)
+        if Bq == 4:
+            r = exact(*args)
+            times = {f"{k}_b4": r[k] for k in ("ms", "device_ms", "wrapper_ms", "plain_ms",
+                                               "library_ms", "bound_ms")}
+            rows.pop()
+        else:
+            exact(*args, extra=times)
     return rows
 
 
@@ -1200,9 +1261,11 @@ def _row(batch, i: int):
     return out
 
 
-def _serve(engine, batches, max_tokens: int):
-    """Submit every batch at once; (tokens, finish reason, ttft_s) of each."""
-    reqs = [engine.submit(dict(b), max_tokens=max_tokens) for b in batches]
+def _serve(engine, batches, max_tokens: int, loras=None):
+    """Submit every batch at once (request i on adapter loras[i]); (tokens,
+    finish reason, ttft_s) of each."""
+    loras = loras or [None] * len(batches)
+    reqs = [engine.submit(dict(b), max_tokens=max_tokens, lora=n) for b, n in zip(batches, loras)]
     out = []
     for r in reqs:
         ids, end = [], None
@@ -1272,6 +1335,165 @@ def _small_serving_parity(name, params, cfg, requests, dev):
             _fail(f"small serving {name} {mode}/{impl}: greedy tokens on the card differ from the CPU's")
 
 
+def _adapters(params, dtype, gen, text_scale, audio_scale, r):
+    """Adapters "a" and "b" in the v0.6 recipe's targets: text LoRA on the
+    decoder's q/v/gate and audio LoRA on the encoder's q/v, rank r, with
+    lora_b drawn at the given scales so that each adapter moves the output."""
+    from ultravox_torch.models import lora as lora_lib
+    from ultravox_torch.models.config import LoraConfig
+
+    out = {}
+    for name in ("a", "b"):
+        tree = {}
+        for tower, targets, table, sc in (
+            ("language_model", ("q_proj", "v_proj", "gate_proj"), lora_lib.DECODER_TARGETS,
+             text_scale),
+            ("audio_tower", ("q_proj", "v_proj"), lora_lib.ENCODER_TARGETS, audio_scale),
+        ):
+            t = lora_lib.add_lora(params[tower], LoraConfig(r=r, target_modules=targets), gen,
+                                  table, dtype)
+            for tgt in targets:
+                b = t["layers"][tgt]["lora_b"]
+                t["layers"][tgt]["lora_b"] = (sc * torch.randn(
+                    b.shape, generator=gen, device=gen.device)).to(dtype)
+            tree[tower] = t
+        out[name] = tree
+    return out
+
+
+# Bounds on int8 prefill logits, card against CPU: relative RMS over the
+# logits, and the largest difference against the largest logit. These are
+# the bounds the CPU tests hold the port to against the JAX package.
+INT8_RMS_TOL = 0.05
+INT8_ABS_TOL = 0.1
+
+
+def _small_lora_int8_parity(tc, uv, TEngine, dev):
+    """Phase 3, continued: the small llama speech model with multi-LoRA and
+    int8. (1) The ServingEngine with two adapters (text LoRA on q/v/gate,
+    audio LoRA on the fused encoder's q/v) beside the base model, in slots
+    and paged modes, fp32: greedy tokens on the card equal the CPU's, and
+    the card ran qkv_head_transpose. (2) GenerationEngine(quantize="int8")
+    on weights at twice the init scale, with a bf16 cache (the kernels take
+    one dtype for q and the cache, and int8 trees run bf16 activations):
+    every int8 projection of the engine's tree on the card against the CPU
+    (w8a8 bit-equal, its accumulators being exact; w8a16 within 4 bf16 ulps
+    of the largest output, the fp32 sums in another order), then the
+    prefill logits within INT8_RMS_TOL and INT8_ABS_TOL of the CPU's, beside
+    two faults planted on the CPU (w8a16 at every row count, fp32 scales),
+    and greedy token agreement printed."""
+    from ultravox_torch.inference.serving.engine import ServingEngine
+    from ultravox_torch.models import decoder as dec_lib
+    from ultravox_torch.models import lora as lora_lib
+    from ultravox_torch.ops.kernels import fused_attention as fa
+    from ultravox_torch.ops.mel import log_mel_spectrogram_np
+
+    cfg = tc.UltravoxConfig(
+        audio_config=tc.WhisperEncoderConfig(d_model=128, num_layers=2, num_heads=2, ffn_dim=256),
+        text_config=tc.DecoderConfig(vocab_size=512, hidden_size=128, intermediate_size=256,
+                                     num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                                     tie_word_embeddings=True),
+        hidden_size=256, projector_ln_mid=True,
+    )
+    rng = np.random.default_rng(SEED + 3)
+    mel = torch.from_numpy(np.stack([log_mel_spectrogram_np(a) for a in _audio(2, 1.5, rng)]))
+    batch = _batch(cfg, mel, 32, rng)
+    base = uv.init_params(cfg, torch.Generator().manual_seed(SEED))
+    scale = {"audio_tower": 2.0, "projector": 8.0, "language_model": 8.0}
+    params = {k: _scale(v, scale[k]) for k, v in base.items()}
+    adapters = _adapters(params, torch.float32, torch.Generator().manual_seed(SEED + 4), 0.5, 0.1, 4)
+    requests = [_row(batch, i) for i in range(2)] * 2
+    names = [None, "a", "b", "a"]
+    for mode in ("slots", "paged"):
+        toks = {}
+        for device in ("cpu", dev):
+            before = fa.qkv_head_transpose.launches
+            srv = ServingEngine(
+                params, cfg, num_slots=4, max_seq_len=128, cache_dtype=torch.float32,
+                cache_mode=mode, page_size=16, prefill_len_buckets=(64, 128),
+                mel_len_buckets=(400,), prefill_chunk_tokens=16, decode_block_steps=4,
+                encoder_attn_impl="fused", prefill_attn_impl="fused", decode_attn_impl="kernel",
+                block_attn_impl="kernel", lora_adapters=adapters, device=device)
+            srv.start()
+            try:
+                out = _serve(srv, requests, 12, names)
+                _check_pages(srv, f"small multi-LoRA serving {mode}")
+            finally:
+                srv.stop()
+            toks[device] = [ids for ids, _, _ in out]
+            if device != "cpu" and fa.qkv_head_transpose.launches <= before:
+                _fail(f"small multi-LoRA serving {mode}: qkv_head_transpose was not launched")
+        print(f"small multi-LoRA serving {mode}: cpu {toks['cpu']} gpu {toks[dev]}", flush=True)
+        if toks["cpu"] != toks[dev] or any(len(t) != 12 for t in toks[dev]):
+            _fail(f"small multi-LoRA serving {mode}: greedy tokens on the card differ from the CPU's")
+        if toks["cpu"][0] == toks["cpu"][1] == toks["cpu"][2]:
+            _fail("small multi-LoRA serving: the adapters do not change the tokens")
+
+    calm = dict(base, language_model=_scale(base["language_model"], 2.0))
+
+    def int8_engine(device):
+        return TEngine(calm, cfg, max_cache_len=128, cache_dtype=torch.bfloat16, quantize="int8",
+                       encoder_attn_impl="fused", prefill_attn_impl="fused",
+                       decode_attn_impl="kernel", device=device)
+
+    def prefill_logits(eng):
+        tb = {k: torch.as_tensor(v).to(eng.device) for k, v in eng.pad_batch(batch).items()}
+        with torch.inference_mode():
+            cache = eng._ensure_cache(None, tb["input_ids"].shape[0], 128)
+            return eng._prefill(tb, cache, 0)[0].float().cpu()
+
+    engines = {device: int8_engine(device) for device in ("cpu", dev)}
+    # every int8 projection of layer 0 and the head, in both regimes
+    g = torch.Generator().manual_seed(SEED + 5)
+    projs = [(f"{tower} {name}", {k: v[0] for k, v in leaf.items()})
+             for tower in ("audio_tower", "language_model")
+             for name, leaf in engines["cpu"].params[tower]["layers"].items()
+             if isinstance(leaf, dict) and "kernel_q" in leaf]
+    projs.append(("lm_head", engines["cpu"].params["language_model"]["lm_head"]))
+    for label, p in projs:
+        for rows in (2, 64):
+            x = torch.randn((rows, p["kernel_q"].shape[0]), generator=g).bfloat16()
+            ref = lora_lib.proj_apply(x, p)
+            out = lora_lib.proj_apply(x.to(dev), {k: v.to(dev) for k, v in p.items()}).cpu()
+            err = float((out.float() - ref.float()).abs().max())
+            tol = _bf16_tol(ref) if rows <= lora_lib.W8A16_MAX_ROWS else 0.0
+            if not err <= tol:
+                _fail(f"int8 {label} at {rows} rows: card differs from the CPU by {err} > {tol}")
+    print(f"small int8 projections: {len(projs)} on the card against the CPU, w8a8 bit-equal, "
+          f"w8a16 within 4 bf16 ulps", flush=True)
+    logits = {device: prefill_logits(eng) for device, eng in engines.items()}
+    toks = {device: eng.generate(batch, max_new_tokens=12).token_ids
+            for device, eng in engines.items()}
+    ref = logits["cpu"]
+    quantize = dec_lib._quantize_kernel
+
+    def fp32_scales(kernel, axis=-2):
+        k32 = kernel.float()
+        return quantize(kernel, axis)[0], k32.abs().amax(dim=axis, keepdim=True).clamp(min=1e-8) / 127.0
+
+    planted = {}
+    for fault, (mod, attr, value) in {
+        "w8a16 at every row count": (lora_lib, "W8A16_MAX_ROWS", 1 << 30),
+        "fp32 scales": (dec_lib, "_quantize_kernel", fp32_scales),
+    }.items():
+        kept = getattr(mod, attr)
+        setattr(mod, attr, value)
+        try:
+            planted[fault] = _rel_rms(prefill_logits(int8_engine("cpu")), ref)
+        finally:
+            setattr(mod, attr, kept)
+    rms = _rel_rms(logits[dev], ref)
+    err = float((logits[dev] - ref).abs().max()) / float(ref.abs().max())
+    same = sum(a == b for r, q in zip(toks["cpu"], toks[dev]) for a, b in zip(r, q))
+    print(f"small int8 generate: prefill logits card vs cpu relative RMS {rms:.4g} (tol "
+          f"{INT8_RMS_TOL}), max_abs_err {err:.4g} of the largest (tol {INT8_ABS_TOL}); planted "
+          f"faults on the cpu read relative RMS {planted}; greedy tokens equal {same} of "
+          f"{sum(len(r) for r in toks['cpu'])}: cpu {toks['cpu']} gpu {toks[dev]}", flush=True)
+    if not (rms <= INT8_RMS_TOL and err <= INT8_ABS_TOL):
+        _fail(f"small int8 generate: prefill logits on the card differ from the CPU's: relative "
+              f"RMS {rms}, max_abs_err {err} of the largest")
+
+
 def _scale(tree, f):
     if isinstance(tree, dict):
         return {k: _scale(v, f) for k, v in tree.items()}
@@ -1279,6 +1501,7 @@ def _scale(tree, f):
 
 
 def main() -> None:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         _fail("no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1318,6 +1541,7 @@ def main() -> None:
     # 3. small end-to-end parity
     _small_parity(tc, uv, GenerationEngine, dev)
     _small_train_parity(tc, dev)
+    _small_lora_int8_parity(tc, uv, GenerationEngine, dev)
 
     # 4. main path at flagship widths
     cfg = _flagship_config(tc)
@@ -1345,6 +1569,7 @@ def main() -> None:
     counters = {
         "fused_layer_norm": ln_mod.fused_layer_norm,
         "ln_qkv_head_fused": fa.ln_qkv_head_fused,
+        "qkv_head_transpose": fa.qkv_head_transpose,
         "attention_headmajor": fa.attention_headmajor,
         "fused_attention": fa.fused_attention,
         "decode_attention": da.decode_attention,
@@ -1452,16 +1677,26 @@ def main() -> None:
     for row in rows:
         if row["name"] in train_launches:
             row["launches"] = train_launches[row["name"]]
+    torch.cuda.empty_cache()
+
+    # 7. multi-LoRA and int8 at flagship widths, on phase 4's weights
+    lora_int8, qkv_launches = _lora_int8_main_path(tc, uv, cfg, counters, batch, ids, wbytes, dev)
+    for row in rows:
+        if row["name"] == "qkv_head_transpose":
+            row["launches"] = qkv_launches["lora paged+kernel"]
+            row["launches_per_path"] = qkv_launches
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    print(f"chip_smoke: {time.perf_counter() - t_script:.2f} s in all", flush=True)
     print(smi, flush=True)
     print(json.dumps({
         "kernels": rows, "ttft_ms": ttft_ms, "decode_tok_s": decode_tps,
         "fused_first_token_ms": fused_ttft_ms, "fused_decode_tok_s": fused_tps,
         "scan_kernel_decode_tok_s": seg_tps, "serving": serving, "training": training,
+        "lora_int8": lora_int8, "total_s": time.perf_counter() - t_script,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -1571,27 +1806,10 @@ def _serving_main_path(engine, cfg, counters, per_call, dev):
         del srv
         torch.cuda.empty_cache()
 
-        if (steps - disp) % (K - 1):
-            _fail(f"serving {label}: {steps} steps in {disp} dispatches is no mix of 1 and {K}")
-        blocks = (steps - disp) // (K - 1)
-        singles = disp - blocks
-        want = {name: 0 for name in counters}
-        want.update({name: per_call[name] * n_req for name in
-                     ("fused_layer_norm", "ln_qkv_head_fused", "attention_headmajor")})
-        want["fused_attention"] = L_dec * chunks
-        want[single_k] = L_dec * singles
-        if block_k is not None:
-            want[block_k] = L_dec * K * blocks
-        else:
-            want["gather_pages"] = blocks
-        print(f"serving {label}: {disp} decode dispatches ({singles} single steps, {blocks} "
-              f"blocks of {K}), {chunks} prefill chunks; launches {launches} expected {want}",
-              flush=True)
-        for name, n in launches.items():
-            if n != want[name]:
-                _fail(f"serving {label}: {name} launched {n} times, expected {want[name]}")
-        if blocks == 0 or singles == 0:
-            _fail(f"serving {label}: expected both single steps and blocks")
+        encoder = {name: per_call[name] * n_req for name in
+                   ("fused_layer_norm", "ln_qkv_head_fused", "attention_headmajor")}
+        singles, blocks = _check_serving_launches(
+            label, launches, counters, encoder, disp, steps, chunks, K, L_dec, single_k, block_k)
         for i, (ids, finish, _) in enumerate(out):
             if finish != "length" or len(ids) != new_tokens:
                 _fail(f"serving {label}: request {i} finished {finish!r} with {len(ids)} tokens")
@@ -1624,6 +1842,228 @@ def _serving_main_path(engine, cfg, counters, per_call, dev):
         print(f"serving {label}: {same} of {n_req * new_tokens} tokens equal to paged+kernel's",
               flush=True)
     return metrics, new_launches
+
+
+def _lora_int8_main_path(tc, uv, cfg, counters, ref_batch, ref_ids, wbytes_bf16, dev):
+    """Phase 7: multi-LoRA and int8 at flagship widths, on phase 4's weights
+    (remade from the seed) and phase 4's batch. Two bf16 adapters "a" and
+    "b", each with text LoRA r 8 on the decoder's q/v/gate and audio LoRA r
+    8 on the encoder's q/v (the v0.6 targets), lora_b drawn at 0.05.
+
+      (a) ServingEngine, paged + segment kernel as phase 5 (a): the 4 rows on
+          the base model, then the same rows on a, b, a, b (8 requests x 32
+          tokens; prefix reuse must not cross adapters). Every admission
+          gathers its encoder adapter (slot 0 for the base model), so per
+          admission 24 fused_layer_norm, 12 qkv_head_transpose, 12
+          attention_headmajor and 0 ln_qkv_head_fused; the decoder's counts
+          as in phase 5. The sync check of phase 5 runs with the adapters.
+      (b) GenerationEngine(quantize="int8", fused encoder and prefill, decode
+          kernel) on phase 4's batch: 24/12/12/0 encoder launches, 16
+          fused_attention, 16 x 31 decode_attention per generate; TTFT,
+          decode tok/s, weight bytes against bf16, tokens equal to phase 4's.
+      (c) ServingEngine(quantize="int8", lora_adapters=...) in slots mode
+          with the segment kernel, the requests of (a).
+
+    Returns (metrics, launches of qkv_head_transpose per path)."""
+    import inspect
+
+    from ultravox_torch.inference.engine import GenerationEngine
+    from ultravox_torch.inference.serving.engine import ServingEngine
+
+    t_phase = time.perf_counter()
+    L_enc, L_dec, K = cfg.audio_config.num_layers, cfg.text_config.num_layers, 8
+    new_tokens, n_rows = 32, ref_batch["input_ids"].shape[0]
+    params = uv.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), torch.bfloat16, dev)
+    adapters = _adapters(params, torch.bfloat16, torch.Generator(device=dev).manual_seed(SEED + 7),
+                         0.05, 0.05, 8)
+    rows = [_row(ref_batch, i) for i in range(n_rows)]
+    requests, names = rows * 2, [None] * n_rows + ["a", "b"] * (n_rows // 2)
+    warm_ids = ref_batch["input_ids"][:2] % (cfg.vocab_size - 1) + 1  # other prompts: no reuse
+    warm = [_row(dict(ref_batch, input_ids=warm_ids), i) for i in range(2)]
+    fetch = ServingEngine._process_oldest_decode_inner
+    lines, first = inspect.getsourcelines(fetch)
+    fetch_lines = {(inspect.getsourcefile(fetch), first + i) for i in range(len(lines))}
+    per_adm = {"fused_layer_norm": 2 * L_enc, "qkv_head_transpose": L_enc,
+               "attention_headmajor": L_enc}
+    metrics, qkv_launches = {}, {}
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+
+    for label, mode, quantize, single_k, block_k in (
+        ("lora paged+kernel", "paged", None, "paged_decode_attention", "paged_segment_tail_attention"),
+        ("int8+lora slots+kernel", "slots", "int8", "decode_attention", "segment_tail_attention"),
+    ):
+        srv = ServingEngine(
+            params, cfg, num_slots=4, max_seq_len=2048, page_size=256, cache_mode=mode,
+            prefill_chunk_tokens=64, decode_block_steps=K, encoder_attn_impl="fused",
+            prefill_attn_impl="fused", decode_attn_impl="kernel", block_attn_impl="kernel",
+            quantize=quantize, lora_adapters=adapters, device=dev,
+        )
+        srv.start()
+        try:
+            _serve(srv, warm, 12, ["a", "b"])
+            sites = _sync_sites(lambda: (_serve(srv, warm, 12, ["a", "b"]), time.sleep(0.5)))
+            bad = [site for site in sites if site not in fetch_lines]
+            print(f"serving {label}: {len(sites)} host waits for the card, "
+                  f"{len(sites) - len(bad)} in the fetch, others at {sorted(set(bad))}", flush=True)
+            if bad:
+                _fail(f"serving {label}: the loop waits for the card outside its fetch at {bad}")
+            reset()
+            for stat in ("stat_decode_dispatches", "stat_decode_steps", "stat_prefill_chunks"):
+                setattr(srv, stat, 0)
+            srv.stat_fetch_wait_s = srv.stat_dispatch_s = 0.0
+            srv.reused_prefix_tokens = 0  # the warm-up reused its own prompts
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = _serve(srv, requests, new_tokens, names)
+            wall = time.perf_counter() - t0
+            launches = {name: c.launches for name, c in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            disp, steps, chunks = (srv.stat_decode_dispatches, srv.stat_decode_steps,
+                                   srv.stat_prefill_chunks)
+            dispatch_s, fetch_s = srv.stat_dispatch_s, srv.stat_fetch_wait_s
+            reused = srv.reused_prefix_tokens
+            _check_pages(srv, label)
+        finally:
+            srv.stop()
+        del srv
+        torch.cuda.empty_cache()
+        n_req = len(requests)
+        singles, blocks = _check_serving_launches(
+            label, launches, counters, {k: v * n_req for k, v in per_adm.items()}, disp, steps,
+            chunks, K, L_dec, single_k, block_k)
+        qkv_launches[label] = launches["qkv_head_transpose"]
+        for i, (ids, finish, _) in enumerate(out):
+            if finish != "length" or len(ids) != new_tokens:
+                _fail(f"serving {label}: request {i} finished {finish!r} with {len(ids)} tokens")
+            if any(not 0 <= t < cfg.vocab_size for t in ids):
+                _fail(f"serving {label}: token id out of range")
+        toks = [ids for ids, _, _ in out]
+        moved = [sum(a != b for a, b in zip(toks[i], toks[n_rows + i])) for i in range(n_rows)]
+        base_eq = [sum(a == b for a, b in zip(toks[i], ref_ids[i])) for i in range(n_rows)]
+        ttft = sorted(t * 1e3 for _, _, t in out)
+        metrics[label] = {
+            "ttft_p50_ms": float(np.median(ttft)), "ttft_max_ms": ttft[-1],
+            "output_tok_s": n_req * new_tokens / wall, "wall_ms": wall * 1e3,
+            "stat_dispatch_s": dispatch_s, "stat_fetch_wait_s": fetch_s, "peak_memory_gb": peak,
+            "decode_dispatches": disp, "single_steps": singles, "blocks": blocks,
+            "prefill_chunks": chunks, "reused_prefix_tokens": reused,
+            "tokens_moved_by_adapter": moved, "base_tokens_equal_to_phase4_generate": base_eq,
+        }
+        print(f"serving {label}: {n_req} requests x {new_tokens} tokens in {wall * 1e3:.3f} ms "
+              f"({n_req * new_tokens / wall:.2f} tok/s); TTFT p50 {np.median(ttft):.3f} ms, max "
+              f"{ttft[-1]:.3f} ms; loop dispatch {dispatch_s * 1e3:.3f} ms, fetch wait "
+              f"{fetch_s * 1e3:.3f} ms; peak memory {peak:.3f} GB; reused prefix tokens {reused}; "
+              f"tokens an adapter changed per row (base vs {names[n_rows:]}) {moved} of "
+              f"{new_tokens}; base rows equal to phase 4's generate {base_eq} of {new_tokens}",
+              flush=True)
+        if reused:
+            _fail(f"serving {label}: a prefix was reused across adapters")
+        if not any(moved):
+            _fail(f"serving {label}: the adapters changed no token")
+
+    # (b) the int8 offline engine on phase 4's batch
+    eng = GenerationEngine(params, cfg, max_cache_len=1024, encoder_attn_impl="fused",
+                           prefill_attn_impl="fused", decode_attn_impl="kernel", quantize="int8",
+                           device=dev)
+    del params, adapters
+    torch.cuda.empty_cache()
+    wbytes = sum(_nbytes(t) for t in _leaves(eng.params))
+    eng.generate(ref_batch, max_new_tokens=2)  # warm-up
+    reset()
+    stamps = []
+    t0 = time.perf_counter()
+    res = eng.generate(ref_batch, max_new_tokens=new_tokens,
+                       token_callback=lambda step, toks, done: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {name: c.launches for name, c in counters.items()}
+    steps = new_tokens - 1
+    want = {name: 0 for name in counters}
+    want.update(per_adm, fused_attention=L_dec, decode_attention=L_dec * steps)
+    print(f"launches, int8 generate: {launches} expected {want}", flush=True)
+    for name, n in launches.items():
+        if n != want[name]:
+            _fail(f"int8 generate: {name} launched {n} times, expected {want[name]}")
+    qkv_launches["int8 generate"] = launches["qkv_head_transpose"]
+    ids = res.token_ids
+    if len(ids) != n_rows or any(len(r) != new_tokens for r in ids):
+        _fail(f"int8 generate: expected {n_rows} x {new_tokens} tokens, got {[len(r) for r in ids]}")
+    same = [sum(a == b for a, b in zip(r, q)) for r, q in zip(ids, ref_ids)]
+    ttft_ms = (stamps[0] - t0) * 1e3
+    tps = n_rows * steps / (stamps[-1] - stamps[0])
+    metrics["int8 generate"] = {
+        "ttft_ms": ttft_ms, "decode_tok_s": tps, "total_ms": (t1 - t0) * 1e3,
+        "weight_bytes": wbytes, "weight_bytes_bf16": wbytes_bf16,
+        "tokens_equal_to_phase4_generate": same,
+    }
+    print(f"int8 generate: TTFT {ttft_ms:.3f} ms; decode {tps:.2f} tok/s; total "
+          f"{(t1 - t0) * 1e3:.3f} ms; weights {wbytes / 1e9:.3f} GB against {wbytes_bf16 / 1e9:.3f} "
+          f"GB bf16; tokens equal to phase 4's bf16 generate per row {same} of {new_tokens}; "
+          f"first tokens {[r[:8] for r in ids]}", flush=True)
+    # what w8a16's per-call bf16 copy of the int8 weight costs: one decode
+    # step's product (4 rows) against the same product from a bf16 weight,
+    # for layer 0's gate/up and the head
+    from ultravox_torch.models.lora import proj_apply
+
+    lm = eng.params["language_model"]
+    products = {}
+    for name, p in (("gateup_proj", {k: v[0] for k, v in lm["layers"]["gateup_proj"].items()}),
+                    ("lm_head", lm["lm_head"])):
+        w_bf = (p["kernel_q"].to(torch.bfloat16) * p["scale"]).to(torch.bfloat16)
+        K, N = w_bf.shape
+        x = torch.randn((n_rows, K), device=dev).to(torch.bfloat16)
+        int8_ms, bf16_ms = _time_ms(lambda: proj_apply(x, p)), _time_ms(lambda: x @ w_bf)
+        products[name] = {"shape": [K, N], "rows": n_rows, "w8a16_ms": int8_ms,
+                          "bf16_ms": bf16_ms, "weight_copy_bytes": K * N * 2}
+        print(f"int8 product {name} ({K}, {N}): w8a16 at {n_rows} rows {int8_ms:.4f} ms "
+              f"(a bf16 weight: {bf16_ms:.4f} ms; the per-call bf16 copy writes "
+              f"{K * N * 2 / 1e6:.1f} MB)", flush=True)
+    metrics["int8 generate"]["products"] = products
+    del eng, lm
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 7: {metrics['phase_s']:.2f} s", flush=True)
+    return metrics, qkv_launches
+
+
+def _check_serving_launches(label, launches, counters, encoder, disp, steps, chunks, K, L_dec,
+                            single_k, block_k):
+    """Launches of a serving run against the engine's own counters:
+
+        blocks  = (decode steps - decode dispatches) / (K - 1)
+        singles = dispatches - blocks
+        single-step kernel = L_dec x singles, block kernel = L_dec x K x
+        blocks, gather_pages = blocks (when block_k is None),
+        fused_attention = L_dec x prefill chunks, the encoder's kernels as
+        given, every other counter 0.
+
+    Fails on a mismatch or a run without both single steps and blocks.
+    Returns (singles, blocks)."""
+    if (steps - disp) % (K - 1):
+        _fail(f"serving {label}: {steps} steps in {disp} dispatches is no mix of 1 and {K}")
+    blocks = (steps - disp) // (K - 1)
+    singles = disp - blocks
+    want = {name: 0 for name in counters}
+    want.update(encoder)
+    want["fused_attention"] = L_dec * chunks
+    want[single_k] = L_dec * singles
+    if block_k is not None:
+        want[block_k] = L_dec * K * blocks
+    else:
+        want["gather_pages"] = blocks
+    print(f"serving {label}: {disp} decode dispatches ({singles} single steps, {blocks} "
+          f"blocks of {K}), {chunks} prefill chunks; launches {launches} expected {want}",
+          flush=True)
+    for name, n in launches.items():
+        if n != want[name]:
+            _fail(f"serving {label}: {name} launched {n} times, expected {want[name]}")
+    if blocks == 0 or singles == 0:
+        _fail(f"serving {label}: expected both single steps and blocks")
+    return singles, blocks
 
 
 def _sync_sites(fn):

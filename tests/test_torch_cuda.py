@@ -409,3 +409,127 @@ def test_flash_attention_raises_on_what_the_kernel_lacks(cuda_device):
         tfl.flash_attention(x, x, x)
     with pytest.raises(ValueError, match="self-attention"):
         tfl.flash_attention(x, x[:, :4], x[:, :4])
+
+
+# qkv_head_transpose: the flagship encoder's shapes (B 4 and 1, T 500, 36
+# heads of 64) and a ragged T with head_dim 128
+QKV_SHAPES = [(4, 500, 36, 64), (1, 500, 36, 64), (2, 77, 6, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("shape", QKV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_qkv_head_transpose_is_bit_equal(cuda_device, shape, dt):
+    B, T, G, Dh = shape
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    qkv = torch.randn((B, T, G * Dh), generator=g, device=cuda_device).to(DTYPES[dt])
+    before = tfa.qkv_head_transpose.launches
+    out = tfa.qkv_head_transpose(qkv, Dh)
+    ref = tfa.qkv_head_transpose_plain(qkv, Dh)
+    torch.cuda.synchronize()
+    assert tfa.qkv_head_transpose.launches == before + 1
+    assert out.shape == (B, G, T, Dh) and out.dtype == qkv.dtype and torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_qkv_head_transpose_raises_on_what_the_kernel_lacks(cuda_device):
+    qkv = torch.randn((2, 16, 6 * 64), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.qkv_head_transpose(qkv.transpose(0, 1), 64)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.qkv_head_transpose(qkv, 32)
+    with pytest.raises(TypeError):
+        tfa.qkv_head_transpose(qkv.half(), 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1000, 768, 2304), (40, 2048, 3072), (17, 64, 8)])
+def test_int8_product_is_exact_on_the_card(cuda_device, shape):
+    """w8a8's int8 x int8 -> int32 product (torch._int_mm) equals the CPU's
+    int32 product bit for bit, for a row-major and a column-major weight."""
+    from ultravox_torch.models import lora as tlora
+
+    M, K, N = shape
+    g = torch.Generator().manual_seed(0)
+    xq = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    ref = tlora.int8_mm(xq, wq)
+    for w in (wq.to(cuda_device), wq.t().contiguous().t().to(cuda_device)):
+        out = tlora.int8_mm(xq.to(cuda_device), w)
+        assert out.dtype == torch.int32 and torch.equal(out.cpu(), ref)
+    with pytest.raises(RuntimeError, match="16"):
+        tlora.int8_mm(xq[:16].to(cuda_device), wq.to(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 96])
+def test_int8_proj_apply_on_the_card_matches_cpu(cuda_device, rows):
+    """proj_apply on an int8 projection in both regimes (w8a16 at 8 rows,
+    w8a8 at 96), bf16 activations, against the CPU: w8a8's scales are
+    correctly rounded divisions and its accumulators exact, so the outputs
+    are bit-equal; w8a16 sums bf16 x int8 products in another order (4
+    ulps)."""
+    from ultravox_torch.models import decoder as tdec_
+    from ultravox_torch.models import lora as tlora
+
+    g = torch.Generator().manual_seed(1)
+    w = 0.05 * torch.randn((256, 512), generator=g)
+    q, s = tdec_._quantize_kernel(w)
+    p = {"kernel_q": q, "scale": s, "bias": 0.1 * torch.randn((512,), generator=g).bfloat16()}
+    x = torch.randn((2, rows // 2, 256), generator=g).bfloat16()
+    ref = tlora.proj_apply(x, p)
+    out = tlora.proj_apply(x.to(cuda_device), {k: v.to(cuda_device) for k, v in p.items()})
+    assert out.dtype == torch.bfloat16
+    if rows > tlora.W8A16_MAX_ROWS:
+        assert torch.equal(out.cpu(), ref)
+    else:
+        tol = 4 * 2.0**-8 * float(ref.float().abs().max())
+        assert float((out.cpu().float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_int8_quantizers_on_the_card_match_cpu(cuda_device):
+    """The engines quantize on the card: int8 values and bf16 scales equal
+    the CPU's bit for bit, and so do w8a8's activation scales (amax / 127
+    as a true division; a Python-number divisor is a reciprocal product on
+    the card, an ulp off for about 4% of values)."""
+    from ultravox_torch.models import decoder as tdec_
+    from ultravox_torch.models import lora as tlora
+
+    g = torch.Generator().manual_seed(3)
+    w = 0.05 * torch.randn((2, 768, 2304), generator=g)
+    e = torch.randn((1000, 256), generator=g)
+    for fn, src in ((tdec_._quantize_kernel, w), (tdec_._quantize_embedding, e)):
+        (q, s), (qc, sc) = fn(src), fn(src.to(cuda_device))
+        assert torch.equal(qc.cpu(), q) and torch.equal(sc.cpu(), s)
+    amax = w.abs().amax(dim=-1, keepdim=True)
+    assert torch.equal(tlora.int8_scale(amax.to(cuda_device)).cpu(), tlora.int8_scale(amax))
+
+
+@pytest.mark.cuda
+def test_banked_proj_apply_on_the_card_matches_cpu(cuda_device):
+    """A small banked LoRA projection (three rows on adapters 0, 2, 1; fp32)
+    on the card against the CPU."""
+    from ultravox_torch.models import lora as tlora
+
+    g = torch.Generator().manual_seed(2)
+    L, d_in, r, d_out = 2, 48, 4, 40
+    trees = {}
+    for name in ("a", "b"):
+        trees[name] = {"layers": {"q_proj": {
+            "lora_a": torch.randn((L, d_in, r), generator=g),
+            "lora_b": torch.randn((L, r, d_out), generator=g),
+            "lora_scale": torch.full((L,), 2.0),
+        }}}
+    banks, index = tlora.build_lora_banks(trees)
+    base = {"layers": {"q_proj": {"kernel": torch.randn((L, d_in, d_out), generator=g)}}}
+    x = torch.randn((3, 5, d_in), generator=g)
+    idx = torch.tensor([0, index["b"], index["a"]], dtype=torch.int32)
+
+    def run(dev):
+        to = lambda t: {k: to(v) for k, v in t.items()} if isinstance(t, dict) else t.to(dev)  # noqa: E731
+        tree = tlora.apply_lora_banks(to(base), to(banks), idx.to(dev))
+        layer = {k: v[1] for k, v in tree["layers"]["q_proj"].items()}
+        return tlora.proj_apply(x.to(dev), layer).cpu()
+
+    assert float((run(cuda_device) - run("cpu")).abs().max()) <= 1e-4

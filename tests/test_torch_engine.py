@@ -66,14 +66,14 @@ def test_default_device_is_cuda_and_never_falls_back(setup, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(decode_attn_impl="bogus"), dict(quantize="int8"), dict(encoder_attn_impl="flash"),
+    dict(decode_attn_impl="bogus"), dict(quantize="int4"), dict(encoder_attn_impl="flash"),
 ])
 def test_unported_options_raise(setup, kw):
-    """An unknown decode_attn_impl raises ValueError; quantize is no option
-    of the port yet (a TypeError); an unported encoder_attn_impl raises
+    """An unknown decode_attn_impl or quantize mode raises ValueError (int8
+    runs: tests/test_torch_int8.py); an unported encoder_attn_impl raises
     NotImplementedError."""
     _, tcfg, _, tparams = setup
-    exc = {"decode_attn_impl": ValueError, "quantize": TypeError,
+    exc = {"decode_attn_impl": ValueError, "quantize": ValueError,
            "encoder_attn_impl": NotImplementedError}[next(iter(kw))]
     with pytest.raises(exc):
         tengine.GenerationEngine(tparams, tcfg, device="cpu", **kw)

@@ -8,7 +8,8 @@ and the kernels' plain versions; a gemma-3-style decoder with sliding
 windows likewise in paged mode. Then stop tokens inside a block, sampled
 requests beside greedy ones, cancellation, pool backpressure, conversation
 reuse, ``_resolve_auto`` against JAX's, and every option that is not
-ported. Page accounting is checked after every paged run.
+ported (multi-LoRA and int8 serving: tests/test_torch_lora_serving.py and
+tests/test_torch_int8.py). Page accounting is checked after every paged run.
 """
 
 import dataclasses
@@ -271,11 +272,19 @@ def test_resolve_auto_matches_jax(setup, monkeypatch, on_card):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(quantize="int8"), dict(lora_adapters={"a": {}}), dict(spec_decode="ngram"),
+    dict(quantize="int4"), dict(lora_adapters={"a": {}}), dict(spec_decode="ngram"),
     dict(mesh=object()),
 ])
 def test_unported_engine_options_raise(setup, kw):
+    """Speculative decoding and meshes are not ported (NotImplementedError);
+    an unknown quantize mode and adapters without LoRA leaves raise
+    ValueError, as in the JAX package (int8 and multi-LoRA serving run:
+    tests/test_torch_int8.py, tests/test_torch_lora_serving.py)."""
     _, tcfg, _, tparams, _, _ = setup
+    if "quantize" in kw or "lora_adapters" in kw:
+        with pytest.raises(ValueError, match="quantize|no lora_a"):
+            tserve.ServingEngine(tparams, tcfg, device="cpu", **kw)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         tserve.ServingEngine(tparams, tcfg, device="cpu", **kw)
 
@@ -286,8 +295,13 @@ def test_unported_engine_options_raise(setup, kw):
     dict(seed=7, temperature=0.8), dict(lora="a"), dict(audio_embeds=np.zeros((1, 4, 128))),
 ])
 def test_unported_request_options_raise(setup, kw):
+    """Each unported request option raises at submit. ``lora`` is ported: on
+    an engine without that adapter the request finishes "unknown_lora"."""
     _, tcfg, _, tparams, batches, _ = setup
     eng = _engine(tparams, tcfg, cache_mode="slots")
+    if "lora" in kw:
+        assert _serve(eng, [batches[0]], **kw) == [([], "unknown_lora")]
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         eng.submit(dict(batches[0]), **kw)
     eng.submit(dict(batches[0]), seed=7)  # a seeded greedy request is plain argmax

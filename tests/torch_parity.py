@@ -91,3 +91,24 @@ def audio_batch(mel_fn, compression: int, seed: int = 0):
         "audio_chunk_batch_idx": np.array([0, 1], np.int32),
     }
 
+
+def drain(engine, req, timeout: float = 300):
+    """A request's stream read to its end: (token ids, finish reason)."""
+    ids, finish = [], None
+    for ev in engine.stream(req, timeout=timeout):
+        if ev.token_id is None:
+            finish = ev.finish_reason
+            break
+        ids.append(ev.token_id)
+    return ids, finish
+
+
+def serve(engine, batches, names, max_tokens: int):
+    """Start a ServingEngine (either package's), submit every batch at once
+    (request i on adapter names[i]), drain each, stop: [(ids, finish)]."""
+    engine.start()
+    try:
+        reqs = [engine.submit(dict(b), max_tokens=max_tokens, lora=n) for b, n in zip(batches, names)]
+        return [drain(engine, r) for r in reqs]
+    finally:
+        engine.stop()

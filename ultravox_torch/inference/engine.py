@@ -5,7 +5,9 @@ batch format, bucketing and results. ``generate`` decodes one token per
 step through the whole cache; ``generate_fused`` runs the decode loop as
 one segmented scan (``decoder.segmented_decode_scan``) with no host
 synchronisation until its token matrix is read. The attention options are
-``encoder_attn_impl``, ``prefill_attn_impl`` and ``decode_attn_impl``. It
+``encoder_attn_impl``, ``prefill_attn_impl`` and ``decode_attn_impl``;
+``quantize="int8"`` serves int8 weights in the decoder and the Whisper
+tower, and a tree with one LoRA adapter runs it through ``proj_apply``. It
 runs on the CUDA card unless the caller passes ``device="cpu"``; there is
 no silent fallback, and a failed kernel build or launch raises.
 """
@@ -21,7 +23,10 @@ import torch
 from ultravox_torch.models import decoder as decoder_lib
 from ultravox_torch.models import ultravox as uv
 from ultravox_torch.models.config import UltravoxConfig
-from ultravox_torch.models.whisper_encoder import fuse_encoder_inference_params
+from ultravox_torch.models.whisper_encoder import (
+    fuse_encoder_inference_params,
+    quantize_encoder_int8,
+)
 from ultravox_torch.ops.sampling import sample_token
 
 CACHE_BUCKET = 256
@@ -82,6 +87,7 @@ class GenerationEngine:
         encoder_attn_impl: str = "xla",
         prefill_attn_impl: str = "xla",
         decode_attn_impl: str = "xla",  # "kernel" = the decode_attention kernel
+        quantize: Optional[str] = None,  # "int8" = weight-only int8
         device=None,
         seed: int = 0,
     ):
@@ -91,13 +97,21 @@ class GenerationEngine:
             raise ValueError(f"unknown prefill_attn_impl={prefill_attn_impl!r}")
         if decode_attn_impl not in ("xla", "kernel"):
             raise ValueError(f"unknown decode_attn_impl={decode_attn_impl!r}")
-        decoder_lib.check_supported(params["language_model"])
+        if quantize and quantize != "int8":
+            raise ValueError(f"unsupported quantize={quantize!r}")
         self.device = resolve_device(device)
         params = _to_device(params, self.device)
         self.params = dict(params)
+        # fused q/k/v and gate/up products (a no-op for LoRA'd trees), then
+        # int8, then the fused encoder tree: the JAX engine's order
         self.params["language_model"] = decoder_lib.fuse_inference_params(
             params["language_model"], cfg.text_config
         )
+        if quantize:
+            self.params["language_model"] = decoder_lib.quantize_decoder_int8(
+                self.params["language_model"])
+            if "conv1" in self.params.get("audio_tower", {}):
+                self.params["audio_tower"] = quantize_encoder_int8(self.params["audio_tower"])
         if encoder_attn_impl == "fused" and "audio_tower" in self.params:
             self.params["audio_tower"] = fuse_encoder_inference_params(self.params["audio_tower"])
         self.cfg = cfg

@@ -31,10 +31,19 @@ card: sampling branches, masks and tables are decided on the host, and host
 arrays reach the card through pinned, non-blocking copies of private
 buffers (``_upload``).
 
-Out of scope (each raises ``NotImplementedError``): speculative decoding,
-LoRA adapters, int8 weights and meshes at construction; penalties,
-``logit_bias``, logprobs, seeded sampling at a temperature above 0, LoRA
-selection and precomputed ``audio_embeds`` at ``submit``.
+Multi-LoRA serving (``lora_adapters``): one base model and N adapters,
+each request naming one (``submit(lora=...)``) or none. Each tower's
+adapters are banked over one sorted-name index (``lora.build_lora_banks``;
+slot 0 is the base model) and, where the base projections are fused,
+re-expressed over them (``lora.fuse_lora_banks``). Every prefill chunk and
+decode dispatch gathers its rows' adapters from the decoder banks
+(``_with_lora``); the encoder's adapter is gathered once per admission.
+``quantize="int8"`` serves an int8 decoder, adapters riding on top.
+
+Out of scope (each raises ``NotImplementedError``): speculative decoding
+and meshes at construction; penalties, ``logit_bias``, logprobs, seeded
+sampling at a temperature above 0 and precomputed ``audio_embeds`` at
+``submit``.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ import torch.nn.functional as F
 
 from ultravox_torch.inference.engine import _to_device, resolve_device
 from ultravox_torch.models import decoder as decoder_lib
+from ultravox_torch.models import lora as lora_lib
 from ultravox_torch.models import ultravox as uv
 from ultravox_torch.models.config import UltravoxConfig
 from ultravox_torch.models.whisper_encoder import fuse_encoder_inference_params
@@ -81,6 +91,7 @@ class Request:
     min_p: float = 0.0  # 0 = disabled
     cancelled: bool = False  # set via ServingEngine.cancel()
     stop_token_ids: Tuple[int, ...] = ()
+    lora: Optional[str] = None  # adapter name (multi-LoRA serving)
     out_queue: "queue.Queue" = dataclasses.field(default_factory=queue.Queue)
     submit_time: float = dataclasses.field(default_factory=time.monotonic)
     # filled by the engine
@@ -102,6 +113,7 @@ class RetainedCache:
     token_ids: np.ndarray  # tokens whose k/v live in the slot cache
     # audio chunks inside those tokens: (start_idx, token_len, sha1-hex)
     audio_spans: Tuple[Tuple[int, int, str], ...]
+    lora: Optional[str] = None  # the adapter the k/v were computed under
 
 
 @dataclasses.dataclass
@@ -123,6 +135,8 @@ class PrefillJob:
     # paged mode: the reused prefix lives in pool pages and is loaded into
     # the contiguous prefill scratch before the first chunk runs
     needs_scratch_load: bool = False
+    # multi-LoRA: the request's (1,) decoder-bank index on the card
+    lora_idx: Any = None
     # copy-on-adopt prefix caching: when >= 0 the prefix loads from this
     # (still retained) slot's pages; the request's own slot gets a copy
     # through the end-of-prefill page scatter, so the retained conversation
@@ -243,14 +257,14 @@ class ServingEngine:
         resolve in ``_resolve_auto``; explicit values override."""
         unported = [
             name for name, on in (
-                ("quantize (int8 serving)", quantize is not None),
-                ("lora_adapters (multi-LoRA serving)", bool(lora_adapters)),
                 ("spec_decode (speculative decoding)", spec_decode not in (None, "none", "")),
                 ("mesh (sharded serving)", mesh is not None),
             ) if on
         ]
         if unported:
             raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
+        if quantize and quantize != "int8":
+            raise ValueError(f"unsupported quantize={quantize!r}")
         self.device = resolve_device(device)
         (cache_mode, decode_attn_impl, prefill_attn_impl, encoder_attn_impl, block_attn_impl,
          decode_block_steps) = _resolve_auto(
@@ -266,14 +280,31 @@ class ServingEngine:
         ):
             if value not in allowed:
                 raise ValueError(f"unknown {name}={value!r}")
-        decoder_lib.check_supported(params["language_model"])
         params = _to_device(params, self.device)
         self.params = dict(params)
+        self._lora_banks, self._enc_lora_banks, self._lora_index = _lora_banks(
+            _to_device(lora_adapters, self.device) if lora_adapters else None)
         self.params["language_model"] = decoder_lib.fuse_inference_params(
             params["language_model"], cfg.text_config
         )
+        if quantize:  # the decoder only, as the reference serves int8
+            self.params["language_model"] = decoder_lib.quantize_decoder_int8(
+                self.params["language_model"])
+        tc = cfg.text_config
+        if self._lora_banks is not None and "qkv_proj" in self.params["language_model"]["layers"]:
+            kv = tc.num_kv_heads * tc.head_dim
+            self._lora_banks = lora_lib.fuse_lora_banks(
+                self._lora_banks, qkv_dims=(tc.num_heads * tc.head_dim, kv, kv),
+                gateup_dims=(tc.intermediate_size, tc.intermediate_size))
         if encoder_attn_impl == "fused" and "audio_tower" in self.params:
             self.params["audio_tower"] = fuse_encoder_inference_params(self.params["audio_tower"])
+        if self._enc_lora_banks is not None:
+            if "qkv_proj" in self.params.get("audio_tower", {}).get("layers", {}):
+                D = cfg.audio_config.d_model
+                self._enc_lora_banks = lora_lib.fuse_lora_banks(
+                    self._enc_lora_banks, qkv_dims=(D, D, D), gateup_dims=())
+            # fail here, not inside the first admission's tick
+            _validate_enc_lora_banks(self.params.get("audio_tower"), self._enc_lora_banks)
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_seq_len = max_seq_len
@@ -295,7 +326,6 @@ class ServingEngine:
         self.prefill_kernel = prefill_attn_impl == "fused"
         self.decode_kernel = decode_attn_impl == "kernel"
 
-        tc = cfg.text_config
         dev = self.device
         self.cache_mode = cache_mode
         self.paged = cache_mode == "paged"
@@ -368,7 +398,7 @@ class ServingEngine:
         # results + the active-set snapshot they were dispatched against)
         self._inflight: "collections.deque" = collections.deque()
         self._max_inflight = 2
-        self._mask_cache = None  # (key, active mask, samp, sampled, filtered)
+        self._mask_cache = None  # (key, active mask, samp, sampled, filtered, lora index)
         self._free_slots = list(range(num_slots))
         # conversation-prefix reuse: finished slots keep their cache rows
         # until reallocated; min_reuse_tokens gates trivial matches
@@ -495,7 +525,7 @@ class ServingEngine:
         repetition_penalty: float = 1.0,
         logit_bias=(),
         seed: Optional[int] = None,
-        lora: Optional[str] = None,
+        lora: Optional[str] = None,  # an adapter name of lora_adapters
         logprobs: bool = False,
         top_logprobs: int = 0,
         stop_token_ids: Tuple[int, ...] = (),
@@ -516,7 +546,6 @@ class ServingEngine:
                 ("logprobs", bool(logprobs) or int(top_logprobs) > 0),
                 ("seeded sampling (seed with temperature > 0)",
                  seed is not None and temperature > 0),
-                ("lora", lora is not None),
                 ("precomputed audio_embeds", audio_embeds is not None),
             ) if on
         ]
@@ -531,6 +560,7 @@ class ServingEngine:
             top_p=float(top_p),
             min_p=float(min_p),
             stop_token_ids=tuple(stop_token_ids),
+            lora=lora,
         )
         if audio_spans is not None:
             req.audio_spans = tuple(audio_spans)
@@ -750,6 +780,10 @@ class ServingEngine:
         if req.cancelled:
             self._finish_cancelled(req)
             return
+        if req.lora is not None and req.lora not in self._lora_index:
+            req.out_queue.put(StreamEvent(token_id=None, finish_reason="unknown_lora"))
+            self._requests.pop(req.request_id, None)
+            return
         prompt_len = int(np.asarray(req.batch["attention_mask"]).sum())
         # a prompt of max_seq_len - 1 is servable (one token, then
         # cache_full); anything beyond that, or beyond the largest prefill
@@ -768,6 +802,8 @@ class ServingEngine:
         for slot_r, entry in self._retained.items():
             if slot_r not in self._free_slots:
                 continue
+            if entry.lora != req.lora:
+                continue  # k/v computed under another adapter
             m = _match_prefix(req.token_ids, req.audio_spans, entry)
             if m > best_m:
                 best_m, best_slot = m, slot_r
@@ -876,10 +912,17 @@ class ServingEngine:
             padded = self._pad_request(req.batch)
             batch = {k: self._upload(np.asarray(padded[k])) for k in _EMBED_KEYS
                      if padded.get(k) is not None}
+            adapter = self._lora_index.get(req.lora, 0)  # 0: the base model
+            enc_idx = None
+            if self._enc_lora_banks is not None:
+                enc_idx = self._upload(np.asarray(adapter, np.int32))
             # one call embeds the whole prompt (audio tower + projector +
             # splice); the LLM prefill then proceeds in chunks
-            embeds = _embed_prompt(self.params, batch, cfg=self.cfg,
+            embeds = _embed_prompt(self.params, batch, self._enc_lora_banks, enc_idx, cfg=self.cfg,
                                    encoder_attn_impl=self.encoder_attn_impl)
+            lora_idx = None
+            if self._lora_banks is not None:
+                lora_idx = self._upload(np.asarray([adapter], np.int32))
             T_padded = embeds.shape[1]
             # short suffixes take a single chunk; longer ones chunk at
             # prefill_chunk_tokens
@@ -899,6 +942,7 @@ class ServingEngine:
             PrefillJob(
                 req=req, embeds=embeds, chunk=chunk, pos=start,
                 needs_scratch_load=self.paged and start > 0, prefix_src_slot=src_slot,
+                lora_idx=lora_idx,
             )
         )
 
@@ -924,12 +968,14 @@ class ServingEngine:
                 job.prefix_src_slot = -1
             logits_last = _prefill_chunk_scratch_impl(
                 self.params, self._scratch, chunk, start, req.prompt_len, cfg=self.cfg,
-                prefill_kernel=self.prefill_kernel,
+                prefill_kernel=self.prefill_kernel, lora_banks=self._lora_banks,
+                lora_idx=job.lora_idx,
             )
         else:
             logits_last = _prefill_chunk_impl(
                 self.params, self.cache, chunk, req.slot, start, req.prompt_len, cfg=self.cfg,
-                prefill_kernel=self.prefill_kernel,
+                prefill_kernel=self.prefill_kernel, lora_banks=self._lora_banks,
+                lora_idx=job.lora_idx,
             )
         job.pos = start + C
         self.stat_prefill_chunks += 1
@@ -1008,7 +1054,7 @@ class ServingEngine:
         snapshot = [(s, self._active[s]) for s in slots]
         key = (
             tuple(slots),
-            tuple((r.temperature, r.top_k, r.top_p, r.min_p) for _, r in snapshot),
+            tuple((r.temperature, r.top_k, r.top_p, r.min_p, r.lora) for _, r in snapshot),
         )
         if self._mask_cache is None or self._mask_cache[0] != key:
             active_mask = np.zeros((self.num_slots,), bool)
@@ -1016,13 +1062,17 @@ class ServingEngine:
             # per-slot sampling parameters [temperature, top_k, top_p, min_p]
             samp = np.zeros((self.num_slots, 4), np.float32)
             samp[:, 2] = 1.0
+            lora_idx = np.zeros((self.num_slots,), np.int32)  # 0 = the base model
             for s, req in snapshot:
                 samp[s] = (req.temperature, req.top_k, req.top_p, req.min_p)
+                if req.lora is not None:
+                    lora_idx[s] = self._lora_index[req.lora]
             self._mask_cache = (
-                key, self._upload(active_mask), self._upload(samp), *sampling_flags(samp)
+                key, self._upload(active_mask), self._upload(samp), *sampling_flags(samp),
+                self._upload(lora_idx) if self._lora_banks is not None else None,
             )
-        _, mask_dev, samp_dev, sampled, filtered = self._mask_cache
-        lm = self.params["language_model"]
+        _, mask_dev, samp_dev, sampled, filtered, lora_idx_dev = self._mask_cache
+        lm = _with_lora(self.params["language_model"], self._lora_banks, lora_idx_dev)
         tc = self.cfg.text_config
         if n_steps == 1:
             toks, self.cache_lens, self.last_tokens = _decode_all_slots(
@@ -1149,6 +1199,7 @@ class ServingEngine:
                         [req.token_ids, np.asarray(kept, req.token_ids.dtype)]
                     ),
                     audio_spans=req.audio_spans,
+                    lora=req.lora,
                 )
                 self._retained[req.slot] = entry
                 if self.paged:
@@ -1165,16 +1216,86 @@ class ServingEngine:
 # --------------------------------------------------------------------------
 
 
-def _embed_prompt(params, batch, *, cfg: UltravoxConfig, encoder_attn_impl: str = "xla"):
+def _lora_banks(adapters):
+    """(decoder banks, encoder banks, index) of ``lora_adapters``: name ->
+    a tree with ``language_model`` and/or ``audio_tower`` adapters, or a bare
+    LM tree. Both towers are banked over one sorted-name index; a tower no
+    adapter targets has no banks (None)."""
+    if not adapters:
+        return None, None, {}
+
+    def has_lora(tree) -> bool:
+        return isinstance(tree, dict) and any(
+            k == "lora_a" or has_lora(v) for k, v in tree.items())
+
+    lms, encs = {}, {}
+    for name, tree in adapters.items():
+        lm = tree.get("language_model")
+        if lm is None and "audio_tower" not in tree:
+            lm = tree  # a bare LM adapter tree
+        lms[name] = lm if has_lora(lm) else {"layers": {}}
+        tower = tree.get("audio_tower")
+        encs[name] = tower if has_lora(tower) else {"layers": {}}
+    n_lm = sum(has_lora(t) for t in lms.values())
+    n_enc = sum(has_lora(t) for t in encs.values())
+    if not (n_lm or n_enc):
+        raise ValueError("no lora_a leaves found in any adapter (neither language_model nor "
+                         "audio_tower)")
+    lm_banks = enc_banks = None
+    if n_lm:
+        lm_banks, index = lora_lib.build_lora_banks(lms)
+    if n_enc:
+        enc_banks, index = lora_lib.build_lora_banks(encs)  # the same names, the same index
+    return lm_banks, enc_banks, index
+
+
+def _validate_enc_lora_banks(tower, banks) -> None:
+    """Construction-time check that the encoder banks apply to the served
+    audio tower (possibly fused or int8): every banked target exists with
+    matching (layers, in, out)."""
+    layers = tower.get("layers") if isinstance(tower, dict) else None
+    if not isinstance(layers, dict):
+        raise ValueError("lora_adapters carry audio_tower (encoder) adapters but the served "
+                         "params have no audio tower")
+    for tgt, bank in banks.items():
+        proj = layers.get(tgt)
+        kern = proj.get("kernel", proj.get("kernel_q")) if isinstance(proj, dict) else None
+        if kern is None:
+            have = sorted(k for k, v in layers.items()
+                          if isinstance(v, dict) and ("kernel" in v or "kernel_q" in v))
+            raise ValueError(f"encoder LoRA adapters target {tgt!r}, which the served audio "
+                             f"tower does not have (tower projections: {have})")
+        L, d_in, d_out = bank["a"].shape[0], bank["a"].shape[-2], bank["b"].shape[-1]
+        if (kern.shape[0], kern.shape[-2], kern.shape[-1]) != (L, d_in, d_out):
+            raise ValueError(f"encoder LoRA bank for {tgt!r} is shaped for (layers={L}, "
+                             f"d_in={d_in}, d_out={d_out}) but the served tower's projection is "
+                             f"{tuple(kern.shape)}")
+
+
+def _embed_prompt(params, batch, enc_banks=None, enc_idx=None, *, cfg: UltravoxConfig,
+                  encoder_attn_impl: str = "xla"):
     """Prompt embeddings (1, T, D) with the audio embeddings spliced in: the
-    audio tower runs once per request; the LLM prefill is chunked."""
+    audio tower runs once per request; the LLM prefill is chunked. With
+    encoder banks the request's adapter (0-dim ``enc_idx``, 0 for the base
+    model) is gathered into the tower first."""
+    if enc_banks is not None:
+        params = dict(params)
+        params["audio_tower"] = lora_lib.apply_lora_banks(params["audio_tower"], enc_banks, enc_idx)
     return uv.ultravox_embed(params, cfg, batch["input_ids"], batch,
                              encoder_attn_impl=encoder_attn_impl)
 
 
+def _with_lora(lm, lora_banks, lora_idx):
+    """The LM tree with each row's adapter gathered from the banks (no-op
+    without banks)."""
+    if lora_banks is None:
+        return lm
+    return lora_lib.apply_lora_banks(lm, lora_banks, lora_idx)
+
+
 def _prefill_chunk_impl(
     params, cache, embeds_chunk, slot: int, start_pos: int, prompt_len: int, *, cfg,
-    prefill_kernel: bool = False,
+    prefill_kernel: bool = False, lora_banks=None, lora_idx=None,
 ):
     """Prefill one chunk of prompt embeddings into row ``slot`` of the slot
     cache (through a view of the row, so the writes land in the cache).
@@ -1185,24 +1306,26 @@ def _prefill_chunk_impl(
     )
     return _prefill_chunk_scratch_impl(
         params, row, embeds_chunk, start_pos, prompt_len, cfg=cfg, prefill_kernel=prefill_kernel,
+        lora_banks=lora_banks, lora_idx=lora_idx,
     )
 
 
 def _prefill_chunk_scratch_impl(
     params, scratch, embeds_chunk, start_pos: int, prompt_len: int, *, cfg,
-    prefill_kernel: bool = False,
+    prefill_kernel: bool = False, lora_banks=None, lora_idx=None,
 ):
     """One prompt chunk (1, C, D) at positions [start_pos, start_pos + C)
     into a one-row contiguous cache: a slot row, or paged mode's scratch.
     Padding past prompt_len is written but masked by the valid length (and
     later by cache_lens)."""
     tc = cfg.text_config
+    lm = _with_lora(params["language_model"], lora_banks, lora_idx)
     C = embeds_chunk.shape[1]
     dev = embeds_chunk.device
     positions = (start_pos + torch.arange(C, device=dev))[None]
     valid = min(start_pos + C, prompt_len)
     hidden, _ = decoder_lib.decoder_forward(
-        params["language_model"], tc,
+        lm, tc,
         inputs_embeds=embeds_chunk,
         positions=positions,
         kv_valid_len=torch.full((1,), valid, dtype=torch.int32, device=dev),
@@ -1212,7 +1335,7 @@ def _prefill_chunk_scratch_impl(
         prefill_kernel=prefill_kernel,
     )
     last_idx = min(max(prompt_len - 1 - start_pos, 0), C - 1)
-    return decoder_lib.compute_logits(params["language_model"], tc, hidden[:, last_idx])
+    return decoder_lib.compute_logits(lm, tc, hidden[:, last_idx])
 
 
 def _pages_to_scratch(pool, table_row, scratch):

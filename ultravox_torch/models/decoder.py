@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ultravox_torch.models.config import DecoderConfig
-from ultravox_torch.models.lora import proj_apply
+from ultravox_torch.models.lora import int8_scale, proj_apply
 from ultravox_torch.models.remat import remat as checkpoint_remat
 from ultravox_torch.ops.attention import NEG_INF, mha
 from ultravox_torch.ops.kernels.decode_attention import decode_attention
@@ -159,21 +159,6 @@ def paged_positions_to_indices(
     pid = torch.gather(page_table.long(), 1, blk.clamp(0, n_per - 1))
     valid = in_range & (pid >= 0) & (pid < num_pages)
     return torch.where(valid, pid, num_pages), torch.remainder(pos, page_size)
-
-
-def check_supported(params: Params) -> None:
-    """Raise for the decoder trees the inference engines do not run yet:
-    int8 weights (``kernel_q``, ``embed_tokens_q``) and LoRA adapters (LoRA
-    serving is a later slice; ``decoder_forward`` itself runs LoRA trees)."""
-    def keys(tree):
-        for k, v in tree.items():
-            yield k
-            if isinstance(v, dict):
-                yield from keys(v)
-
-    bad = sorted({k for k in keys(params) if k in ("kernel_q", "embed_tokens_q", "lora_a")})
-    if bad:
-        raise NotImplementedError(f"decoder weights not ported yet: {bad}")
 
 
 def is_local_layer(cfg: DecoderConfig) -> np.ndarray:
@@ -348,21 +333,31 @@ def make_attention_bias(
 
 
 def embed_lookup(params: Params, ids: torch.Tensor) -> torch.Tensor:
-    """Token-embedding rows."""
+    """Token-embedding rows, dequantized (in the scales' dtype) from int8
+    storage when the tree has it."""
+    ids = ids.long()
     if "embed_tokens_q" in params:
-        raise NotImplementedError("int8 embeddings are not ported yet")
-    return params["embed_tokens"][ids.long()]
+        scales = params["embed_scale"][ids]
+        return params["embed_tokens_q"][ids].to(scales.dtype) * scales[..., None]
+    return params["embed_tokens"][ids]
 
 
 def compute_logits(params: Params, cfg: DecoderConfig, hidden: torch.Tensor) -> torch.Tensor:
     """LM head: hidden (..., D) -> fp32 logits (..., V), with gemma's final
     softcap. The product runs in the weights' dtype and is then widened, as
-    in the reference."""
+    in the reference. A tied model uses the embedding, except an int8 tree,
+    which carries a pretransposed int8 head (``quantize_decoder_int8``)."""
     head = params.get("lm_head")
-    if head is not None and "kernel_q" in head:
-        raise NotImplementedError("int8 LM heads are not ported yet")
-    if head is None or cfg.tie_word_embeddings:
-        logits = (hidden @ params["embed_tokens"].T).float()
+    use_head = head is not None and (not cfg.tie_word_embeddings or "kernel_q" in head)
+    if not use_head:
+        if "embed_tokens_q" in params:
+            logits = proj_apply(hidden, {
+                "kernel_q": params["embed_tokens_q"].T, "scale": params["embed_scale"][None],
+            }).float()
+        else:
+            logits = (hidden @ params["embed_tokens"].T).float()
+    elif "kernel_q" in head:
+        logits = proj_apply(hidden, head).float()
     else:
         logits = (hidden @ head["kernel"]).float()
     if cfg.final_logit_softcapping:
@@ -392,6 +387,53 @@ def fuse_inference_params(params: Params, cfg: DecoderConfig) -> Params:
         del new[n]
     out = dict(params)
     out["layers"] = new
+    return out
+
+
+def _quantize_kernel(kernel: torch.Tensor, axis: int = -2):
+    """Per-output-channel symmetric int8 over the contraction axis: (int8
+    values, bf16 scales with the axis kept)."""
+    k32 = kernel.float()
+    scale = int8_scale(k32.abs().amax(dim=axis, keepdim=True).clamp(min=1e-8))
+    q = torch.round(k32 / scale).clamp(-127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _quantize_embedding(emb: torch.Tensor):
+    """Per-row symmetric int8 for the token embedding: (int8 (V, D), bf16
+    scales (V,))."""
+    q, scale = _quantize_kernel(emb, axis=-1)
+    return q, scale[..., 0]
+
+
+def quantize_decoder_int8(params: Params) -> Params:
+    """Weight-only int8 for the decoder: projection kernels, the token
+    embedding and the LM head become int8 with bf16 per-channel scales; LoRA
+    leaves ride on top of the int8 base. A tied model gets a materialised
+    (D, V) int8 head (``compute_logits`` prefers it)."""
+    out = dict(params)
+    layers = {}
+    for name, leaf in params["layers"].items():
+        if isinstance(leaf, dict) and "kernel" in leaf:
+            q, scale = _quantize_kernel(leaf["kernel"])
+            new = {"kernel_q": q, "scale": scale}
+            for k in ("bias", "lora_a", "lora_b", "lora_scale"):
+                if k in leaf:
+                    new[k] = leaf[k]
+            layers[name] = new
+        else:
+            layers[name] = leaf
+    out["layers"] = layers
+    out["embed_tokens_q"], out["embed_scale"] = _quantize_embedding(params["embed_tokens"])
+    del out["embed_tokens"]
+    if "lm_head" in params:
+        q, scale = _quantize_kernel(params["lm_head"]["kernel"])
+        out["lm_head"] = {"kernel_q": q, "scale": scale}
+    else:
+        out["lm_head"] = {
+            "kernel_q": out["embed_tokens_q"].T.contiguous(),
+            "scale": out["embed_scale"][None],
+        }
     return out
 
 

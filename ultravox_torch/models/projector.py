@@ -47,11 +47,18 @@ def init_params(
     return params
 
 
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the promoted dtype, as JAX promotes a bf16 x fp32 product
+    (an int8 tree's bf16 encoder states meet fp32 projector weights)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 def projector_forward(params: Params, cfg: UltravoxConfig, audio_features: torch.Tensor) -> torch.Tensor:
     """(B, T_enc, C) encoder states -> (B, ceil(T_enc / S), D_text)."""
     x = stack_audio_frames(audio_features, cfg.stack_factor)
     x = rms_norm(x, params["ln_pre"])
-    x = x @ params["linear_1"]["kernel"]
+    x = _matmul(x, params["linear_1"]["kernel"])
     if cfg.projector_act == "swiglu":
         val, gate = x.chunk(2, dim=-1)
         x = F.silu(gate) * val
@@ -63,7 +70,7 @@ def projector_forward(params: Params, cfg: UltravoxConfig, audio_features: torch
         raise ValueError(f"unsupported projector_act {cfg.projector_act}")
     if "ln_mid" in params:
         x = rms_norm(x, params["ln_mid"])
-    x = x @ params["linear_2"]["kernel"]
+    x = _matmul(x, params["linear_2"]["kernel"])
     if "ln_post" in params:
         x = rms_norm(x, params["ln_post"])
     return x

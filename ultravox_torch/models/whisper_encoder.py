@@ -14,9 +14,15 @@ leading axis (``layers/<name>`` of shape (L, ...)), linear kernels as
   ``qkv_proj`` tree (``fuse_encoder_inference_params``) every layer runs
   ``ln_qkv_head_fused`` -> ``attention_headmajor`` -> out-projection read
   from the head-major output, and the FFN LayerNorm is ``fused_layer_norm``;
-  GELU is the tanh form throughout, as in the reference's fused path. The
-  reference pads T to a multiple of 128 for the TPU's tiling; the CUDA
+  GELU is the tanh form throughout, as in the reference's fused path. A
+  ``qkv_proj`` that is int8 or carries LoRA (banked adapters, see
+  ``lora.apply_lora_banks``) runs ``fused_layer_norm`` -> ``proj_apply`` ->
+  ``qkv_head_transpose`` -> ``attention_headmajor`` instead, and an int8 or
+  LoRA'd ``out_proj`` takes the output back to (B, T, D) for ``proj_apply``.
+  The reference pads T to a multiple of 128 for the TPU's tiling; the CUDA
   kernels mask ragged tiles themselves, so the port runs at T unpadded.
+
+``quantize_encoder_int8`` gives the int8 tree (q/k/v/out, fc1/fc2).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ultravox_torch.models.config import WhisperEncoderConfig
+from ultravox_torch.models.decoder import _quantize_kernel
 from ultravox_torch.models.lora import proj_apply
 from ultravox_torch.models.remat import remat as checkpoint_remat
 from ultravox_torch.ops.attention import block_causal_bias, length_mask_bias, mha
@@ -35,6 +42,7 @@ from ultravox_torch.ops.kernels.fused_attention import (
     attention_headmajor,
     fused_attention,
     ln_qkv_head_fused,
+    qkv_head_transpose,
 )
 from ultravox_torch.ops.kernels.layer_norm import fused_layer_norm
 from ultravox_torch.ops.norms import layer_norm
@@ -81,6 +89,30 @@ def init_params(
     }
 
 
+def quantize_encoder_int8(params: Params) -> Params:
+    """Weight-only int8 for the transformer projections (q/k/v/out, fc1/fc2)
+    with per-output-channel bf16 scales; LoRA'd projections stay float. Every
+    other floating leaf becomes bf16, so the tree has one activation dtype."""
+
+    def to_bf16(tree):
+        if isinstance(tree, dict):
+            return {k: to_bf16(v) for k, v in tree.items()}
+        return tree.to(torch.bfloat16) if tree.is_floating_point() else tree
+
+    layers = {}
+    for name, leaf in params["layers"].items():
+        if isinstance(leaf, dict) and "kernel" in leaf and "lora_a" not in leaf:
+            q, scale = _quantize_kernel(leaf["kernel"])
+            layers[name] = {"kernel_q": q, "scale": scale}
+            if "bias" in leaf:
+                layers[name]["bias"] = to_bf16(leaf["bias"])
+        else:
+            layers[name] = to_bf16(leaf)
+    out = {k: to_bf16(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = layers
+    return out
+
+
 def _conv1d(x, kernel, bias, stride: int, transpose_out: bool = False):
     """x (B, C_in, T); kernel (K, C_in, C_out); padding 1. The product runs in
     fp32 and the bias is added in fp32 before the cast back to x's dtype."""
@@ -101,23 +133,24 @@ def _encoder_layer(cfg, x, bias, p, *, attn_fn=None, attn_qkv_fn=None, ln_fn=Non
     ln = ln_fn or layer_norm
     if "qkv_proj" in p and attn_qkv_fn is not None:
         qp = p["qkv_proj"]
-        if "kernel" not in qp:
-            raise NotImplementedError("int8 encoder trees are not ported yet")
-        if "lora_a" in qp:
-            raise NotImplementedError("LoRA encoder trees are not ported yet")
-        qb = qp.get("bias")
-        if qb is None:
-            qb = torch.zeros(qp["kernel"].shape[-1], dtype=x.dtype, device=x.device)
-        qkv_t = ln_qkv_head_fused(
-            x, p["attn_ln"]["scale"], p["attn_ln"]["bias"], qp["kernel"], qb, Dh
-        )
+        if "kernel" in qp and "lora_a" not in qp:
+            qb = qp.get("bias")
+            if qb is None:
+                qb = torch.zeros(qp["kernel"].shape[-1], dtype=x.dtype, device=x.device)
+            qkv_t = ln_qkv_head_fused(
+                x, p["attn_ln"]["scale"], p["attn_ln"]["bias"], qp["kernel"], qb, Dh
+            )
+        else:  # int8 or LoRA q/k/v: proj_apply handles both
+            h = ln(x, p["attn_ln"]["scale"], p["attn_ln"]["bias"])
+            qkv_t = qkv_head_transpose(proj_apply(h, qp), Dh)
         attn_t = attn_qkv_fn(qkv_t)  # (B, H, T, Dh)
         op = p["out_proj"]
-        if "lora_a" in op or "kernel" not in op:
-            raise NotImplementedError("only float out_proj trees are ported")
-        out = torch.einsum("bhtd,hdm->btm", attn_t, op["kernel"].reshape(H, Dh, D))
-        if "bias" in op:
-            out = out + op["bias"]
+        if "kernel" in op and "lora_a" not in op:
+            out = torch.einsum("bhtd,hdm->btm", attn_t, op["kernel"].reshape(H, Dh, D))
+            if "bias" in op:
+                out = out + op["bias"]
+        else:
+            out = proj_apply(attn_t.transpose(1, 2).reshape(B, T, D), op)
         x = x + out
         return _encoder_ffn(x, p, ln, approx_gelu)
     h = ln(x, p["attn_ln"]["scale"], p["attn_ln"]["bias"])
@@ -145,17 +178,17 @@ def fuse_encoder_inference_params(params: Params) -> Params:
     """Inference tree for the fused path. The layers' LayerNorm scales and
     biases become fp32, the dtype the LayerNorm kernels read, so that no
     launch casts them. q/k/v are concatenated into one ``qkv_proj`` (the k
-    third of the bias is zeros: Whisper's k_proj has none), unless they are
-    already fused or carry LoRA."""
+    third of the bias is zeros: Whisper's k_proj has none; an int8 tree's
+    ``kernel_q`` and ``scale`` are concatenated), unless they are already
+    fused or carry LoRA."""
     ly = dict(params["layers"])
     for n in ("attn_ln", "final_ln"):
         ly[n] = {k: v.float() for k, v in ly[n].items()}
     names = ("q_proj", "k_proj", "v_proj")
     if "qkv_proj" not in ly and not any("lora_a" in ly.get(n, {}) for n in names):
         q, k, v = (ly.pop(n) for n in names)
-        if "kernel" not in q:
-            raise NotImplementedError("int8 encoder trees are not ported yet")
-        fused = {"kernel": torch.cat([q["kernel"], k["kernel"], v["kernel"]], dim=-1)}
+        leaves = ("kernel_q", "scale") if "kernel_q" in q else ("kernel",)
+        fused = {n: torch.cat([q[n], k[n], v[n]], dim=-1) for n in leaves}
         if "bias" in q:
             kb = k.get("bias", torch.zeros_like(q["bias"]))
             fused["bias"] = torch.cat([q["bias"], kb, v["bias"]], dim=-1)

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = (
     "layer_norm", "ln_qkv_head", "attention", "decode_attention", "segment_attention",
-    "paged_attention", "paged_gather", "flash_attention",
+    "paged_attention", "paged_gather", "flash_attention", "qkv_head_transpose",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -72,6 +72,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P,
     ),
+    "qkv_head_transpose": (_P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -5,6 +5,8 @@
 - ``attention_headmajor`` and ``fused_attention`` (both ``csrc/attention.cu``)
   replace ``fused_attention.py:attention_headmajor`` (``_headmajor_kernel``)
   and ``fused_attention.py:fused_attention`` (``_attn_kernel``).
+- ``qkv_head_transpose`` (``csrc/qkv_head_transpose.cu``) replaces
+  ``fused_attention.py:qkv_head_transpose``.
 
 Each wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors; ``<wrapper>.launches`` counts kernel launches.
@@ -24,6 +26,7 @@ from ultravox_torch.ops.kernels import _build
 
 LOG2E = 1.4426950408889634
 HEAD_DIMS = (64, 128)  # head dims the attention kernel is instantiated for
+VEC_BYTES = 16  # qkv_head_transpose moves 16 bytes per load and store
 
 
 # --------------------------------------------------------------------------
@@ -44,6 +47,12 @@ def ln_qkv_head_plain(x, ln_scale, ln_bias, kernel, bias, head_dim: int, eps: fl
     acc = torch.matmul(h.float(), kernel.float())
     qkv = acc.to(x.dtype) + bias.to(x.dtype)
     return qkv.reshape(B, T, C // head_dim, head_dim).permute(0, 2, 1, 3).contiguous()
+
+
+def qkv_head_transpose_plain(qkv: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """(B, T, G * head_dim) -> (B, G, T, head_dim), contiguous."""
+    B, T, C = qkv.shape
+    return qkv.view(B, T, C // head_dim, head_dim).permute(0, 2, 1, 3).contiguous()
 
 
 def attention_plain(
@@ -122,6 +131,37 @@ def ln_qkv_head_fused(x, ln_scale, ln_bias, kernel, bias, head_dim: int, *, eps:
 
 
 ln_qkv_head_fused.launches = 0
+
+
+def qkv_head_transpose(qkv: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """Head-major relayout of a fused q/k/v projection's output: (B, T,
+    G * head_dim) -> (B, G, T, head_dim), any T, fp32 or bf16, in the
+    input's dtype. The input must be contiguous."""
+    if qkv.device.type == "cpu":
+        return qkv_head_transpose_plain(qkv, head_dim)
+    _build.require_cuda(qkv)
+    B, T, C = qkv.shape
+    if head_dim not in HEAD_DIMS or C % head_dim:
+        raise ValueError(f"qkv_head_transpose: width {C} is no multiple of a head dim in {HEAD_DIMS}")
+    if not qkv.is_contiguous():
+        raise ValueError("qkv_head_transpose takes a contiguous (B, T, G * head_dim) tensor")
+    _build.dtype_code(qkv)  # raises for types other than fp32 and bf16
+    if qkv.data_ptr() % VEC_BYTES:  # a head (64 or 128 of 2 or 4 bytes) is whole units
+        raise ValueError(f"qkv_head_transpose copies in {VEC_BYTES}-byte units: the base must "
+                         f"be {VEC_BYTES}-byte aligned")
+    head_bytes = head_dim * qkv.element_size()
+    out = torch.empty((B, C // head_dim, T, head_dim), dtype=qkv.dtype, device=qkv.device)
+    lib = _build.library("qkv_head_transpose")
+    rc = lib.uv_qkv_head_transpose(
+        _build.ptr(qkv), _build.ptr(out), B, T, C // head_dim, head_bytes // VEC_BYTES,
+        _build.stream_ptr(qkv.device),
+    )
+    _build.check("qkv_head_transpose", rc)
+    qkv_head_transpose.launches += 1
+    return out
+
+
+qkv_head_transpose.launches = 0
 
 
 def _launch_attention(q, k, v, o, lengths, row_offsets, scale, causal, latency_block):
