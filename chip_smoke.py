@@ -4,7 +4,7 @@
 
 Phases, each fatal on failure:
   1. build every CUDA kernel of the port from ultravox_torch/ops/kernels/csrc
-     (one nvcc per source, all nine at once);
+     (one nvcc per source, all thirteen at once);
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the flagship paths give it (bf16; the decode and paged kernels
      also in fp32, with ragged lengths, windows, page size 16, shuffled page
@@ -17,6 +17,11 @@ Phases, each fatal on failure:
      timed at the decoder's and the encoder's training shapes;
      qkv_head_transpose is bit-equal in bf16 and fp32 at (4, 500, 2304),
      (1, 500, 2304) and a ragged T with head_dim 128, and timed at B 1 and 4;
+     the three kernels no engine launches (as in the reference):
+     ln_matmul_gelu at the encoder's fc1, attn_out_proj_residual at its
+     out-projection, and decode_matmul on every Llama-3.2-1B decoder product
+     with a bf16 and an int8 + scale weight (1, 4 and 32 rows, bf16 and
+     fp32), timed at 4 rows beside torch.mm and lora.py's w8a16 product;
   3. small configs (a llama-family speech model and a gemma-3-style decoder
      with sliding windows): greedy tokens from the kernel paths on the card
      equal those of the plain paths on the CPU (fp32) for generate with the
@@ -30,6 +35,9 @@ Phases, each fatal on failure:
      the card against the CPU (w8a8 bit-equal), prefill logits within a
      relative RMS of 0.05 and 0.1 of the largest logit of the CPU's, beside
      two faults planted on the CPU, token agreement printed;
+     encoder_attn_impl="flash" in a GenerationEngine and a paged
+     ServingEngine: tokens equal to the CPU's, flash_attention's forward
+     launched once per encoder layer per encoder call, #1-#3 not at all;
   4. the main paths at flagship widths (whisper-small encoder, Llama-3.2-1B
      decoder, random bf16 weights from a seed) on 4 requests of 10 s
      synthesized audio, each with every kernel's launch count set to 0
@@ -62,7 +70,15 @@ Phases, each fatal on failure:
      GenerationEngine (the same encoder counts per generate, TTFT, tok/s,
      weight bytes, tokens against phase 4's, and what w8a16's per-call cast
      of the int8 weight costs) and an int8 + multi-LoRA ServingEngine in
-     slots mode, then the phase's and the script's time.
+     slots mode, then the phase's time;
+  8. the encoder-attention probes' entry point
+     (ultravox_torch.scripts.profile_encoder_attn) at B 8, T = S = 1500, H
+     20, D 64: every attn_v2 / attn_nt variant timed beside the production
+     kernel and SDPA and held against its plain version at that shape, both
+     probes' counters moved; then the script's time.
+
+Phases 4-7 also hold ln_matmul_gelu, attn_out_proj_residual,
+decode_matmul, attn_v2 and attn_nt at 0 launches: no engine calls them.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and as its last line {"ok": true, "device": {...}}. Exits non-zero
@@ -399,6 +415,137 @@ def _check_kernels(fa, ln_mod, dev):
             rows.pop()
         else:
             exact(*args, extra=times)
+    return rows
+
+
+# Llama-3.2-1B's decoder products, (K, N) of each weight a decode step reads
+DECODE_PRODUCTS = {
+    "qkv_proj": (2048, 3072), "o_proj": (2048, 2048), "gateup_proj": (2048, 16384),
+    "down_proj": (8192, 2048), "lm_head": (2048, 128256),
+}
+L2_BYTES = 50 * 2**20  # H100 L2
+
+
+def _check_unwired_kernels(fa, dm, dev):
+    """Phase 2, continued: the three kernels the engines do not call (as in
+    the reference), at the flagship's shapes. ln_matmul_gelu at the encoder's
+    fc1 and attn_out_proj_residual at its out-projection (bf16, B 4 x 10 s);
+    decode_matmul on every decoder product of Llama-3.2-1B, with a bf16
+    weight and an int8 weight + bf16 scale: held against its plain version
+    at 1, 4 and 32 rows in bf16 and fp32, then timed at 4 rows (a decode
+    step of phase 4) beside torch.mm on the bf16 weight and, for int8,
+    lora.py's w8a16 product. Each timed call reads a weight the previous
+    calls did not (copies rotate past the 50 MB L2), as a decode step does."""
+    from ultravox_torch.models import lora as lora_lib
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    bf = torch.bfloat16
+    B, T, D, H, Dh, Fd = 4, 500, 768, 12, 64, 3072
+    rows = []
+    record = _recorder(rows, _bf16_tol)
+
+    # 6. LN -> fc1 + b -> tanh-GELU of the encoder FFN
+    x = torch.randn((B, T, D), generator=g, device=dev).to(bf)
+    s = 1 + 0.1 * torch.randn((D,), generator=g, device=dev)
+    b = 0.1 * torch.randn((D,), generator=g, device=dev)
+    w = (0.02 * torch.randn((D, Fd), generator=g, device=dev)).to(bf)
+    wb = (0.02 * torch.randn((Fd,), generator=g, device=dev)).to(bf)
+    out = fa.ln_matmul_gelu(x, s, b, w, wb)
+    ref = fa.ln_matmul_gelu_plain(x, s, b, w, wb)
+    torch.cuda.synchronize()
+    record(
+        "ln_matmul_gelu", "ln_matmul_gelu_kernel", "ultravox_torch/ops/kernels/csrc/ln_matmul_gelu.cu",
+        "ultravox_tpu/ops/pallas/fused_attention.py:363", out, ref,
+        lambda: fa.ln_matmul_gelu(x, s, b, w, wb),
+        lambda: fa.ln_matmul_gelu_plain(x, s, b, w, wb),
+        None, _nbytes(x, s, b, w, wb, out), 2.0 * B * T * D * Fd, BF16_FLOPS,
+    )
+
+    # 7. out-projection + residual, the attention output read head-major
+    attn = torch.randn((B, H, T, Dh), generator=g, device=dev).to(bf)
+    wo = (0.05 * torch.randn((H, Dh, D), generator=g, device=dev)).to(bf)
+    bo = (0.1 * torch.randn((D,), generator=g, device=dev)).to(bf)
+    xr = torch.randn((B, T, D), generator=g, device=dev).to(bf)
+    out = fa.attn_out_proj_residual(attn, wo, bo, xr)
+    ref = fa.attn_out_proj_residual_plain(attn, wo, bo, xr)
+    torch.cuda.synchronize()
+    record(
+        "attn_out_proj_residual", "attn_out_proj_kernel",
+        "ultravox_torch/ops/kernels/csrc/attn_out_proj.cu",
+        "ultravox_tpu/ops/pallas/fused_attention.py:557", out, ref,
+        lambda: fa.attn_out_proj_residual(attn, wo, bo, xr),
+        lambda: fa.attn_out_proj_residual_plain(attn, wo, bo, xr),
+        None, _nbytes(attn, wo, bo, xr, out), 2.0 * B * T * H * Dh * D, BF16_FLOPS,
+    )
+
+    # 14. decode_matmul on every decoder product, bf16 and int8 + scale
+    products = {}
+    timed = []
+    time_rec = _recorder(timed, _bf16_tol)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst = 0.0  # the largest error of the checks, as a share of its tolerance
+    for name, (K, N) in DECODE_PRODUCTS.items():
+        w32 = 0.02 * torch.randn((K, N), generator=g, device=dev)
+        scale = (w32.abs().amax(dim=0) / 127).to(bf)
+        weights = {"bf16": (w32.to(bf), None),
+                   "int8": (torch.round(w32 / scale.float()).clamp(-127, 127).to(torch.int8),
+                            scale)}
+        del w32
+        for kind, (wk, sc) in weights.items():
+            for M in (1, 4, 32):
+                for dtype in (bf, torch.float32):
+                    xm = torch.randn((M, K), generator=g, device=dev).to(dtype)
+                    out, ref = dm.decode_matmul(xm, wk, sc), dm.decode_matmul_plain(xm, wk, sc)
+                    torch.cuda.synchronize()
+                    err = float((out.float() - ref.float()).abs().max())
+                    # fp32: 1e-5 of the largest output (K up to 8192 terms)
+                    tol = _bf16_tol(ref) if dtype == bf else 1e-5 * max(1.0, float(ref.abs().max()))
+                    if not err <= tol:
+                        _fail(f"decode_matmul {name} {kind} M {M} {dtype}: {err} > {tol}")
+                    worst = max(worst, err / tol)
+            # timed at 4 rows, bf16, on copies of the weight that rotate past L2
+            copies = [wk] + [wk.clone() for _ in range(-(-2 * L2_BYTES // _nbytes(wk)) - 1)]
+            nxt = itertools.cycle(copies).__next__
+            x4 = torch.randn((4, K), generator=g, device=dev).to(bf)
+            out, ref = dm.decode_matmul(x4, wk, sc), dm.decode_matmul_plain(x4, wk, sc)
+            torch.cuda.synchronize()
+            splits = dm._plan(4, K, N, wk, sms)[2]
+            w_bf = wk if sc is None else (wk.to(bf) * sc).to(bf)
+            bf_copies = [w_bf] + [w_bf.clone() for _ in range(len(copies) - 1)]
+            nxt_bf = itertools.cycle(bf_copies).__next__
+            if sc is None:
+                lib_fn, extra = (lambda: torch.mm(x4, nxt_bf())), {}
+            else:
+                p_int8 = [{"kernel_q": c, "scale": sc} for c in copies]
+                nxt_p = itertools.cycle(p_int8).__next__
+                extra = {"w8a16_ms": _time_ms(lambda: lora_lib.proj_apply(x4, nxt_p())),
+                         "bf16_mm_ms": _time_ms(lambda: torch.mm(x4, nxt_bf()))}
+                lib_fn = None
+            row = time_rec(
+                f"decode_matmul {name} {kind}", "decode_matmul",
+                "ultravox_torch/ops/kernels/csrc/decode_matmul.cu",
+                "ultravox_tpu/ops/pallas/decode_matmul.py:68", out, ref,
+                lambda: dm.decode_matmul(x4, nxt(), sc),
+                lambda: dm.decode_matmul_plain(x4, nxt(), sc), lib_fn,
+                _nbytes(x4, wk, out) + (_nbytes(sc) if sc is not None else 0),
+                2.0 * 4 * K * N, BF16_FLOPS, calls=1 if splits == 1 else 2,
+                extra=dict(extra, shape=[4, K, N], k_splits=splits),
+            )
+            products[f"{name} {kind}"] = {k_: row[k_] for k_ in (
+                "ms", "device_ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
+                "max_abs_err", "k_splits") + tuple(extra)}
+            if sc is not None:
+                print(f"decode_matmul {name} int8 (4, {K}) x ({K}, {N}): kernel {row['ms']:.4f} ms "
+                      f"against w8a16 (lora.py, a bf16 copy of the weight per call) "
+                      f"{extra['w8a16_ms']:.4f} ms and torch.mm on the bf16 weight "
+                      f"{extra['bf16_mm_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms", flush=True)
+            del copies, bf_copies
+    print(f"check decode_matmul: {len(DECODE_PRODUCTS) * 12} cases (bf16 and int8 weights, "
+          f"1/4/32 rows, bf16 and fp32) within tolerance, the largest error "
+          f"{worst:.3g} of its tolerance", flush=True)
+    print("decode_matmul products at 4 rows: " + json.dumps(products), flush=True)
+    main_row = next(r for r in timed if r["name"] == "decode_matmul gateup_proj int8")
+    rows.append(dict(main_row, name="decode_matmul", products=products))
     return rows
 
 
@@ -1248,6 +1395,57 @@ def _small_parity(tc, uv, TEngine, dev):
             if cpu != toks[dev][path]:
                 _fail(f"{name} {path}: greedy tokens on the card differ from the CPU's")
         _small_serving_parity(name, params, cfg, [_row(batch, i) for i in range(2)], dev)
+        if "audio_values" in batch:
+            _small_flash_encoder_parity(params, cfg, batch, TEngine, dev)
+
+
+def _small_flash_encoder_parity(params, cfg, batch, TEngine, dev):
+    """encoder_attn_impl="flash" in both engines, fp32: a generate and a
+    paged ServingEngine (each row one request) on the card give the CPU's
+    greedy tokens; on the card flash_attention's forward kernel runs once
+    per encoder layer per encoder call (1 generate + 2 admissions) and the
+    fused encoder's kernels (#1-#3) not at all."""
+    from ultravox_torch.inference.serving.engine import ServingEngine
+    from ultravox_torch.ops.kernels import flash_attention as fl
+    from ultravox_torch.ops.kernels import fused_attention as fa
+    from ultravox_torch.ops.kernels import layer_norm as ln_mod
+
+    fused = (ln_mod.fused_layer_norm, fa.ln_qkv_head_fused, fa.attention_headmajor)
+    requests = [_row(batch, i) for i in range(2)]
+    toks = {}
+    for device in ("cpu", dev):
+        fl.flash_attention.launches = 0
+        before = [c.launches for c in fused]
+        eng = TEngine(params, cfg, max_cache_len=128, cache_dtype=torch.float32,
+                      encoder_attn_impl="flash", prefill_attn_impl="fused",
+                      decode_attn_impl="kernel", device=device)
+        gen = eng.generate(batch, max_new_tokens=12).token_ids
+        srv = ServingEngine(
+            params, cfg, num_slots=4, max_seq_len=128, cache_dtype=torch.float32,
+            cache_mode="paged", page_size=16, prefill_len_buckets=(64, 128),
+            mel_len_buckets=(400,), prefill_chunk_tokens=16, decode_block_steps=4,
+            encoder_attn_impl="flash", prefill_attn_impl="fused", decode_attn_impl="kernel",
+            block_attn_impl="kernel", device=device)
+        srv.start()
+        try:
+            served = [ids for ids, _, _ in _serve(srv, requests, 12)]
+        finally:
+            srv.stop()
+        toks[device] = {"generate": gen, "serving": served}
+        if device != "cpu":
+            want = cfg.audio_config.num_layers * (1 + len(requests))
+            print(f"small parity flash encoder: flash_attention forward launches "
+                  f"{fl.flash_attention.launches} (expected {want}), fused encoder kernels "
+                  f"{[c.launches - n for c, n in zip(fused, before)]} (expected 0)", flush=True)
+            if fl.flash_attention.launches != want:
+                _fail(f"flash encoder: {fl.flash_attention.launches} flash_attention launches, "
+                      f"expected {want}")
+            if [c.launches for c in fused] != before:
+                _fail("flash encoder: a kernel of the fused encoder was launched")
+    for path, cpu in toks["cpu"].items():
+        print(f"small parity flash encoder {path}: cpu {cpu} gpu {toks[dev][path]}", flush=True)
+        if cpu != toks[dev][path]:
+            _fail(f"flash encoder {path}: greedy tokens on the card differ from the CPU's")
 
 
 def _row(batch, i: int):
@@ -1510,6 +1708,8 @@ def main() -> None:
     from ultravox_torch.models import ultravox as uv
     from ultravox_torch.ops.kernels import _build
     from ultravox_torch.ops.kernels import decode_attention as da
+    from ultravox_torch.ops.kernels import decode_matmul as dm
+    from ultravox_torch.ops.kernels import encoder_attn_probe as eap
     from ultravox_torch.ops.kernels import flash_attention as fl
     from ultravox_torch.ops.kernels import fused_attention as fa
     from ultravox_torch.ops.kernels import layer_norm as ln_mod
@@ -1536,7 +1736,8 @@ def main() -> None:
 
     # 2. kernels against their plain versions
     rows = (_check_kernels(fa, ln_mod, dev) + _check_decode_kernels(da, sa, dev)
-            + _check_paged_kernels(pa, pg, sa, dev) + _check_flash(fl, dev))
+            + _check_paged_kernels(pa, pg, sa, dev) + _check_flash(fl, dev)
+            + _check_unwired_kernels(fa, dm, dev))
 
     # 3. small end-to-end parity
     _small_parity(tc, uv, GenerationEngine, dev)
@@ -1574,6 +1775,12 @@ def main() -> None:
         "fused_attention": fa.fused_attention,
         "decode_attention": da.decode_attention,
         "segment_tail_attention": sa.segment_tail_attention,
+        # launched by no engine (phases 4-7 expect 0 of each)
+        "ln_matmul_gelu": fa.ln_matmul_gelu,
+        "attn_out_proj_residual": fa.attn_out_proj_residual,
+        "decode_matmul": dm.decode_matmul,
+        "attn_v2": eap.attn_v2,
+        "attn_nt": eap.attn_nt,
     }
     L_enc, L_dec = cfg.audio_config.num_layers, cfg.text_config.num_layers
     prefill = {
@@ -1686,6 +1893,10 @@ def main() -> None:
             row["launches"] = qkv_launches["lora paged+kernel"]
             row["launches_per_path"] = qkv_launches
 
+    # 8. the encoder-attention probes' entry point
+    probe_rows, probes = _probe_entry_point(eap, dev)
+    rows += probe_rows
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1696,7 +1907,7 @@ def main() -> None:
         "kernels": rows, "ttft_ms": ttft_ms, "decode_tok_s": decode_tps,
         "fused_first_token_ms": fused_ttft_ms, "fused_decode_tok_s": fused_tps,
         "scan_kernel_decode_tok_s": seg_tps, "serving": serving, "training": training,
-        "lora_int8": lora_int8, "total_s": time.perf_counter() - t_script,
+        "lora_int8": lora_int8, "probes": probes, "total_s": time.perf_counter() - t_script,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -2028,6 +2239,56 @@ def _lora_int8_main_path(tc, uv, cfg, counters, ref_batch, ref_ids, wbytes_bf16,
     metrics["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 7: {metrics['phase_s']:.2f} s", flush=True)
     return metrics, qkv_launches
+
+
+def _probe_entry_point(eap, dev):
+    """Phase 8: ``python -m ultravox_torch.scripts.profile_encoder_attn`` as a
+    call: at B 8, T = S = 1500, H 20, D 64 (bf16) it times the production
+    encoder attention, every attn_v2 / attn_nt variant of the reference's
+    script and SDPA, and holds each variant against its plain version at
+    that shape (4 bf16 ulps of the largest output). Fails if a probe's
+    counter did not move. Returns (the #15 and #16 rows at block_q 1500 with
+    the fp32 exponent, the entry point's result)."""
+    from ultravox_torch.scripts import profile_encoder_attn as prof
+
+    t0 = time.perf_counter()
+    eap.attn_v2.launches = eap.attn_nt.launches = 0
+    result = prof.run(check=True)
+    launches = {"attn_v2": eap.attn_v2.launches, "attn_nt": eap.attn_nt.launches}
+    print(f"launches, profile_encoder_attn: {launches}", flush=True)
+    if not all(launches.values()):
+        _fail(f"profile_encoder_attn: a probe kernel was not launched: {launches}")
+    by_label = {r["label"]: r for r in result["rows"]}
+    q, k, v = prof.make_inputs(dev)
+    lens = torch.full((prof.B,), prof.S, dtype=torch.int32, device=dev)
+    scale = prof.D**-0.5
+    plain_ms = _time_ms(lambda: eap.attn_probe_plain(q, k, v, lens, scale=scale),
+                        iters=3, warmup=1)
+    library_ms = by_label["library: scaled_dot_product_attention"]["ms"]
+    bound_ms, bound_by = _bound(4 * _nbytes(q) + _nbytes(lens), prof.GFLOP * 1e9, BF16_FLOPS)
+    rows = []
+    for name, label, line in (("attn_v2", "v2 bq=1500 exp=fp32", 75),
+                              ("attn_nt", "no-transpose bq=1500 exp=fp32", 140)):
+        r = by_label[label]
+        fn = getattr(eap, name)
+        call = lambda: fn(q, k, v, lens, scale=scale, block_q=1500)  # noqa: E731
+        device_ms, per_call, others = _device_ms(call, "attention_kernel", iters=5)
+        wrapper_ms = _time_ms(call, iters=5, warmup=1, queued=False)
+        rows.append({
+            "name": name, "route": "cuda", "source": "ultravox_torch/ops/kernels/csrc/encoder_attn_probe.cu",
+            "replaces": f"scripts/profile_encoder_attn.py:{line}", "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "tol": r["tol"], "ms": r["ms"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "device_ms": device_ms, "wrapper_ms": wrapper_ms,
+            "device_kernels_per_call": per_call, "other_device_work": sorted(set(others)),
+            "variant": label, "maxdiff_vs_fused_attention": r["maxdiff"],
+        })
+        print(f"kernel {name} ({label}): ms {r['ms']:.4f} (the kernel alone in the trace "
+              f"{device_ms}; other device work {sorted(set(others))}) plain_ms {plain_ms:.4f} "
+              f"library_ms {library_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})", flush=True)
+    result["phase_s"] = time.perf_counter() - t0
+    print(f"phase 8: {result['phase_s']:.2f} s", flush=True)
+    return rows, result
 
 
 def _check_serving_launches(label, launches, counters, encoder, disp, steps, chunks, K, L_dec,

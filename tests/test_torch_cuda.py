@@ -114,13 +114,11 @@ def test_kernel_matches_plain(cuda_device, name, dt):
     assert float((out.float() - ref.float()).abs().max()) <= tol
 
 
-@pytest.mark.cuda
-def test_generate_on_cuda_matches_cpu(cuda_device):
-    """Kernel path on the card vs plain path on the CPU, fp32: the same
-    greedy tokens, and every kernel of the path launched."""
+def _small_speech_config():
+    """A small llama-family speech model; fp32 products in full precision."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = tc.UltravoxConfig(
+    return tc.UltravoxConfig(
         audio_config=tc.WhisperEncoderConfig(d_model=128, num_layers=2, num_heads=2, ffn_dim=256),
         text_config=tc.DecoderConfig(
             vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2,
@@ -128,6 +126,13 @@ def test_generate_on_cuda_matches_cpu(cuda_device):
         ),
         hidden_size=256, projector_ln_mid=True,
     )
+
+
+@pytest.mark.cuda
+def test_generate_on_cuda_matches_cpu(cuda_device):
+    """Kernel path on the card vs plain path on the CPU, fp32: the same
+    greedy tokens, and every kernel of the path launched."""
+    cfg = _small_speech_config()
     params = tuv.init_params(cfg, torch.Generator().manual_seed(0))
     batch = _audio_batch(cfg.audio_token_compression)
     kw = dict(max_cache_len=128, cache_dtype=torch.float32, encoder_attn_impl="fused",
@@ -533,3 +538,221 @@ def test_banked_proj_apply_on_the_card_matches_cpu(cuda_device):
         return tlora.proj_apply(x.to(dev), layer).cpu()
 
     assert float((run(cuda_device) - run("cpu")).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_encoder_engines_on_cuda_match_cpu(cuda_device):
+    """encoder_attn_impl="flash" in both engines on the card against the CPU,
+    fp32: the same greedy tokens, with flash_attention's forward kernel
+    launched once per encoder layer per encoder call and no encoder kernel
+    of the fused path."""
+    from ultravox_torch.ops.kernels import flash_attention as tfl
+
+    cfg = _small_speech_config()
+    params = tuv.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = _audio_batch(cfg.audio_token_compression)
+    fused = (tln.fused_layer_norm, tfa.ln_qkv_head_fused, tfa.attention_headmajor)
+    toks = {}
+    for device in ("cpu", cuda_device):
+        tfl.flash_attention.launches = 0
+        before = [f.launches for f in fused]
+        eng = tengine.GenerationEngine(params, cfg, max_cache_len=128, cache_dtype=torch.float32,
+                                       encoder_attn_impl="flash", device=device)
+        gen = eng.generate(batch, max_new_tokens=12).token_ids
+        srv = tserve.ServingEngine(
+            params, cfg, num_slots=2, max_seq_len=128, cache_dtype=torch.float32,
+            cache_mode="paged", page_size=16, prefill_len_buckets=(64, 128),
+            mel_len_buckets=(400,), prefill_chunk_tokens=16, encoder_attn_impl="flash",
+            device=device)
+        srv.start()
+        try:
+            reqs = [srv.submit({k: v[i: i + 1] if k != "audio_chunk_batch_idx" else v[:1] * 0
+                                for k, v in batch.items()}, max_tokens=12) for i in range(2)]
+            served = []
+            for r in reqs:
+                served.append([ev.token_id for ev in srv.stream(r, timeout=300)
+                               if ev.token_id is not None])
+        finally:
+            srv.stop()
+        toks[str(device)] = (gen, served)
+        if device != "cpu":
+            # one generate (one encoder call) and two admissions (one each)
+            assert tfl.flash_attention.launches == cfg.audio_config.num_layers * 3
+            assert [f.launches for f in fused] == before
+    assert toks["cpu"] == toks[str(cuda_device)]
+
+
+# decode_matmul: (K, N) with a ragged K and an odd N (one column per lane),
+# the test_pallas shape, and one that splits K over blocks
+DM_SHAPES = [(300, 1001), (256, 1664), (4096, 3072)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt", list(DTYPES))
+@pytest.mark.parametrize("weight", ["bfloat16", "int8"])
+@pytest.mark.parametrize("kn", DM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("M", [1, 4, 32])
+def test_decode_matmul_matches_plain(cuda_device, M, kn, weight, xdt):
+    from ultravox_torch.ops.kernels import decode_matmul as tdm
+
+    K, N = kn
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((M, K), generator=g, device=cuda_device).to(DTYPES[xdt])
+    w = 0.02 * torch.randn((K, N), generator=g, device=cuda_device)
+    scale = None
+    if weight == "int8":
+        scale = (w.abs().amax(dim=0) / 127).to(torch.bfloat16)
+        w = torch.round(w / scale.float()).clamp(-127, 127).to(torch.int8)
+    else:
+        w = w.to(torch.bfloat16)
+    for out_dtype in (None, torch.float32):
+        before = tdm.decode_matmul.launches
+        out = tdm.decode_matmul(x, w, scale, out_dtype=out_dtype)
+        ref = tdm.decode_matmul_plain(x, w, scale, out_dtype)
+        torch.cuda.synchronize()
+        assert tdm.decode_matmul.launches == before + 1
+        assert out.shape == (M, N) and out.dtype == ref.dtype
+        # fp32: 1e-5 of the largest output, whose sums run over up to 4096 terms
+        big = float(ref.abs().max())
+        tol = 1e-5 * max(1.0, big) if out.dtype == torch.float32 else 4 * 2.0**-8 * big
+        assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_decode_matmul_raises_on_what_the_kernel_lacks(cuda_device):
+    from ultravox_torch.ops.kernels import decode_matmul as tdm
+
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=cuda_device)
+    w = torch.zeros((64, 128), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="rows"):
+        tdm.decode_matmul(torch.zeros((33, 64), dtype=torch.bfloat16, device=cuda_device), w)
+    with pytest.raises(TypeError, match="weight"):
+        tdm.decode_matmul(x, w.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        tdm.decode_matmul(x, w.t().contiguous().t())
+    with pytest.raises(ValueError, match="scale"):
+        tdm.decode_matmul(x, w, torch.ones(64, device=cuda_device))
+    with pytest.raises(ValueError, match="CUDA"):
+        tdm.decode_matmul(x, w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_ln_matmul_gelu_matches_plain(cuda_device, dt):
+    """A ragged shape: no dimension is a multiple of the 32 x 128 tile."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda_device)  # noqa: E731
+    x, w, pb = r(2, 77, 96).to(DTYPES[dt]), (0.1 * r(96, 200)).to(DTYPES[dt]), r(200)
+    s, b = 1 + 0.1 * r(96), 0.1 * r(96)
+    before = tfa.ln_matmul_gelu.launches
+    out = tfa.ln_matmul_gelu(x, s, b, w, pb)
+    ref = tfa.ln_matmul_gelu_plain(x, s, b, w, pb)
+    torch.cuda.synchronize()
+    assert tfa.ln_matmul_gelu.launches == before + 1
+    assert out.shape == (2, 77, 200) and out.dtype == x.dtype
+    tol = 1e-5 if dt == "float32" else 4 * 2.0**-8 * float(ref.abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_ln_matmul_gelu_raises_on_what_the_kernel_lacks(cuda_device):
+    x = torch.zeros((1, 8, 64), device=cuda_device)
+    s = torch.ones(64, device=cuda_device)
+    with pytest.raises(TypeError, match="dtype"):
+        tfa.ln_matmul_gelu(x, s, s, torch.zeros((64, 32), dtype=torch.bfloat16,
+                                                device=cuda_device), s[:32])
+    wide = torch.zeros((1, 8, 2048), device=cuda_device)
+    s2 = torch.ones(2048, device=cuda_device)
+    with pytest.raises(ValueError, match="rows of at most"):
+        tfa.ln_matmul_gelu(wide, s2, s2, torch.zeros((2048, 32), device=cuda_device), s[:32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_attn_out_proj_residual_matches_plain(cuda_device, dt):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda_device).to(DTYPES[dt])  # noqa: E731
+    attn, w, b, x = r(2, 3, 77, 64), 0.1 * r(3, 64, 200), r(200), r(2, 77, 200)
+    before = tfa.attn_out_proj_residual.launches
+    out = tfa.attn_out_proj_residual(attn, w, b, x)
+    ref = tfa.attn_out_proj_residual_plain(attn, w, b, x)
+    torch.cuda.synchronize()
+    assert tfa.attn_out_proj_residual.launches == before + 1
+    assert out.shape == x.shape and out.dtype == x.dtype
+    tol = 1e-5 if dt == "float32" else 4 * 2.0**-8 * float(ref.abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_attn_out_proj_residual_raises_on_what_the_kernel_lacks(cuda_device):
+    attn = torch.zeros((1, 2, 8, 64), device=cuda_device)
+    w = torch.zeros((2, 64, 32), device=cuda_device)
+    x = torch.zeros((1, 8, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="bias dtype"):
+        tfa.attn_out_proj_residual(attn, w, torch.zeros(32, dtype=torch.bfloat16,
+                                                        device=cuda_device), x)
+    with pytest.raises(TypeError, match="share"):
+        tfa.attn_out_proj_residual(attn.bfloat16(), w, torch.zeros(32, device=cuda_device), x)
+    with pytest.raises(ValueError, match="shapes"):
+        tfa.attn_out_proj_residual(attn, w[:1], torch.zeros(32, device=cuda_device), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False], ids=["lengths", "no-mask"])
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("exp", ["float32", "bfloat16"])
+@pytest.mark.parametrize("probe", ["attn_v2", "attn_nt"])
+def test_encoder_attn_probe_matches_plain(cuda_device, probe, exp, dt, masked):
+    """T = 192 (three 64-row tiles), S = 150 (a ragged key tile), 3 heads,
+    ragged lengths: the probes against their plain version; fp32 inputs
+    with the fp32 exponent within 1e-5, else 4 bf16 ulps of the largest
+    output."""
+    from ultravox_torch.ops.kernels import encoder_attn_probe as tprobe
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn((2, 192, 3, 64), generator=g, device=cuda_device).to(DTYPES[dt])
+    k, v = (torch.randn((2, 150, 3, 64), generator=g, device=cuda_device).to(DTYPES[dt])
+            for _ in range(2))
+    lens = torch.tensor([150, 41], dtype=torch.int32, device=cuda_device) if masked else None
+    fn = getattr(tprobe, probe)
+    before = fn.launches
+    out = fn(q, k, v, lens, scale=0.125, block_q=64, exp_dtype=DTYPES[exp])
+    ref = tprobe.attn_probe_plain(q, k, v, lens, scale=0.125, exp_dtype=DTYPES[exp])
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert out.shape == q.shape and out.dtype == q.dtype
+    exact = dt == "float32" and exp == "float32"
+    tol = 1e-5 if exact else 4 * 2.0**-8 * float(ref.abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_encoder_attn_probe_fp32_equals_the_production_kernel(cuda_device):
+    """With the fp32 exponent both probes compute what fused_attention
+    computes (its key mask replaces the logit by NEG_INF where theirs adds
+    it; the sums round alike): bit-equal in bf16 at head_dim 128."""
+    from ultravox_torch.ops.kernels import encoder_attn_probe as tprobe
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = (torch.randn((2, 100, 2, 128), generator=g, device=cuda_device).bfloat16()
+               for _ in range(3))
+    lens = torch.tensor([100, 9], dtype=torch.int32, device=cuda_device)
+    ref = tfa.fused_attention(q, k, v, lens, scale=128**-0.5)
+    for fn in (tprobe.attn_v2, tprobe.attn_nt):
+        out = fn(q, k, v, lens, scale=128**-0.5, block_q=50)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_encoder_attn_probe_raises_on_what_the_kernel_lacks(cuda_device):
+    from ultravox_torch.ops.kernels import encoder_attn_probe as tprobe
+
+    q = torch.zeros((1, 128, 2, 64), dtype=torch.bfloat16, device=cuda_device)
+    for fn in (tprobe.attn_v2, tprobe.attn_nt):
+        with pytest.raises(ValueError, match="block_q"):
+            fn(q, q, q, scale=0.125, block_q=100)
+        with pytest.raises(ValueError, match="head_dim"):
+            fn(q[..., :32], q[..., :32], q[..., :32], scale=0.125, block_q=64)
+        with pytest.raises(TypeError):
+            fn(q.half(), q.half(), q.half(), scale=0.125, block_q=64)

@@ -36,6 +36,22 @@ def test_generate_matches_jax_from_raw_audio(setup, impl):
     assert all(len(set(row)) > 3 for row in out.token_ids), "degenerate tokens prove little"
 
 
+def test_generate_with_flash_encoder_matches_jax(setup):
+    """encoder_attn_impl="flash" (the encoder's attention in the
+    flash_attention kernel; its plain version on the CPU) gives the JAX
+    engine's greedy tokens with the same option (its Pallas flash kernel in
+    interpret mode)."""
+    jcfg, tcfg, jparams, tparams = setup
+    kw = dict(max_cache_len=128, encoder_attn_impl="flash")
+    jeng = JEngine(jparams, jcfg, cache_dtype=jnp.float32, **kw)
+    teng = tengine.GenerationEngine(tparams, tcfg, cache_dtype=torch.float32, device="cpu", **kw)
+    comp = jcfg.audio_token_compression
+    ref = jeng.generate(audio_batch(jmel.log_mel_spectrogram_np, comp), max_new_tokens=12)
+    out = teng.generate(audio_batch(tmel.log_mel_spectrogram_np, comp), max_new_tokens=12)
+    assert out.token_ids == ref.token_ids
+    assert all(len(set(row)) > 3 for row in out.token_ids), "degenerate tokens prove little"
+
+
 def test_conversation_cache_reuse_matches_one_shot(setup):
     """A second turn written after a returned cache equals one prefill of
     the concatenated prompt (greedy). The second turn outgrows the first
@@ -66,14 +82,12 @@ def test_default_device_is_cuda_and_never_falls_back(setup, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(decode_attn_impl="bogus"), dict(quantize="int4"), dict(encoder_attn_impl="flash"),
+    dict(decode_attn_impl="bogus"), dict(quantize="int4"), dict(encoder_attn_impl="bogus"),
 ])
 def test_unported_options_raise(setup, kw):
-    """An unknown decode_attn_impl or quantize mode raises ValueError (int8
-    runs: tests/test_torch_int8.py); an unported encoder_attn_impl raises
-    NotImplementedError."""
+    """An unknown decode_attn_impl, quantize mode or encoder_attn_impl raises
+    ValueError (int8 runs: tests/test_torch_int8.py; the flash encoder:
+    test_generate_with_flash_encoder_matches_jax)."""
     _, tcfg, _, tparams = setup
-    exc = {"decode_attn_impl": ValueError, "quantize": ValueError,
-           "encoder_attn_impl": NotImplementedError}[next(iter(kw))]
-    with pytest.raises(exc):
+    with pytest.raises(ValueError):
         tengine.GenerationEngine(tparams, tcfg, device="cpu", **kw)

@@ -129,6 +129,21 @@ def test_serving_matches_jax_generate(setup, mode, block_steps, block_impl):
         assert eng.stat_decode_steps > eng.stat_decode_dispatches  # blocks ran
 
 
+def test_serving_with_flash_encoder_matches_jax_generate(setup):
+    """encoder_attn_impl="flash": the admission's encoder runs its attention
+    in flash_attention (the plain version here); greedy tokens equal the JAX
+    GenerationEngine's with the same option."""
+    jcfg, tcfg, jparams, tparams, batches, _ = setup
+    jeng = JEngine(jparams, jcfg, max_cache_len=128, cache_dtype=jnp.float32,
+                   encoder_attn_impl="flash")
+    expected = [jeng.generate(b, max_new_tokens=MAX_NEW).token_ids[0] for b in batches]
+    eng = _engine(tparams, tcfg, cache_mode="paged", decode_block_steps=4,
+                  encoder_attn_impl="flash")
+    out = _serve(eng, batches, max_tokens=MAX_NEW)
+    assert [ids for ids, _ in out] == expected
+    assert [f for _, f in out] == ["length"] * 3
+
+
 @pytest.mark.parametrize("mode", ["slots", "paged"])
 def test_stop_token_inside_a_block(setup, mode):
     """A stop token sampled mid-block finishes the request with "stop"; the
@@ -273,16 +288,16 @@ def test_resolve_auto_matches_jax(setup, monkeypatch, on_card):
 
 @pytest.mark.parametrize("kw", [
     dict(quantize="int4"), dict(lora_adapters={"a": {}}), dict(spec_decode="ngram"),
-    dict(mesh=object()),
+    dict(mesh=object()), dict(encoder_attn_impl="bogus"),
 ])
 def test_unported_engine_options_raise(setup, kw):
     """Speculative decoding and meshes are not ported (NotImplementedError);
-    an unknown quantize mode and adapters without LoRA leaves raise
-    ValueError, as in the JAX package (int8 and multi-LoRA serving run:
-    tests/test_torch_int8.py, tests/test_torch_lora_serving.py)."""
+    an unknown quantize mode or encoder_attn_impl and adapters without LoRA
+    leaves raise ValueError, as in the JAX package (int8 and multi-LoRA
+    serving run: tests/test_torch_int8.py, tests/test_torch_lora_serving.py)."""
     _, tcfg, _, tparams, _, _ = setup
-    if "quantize" in kw or "lora_adapters" in kw:
-        with pytest.raises(ValueError, match="quantize|no lora_a"):
+    if "quantize" in kw or "lora_adapters" in kw or "encoder_attn_impl" in kw:
+        with pytest.raises(ValueError, match="quantize|no lora_a|encoder_attn_impl"):
             tserve.ServingEngine(tparams, tcfg, device="cpu", **kw)
         return
     with pytest.raises(NotImplementedError, match="not ported"):

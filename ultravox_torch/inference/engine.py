@@ -5,7 +5,8 @@ batch format, bucketing and results. ``generate`` decodes one token per
 step through the whole cache; ``generate_fused`` runs the decode loop as
 one segmented scan (``decoder.segmented_decode_scan``) with no host
 synchronisation until its token matrix is read. The attention options are
-``encoder_attn_impl``, ``prefill_attn_impl`` and ``decode_attn_impl``;
+``encoder_attn_impl`` (``"flash"``: the plain encoder with its attention in
+the ``flash_attention`` kernel), ``prefill_attn_impl`` and ``decode_attn_impl``;
 ``quantize="int8"`` serves int8 weights in the decoder and the Whisper
 tower, and a tree with one LoRA adapter runs it through ``proj_apply``. It
 runs on the CUDA card unless the caller passes ``device="cpu"``; there is
@@ -24,6 +25,7 @@ from ultravox_torch.models import decoder as decoder_lib
 from ultravox_torch.models import ultravox as uv
 from ultravox_torch.models.config import UltravoxConfig
 from ultravox_torch.models.whisper_encoder import (
+    ENCODER_ATTN_IMPLS,
     fuse_encoder_inference_params,
     quantize_encoder_int8,
 )
@@ -91,8 +93,8 @@ class GenerationEngine:
         device=None,
         seed: int = 0,
     ):
-        if encoder_attn_impl not in ("xla", "fused"):
-            raise NotImplementedError(f"encoder_attn_impl={encoder_attn_impl!r} is not ported yet")
+        if encoder_attn_impl not in ENCODER_ATTN_IMPLS:
+            raise ValueError(f"unknown encoder_attn_impl={encoder_attn_impl!r}")
         if prefill_attn_impl not in ("xla", "fused"):
             raise ValueError(f"unknown prefill_attn_impl={prefill_attn_impl!r}")
         if decode_attn_impl not in ("xla", "kernel"):

@@ -67,7 +67,10 @@ from ultravox_torch.models import decoder as decoder_lib
 from ultravox_torch.models import lora as lora_lib
 from ultravox_torch.models import ultravox as uv
 from ultravox_torch.models.config import UltravoxConfig
-from ultravox_torch.models.whisper_encoder import fuse_encoder_inference_params
+from ultravox_torch.models.whisper_encoder import (
+    ENCODER_ATTN_IMPLS,
+    fuse_encoder_inference_params,
+)
 from ultravox_torch.ops.kernels.paged_gather import gather_pages
 from ultravox_torch.ops.sampling import sample_slots, sampling_flags
 
@@ -271,9 +274,8 @@ class ServingEngine:
             cache_mode, decode_attn_impl, prefill_attn_impl, encoder_attn_impl, block_attn_impl,
             decode_block_steps, max_seq_len, cfg.text_config, self.device.type == "cuda",
         )
-        if encoder_attn_impl not in ("xla", "fused"):
-            raise NotImplementedError(f"encoder_attn_impl={encoder_attn_impl!r} is not ported yet")
         for name, value, allowed in (
+            ("encoder_attn_impl", encoder_attn_impl, ENCODER_ATTN_IMPLS),
             ("prefill_attn_impl", prefill_attn_impl, ("xla", "fused")),
             ("decode_attn_impl", decode_attn_impl, ("xla", "kernel")),
             ("block_attn_impl", block_attn_impl, ("xla", "kernel")),

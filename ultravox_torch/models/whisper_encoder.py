@@ -48,6 +48,7 @@ from ultravox_torch.ops.kernels.layer_norm import fused_layer_norm
 from ultravox_torch.ops.norms import layer_norm
 
 Params = Dict[str, Any]
+ENCODER_ATTN_IMPLS = ("xla", "fused", "flash")  # encoder_forward's attn_impl
 
 
 def feat_extract_output_length(mel_len):
@@ -217,8 +218,8 @@ def encoder_forward(
             f"mel length {mel.shape[-1]} exceeds encoder context "
             f"{cfg.max_context_length}; chunk the audio first."
         )
-    if attn_impl not in ("xla", "fused", "flash"):
-        raise NotImplementedError(f"encoder attn_impl={attn_impl!r} is not ported yet")
+    if attn_impl not in ENCODER_ATTN_IMPLS:
+        raise ValueError(f"unknown encoder attn_impl={attn_impl!r}")
     fused = attn_impl == "fused"
     gelu = "tanh" if fused else "none"
     x = F.gelu(

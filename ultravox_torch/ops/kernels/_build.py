@@ -27,6 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = (
     "layer_norm", "ln_qkv_head", "attention", "decode_attention", "segment_attention",
     "paged_attention", "paged_gather", "flash_attention", "qkv_head_transpose",
+    "decode_matmul", "ln_matmul_gelu", "attn_out_proj", "encoder_attn_probe",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -41,6 +42,7 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 ENTRY_POINTS = {
     "segment_attention": ("segment_attention", "paged_segment_attention"),
     "flash_attention": ("flash_attention", "flash_attention_bwd"),
+    "encoder_attn_probe": ("attn_v2", "attn_nt"),
 }
 # C signature of each entry point uv_<entry> (see the .cu sources)
 _SIGNATURES = {
@@ -73,6 +75,13 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P,
     ),
     "qkv_head_transpose": (_P, _P, _I, _I, _I, _I, _P),
+    "decode_matmul": (
+        _P, _LL, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "ln_matmul_gelu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "attn_out_proj": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "attn_v2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P),
+    "attn_nt": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P),
 }
 
 

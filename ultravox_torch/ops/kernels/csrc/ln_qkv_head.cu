@@ -9,19 +9,19 @@
 // Bound on the card: operations. At the whisper-small encoder shape
 // (B*T = 2048 rows, D = 768, C = 2304) the product is 7.2 GFLOP against
 // ~9 MB of traffic, ~800 flop/byte, above the H100's ~295 ridge. Design:
-// a block owns a 32-row x 128-column output tile. It normalises its 32 rows
-// once into shared memory (so the LN output never reaches HBM), then streams
-// 32 x 128 weight tiles through shared memory and accumulates a 4 x 4
-// register tile per thread with fp32 FMAs; the epilogue writes each element
-// straight to its head-major slot, so the (B, T, C) intermediate and the
-// relayout pass of the unfused form never exist. This first version uses
-// CUDA-core FMAs, not the tensor cores: it is far from the bf16 bound, and
-// wgmma/TMA tiling is the known next step.
-#include "common.cuh"
+// a block owns a 32-row x 128-column output tile (row_tile.cuh). It
+// normalises its 32 rows once into shared memory (so the LN output never
+// reaches HBM), then streams 32 x 128 weight tiles through shared memory
+// and accumulates a 4 x 4 register tile per thread with fp32 FMAs; the
+// epilogue writes each element straight to its head-major slot, so the
+// (B, T, C) intermediate and the relayout pass of the unfused form never
+// exist. This first version uses CUDA-core FMAs, not the tensor cores: it
+// is far from the bf16 bound, and wgmma/TMA tiling is the known next step.
+#include "row_tile.cuh"
 
 namespace {
 
-constexpr int BM = 32, BN = 128, BK = 32, kThreads = 256;
+using namespace row_tile;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -33,66 +33,15 @@ ln_qkv_head_kernel(const T* __restrict__ x, const float* __restrict__ lns,
   float* Hs = smem;           // BM x D   normalised rows, rounded to T
   float* Ws = smem + BM * D;  // BK x BN  weight tile
   const int row0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int G = C / Dh;
 
-  // 1. LayerNorm: each warp normalises BM / 8 rows. A lane reads back only
-  //    the elements it wrote itself, so no barrier is needed inside a row.
-  for (int r = warp; r < BM; r += kThreads / 32) {
-    float* h = Hs + r * D;
-    const int row = row0 + r;
-    if (row >= rows) {
-      for (int i = lane; i < D; i += 32) h[i] = 0.f;
-      continue;
-    }
-    const T* xr = x + static_cast<size_t>(row) * D;
-    float s = 0.f;
-    for (int i = lane; i < D; i += 32) {
-      const float v = to_f32(xr[i]);
-      h[i] = v;
-      s += v;
-    }
-    const float mean = warp_sum(s) / D;
-    float ss = 0.f;
-    for (int i = lane; i < D; i += 32) {
-      const float c = h[i] - mean;
-      ss += c * c;
-    }
-    const float rstd = rsqrtf(warp_sum(ss) / D + eps);
-    for (int i = lane; i < D; i += 32)
-      h[i] = round_to<T>((h[i] - mean) * rstd * lns[i] + lnb[i]);
-  }
+  layer_norm_rows(Hs, x, lns, lnb, row0, rows, D, eps);
   __syncthreads();
-
-  // 2. (BM x D) x (D x BN): thread (ty, tx) owns rows ty*4.., cols tx*4..
-  const int tx = tid & 31, ty = tid >> 5;
   float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  product(Hs, Ws, w, D, C, n0, acc);
 
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    for (int e = tid; e < BK * BN; e += kThreads) {
-      const int k = k0 + e / BN, n = n0 + e % BN;
-      Ws[e] = (k < D && n < C) ? to_f32(w[static_cast<size_t>(k) * C + n]) : 0.f;
-    }
-    __syncthreads();
-    const int kmax = min(BK, D - k0);
-    for (int kk = 0; kk < kmax; ++kk) {
-      const float4 bv = *reinterpret_cast<const float4*>(Ws + kk * BN + tx * 4);
-      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float a = Hs[(ty * 4 + r) * D + k0 + kk];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a, b4[c], acc[r][c]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // 3. cast, bias in the output dtype, head-major store
+  // cast, bias in the output dtype, head-major store
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = row0 + ty * 4 + r;
@@ -113,7 +62,7 @@ template <typename T>
 int launch(const void* x, const void* lns, const void* lnb, const void* w,
            const void* bias, void* out, int B, int Tlen, int D, int C, int Dh,
            float eps, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(BM) * D + BK * BN) * sizeof(float);
+  const size_t smem = smem_bytes(D);
   cudaError_t e = cudaFuncSetAttribute(
       ln_qkv_head_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -136,9 +85,9 @@ UV_EXPORT int uv_ln_qkv_head(const void* x, const void* ln_scale,
                              const void* bias, void* out, int B, int Tlen,
                              int D, int C, int Dh, float eps, int dtype,
                              void* stream) {
-  // the row tile must fit the 227 KB of shared memory a block may use
-  const size_t smem = (static_cast<size_t>(BM) * D + BK * BN) * sizeof(float);
-  if (B <= 0 || Tlen <= 0 || D <= 0 || Dh <= 0 || C % Dh || smem > 232448)
+  // the row tile must fit the shared memory a block may use
+  if (B <= 0 || Tlen <= 0 || D <= 0 || Dh <= 0 || C % Dh ||
+      row_tile::smem_bytes(D) > row_tile::kMaxSmem)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == UV_F32)

@@ -7,6 +7,10 @@
   and ``fused_attention.py:fused_attention`` (``_attn_kernel``).
 - ``qkv_head_transpose`` (``csrc/qkv_head_transpose.cu``) replaces
   ``fused_attention.py:qkv_head_transpose``.
+- ``ln_matmul_gelu`` (``csrc/ln_matmul_gelu.cu``) and
+  ``attn_out_proj_residual`` (``csrc/attn_out_proj.cu``) replace
+  ``fused_attention.py:ln_matmul_gelu`` and ``:attn_out_proj_residual``.
+  The reference wires neither into its encoder, and neither does the port.
 
 Each wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors; ``<wrapper>.launches`` counts kernel launches.
@@ -27,6 +31,9 @@ from ultravox_torch.ops.kernels import _build
 LOG2E = 1.4426950408889634
 HEAD_DIMS = (64, 128)  # head dims the attention kernel is instantiated for
 VEC_BYTES = 16  # qkv_head_transpose moves 16 bytes per load and store
+# widest contraction whose 32 rows fit in shared memory beside the weight
+# tile (csrc/row_tile.cuh: (32 * K + 32 * 128) * 4 bytes <= 232448)
+ROW_TILE_MAX_K = (232448 - 32 * 128 * 4) // (32 * 4)
 
 
 # --------------------------------------------------------------------------
@@ -34,19 +41,44 @@ VEC_BYTES = 16  # qkv_head_transpose moves 16 bytes per load and store
 # --------------------------------------------------------------------------
 
 
+def _layer_norm_rounded(x, ln_scale, ln_bias, eps):
+    """LayerNorm in fp32, cast to x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    return (xc * torch.rsqrt(var + eps) * ln_scale.float() + ln_bias.float()).to(x.dtype)
+
+
 def ln_qkv_head_plain(x, ln_scale, ln_bias, kernel, bias, head_dim: int, eps: float = 1e-5):
     """(B, T, D) -> (B, C / head_dim, T, head_dim): LN in fp32, cast to x's
     dtype, fp32-accumulated product, cast, then + bias in that dtype."""
     B, T, D = x.shape
     C = kernel.shape[-1]
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    xc = xf - mean
-    var = (xc * xc).mean(dim=-1, keepdim=True)
-    h = (xc * torch.rsqrt(var + eps) * ln_scale.float() + ln_bias.float()).to(x.dtype)
+    h = _layer_norm_rounded(x, ln_scale, ln_bias, eps)
     acc = torch.matmul(h.float(), kernel.float())
     qkv = acc.to(x.dtype) + bias.to(x.dtype)
     return qkv.reshape(B, T, C // head_dim, head_dim).permute(0, 2, 1, 3).contiguous()
+
+
+def ln_matmul_gelu_plain(x, ln_scale, ln_bias, kernel, bias, eps: float = 1e-5):
+    """(B, T, D) -> (B, T, F): LN in fp32, cast to x's dtype, fp32-accumulated
+    product, cast, + bias in that dtype, then tanh-GELU in fp32 and cast."""
+    h = _layer_norm_rounded(x, ln_scale, ln_bias, eps)
+    acc = torch.matmul(h.float(), kernel.float())
+    y = (acc.to(x.dtype) + bias.to(x.dtype)).float()
+    g = 0.5 * y * (1.0 + torch.tanh(0.7978845608028654 * (y + 0.044715 * y * y * y)))
+    return g.to(x.dtype)
+
+
+def attn_out_proj_residual_plain(attn_t, kernel_w, bias, x_res):
+    """x_res + (heads-concat of attn_t (B, H, T, D)) @ W (H, D, M) + b: fp32
+    sums cast to x_res's dtype, + b, then the residual, in that dtype."""
+    B, H, T, D = attn_t.shape
+    M = kernel_w.shape[-1]
+    a = attn_t.transpose(1, 2).reshape(B, T, H * D)
+    acc = torch.matmul(a.float(), kernel_w.reshape(H * D, M).float())
+    return x_res + (acc.to(x_res.dtype) + bias)
 
 
 def qkv_head_transpose_plain(qkv: torch.Tensor, head_dim: int) -> torch.Tensor:
@@ -162,6 +194,74 @@ def qkv_head_transpose(qkv: torch.Tensor, head_dim: int) -> torch.Tensor:
 
 
 qkv_head_transpose.launches = 0
+
+
+def ln_matmul_gelu(x, ln_scale, ln_bias, kernel, bias, *, eps: float = 1e-5):
+    """LayerNorm -> (B, T, D) x (D, F) + bias -> tanh-GELU, (B, T, F), any T;
+    x and kernel share fp32 or bf16, bias is cast to x's dtype."""
+    if x.device.type == "cpu":
+        return ln_matmul_gelu_plain(x, ln_scale, ln_bias, kernel, bias, eps)
+    _build.require_cuda(x, ln_scale, ln_bias, kernel, bias)
+    B, T, D = x.shape
+    F = kernel.shape[-1]
+    if kernel.shape != (D, F) or bias.shape != (F,):
+        raise ValueError(f"bad shapes for ln_matmul_gelu: {x.shape} x {kernel.shape} + {bias.shape}")
+    if D > ROW_TILE_MAX_K:
+        raise ValueError(f"ln_matmul_gelu holds rows of at most {ROW_TILE_MAX_K}, got D={D}")
+    if kernel.dtype != x.dtype:
+        raise TypeError(f"kernel dtype {kernel.dtype} != activation dtype {x.dtype}")
+    x = x.contiguous()
+    w = kernel.contiguous()
+    b = bias.to(x.dtype).contiguous()
+    s32 = ln_scale.float().contiguous()
+    b32 = ln_bias.float().contiguous()
+    out = torch.empty((B, T, F), dtype=x.dtype, device=x.device)
+    lib = _build.library("ln_matmul_gelu")
+    rc = lib.uv_ln_matmul_gelu(
+        _build.ptr(x), _build.ptr(s32), _build.ptr(b32), _build.ptr(w), _build.ptr(b),
+        _build.ptr(out), B * T, D, F, eps, _build.dtype_code(x), _build.stream_ptr(x.device),
+    )
+    _build.check("ln_matmul_gelu", rc)
+    ln_matmul_gelu.launches += 1
+    return out
+
+
+ln_matmul_gelu.launches = 0
+
+
+def attn_out_proj_residual(attn_t, kernel_w, bias, x_res):
+    """x_res + (heads-concat of attn_t) @ W + b, reading attn_t (B, H, T, D)
+    in its own layout; W is (H, D, M), x_res (B, T, M), any T. attn_t, W and
+    x_res share fp32 or bf16; a bias of another dtype than x_res raises
+    ValueError, as the reference does."""
+    if bias.dtype != x_res.dtype:
+        raise ValueError(f"bias dtype {bias.dtype} differs from the residual's {x_res.dtype}")
+    if attn_t.device.type == "cpu":
+        return attn_out_proj_residual_plain(attn_t, kernel_w, bias, x_res)
+    _build.require_cuda(attn_t, kernel_w, bias, x_res)
+    B, H, T, D = attn_t.shape
+    M = kernel_w.shape[-1]
+    if kernel_w.shape != (H, D, M) or bias.shape != (M,) or x_res.shape != (B, T, M):
+        raise ValueError(f"bad shapes for attn_out_proj_residual: {attn_t.shape} x "
+                         f"{kernel_w.shape} + {bias.shape}, residual {x_res.shape}")
+    if H * D > ROW_TILE_MAX_K:
+        raise ValueError(f"attn_out_proj_residual holds rows of at most {ROW_TILE_MAX_K}, "
+                         f"got {H} x {D}")
+    if not attn_t.dtype == kernel_w.dtype == x_res.dtype:
+        raise TypeError("attn_t, kernel_w and x_res must share one dtype")
+    a, w, b, r = (t.contiguous() for t in (attn_t, kernel_w, bias, x_res))
+    out = torch.empty((B, T, M), dtype=x_res.dtype, device=x_res.device)
+    lib = _build.library("attn_out_proj")
+    rc = lib.uv_attn_out_proj(
+        _build.ptr(a), _build.ptr(w), _build.ptr(b), _build.ptr(r), _build.ptr(out),
+        B, H, T, D, M, _build.dtype_code(r), _build.stream_ptr(r.device),
+    )
+    _build.check("attn_out_proj", rc)
+    attn_out_proj_residual.launches += 1
+    return out
+
+
+attn_out_proj_residual.launches = 0
 
 
 def _launch_attention(q, k, v, o, lengths, row_offsets, scale, causal, latency_block):
