@@ -4,7 +4,9 @@
 
 Phases, each fatal on failure:
   1. build every CUDA kernel of the port from ultravox_torch/ops/kernels/csrc
-     (one nvcc per source, all thirteen at once);
+     (one nvcc per source, all thirteen at once); the bf16 flash_attention
+     kernels must hold tensor-core instructions (HMMA in cuobjdump's SASS;
+     the fp32 ones none) and ptxas must report no spills at head_dim 64;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the flagship paths give it (bf16; the decode and paged kernels
      also in fp32, with ragged lengths, windows, page size 16, shuffled page
@@ -13,8 +15,10 @@ Phases, each fatal on failure:
      single PyTorch call for the same function (a yardstick only; the port
      never calls it); flash_attention's forward and backward kernels run in
      fp32 and bf16 on ragged lengths, a row of length 0, windows, the
-     latency block and head_dim 128, with junk past the lengths, and are
-     timed at the decoder's and the encoder's training shapes;
+     latency block, head_dim 128 and T of 1, 17, 64, 65, 128 and 500 (the
+     bf16 kernels' tile edges), two runs bit-equal, with junk past the
+     lengths, and are timed (with TF/s) at the decoder's and the encoder's
+     training shapes;
      qkv_head_transpose is bit-equal in bf16 and fp32 at (4, 500, 2304),
      (1, 500, 2304) and a ragged T with head_dim 128, and timed at B 1 and 4;
      the three kernels no engine launches (as in the reference):
@@ -63,6 +67,9 @@ Phases, each fatal on failure:
      10 s audio: 72 forward and 28 backward flash_attention calls per step
      checked, loss, grad_norm, step time, samples/s, MFU, peak memory, the
      device's busy share, a kernel breakdown, and no host wait in a step;
+     then one forward and backward of the KL loss through the bf16 flash
+     kernels against the same call through _FlashPlain (loss within 2^-6,
+     gradient norm within 2^-4, relative);
   7. multi-LoRA and int8 at flagship widths on phase 4's weights and batch
      (see _lora_int8_main_path): a paged ServingEngine with two v0.6-style
      adapters (24 fused_layer_norm, 12 qkv_head_transpose, 12
@@ -863,6 +870,48 @@ def _check_paged_kernels(pa, pg, sa, dev):
     return rows
 
 
+def _check_flash_build(_build, info):
+    """Phase 1, continued: the bf16 flash kernels run on the tensor cores.
+    cuobjdump's SASS of the built library must show HMMA in the bf16
+    forward, delta, dK/dV and dQ kernels at both head dims, and none in the
+    fp32 kernels (fp32 stays on the CUDA cores). ptxas must report no
+    spills for the D = 64 bf16 kernels."""
+    path = info["path"]
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        _fail(f"phase 1: no cuobjdump beside nvcc ({cuobjdump}) to read the flash kernels' SASS")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    hmma = {}
+    for block in sass.split("Function : ")[1:]:
+        hmma[block.split("\n", 1)[0].strip()] = block.count("HMMA")
+    for kern in ("flash_fwd_mma_kernel", "flash_delta_mma_kernel", "flash_dkdv_mma_kernel",
+                 "flash_dq_mma_kernel"):
+        mine = {n: c for n, c in hmma.items() if kern in n}
+        print(f"sass {kern}: HMMA per instantiation {sorted(mine.values())}", flush=True)
+        if len(mine) != 2 or not all(mine.values()):
+            _fail(f"phase 1: {kern} holds no tensor-core instruction in one of its instantiations "
+                  f"({mine})")
+    fp32 = {n: c for n, c in hmma.items() if "kernelIf" in n}
+    print(f"sass fp32 flash kernels: {len(fp32)} instantiations, HMMA {sum(fp32.values())}",
+          flush=True)
+    if not fp32 or any(fp32.values()):
+        _fail(f"phase 1: the fp32 flash kernels should stay on the CUDA cores ({fp32})")
+    if not info["ptxas"]:
+        print("ptxas flash_attention: library already built, no report to check", flush=True)
+        return
+    spills, fn = {}, None
+    for line in info["ptxas"].splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill stores" in line and fn is not None:
+            spills[fn] = int(line.split("bytes spill stores")[0].split(",")[-1])
+    d64 = {n: b for n, b in spills.items() if "_mma_kernelILi64E" in n}
+    print(f"ptxas bf16 flash kernels at D 64: spill store bytes {sorted(d64.values())}", flush=True)
+    if len(d64) != 4 or any(d64.values()):
+        _fail(f"phase 1: the D = 64 bf16 flash kernels spill or were not found ({d64})")
+
+
 def _flash_grads(fn, q, k, v, dout, lens, kw):
     """(out, dq, dk, dv) of fn's forward and its backward under dout."""
     x = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -902,6 +951,13 @@ def _check_flash(fl, dev):
         ("decoder causal window 32", 4, 190, 32, 8, 64, [190, 120, 50, 3], True, 32, 0),
         ("encoder latency 16 ragged", 4, 500, 12, 12, 64, [500, 311, 64, 0], False, 0, 16),
         ("head_dim 128 gqa 4", 2, 77, 8, 2, 128, [77, 30], False, 0, 0),
+        # the bf16 kernels' 64-row tiles: whole, one row past, two, ragged
+        ("tile edge T1", 2, 1, 4, 1, 64, [1, 0], True, 0, 0),
+        ("tile edge T17 window", 2, 17, 4, 1, 64, [17, 9], True, 5, 0),
+        ("tile edge T64 head_dim 128", 2, 64, 4, 4, 128, [64, 40], False, 0, 0),
+        ("tile edge T65 head_dim 128 causal", 2, 65, 4, 2, 128, [65, 64], True, 0, 0),
+        ("tile edge T128 head_dim 128 latency", 2, 128, 4, 1, 128, [128, 1], False, 0, 16),
+        ("T500 head_dim 128 gqa 4 window", 3, 500, 8, 2, 128, [500, 257, 0], True, 48, 0),
     )
     for name, B, T, H, Hkv, D, lengths, causal, window, lb in cases:
         kw = dict(causal=causal, window=window, latency_block=lb)
@@ -909,8 +965,12 @@ def _check_flash(fl, dev):
             q, k, v, dout, lens = make(B, T, H, Hkv, D, lengths, dtype)
             got = _flash_grads(fl.flash_attention, q, k, v, dout, lens, kw)
             ref = _flash_grads(plain, q, k, v, dout, lens, kw)
+            again = _flash_grads(fl.flash_attention, q, k, v, dout, lens, kw)
             torch.cuda.synchronize()
-            errs = []
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                _fail(f"flash_attention {name} ({dtype}): two runs differ (the kernels must be "
+                      "deterministic)")
+            errs = ["two runs bit-equal"]
             for what, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
                 err = float((a.float() - b.float()).abs().max())
                 if dtype == torch.float32:
@@ -969,14 +1029,24 @@ def _check_flash(fl, dev):
             return rms
 
         rel_rms = check_rms("out", out, ref)
-        rec(f"flash_attention ({label})", "flash_fwd_kernel",
+        fwd_flops, bwd_flops = 4.0 * 64 * H * pairs, 10.0 * 64 * H * pairs
+
+        def rate(row, flops):
+            """TF/s of the kernel and its factor to the library call."""
+            row["tflops"] = flops / row["ms"] / 1e9
+            row["library_factor"] = row["ms"] / row["library_ms"]
+            print(f"kernel {row['name']}: {row['tflops']:.2f} TF/s, {row['library_factor']:.2f}x "
+                  f"the library's {row['library_ms']:.4f} ms", flush=True)
+
+        row = rec(f"flash_attention ({label})", "flash_fwd_mma_kernel",
             "ultravox_torch/ops/kernels/csrc/flash_attention.cu",
             "ultravox_tpu/ops/pallas/flash_attention.py:274 (_fwd_kernel :78)", out, ref,
             lambda: fl.flash_forward(q, k, v, lens, **kw),
             lambda: fl.flash_forward_plain(q, k, v, lens, **kw),
             lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, enable_gqa=True),
-            _nbytes(q, k, v, out, stats, lens), 4.0 * 64 * H * pairs, BF16_FLOPS,
+            _nbytes(q, k, v, out, stats, lens), fwd_flops, BF16_FLOPS,
             extra={"rel_rms_err": rel_rms})
+        rate(row, fwd_flops)
         grads = fl.flash_backward(q, k, v, out, stats, dout, lens, **kw)
         refs = fl.flash_backward_plain(q, k, v, out, dout, lens, **kw)
         torch.cuda.synchronize()
@@ -1008,15 +1078,16 @@ def _check_flash(fl, dev):
                 doh, qh, ke, ve, o_lib, lse, cq, ck, mq, mk, 0.0, causal, seed, offset,
                 scale=scale)
 
-        rec(f"flash_attention_bwd ({label})", "flash_d",
+        row = rec(f"flash_attention_bwd ({label})", "flash_d",
             "ultravox_torch/ops/kernels/csrc/flash_attention.cu",
             "ultravox_tpu/ops/pallas/flash_attention.py:274 (_bwd_kernel :104)",
             torch.cat([t.flatten() for t in grads]), torch.cat([t.flatten() for t in refs]),
             lambda: fl.flash_backward(q, k, v, out, stats, dout, lens, **kw),
             lambda: fl.flash_backward_plain(q, k, v, out, dout, lens, **kw), library_bwd,
-            _nbytes(q, k, v, out, stats, dout, lens, *grads), 10.0 * 64 * H * pairs, BF16_FLOPS,
+            _nbytes(q, k, v, out, stats, dout, lens, *grads), bwd_flops, BF16_FLOPS,
             calls=fl.BWD_LAUNCHES, extra={"sdpa_fwd_bwd_ms": _time_ms(sdpa_fwd_bwd),
                                           "rel_rms_err": rel_rms})
+        rate(row, bwd_flops)
         return rec_rows
 
     dec = timed("decoder (8,190,32/8,64) causal", 8, 190, 32, 8, True)
@@ -1025,7 +1096,7 @@ def _check_flash(fl, dev):
         row = dict(d, name=name, shape="decoder (8,190,32/8,64) causal, lengths 190")
         row["encoder_shape"] = {k_: e[k_] for k_ in (
             "max_abs_err", "tol", "rel_rms_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "device_ms", "wrapper_ms")
+            "library_ms", "device_ms", "wrapper_ms", "tflops", "library_factor")
             + (("sdpa_fwd_bwd_ms",) if "sdpa_fwd_bwd_ms" in e else ())}
         rows.append(row)
     return rows
@@ -1295,8 +1366,8 @@ def _train_main_path(tc, uv, dev):
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}", flush=True)
     flash_ms = {name: sum(e.self_device_time_total for e in evs if f"::{name}<" in e.key) / 1e3
-                for name in ("flash_fwd_kernel", "flash_delta_kernel", "flash_dkdv_kernel",
-                             "flash_dq_kernel")}
+                for name in ("flash_fwd_mma_kernel", "flash_delta_mma_kernel",
+                             "flash_dkdv_mma_kernel", "flash_dq_mma_kernel")}
     print(f"train step profile: flash_attention kernels {flash_ms} ms, "
           f"{sum(flash_ms.values()):.3f} ms in all", flush=True)
 
@@ -1306,17 +1377,72 @@ def _train_main_path(tc, uv, dev):
           flush=True)
     if sites:
         _fail(f"phase 6: a train step waits for the card at {sorted(set(sites))}")
+    vs_plain = _flash_loss_vs_plain(cfg, tc, uv, ts, fl, holder["state"], template, batch)
     result = {
         "step_ms_median": step_s * 1e3, "step_ms": [t * 1e3 for t in times],
         "samples_per_s": B / step_s, "model_tflop_per_step": flops / 1e12, "mfu": mfu,
         "host_enqueue_ms_median": enqueue_s * 1e3, "host_enqueue_ms": [t * 1e3 for t in enqueue],
         "peak_memory_gb": peak, "device_busy_ms": busy_ms, "traced_ms": traced_ms,
         "device_busy_share": busy_ms / traced_ms, "runtime_launches": runtime_launches,
-        "flash_kernels_ms": flash_ms,
+        "flash_kernels_ms": flash_ms, "flash_kernel_vs_plain": vs_plain,
         "losses": [m["loss"] for m in vals], "grad_norms": [m["grad_norm"] for m in vals],
         "top_kernels": [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top],
     }
     return result, launches
+
+
+# Bounds on the flagship KL loss and its gradient norm through the bf16
+# flash kernels against the same call through _FlashPlain: the model runs
+# in bf16 (8-bit significands) through 28 attention layers forward and 28
+# back, and each kernel output may differ from the plain one by a few ulps
+# (FLASH_RMS_TOL), so the two calls agree to about bf16 precision, not to
+# fp32's. 2^-6 relative for the loss, 2^-4 for the gradient norm.
+FLASH_E2E_LOSS_RTOL = 2.0**-6
+FLASH_E2E_GRAD_RTOL = 2.0**-4
+
+
+def _flash_loss_vs_plain(cfg, tc, uv, ts, fl, state, template, batch):
+    """Phase 6, continued: one forward and backward of the flagship KL loss
+    (remat, vocab_chunk 256) on phase 6's batch and state through the bf16
+    flash kernels, then the same call with ``_FlashPlain`` swapped in for
+    the kernels for that call only. Loss and the trainable leaves' gradient
+    norm within FLASH_E2E_LOSS_RTOL / FLASH_E2E_GRAD_RTOL; the norm of the
+    gradients' difference is printed."""
+    lc = tc.LossConfig(loss_function=tc.LossFunction.KL_DIVERGENCE)
+
+    def loss_and_grads():
+        params = ts.merge_params(template, state.trainable, state.frozen)
+        loss = uv.ultravox_loss(params, cfg, batch, lc, remat=True, attn_impl="flash",
+                                vocab_chunk=256)
+        return float(loss), torch.autograd.grad(loss, list(state.trainable.values()))
+
+    before = fl.flash_attention.launches
+    loss_k, grads_k = loss_and_grads()
+    if fl.flash_attention.launches == before:
+        _fail("phase 6: the kernel's loss call launched no flash_attention kernel")
+    kernel_fn = fl._FlashKernel
+    fl._FlashKernel = fl._FlashPlain
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        fl._FlashKernel = kernel_fn
+    norm_k, norm_p = float(ts.global_norm(grads_k)), float(ts.global_norm(grads_p))
+    diff = float(ts.global_norm([a - b for a, b in zip(grads_k, grads_p)]))
+    out = {"loss_kernel": loss_k, "loss_plain": loss_p, "grad_norm_kernel": norm_k,
+           "grad_norm_plain": norm_p, "grad_diff_norm": diff,
+           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+           "grad_norm_rel_err": abs(norm_k - norm_p) / norm_p}
+    print(f"train loss, flash kernels vs _FlashPlain: loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+          f"{out['loss_rel_err']:.3g}, tol {FLASH_E2E_LOSS_RTOL:.3g}); grad norm {norm_k:.6f} vs "
+          f"{norm_p:.6f} (rel {out['grad_norm_rel_err']:.3g}, tol {FLASH_E2E_GRAD_RTOL:.3g}); "
+          f"|g_kernel - g_plain| {diff:.4g} ({diff / norm_p:.3g} of |g_plain|)", flush=True)
+    if not (np.isfinite(loss_k) and out["loss_rel_err"] <= FLASH_E2E_LOSS_RTOL):
+        _fail(f"phase 6: the loss through the flash kernels {loss_k} vs the plain version's "
+              f"{loss_p}")
+    if not (np.isfinite(norm_k) and out["grad_norm_rel_err"] <= FLASH_E2E_GRAD_RTOL):
+        _fail(f"phase 6: the gradient norm through the flash kernels {norm_k} vs the plain "
+              f"version's {norm_p}")
+    return out
 
 
 def _scan_tokens(engine, batch, n_steps: int, attn_impl: str) -> torch.Tensor:
@@ -1733,6 +1859,8 @@ def main() -> None:
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
+
+    _check_flash_build(_build, built["flash_attention"])
 
     # 2. kernels against their plain versions
     rows = (_check_kernels(fa, ln_mod, dev) + _check_decode_kernels(da, sa, dev)

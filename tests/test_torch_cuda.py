@@ -317,14 +317,20 @@ def test_serving_engine_on_cuda_matches_cpu(cuda_device):
 
 
 # name, T, H, Hkv, lengths (None = no length mask), causal, window, latency
-# block. Every mask, GQA 1 and 4, T in {1, 17, 190, 500}; rows of length 0
-# and, with the window, padding rows past length + window see no key.
+# block. Every mask, GQA 1, 2 and 4, T in {1, 17, 64, 65, 128, 190, 500}
+# (the bf16 kernels' 64-row tiles: one whole tile, one row past it, two
+# tiles, ragged last tiles); rows of length 0 and, with the window, padding
+# rows past length + window see no key.
 FLASH_CASES = [
     ("plain-T17-gqa1", 17, 4, 4, None, False, 0, 0),
     ("lengths+latency-T500-gqa4", 500, 4, 1, [500, 123, 0], False, 0, 16),
     ("causal+lengths-T190-gqa4", 190, 8, 2, [190, 77, 0], True, 0, 0),
     ("causal+window-T190-gqa4", 190, 4, 1, [190, 50, 1], True, 32, 0),
     ("causal-T1-gqa4", 1, 4, 1, [1, 0], True, 0, 0),
+    ("plain-T64-gqa1", 64, 4, 4, None, False, 0, 0),
+    ("lengths-T65-gqa2", 65, 4, 2, [65, 64, 1], False, 0, 0),
+    ("causal+lengths-T128-gqa4", 128, 8, 2, [128, 100, 63], True, 0, 0),
+    ("causal+window+lengths-T500-gqa4", 500, 8, 2, [500, 321, 0], True, 48, 0),
 ]
 
 
@@ -400,6 +406,63 @@ def test_flash_attention_ignores_keys_past_lengths(cuda_device, dt):
         torch.cuda.synchronize()
         assert torch.equal(out, jout) and torch.equal(dq, jdq)
         assert not jdk[past].any() and not jdv[past].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_bf16_is_deterministic(cuda_device, D):
+    """The bf16 kernels use no atomics: two runs of forward and backward on
+    the same inputs give bit-equal outputs and gradients."""
+    from ultravox_torch.ops.kernels import flash_attention as tfl
+
+    q, k, v, dout, lens = _flash_inputs(cuda_device, torch.bfloat16, 190, 8, 2, D,
+                                        [190, 77, 0], seed=2)
+    kw = dict(causal=True, window=48)
+    first = _flash_run(tfl.flash_attention, q, k, v, dout, lens, **kw)
+    second = _flash_run(tfl.flash_attention, q, k, v, dout, lens, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+def _device_kernel_names(fn, calls=5):
+    """Names of the device kernels that ``calls`` runs of fn launched, as a
+    trace recorded them (a trace may drop events, so several calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.cuda
+def test_flash_attention_routes_fp32_to_cuda_cores_and_bf16_to_mma(cuda_device):
+    """fp32 launches the CUDA-core kernels (fp32 on the tensor cores would
+    be TF32) and still agrees with the plain version within 1e-5 (output)
+    and 1e-4 (gradients); bf16 launches the tensor-core kernels."""
+    from ultravox_torch.ops.kernels import flash_attention as tfl
+
+    kw = dict(causal=True)
+    for dtype, want, avoid in ((torch.float32, "flash_fwd_kernel", "_mma_kernel"),
+                               (torch.bfloat16, "flash_fwd_mma_kernel", "flash_fwd_kernel<")):
+        q, k, v, dout, lens = _flash_inputs(cuda_device, dtype, 77, 4, 2, 64, [77, 40], seed=3)
+        got = {}
+        names = _device_kernel_names(
+            lambda: got.__setitem__("r", _flash_run(tfl.flash_attention, q, k, v, dout, lens, **kw)))
+        flash = [n[:80] for n in names if "flash_" in n]
+        assert any(want in n for n in flash), (dtype, flash, sorted(names)[:8])
+        assert not any(avoid in n for n in flash), (dtype, flash)
+        if dtype == torch.float32:
+            ref = _flash_run(
+                lambda *a, **o: tfl._FlashPlain.apply(*a, 64**-0.5, o["causal"], 0, 0),
+                q, k, v, dout, lens, **kw)
+            for name, a, b in zip(("out", "dq", "dk", "dv"), got["r"], ref):
+                tol = 1e-5 if name == "out" else 1e-4
+                err = float((a - b).abs().max())
+                assert err <= tol, (name, err)
 
 
 @pytest.mark.cuda

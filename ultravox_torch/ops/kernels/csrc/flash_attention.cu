@@ -10,43 +10,82 @@
 //
 // Numerics follow the Pallas kernels: logits = (q . k) in fp32 times
 // scale*log2(e), hidden entries set to the finite NEG_INF (-0.7 FLT_MAX),
-// exp2 against the row's global maximum, probabilities rounded to the value
+// keys at or past T to -inf, exp2 against the row's global maximum, the row
+// sum over the unrounded exponentials, probabilities rounded to the value
 // dtype before the PV product, fp32 accumulation, division by the row sum
 // last. A row with no visible key (lengths[b] == 0, or a padding row past
 // length + window) therefore averages v over all T keys, as the Pallas
 // kernel does, and its output is finite. The backward keeps the Pallas
-// rounding points: dv += p.astype(T)^T do; dp = do v^T in fp32;
-// ds = p (dp - rowsum(do o)), zero where hidden; ds16 = (ds * scale)
-// rounded to T; dq = ds16 k and dk += ds16^T q, fp32-accumulated, cast to T
-// at the end.
+// rounding points: p = exp2(s - m) / z from the forward's stats;
+// dv += p.astype(T)^T do; dp = do v^T in fp32; ds = p (dp - rowsum(do o)),
+// zero where hidden; ds16 = (ds * scale) rounded to T; dq = ds16 k and
+// dk += ds16^T q, fp32-accumulated, cast to T at the end. No atomics: two
+// runs give bit-equal outputs.
 //
-// Bound on the card: operations at the training shapes (decoder
-// (8, 190, 32, 64) causal, encoder (8, 500, 12, 64); each (q, k) pair costs
-// 4 D flops forward and 8-10 D backward against 2 D bytes of its tiles).
-// Design: no (T, T) logits tensor reaches device memory. Forward: a block
-// owns 64 query rows of one (b, h) in shared memory and streams 32-key
-// tiles of K and V; like csrc/attention.cu it makes two passes over the
-// keys (row maxima, then exp2/row sums/P.V) so that it rounds exactly the
-// probabilities the reference rounds. It stores the fp32 row maximum and
-// row sum (B, H, T, 2) as a residual, so the backward rebuilds p = exp2(s -
-// m) / z without reducing whole rows again (the maximum and the sum are
-// kept apart because log2(z) vanishes beside the finite NEG_INF of a fully
-// hidden row). Each block visits only the key tiles some row of its tile
-// can see (all of them when a row of the tile sees none).
-// Backward: the Pallas kernel accumulates dK/dV by revisiting one output
-// block over sequential grid steps; CUDA blocks run concurrently and in no
-// order, so the FlashAttention-2 split is used instead, with no atomics and
-// results that do not change from run to run. Three launches per backward:
-//   1. delta = rowsum(do * o) per (b, h, row);
-//   2. dK/dV: a block per (b, kv head, 32-key tile) loops over the group's
-//      query heads and the 64-row query tiles that reach its keys and keeps
-//      dK and dV in fp32 registers;
-//   3. dQ: a block per (b, h, 64-row query tile) loops over the key tiles
-//      its rows can see.
-// CUDA-core FMAs from fp32 shared memory; no tensor cores yet.
+// Bound on the H100 at the training shapes (bf16): the decoder's
+// (8, 190, 32/8 heads, 64), causal, is bound by bytes (4.8 us forward, 9.4
+// us backward for q, k, v, o, do and the gradients once each, against
+// 1.2 / 3.0 us of tensor-core work); the encoder's (8, 500, 12, 64)
+// backward by operations (15.4 GFLOP, 15.5 us at 989 TFLOP/s). Either way
+// the work is products of 64-row tiles, so the bf16 kernels run them on the
+// tensor cores and keep every logit in registers. What is left of the time
+// then is the per-element work between the products (mask, exp2, division,
+// bf16 packing) and each tile's wait, since a block runs only 1 to 8 tiles
+// at these shapes: hence the two-compare mask and one reciprocal per row.
+//
+// bf16 design (mma_tile.cuh): 4 warps per block, 64-row tiles, each warp 16
+// rows; tiles of q, k, v and do come in by cp.async, 16 bytes a thread,
+// into padded shared memory (no ldmatrix bank conflicts), the next tile's
+// copy in flight while the current one is used (a 2-stage ring); rows at or
+// past T are zero-filled, so no stale NaN enters a product. Every product
+// is mma.sync.m16n8k16 (bf16 in, fp32 sums), and every logit tile comes from
+// one routine (mma_tile::s_tile: the sum over D in the same order in the
+// forward, in both passes, and in both backward kernels). The A operand is
+// read from shared memory by ldmatrix at each 16-wide step (one load per
+// eight products) rather than held in registers, which keeps the registers
+// for the accumulators at D = 128.
+//   forward: a block per (b, h, 64-row query tile) makes two passes over
+//     the key tiles its rows can see (key_range): pass 1 reads K and takes
+//     each row's maximum, pass 2 rebuilds the same logits bit for bit (the
+//     scale is applied with __fmul_rn, so no FMA contraction can round a
+//     logit differently), takes exp2 against the global maximum, sums the
+//     row in fp32 and packs P to bf16 straight into A fragments for
+//     O += P V (V read transposed by ldmatrix). Two passes cost a third more
+//     products than one online-softmax pass, but round exactly the
+//     probabilities the reference rounds. The epilogue divides by the row
+//     sum and stores O through shared memory in 16-byte lines, plus the
+//     (B, H, T, 2) fp32 stats (row maximum, row sum; kept apart because
+//     log2(z) vanishes beside the finite NEG_INF of a fully hidden row).
+//   backward, three launches:
+//     1. delta = rowsum(do * o) per (b, h, row): the diagonal of dO O^T by
+//        the same s_tile as dP, so dp - delta is exactly 0 where o is a
+//        row of v (a row that sees one key), as in exact arithmetic;
+//     2. dK/dV: a block per (b, kv head, 64-key tile) keeps K and V in
+//        shared memory and walks the group's query heads and the query
+//        tiles that reach its keys, Q, dO and their stats double-buffered.
+//        It computes S^T = K Q^T and dP^T = V dO^T, so P^T and dS16^T sit
+//        in the A layout for dV += P^T dO and dK += dS16^T Q;
+//     3. dQ: a block per (b, h, 64-row query tile) runs dQ += dS16 K over
+//        its visible key tiles.
+//   The mask is an interval of keys per row (Span), so a masked element
+//   costs two compares; a tile that the mask leaves whole (tile_open)
+//   skips even those. Divisions by the row sum are a correctly rounded
+//   quotient from one reciprocal per row (div_rn).
+// The Pallas kernel accumulates dK/dV by revisiting one output block over
+// sequential grid steps; CUDA blocks run concurrently and in no order, so
+// the FlashAttention-2 split replaces it.
+//
+// fp32 keeps the CUDA-core kernels below (flash_fwd_kernel and the rest,
+// 64-row query tiles, 32-key tiles, FMAs from fp32 shared memory): fp32 on
+// the tensor cores means TF32, whose 10-bit mantissa would break the 1e-5
+// agreement with the plain version that the fp32 checks hold.
+#include <limits.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -415,6 +454,506 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor-core kernels (mma_tile.cuh)
+// ---------------------------------------------------------------------------
+
+namespace mt = mma_tile;
+using mt::bf16;
+
+constexpr int TB = 64;             // query rows and keys per tile
+constexpr int kMmaThreads = 128;   // 4 warps of 16 rows
+constexpr int kStatsBytes = 2 * TB * 3 * (int)sizeof(float);  // 2 stages of (m, z, delta)
+
+template <int D>
+constexpr size_t tile_bytes() {
+  return mt::Tile<D>::template bytes<TB>();
+}
+
+// The mask hides no pair of rows [q0, q0 + TB) x keys [k0, k0 + TB), so
+// the tile needs no per-element mask. Rows and keys past T are left to each
+// kernel: their tiles are zero-filled, and each kernel says why they are
+// harmless or asks for keys_in_range.
+__device__ __forceinline__ bool tile_open(const Mask& m, int q0, int k0) {
+  const int q1 = q0 + TB - 1, k1 = k0 + TB - 1;
+  if (k1 >= m.len) return false;
+  if (m.causal && (k1 > q0 || (m.window > 0 && q1 - k0 >= m.window))) return false;
+  return !(m.lb > 0 && k1 / m.lb > q0 / m.lb);
+}
+
+__device__ __forceinline__ bool keys_in_range(const Mask& m, int k0) { return k0 + TB <= m.S; }
+
+// e / z rounded to nearest from r = 1/z rounded to nearest (Markstein: the
+// FMA remainder is exact, so the corrected quotient is the correctly rounded
+// one for normal values), so a row's z costs one reciprocal, not one
+// division per element
+__device__ __forceinline__ float div_rn(float e, float z, float r) {
+  const float q = e * r;
+  return fmaf(fmaf(-q, z, e), r, q);
+}
+
+// Mask::hidden as an interval: the keys [lo, hi) that a query row sees, or
+// the query rows [lo, hi) that see a key. Computed once per row or key, so
+// the per-element mask is two compares (no division by the latency block).
+struct Span {
+  int lo, hi;
+};
+
+__device__ __forceinline__ Span row_span(const Mask& m, int row) {
+  Span s{0, m.len};
+  if (m.causal) {
+    s.hi = min(s.hi, row + 1);
+    if (m.window > 0) s.lo = max(0, row - m.window + 1);
+  }
+  if (m.lb > 0) s.hi = min(s.hi, (row / m.lb + 1) * m.lb);
+  return s;
+}
+
+__device__ __forceinline__ Span key_span(const Mask& m, int col) {
+  if (col >= m.len) return Span{0, 0};
+  Span s{0, INT_MAX};
+  if (m.causal) {
+    s.lo = col;
+    if (m.window > 0) s.hi = col + m.window;
+  }
+  if (m.lb > 0) s.lo = max(s.lo, (col / m.lb) * m.lb);
+  return s;
+}
+
+// A Span relative to this lane's first column (or row) of a tile at x0, so
+// that the element at offset 8 n + c (c = 0, 1) is tested against two
+// registers with an immediate: the mask in the fewest instructions.
+struct Local {
+  int lo, hi;
+  __device__ bool hides(int x) const { return x < lo || x >= hi; }
+};
+
+__device__ __forceinline__ Local local(const Span& s, int x0) {
+  const int base = x0 + 2 * (threadIdx.x & 3);
+  return Local{s.lo - base, s.hi - base};
+}
+
+// The scaled logit from the product s, as the reference: NEG_INF where
+// hidden; __fmul_rn so that no FMA contraction with a later subtraction
+// rounds it differently in another pass or kernel.
+__device__ __forceinline__ float logit(bool hidden, float s, float scale_log2e) {
+  return hidden ? kNegInf : __fmul_rn(s, scale_log2e);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ stats,
+                     int H, int group, int Tn, float scale_log2e, const int* __restrict__ lengths,
+                     int causal, int window, int lb) {
+  constexpr int TILE = TB * mt::Tile<D>::kPitch;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + TILE;      // 2 stages
+  bf16* Vs = Ks + 2 * TILE;  // 2 stages
+
+  const int q0 = blockIdx.x * TB, h = blockIdx.y, b = blockIdx.z;
+  const int Hkv = H / group, hk = h / group;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long qst = (long long)H * D, kst = (long long)Hkv * D;
+  const bf16* qb = q + (long long)b * Tn * qst + (long long)h * D;
+  const bf16* kb = k + (long long)b * Tn * kst + (long long)hk * D;
+  const bf16* vb = v + (long long)b * Tn * kst + (long long)hk * D;
+  const Mask mk{Tn, lengths ? lengths[b] : Tn, causal, window, lb};
+  const Range rg = key_range(mk, q0, min(q0 + TB, Tn));
+  const int lo = rg.full ? 0 : rg.lo, hi = rg.full ? Tn : rg.hi;
+  const int ntiles = hi > lo ? (hi - lo + TB - 1) / TB : 0;
+  const int r0 = q0 + 16 * warp;  // this warp's first row
+  const Span sp[2] = {row_span(mk, r0 + mt::acc_row(0)), row_span(mk, r0 + mt::acc_row(2))};
+
+  // the logits of key tile k0 in this warp's rows from their products s;
+  // keys past T get -inf (rows past T are never stored). Three paths: a
+  // tile the mask leaves whole, the last tile of an unmasked row (keys past
+  // T only), and a masked tile.
+  auto scale_mask = [&](float (&s)[8][4], int k0) {
+    const bool open = tile_open(mk, q0, k0);
+    const int past = Tn - k0 - 2 * (lane & 3);  // offsets 8 n + c from here are past T
+    if (open && keys_in_range(mk, k0)) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale_log2e);
+    } else if (open) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = 8 * n + (e & 1) >= past ? -INFINITY : __fmul_rn(s[n][e], scale_log2e);
+    } else {
+      const Local l[2] = {local(sp[0], k0), local(sp[1], k0)};
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 8 * n + (e & 1);
+          s[n][e] = x >= past ? -INFINITY : logit(l[e >> 1].hides(x), s[n][e], scale_log2e);
+        }
+    }
+  };
+
+  // pass 1: row maxima (K only)
+  mt::load_tile<D, TB, kMmaThreads>(Qs, qb, qst, q0, Tn);
+  if (ntiles > 0) mt::load_tile<D, TB, kMmaThreads>(Ks, kb, kst, lo, Tn);
+  mt::cp_async_commit();
+  float m[2] = {-INFINITY, -INFINITY};
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = lo + it * TB;
+    if (it + 1 < ntiles)
+      mt::load_tile<D, TB, kMmaThreads>(Ks + ((it + 1) & 1) * TILE, kb, kst, k0 + TB, Tn);
+    mt::cp_async_commit();
+    mt::cp_async_wait<1>();
+    __syncthreads();
+    float s[8][4];
+    mt::s_tile<D>(s, Qs, 16 * warp, Ks + (it & 1) * TILE);
+    scale_mask(s, k0);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[n][e]);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // the four lanes of a quad share a row
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+  }
+
+  // pass 2: the same logits, exp2 against the global maximum, row sums, P.V
+  if (ntiles > 0) {
+    mt::load_tile<D, TB, kMmaThreads>(Ks, kb, kst, lo, Tn);
+    mt::load_tile<D, TB, kMmaThreads>(Vs, vb, kst, lo, Tn);
+  }
+  mt::cp_async_commit();
+  float acc[D / 8][4] = {};
+  float z[2] = {0.f, 0.f};
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = lo + it * TB, st = it & 1;
+    if (it + 1 < ntiles) {
+      mt::load_tile<D, TB, kMmaThreads>(Ks + (st ^ 1) * TILE, kb, kst, k0 + TB, Tn);
+      mt::load_tile<D, TB, kMmaThreads>(Vs + (st ^ 1) * TILE, vb, kst, k0 + TB, Tn);
+    }
+    mt::cp_async_commit();
+    mt::cp_async_wait<1>();
+    __syncthreads();
+    float s[8][4];
+    mt::s_tile<D>(s, Qs, 16 * warp, Ks + st * TILE);
+    scale_mask(s, k0);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ex = exp2f(s[n][e] - m[e >> 1]);
+        z[e >> 1] += ex;
+        s[n][e] = ex;
+      }
+    uint32_t p[4][4];
+    mt::pack_a(p, s);
+    mt::pv_tile<D>(acc, p, Vs + st * TILE);
+    __syncthreads();
+  }
+  mt::cp_async_wait<0>();
+  __syncthreads();  // every thread's copies have landed before Qs is reused
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    z[i] += __shfl_xor_sync(0xffffffffu, z[i], 1);
+    z[i] += __shfl_xor_sync(0xffffffffu, z[i], 2);
+  }
+
+  if ((lane & 3) == 0) {
+    float* st = stats + ((long long)b * H + h) * Tn * 2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int t = r0 + (lane >> 2) + 8 * i;
+      if (t < Tn) {
+        st[2 * t] = m[i];
+        st[2 * t + 1] = z[i];
+      }
+    }
+  }
+  // this warp's 16 rows of Qs were read by this warp alone
+  mt::store_rows<D>(acc, z, Qs + 16 * warp * mt::Tile<D>::kPitch,
+                    o + (long long)b * Tn * qst + (long long)h * D, qst, r0, Tn);
+}
+
+// delta[b, h, t] = sum_d do[b, t, h, d] * o[b, t, h, d] in fp32, a block per
+// (b, h, 64-row tile): the diagonal of dO O^T, by s_tile. The kernels'
+// dp = do . v comes from the same routine, so where o equals a row of v (a
+// row that sees one key) dp - delta is exactly 0, as in exact arithmetic.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_delta_mma_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                       float* __restrict__ delta, int H, int Tn) {
+  constexpr int TILE = TB * mt::Tile<D>::kPitch;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* dOs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Os = dOs + TILE;
+  const int q0 = blockIdx.x * TB, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long st = (long long)H * D, off = (long long)b * Tn * st + (long long)h * D;
+  mt::load_tile<D, TB, kMmaThreads>(dOs, dout + off, st, q0, Tn);
+  mt::load_tile<D, TB, kMmaThreads>(Os, o + off, st, q0, Tn);
+  mt::cp_async_commit();
+  mt::cp_async_wait<0>();
+  __syncthreads();
+  float acc[2][4];  // rows and columns 16 warp .. 16 warp + 15
+  mt::s_tile<D, 1>(acc, dOs, 16 * warp, Os + 16 * warp * mt::Tile<D>::kPitch);
+  // element (r, r) sits in lane g = r % 8, t = g / 2, at [r / 8][2 (r / 8) + g % 2]
+  const int g = lane >> 2;
+  if ((lane & 3) == (g >> 1)) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int t = q0 + 16 * warp + g + 8 * i;
+      if (t < Tn) delta[((long long)b * H + h) * Tn + t] = (g & 1) ? acc[i][2 * i + 1] : acc[i][2 * i];
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dkdv_mma_smem() {
+  return 6 * tile_bytes<D>() + kStatsBytes;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ stats, const float* __restrict__ delta,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int group, int Tn,
+                      float scale_log2e, float scale, const int* __restrict__ lengths, int causal,
+                      int window, int lb) {
+  constexpr int P = mt::Tile<D>::kPitch, TILE = TB * P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + TILE;
+  bf16* Qs = Vs + TILE;         // 2 stages
+  bf16* dOs = Qs + 2 * TILE;    // 2 stages
+  float* Ss = reinterpret_cast<float*>(dOs + 2 * TILE);  // 2 stages of TB x (m, z)
+  float* Dl = Ss + 2 * TB * 2;                           // 2 stages of TB deltas
+
+  const int k0 = blockIdx.x * TB, hk = blockIdx.y, b = blockIdx.z;
+  const int Hkv = H / group, warp = threadIdx.x >> 5;
+  const long long qst = (long long)H * D, kst = (long long)Hkv * D;
+  const long long koff = (long long)b * Tn * kst + (long long)hk * D;
+  const Mask mk{Tn, lengths ? lengths[b] : Tn, causal, window, lb};
+  const int kr0 = k0 + 16 * warp;  // this warp's first key
+  const int ntq = (Tn + TB - 1) / TB, total = group * ntq;
+  // the query rows that see each of this lane's two keys (none past T)
+  Span ks[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int col = kr0 + mt::acc_row(2 * i);
+    ks[i] = col < Tn ? key_span(mk, col) : Span{0, 0};
+    ks[i].hi = min(ks[i].hi, Tn);
+  }
+
+  // item i = (query head hk * group + i / ntq, query tile i % ntq); the
+  // tiles some of whose rows see a key of this block, or that hold a row
+  // that sees none (it spreads p over every key)
+  auto next = [&](int i) {
+    for (; i < total; ++i) {
+      const int q0 = (i % ntq) * TB;
+      const Range rg = key_range(mk, q0, min(q0 + TB, Tn));
+      if (rg.full || (k0 < rg.hi && k0 + TB > rg.lo)) break;
+    }
+    return i;
+  };
+  auto fetch = [&](int i, int stg) {
+    const int h = hk * group + i / ntq, q0 = (i % ntq) * TB;
+    const long long qoff = (long long)b * Tn * qst + (long long)h * D, bh = (long long)b * H + h;
+    mt::load_tile<D, TB, kMmaThreads>(Qs + stg * TILE, q + qoff, qst, q0, Tn);
+    mt::load_tile<D, TB, kMmaThreads>(dOs + stg * TILE, dout + qoff, qst, q0, Tn);
+    for (int j = threadIdx.x; j < TB; j += kMmaThreads) {
+      const int t = q0 + j;
+      if (t < Tn) {
+        mt::cp_async_small<8>(Ss + (stg * TB + j) * 2, stats + (bh * Tn + t) * 2, true);
+        mt::cp_async_small<4>(Dl + stg * TB + j, delta + bh * Tn + t, true);
+      } else {  // a row past T: p = exp2(s - inf) = 0, so ds = 0 too
+        Ss[(stg * TB + j) * 2] = INFINITY;
+        Ss[(stg * TB + j) * 2 + 1] = 1.f;
+        Dl[stg * TB + j] = 0.f;
+      }
+    }
+  };
+
+  mt::load_tile<D, TB, kMmaThreads>(Ks, k + koff, kst, k0, Tn);
+  mt::load_tile<D, TB, kMmaThreads>(Vs, v + koff, kst, k0, Tn);
+  int i = next(0);
+  if (i < total) fetch(i, 0);
+  mt::cp_async_commit();
+  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  for (int it = 0; i < total; ++it) {
+    const int stg = it & 1, inext = next(i + 1);
+    if (inext < total) fetch(inext, stg ^ 1);
+    mt::cp_async_commit();
+    mt::cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = (i % ntq) * TB;
+    const bf16* Qt = Qs + stg * TILE;
+    const bf16* dOt = dOs + stg * TILE;
+    const float* St = Ss + stg * TB * 2;
+    const float* Dt = Dl + stg * TB;
+    // rows past T give p = 0 (their stats); keys past T fill rows of the
+    // accumulators that are never stored. One item, with or without the mask:
+    auto item = [&](auto masked) {
+      constexpr bool kMasked = decltype(masked)::value;
+      Local l[2] = {};
+      if constexpr (kMasked) l[0] = local(ks[0], q0), l[1] = local(ks[1], q0);
+      // P^T: rows are this warp's keys, columns the tile's queries; each
+      // query's stats serve both of this lane's keys
+      float s[8][4];
+      mt::s_tile<D>(s, Ks, 16 * warp, Qt);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = mt::acc_col(n, c);
+          const float m = St[2 * j], z = St[2 * j + 1], r = __frcp_rn(z);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const bool hid = kMasked && l[i].hides(8 * n + c);
+            s[n][2 * i + c] = div_rn(exp2f(logit(hid, s[n][2 * i + c], scale_log2e) - m), z, r);
+          }
+        }
+      uint32_t pa[4][4];
+      mt::pack_a(pa, s);
+      mt::pv_tile<D>(dv_acc, pa, dOt);  // dV += P^T dO
+
+      float dp[8][4];
+      mt::s_tile<D>(dp, Vs, 16 * warp, dOt);  // dP^T = V dO^T
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float dl = Dt[mt::acc_col(n, c)];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 2 * i + c;
+            const float ds = s[n][e] * (dp[n][e] - dl) * scale;
+            dp[n][e] = kMasked && l[i].hides(8 * n + c) ? 0.f : ds;
+          }
+        }
+      mt::pack_a(pa, dp);
+      mt::pv_tile<D>(dk_acc, pa, Qt);  // dK += dS16^T Q
+    };
+    if (tile_open(mk, q0, k0))
+      item(std::false_type{});
+    else
+      item(std::true_type{});
+    __syncthreads();
+    i = inext;
+  }
+  mt::cp_async_wait<0>();
+  __syncthreads();
+  // this warp's 16 rows of Ks and Vs were read by this warp alone
+  const float one[2] = {1.f, 1.f};
+  mt::store_rows<D>(dv_acc, one, Vs + 16 * warp * P, dv + koff, kst, kr0, Tn);
+  mt::store_rows<D>(dk_acc, one, Ks + 16 * warp * P, dk + koff, kst, kr0, Tn);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ stats, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int H, int group, int Tn, float scale_log2e,
+                    float scale, const int* __restrict__ lengths, int causal, int window, int lb) {
+  constexpr int P = mt::Tile<D>::kPitch, TILE = TB * P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + TILE;
+  bf16* Ks = dOs + TILE;     // 2 stages
+  bf16* Vs = Ks + 2 * TILE;  // 2 stages
+
+  const int q0 = blockIdx.x * TB, h = blockIdx.y, b = blockIdx.z;
+  const int Hkv = H / group, hk = h / group;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long qst = (long long)H * D, kst = (long long)Hkv * D;
+  const long long qoff = (long long)b * Tn * qst + (long long)h * D;
+  const bf16* kb = k + (long long)b * Tn * kst + (long long)hk * D;
+  const bf16* vb = v + (long long)b * Tn * kst + (long long)hk * D;
+  const Mask mk{Tn, lengths ? lengths[b] : Tn, causal, window, lb};
+  // a row that sees no key gets no gradient (ds is 0 where hidden), so only
+  // the keys some row can see are visited
+  const Range rg = key_range(mk, q0, min(q0 + TB, Tn));
+  const int ntiles = rg.hi > rg.lo ? (rg.hi - rg.lo + TB - 1) / TB : 0;
+  const int r0 = q0 + 16 * warp;
+
+  mt::load_tile<D, TB, kMmaThreads>(Qs, q + qoff, qst, q0, Tn);
+  mt::load_tile<D, TB, kMmaThreads>(dOs, dout + qoff, qst, q0, Tn);
+  if (ntiles > 0) {
+    mt::load_tile<D, TB, kMmaThreads>(Ks, kb, kst, rg.lo, Tn);
+    mt::load_tile<D, TB, kMmaThreads>(Vs, vb, kst, rg.lo, Tn);
+  }
+  mt::cp_async_commit();
+  float rm[2], rz[2], rd[2], rr[2];  // max, sum, delta, 1 / sum of this lane's two rows
+  Span sp[2];                 // the keys each of them sees (none past T)
+  bool ok[2];
+  const long long bh = (long long)b * H + h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = r0 + (lane >> 2) + 8 * i;
+    ok[i] = t < Tn;
+    rm[i] = ok[i] ? stats[(bh * Tn + t) * 2] : 0.f;
+    rz[i] = ok[i] ? stats[(bh * Tn + t) * 2 + 1] : 1.f;
+    rd[i] = ok[i] ? delta[bh * Tn + t] : 0.f;
+    rr[i] = __frcp_rn(rz[i]);
+    sp[i] = ok[i] ? row_span(mk, t) : Span{0, 0};
+    sp[i].hi = min(sp[i].hi, Tn);
+  }
+
+  float acc[D / 8][4] = {};
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = rg.lo + it * TB, st = it & 1;
+    if (it + 1 < ntiles) {
+      mt::load_tile<D, TB, kMmaThreads>(Ks + (st ^ 1) * TILE, kb, kst, k0 + TB, Tn);
+      mt::load_tile<D, TB, kMmaThreads>(Vs + (st ^ 1) * TILE, vb, kst, k0 + TB, Tn);
+    }
+    mt::cp_async_commit();
+    mt::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = Ks + st * TILE;
+    // a row past T has q = do = 0, stats (0, 1, 0): p = 1, dp = 0, ds = 0;
+    // keys past T must be hidden (p could overflow against them)
+    auto tile = [&](auto masked) {
+      constexpr bool kMasked = decltype(masked)::value;
+      Local l[2] = {};
+      if constexpr (kMasked) l[0] = local(sp[0], k0), l[1] = local(sp[1], k0);
+      float s[8][4], dp[8][4];
+      mt::s_tile<D>(s, Qs, 16 * warp, Kt);
+      mt::s_tile<D>(dp, dOs, 16 * warp, Vs + st * TILE);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float p = div_rn(exp2f(__fmul_rn(s[n][e], scale_log2e) - rm[i]), rz[i], rr[i]);
+          const float ds = p * (dp[n][e] - rd[i]) * scale;
+          s[n][e] = kMasked && l[i].hides(8 * n + (e & 1)) ? 0.f : ds;
+        }
+      uint32_t pa[4][4];
+      mt::pack_a(pa, s);
+      mt::pv_tile<D>(acc, pa, Kt);  // dQ += dS16 K
+    };
+    if (tile_open(mk, q0, k0) && keys_in_range(mk, k0))
+      tile(std::false_type{});
+    else
+      tile(std::true_type{});
+    __syncthreads();
+  }
+  // with no key tile the loop never waited: every thread's copies must land
+  // before Qs is reused
+  mt::cp_async_wait<0>();
+  __syncthreads();
+  // this warp's 16 rows of Qs were read by this warp alone
+  const float one[2] = {1.f, 1.f};
+  mt::store_rows<D>(acc, one, Qs + 16 * warp * P, dq + qoff, qst, r0, Tn);
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -474,15 +1013,71 @@ int backward(const Args& a) {
   return cudaGetLastError();
 }
 
+template <int D>
+int forward_mma(const Args& a) {
+  constexpr size_t smem = 5 * tile_bytes<D>();
+  cudaError_t e = allow_smem(flash_fwd_mma_kernel<D>, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.T + TB - 1) / TB, a.H, a.B);
+  flash_fwd_mma_kernel<D><<<grid, kMmaThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), static_cast<float*>(a.stats),
+      a.H, a.group, a.T, a.scale_log2e, static_cast<const int*>(a.lengths), a.causal, a.window,
+      a.lb);
+  return cudaGetLastError();
+}
+
+template <int D>
+int backward_mma(const Args& a) {
+  dim3 grid((a.T + TB - 1) / TB, a.H, a.B);
+  constexpr size_t smem_d = 2 * tile_bytes<D>();
+  cudaError_t e = allow_smem(flash_delta_mma_kernel<D>, smem_d);
+  if (e != cudaSuccess) return e;
+  flash_delta_mma_kernel<D><<<grid, kMmaThreads, smem_d, a.stream>>>(
+      static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout),
+      static_cast<float*>(a.delta), a.H, a.T);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  constexpr size_t smem_kv = dkdv_mma_smem<D>();
+  if ((e = allow_smem(flash_dkdv_mma_kernel<D>, smem_kv)) != cudaSuccess) return e;
+  dim3 grid_kv((a.T + TB - 1) / TB, a.H / a.group, a.B);
+  flash_dkdv_mma_kernel<D><<<grid_kv, kMmaThreads, smem_kv, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.stats), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H, a.group, a.T, a.scale_log2e,
+      a.scale, static_cast<const int*>(a.lengths), a.causal, a.window, a.lb);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  constexpr size_t smem_q = 6 * tile_bytes<D>();
+  if ((e = allow_smem(flash_dq_mma_kernel<D>, smem_q)) != cudaSuccess) return e;
+  flash_dq_mma_kernel<D><<<grid, kMmaThreads, smem_q, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.stats), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.dq), a.H, a.group, a.T, a.scale_log2e, a.scale,
+      static_cast<const int*>(a.lengths), a.causal, a.window, a.lb);
+  return cudaGetLastError();
+}
+
+// cp.async and the 16-byte stores need every bf16 operand 16-byte aligned
+bool aligned16(const Args& a, bool bwd) {
+  const void* ptrs[] = {a.q, a.k, a.v, bwd ? a.o : a.out, bwd ? a.dout : nullptr,
+                        bwd ? a.dq : nullptr, bwd ? a.dk : nullptr, bwd ? a.dv : nullptr};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
+// fp32 takes the CUDA-core kernels, bf16 the tensor-core ones
 int dispatch(bool bwd, int D, int dtype, const Args& a) {
   if (a.B <= 0 || a.H <= 0 || a.group <= 0 || a.H % a.group || a.T <= 0)
     return cudaErrorInvalidValue;
   if (dtype == UV_F32 && D == 64) return bwd ? backward<float, 64>(a) : forward<float, 64>(a);
   if (dtype == UV_F32 && D == 128) return bwd ? backward<float, 128>(a) : forward<float, 128>(a);
-  if (dtype == UV_BF16 && D == 64)
-    return bwd ? backward<__nv_bfloat16, 64>(a) : forward<__nv_bfloat16, 64>(a);
-  if (dtype == UV_BF16 && D == 128)
-    return bwd ? backward<__nv_bfloat16, 128>(a) : forward<__nv_bfloat16, 128>(a);
+  if (dtype == UV_BF16 && !aligned16(a, bwd)) return cudaErrorMisalignedAddress;
+  if (dtype == UV_BF16 && D == 64) return bwd ? backward_mma<64>(a) : forward_mma<64>(a);
+  if (dtype == UV_BF16 && D == 128) return bwd ? backward_mma<128>(a) : forward_mma<128>(a);
   return cudaErrorInvalidValue;
 }
 

@@ -11,7 +11,9 @@ with masks from scalars (``lengths``, ``causal``, a runtime ``window``,
   each row's fp32 maximum and sum, and ``flash_backward`` launches three
   kernels (delta, dK/dV, dQ). ``flash_attention.launches`` counts forward
   launches and ``flash_attention.bwd_launches`` backward ones
-  (``BWD_LAUNCHES`` per backward call).
+  (``BWD_LAUNCHES`` per backward call). bf16 runs on the tensor cores
+  (``mma.sync``, 64-row tiles, ``csrc/mma_tile.cuh``); fp32 keeps the
+  CUDA-core kernels, since fp32 on the tensor cores would be TF32.
 - ``_FlashPlain`` for CPU tensors: the forward follows ``_fwd_kernel``'s
   arithmetic and the backward ``_bwd_kernel``'s explicit formulas (not
   autograd of the forward), rounding points included, so the CPU path
