@@ -4,16 +4,25 @@
 
 Phases, each fatal on failure:
   1. build every CUDA kernel of the port from ultravox_torch/ops/kernels/csrc
-     (one nvcc per source, all thirteen at once); the bf16 flash_attention
-     kernels must hold tensor-core instructions (HMMA in cuobjdump's SASS;
-     the fp32 ones none) and ptxas must report no spills at head_dim 64;
+     (one nvcc per source, all thirteen at once); the bf16 kernels of
+     flash_attention, attention (#3/#4) and encoder_attn_probe (#15/#16)
+     must hold tensor-core instructions (HMMA in cuobjdump's SASS; the fp32
+     ones none) and ptxas must report no spills for them at head_dim 64;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the flagship paths give it (bf16; the decode and paged kernels
      also in fp32, with ragged lengths, windows, page size 16, shuffled page
      ids, sentinel entries, a pageless row, and junk in every slot a row
      cannot see), and time kernel, plain version and, where one exists, a
      single PyTorch call for the same function (a yardstick only; the port
-     never calls it); flash_attention's forward and backward kernels run in
+     never calls it), with TF/s for the attention kernels; #4 also at a
+     serving prefill chunk (64 rows at offsets 65-126 into 2048 cache slots
+     with 129-190 valid keys, its bound over the visible keys); the bf16
+     attention kernel of #3, #4, #15 and #16 at its tile edges (T, S of 1,
+     63, 64, 65, 500), every mask, a row of length 0, GQA 4, head_dim 128,
+     the packed head-major and (B, T, H, D) layouts, both probe exponents,
+     two runs bit-equal, 1e4 in every cache slot no row can see (the output
+     must not move: the kernel stops at the last visible key), and a
+     misaligned view that must raise; flash_attention's forward and backward kernels run in
      fp32 and bf16 on ragged lengths, a row of length 0, windows, the
      latency block, head_dim 128 and T of 1, 17, 64, 65, 128 and 500 (the
      bf16 kernels' tile edges), two runs bit-equal, with junk past the
@@ -282,6 +291,22 @@ def _recorder(rows, tol):
     return record
 
 
+def _rate(row, flops):
+    """TF/s of the kernel (the reference's flops) and its factor to the
+    library call, into its row."""
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["library_factor"] = row["ms"] / row["library_ms"]
+    print(f"kernel {row['name']}: {row['tflops']:.2f} TF/s, {row['library_factor']:.2f}x "
+          f"the library's {row['library_ms']:.4f} ms", flush=True)
+
+
+def _fused_plain(fa, q, k, v, lens, offs, causal=True, latency_block=0):
+    """fused_attention's plain version on (B, T, H, D) tensors."""
+    return fa.attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), lens, offs,
+        scale=q.shape[-1] ** -0.5, causal=causal, latency_block=latency_block).transpose(1, 2)
+
+
 def _check_kernels(fa, ln_mod, dev):
     """Phase 2: every kernel against its plain version at main-path shapes."""
     import torch.nn.functional as F
@@ -335,50 +360,65 @@ def _check_kernels(fa, ln_mod, dev):
     ref = fa.attention_plain(q3, k3, v3, lens, scale=Dh**-0.5)
     torch.cuda.synchronize()
     keymask = (torch.arange(T, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    record(
-        "attention_headmajor", "attention_kernel", "ultravox_torch/ops/kernels/csrc/attention.cu",
+    flops = 4.0 * B * H * T * T * Dh
+    row = record(
+        "attention_headmajor", "attention_mma_kernel",
+        "ultravox_torch/ops/kernels/csrc/attention.cu",
         "ultravox_tpu/ops/pallas/fused_attention.py:493", att, ref,
         lambda: fa.attention_headmajor(qkv_t, lens, n_heads=H),
         lambda: fa.attention_plain(q3, k3, v3, lens, scale=Dh**-0.5),
         lambda: F.scaled_dot_product_attention(q3, k3, v3, attn_mask=keymask),
-        _nbytes(qkv_t, lens, att), 4.0 * B * H * T * T * Dh, BF16_FLOPS,
+        _nbytes(qkv_t, lens, att), flops, BF16_FLOPS,
     )
+    _rate(row, flops)
 
-    # 4. causal prefill of a 128-token prompt into a 256-slot cache slab
-    Tp, S, Hq, Hkv = 128, 256, 32, 8
-    q = torch.randn((B, Tp, Hq, Dh), generator=g, device=dev).to(bf)
-    k = torch.randn((B, S, Hkv, Dh), generator=g, device=dev).to(bf)
-    v = torch.randn((B, S, Hkv, Dh), generator=g, device=dev).to(bf)
-    plen = torch.full((B,), Tp, dtype=torch.int32, device=dev)
-    offs = torch.zeros((B,), dtype=torch.int32, device=dev)
-    att = fa.fused_attention(q, k, v, plen, offs, causal=True, scale=Dh**-0.5)
-    ref = fa.attention_plain(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), plen, offs,
-        scale=Dh**-0.5, causal=True,
-    ).transpose(1, 2)
-    torch.cuda.synchronize()
-    qh = q.transpose(1, 2)
-    kh = k.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
-    vh = v.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
-    cols = torch.arange(S, device=dev)
-    rows_pos = offs[:, None] + torch.arange(Tp, device=dev)[None]
-    pmask = (cols[None, None, :] <= rows_pos[:, :, None]) & (cols[None, None, :] < plen[:, None, None])
-    pairs = int(pmask.sum())  # visible (query, key) pairs of this run, per head
-    # keys any row can see: below both the valid length and the last row's
-    # position; the cache slots past them need not be read
-    keys = int(torch.minimum(plen, offs + Tp).clamp(max=S).sum())
-    kv_bytes = 2 * keys * Hkv * Dh * k.element_size()
-    pmask = pmask[:, None]
-    record(
-        "fused_attention", "attention_kernel", "ultravox_torch/ops/kernels/csrc/attention.cu",
-        "ultravox_tpu/ops/pallas/fused_attention.py:124", att, ref,
-        lambda: fa.fused_attention(q, k, v, plen, offs, causal=True, scale=Dh**-0.5),
-        lambda: fa.attention_plain(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), plen, offs,
-            scale=Dh**-0.5, causal=True),
-        lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=pmask),
-        _nbytes(q, att, plen, offs) + kv_bytes, 4.0 * Hq * pairs * Dh, BF16_FLOPS,
-    )
+    # 4. causal prefill of a 128-token prompt into a 256-slot cache slab;
+    # then a serving prefill chunk: 64 rows at offsets 65-126 into the
+    # engine's 2048-slot scratch with 129-190 valid keys, where the kernel
+    # stops at the last visible key (its row nests in the first's)
+    def prefill_row(name, B, Tp, S, lens, offsets):
+        Hq, Hkv = 32, 8
+        q = torch.randn((B, Tp, Hq, Dh), generator=g, device=dev).to(bf)
+        k = torch.randn((B, S, Hkv, Dh), generator=g, device=dev).to(bf)
+        v = torch.randn((B, S, Hkv, Dh), generator=g, device=dev).to(bf)
+        plen = torch.tensor(lens, dtype=torch.int32, device=dev)
+        offs = torch.tensor(offsets, dtype=torch.int32, device=dev)
+        att = fa.fused_attention(q, k, v, plen, offs, causal=True, scale=Dh**-0.5)
+        ref = _fused_plain(fa, q, k, v, plen, offs)
+        torch.cuda.synchronize()
+        qh = q.transpose(1, 2)
+        kh = k.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+        vh = v.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+        cols = torch.arange(S, device=dev)
+        rows_pos = offs[:, None] + torch.arange(Tp, device=dev)[None]
+        pmask = ((cols[None, None, :] <= rows_pos[:, :, None])
+                 & (cols[None, None, :] < plen[:, None, None]))
+        pairs = int(pmask.sum())  # visible (query, key) pairs of this run, per head
+        # keys any row can see: below both the valid length and the last
+        # row's position; the cache slots past them need not be read
+        keys = int(torch.minimum(plen, offs + Tp).clamp(max=S).sum())
+        kv_bytes = 2 * keys * Hkv * Dh * k.element_size()
+        pmask = pmask[:, None]
+        flops = 4.0 * Hq * pairs * Dh
+        rec = record if name == "fused_attention" else _recorder([], _bf16_tol)
+        row = rec(
+            name, "attention_mma_kernel", "ultravox_torch/ops/kernels/csrc/attention.cu",
+            "ultravox_tpu/ops/pallas/fused_attention.py:124", att, ref,
+            lambda: fa.fused_attention(q, k, v, plen, offs, causal=True, scale=Dh**-0.5),
+            lambda: _fused_plain(fa, q, k, v, plen, offs),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=pmask),
+            _nbytes(q, att, plen, offs) + kv_bytes, flops, BF16_FLOPS,
+            extra={"shape": f"q ({B},{Tp},{Hq},{Dh}), kv ({B},{S},{Hkv},{Dh}), keys {lens}, "
+                            f"offsets {offsets}, causal"})
+        _rate(row, flops)
+        return row
+
+    row = prefill_row("fused_attention", B, 128, 256, [128] * B, [0] * B)
+    serving = prefill_row("fused_attention (serving chunk)", B, 64, 2048, [129, 150, 170, 190],
+                          [65, 86, 106, 126])
+    row["serving_shape"] = {k_: serving[k_] for k_ in (
+        "shape", "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "device_ms", "wrapper_ms", "tflops", "library_factor")}
 
     # 5. head-major relayout of the fused encoder's int8 / LoRA q/k/v
     # product: bit-equal in bf16 and fp32 at both main-path shapes (B 1, one
@@ -423,6 +463,101 @@ def _check_kernels(fa, ln_mod, dev):
         else:
             exact(*args, extra=times)
     return rows
+
+
+# The bf16 attention kernel of #3, #4, #15 and #16 (csrc/attention_mma.cuh):
+# name, B, Tq, S, H, Hkv, head_dim, lengths, row offsets, causal, latency
+# block. Tq and S at its tile edges (1, 63, 64, 65, 500), every mask, a row
+# of length 0, GQA 4, and the serving prefill chunk into 2048 slots.
+ATTN_CASES = (
+    ("T1 S1", 2, 1, 1, 4, 4, 64, None, None, False, 0),
+    ("T63 S63 lengths", 2, 63, 63, 4, 4, 128, [63, 20], None, False, 0),
+    ("T64 S64 latency 16", 2, 64, 64, 4, 4, 64, [64, 33], None, False, 16),
+    ("T65 S65 causal gqa 4", 2, 65, 65, 8, 2, 128, None, None, True, 0),
+    ("T500 S500 latency 16 ragged", 3, 500, 500, 4, 4, 64, [500, 311, 1], None, False, 16),
+    ("T65 S500 zero-length row", 2, 65, 500, 4, 4, 128, [0, 500], None, False, 0),
+    ("T63 S500 causal offsets gqa 4", 2, 63, 500, 8, 2, 64, [200, 463], [137, 400], True, 0),
+    ("serving T64 S2048", 2, 64, 2048, 32, 8, 64, [129, 190], [65, 126], True, 0),
+    ("serving T64 S2048 head_dim 128", 2, 64, 2048, 8, 2, 128, [129, 190], [65, 126], True, 0),
+)
+
+
+def _check_attention(fa, eap, dev):
+    """Phase 2, continued: the bf16 attention kernel against its plain
+    versions in every case of ATTN_CASES, through each entry point whose
+    layout the case fits: fused_attention ((B, T, H, D) against (B, S, Hkv,
+    D) cache views), attention_headmajor (the packed (B, 3H, T, D) array,
+    non-causal, T = S) and both probes (non-causal, both exponents). Each
+    within 4 bf16 ulps of max|ref| and a relative RMS of 2^-10, finite, two
+    runs bit-equal; 1e4 in every cache slot no row can see leaves the
+    serving chunk's output bit for bit (the kernel stops at the last visible
+    key); a misaligned bf16 view raises ValueError."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bf = torch.bfloat16
+
+    def close(label, fn, plain):
+        out, again, ref = fn(), fn(), plain()
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = _bf16_tol(ref)
+        rms = _rel_rms(out, ref)
+        print(f"check attention {label}: max_abs_err {err:.3g} (tol {tol:.3g}), rel_rms "
+              f"{rms:.3g} (tol {FLASH_RMS_TOL:.3g}), two runs bit-equal "
+              f"{torch.equal(out, again)}", flush=True)
+        if not (err <= tol and rms <= FLASH_RMS_TOL and torch.isfinite(out).all()):
+            _fail(f"attention {label} disagrees with its plain version: {err} > {tol} or "
+                  f"rel_rms {rms} > {FLASH_RMS_TOL}")
+        if not torch.equal(out, again):
+            _fail(f"attention {label}: two runs differ")
+
+    def ints(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev) if v is not None else None
+
+    for name, B, Tq, S, H, Hkv, D, lengths, offsets, causal, lb in ATTN_CASES:
+        r = lambda *shape: torch.randn(shape, generator=g, device=dev).to(bf)  # noqa: E731
+        q, k, v = r(B, Tq, H, D), r(B, S, Hkv, D), r(B, S, Hkv, D)
+        lens, offs = ints(lengths), ints(offsets)
+        kw = dict(causal=causal, latency_block=lb)
+        close(f"fused_attention {name}", lambda: fa.fused_attention(q, k, v, lens, offs, **kw),
+              lambda: _fused_plain(fa, q, k, v, lens, offs, **kw))
+        if Tq == S and H == Hkv and not causal and offsets is None:
+            qkv = r(B, 3 * H, Tq, D)
+            hl = lens if lens is not None else ints([S] * B)
+            close(f"attention_headmajor {name}",
+                  lambda: fa.attention_headmajor(qkv, hl, n_heads=H, latency_block=lb),
+                  lambda: fa.attention_plain(qkv[:, :H], qkv[:, H:2 * H], qkv[:, 2 * H:], hl,
+                                             scale=D**-0.5, latency_block=lb))
+        if H == Hkv and not causal and offsets is None and lb == 0:
+            for probe in ("attn_v2", "attn_nt"):
+                for exp in (torch.float32, bf):
+                    fn = getattr(eap, probe)
+                    close(f"{probe} {name} exp {str(exp)[6:]}",
+                          lambda: fn(q, k, v, lens, scale=D**-0.5, block_q=Tq, exp_dtype=exp),
+                          lambda: eap.attn_probe_plain(q, k, v, lens, scale=D**-0.5,
+                                                       exp_dtype=exp))
+        if name.startswith("serving"):
+            out = fa.fused_attention(q, k, v, lens, offs, **kw)
+            past = torch.arange(S, device=dev)[None, :] >= lens[:, None].long()
+            jk, jv = k.clone(), v.clone()
+            jk[past], jv[past] = 1e4, 1e4
+            junk = fa.fused_attention(q, jk, jv, lens, offs, **kw)
+            torch.cuda.synchronize()
+            print(f"check attention {name}: 1e4 in every unseen slot moves the output by "
+                  f"{float((out.float() - junk.float()).abs().max())}", flush=True)
+            if not torch.equal(out, junk):
+                _fail(f"attention {name} reads cache slots past the visible keys")
+    wide = torch.randn((2, 8, 2, 68), generator=g, device=dev).to(bf)[..., :64]
+    shifted = torch.zeros(2 * 8 * 64 + 1, device=dev, dtype=bf)[1:].view(2, 8, 1, 64)
+    whole = torch.zeros((2, 8, 1, 64), device=dev, dtype=bf)
+    for what, fn in (("strides of 136 bytes", lambda: fa.fused_attention(wide, wide, wide)),
+                     ("a base 2 bytes past a 16-byte boundary",
+                      lambda: eap.attn_nt(shifted, whole, whole, scale=0.125, block_q=8))):
+        try:
+            fn()
+        except ValueError as e:
+            print(f"check attention: {what} raises ValueError ({e})", flush=True)
+        else:
+            _fail(f"attention: {what} did not raise")
 
 
 # Llama-3.2-1B's decoder products, (K, N) of each weight a decode step reads
@@ -870,35 +1005,48 @@ def _check_paged_kernels(pa, pg, sa, dev):
     return rows
 
 
-def _check_flash_build(_build, info):
-    """Phase 1, continued: the bf16 flash kernels run on the tensor cores.
-    cuobjdump's SASS of the built library must show HMMA in the bf16
-    forward, delta, dK/dV and dQ kernels at both head dims, and none in the
-    fp32 kernels (fp32 stays on the CUDA cores). ptxas must report no
-    spills for the D = 64 bf16 kernels."""
+# library: (its bf16 tensor-core kernels, instantiations of each, a name
+# that only its fp32 CUDA-core kernels hold, the mangled prefix of the
+# head_dim 64 tensor-core kernels)
+MMA_BUILDS = {
+    "flash_attention": (("flash_fwd_mma_kernel", "flash_delta_mma_kernel", "flash_dkdv_mma_kernel",
+                         "flash_dq_mma_kernel"), 2, "kernelIf", "_mma_kernelILi64E"),
+    "attention": (("attention_mma_kernel",), 2, "attention_kernelIf", "attention_mma_kernelILi64E"),
+    "encoder_attn_probe": (("attention_mma_kernel",), 4, "attention_kernelIf",
+                           "attention_mma_kernelILi64E"),
+}
+
+
+def _check_mma_build(_build, name, info):
+    """Phase 1, continued: the bf16 kernels of flash_attention (forward,
+    delta, dK/dV, dQ), attention (#3/#4) and encoder_attn_probe (#15/#16,
+    both exponents) run on the tensor cores. cuobjdump's SASS of the built
+    library must show HMMA in every bf16 instantiation (head_dim 64 and 128)
+    and none in the fp32 kernels (fp32 stays on the CUDA cores). ptxas must
+    report no spills for the head_dim 64 bf16 kernels."""
+    kernels, n_inst, fp32_name, d64_name = MMA_BUILDS[name]
     path = info["path"]
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
-        _fail(f"phase 1: no cuobjdump beside nvcc ({cuobjdump}) to read the flash kernels' SASS")
+        _fail(f"phase 1: no cuobjdump beside nvcc ({cuobjdump}) to read the {name} kernels' SASS")
     sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
                           check=True).stdout
     hmma = {}
     for block in sass.split("Function : ")[1:]:
         hmma[block.split("\n", 1)[0].strip()] = block.count("HMMA")
-    for kern in ("flash_fwd_mma_kernel", "flash_delta_mma_kernel", "flash_dkdv_mma_kernel",
-                 "flash_dq_mma_kernel"):
+    for kern in kernels:
         mine = {n: c for n, c in hmma.items() if kern in n}
-        print(f"sass {kern}: HMMA per instantiation {sorted(mine.values())}", flush=True)
-        if len(mine) != 2 or not all(mine.values()):
-            _fail(f"phase 1: {kern} holds no tensor-core instruction in one of its instantiations "
-                  f"({mine})")
-    fp32 = {n: c for n, c in hmma.items() if "kernelIf" in n}
-    print(f"sass fp32 flash kernels: {len(fp32)} instantiations, HMMA {sum(fp32.values())}",
+        print(f"sass {name} {kern}: HMMA per instantiation {sorted(mine.values())}", flush=True)
+        if len(mine) != n_inst or not all(mine.values()):
+            _fail(f"phase 1: {name} {kern} holds no tensor-core instruction in one of its "
+                  f"{n_inst} instantiations ({mine})")
+    fp32 = {n: c for n, c in hmma.items() if fp32_name in n}
+    print(f"sass fp32 {name} kernels: {len(fp32)} instantiations, HMMA {sum(fp32.values())}",
           flush=True)
     if not fp32 or any(fp32.values()):
-        _fail(f"phase 1: the fp32 flash kernels should stay on the CUDA cores ({fp32})")
+        _fail(f"phase 1: the fp32 {name} kernels should stay on the CUDA cores ({fp32})")
     if not info["ptxas"]:
-        print("ptxas flash_attention: library already built, no report to check", flush=True)
+        print(f"ptxas {name}: library already built, no report to check", flush=True)
         return
     spills, fn = {}, None
     for line in info["ptxas"].splitlines():
@@ -906,10 +1054,11 @@ def _check_flash_build(_build, info):
             fn = line.split("'")[1]
         elif "spill stores" in line and fn is not None:
             spills[fn] = int(line.split("bytes spill stores")[0].split(",")[-1])
-    d64 = {n: b for n, b in spills.items() if "_mma_kernelILi64E" in n}
-    print(f"ptxas bf16 flash kernels at D 64: spill store bytes {sorted(d64.values())}", flush=True)
-    if len(d64) != 4 or any(d64.values()):
-        _fail(f"phase 1: the D = 64 bf16 flash kernels spill or were not found ({d64})")
+    d64 = {n: b for n, b in spills.items() if d64_name in n}
+    print(f"ptxas bf16 {name} kernels at D 64: spill store bytes {sorted(d64.values())}",
+          flush=True)
+    if len(d64) != len(kernels) * n_inst // 2 or any(d64.values()):
+        _fail(f"phase 1: the D = 64 bf16 {name} kernels spill or were not found ({d64})")
 
 
 def _flash_grads(fn, q, k, v, dout, lens, kw):
@@ -1031,13 +1180,6 @@ def _check_flash(fl, dev):
         rel_rms = check_rms("out", out, ref)
         fwd_flops, bwd_flops = 4.0 * 64 * H * pairs, 10.0 * 64 * H * pairs
 
-        def rate(row, flops):
-            """TF/s of the kernel and its factor to the library call."""
-            row["tflops"] = flops / row["ms"] / 1e9
-            row["library_factor"] = row["ms"] / row["library_ms"]
-            print(f"kernel {row['name']}: {row['tflops']:.2f} TF/s, {row['library_factor']:.2f}x "
-                  f"the library's {row['library_ms']:.4f} ms", flush=True)
-
         row = rec(f"flash_attention ({label})", "flash_fwd_mma_kernel",
             "ultravox_torch/ops/kernels/csrc/flash_attention.cu",
             "ultravox_tpu/ops/pallas/flash_attention.py:274 (_fwd_kernel :78)", out, ref,
@@ -1046,7 +1188,7 @@ def _check_flash(fl, dev):
             lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, enable_gqa=True),
             _nbytes(q, k, v, out, stats, lens), fwd_flops, BF16_FLOPS,
             extra={"rel_rms_err": rel_rms})
-        rate(row, fwd_flops)
+        _rate(row, fwd_flops)
         grads = fl.flash_backward(q, k, v, out, stats, dout, lens, **kw)
         refs = fl.flash_backward_plain(q, k, v, out, dout, lens, **kw)
         torch.cuda.synchronize()
@@ -1087,7 +1229,7 @@ def _check_flash(fl, dev):
             _nbytes(q, k, v, out, stats, dout, lens, *grads), bwd_flops, BF16_FLOPS,
             calls=fl.BWD_LAUNCHES, extra={"sdpa_fwd_bwd_ms": _time_ms(sdpa_fwd_bwd),
                                           "rel_rms_err": rel_rms})
-        rate(row, bwd_flops)
+        _rate(row, bwd_flops)
         return rec_rows
 
     dec = timed("decoder (8,190,32/8,64) causal", 8, 190, 32, 8, True)
@@ -1860,9 +2002,11 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
-    _check_flash_build(_build, built["flash_attention"])
+    for name in MMA_BUILDS:
+        _check_mma_build(_build, name, built[name])
 
     # 2. kernels against their plain versions
+    _check_attention(fa, eap, dev)
     rows = (_check_kernels(fa, ln_mod, dev) + _check_decode_kernels(da, sa, dev)
             + _check_paged_kernels(pa, pg, sa, dev) + _check_flash(fl, dev)
             + _check_unwired_kernels(fa, dm, dev))
@@ -2140,6 +2284,12 @@ def _serving_main_path(engine, cfg, counters, per_call, dev):
                 for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:12]:
                     print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
                           f"{e.key[:90]}", flush=True)
+                # #3 and #4 launch one kernel (attention.cu's bf16 instantiation)
+                attn = [e for e in evs if "attention_mma_kernel" in e.key]
+                attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
+                print(f"serving {label} profile: #3 + #4 (attention_mma_kernel) {attn_ms:.3f} ms "
+                      f"in {sum(e.count for e in attn)} launches, of {busy_ms:.3f} ms busy",
+                      flush=True)
         finally:
             srv.stop()
         del srv
@@ -2163,6 +2313,8 @@ def _serving_main_path(engine, cfg, counters, per_call, dev):
             "stat_dispatch_s": dispatch_s, "stat_fetch_wait_s": fetch_s, "peak_memory_gb": peak,
             "decode_dispatches": disp, "single_steps": singles, "blocks": blocks,
             "prefill_chunks": chunks, "device_busy_share": busy,
+            "device_busy_ms": busy_ms if busy is not None else None,
+            "attention_kernel_ms": attn_ms if busy is not None else None,
             "tokens_equal_to_generate": agree,
             "first_tokens_equal_to_generate": sum(ids[0] == r[0] for (ids, _, _), r in zip(out, ref)),
         }
@@ -2400,7 +2552,7 @@ def _probe_entry_point(eap, dev):
         r = by_label[label]
         fn = getattr(eap, name)
         call = lambda: fn(q, k, v, lens, scale=scale, block_q=1500)  # noqa: E731
-        device_ms, per_call, others = _device_ms(call, "attention_kernel", iters=5)
+        device_ms, per_call, others = _device_ms(call, "attention_mma_kernel", iters=5)
         wrapper_ms = _time_ms(call, iters=5, warmup=1, queued=False)
         rows.append({
             "name": name, "route": "cuda", "source": "ultravox_torch/ops/kernels/csrc/encoder_attn_probe.cu",
@@ -2410,7 +2562,11 @@ def _probe_entry_point(eap, dev):
             "library_ms": library_ms, "device_ms": device_ms, "wrapper_ms": wrapper_ms,
             "device_kernels_per_call": per_call, "other_device_work": sorted(set(others)),
             "variant": label, "maxdiff_vs_fused_attention": r["maxdiff"],
+            "tflops": r["tflops"], "library_factor": r["ms"] / library_ms,
+            "bf16_exponent_ms": by_label[label.replace("fp32", "bf16")]["ms"],
         })
+        print(f"kernel {name} ({label}): {r['tflops']:.2f} TF/s, {r['ms'] / library_ms:.2f}x "
+              f"SDPA; with the bf16 exponent {rows[-1]['bf16_exponent_ms']:.4f} ms", flush=True)
         print(f"kernel {name} ({label}): ms {r['ms']:.4f} (the kernel alone in the trace "
               f"{device_ms}; other device work {sorted(set(others))}) plain_ms {plain_ms:.4f} "
               f"library_ms {library_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})", flush=True)

@@ -479,6 +479,175 @@ def test_flash_attention_raises_on_what_the_kernel_lacks(cuda_device):
         tfl.flash_attention(x, x[:, :4], x[:, :4])
 
 
+# attention_headmajor / fused_attention / the probes in bf16: the tensor-core
+# kernel of csrc/attention_mma.cuh. Bounds as flash_attention's: 4 bf16 ulps
+# of max|ref| per element and a relative RMS error of 2^-10.
+ATTN_RMS_TOL = 2.0**-10
+
+
+def _attn_close(out, ref):
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert torch.isfinite(out).all()
+    err = float((out.float() - ref.float()).abs().max())
+    rms = float((out.float() - ref.float()).norm() / ref.float().norm().clamp(min=1e-30))
+    assert err <= 4 * 2.0**-8 * float(ref.abs().max()), err
+    assert rms <= ATTN_RMS_TOL, rms
+
+
+def _ints(dev, v):
+    return torch.tensor(v, dtype=torch.int32, device=dev) if v is not None else None
+
+
+# (name, B, Tq, S, H, Hkv, lengths, row offsets, causal, latency block):
+# Tq and S at the kernel's tile edges (1, 63, 64, 65, 500), every mask, a
+# row of length 0 (it averages v over all S keys), GQA 4, and the serving
+# prefill chunk: 64 rows at offsets 65 / 126 against a 2048-slot cache with
+# 129 / 190 valid keys
+ATTN_CASES = [
+    ("plain-T1-S1", 2, 1, 1, 4, 4, None, None, False, 0),
+    ("lengths-T63-S63", 2, 63, 63, 4, 4, [63, 20], None, False, 0),
+    ("lengths+latency-T64-S64", 2, 64, 64, 4, 4, [64, 33], None, False, 16),
+    ("causal-T65-S65-gqa4", 2, 65, 65, 8, 2, None, None, True, 0),
+    ("lengths+latency-T500-S500", 3, 500, 500, 4, 4, [500, 311, 1], None, False, 16),
+    ("zero-length-row-T65-S500", 2, 65, 500, 4, 2, [0, 500], None, False, 0),
+    ("causal+offsets-T63-S500-gqa4", 2, 63, 500, 8, 2, [200, 463], [137, 400], True, 0),
+    ("causal+offsets+latency-T1-S64", 3, 1, 64, 4, 1, [64, 40, 1], [63, 39, 0], True, 8),
+    ("causal+zero-length-T64-S65", 2, 64, 65, 4, 4, [0, 65], [0, 1], True, 0),
+    ("serving-T64-S2048-gqa4", 2, 64, 2048, 32, 8, [129, 190], [65, 126], True, 0),
+]
+
+
+def _attn_inputs(dev, B, Tq, S, H, Hkv, D, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    return r(B, Tq, H, D), r(B, S, Hkv, D), r(B, S, Hkv, D)
+
+
+def _fused_plain(q, k, v, lens, offs, causal, lb):
+    return tfa.attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), lens,
+                               offs, scale=q.shape[-1] ** -0.5, causal=causal,
+                               latency_block=lb).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", ATTN_CASES, ids=[c[0] for c in ATTN_CASES])
+def test_fused_attention_bf16_matches_plain(cuda_device, case, D):
+    """fused_attention's (B, T, H, D) queries against (B, S, Hkv, D) keys in
+    bf16: the tensor-core kernel against attention_plain."""
+    _, B, Tq, S, H, Hkv, lengths, offsets, causal, lb = case
+    q, k, v = _attn_inputs(cuda_device, B, Tq, S, H, Hkv, D)
+    lens, offs = _ints(cuda_device, lengths), _ints(cuda_device, offsets)
+    before = tfa.fused_attention.launches
+    out = tfa.fused_attention(q, k, v, lens, offs, causal=causal, latency_block=lb)
+    ref = _fused_plain(q, k, v, lens, offs, causal, lb)
+    torch.cuda.synchronize()
+    assert tfa.fused_attention.launches == before + 1
+    _attn_close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T,lengths,lb", [(1, [1, 0], 0), (63, [63, 5], 16), (64, [64, 64], 0),
+                                          (65, [0, 65], 8), (500, [500, 123], 16)])
+def test_attention_headmajor_bf16_matches_plain(cuda_device, T, lengths, lb, D):
+    """The packed head-major (B, 3H, T, D) layout, q/k/v read in place at
+    head offsets 0, H and 2H, in bf16 against attention_plain."""
+    g = torch.Generator(device=cuda_device).manual_seed(T)
+    H = 3
+    qkv = torch.randn((2, 3 * H, T, D), generator=g, device=cuda_device).to(torch.bfloat16)
+    lens = _ints(cuda_device, lengths)
+    before = tfa.attention_headmajor.launches
+    out = tfa.attention_headmajor(qkv, lens, n_heads=H, latency_block=lb)
+    ref = tfa.attention_plain(qkv[:, :H], qkv[:, H:2 * H], qkv[:, 2 * H:], lens,
+                              scale=D**-0.5, latency_block=lb)
+    torch.cuda.synchronize()
+    assert tfa.attention_headmajor.launches == before + 1
+    _attn_close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exp", ["float32", "bfloat16"])
+@pytest.mark.parametrize("probe", ["attn_v2", "attn_nt"])
+@pytest.mark.parametrize("T,S,lengths", [(1, 64, [64, 0]), (63, 65, [65, 1]),
+                                         (65, 500, [500, 64]), (500, 63, None)])
+def test_encoder_attn_probe_bf16_at_tile_edges(cuda_device, T, S, lengths, probe, exp):
+    """Both probes, both exponents, bf16 inputs at the kernel's tile edges
+    and a row of length 0, against their plain version."""
+    from ultravox_torch.ops.kernels import encoder_attn_probe as tprobe
+
+    q, k, v = _attn_inputs(cuda_device, 2, T, S, 3, 3, 64, seed=T + S)
+    lens = _ints(cuda_device, lengths)
+    fn = getattr(tprobe, probe)
+    out = fn(q, k, v, lens, scale=0.125, block_q=T, exp_dtype=DTYPES[exp])
+    ref = tprobe.attn_probe_plain(q, k, v, lens, scale=0.125, exp_dtype=DTYPES[exp])
+    torch.cuda.synchronize()
+    _attn_close(out, ref)
+
+
+@pytest.mark.cuda
+def test_attention_bf16_ignores_cache_slots_past_the_visible_keys(cuda_device):
+    """1e4 in every cache slot that no row can see (past each row's
+    length, or past the chunk's last row) leaves the output bit for bit:
+    the kernel stops at the last visible key, and a hidden key inside the
+    last tile it reads gets probability exactly 0. Two runs are bit-equal."""
+    q, k, v = _attn_inputs(cuda_device, 2, 64, 2048, 32, 8, 64, seed=5)
+    lens, offs = _ints(cuda_device, [129, 190]), _ints(cuda_device, [65, 126])
+    out = tfa.fused_attention(q, k, v, lens, offs, causal=True)
+    again = tfa.fused_attention(q, k, v, lens, offs, causal=True)
+    past = torch.arange(2048, device=cuda_device)[None, :] >= lens[:, None].long()
+    jk, jv = k.clone(), v.clone()
+    jk[past], jv[past] = 1e4, 1e4
+    junk = tfa.fused_attention(q, jk, jv, lens, offs, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(out, junk)
+
+
+@pytest.mark.cuda
+def test_attention_bf16_is_deterministic_and_routes_to_mma(cuda_device):
+    """bf16 launches the tensor-core kernel, fp32 the CUDA-core one; two
+    bf16 runs give bit-equal outputs."""
+    names = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dtype) for t in _attn_inputs(cuda_device, 2, 190, 190, 8, 2, 64, 3))
+        lens = _ints(cuda_device, [190, 77])
+        runs = []
+        names[dtype] = _device_kernel_names(
+            lambda: runs.append(tfa.fused_attention(q, k, v, lens, causal=True)))
+        torch.cuda.synchronize()
+        assert all(torch.equal(runs[0], r) for r in runs[1:])
+    assert any("attention_mma_kernel" in n for n in names[torch.bfloat16])
+    assert not any("attention_kernel<" in n for n in names[torch.bfloat16])
+    assert any("attention_kernel<float" in n for n in names[torch.float32])
+
+
+@pytest.mark.cuda
+def test_attention_bf16_raises_on_misaligned_views(cuda_device):
+    """The bf16 kernel copies 16-byte pieces: a view that starts off a
+    16-byte boundary, or whose strides are not multiples of 16 bytes,
+    raises ValueError (there is no fallback)."""
+    from ultravox_torch.ops.kernels import encoder_attn_probe as tprobe
+
+    buf = torch.randn(2 * 8 * 2 * 64 + 1, device=cuda_device).to(torch.bfloat16)
+    shifted = buf[1:].view(2, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.fused_attention(shifted, shifted, shifted)
+    wide = torch.randn((2, 8, 2, 68), device=cuda_device).to(torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16 bytes"):
+        tfa.fused_attention(wide, wide, wide)
+    qkv = torch.randn((1, 6, 9, 68), device=cuda_device).to(torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16 bytes"):
+        tfa.attention_headmajor(qkv, _ints(cuda_device, [9]), n_heads=2)
+    with pytest.raises(ValueError, match="16-byte"):
+        tprobe.attn_nt(shifted, shifted, shifted, scale=0.125, block_q=8)
+    # fp32 runs on the CUDA cores and takes any stride
+    wide32 = torch.randn((2, 8, 2, 68), device=cuda_device)[..., :64]
+    out = tfa.fused_attention(wide32, wide32, wide32)
+    ref = _fused_plain(wide32, wide32, wide32, None, None, False, 0)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-5
+
+
 # qkv_head_transpose: the flagship encoder's shapes (B 4 and 1, T 500, 36
 # heads of 64) and a ragged T with head_dim 128
 QKV_SHAPES = [(4, 500, 36, 64), (1, 500, 36, 64), (2, 77, 6, 128)]

@@ -18,22 +18,24 @@
 // j > row, or when j / latency_block > row / latency_block; row is the
 // query's absolute position offsets[b] + t.
 //
-// Bound on the card: bytes at these shapes (encoder: 4 x 12 heads x 512^2
-// x 64, prefill: 4 x 32 heads x 128 x 256 x 64; ~100 flop/byte, under the
-// ~295 ridge). Design: a block owns 64 query rows of one (b, h) and keeps
-// them in shared memory; K/V stream through shared memory in 32-key tiles.
-// To use the reference's global row maximum (and so round exactly the
-// probabilities it rounds), the kernel makes two passes over K: the first
-// finds each row's maximum, the second forms exp2(s - m), rounds it to the
-// value dtype and accumulates P.V in registers. No (T, S) logits tensor
-// ever reaches HBM. CUDA-core FMAs, no tensor cores yet.
+// Bound on the card: bytes at these shapes (encoder: 4 x 12 heads x 500^2
+// x 64, prefill: 4 x 32 heads x 128 x 128 visible keys x 64; ~100
+// flop/byte, under the ~295 ridge); at the probes' 1500 keys, operations.
+// Either way the work is products of 64-row tiles, so bf16 runs on the
+// tensor cores: attention_mma.cuh (mma.sync m16n8k16, two passes over the
+// key tiles the rows can see, so P rounds against the global row maximum
+// and prefill into a 2048-slot cache stops at its last visible key). fp32
+// keeps the CUDA-core kernel of attention_kernel.cuh: fp32 on the tensor
+// cores would be TF32, whose 10-bit mantissa breaks the 1e-5 agreement with
+// the plain version that the fp32 checks hold.
 #include "attention_kernel.cuh"
-
-using attention::dispatch_dim;
+#include "attention_mma.cuh"
 
 // strides: 12 element strides (batch, head, row) for q, k, v, o in that
-// order; the head dimension is contiguous. lengths, offsets: (B,) int32 or
-// null. Returns (B, H, Tq, D) values at o's strides in q's dtype.
+// order; the head dimension is contiguous (bf16: every pointer and stride
+// 16-byte aligned, else cudaErrorMisalignedAddress). lengths, offsets: (B,)
+// int32 or null, offsets >= 0. Returns (B, H, Tq, D) values at o's strides
+// in q's dtype.
 UV_EXPORT int uv_attention(const void* q, const void* k, const void* v,
                            void* o, const long long* strides, int B, int H,
                            int group, int Tq, int S, int D, float scale_log2e,
@@ -44,11 +46,11 @@ UV_EXPORT int uv_attention(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == UV_F32)
-    return dispatch_dim<float>(D, q, k, v, o, strides, B, H, group, Tq, S,
-                               scale_log2e, lengths, offsets, causal, latency_block, s);
+    return attention::dispatch_dim<float>(D, q, k, v, o, strides, B, H, group, Tq, S,
+                                          scale_log2e, lengths, offsets, causal, latency_block, s);
   if (dtype == UV_BF16)
-    return dispatch_dim<__nv_bfloat16>(D, q, k, v, o, strides, B, H, group, Tq, S,
-                                       scale_log2e, lengths, offsets, causal, latency_block, s);
+    return attention_mma::dispatch<false>(D, q, k, v, o, strides, B, H, group, Tq, S,
+                                          scale_log2e, lengths, offsets, causal, latency_block, s);
   return cudaErrorInvalidValue;
 }
 

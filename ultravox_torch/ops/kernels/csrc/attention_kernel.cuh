@@ -1,8 +1,15 @@
-// The attention kernel of attention.cu (its header comment gives the
-// numerics, the masks and the design), shared with encoder_attn_probe.cu.
-// kExpBf16 selects the probe's bf16 exponent: s - m rounded to bf16, exp2
-// of it rounded to bf16, the row sum of those values in fp32; false is
-// attention.cu's fp32 exponent.
+// The fp32 attention kernel of attention.cu and encoder_attn_probe.cu, on
+// the CUDA cores (bf16 runs on the tensor cores: attention_mma.cuh).
+// fp32 on the tensor cores would be TF32, whose 10-bit mantissa would break
+// the 1e-5 agreement with the plain version that the fp32 checks hold.
+// Numerics and masks as attention.cu's header. Design: a block owns 64
+// query rows of one (b, h) and keeps them in fp32 shared memory; K/V stream
+// through shared memory in 32-key tiles; two passes over K (the row maxima,
+// then exp2(s - m), P rounded to the value dtype, P.V in registers), so the
+// probabilities round against the global row maximum; FMAs throughout.
+// kExpBf16 selects the probes' bf16 exponent: exp2 of s - m in bf16 as JAX
+// computes it (common.cuh's exp2_bf16), the row sum of those values in
+// fp32; false is attention.cu's fp32 exponent.
 #pragma once
 
 #include <math.h>
@@ -114,10 +121,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     scores(k0, s);
 #pragma unroll
     for (int r = 0; r < RS; ++r) {
-      // bf16 exp: s - m rounded to bf16, exp2 of it rounded to bf16
-      const float e = kExpBf16
-          ? round_to<__nv_bfloat16>(exp2f(round_to<__nv_bfloat16>(s[r] - m[r])))
-          : exp2f(s[r] - m[r]);
+      const float e = kExpBf16 ? exp2_bf16(s[r] - m[r]) : exp2f(s[r] - m[r]);
       z[r] += e;
       Ps[(warp + kWarps * r) * (BKV + 1) + lane] = round_to<T>(e);
     }

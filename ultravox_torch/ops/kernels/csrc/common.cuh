@@ -29,6 +29,15 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
+// exp2 of x rounded to bf16 as JAX computes it for a bf16 argument (its
+// exp2 lowers to exp(x * ln 2) in the argument's dtype): ln 2, x, their
+// product and the exponential each rounded to bf16
+__device__ __forceinline__ float exp2_bf16(float x) {
+  constexpr float kLn2Bf16 = 0.69140625f;  // ln 2 rounded to bf16
+  return round_to<__nv_bfloat16>(
+      expf(round_to<__nv_bfloat16>(kLn2Bf16 * round_to<__nv_bfloat16>(x))));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -6,8 +6,10 @@
 // probes of the production encoder attention (fused_attention.py:
 // fused_attention). Arithmetic as theirs: logits in fp32 times
 // scale*log2(e); keys at or past lengths[b] get NEG_INF; exp2 against the
-// row max; with the bf16 exponent, s - m and exp2 of it are each rounded to
-// bf16 and the row sum adds those values in fp32; PV in v's dtype with fp32
+// row max; with the bf16 exponent, s - m is rounded to bf16 and exp2 of it
+// taken as JAX computes it for a bf16 argument (exp(x * ln 2), every step
+// rounded to bf16: common.cuh's exp2_bf16), and the row sum adds those
+// values in fp32; PV in v's dtype with fp32
 // sums; the row sum divides last. (The probes add NEG_INF where attention.cu
 // replaces the logit by it: for any logit under 2^103 in magnitude the sum
 // rounds to NEG_INF itself, so the two agree bit for bit.)
@@ -19,10 +21,12 @@
 //
 // Bound on the card: operations. At the probe shape (B 8, T = S = 1500, H
 // 20, D 64) QK^T and PV are 92.16 GFLOP against 31 MB. Design: attention.cu's
-// kernel (attention_kernel.cuh, two passes over the keys so that the
-// probabilities round against the global row max, CUDA-core FMAs), built
-// here with the probes' exponent as a template flag.
+// kernels, built here with the probes' exponent as a template flag: bf16 on
+// the tensor cores (attention_mma.cuh: two passes over 64-key tiles so that
+// the probabilities round against the global row maximum, mma.sync
+// products), fp32 on the CUDA cores (attention_kernel.cuh).
 #include "attention_kernel.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -38,17 +42,17 @@ int probe(const void* q, const void* k, const void* v, void* o, const long long*
         : attention::dispatch_dim<float, false>(D, q, k, v, o, st, B, H, 1, T, S, scale_log2e,
                                                 lengths, nullptr, 0, 0, s);
   if (dtype == UV_BF16)
-    return exp_bf16 ? attention::dispatch_dim<__nv_bfloat16, true>(
-                          D, q, k, v, o, st, B, H, 1, T, S, scale_log2e, lengths, nullptr, 0, 0, s)
-                    : attention::dispatch_dim<__nv_bfloat16, false>(
-                          D, q, k, v, o, st, B, H, 1, T, S, scale_log2e, lengths, nullptr, 0, 0, s);
+    return exp_bf16 ? attention_mma::dispatch<true>(D, q, k, v, o, st, B, H, 1, T, S, scale_log2e,
+                                                    lengths, nullptr, 0, 0, s)
+                    : attention_mma::dispatch<false>(D, q, k, v, o, st, B, H, 1, T, S,
+                                                     scale_log2e, lengths, nullptr, 0, 0, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, o: (B, H, T, D); k, v: (B, H, S, D); all contiguous. lengths: (B,)
-// int32 or null (no mask).
+// q, o: (B, H, T, D); k, v: (B, H, S, D); all contiguous (bf16: 16-byte
+// aligned). lengths: (B,) int32 or null (no mask).
 UV_EXPORT int uv_attn_v2(const void* q, const void* k, const void* v, void* o, int B, int T,
                          int S, int H, int D, float scale_log2e, const void* lengths,
                          int exp_bf16, int dtype, void* stream) {

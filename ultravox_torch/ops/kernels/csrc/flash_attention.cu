@@ -79,48 +79,21 @@
 // 64-row query tiles, 32-key tiles, FMAs from fp32 shared memory): fp32 on
 // the tensor cores means TF32, whose 10-bit mantissa would break the 1e-5
 // agreement with the plain version that the fp32 checks hold.
-#include <limits.h>
 #include <math.h>
 
 #include <type_traits>
 
+#include "attn_mask.cuh"
 #include "common.cuh"
 #include "mma_tile.cuh"
 
 namespace {
 
+using namespace attn_mask;
+
 constexpr int BQ = 64, BKV = 32, kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int RS = BQ / kWarps;  // score rows per thread (lane = key column)
-constexpr float kNegInf = -0.7f * 3.402823466e38f;  // finite mask value
-
-struct Mask {
-  int S, len, causal, window, lb;
-  __device__ bool hidden(int row, int col) const {
-    return col >= len || (causal && (col > row || (window > 0 && row - col >= window))) ||
-           (lb > 0 && col / lb > row / lb);
-  }
-};
-
-// Keys [lo, hi) hold every key that some row of [q0, q1) can see; `full`
-// says some row of it sees none (it then averages over all S keys).
-struct Range {
-  int lo, hi;
-  bool full;
-};
-
-__device__ __forceinline__ Range key_range(const Mask& m, int q0, int q1) {
-  const int last = q1 - 1;
-  Range r{0, min(m.S, m.len), false};
-  if (m.causal) {
-    r.hi = min(r.hi, last + 1);
-    if (m.window > 0) r.lo = max(0, q0 - m.window + 1);
-  }
-  if (m.lb > 0) r.hi = min(r.hi, (last / m.lb + 1) * m.lb);
-  r.full = m.len <= 0 || (m.causal && m.window > 0 && last - (m.len - 1) >= m.window);
-  return r;
-}
-
 // dst[j * pitch + d] = src[(r0 + j) * stride + d] for j < nrows (0 past n)
 template <typename T, int D>
 __device__ __forceinline__ void load_rows(float* dst, int pitch, const T* src, long long stride,
@@ -470,19 +443,6 @@ constexpr size_t tile_bytes() {
   return mt::Tile<D>::template bytes<TB>();
 }
 
-// The mask hides no pair of rows [q0, q0 + TB) x keys [k0, k0 + TB), so
-// the tile needs no per-element mask. Rows and keys past T are left to each
-// kernel: their tiles are zero-filled, and each kernel says why they are
-// harmless or asks for keys_in_range.
-__device__ __forceinline__ bool tile_open(const Mask& m, int q0, int k0) {
-  const int q1 = q0 + TB - 1, k1 = k0 + TB - 1;
-  if (k1 >= m.len) return false;
-  if (m.causal && (k1 > q0 || (m.window > 0 && q1 - k0 >= m.window))) return false;
-  return !(m.lb > 0 && k1 / m.lb > q0 / m.lb);
-}
-
-__device__ __forceinline__ bool keys_in_range(const Mask& m, int k0) { return k0 + TB <= m.S; }
-
 // e / z rounded to nearest from r = 1/z rounded to nearest (Markstein: the
 // FMA remainder is exact, so the corrected quotient is the correctly rounded
 // one for normal values), so a row's z costs one reciprocal, not one
@@ -490,54 +450,6 @@ __device__ __forceinline__ bool keys_in_range(const Mask& m, int k0) { return k0
 __device__ __forceinline__ float div_rn(float e, float z, float r) {
   const float q = e * r;
   return fmaf(fmaf(-q, z, e), r, q);
-}
-
-// Mask::hidden as an interval: the keys [lo, hi) that a query row sees, or
-// the query rows [lo, hi) that see a key. Computed once per row or key, so
-// the per-element mask is two compares (no division by the latency block).
-struct Span {
-  int lo, hi;
-};
-
-__device__ __forceinline__ Span row_span(const Mask& m, int row) {
-  Span s{0, m.len};
-  if (m.causal) {
-    s.hi = min(s.hi, row + 1);
-    if (m.window > 0) s.lo = max(0, row - m.window + 1);
-  }
-  if (m.lb > 0) s.hi = min(s.hi, (row / m.lb + 1) * m.lb);
-  return s;
-}
-
-__device__ __forceinline__ Span key_span(const Mask& m, int col) {
-  if (col >= m.len) return Span{0, 0};
-  Span s{0, INT_MAX};
-  if (m.causal) {
-    s.lo = col;
-    if (m.window > 0) s.hi = col + m.window;
-  }
-  if (m.lb > 0) s.lo = max(s.lo, (col / m.lb) * m.lb);
-  return s;
-}
-
-// A Span relative to this lane's first column (or row) of a tile at x0, so
-// that the element at offset 8 n + c (c = 0, 1) is tested against two
-// registers with an immediate: the mask in the fewest instructions.
-struct Local {
-  int lo, hi;
-  __device__ bool hides(int x) const { return x < lo || x >= hi; }
-};
-
-__device__ __forceinline__ Local local(const Span& s, int x0) {
-  const int base = x0 + 2 * (threadIdx.x & 3);
-  return Local{s.lo - base, s.hi - base};
-}
-
-// The scaled logit from the product s, as the reference: NEG_INF where
-// hidden; __fmul_rn so that no FMA contraction with a later subtraction
-// rounds it differently in another pass or kernel.
-__device__ __forceinline__ float logit(bool hidden, float s, float scale_log2e) {
-  return hidden ? kNegInf : __fmul_rn(s, scale_log2e);
 }
 
 template <int D>
@@ -571,9 +483,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // tile the mask leaves whole, the last tile of an unmasked row (keys past
   // T only), and a masked tile.
   auto scale_mask = [&](float (&s)[8][4], int k0) {
-    const bool open = tile_open(mk, q0, k0);
+    const bool open = tile_open<TB, TB>(mk, q0, k0);
     const int past = Tn - k0 - 2 * (lane & 3);  // offsets 8 n + c from here are past T
-    if (open && keys_in_range(mk, k0)) {
+    if (open && keys_in_range<TB>(mk, k0)) {
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -840,7 +752,7 @@ flash_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       mt::pack_a(pa, dp);
       mt::pv_tile<D>(dk_acc, pa, Qt);  // dK += dS16^T Q
     };
-    if (tile_open(mk, q0, k0))
+    if (tile_open<TB, TB>(mk, q0, k0))
       item(std::false_type{});
     else
       item(std::true_type{});
@@ -939,7 +851,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       mt::pack_a(pa, s);
       mt::pv_tile<D>(acc, pa, Kt);  // dQ += dS16 K
     };
-    if (tile_open(mk, q0, k0) && keys_in_range(mk, k0))
+    if (tile_open<TB, TB>(mk, q0, k0) && keys_in_range<TB>(mk, k0))
       tile(std::false_type{});
     else
       tile(std::true_type{});

@@ -12,6 +12,8 @@ those copies are part of what it measures. ``attn_nt`` reads and writes
 the native layout in place. ``block_q`` is the reference's query block: T
 must be a multiple of it (the reference's grid would leave the rest
 unwritten), and the card's kernel tiles queries by 64 rows whatever it is.
+bf16 tensors must start on 16-byte boundaries (the kernel copies 16-byte
+pieces).
 
 Each wrapper takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors; ``attn_v2.launches`` and ``attn_nt.launches``
@@ -26,16 +28,19 @@ import torch
 
 from ultravox_torch.ops.attention import NEG_INF
 from ultravox_torch.ops.kernels import _build
-from ultravox_torch.ops.kernels.fused_attention import HEAD_DIMS, LOG2E
+from ultravox_torch.ops.kernels.fused_attention import HEAD_DIMS, LOG2E, check_aligned
 
 EXP_DTYPES = (torch.float32, torch.bfloat16)
+LN2_BF16 = 0.69140625  # ln 2 rounded to bf16, as JAX's exp2 of a bf16 value uses it
 
 
 def attn_probe_plain(q, k, v, lengths=None, *, scale: float, exp_dtype=torch.float32):
     """The probes' arithmetic: fp32 logits times scale*log2(e), + NEG_INF on
     keys at or past lengths[b], exp2 against the row max (with a bf16
-    exponent: s - m rounded to bf16, exp2 rounded to bf16, summed in fp32),
-    PV in v's dtype with fp32 sums, division by the row sum last."""
+    exponent: s - m rounded to bf16 and exp2 of it as JAX takes it for a
+    bf16 argument, exp(x * ln 2) with ln 2, the product and the result each
+    rounded to bf16; summed in fp32), PV in v's dtype with fp32 sums,
+    division by the row sum last."""
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * (scale * LOG2E)
     if lengths is not None:
@@ -44,7 +49,7 @@ def attn_probe_plain(q, k, v, lengths=None, *, scale: float, exp_dtype=torch.flo
         s = s + torch.where(visible, 0.0, NEG_INF)[:, None, None, :]
     m = s.amax(dim=-1, keepdim=True)
     if exp_dtype == torch.bfloat16:
-        e = torch.exp2((s - m).to(torch.bfloat16))
+        e = torch.exp((s - m).to(torch.bfloat16) * LN2_BF16)
         z = e.float().sum(dim=-1, keepdim=True)
     else:
         e = torch.exp2(s - m)
@@ -71,6 +76,8 @@ def _launch(entry, q, k, v, out, lengths, scale, exp_dtype, B, T, S, H, D):
         raise TypeError("q, k and v must share one dtype")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError(f"{entry} takes contiguous q, k and v")
+    if q.dtype == torch.bfloat16:
+        check_aligned(entry, (q, k, v, out))
     lens = lengths.to(torch.int32).contiguous() if lengths is not None else None
     rc = getattr(_build.library("encoder_attn_probe"), f"uv_{entry}")(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), B, T, S, H, D,

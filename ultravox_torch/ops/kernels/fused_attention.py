@@ -30,7 +30,7 @@ from ultravox_torch.ops.kernels import _build
 
 LOG2E = 1.4426950408889634
 HEAD_DIMS = (64, 128)  # head dims the attention kernel is instantiated for
-VEC_BYTES = 16  # qkv_head_transpose moves 16 bytes per load and store
+VEC_BYTES = 16  # qkv_head_transpose and bf16 attention move 16 bytes per load and store
 # widest contraction whose 32 rows fit in shared memory beside the weight
 # tile (csrc/row_tile.cuh: (32 * K + 32 * 128) * 4 bytes <= 232448)
 ROW_TILE_MAX_K = (232448 - 32 * 128 * 4) // (32 * 4)
@@ -264,9 +264,25 @@ def attn_out_proj_residual(attn_t, kernel_w, bias, x_res):
 attn_out_proj_residual.launches = 0
 
 
+def check_aligned(name: str, tensors, strides=()) -> None:
+    """The bf16 attention kernel copies 16-byte pieces (cp.async) and
+    stores 16-byte lines: every base pointer and every stride in bytes must
+    be a multiple of 16. Raises ValueError otherwise."""
+    for t in tensors:
+        if t.data_ptr() % VEC_BYTES:
+            raise ValueError(f"{name}: bf16 tensors must start on a {VEC_BYTES}-byte boundary "
+                             f"(a view at element offset {t.storage_offset()} does not)")
+    for s in strides:
+        if s * 2 % VEC_BYTES:
+            raise ValueError(f"{name}: bf16 strides must be multiples of {VEC_BYTES} bytes, "
+                             f"got {s} elements")
+
+
 def _launch_attention(q, k, v, o, lengths, row_offsets, scale, causal, latency_block):
     """q, o: (B, H, T, D) views; k, v: (B, Hkv, S, D) views; the last axis
-    must be contiguous, the others may have any strides."""
+    must be contiguous, the others may have any strides (bf16: multiples of
+    16 bytes, from 16-byte-aligned bases). lengths and row_offsets: (B,),
+    row_offsets >= 0."""
     B, H, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
@@ -279,11 +295,13 @@ def _launch_attention(q, k, v, o, lengths, row_offsets, scale, causal, latency_b
         if t.stride(-1) != 1:
             raise ValueError("the head dimension must be contiguous")
     _build.require_cuda(q, k, v, o, lengths, row_offsets)
+    # the stride of an axis of size 1 is never used and may be anything
+    strides = [s if n > 1 else 0 for t in (q, k, v, o) for s, n in zip(t.stride()[:3], t.shape)]
+    if q.dtype == torch.bfloat16:
+        check_aligned("attention", (q, k, v, o), strides)
     lens = lengths.to(torch.int32).contiguous() if lengths is not None else None
     offs = row_offsets.to(torch.int32).contiguous() if row_offsets is not None else None
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, o) for s in t.stride()[:3])
-    )
+    strides = (ctypes.c_longlong * 12)(*strides)
     lib = _build.library("attention")
     rc = lib.uv_attention(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o), strides,
