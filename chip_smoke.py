@@ -7,7 +7,9 @@ Phases, each fatal on failure:
      (one nvcc per source, all thirteen at once); the bf16 kernels of
      flash_attention, attention (#3/#4) and encoder_attn_probe (#15/#16)
      must hold tensor-core instructions (HMMA in cuobjdump's SASS; the fp32
-     ones none) and ptxas must report no spills for them at head_dim 64;
+     ones none) and ptxas must report no spills for them at head_dim 64,
+     nor for the split KV kernel of #8 and #11 (csrc/kv_split.cuh, both
+     dtypes) at head_dim 64;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the flagship paths give it (bf16; the decode and paged kernels
      also in fp32, with ragged lengths, windows, page size 16, shuffled page
@@ -28,6 +30,14 @@ Phases, each fatal on failure:
      bf16 kernels' tile edges), two runs bit-equal, with junk past the
      lengths, and are timed (with TF/s) at the decoder's and the encoder's
      training shapes;
+     the split KV kernel of #8 and #11 in bf16 and fp32 at every length at
+     its granule and split edges (0, 1, 15-17, 31-33, 63-65, 144, 255, 256
+     of 256 slots), head_dim 64 and 128, GQA 1/4/8, T 1 and 3, windows 0/8/32,
+     and at serving run (c)'s 2048-slot slab (129-190 keys), two runs
+     bit-equal and 1e4 in every unseen slot moving nothing; #8 and
+     #11 are timed at the flagship step and at serving run (c)'s 2048-slot
+     slab (129-190 keys), beside the bound, SDPA and the recorded time of
+     the one-block kernel they replace;
      qkv_head_transpose is bit-equal in bf16 and fp32 at (4, 500, 2304),
      (1, 500, 2304) and a ragged T with head_dim 128, and timed at B 1 and 4;
      the three kernels no engine launches (as in the reference):
@@ -59,8 +69,10 @@ Phases, each fatal on failure:
        generate_fused (plain merged attention) 12/12/12/16
        prefill + segmented_decode_scan(attn_impl="kernel")
                                                12/12/12/16 + 496 segment_tail_attention
-     then breaks the time of generate and generate_fused down by phase and,
-     through torch.profiler, by kernel;
+     then breaks the time of generate, generate_fused and the kernel scan
+     down by phase and, through torch.profiler, by kernel, with #8's and
+     #11's split-kernel device time per call (a one-block kernel in the
+     trace fails the run);
   5. the ServingEngine at flagship widths: 8 greedy requests (10 s of audio
      in a 128-token prompt, 32 tokens each) on 4 slots, in three engines
      run in turn: paged with the segment kernel in decode blocks
@@ -69,7 +81,8 @@ Phases, each fatal on failure:
      the segment kernel (decode_attention + segment_tail_attention). The
      launch counts are checked against the engine's own counters, and TTFT,
      throughput, the loop's dispatch and fetch time, peak memory and (for
-     the first) the device's busy share are printed;
+     the first and the third) the device's busy share are printed, with
+     #3 + #4's device time in the first and #8's and #11's in the third;
   6. the training step of the v0.6 recipe at flagship widths (KL
      distillation, projector + audio LoRA r 8 trainable, remat, chunked
      vocabulary, flash attention in both towers) on bench.py's batch of 8 x
@@ -107,6 +120,7 @@ import collections
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -691,13 +705,27 @@ def _check_unwired_kernels(fa, dm, dev):
     return rows
 
 
+# card ms of #8 and #11 on the one-block kernel of kv_attention.cuh (commit
+# 835db08), measured beside the split kernel by
+# ultravox_torch/scripts/compare_kv_split.py (PERF.md section 6)
+ONE_BLOCK_MS = {
+    "decode_attention": {"flagship": 0.0214, "serving (c)": 0.0256},
+    "segment_tail_attention": {"flagship": 0.0220, "serving (c)": 0.0291},
+}
+# every length at the split kernel's granule (16 keys) and split (32 keys a
+# block) edges on a 256-slot slab, a row of length 0, short rows that leave
+# ranks of the cluster empty
+EDGE_LENS = (0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 144, 255, 256)
+
+
 def _check_decode_kernels(da, sa, dev):
     """Phase 2, continued: decode_attention and segment_tail_attention at the
     main path's mid-decode shapes (B=4, 32 q / 8 kv heads, head_dim 64, a
     256-slot cache). Each case runs in bf16 and fp32, with ragged lengths
-    and windows, and again with 1e4 in every slot a row cannot see: the
-    output must not move, which shows those slots never enter the kernel.
-    The main shape is then timed in bf16."""
+    and windows, twice (bit-equal), and again with 1e4 in every slot a row
+    cannot see: the output must not move, which shows those slots never
+    enter the kernel. Then _check_split_edges. The main shapes are then
+    timed in bf16, and again at serving run (c)'s 2048-slot slab."""
     import torch.nn.functional as F
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -720,7 +748,7 @@ def _check_decode_kernels(da, sa, dev):
         with junk in the hidden slots. hidden: {arg index: (B, S*) bool}."""
         for dtype in (torch.bfloat16, torch.float32):
             a = [x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x for x in args]
-            out, ref = fn(*a), plain(*a)
+            out, again, ref = fn(*a), fn(*a), plain(*a)
             for i, h in hidden.items():
                 a[i] = junk(a[i], h)
             out_j = fn(*a)
@@ -728,12 +756,14 @@ def _check_decode_kernels(da, sa, dev):
             err = float((out.float() - ref.float()).abs().max())
             t = _bf16_tol(ref) if dtype == torch.bfloat16 else 1e-5
             print(f"check {name} {str(dtype)[6:]}: max_abs_err {err:.3g} (tol {t:.3g}); "
-                  f"junk past the lengths moves it {float((out_j.float() - out.float()).abs().max())}",
-                  flush=True)
+                  f"junk past the lengths moves it {float((out_j.float() - out.float()).abs().max())}; "
+                  f"two runs bit-equal {torch.equal(out, again)}", flush=True)
             if not err <= t:
                 _fail(f"{name} ({dtype}) disagrees with its plain version: {err} > {t}")
             if not torch.equal(out, out_j):
                 _fail(f"{name} ({dtype}) reads slots past the lengths")
+            if not torch.equal(out, again):
+                _fail(f"{name} ({dtype}): two runs differ")
 
     kpos = torch.arange(S, device=dev)
 
@@ -750,24 +780,37 @@ def _check_decode_kernels(da, sa, dev):
               lambda q, k, v, lens=lens, w=w: da.decode_attention(q, k, v, lens, w, scale=scale),
               lambda q, k, v, lens=lens, w=w: da.decode_attention_plain(q, k, v, lens, w, scale=scale),
               [q, k, v], {1: hidden, 2: hidden})
-    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
-    lens = ints(144, 144, 144, 144)
-    out = da.decode_attention(qb, kb, vb, lens)
-    ref = da.decode_attention_plain(qb, kb, vb, lens, scale=scale)
-    torch.cuda.synchronize()
-    visible = kpos[None] < lens[:, None]  # (B, S)
-    kv_bytes = 2 * int(visible.sum()) * Hkv * D * kb.element_size()
-    record(
-        "decode_attention", "decode_attention_kernel",
-        "ultravox_torch/ops/kernels/csrc/decode_attention.cu",
-        "ultravox_tpu/ops/pallas/decode_attention.py:163", out, ref,
-        lambda: da.decode_attention(qb, kb, vb, lens),
-        lambda: da.decode_attention_plain(qb, kb, vb, lens, scale=scale),
-        lambda: F.scaled_dot_product_attention(
-            qb[:, :, None], kb.transpose(1, 2), vb.transpose(1, 2),
-            attn_mask=visible[:, None, None], enable_gqa=True),
-        _nbytes(qb, out, lens) + kv_bytes, 4.0 * H * int(visible.sum()) * D, BF16_FLOPS,
-    )
+    _check_split_edges(da, sa, dev)
+
+    bf = torch.bfloat16
+    serving_lens = ints(129, 150, 171, 190)
+    s_rows = []  # the serving (c) timings, kept in the main rows
+    s_record = _recorder(s_rows, _bf16_tol)
+
+    def decode_row(rec, label, qb, kb, vb, lens):
+        out = da.decode_attention(qb, kb, vb, lens)
+        ref = da.decode_attention_plain(qb, kb, vb, lens, scale=scale)
+        torch.cuda.synchronize()
+        visible = torch.arange(kb.shape[1], device=dev)[None] < lens[:, None]  # (B, S)
+        kv_bytes = 2 * int(visible.sum()) * Hkv * D * kb.element_size()
+        return rec(
+            label, "decode_attention_split_kernel",
+            "ultravox_torch/ops/kernels/csrc/decode_attention.cu",
+            "ultravox_tpu/ops/pallas/decode_attention.py:163", out, ref,
+            lambda: da.decode_attention(qb, kb, vb, lens),
+            lambda: da.decode_attention_plain(qb, kb, vb, lens, scale=scale),
+            lambda: F.scaled_dot_product_attention(
+                qb[:, :, None], kb.transpose(1, 2), vb.transpose(1, 2),
+                attn_mask=visible[:, None, None], enable_gqa=True),
+            _nbytes(qb, out, lens) + kv_bytes, 4.0 * H * int(visible.sum()) * D, BF16_FLOPS,
+        )
+
+    qb, kb, vb = (x.to(bf) for x in (q, k, v))
+    row8 = decode_row(record, "decode_attention", qb, kb, vb, ints(144, 144, 144, 144))
+    k2, v2 = (torch.randn((B, 2048, Hkv, D), generator=g, device=dev).to(bf) for _ in range(2))
+    row8["serving_c"] = _shape_timing(
+        decode_row(s_record, "decode_attention serving (c)", qb, k2, v2, serving_lens))
+    del k2, v2
 
     # 11. segment_tail_attention: the scan's step against layer 7 of a
     # 16-layer stacked cache plus a 31-slot tail
@@ -805,30 +848,165 @@ def _check_decode_kernels(da, sa, dev):
                   q, kc, vc, layer, lens, tk, tv, wr, w, scale=scale),
               [qs, kc, vc, tk, tv],
               {1: ~ok_p.any(1), 2: ~ok_p.any(1), 3: ~ok_t.any(1), 4: ~ok_t.any(1)})
-    qb = torch.randn((B, 1, H, D), generator=g, device=dev).to(torch.bfloat16)
-    kcb, vcb, tkb, tvb = (x.to(torch.bfloat16) for x in (kc, vc, tk, tv))
-    lens, written = ints(128, 128, 128, 128), ints(15, 15, 15, 15)
-    out = sa.segment_tail_attention(qb, kcb, vcb, layer, lens, tkb, tvb, written)
-    ref = sa.segment_tail_attention_plain(qb, kcb, vcb, layer, lens, tkb, tvb, written, scale=scale)
-    torch.cuda.synchronize()
-    ok_p, ok_t = seg_masks(lens, written, 1, 0)
-    keys = int(ok_p.any(1).sum() + ok_t.any(1).sum())  # slots any query of a row sees
-    pairs = int(ok_p.sum() + ok_t.sum())  # visible (query, key) pairs, per head
-    k_cat = torch.cat([kcb[layer], tkb], dim=1).transpose(1, 2)
-    v_cat = torch.cat([vcb[layer], tvb], dim=1).transpose(1, 2)
-    mask = torch.cat([ok_p, ok_t], dim=-1)[:, None]
-    record(
-        "segment_tail_attention", "segment_attention_kernel",
-        "ultravox_torch/ops/kernels/csrc/segment_attention.cu",
-        "ultravox_tpu/ops/pallas/segment_attention.py:203", out, ref,
-        lambda: sa.segment_tail_attention(qb, kcb, vcb, layer, lens, tkb, tvb, written),
-        lambda: sa.segment_tail_attention_plain(qb, kcb, vcb, layer, lens, tkb, tvb, written,
-                                                scale=scale),
-        lambda: F.scaled_dot_product_attention(
-            qb.transpose(1, 2), k_cat, v_cat, attn_mask=mask, enable_gqa=True),
-        _nbytes(qb, out, lens, written) + 2 * keys * Hkv * D * 2, 4.0 * H * pairs * D, BF16_FLOPS,
-    )
+
+    def segment_row(rec, label, qb, kcb, vcb, tkb, tvb, lens, written):
+        out = sa.segment_tail_attention(qb, kcb, vcb, layer, lens, tkb, tvb, written)
+        ref = sa.segment_tail_attention_plain(qb, kcb, vcb, layer, lens, tkb, tvb, written,
+                                              scale=scale)
+        torch.cuda.synchronize()
+        S_, Ts_ = kcb.shape[2], tkb.shape[1]
+        t = torch.arange(1, device=dev)[None, :, None]
+        ok_p = torch.arange(S_, device=dev) < lens[:, None, None]
+        ok_t = torch.arange(Ts_, device=dev) <= written[:, None, None] + t
+        keys = int(ok_p.any(1).sum() + ok_t.any(1).sum())  # slots any query of a row sees
+        pairs = int(ok_p.sum() + ok_t.sum())  # visible (query, key) pairs, per head
+        k_cat = torch.cat([kcb[layer], tkb], dim=1).transpose(1, 2)
+        v_cat = torch.cat([vcb[layer], tvb], dim=1).transpose(1, 2)
+        mask = torch.cat([ok_p, ok_t], dim=-1)[:, None]
+        return rec(
+            label, "segment_attention_split_kernel",
+            "ultravox_torch/ops/kernels/csrc/segment_attention.cu",
+            "ultravox_tpu/ops/pallas/segment_attention.py:203", out, ref,
+            lambda: sa.segment_tail_attention(qb, kcb, vcb, layer, lens, tkb, tvb, written),
+            lambda: sa.segment_tail_attention_plain(qb, kcb, vcb, layer, lens, tkb, tvb, written,
+                                                    scale=scale),
+            lambda: F.scaled_dot_product_attention(
+                qb.transpose(1, 2), k_cat, v_cat, attn_mask=mask, enable_gqa=True),
+            _nbytes(qb, out, lens, written) + 2 * keys * Hkv * D * 2, 4.0 * H * pairs * D,
+            BF16_FLOPS,
+        )
+
+    qb = torch.randn((B, 1, H, D), generator=g, device=dev).to(bf)
+    kcb, vcb, tkb, tvb = (x.to(bf) for x in (kc, vc, tk, tv))
+    del kc, vc
+    row11 = segment_row(record, "segment_tail_attention", qb, kcb, vcb, tkb, tvb,
+                        ints(128, 128, 128, 128), ints(15, 15, 15, 15))
+    del kcb, vcb
+    # serving run (c)'s block: the slots engine's (16, 4, 2048, 8, 64) cache,
+    # an 8-slot tail (decode blocks of 8) with 0-7 written
+    kc2, vc2 = (torch.randn((L, B, 2048, Hkv, D), generator=g, device=dev).to(bf)
+                for _ in range(2))
+    tk2, tv2 = (torch.randn((B, 8, Hkv, D), generator=g, device=dev).to(bf) for _ in range(2))
+    row11["serving_c"] = _shape_timing(segment_row(
+        s_record, "segment_tail_attention serving (c)", qb, kc2, vc2, tk2, tv2, serving_lens,
+        ints(0, 3, 5, 7)))
+    del kc2, vc2
+    for row in (row8, row11):
+        for shape, r in (("flagship", row), ("serving (c)", row["serving_c"])):
+            old = ONE_BLOCK_MS[row["name"]][shape]
+            print(f"kernel {row['name']} at the {shape} shape: {r['ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.5f} ms ({r['ms'] / r['bound_ms']:.1f}x), SDPA "
+                  f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x), the one-block "
+                  f"kernel {old} ms as recorded ({old / r['ms']:.2f}x this)", flush=True)
     return rows
+
+
+def _shape_timing(row):
+    """The numbers of a row timed at a second shape, to keep in the main row."""
+    return {k: row[k] for k in ("ms", "device_ms", "wrapper_ms", "plain_ms", "library_ms",
+                                "bound_ms", "bound_by", "max_abs_err", "tol")}
+
+
+def _check_split_edges(da, sa, dev):
+    """Phase 2, continued: the split KV kernel (csrc/kv_split.cuh) of #8 and
+    #11 at EDGE_LENS on a 256-slot slab (clusters of 8 blocks), in bf16 (4
+    ulps of max|ref|) and fp32 (1e-5), head_dim 64 and 128, GQA 1, 4 and 8,
+    windows 0, 8 and 32; #11 at T 1 and 3 with a 32-slot tail (row i has
+    7 i mod (33 - T) slots written), layer 1 of 2; then both at serving run
+    (c)'s 2048-slot slab (129-190 keys, 8 kv heads, an 8-slot tail). Each
+    case: finite, within tolerance, two runs bit-equal, and 1e4 in every
+    cache and tail slot no query of a row sees leaves the output bit for
+    bit; #8's row of length 0 gives 0."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    Hkv, S, Ts, L = 2, 256, 32, 2
+    B = len(EDGE_LENS)
+    lens = torch.tensor(EDGE_LENS, dtype=torch.int32, device=dev)
+    n = lens.long()[:, None]
+    pos, slot = torch.arange(S, device=dev), torch.arange(Ts, device=dev)
+    cases, worst = 0, 0.0
+
+    def hold(name, fn, junk_fn, plain, dtype):
+        nonlocal cases, worst
+        out, again, ref, out_j = fn(), fn(), plain(), junk_fn()
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = _bf16_tol(ref) if dtype == torch.bfloat16 else 1e-5
+        if not (err <= tol and torch.isfinite(out).all()):
+            _fail(f"split kernel {name}: {err} > {tol} against its plain version")
+        if not torch.equal(out, again):
+            _fail(f"split kernel {name}: two runs differ")
+        if not torch.equal(out, out_j):
+            _fail(f"split kernel {name} reads slots no query sees")
+        cases += 1
+        worst = max(worst, err / tol)
+        return out
+
+    def junk(a, hidden):
+        out = a.clone()
+        out[hidden] = 1e4
+        return out
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (64, 128):
+            r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+            k, v, kc, vc, tk, tv = (r(B, S, Hkv, D), r(B, S, Hkv, D), r(L, B, S, Hkv, D),
+                                    r(L, B, S, Hkv, D), r(B, Ts, Hkv, D), r(B, Ts, Hkv, D))
+            for G, w in itertools.product((1, 4, 8), (0, 8, 32)):
+                q = r(B, Hkv * G, D)
+                hidden = (pos >= n) | (pos < n - w) if w else pos >= n
+                jk, jv = junk(k, hidden), junk(v, hidden)
+                out = hold(f"decode_attention {str(dtype)[6:]} D {D} G {G} window {w}",
+                           lambda: da.decode_attention(q, k, v, lens, w),
+                           lambda: da.decode_attention(q, jk, jv, lens, w),
+                           lambda: da.decode_attention_plain(q, k, v, lens, w, scale=D**-0.5),
+                           dtype)
+                if out[0].any():
+                    _fail("split kernel decode_attention: a row of length 0 is not 0")
+                for T in (1, 3):
+                    qs = r(B, T, Hkv * G, D)
+                    wr = torch.tensor([(7 * i) % (Ts - T + 1) for i in range(B)],
+                                      dtype=torch.int32, device=dev)
+                    t = torch.arange(T, device=dev)[None, :, None]
+                    ok_p = pos < n[:, :, None]
+                    ok_t = slot <= wr.long()[:, None, None] + t
+                    if w:
+                        ok_p = ok_p & (n[:, :, None] + wr.long()[:, None, None] + t - pos < w)
+                        ok_t = ok_t & (wr.long()[:, None, None] + t - slot < w)
+                    jkc, jvc, jtk, jtv = kc.clone(), vc.clone(), junk(tk, ~ok_t.any(1)), \
+                        junk(tv, ~ok_t.any(1))
+                    jkc[1][~ok_p.any(1)], jvc[1][~ok_p.any(1)] = 1e4, 1e4
+                    hold(f"segment_tail_attention {str(dtype)[6:]} D {D} G {G} T {T} window {w}",
+                         lambda: sa.segment_tail_attention(qs, kc, vc, 1, lens, tk, tv, wr, w),
+                         lambda: sa.segment_tail_attention(qs, jkc, jvc, 1, lens, jtk, jtv, wr, w),
+                         lambda: sa.segment_tail_attention_plain(qs, kc, vc, 1, lens, tk, tv, wr,
+                                                                 w, scale=D**-0.5),
+                         dtype)
+    # serving run (c)'s shapes: a 2048-slot slab with 129-190 keys, 8 kv
+    # heads of GQA 4, head_dim 64; #11 with an 8-slot tail, 0-7 written
+    lens = torch.tensor([129, 150, 171, 190], dtype=torch.int32, device=dev)
+    hidden = torch.arange(2048, device=dev)[None] >= lens.long()[:, None]
+    wr = torch.tensor([0, 3, 5, 7], dtype=torch.int32, device=dev)
+    hidden_t = torch.arange(8, device=dev)[None] > wr.long()[:, None]
+    for dtype in (torch.bfloat16, torch.float32):
+        r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+        q, qs, k, v = r(4, 32, 64), r(4, 1, 32, 64), r(4, 2048, 8, 64), r(4, 2048, 8, 64)
+        jk, jv = junk(k, hidden), junk(v, hidden)
+        hold(f"decode_attention {str(dtype)[6:]} serving (c) slab",
+             lambda: da.decode_attention(q, k, v, lens), lambda: da.decode_attention(q, jk, jv, lens),
+             lambda: da.decode_attention_plain(q, k, v, lens, scale=0.125), dtype)
+        kc, vc, tk, tv = r(2, 4, 2048, 8, 64), r(2, 4, 2048, 8, 64), r(4, 8, 8, 64), r(4, 8, 8, 64)
+        jkc, jvc, jtk, jtv = kc.clone(), vc.clone(), junk(tk, hidden_t), junk(tv, hidden_t)
+        jkc[1][hidden], jvc[1][hidden] = 1e4, 1e4
+        hold(f"segment_tail_attention {str(dtype)[6:]} serving (c) slab",
+             lambda: sa.segment_tail_attention(qs, kc, vc, 1, lens, tk, tv, wr),
+             lambda: sa.segment_tail_attention(qs, jkc, jvc, 1, lens, jtk, jtv, wr),
+             lambda: sa.segment_tail_attention_plain(qs, kc, vc, 1, lens, tk, tv, wr, scale=0.125),
+             dtype)
+        del k, v, jk, jv, kc, vc, jkc, jvc
+    print(f"check split kernel: {cases} cases of #8 and #11 at lengths {list(EDGE_LENS)} "
+          f"(bf16/fp32, D 64/128, G 1/4/8, T 1/3, windows 0/8/32) and at serving (c)'s "
+          f"2048-slot slab (129-190 keys) within tolerance, two runs bit-equal, junk in unseen "
+          f"slots moving nothing; the largest error {worst:.3g} of its tolerance", flush=True)
 
 
 def _check_paged_kernels(pa, pg, sa, dev):
@@ -1059,6 +1237,54 @@ def _check_mma_build(_build, name, info):
           flush=True)
     if len(d64) != len(kernels) * n_inst // 2 or any(d64.values()):
         _fail(f"phase 1: the D = 64 bf16 {name} kernels spill or were not found ({d64})")
+
+
+def _check_split_build(built):
+    """Phase 1, continued: ptxas reports no spills for the split KV kernel's
+    head_dim 64 instantiations (bf16 and fp32) in decode_attention (#8) and
+    segment_attention (#11)."""
+    for name, kernel in (("decode_attention", "decode_attention_split_kernel"),
+                         ("segment_attention", "segment_attention_split_kernel")):
+        log = built[name]["ptxas"]
+        if not log:
+            print(f"ptxas {name}: library already built, no report to check", flush=True)
+            continue
+        spills, regs, fn = {}, {}, None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif fn is not None and kernel in fn and "Li64E" in fn:
+                if "spill stores" in line:
+                    spills[fn] = (int(line.split("bytes spill stores")[0].split(",")[-1]),
+                                  int(line.split("bytes spill loads")[0].split(",")[-1]))
+                elif "Used" in line and "registers" in line:
+                    regs[fn] = int(line.split("Used")[1].split("registers")[0])
+        print(f"ptxas {kernel} at D 64: spill store/load bytes {sorted(spills.values())}, "
+              f"registers {sorted(regs.values())}", flush=True)
+        if len(spills) != 2 or any(a or b for a, b in spills.values()):
+            _fail(f"phase 1: the D = 64 {kernel} instantiations spill or were not found ({spills})")
+
+
+def _one_block_kv_kernels(keys):
+    """Names of #8's and #11's one-block kernels (replaced by the split
+    kernel) among trace keys; the paged kernels' names do not match."""
+    return [k for k in keys if re.search(r"\b(decode|segment)_attention_kernel<", k)]
+
+
+def _split_kernel_ms(evs, label):
+    """Print (and return) the device ms and launches of #8's and #11's
+    split kernels among profiler events; fail if a one-block kernel ran."""
+    out = {}
+    for kernel in ("decode_attention_split_kernel", "segment_attention_split_kernel"):
+        mine = [e for e in evs if kernel in e.key]
+        out[kernel] = (sum(e.self_device_time_total for e in mine) / 1e3,
+                       sum(e.count for e in mine))
+        print(f"  {label}: {kernel} {out[kernel][0]:.3f} ms in {out[kernel][1]} launches",
+              flush=True)
+    old = _one_block_kv_kernels(e.key for e in evs)
+    if old:
+        _fail(f"{label}: the trace shows one-block KV kernels {sorted(set(old))}")
+    return out
 
 
 def _flash_grads(fn, q, k, v, dout, lens, kw):
@@ -2004,6 +2230,7 @@ def main() -> None:
 
     for name in MMA_BUILDS:
         _check_mma_build(_build, name, built[name])
+    _check_split_build(built)
 
     # 2. kernels against their plain versions
     _check_attention(fa, eap, dev)
@@ -2136,7 +2363,8 @@ def main() -> None:
         _fail("the first token differs between paths that share one prefill")
 
     _breakdown(engine, batch, new_tokens, {
-        "generate": (t_end - t_start) * 1e3, "generate_fused": (f_end - f_start) * 1e3})
+        "generate": (t_end - t_start) * 1e3, "generate_fused": (f_end - f_start) * 1e3,
+        "kernel scan": (s_end - s_start) * 1e3})
 
     # 5. the ServingEngine at flagship widths, on the same weights
     counters.update({
@@ -2266,8 +2494,8 @@ def _serving_main_path(engine, cfg, counters, per_call, dev):
                                    srv.stat_prefill_chunks)
             dispatch_s, fetch_s = srv.stat_dispatch_s, srv.stat_fetch_wait_s
             _check_pages(srv, label)
-            busy = None
-            if label == "paged+kernel":
+            busy = split_ms = None
+            if label in ("paged+kernel", "slots+kernel"):
                 # a second, traced run of other prompts: the device's busy share
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     t1 = time.perf_counter()
@@ -2290,6 +2518,8 @@ def _serving_main_path(engine, cfg, counters, per_call, dev):
                 print(f"serving {label} profile: #3 + #4 (attention_mma_kernel) {attn_ms:.3f} ms "
                       f"in {sum(e.count for e in attn)} launches, of {busy_ms:.3f} ms busy",
                       flush=True)
+                # #8 and #11 (the slots engine) launch the split kernel
+                split_ms = {k: v[0] for k, v in _split_kernel_ms(evs, f"serving {label}").items()}
         finally:
             srv.stop()
         del srv
@@ -2315,6 +2545,7 @@ def _serving_main_path(engine, cfg, counters, per_call, dev):
             "prefill_chunks": chunks, "device_busy_share": busy,
             "device_busy_ms": busy_ms if busy is not None else None,
             "attention_kernel_ms": attn_ms if busy is not None else None,
+            "split_kernel_ms": split_ms,
             "tokens_equal_to_generate": agree,
             "first_tokens_equal_to_generate": sum(ids[0] == r[0] for (ids, _, _), r in zip(out, ref)),
         }
@@ -2647,9 +2878,10 @@ def _first_token_ms(engine, batch) -> float:
 
 def _breakdown(engine, batch, new_tokens: int, untraced_ms) -> None:
     """Where the main paths' time goes: host-clock times of the phases, then
-    one traced generate and one traced generate_fused: the device's busy
+    one traced generate, generate_fused and kernel scan: the device's busy
     time (against the untraced wall time of the same call), its kernels by
-    self time, and what is left of the plain decode's cache copies
+    self time, #8's and #11's split-kernel time (a one-block kernel in the
+    trace fails), and what is left of the plain decode's cache copies
     (direct_copy_kernel) and fp32 gemv (gemmSN_NN)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2684,6 +2916,7 @@ def _breakdown(engine, batch, new_tokens: int, untraced_ms) -> None:
     for label, fn in (
         ("generate", lambda: engine.generate(batch, max_new_tokens=new_tokens)),
         ("generate_fused", lambda: engine.generate_fused(batch, max_new_tokens=new_tokens)),
+        ("kernel scan", lambda: _scan_tokens(engine, batch, new_tokens - 1, "kernel")),
     ):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
@@ -2701,6 +2934,7 @@ def _breakdown(engine, batch, new_tokens: int, untraced_ms) -> None:
         for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:15]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}",
                   flush=True)
+        _split_kernel_ms(evs, label)
         for name in ("direct_copy_kernel", "gemmSN_NN"):
             mine = [e for e in evs if name in e.key]
             print(f"  {label}: {name} x{sum(e.count for e in mine)}, "

@@ -988,3 +988,206 @@ def test_encoder_attn_probe_raises_on_what_the_kernel_lacks(cuda_device):
             fn(q[..., :32], q[..., :32], q[..., :32], scale=0.125, block_q=64)
         with pytest.raises(TypeError):
             fn(q.half(), q.half(), q.half(), scale=0.125, block_q=64)
+
+
+# --------------------------------------------------------------------------
+# the split KV kernel (csrc/kv_split.cuh) behind #8 decode_attention and
+# #11 segment_tail_attention
+# --------------------------------------------------------------------------
+
+# every length at the granule (16 keys) and split (32 keys per block) edges
+# of a 256-slot slab (8 blocks per cluster), a row of length 0, and short
+# rows that leave ranks empty
+EDGE_LENS = [0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 144, 255, 256]
+
+
+def _kv_tol(dtype, ref):
+    return 1e-5 if dtype == torch.float32 else 4 * 2.0**-8 * float(ref.abs().max())
+
+
+def _kv_randn(dev, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+
+
+def _seg_visible(lens, written, T, S, Ts, window):
+    """(prompt (B, T, S), tail (B, T, Ts)) visibility of segment_tail_attention."""
+    dev = lens.device
+    t = torch.arange(T, device=dev)[None, :, None]
+    n, wr = lens.long()[:, None, None], written.long()[:, None, None]
+    kpos, slot = torch.arange(S, device=dev), torch.arange(Ts, device=dev)
+    ok_p, ok_t = kpos < n, slot <= wr + t
+    if window:
+        ok_p = ok_p & (n + wr + t - kpos < window)
+        ok_t = ok_t & (wr + t - slot < window)
+    return ok_p, ok_t
+
+
+def _split_decode(dev, dtype, D, G, S, lens, seed=0, Hkv=2):
+    r = _kv_randn(dev, dtype, seed)
+    B = len(lens)
+    return (r(B, Hkv * G, D), r(B, S, Hkv, D), r(B, S, Hkv, D),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def _split_segment(dev, dtype, D, G, T, S, Ts, lens, seed=0, Hkv=2):
+    """q (B, T, H, D) against layer 1 of a 2-layer cache and a Ts-slot tail;
+    row i has written (7 i) mod (Ts - T + 1) slots before its queries."""
+    r = _kv_randn(dev, dtype, seed)
+    B = len(lens)
+    written = torch.tensor([(7 * i) % (Ts - T + 1) for i in range(B)], dtype=torch.int32,
+                           device=dev)
+    return (r(B, T, Hkv * G, D), r(2, B, S, Hkv, D), r(2, B, S, Hkv, D), r(B, Ts, Hkv, D),
+            r(B, Ts, Hkv, D), torch.tensor(lens, dtype=torch.int32, device=dev), written)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("window", [0, 8, 32])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("D", [64, 128])
+def test_split_decode_attention_matches_plain(cuda_device, D, G, window, dt):
+    """#8 on the split kernel at EDGE_LENS: within 1e-5 (fp32) or 4 bf16
+    ulps, a row of length 0 gives 0, one launch a call, two runs bit-equal."""
+    dtype = DTYPES[dt]
+    q, k, v, lens = _split_decode(cuda_device, dtype, D, G, 256, EDGE_LENS)
+    before = tda.decode_attention.launches
+    out, again = (tda.decode_attention(q, k, v, lens, window) for _ in range(2))
+    ref = tda.decode_attention_plain(q, k, v, lens, window, scale=D**-0.5)
+    torch.cuda.synchronize()
+    assert tda.decode_attention.launches == before + 2
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert float((out.float() - ref.float()).abs().max()) <= _kv_tol(dtype, ref)
+    assert torch.equal(out, again)
+    assert not out[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("window", [0, 8, 32])
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("D", [64, 128])
+def test_split_segment_tail_attention_matches_plain(cuda_device, D, G, T, window, dt):
+    """#11 on the split kernel: prompt lengths EDGE_LENS on a 256-slot cache
+    plus a 32-slot tail (8 blocks per cluster; splits fall in the prompt and
+    in the tail), 0-29 tail slots written; within tolerance, one launch a
+    call, two runs bit-equal."""
+    dtype = DTYPES[dt]
+    args = _split_segment(cuda_device, dtype, D, G, T, 256, 32, EDGE_LENS)
+    q, kc, vc, tk, tv, lens, written = args
+    before = tsa.segment_tail_attention.launches
+    out, again = (tsa.segment_tail_attention(q, kc, vc, 1, lens, tk, tv, written, window)
+                  for _ in range(2))
+    ref = tsa.segment_tail_attention_plain(q, kc, vc, 1, lens, tk, tv, written, window,
+                                           scale=D**-0.5)
+    torch.cuda.synchronize()
+    assert tsa.segment_tail_attention.launches == before + 2
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert float((out.float() - ref.float()).abs().max()) <= _kv_tol(dtype, ref)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_split_kernels_at_the_serving_slab(cuda_device, dt):
+    """Serving run (c)'s shapes: a 2048-slot slab with 129-190 keys, GQA 4,
+    head_dim 64; the segment kernel with an 8-slot tail (0-7 written)."""
+    dtype = DTYPES[dt]
+    lens = [129, 150, 171, 190]
+    q, k, v, n = _split_decode(cuda_device, dtype, 64, 4, 2048, lens, seed=1, Hkv=8)
+    out = tda.decode_attention(q, k, v, n)
+    ref = tda.decode_attention_plain(q, k, v, n, scale=0.125)
+    q, kc, vc, tk, tv, n, written = _split_segment(cuda_device, dtype, 64, 4, 1, 2048, 8, lens,
+                                                   seed=2, Hkv=8)
+    out_s = tsa.segment_tail_attention(q, kc, vc, 1, n, tk, tv, written)
+    ref_s = tsa.segment_tail_attention_plain(q, kc, vc, 1, n, tk, tv, written, scale=0.125)
+    torch.cuda.synchronize()
+    for o, r_ in ((out, ref), (out_s, ref_s)):
+        assert float((o.float() - r_.float()).abs().max()) <= _kv_tol(dtype, r_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("window", [0, 8, 32])
+def test_split_kernels_ignore_hidden_slots(cuda_device, dt, window):
+    """1e4 in every cache and tail slot that no query of a row sees moves
+    no output bit: those slots are never read."""
+    dtype = DTYPES[dt]
+    q, k, v, lens = _split_decode(cuda_device, dtype, 64, 4, 256, EDGE_LENS, seed=3)
+    pos = torch.arange(256, device=cuda_device)[None]
+    n = lens.long()[:, None]
+    hidden = (pos >= n) | ((pos < n - window) if window else torch.zeros_like(pos, dtype=torch.bool))
+    jk, jv = k.clone(), v.clone()
+    jk[hidden], jv[hidden] = 1e4, 1e4
+    assert torch.equal(tda.decode_attention(q, jk, jv, lens, window),
+                       tda.decode_attention(q, k, v, lens, window))
+
+    T, Ts = 3, 32
+    q, kc, vc, tk, tv, lens, written = _split_segment(cuda_device, dtype, 64, 4, T, 256, Ts,
+                                                      EDGE_LENS, seed=4)
+    ok_p, ok_t = _seg_visible(lens, written, T, 256, Ts, window)
+    jk, jv, jtk, jtv = kc.clone(), vc.clone(), tk.clone(), tv.clone()
+    jk[1][~ok_p.any(1)], jv[1][~ok_p.any(1)] = 1e4, 1e4
+    jtk[~ok_t.any(1)], jtv[~ok_t.any(1)] = 1e4, 1e4
+    out = tsa.segment_tail_attention(q, kc, vc, 1, lens, tk, tv, written, window)
+    junk = tsa.segment_tail_attention(q, jk, jv, 1, lens, jtk, jtv, written, window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, junk)
+
+
+@pytest.mark.cuda
+def test_split_kernels_show_their_names_in_a_trace(cuda_device):
+    """#8 and #11 launch the cluster kernels under their own __global__
+    names (no one-block kernel); #9 and #12 keep theirs."""
+    q, k, v, lens = _split_decode(cuda_device, torch.bfloat16, 64, 4, 256, [144, 0, 33])
+    names = _device_kernel_names(lambda: tda.decode_attention(q, k, v, lens))
+    assert any("decode_attention_split_kernel" in n for n in names), sorted(names)
+    assert not any("decode_attention_kernel<" in n for n in names), sorted(names)
+    q, kc, vc, tk, tv, lens, written = _split_segment(cuda_device, torch.bfloat16, 64, 4, 1,
+                                                      256, 31, [128, 0, 33])
+    names = _device_kernel_names(
+        lambda: tsa.segment_tail_attention(q, kc, vc, 1, lens, tk, tv, written))
+    assert any("segment_attention_split_kernel" in n for n in names), sorted(names)
+    assert not any("segment_attention_kernel<" in n for n in names), sorted(names)
+    kp, vp, table, plens, _ = _paged_case(cuda_device, torch.bfloat16)
+    qp = torch.zeros((4, 8, 64), dtype=torch.bfloat16, device=cuda_device)
+    names = _device_kernel_names(lambda: tpa.paged_decode_attention(qp, kp[1], vp[1], table, plens))
+    assert any("paged_decode_attention_kernel" in n for n in names), sorted(names)
+
+
+@pytest.mark.cuda
+def test_split_kernels_raise_on_misaligned_views(cuda_device):
+    """The split kernel loads 16-byte pieces: a cache view off a 16-byte
+    boundary raises ValueError."""
+    def shifted(t):  # t's shape, 2 bytes past a 16-byte boundary
+        return torch.zeros(t.numel() + 1, dtype=t.dtype, device=cuda_device)[1:].view(t.shape)
+
+    q, k, v, lens = _split_decode(cuda_device, torch.bfloat16, 64, 4, 64, [10, 20])
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.decode_attention(q, shifted(k), shifted(v), lens)
+    q, kc, vc, tk, tv, lens, written = _split_segment(cuda_device, torch.bfloat16, 64, 4, 1, 64,
+                                                      8, [10, 20])
+    with pytest.raises(ValueError, match="16-byte"):
+        tsa.segment_tail_attention(q, kc, vc, 1, lens, shifted(tk), shifted(tv), written)
+
+
+# sha256 (first 16 hex digits) of #9's and #12's outputs on
+# compare_kv_split.paged_pin_inputs, from the build before the split kernel
+# (python -m ultravox_torch.scripts.compare_kv_split on an H100 printed the
+# same digests for that build and this one)
+PAGED_PIN_DIGESTS = {
+    "paged_decode_attention bfloat16": "246e4583720635c8",
+    "paged_segment_tail_attention bfloat16": "abb00a55957bb936",
+    "paged_decode_attention float32": "f8a422faf4ff2cbe",
+    "paged_segment_tail_attention float32": "42655646d7aee4d8",
+}
+
+
+@pytest.mark.cuda
+def test_paged_kernels_are_bit_equal_to_their_build_before_the_split(cuda_device):
+    """#9 and #12 keep kv_attention.cuh's kernel: their outputs on fixed
+    inputs equal, bit for bit, those of the build before the split kernel."""
+    from ultravox_torch.scripts.compare_kv_split import paged_pin_digests
+
+    assert paged_pin_digests(cuda_device) == PAGED_PIN_DIGESTS

@@ -54,11 +54,11 @@ _SIGNATURES = {
     ),
     "decode_attention": (
         _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _P, _I,
-        _I, _I, _I, _I, _I, _F, _I, _P,
+        _I, _I, _I, _I, _I, _F, _I, _I, _P,
     ),
     "segment_attention": (
         _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _P, _P, _I,
-        _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
     ),
     "paged_segment_attention": (
         _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _P, _P, _P, _I,

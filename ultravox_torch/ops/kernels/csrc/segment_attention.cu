@@ -9,38 +9,43 @@
 //   prompt key j visible  iff j < n and (window <= 0 or q_abs - j < window);
 //   tail slot s visible   iff s <= written + t and
 //                             (window <= 0 or q_abs - (n + s) < window).
-// The prompt is folded first, over keys [min_t win_lo, n) with
-// win_lo = max(q_abs - window + 1, 0), then the tail, through one online
-// softmax (kv_attention.cuh). T = 1 is the segmented decode scan's step;
-// small T > 1 is a speculative verify forward.
+// The prompt keys [min_t win_lo, n), win_lo = max(q_abs - window + 1, 0),
+// then the tail slots some query sees, form one virtual key range that the
+// blocks of a cluster split between them (kv_split.cuh, as
+// decode_attention.cu). T = 1 is the segmented decode scan's step; small
+// T > 1 is a speculative verify forward.
 //
 // Bound on the card: bytes, as decode_attention.cu: each row reads its
 // visible prompt keys/values and tail slots once; ~1 flop per byte in bf16.
-// Design: one block per (row, kv head, chunk of (t, g) columns); the
-// columns share each 32-key K/V tile in shared memory.
+// Design: a cluster of `splits` blocks per (row, kv head, chunk of (t, g)
+// columns); the columns of a chunk share each 16-byte K/V load.
 //
 // A second entry point, uv_paged_segment_attention, replaces
 // ultravox_tpu/ops/pallas/segment_attention.py:paged_segment_tail_attention
 // (_paged_seg_kernel): the same attention with the prompt segment in the
 // stacked (L, P, page_size, Hkv, D) pool at `layer`, row b's prompt key j in
 // page min(table[b, j / page_size], P - 1) at row j % page_size. It is its
-// own __global__ (paged_segment_attention_kernel), so a trace tells the two
-// apart. The TPU kernel starts at the page of the lowest window bound; this
-// one starts at the exact key, as the contiguous form does.
+// own __global__ (paged_segment_attention_kernel) on kv_attention.cuh's
+// one-block-per-row kernel, so a trace tells the two apart. The TPU kernel
+// starts at the page of the lowest window bound; this one starts at the
+// exact key, as the contiguous form does.
 #include "kv_attention.cuh"
+#include "kv_split.cuh"
 
-UV_KV_ATTENTION_KERNEL(segment_attention_kernel)
+UV_KV_SPLIT_KERNEL(segment_attention_split_kernel)
 UV_KV_ATTENTION_KERNEL(paged_segment_attention_kernel)
 
 // strides: 10 element strides: q (batch, query, head), cache (layer, batch,
 // seq, head; k and v share them), tail (batch, slot, head; tail k and v
 // share them); every head dimension is contiguous. lengths, written: (B,)
-// int32. Writes o (B, T, H, D) contiguous in q's dtype.
+// int32. splits: blocks per cluster (1-8), chosen from S + Ts. Writes o
+// (B, T, H, D) contiguous in q's dtype. The cache, the tail and their
+// strides in bytes are multiples of 16.
 UV_EXPORT int uv_segment_attention(const void* q, const void* k, const void* v, const void* tk,
                                    const void* tv, void* o, const long long* strides,
                                    const void* lengths, const void* written, int layer,
                                    int window, int B, int T, int H, int G, int S, int Ts, int D,
-                                   float scale, int dtype, void* stream) {
+                                   float scale, int splits, int dtype, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || G <= 0 || H % G || S <= 0 || Ts <= 0 || layer < 0)
     return cudaErrorInvalidValue;
   kvattn::Params p = {};
@@ -53,8 +58,8 @@ UV_EXPORT int uv_segment_attention(const void* q, const void* k, const void* v, 
   p.written = static_cast<const int*>(written);
   p.layer = layer, p.window = window, p.T = T, p.G = G, p.S = S, p.Ts = Ts, p.decode = 0;
   p.scale = scale;
-  return segment_attention_kernel_dispatch(dtype, D, p, B, H / G,
-                                           static_cast<cudaStream_t>(stream));
+  return segment_attention_split_kernel_dispatch(dtype, D, p, B, H / G, splits,
+                                                 static_cast<cudaStream_t>(stream));
 }
 
 // strides: 10 element strides: q (batch, query, head), pool (layer, page,

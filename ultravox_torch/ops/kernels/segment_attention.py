@@ -24,13 +24,15 @@ for CUDA tensors; ``<wrapper>.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from ultravox_torch.ops.kernels import _build
 from ultravox_torch.ops.kernels.decode_attention import (
     HEAD_DIMS,
+    check_kv_aligned,
+    kv_splits,
     online_softmax_plain,
     rounded_scale,
 )
@@ -49,8 +51,10 @@ def segment_tail_attention_plain(
     window: int = 0,
     *,
     scale: float,
+    softmax: Callable = online_softmax_plain,
 ) -> torch.Tensor:
-    """Plain PyTorch in the kernel's arithmetic. Returns (B, T, H, D)."""
+    """Plain PyTorch in the kernel's arithmetic. Returns (B, T, H, D).
+    ``softmax`` as ``decode_attention_plain``'s."""
     if k_cache.ndim == 5:
         k_cache, v_cache = k_cache[layer], v_cache[layer]
     B, T, H, D = q.shape
@@ -75,7 +79,7 @@ def segment_tail_attention_plain(
         s = torch.einsum("btkgd,bskd->bkgts", qs, keys.float())  # (B, Hkv, G, T, S*)
         v = vals.float().permute(0, 2, 1, 3)[:, :, None, None]  # (B, Hkv, 1, 1, S*, D)
         segments.append((s, ok[:, None, None], v))
-    out = online_softmax_plain(segments, q.dtype)  # (B, Hkv, G, T, D)
+    out = softmax(segments, q.dtype)  # (B, Hkv, G, T, D)
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D)
 
 
@@ -122,6 +126,7 @@ def segment_tail_attention(
     for t in (lengths, written):
         if t.shape != (B,) or t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"lengths and written must be contiguous int32 ({B},) tensors")
+    check_kv_aligned("segment_tail_attention", kc, vc, tail_k, tail_v)
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 10)(
         *q.stride()[:3], *kc.stride()[:4], *tail_k.stride()[:3]
@@ -131,7 +136,7 @@ def segment_tail_attention(
         _build.ptr(q), _build.ptr(kc), _build.ptr(vc), _build.ptr(tail_k), _build.ptr(tail_v),
         _build.ptr(out), strides, _build.ptr(lengths), _build.ptr(written), int(layer),
         int(window), B, T, H, H // Hkv, S, Ts, D, rounded_scale(scale, q.dtype),
-        _build.dtype_code(q), _build.stream_ptr(q.device),
+        kv_splits(S + Ts), _build.dtype_code(q), _build.stream_ptr(q.device),
     )
     _build.check("segment_attention", rc)
     segment_tail_attention.launches += 1
