@@ -5,9 +5,10 @@
 Phases, each fatal on failure:
   1. build every CUDA kernel of the port from ultravox_torch/ops/kernels/csrc
      (one nvcc per source, all thirteen at once); the bf16 kernels of
-     flash_attention, attention (#3/#4) and encoder_attn_probe (#15/#16)
-     must hold tensor-core instructions (HMMA in cuobjdump's SASS; the fp32
-     ones none) and ptxas must report no spills for them at head_dim 64,
+     flash_attention, attention (#3/#4), encoder_attn_probe (#15/#16) and
+     decode_matmul (#14, bf16 x) must hold tensor-core instructions (HMMA in
+     cuobjdump's SASS; the fp32 ones none) and ptxas must report no spills
+     for them (the attention kernels at head_dim 64),
      nor for the split KV kernel of #8 and #11 (csrc/kv_split.cuh, both
      dtypes) at head_dim 64;
   2. hold each kernel against its plain PyTorch version on the card at the
@@ -44,7 +45,10 @@ Phases, each fatal on failure:
      ln_matmul_gelu at the encoder's fc1, attn_out_proj_residual at its
      out-projection, and decode_matmul on every Llama-3.2-1B decoder product
      with a bf16 and an int8 + scale weight (1, 4 and 32 rows, bf16 and
-     fp32), timed at 4 rows beside torch.mm and lora.py's w8a16 product;
+     fp32, two calls bit-equal, one device kernel a call), timed at 4 rows
+     beside torch.mm (its factor printed), lora.py's w8a16 product and
+     torch._weight_int8pack_mm; fused_layer_norm also at (1, 500, 768) bf16
+     and (4, 500, 768) fp32 beside F.layer_norm, two calls bit-equal;
   3. small configs (a llama-family speech model and a gemma-3-style decoder
      with sliding windows): greedy tokens from the kernel paths on the card
      equal those of the plain paths on the CPU (fp32) for generate with the
@@ -337,17 +341,32 @@ def _check_kernels(fa, ln_mod, dev):
     s = 1 + 0.1 * torch.randn((D,), generator=g, device=dev)
     b = 0.1 * torch.randn((D,), generator=g, device=dev)
     s_bf, b_bf = s.to(bf), b.to(bf)
-    out = ln_mod.fused_layer_norm(x, s, b)
-    ref = ln_mod.layer_norm_plain(x, s, b)
-    torch.cuda.synchronize()
-    record(
-        "fused_layer_norm", "layer_norm_kernel", "ultravox_torch/ops/kernels/csrc/layer_norm.cu",
-        "ultravox_tpu/ops/pallas/layer_norm.py:38", out, ref,
-        lambda: ln_mod.fused_layer_norm(x, s, b),
-        lambda: ln_mod.layer_norm_plain(x, s, b),
-        lambda: F.layer_norm(x, (D,), s_bf, b_bf, 1e-5),
-        _nbytes(x, s, b, out), 8.0 * x.numel(), FP32_FLOPS,
-    )
+    ln_row = None
+    ln_shapes = {}
+    ln_rec = _recorder([], lambda ref: _bf16_tol(ref) if ref.dtype == bf else 1e-5)
+    for label, xs in (("(4,500,768) bf16", x), ("(1,500,768) bf16", x[:1].contiguous()),
+                      ("(4,500,768) fp32", x.float())):
+        out, again = ln_mod.fused_layer_norm(xs, s, b), ln_mod.fused_layer_norm(xs, s, b)
+        ref = ln_mod.layer_norm_plain(xs, s, b)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            _fail(f"fused_layer_norm {label}: two calls differ")
+        s_x, b_x = (s_bf, b_bf) if xs.dtype == bf else (s, b)
+        row = ln_rec(
+            f"fused_layer_norm {label}", "layer_norm_warp_kernel",
+            "ultravox_torch/ops/kernels/csrc/layer_norm.cu",
+            "ultravox_tpu/ops/pallas/layer_norm.py:38", out, ref,
+            lambda xs=xs: ln_mod.fused_layer_norm(xs, s, b),
+            lambda xs=xs: ln_mod.layer_norm_plain(xs, s, b),
+            lambda xs=xs, s_x=s_x, b_x=b_x: F.layer_norm(xs, (D,), s_x, b_x, 1e-5),
+            _nbytes(xs, s, b, out), 8.0 * xs.numel(), FP32_FLOPS,
+        )
+        ln_shapes[label] = {k_: row[k_] for k_ in ("ms", "device_ms", "wrapper_ms", "plain_ms",
+                                                    "library_ms", "bound_ms", "max_abs_err")}
+        print(f"fused_layer_norm {label}: {row['ms']:.4f} ms, {row['ms'] / row['library_ms']:.2f}x "
+              f"F.layer_norm's {row['library_ms']:.4f}; two calls bit-equal", flush=True)
+        ln_row = ln_row or row
+    rows.append(dict(ln_row, name="fused_layer_norm", shapes=ln_shapes))
 
     # 2. LN -> qkv -> head-major
     C = 3 * D
@@ -638,7 +657,6 @@ def _check_unwired_kernels(fa, dm, dev):
     products = {}
     timed = []
     time_rec = _recorder(timed, _bf16_tol)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0  # the largest error of the checks, as a share of its tolerance
     for name, (K, N) in DECODE_PRODUCTS.items():
         w32 = 0.02 * torch.randn((K, N), generator=g, device=dev)
@@ -652,7 +670,10 @@ def _check_unwired_kernels(fa, dm, dev):
                 for dtype in (bf, torch.float32):
                     xm = torch.randn((M, K), generator=g, device=dev).to(dtype)
                     out, ref = dm.decode_matmul(xm, wk, sc), dm.decode_matmul_plain(xm, wk, sc)
+                    again = dm.decode_matmul(xm, wk, sc)
                     torch.cuda.synchronize()
+                    if not torch.equal(out, again):
+                        _fail(f"decode_matmul {name} {kind} M {M} {dtype}: two calls differ")
                     err = float((out.float() - ref.float()).abs().max())
                     # fp32: 1e-5 of the largest output (K up to 8192 terms)
                     tol = _bf16_tol(ref) if dtype == bf else 1e-5 * max(1.0, float(ref.abs().max()))
@@ -665,18 +686,20 @@ def _check_unwired_kernels(fa, dm, dev):
             x4 = torch.randn((4, K), generator=g, device=dev).to(bf)
             out, ref = dm.decode_matmul(x4, wk, sc), dm.decode_matmul_plain(x4, wk, sc)
             torch.cuda.synchronize()
-            splits = dm._plan(4, K, N, wk, sms)[2]
+            plan = dm._plan(4, K, N, wk.element_size(), wk.data_ptr(), True, dm._sm_count(0))
             w_bf = wk if sc is None else (wk.to(bf) * sc).to(bf)
             bf_copies = [w_bf] + [w_bf.clone() for _ in range(len(copies) - 1)]
             nxt_bf = itertools.cycle(bf_copies).__next__
+            mm_fn = lambda: torch.mm(x4, nxt_bf())  # noqa: E731
+            extra = {"plan": plan._asdict()}
             if sc is None:
-                lib_fn, extra = (lambda: torch.mm(x4, nxt_bf())), {}
+                lib_fn = mm_fn
             else:
                 p_int8 = [{"kernel_q": c, "scale": sc} for c in copies]
                 nxt_p = itertools.cycle(p_int8).__next__
-                extra = {"w8a16_ms": _time_ms(lambda: lora_lib.proj_apply(x4, nxt_p())),
-                         "bf16_mm_ms": _time_ms(lambda: torch.mm(x4, nxt_bf()))}
-                lib_fn = None
+                extra["bf16_mm_ms"] = _time_ms(mm_fn)
+                extra["w8a16_ms"] = _time_ms(lambda: lora_lib.proj_apply(x4, nxt_p()))
+                lib_fn = _int8pack_fn(x4, copies, sc, ref, extra)
             row = time_rec(
                 f"decode_matmul {name} {kind}", "decode_matmul",
                 "ultravox_torch/ops/kernels/csrc/decode_matmul.cu",
@@ -684,18 +707,22 @@ def _check_unwired_kernels(fa, dm, dev):
                 lambda: dm.decode_matmul(x4, nxt(), sc),
                 lambda: dm.decode_matmul_plain(x4, nxt(), sc), lib_fn,
                 _nbytes(x4, wk, out) + (_nbytes(sc) if sc is not None else 0),
-                2.0 * 4 * K * N, BF16_FLOPS, calls=1 if splits == 1 else 2,
-                extra=dict(extra, shape=[4, K, N], k_splits=splits),
+                2.0 * 4 * K * N, BF16_FLOPS,
+                extra=dict(extra, shape=[4, K, N]),
             )
+            mm_ms = row["library_ms"] if sc is None else extra["bf16_mm_ms"]
+            row["factor_to_torch_mm"] = row["ms"] / mm_ms
             products[f"{name} {kind}"] = {k_: row[k_] for k_ in (
                 "ms", "device_ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
-                "max_abs_err", "k_splits") + tuple(extra)}
-            if sc is not None:
-                print(f"decode_matmul {name} int8 (4, {K}) x ({K}, {N}): kernel {row['ms']:.4f} ms "
-                      f"against w8a16 (lora.py, a bf16 copy of the weight per call) "
-                      f"{extra['w8a16_ms']:.4f} ms and torch.mm on the bf16 weight "
-                      f"{extra['bf16_mm_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms", flush=True)
-            del copies, bf_copies
+                "max_abs_err", "factor_to_torch_mm") + tuple(extra)}
+            print(f"decode_matmul {name} {kind} (4, {K}) x ({K}, {N}): kernel {row['ms']:.4f} ms, "
+                  f"{row['factor_to_torch_mm']:.2f}x torch.mm on the bf16 weight ({mm_ms:.4f} ms), "
+                  f"{100 * row['bound_ms'] / row['ms']:.1f}% of its bound {row['bound_ms']:.5f} ms"
+                  + (f"; w8a16 (lora.py, a bf16 copy of the weight per call) "
+                     f"{extra['w8a16_ms']:.4f} ms; torch._weight_int8pack_mm "
+                     f"{row['library_ms'] if lib_fn else extra['int8pack']}" if sc is not None
+                     else "") + f"; plan {extra['plan']}", flush=True)
+            del copies, bf_copies, lib_fn
     print(f"check decode_matmul: {len(DECODE_PRODUCTS) * 12} cases (bf16 and int8 weights, "
           f"1/4/32 rows, bf16 and fp32) within tolerance, the largest error "
           f"{worst:.3g} of its tolerance", flush=True)
@@ -705,9 +732,27 @@ def _check_unwired_kernels(fa, dm, dev):
     return rows
 
 
+def _int8pack_fn(x4, copies, sc, ref, extra):
+    """torch._weight_int8pack_mm on the int8 weights (transposed to (N, K)
+    once, outside the timing, and rotated as the kernel's are), for #14's
+    library time; None, with the error it raised in extra["int8pack"], if
+    this PyTorch does not run it on CUDA."""
+    w_t = [c.t().contiguous() for c in copies]
+    try:
+        got = torch._weight_int8pack_mm(x4, w_t[0], sc)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        extra["int8pack"] = f"none: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+        return None
+    extra["int8pack"] = "ran on CUDA"
+    extra["int8pack_max_abs_err"] = float((got.float() - ref.float()).abs().max())
+    nxt_t = itertools.cycle(w_t).__next__
+    return lambda: torch._weight_int8pack_mm(x4, nxt_t(), sc)
+
+
 # card ms of #8 and #11 on the one-block kernel of kv_attention.cuh (commit
 # 835db08), measured beside the split kernel by
-# ultravox_torch/scripts/compare_kv_split.py (PERF.md section 6)
+# ultravox_torch/scripts/compare_kernels.py (PERF.md section 6)
 ONE_BLOCK_MS = {
     "decode_attention": {"flagship": 0.0214, "serving (c)": 0.0256},
     "segment_tail_attention": {"flagship": 0.0220, "serving (c)": 0.0291},
@@ -1185,24 +1230,32 @@ def _check_paged_kernels(pa, pg, sa, dev):
 
 # library: (its bf16 tensor-core kernels, instantiations of each, a name
 # that only its fp32 CUDA-core kernels hold, the mangled prefix of the
-# head_dim 64 tensor-core kernels)
+# tensor-core kernels ptxas must report no spills for, and how many those
+# are: the attention kernels' head_dim 64 half, every decode_matmul one)
 MMA_BUILDS = {
     "flash_attention": (("flash_fwd_mma_kernel", "flash_delta_mma_kernel", "flash_dkdv_mma_kernel",
-                         "flash_dq_mma_kernel"), 2, "kernelIf", "_mma_kernelILi64E"),
-    "attention": (("attention_mma_kernel",), 2, "attention_kernelIf", "attention_mma_kernelILi64E"),
+                         "flash_dq_mma_kernel"), 2, "kernelIf", "_mma_kernelILi64E", 4),
+    "attention": (("attention_mma_kernel",), 2, "attention_kernelIf", "attention_mma_kernelILi64E",
+                  1),
     "encoder_attn_probe": (("attention_mma_kernel",), 4, "attention_kernelIf",
-                           "attention_mma_kernelILi64E"),
+                           "attention_mma_kernelILi64E", 2),
+    # bf16 x: 9 bf16-weight and 13 int8-weight instances (csrc/decode_matmul.cu
+    # dispatch_mma); fp32 x runs decode_matmul_kernel on the CUDA cores
+    "decode_matmul": (("decode_matmul_mma_kernel",), 22, "decode_matmul_kernel",
+                      "decode_matmul_mma_kernel", 22),
 }
 
 
 def _check_mma_build(_build, name, info):
     """Phase 1, continued: the bf16 kernels of flash_attention (forward,
-    delta, dK/dV, dQ), attention (#3/#4) and encoder_attn_probe (#15/#16,
-    both exponents) run on the tensor cores. cuobjdump's SASS of the built
-    library must show HMMA in every bf16 instantiation (head_dim 64 and 128)
-    and none in the fp32 kernels (fp32 stays on the CUDA cores). ptxas must
-    report no spills for the head_dim 64 bf16 kernels."""
-    kernels, n_inst, fp32_name, d64_name = MMA_BUILDS[name]
+    delta, dK/dV, dQ), attention (#3/#4), encoder_attn_probe (#15/#16,
+    both exponents) and decode_matmul (#14, bf16 x) run on the tensor cores.
+    cuobjdump's SASS of the built library must show HMMA in every bf16
+    instantiation (head_dim 64 and 128; every #14 instance) and none in the
+    fp32 kernels (fp32 stays on the CUDA cores). ptxas must report no spills
+    for the head_dim 64 bf16 attention kernels and every #14 tensor-core
+    kernel."""
+    kernels, n_inst, fp32_name, d64_name, n_spill = MMA_BUILDS[name]
     path = info["path"]
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
@@ -1233,10 +1286,10 @@ def _check_mma_build(_build, name, info):
         elif "spill stores" in line and fn is not None:
             spills[fn] = int(line.split("bytes spill stores")[0].split(",")[-1])
     d64 = {n: b for n, b in spills.items() if d64_name in n}
-    print(f"ptxas bf16 {name} kernels at D 64: spill store bytes {sorted(d64.values())}",
+    print(f"ptxas bf16 {name} kernels ({d64_name}): spill store bytes {sorted(d64.values())}",
           flush=True)
-    if len(d64) != len(kernels) * n_inst // 2 or any(d64.values()):
-        _fail(f"phase 1: the D = 64 bf16 {name} kernels spill or were not found ({d64})")
+    if len(d64) != n_spill or any(d64.values()):
+        _fail(f"phase 1: the {d64_name} {name} kernels spill or were not found ({d64})")
 
 
 def _check_split_build(built):

@@ -1173,8 +1173,8 @@ def test_split_kernels_raise_on_misaligned_views(cuda_device):
 
 
 # sha256 (first 16 hex digits) of #9's and #12's outputs on
-# compare_kv_split.paged_pin_inputs, from the build before the split kernel
-# (python -m ultravox_torch.scripts.compare_kv_split on an H100 printed the
+# compare_kernels.paged_pin_inputs, from the build before the split kernel
+# (python -m ultravox_torch.scripts.compare_kernels on an H100 printed the
 # same digests for that build and this one)
 PAGED_PIN_DIGESTS = {
     "paged_decode_attention bfloat16": "246e4583720635c8",
@@ -1188,6 +1188,165 @@ PAGED_PIN_DIGESTS = {
 def test_paged_kernels_are_bit_equal_to_their_build_before_the_split(cuda_device):
     """#9 and #12 keep kv_attention.cuh's kernel: their outputs on fixed
     inputs equal, bit for bit, those of the build before the split kernel."""
-    from ultravox_torch.scripts.compare_kv_split import paged_pin_digests
+    from ultravox_torch.scripts.compare_kernels import paged_pin_digests
 
     assert paged_pin_digests(cuda_device) == PAGED_PIN_DIGESTS
+
+
+# --------------------------------------------------------------------------
+# #14 decode_matmul's one-launch kernel (clusters splitting K, bf16 x on the
+# tensor cores) and #1 fused_layer_norm's warp-per-row kernel
+# --------------------------------------------------------------------------
+
+
+def _dm_inputs(dev, M, K, N, weight, xdt, offset=False, seed=0):
+    """x (M, K) and a bf16 or int8 + per-channel-scale weight (K, N); with
+    ``offset`` the weight is a contiguous view one element past its
+    storage's start, so no vector load is aligned."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev).to(xdt)
+    w = 0.02 * torch.randn((K, N), generator=g, device=dev)
+    scale = None
+    if weight == "int8":
+        scale = w.abs().amax(dim=0) / 127
+        w = torch.round(w / scale).clamp(-127, 127).to(torch.int8)
+    else:
+        w = w.to(torch.bfloat16)
+    if offset:
+        flat = torch.empty(K * N + 1, dtype=w.dtype, device=dev)
+        flat[1:] = w.reshape(-1)
+        w = flat[1:].view(K, N)
+    return x, w, scale
+
+
+def _dm_check(tdm, x, w, scale, out_dtype):
+    """One launch (the counter rises by 1), the plain version's value within
+    1e-5 of the largest fp32 output or 4 bf16 ulps, and a second call
+    bit-equal to the first."""
+    before = tdm.decode_matmul.launches
+    out = tdm.decode_matmul(x, w, scale, out_dtype=out_dtype)
+    ref = tdm.decode_matmul_plain(x, w, scale, out_dtype)
+    again = tdm.decode_matmul(x, w, scale, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert tdm.decode_matmul.launches == before + 2
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert torch.equal(out, again)
+    big = float(ref.abs().max())
+    tol = 1e-5 * max(1.0, big) if out.dtype == torch.float32 else 4 * 2.0**-8 * big
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt", list(DTYPES))
+@pytest.mark.parametrize("weight", ["bfloat16", "int8"])
+@pytest.mark.parametrize("M", [1, 2, 3, 5, 8, 17, 32])
+def test_decode_matmul_every_row_count(cuda_device, M, weight, xdt):
+    """Every row count against the tensor-core kernel's 8/16/32-row groups
+    and the CUDA-core kernel's 1/4/8/16/32 sums; int8 with an fp32, a bf16
+    and no scale; both output dtypes; a K that is no multiple of 16; N wide
+    enough that int8 keeps 16 columns a lane below 32 rows."""
+    from ultravox_torch.ops.kernels import decode_matmul as tdm
+
+    x, w, scale = _dm_inputs(cuda_device, M, 1000, 8704, weight, DTYPES[xdt])
+    scales = (None,) if scale is None else (scale, scale.bfloat16(), None)
+    for sc in scales:
+        for out_dtype in (None, torch.float32):
+            _dm_check(tdm, x, w, sc, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt", list(DTYPES))
+@pytest.mark.parametrize("weight", ["bfloat16", "int8"])
+@pytest.mark.parametrize("warps_n", [1, 4])
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_decode_matmul_every_cluster_size(cuda_device, cluster, warps_n, weight, xdt,
+                                          monkeypatch):
+    """K = 4096 split over clusters of 1 to 8 blocks, with 1 or 4 warps of a
+    block side by side along N (the plan forced; fp32 x keeps one), at 4 and
+    17 rows: every merge in rank order within tolerance and bit-equal on
+    repeat."""
+    import functools
+
+    from ultravox_torch.ops.kernels import decode_matmul as tdm
+
+    plan = tdm._plan
+    monkeypatch.setattr(tdm, "_plan", functools.partial(plan, cluster=cluster, warps_n=warps_n))
+    for M in (4, 17):
+        x, w, scale = _dm_inputs(cuda_device, M, 4096, 640, weight, DTYPES[xdt])
+        got = tdm._plan(M, 4096, 640, w.element_size(), w.data_ptr(),
+                        x.dtype == torch.bfloat16, 132)
+        assert got.cluster == cluster and got.warps_n == (warps_n if xdt == "bfloat16" else 1)
+        for out_dtype in (None, torch.float32):
+            _dm_check(tdm, x, w, scale, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt", list(DTYPES))
+@pytest.mark.parametrize("weight", ["bfloat16", "int8"])
+@pytest.mark.parametrize("kn", [(300, 1001), (2048, 3072), (64, 96)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_decode_matmul_unaligned_weight(cuda_device, kn, weight, xdt):
+    """A weight view one element off its storage, and an odd N: the
+    element-load instance (tensor cores) or one column a lane (CUDA cores)."""
+    from ultravox_torch.ops.kernels import decode_matmul as tdm
+
+    K, N = kn
+    for M in (1, 4, 32):
+        x, w, scale = _dm_inputs(cuda_device, M, K, N, weight, DTYPES[xdt], offset=True)
+        plan = tdm._plan(M, K, N, w.element_size(), w.data_ptr(), x.dtype == torch.bfloat16, 132)
+        assert not plan.vec or plan.cols == 1
+        for out_dtype in (None, torch.float32):
+            _dm_check(tdm, x, w, scale, out_dtype)
+
+
+@pytest.mark.cuda
+def test_decode_matmul_is_one_kernel_on_the_tensor_cores(cuda_device):
+    """One device kernel a call at a K-split shape: bf16 x runs the
+    tensor-core kernel, fp32 x the CUDA-core one, no reduce kernel."""
+    from ultravox_torch.ops.kernels import decode_matmul as tdm
+
+    for xdt, name in ((torch.bfloat16, "decode_matmul_mma_kernel"),
+                      (torch.float32, "decode_matmul_kernel")):
+        for weight in ("bfloat16", "int8"):
+            x, w, scale = _dm_inputs(cuda_device, 4, 8192, 2048, weight, xdt)
+            names = _device_kernel_names(lambda: tdm.decode_matmul(x, w, scale))
+            assert len(names) == 1 and name in next(iter(names)), names
+
+
+LN_DIMS = [200, 768, 1280, 4096, 5000]  # 5000: past the warp kernel, a block a row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("rows", [1, 3, 2000])
+@pytest.mark.parametrize("D", LN_DIMS)
+def test_layer_norm_every_instance(cuda_device, D, rows, dt):
+    """The warp-per-row kernel (16-byte pieces, and element pieces for an x
+    one element off its storage) and the block-per-row kernel past D 4096:
+    within 1e-5 (fp32) or 4 bf16 ulps, one launch a call, bit-equal on
+    repeat."""
+    g = torch.Generator(device=cuda_device).manual_seed(D + rows)
+    dtype = DTYPES[dt]
+    base = (torch.randn(rows * D + 1, generator=g, device=cuda_device) * 2 + 0.5).to(dtype)
+    s = 1 + 0.2 * torch.randn(D, generator=g, device=cuda_device)
+    b = 0.2 * torch.randn(D, generator=g, device=cuda_device)
+    for x in (base[:-1].view(rows, D), base[1:].view(rows, D)):
+        before = tln.fused_layer_norm.launches
+        out = tln.fused_layer_norm(x, s, b)
+        again = tln.fused_layer_norm(x, s, b)
+        ref = tln.layer_norm_plain(x, s, b)
+        torch.cuda.synchronize()
+        assert tln.fused_layer_norm.launches == before + 2
+        assert out.dtype == dtype and out.shape == x.shape
+        assert torch.equal(out, again)
+        tol = 1e-5 if dt == "float32" else 4 * 2.0**-8 * float(ref.abs().max())
+        assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_layer_norm_is_one_kernel(cuda_device):
+    """(4, 500, 768) bf16 queues the warp-per-row kernel alone."""
+    x = torch.randn((4, 500, 768), device=cuda_device).bfloat16()
+    s, b = torch.ones(768, device=cuda_device), torch.zeros(768, device=cuda_device)
+    names = _device_kernel_names(lambda: tln.fused_layer_norm(x, s, b))
+    assert len(names) == 1 and "layer_norm_warp_kernel" in next(iter(names)), names

@@ -1,0 +1,142 @@
+"""The host-side plans of two CUDA kernels' wrappers, as pure Python.
+
+``decode_matmul._plan`` picks #14's instance (sum rows, weight columns a
+lane, vector or element loads, warps side by side along N) and how K is
+split over a thread-block cluster and the block's warps;
+``layer_norm._plan`` picks #1's instance (16-byte or element pieces, how
+many a lane holds, or a block per row). The kernels run only on the card
+(tests/test_torch_cuda.py holds them there); what they are told to do is
+checked here: every K row covered exactly once, the cluster within the
+portable limit, the vector width dividing N and the pointer's alignment,
+and an instance that the CUDA source dispatches.
+"""
+
+import pytest
+
+from ultravox_torch.ops.kernels import decode_matmul as dm
+from ultravox_torch.ops.kernels import layer_norm as ln
+
+SMS = 132  # an H100 SXM
+# Llama-3.2-1B's decoder products, ragged and small shapes, a long K
+SHAPES = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048), (2048, 128256),
+          (300, 1001), (1000, 8704), (64, 96), (1, 7), (4096, 640)]
+ROW_COUNTS = [1, 2, 3, 4, 5, 8, 9, 16, 17, 31, 32]
+
+
+def _dispatched(w_size, mma, plan) -> bool:
+    """Whether csrc/decode_matmul.cu has the instance the plan names."""
+    if not mma:
+        vec_cols = min(16 // w_size, dm.MAX_SUMS // plan.rows)
+        return (plan.rows in dm.SUM_ROWS and plan.cols in (1, vec_cols)
+                and plan.warps_n == 1)
+    if plan.rows not in dm.MMA_ROWS or plan.warps_n not in ((1, 4) if plan.vec else (1,)):
+        return False
+    if w_size == 2:
+        return plan.cols == 8
+    if plan.cols == 16:
+        return plan.rows in (8, 16)
+    return plan.cols == 8 and (plan.vec or plan.rows == 32)
+
+
+def _check_plan(M, K, N, w_size, w_ptr, mma, plan):
+    assert plan.rows >= M
+    assert 1 <= plan.cluster <= dm.MAX_CLUSTER  # the portable cluster size
+    assert plan.k_warp > 0 and plan.k_warp % dm.ROUND == 0
+    assert plan.tile == plan.warps_n * (8 if mma else 32) * plan.cols
+    if plan.vec:  # one vector a lane: N and the address allow its width
+        assert N % plan.cols == 0 and w_ptr % (plan.cols * w_size) == 0
+    if not mma:
+        assert plan.rows * plan.cols <= dm.MAX_SUMS and plan.cols * w_size <= 16
+    assert _dispatched(w_size, mma, plan), plan
+    # every K row exactly once: the runs of the cluster's ranks and each
+    # block's K parts tile [0, K) in order, and no rank is left without rows
+    parts = dm.WARPS // plan.warps_n
+    covered = []
+    for rank in range(plan.cluster):
+        starts = [(rank * parts + wk) * plan.k_warp for wk in range(parts)]
+        assert starts[0] < K, "a rank of the cluster gets no rows"
+        for r0 in starts:
+            covered.extend(range(min(K, r0), min(K, r0 + plan.k_warp)))
+    assert covered == list(range(K))
+
+
+@pytest.mark.parametrize("mma", [True, False], ids=["bf16-x", "fp32-x"])
+@pytest.mark.parametrize("w_size", [2, 1], ids=["bf16-w", "int8-w"])
+@pytest.mark.parametrize("kn", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_decode_matmul_plan_covers_k_once(kn, w_size, mma):
+    K, N = kn
+    for M in ROW_COUNTS:
+        for w_ptr in (0, 2, 8, 1 << 20):
+            if w_ptr % w_size:
+                continue
+            _check_plan(M, K, N, w_size, w_ptr, mma, dm._plan(M, K, N, w_size, w_ptr, mma, SMS))
+
+
+@pytest.mark.parametrize("warps_n", [1, 4])
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_decode_matmul_plan_takes_a_forced_shape(cluster, warps_n):
+    """A forced cluster and width (the CUDA tests sweep them) are kept as
+    far as K and the instance allow, and still cover K once."""
+    for w_size in (2, 1):
+        for M in (4, 17):
+            for mma in (True, False):
+                plan = dm._plan(M, 4096, 640, w_size, 0, mma, SMS, cluster=cluster, warps_n=warps_n)
+                assert plan.cluster == cluster
+                assert plan.warps_n == (warps_n if mma else 1)
+                _check_plan(M, 4096, 640, w_size, 0, mma, plan)
+    # K of 48 rows: 3 rounds of 16, so no more ranks than the rounds a
+    # block's K parts leave (4 warps deep: one rank)
+    plan = dm._plan(4, 48, 640, 2, 0, True, SMS, cluster=cluster, warps_n=warps_n)
+    assert plan.cluster == min(cluster, -(-3 // (dm.WARPS // warps_n)))
+    _check_plan(4, 48, 640, 2, 0, True, plan)
+
+
+@pytest.mark.parametrize("w_size,cluster,warps_n,tile", [
+    (2, 8, 1, 64),    # qkv_proj: a small N takes the 8-way split
+    (1, 8, 1, 64),    # int8 at qkv_proj: 64-column tiles, for enough blocks
+])
+def test_decode_matmul_plan_small_product(w_size, cluster, warps_n, tile):
+    plan = dm._plan(4, 2048, 3072, w_size, 0, True, SMS)
+    assert (plan.cluster, plan.warps_n, plan.tile) == (cluster, warps_n, tile)
+
+
+def test_decode_matmul_plan_large_products():
+    """A large product streams with few K splits; the lm_head's wide tiles
+    put a block's 4 warps side by side along N."""
+    gateup = dm._plan(4, 2048, 16384, 2, 0, True, SMS)
+    assert (gateup.cluster, gateup.warps_n) == (1, 1)
+    head = dm._plan(4, 2048, 128256, 2, 0, True, SMS)
+    assert (head.cluster, head.warps_n, head.tile) == (1, 4, 256)
+    head8 = dm._plan(4, 2048, 128256, 1, 0, True, SMS)
+    assert (head8.cluster, head8.warps_n, head8.cols) == (1, 4, 16)
+
+
+LN_DIMS = [1, 7, 77, 128, 200, 256, 257, 768, 1000, 1280, 3000, 4096, 4097, 5000, 56 * 1024]
+
+
+@pytest.mark.parametrize("elem_size", [4, 2], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", LN_DIMS)
+def test_layer_norm_plan_matches_d(D, elem_size):
+    """A warp a row up to D 4096, with the fewest pieces that cover D:
+    16-byte pieces where D and every pointer allow them, else elements;
+    past 4096 a block a row."""
+    aligned = (0, 4096, 8192, 12288)
+    for ptrs in (aligned, (elem_size,) + aligned[1:], aligned[:3] + (4,)):
+        vec, pieces = ln._plan(D, elem_size, ptrs)
+        if D > ln.MAX_WARP_D:
+            assert (vec, pieces) == (False, 0)
+            continue
+        per = 16 // elem_size
+        assert vec == (D % per == 0 and all(p % 16 == 0 for p in ptrs))
+        width = per if vec else 1
+        assert pieces in ln.WARP_PIECES[width]
+        assert 32 * width * pieces >= D
+        smaller = [n for n in ln.WARP_PIECES[width] if n < pieces]
+        assert not smaller or 32 * width * max(smaller) < D
+
+
+def test_layer_norm_plan_encoder_width():
+    """The encoder's 768 columns: 3 16-byte pieces a lane in bf16, 6 in fp32."""
+    assert ln._plan(768, 2, (0, 16, 32, 48)) == (True, 3)
+    assert ln._plan(768, 4, (0, 16, 32, 48)) == (True, 6)
+    assert ln._plan(768, 2, (2, 16, 32, 48)) == (False, 32)

@@ -44,18 +44,19 @@ def _np(x):
     return np.asarray(x.astype(jnp.float32))
 
 
-def _ln_inputs():
+def _ln_inputs(D=128):
     rng = np.random.default_rng(0)
-    x = rng.standard_normal((2, 128, 128)).astype(np.float32) * 2 + 0.5
-    s = (1 + 0.2 * rng.standard_normal(128)).astype(np.float32)
-    b = (0.2 * rng.standard_normal(128)).astype(np.float32)
+    x = rng.standard_normal((2, 128, D)).astype(np.float32) * 2 + 0.5
+    s = (1 + 0.2 * rng.standard_normal(D)).astype(np.float32)
+    b = (0.2 * rng.standard_normal(D)).astype(np.float32)
     return x, s, b
 
 
+@pytest.mark.parametrize("D", [128, 768])  # 768: the encoder's width
 @pytest.mark.parametrize("dt", list(DTYPES))
-def test_layer_norm_matches_pallas(dt):
+def test_layer_norm_matches_pallas(dt, D):
     tdt, jdt = DTYPES[dt]
-    x, s, b = _ln_inputs()
+    x, s, b = _ln_inputs(D)
     ref = jln.fused_layer_norm(_j(x, jdt), jnp.asarray(s), jnp.asarray(b))
     out = tln.fused_layer_norm(_t(x, tdt), _t(s, torch.float32), _t(b, torch.float32))
     assert out.dtype == tdt and out.shape == x.shape

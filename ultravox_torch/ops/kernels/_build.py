@@ -46,7 +46,7 @@ ENTRY_POINTS = {
 }
 # C signature of each entry point uv_<entry> (see the .cu sources)
 _SIGNATURES = {
-    "layer_norm": (_P, _P, _P, _P, ctypes.c_longlong, _I, _F, _I, _P),
+    "layer_norm": (_P, _P, _P, _P, ctypes.c_longlong, _I, _F, _I, _I, _I, _P),
     "ln_qkv_head": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "attention": (
         _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
@@ -76,7 +76,7 @@ _SIGNATURES = {
     ),
     "qkv_head_transpose": (_P, _P, _I, _I, _I, _I, _P),
     "decode_matmul": (
-        _P, _LL, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _LL, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "ln_matmul_gelu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "attn_out_proj": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -10,24 +10,28 @@ read from the int8 weight directly instead of from a bf16 copy of it. Like
 the reference, nothing in the port calls it yet.
 
 The wrapper takes the plain version for CPU tensors and launches the kernel
-for CUDA tensors (``decode_matmul.launches`` counts calls; a call that
-splits K launches a second kernel that adds the splits).
+for CUDA tensors: one launch per call at every shape
+(``decode_matmul.launches`` counts calls). ``_plan`` picks the kernel's
+instance and how K is split; it is pure Python, so the CPU tests hold it.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ultravox_torch.ops.kernels import _build
 
 MAX_ROWS = 32
-SUM_ROWS = (1, 4, 8, 16, 32)  # row counts the kernel keeps sums for
-MAX_SUMS = 32  # fp32 sums per lane: rows x columns
+SUM_ROWS = (1, 4, 8, 16, 32)  # row counts the fp32-x kernel keeps sums for
+MMA_ROWS = (8, 16, 32)  # rows of x the bf16-x (tensor-core) kernel pads M to
+MAX_SUMS = 32  # fp32 sums per lane on the CUDA cores: rows x columns
 W_CODES = {torch.bfloat16: 1, torch.int8: 2}  # csrc/decode_matmul.cu
-MIN_SPLIT_ROWS = 128  # rows of K a block streams at least when K is split
+WARPS = 4  # warps a block, each streaming its own run of K rows
+ROUND = 16  # K rows a warp takes per round; a warp's run is a multiple
+MAX_CLUSTER = 8  # blocks a cluster (the portable limit), splitting K
 
 
 def decode_matmul_plain(
@@ -58,20 +62,66 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _plan(M: int, K: int, N: int, w: torch.Tensor, sms: int):
-    """(sum rows, columns per lane, K splits, rows per split). A lane loads
-    its columns as one vector of at most 16 bytes and keeps at most 32 sums;
-    a ragged N or an unaligned weight falls to one column per lane. K is
-    split so that the grid fills whole waves of two blocks per SM (a last
-    wave a fraction full costs as much as a full one)."""
-    mt = next(t for t in SUM_ROWS if M <= t)
-    cpt = min(16 // w.element_size(), MAX_SUMS // mt)
-    if N % cpt or w.data_ptr() % (cpt * w.element_size()):
-        cpt = 1
-    tiles = -(-N // (32 * cpt))
-    splits = max(1, min(2 * sms // tiles, K // MIN_SPLIT_ROWS))
-    k_split = -(-K // splits)
-    return mt, cpt, -(-K // k_split), k_split
+class Plan(NamedTuple):
+    rows: int  # sum rows (at least M): 8/16/32 on the tensor cores, else 1-32
+    cols: int  # weight columns a lane holds
+    vec: bool  # whether a lane's columns load as one vector
+    warps_n: int  # warps of a block side by side along N (1 or 4); the others split K
+    tile: int  # weight columns a block (and its cluster) covers
+    cluster: int  # blocks a cluster, which split K (1 to MAX_CLUSTER)
+    k_warp: int  # K rows a warp streams (a multiple of ROUND)
+
+
+def _plan(M: int, K: int, N: int, w_size: int, w_ptr: int, mma: bool, sms: int,
+          cluster: Optional[int] = None, warps_n: Optional[int] = None) -> Plan:
+    """The kernel's instance and K split for x (M, K) times w (K, N) of
+    ``w_size``-byte elements at address ``w_ptr``. ``mma``: bf16 x (the
+    tensor-core kernel; a lane holds 8 bf16 or 16 int8 columns, 8 int8 at
+    32 rows); else fp32 x (the CUDA-core kernel; a lane holds at most 16
+    bytes and 32 sums). A ragged N or a weight address off the vector's
+    alignment loads element by element (tensor cores) or one column a lane
+    (CUDA cores). Then K is split over a cluster of up to 8 blocks and over
+    the block's warps that are not side by side along N; each warp's run of
+    K is a whole number of 16-row rounds. ``cluster`` forces the cluster
+    size (as far as K allows it), ``warps_n`` the block's warps along N
+    (where the instance has that width)."""
+    if mma:
+        rows = next(r for r in MMA_ROWS if M <= r)
+        cols = 16 // w_size if rows < 32 else 8
+        vec = N % cols == 0 and w_ptr % (cols * w_size) == 0
+        # int8 whose 128-column tiles give under 4 blocks per SM even in
+        # clusters of 8: 64-column tiles, twice the blocks
+        if vec and cols == 16 and -(-N // 128) * MAX_CLUSTER < 4 * sms:
+            cols = 8
+        warp_cols = 8 * cols
+    else:
+        rows = next(t for t in SUM_ROWS if M <= t)
+        cols = min(16 // w_size, MAX_SUMS // rows)
+        vec = N % cols == 0 and w_ptr % (cols * w_size) == 0
+        if not vec:
+            cols = 1
+        warp_cols = 32 * cols
+    rounds = -(-K // ROUND)
+    # The smallest cluster (1, 2, 4 or 8: 3, 5, 6 and 7 measured slower than
+    # 4 or 8), then the widest block (its 4 warps read one run of each
+    # weight row side by side; bf16 x with vector loads only), that gives
+    # the card 1.5 blocks per SM; else clusters of 8 one warp wide. Fewer and
+    # longer runs of K stream faster, and a cluster costs more to launch and
+    # merge the larger it is.
+    widths = (4, 1) if mma and vec else (1,)
+    if warps_n is not None and warps_n in widths:
+        widths = (warps_n,)
+    clusters = (1, 2, 4, 8) if cluster is None else (cluster,)
+    shapes = [(cl, wn) for cl in clusters for wn in widths]
+    for cl, warps_n in shapes:
+        cl = max(1, min(cl, -(-rounds // (WARPS // warps_n))))
+        tile = warps_n * warp_cols
+        if -(-N // tile) * cl * 2 >= 3 * sms:
+            break
+    parts = WARPS // warps_n
+    k_warp = ROUND * -(-rounds // (cl * parts))
+    cl = -(-K // (parts * k_warp))
+    return Plan(rows, cols, vec, warps_n, tile, cl, k_warp)
 
 
 def decode_matmul(
@@ -104,15 +154,15 @@ def decode_matmul(
         if scale.numel() != N or not scale.is_contiguous():
             raise ValueError(f"scale must be {N} contiguous values, got {tuple(scale.shape)}")
         scale_code = _build.dtype_code(scale)
-    mt, cpt, splits, k_split = _plan(M, K, N, w, _sm_count(x.device.index or 0))
+    plan = _plan(M, K, N, w.element_size(), w.data_ptr(), x.dtype == torch.bfloat16,
+                 _sm_count(x.device.index or 0))
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
     lib = _build.library("decode_matmul")
     rc = lib.uv_decode_matmul(
         _build.ptr(x), x.stride(0), _build.dtype_code(x), _build.ptr(w), W_CODES[w.dtype],
         _build.ptr(scale), scale_code, _build.ptr(out), _build.DTYPE_CODES[out_dtype],
-        _build.ptr(partial), M, K, N, mt, cpt, splits, k_split, _build.stream_ptr(x.device),
+        M, K, N, plan.rows, plan.cols, int(plan.vec), plan.warps_n, plan.cluster, plan.k_warp,
+        _build.stream_ptr(x.device),
     )
     _build.check("decode_matmul", rc)
     decode_matmul.launches += 1

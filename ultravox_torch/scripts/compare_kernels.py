@@ -1,38 +1,55 @@
-"""The split KV kernel (#8 ``decode_attention``, #11
-``segment_tail_attention``) beside an earlier build of the same kernels,
-in one process on one card.
+"""Hand-written kernels beside an earlier build of the same kernels, in one
+process on one card: the split KV kernel (#8 ``decode_attention``, #11
+``segment_tail_attention``), #14 ``decode_matmul`` and #1
+``fused_layer_norm``.
 
-    python -m ultravox_torch.scripts.compare_kv_split --baseline DIR [--out FILE]
+    python -m ultravox_torch.scripts.compare_kernels --baseline DIR [--only PART ...]
+        [--out FILE] [--sweep-splits]
 
-DIR holds an earlier ``ultravox_torch/ops/kernels/csrc``: the one-block
-kernels (their entry points take no ``splits`` argument) or an earlier
-split kernel (they do), for example
+DIR holds an earlier ``ultravox_torch/ops/kernels/csrc``, for example
 
     git archive <commit> ultravox_torch/ops/kernels/csrc | tar -x -C DIR
 
-The script builds DIR's decode_attention, segment_attention and
-paged_attention with the port's nvcc flags into DIR/build, then, in bf16:
+The script builds DIR's decode_attention, segment_attention,
+paged_attention, decode_matmul and layer_norm with the port's nvcc flags
+into DIR/build (each entry point bound with the signature its source
+declares: #8/#11 with or without the cluster size, #14 with or without the
+fp32 partials of its second kernel, #1 with or without the instance), then,
+in bf16 unless said otherwise (``--only`` picks among ``kv``,
+``decode_matmul`` and ``layer_norm``; all by default):
 
-- #8 at the flagship decode step (q (4, 32, 64) against a (4, 256, 8, 64)
-  slab with 144 keys) and at serving run (c)'s (a (4, 2048, 8, 64) slab
-  with 129-190 keys); #11 at the flagship scan step (layer 7 of a
-  (16, 4, 256, 8, 64) cache, 128 keys, a 31-slot tail with 15 written) and
-  at serving run (c)'s block (a (16, 4, 2048, 8, 64) cache, 129-190 keys,
-  an 8-slot tail with 0-7 written). Each: the current kernel against its
-  plain version and against the baseline (4 bf16 ulps of the largest
-  output), and the card ms of baseline, current, current, baseline in turn
-  (CUDA events, calls queued ahead), beside the bound over the visible
-  bytes and SDPA on the same keys (a yardstick; the port never calls it);
-- #9 ``paged_decode_attention`` and #12 ``paged_segment_tail_attention``
-  at the paged engine's shapes: current and baseline bit-equal, timed in
-  the same turns;
-- ``paged_pin_digests``: the digests of #9's and #12's outputs on
-  ``paged_pin_inputs``, for both libraries (tests/test_torch_cuda.py pins
-  them);
-- with ``--sweep-splits``, #8 and #11 at both shapes with the cluster size
-  forced to 1, 2, 4 and 8 blocks (``kv_splits`` picks 8 there), and the
+- kv: #8 at the flagship decode step (q (4, 32, 64) against a
+  (4, 256, 8, 64) slab with 144 keys) and at serving run (c)'s (a
+  (4, 2048, 8, 64) slab with 129-190 keys); #11 at the flagship scan step
+  (layer 7 of a (16, 4, 256, 8, 64) cache, 128 keys, a 31-slot tail with 15
+  written) and at serving run (c)'s block (a (16, 4, 2048, 8, 64) cache,
+  129-190 keys, an 8-slot tail with 0-7 written). Each: the current kernel
+  against its plain version and against the baseline (4 bf16 ulps of the
+  largest output), and the card ms of baseline, current, current,
+  baseline in turn (CUDA events, calls queued ahead), beside the bound over
+  the visible bytes and SDPA on the same keys (a yardstick; the port never
+  calls it); #9 ``paged_decode_attention`` and #12
+  ``paged_segment_tail_attention`` at the paged engine's shapes: current
+  and baseline bit-equal, timed in the same turns; ``paged_pin_digests``:
+  the digests of #9's and #12's outputs on ``paged_pin_inputs``, for both
+  libraries (tests/test_torch_cuda.py pins them); with ``--sweep-splits``,
+  #8 and #11 with the cluster size forced to 1, 2, 4 and 8 blocks, and the
   card's time for one tiny kernel timed the same way (``add_`` on one
-  element: the floor a launch costs back to back).
+  element: the floor a launch costs back to back);
+- decode_matmul: #14 at 4 rows (a decode step) on each Llama-3.2-1B decoder
+  product, with a bf16 weight and an int8 weight + bf16 per-channel scale,
+  on weight copies that rotate past the 50 MB L2: current and baseline
+  against the plain version, two current calls bit-equal, times in turns,
+  the bound (one read of the weight), ``torch.mm`` on the bf16 weight and,
+  for int8, ``torch._weight_int8pack_mm`` on the weight transposed once to
+  (N, K) where this PyTorch runs it on CUDA (else the error it raises);
+  with ``--sweep-splits``, the current kernel with the cluster forced to
+  1, 2, 4 and 8 blocks and the block's warps along N to 1 and 4, and
+  the cost of a call that moves almost no bytes (``_matmul_floor``);
+- layer_norm: #1 at (4, 500, 768) and (1, 500, 768) bf16 and (4, 500, 768)
+  fp32 (scale and bias fp32): current and baseline against the plain
+  version, two calls bit-equal, times in turns, the bound and
+  ``F.layer_norm`` (bf16 scale and bias for bf16 x).
 
 Prints one line per measurement and one JSON object last (also written to
 ``--out``). Needs a CUDA card and raises without one.
@@ -43,7 +60,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import functools
 import hashlib
+import itertools
 import json
 import subprocess
 from pathlib import Path
@@ -54,6 +73,8 @@ import torch.nn.functional as F
 
 from ultravox_torch.ops.kernels import _build
 from ultravox_torch.ops.kernels import decode_attention as da
+from ultravox_torch.ops.kernels import decode_matmul as dm
+from ultravox_torch.ops.kernels import layer_norm as ln
 from ultravox_torch.ops.kernels import paged_attention as pa
 from ultravox_torch.ops.kernels import segment_attention as sa
 
@@ -61,19 +82,46 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 B, H, HKV, D, L, LAYER = 4, 32, 8, 64, 16, 7
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+L2_BYTES = 50 * 2**20  # H100 L2
+# Llama-3.2-1B's decoder products (K, N), as chip_smoke.py's DECODE_PRODUCTS
+DECODE_PRODUCTS = {
+    "qkv_proj": (2048, 3072), "o_proj": (2048, 2048), "gateup_proj": (2048, 16384),
+    "down_proj": (8192, 2048), "lm_head": (2048, 128256),
+}
+LN_SHAPES = {"(4,500,768) bf16": ((4, 500, 768), torch.bfloat16),
+             "(1,500,768) bf16": ((1, 500, 768), torch.bfloat16),
+             "(4,500,768) fp32": ((4, 500, 768), torch.float32)}
+
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _LLP = ctypes.POINTER(ctypes.c_longlong)
-# the one-block-per-row interface: the current signatures without `splits`
-BASELINE_SIGNATURES = {
+# the earlier interfaces: #8/#11 one block per row (no `splits`), #14 with
+# the fp32 partials of its second kernel, #1 with no instance arguments
+OLD_SIGNATURES = {
     "decode_attention": (_P, _P, _P, _P, _LLP, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "segment_attention": (_P, _P, _P, _P, _P, _P, _LLP, _P, _P, _I,
                           _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "decode_matmul": (_P, _LL, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "layer_norm": (_P, _P, _P, _P, _LL, _I, _F, _I, _P),
 }
+BASELINE_NAMES = ("decode_attention", "segment_attention", "paged_attention", "decode_matmul",
+                  "layer_norm")
 
 
 def takes_splits(csrc: Path) -> bool:
     """Whether the baseline's #8 and #11 take the cluster size."""
     return "int splits" in (csrc / "decode_attention.cu").read_text()
+
+
+def _current_interface(csrc: Path, name: str) -> bool:
+    """Whether the baseline's ``name`` library has the current signature."""
+    text = (csrc / f"{name}.cu").read_text()
+    if name in ("decode_attention", "segment_attention"):
+        return takes_splits(csrc)
+    if name == "decode_matmul":
+        return "void* partial" not in text
+    if name == "layer_norm":
+        return "int nv" in text
+    return True
 
 
 def build_baseline(csrc: Path) -> dict:
@@ -82,7 +130,7 @@ def build_baseline(csrc: Path) -> dict:
     split = takes_splits(csrc)
     out = csrc / "build"
     out.mkdir(exist_ok=True)
-    names = ("decode_attention", "segment_attention", "paged_attention")
+    names = BASELINE_NAMES
     procs = {}
     for name in names:
         so = out / f"lib{name}.so"
@@ -96,15 +144,17 @@ def build_baseline(csrc: Path) -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the baseline {name}.cu:\n{log}")
         lib = ctypes.CDLL(str(so))
+        current = _current_interface(csrc, name)
         for entry in _build.ENTRY_POINTS.get(name, (name,)):
             fn = getattr(lib, f"uv_{entry}")
-            sig = _build._SIGNATURES[entry] if split else BASELINE_SIGNATURES.get(
+            sig = _build._SIGNATURES[entry] if current else OLD_SIGNATURES.get(
                 entry, _build._SIGNATURES[entry])
             fn.argtypes = list(sig)
             fn.restype = ctypes.c_int
         getattr(lib, f"uv_{name}_error_string").restype = ctypes.c_char_p
         getattr(lib, f"uv_{name}_error_string").argtypes = [ctypes.c_int]
         lib.takes_splits = split
+        lib.current = current
         libs[name] = lib
     return libs
 
@@ -144,6 +194,54 @@ def baseline_segment(lib, q, kc, vc, layer, lengths, tk, tv, written, window=0):
         int(window), Bq, T, Hq, Hq // Hkv, S, Ts, Dq, da.rounded_scale(Dq**-0.5, q.dtype),
         *splits, _build.dtype_code(q), _build.stream_ptr(q.device))
     _check(lib, "segment_attention", rc)
+    return out
+
+
+def _old_matmul_plan(M, K, N, w, sms):
+    """The plan of #14's earlier build (a K split over blocks adding fp32
+    partials in a second kernel): (sum rows, columns per lane, splits, K
+    rows per split)."""
+    mt = next(t for t in (1, 4, 8, 16, 32) if M <= t)
+    cpt = min(16 // w.element_size(), 32 // mt)
+    if N % cpt or w.data_ptr() % (cpt * w.element_size()):
+        cpt = 1
+    tiles = -(-N // (32 * cpt))
+    splits = max(1, min(2 * sms // tiles, K // 128))
+    k_split = -(-K // splits)
+    return mt, cpt, -(-K // k_split), k_split
+
+
+def baseline_decode_matmul(lib, x, w, scale, partial=None):
+    """The baseline #14 launch at 4 rows (bf16 out), marshalled as its
+    wrapper did; an earlier build's K splits write into ``partial``."""
+    if lib.current:
+        with baseline_library({"decode_matmul": lib}):
+            return dm.decode_matmul(x, w, scale)
+    M, K = x.shape
+    N = w.shape[1]
+    mt, cpt, splits, k_split = _old_matmul_plan(M, K, N, w, dm._sm_count(0))
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    rc = lib.uv_decode_matmul(
+        _build.ptr(x), x.stride(0), _build.dtype_code(x), _build.ptr(w), dm.W_CODES[w.dtype],
+        _build.ptr(scale), -1 if scale is None else _build.dtype_code(scale), _build.ptr(out),
+        _build.dtype_code(out), _build.ptr(partial if splits > 1 else None), M, K, N, mt, cpt,
+        splits, k_split, _build.stream_ptr(x.device))
+    _check(lib, "decode_matmul", rc)
+    return out
+
+
+def baseline_layer_norm(lib, x, s32, b32):
+    """The baseline #1 launch (fp32 scale and bias), as its wrapper did."""
+    if lib.current:
+        with baseline_library({"layer_norm": lib}):
+            return ln.fused_layer_norm(x, s32, b32)
+    out = torch.empty_like(x)
+    D = x.shape[-1]
+    rc = lib.uv_layer_norm(
+        _build.ptr(x), _build.ptr(s32), _build.ptr(b32), _build.ptr(out),
+        ctypes.c_longlong(x.numel() // D), D, ctypes.c_float(1e-5), _build.dtype_code(x),
+        _build.stream_ptr(x.device))
+    _check(lib, "layer_norm", rc)
     return out
 
 
@@ -316,13 +414,157 @@ def _paged_case(dev, g, name):
     return lambda: sa.paged_segment_tail_attention(q, kp, vp, LAYER, table, lens, tk, tv, written)
 
 
-def run(baseline: Path, sweep_splits: bool = False) -> dict:
-    if not torch.cuda.is_available():
-        raise RuntimeError("compare_kv_split needs a CUDA card")
-    dev = "cuda"
-    libs = build_baseline(baseline)
-    _build.build_all(["decode_attention", "segment_attention", "paged_attention"])
-    g = torch.Generator(device=dev).manual_seed(0)
+def _rotating(t, n_bytes=2 * L2_BYTES):
+    """t and copies of it, at least ``n_bytes`` in all, to call in turn: no
+    call finds its weight in L2, as a decode step does not."""
+    copies = [t] + [t.clone() for _ in range(-(-n_bytes // _nbytes(t)) - 1)]
+    return itertools.cycle(copies).__next__, copies
+
+
+def _int8pack(x4, w_t, sc):
+    """torch._weight_int8pack_mm on the card, or the error it raises."""
+    try:
+        out = torch._weight_int8pack_mm(x4, w_t, sc)
+        torch.cuda.synchronize()
+        return out, None
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+def compare_decode_matmul(libs, dev, g, sweep: bool) -> dict:
+    """#14 at 4 rows on every decoder product, bf16 and int8 + scale."""
+    bf = torch.bfloat16
+    lib = libs["decode_matmul"]
+    rows = {}
+    for name, (K, N) in DECODE_PRODUCTS.items():
+        w32 = 0.02 * torch.randn((K, N), generator=g, device=dev)
+        scale = (w32.abs().amax(dim=0) / 127).to(bf)
+        weights = {"bf16": (w32.to(bf), None),
+                   "int8": (torch.round(w32 / scale.float()).clamp(-127, 127).to(torch.int8),
+                            scale)}
+        del w32
+        x4 = torch.randn((4, K), generator=g, device=dev).to(bf)
+        for kind, (wk, sc) in weights.items():
+            label = f"decode_matmul {name} {kind}"
+            nxt, copies = _rotating(wk)
+            partial = torch.empty((max(1, 2 * dm._sm_count(0)), 4, N), dtype=torch.float32,
+                                  device=dev)
+            out, again = dm.decode_matmul(x4, wk, sc), dm.decode_matmul(x4, wk, sc)
+            ref = dm.decode_matmul_plain(x4, wk, sc)
+            base = baseline_decode_matmul(lib, x4, wk, sc, partial)
+            torch.cuda.synchronize()
+            row = {"max_abs_err": _err(out, ref), "tol": _tol(ref),
+                   "baseline_err": _err(base, ref), "bit_equal": torch.equal(out, again)}
+            if not (row["max_abs_err"] <= row["tol"] and row["baseline_err"] <= row["tol"]
+                    and row["bit_equal"]):
+                raise RuntimeError(f"{label}: {row}")
+            row.update(in_turns(lambda: baseline_decode_matmul(lib, x4, nxt(), sc, partial),
+                                lambda: dm.decode_matmul(x4, nxt(), sc)))
+            w_bf = wk if sc is None else (wk.to(bf) * sc).to(bf)
+            nxt_bf, bf_copies = _rotating(w_bf)
+            row["torch_mm_ms"] = time_ms(lambda: torch.mm(x4, nxt_bf()))
+            del bf_copies
+            row["bound_ms"] = (_nbytes(x4, wk) + 4 * N * 2 + (_nbytes(sc) if sc is not None
+                                                               else 0)) / HBM_BYTES_PER_S * 1e3
+            row["speedup"] = row["baseline_ms"] / row["ms"]
+            row["factor_to_torch_mm"] = row["ms"] / row["torch_mm_ms"]
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["plan"] = dm._plan(4, K, N, wk.element_size(), wk.data_ptr(), True,
+                                   dm._sm_count(0))._asdict()
+            if sc is not None:
+                w_t = wk.t().contiguous()  # (N, K), once, outside the timing
+                lib_out, err = _int8pack(x4, w_t, sc)
+                row["int8pack_error"] = err
+                if lib_out is not None:
+                    row["int8pack_err"] = _err(lib_out, ref)
+                    nxt_t, t_copies = _rotating(w_t)
+                    row["int8pack_ms"] = time_ms(lambda: torch._weight_int8pack_mm(
+                        x4, nxt_t(), sc))
+                    del t_copies
+                del w_t
+            if sweep:  # the plan's other choices, each forced in turn
+                plan = dm._plan
+                forced = {f"cluster {cs}": {"cluster": cs} for cs in (1, 2, 4, 8)}
+                forced.update({f"warps_n {wn}": {"cluster": row["plan"]["cluster"],
+                                                 "warps_n": wn} for wn in (1, 4)})
+                row["forced_ms"] = {}
+                for key, kw in forced.items():
+                    dm._plan = functools.partial(plan, **kw)
+                    try:
+                        if _err(dm.decode_matmul(x4, wk, sc), ref) > row["tol"]:
+                            raise RuntimeError(f"{label} with {key}")
+                        row["forced_ms"][key] = time_ms(lambda: dm.decode_matmul(x4, nxt(), sc))
+                    finally:
+                        dm._plan = plan
+            del copies, partial
+            rows[label] = row
+            print(f"{label}: {row['ms']:.4f} ms (baseline {row['baseline_ms']:.4f}, "
+                  f"{row['speedup']:.2f}x; torch.mm on the bf16 weight {row['torch_mm_ms']:.4f}, "
+                  f"{row['factor_to_torch_mm']:.2f}x; bound {row['bound_ms']:.5f}, "
+                  f"{100 * row['share_of_bound']:.1f}%); turns {row['turns_ms']}; "
+                  f"int8pack {row.get('int8pack_ms', row.get('int8pack_error'))}; "
+                  f"forced {row.get('forced_ms')}; plan {row['plan']}", flush=True)
+    if sweep:
+        rows["launch floor"] = _matmul_floor(dev, g)
+    return rows
+
+
+def _matmul_floor(dev, g) -> dict:
+    """What a call costs with almost no bytes: #14 at (4, 128) x (128, 64)
+    bf16 as one block (a plain launch) and as a cluster of two, torch.mm on
+    the same, and one tiny kernel (add_ on one element)."""
+    bf = torch.bfloat16
+    x = torch.randn((4, 128), generator=g, device=dev).to(bf)
+    w = torch.randn((128, 64), generator=g, device=dev).to(bf)
+    one = torch.zeros(1, device=dev)
+    row = {"torch_mm_ms": time_ms(lambda: torch.mm(x, w)),
+           "add_ms": time_ms(lambda: one.add_(1))}
+    plan = dm._plan
+    for cs in (1, 2):
+        dm._plan = functools.partial(plan, cluster=cs)
+        try:
+            row[f"cluster_{cs}_ms"] = time_ms(lambda: dm.decode_matmul(x, w))
+        finally:
+            dm._plan = plan
+    print(f"decode_matmul launch floor: {row}", flush=True)
+    return row
+
+
+def compare_layer_norm(libs, dev, g) -> dict:
+    """#1 at the encoder's shapes, beside F.layer_norm."""
+    lib = libs["layer_norm"]
+    rows = {}
+    for label, (shape, dtype) in LN_SHAPES.items():
+        D = shape[-1]
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        s = 1 + 0.1 * torch.randn((D,), generator=g, device=dev)
+        b = 0.1 * torch.randn((D,), generator=g, device=dev)
+        s_x, b_x = s.to(dtype), b.to(dtype)
+        out, again = ln.fused_layer_norm(x, s, b), ln.fused_layer_norm(x, s, b)
+        ref = ln.layer_norm_plain(x, s, b)
+        base = baseline_layer_norm(lib, x, s, b)
+        torch.cuda.synchronize()
+        tol = _tol(ref) if dtype == torch.bfloat16 else 1e-5
+        row = {"max_abs_err": _err(out, ref), "tol": tol, "baseline_err": _err(base, ref),
+               "bit_equal": torch.equal(out, again)}
+        if not (row["max_abs_err"] <= tol and row["baseline_err"] <= tol and row["bit_equal"]):
+            raise RuntimeError(f"fused_layer_norm {label}: {row}")
+        row.update(in_turns(lambda: baseline_layer_norm(lib, x, s, b),
+                            lambda: ln.fused_layer_norm(x, s, b)))
+        row["f_layer_norm_ms"] = time_ms(lambda: F.layer_norm(x, (D,), s_x, b_x, 1e-5))
+        row["bound_ms"] = _nbytes(x, s, b, out) / HBM_BYTES_PER_S * 1e3
+        row["speedup"] = row["baseline_ms"] / row["ms"]
+        row["factor_to_library"] = row["ms"] / row["f_layer_norm_ms"]
+        rows[f"fused_layer_norm {label}"] = row
+        print(f"fused_layer_norm {label}: {row['ms']:.4f} ms (baseline {row['baseline_ms']:.4f}, "
+              f"{row['speedup']:.2f}x; F.layer_norm {row['f_layer_norm_ms']:.4f}, "
+              f"{row['factor_to_library']:.2f}x; bound {row['bound_ms']:.5f}); "
+              f"turns {row['turns_ms']}; err {row['max_abs_err']:.3g} (tol {tol:.3g})", flush=True)
+    return rows
+
+
+def compare_kv(libs, dev, g, sweep_splits: bool, result: dict) -> None:
+    """#8 and #11 against the baseline, #9 and #12 bit-equal to it."""
     serving_lens = (129, 150, 171, 190)
     cases = {
         "decode_attention flagship": _decode_case(dev, g, 256, (144,) * 4),
@@ -331,7 +573,6 @@ def run(baseline: Path, sweep_splits: bool = False) -> dict:
         "segment_tail_attention serving (c)": _segment_case(dev, g, 2048, 8, serving_lens,
                                                             (0, 3, 5, 7)),
     }
-    result = {"device": torch.cuda.get_device_name(0), "cases": {}}
     for label, c in cases.items():
         out, ref, base = c["current"](), c["plain"](), c["baseline"](libs)
         torch.cuda.synchronize()
@@ -391,11 +632,32 @@ def run(baseline: Path, sweep_splits: bool = False) -> dict:
           flush=True)
     if digests != base_digests:
         raise RuntimeError(f"paged digests differ: {digests} vs {base_digests}")
+
+
+PARTS = ("kv", "decode_matmul", "layer_norm")
+
+
+def run(baseline: Path, sweep_splits: bool = False, only=PARTS) -> dict:
+    if not torch.cuda.is_available():
+        raise RuntimeError("compare_kernels needs a CUDA card")
+    dev = "cuda"
+    libs = build_baseline(baseline)
+    _build.build_all(BASELINE_NAMES)
+    g = torch.Generator(device=dev).manual_seed(0)
+    result = {"device": torch.cuda.get_device_name(0), "cases": {}}
+    if "kv" in only:
+        compare_kv(libs, dev, g, sweep_splits, result)
+    if "decode_matmul" in only:
+        result["cases"].update(compare_decode_matmul(libs, dev, g, sweep_splits))
+    if "layer_norm" in only:
+        result["cases"].update(compare_layer_norm(libs, dev, g))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     result["nvidia_smi"] = smi
     print(smi, flush=True)
     return result
+
+
 
 
 def main() -> None:
@@ -404,9 +666,11 @@ def main() -> None:
                     help="directory holding the earlier csrc sources")
     ap.add_argument("--out", type=Path, default=None, help="also write the JSON here")
     ap.add_argument("--sweep-splits", action="store_true",
-                    help="also time #8 and #11 at clusters of 1, 2, 4 and 8 blocks")
+                    help="also time #8, #11 and #14 at clusters of 1, 2, 4 and 8 blocks")
+    ap.add_argument("--only", nargs="+", choices=PARTS, default=PARTS,
+                    help="the kernels to compare (all by default)")
     args = ap.parse_args()
-    result = run(args.baseline, args.sweep_splits)
+    result = run(args.baseline, args.sweep_splits, args.only)
     line = json.dumps(result)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
