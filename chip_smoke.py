@@ -9,13 +9,13 @@ Phases, each fatal on failure:
      decode_matmul (#14, bf16 x) must hold tensor-core instructions (HMMA in
      cuobjdump's SASS; the fp32 ones none) and ptxas must report no spills
      for them (the attention kernels at head_dim 64),
-     nor for the split KV kernel of #8 and #11 (csrc/kv_split.cuh, both
-     dtypes) at head_dim 64;
+     nor for the split KV kernel (csrc/kv_split.cuh, both dtypes) at
+     head_dim 64, in its contiguous (#8, #11) and paged (#9, #12) instances;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the flagship paths give it (bf16; the decode and paged kernels
-     also in fp32, with ragged lengths, windows, page size 16, shuffled page
-     ids, sentinel entries, a pageless row, and junk in every slot a row
-     cannot see), and time kernel, plain version and, where one exists, a
+     also in fp32, with ragged lengths, windows, pages of 16 and 48, shuffled
+     page ids, sentinel entries, a pageless row, two runs bit-equal, and junk
+     in every slot a row cannot see), and time kernel, plain version and, where one exists, a
      single PyTorch call for the same function (a yardstick only; the port
      never calls it), with TF/s for the attention kernels; #4 also at a
      serving prefill chunk (64 rows at offsets 65-126 into 2048 cache slots
@@ -38,7 +38,12 @@ Phases, each fatal on failure:
      bit-equal and 1e4 in every unseen slot moving nothing; #8 and
      #11 are timed at the flagship step and at serving run (c)'s 2048-slot
      slab (129-190 keys), beside the bound, SDPA and the recorded time of
-     the one-block kernel they replace;
+     the one-block kernel they replace; the paged instances (#9, #12) at
+     lengths on the page, granule and split edges (0-257 and 1900) in pages
+     of 16, 48 and 256, head_dim 64 and 128, GQA 1/4/8, T 1 and 3, windows 0
+     and 37, each within tolerance, bit-equal twice and unmoved by junk, and
+     timed at the paged engine's shapes beside their cluster size, the
+     one-block kernel's recorded time and #8 / #11 on the same lengths;
      qkv_head_transpose is bit-equal in bf16 and fp32 at (4, 500, 2304),
      (1, 500, 2304) and a ragged T with head_dim 128, and timed at B 1 and 4;
      the three kernels no engine launches (as in the reference):
@@ -85,8 +90,9 @@ Phases, each fatal on failure:
      the segment kernel (decode_attention + segment_tail_attention). The
      launch counts are checked against the engine's own counters, and TTFT,
      throughput, the loop's dispatch and fetch time, peak memory and (for
-     the first and the third) the device's busy share are printed, with
-     #3 + #4's device time in the first and #8's and #11's in the third;
+     a traced second run of each) the device's busy share are printed, with
+     #3 + #4's device time and the split KV kernels' (#9 + #12, #9, #8 +
+     #11) time and launches; a one-block KV kernel in a trace fails;
   6. the training step of the v0.6 recipe at flagship widths (KL
      distillation, projector + audio LoRA r 8 trainable, remat, chunked
      vocabulary, flash attention in both towers) on bench.py's batch of 8 x
@@ -103,7 +109,8 @@ Phases, each fatal on failure:
      GenerationEngine (the same encoder counts per generate, TTFT, tok/s,
      weight bytes, tokens against phase 4's, and what w8a16's per-call cast
      of the int8 weight costs) and an int8 + multi-LoRA ServingEngine in
-     slots mode, then the phase's time;
+     slots mode (both serving engines traced as in phase 5), then the
+     phase's time;
   8. the encoder-attention probes' entry point
      (ultravox_torch.scripts.profile_encoder_attn) at B 8, T = S = 1500, H
      20, D 64: every attn_v2 / attn_nt variant timed beside the production
@@ -761,6 +768,9 @@ ONE_BLOCK_MS = {
 # block) edges on a 256-slot slab, a row of length 0, short rows that leave
 # ranks of the cluster empty
 EDGE_LENS = (0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 144, 255, 256)
+# #9's and #12's one-block kernel (PR 3's kv_attention.cuh) at the paged
+# engine's shapes, ms, as PERF.md records it (NVIDIA H100 80GB HBM3, 700 W)
+PAGED_ONE_BLOCK_MS = {"paged_decode_attention": 0.0595, "paged_segment_tail_attention": 0.0630}
 
 
 def _check_decode_kernels(da, sa, dev):
@@ -1054,16 +1064,21 @@ def _check_split_edges(da, sa, dev):
           f"slots moving nothing; the largest error {worst:.3g} of its tolerance", flush=True)
 
 
-def _check_paged_kernels(pa, pg, sa, dev):
+def _check_paged_kernels(pa, pg, sa, da, dev):
     """Phase 2, continued: the paged kernels at the shapes the flagship
     paged engine of phase 5 gives them: 4 slots, a pool of 32 pages of 256
     tokens, 16 layers, 8 kv heads of 64, 8 table entries per row, bf16.
     paged_decode_attention and paged_segment_tail_attention run in bf16 and
-    fp32 on ragged lengths (up to 1900), windows, page size 16, shuffled
-    page ids, sentinel entries and a pageless row of length 1, and again
-    with 1e4 in every pool slot (and tail slot) no row can see: the output
-    must not move. gather_pages must equal its plain version bit for bit.
-    The engine's shapes are then timed in bf16."""
+    fp32 on ragged lengths (up to 1900), windows, pages of 16 and 48 (not a
+    power of two), shuffled page ids, sentinel entries and a pageless row of
+    length 1, twice (bit-equal), and again with 1e4 in every pool slot (and
+    tail slot) no row can see: the output must not move. Then
+    _check_paged_split_edges. gather_pages must equal its plain version bit
+    for bit. The engine's shapes are then timed in bf16, #9 and #12 beside
+    their cluster size, the one-block kernel's recorded time and #8 / #11 on
+    the same lengths from a contiguous slab."""
+    from ultravox_torch.scripts.compare_kernels import seen_pool_slots
+
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     B, H, Hkv, D, L, layer, S = 4, 32, 8, 64, 16, 7, 2048
     scale = D**-0.5
@@ -1083,21 +1098,13 @@ def _check_paged_kernels(pa, pg, sa, dev):
                 table[b, i] = order.pop()
         return torch.from_numpy(table).to(dev)
 
-    def seen_slots(table, lens, lo, ps, P):
-        """(P, ps) bool: pool slots some row reads, keys [lo_b, n_b) through
-        the clamped table."""
-        seen = torch.zeros((P, ps), dtype=torch.bool, device=dev)
-        for b, (n, l0) in enumerate(zip(lens.tolist(), lo)):
-            j = torch.arange(max(l0, 0), n, device=dev)
-            seen[table[b, j // ps].long().clamp(max=P - 1), j % ps] = True
-        return seen
-
     def check(name, fn, plain, args, junk_at):
-        """fn(*args) against plain(*args) in bf16 and fp32, and against
-        itself with 1e4 where junk_at {arg index: bool mask} holds."""
+        """fn(*args) against plain(*args) in bf16 and fp32, twice
+        (bit-equal), and against itself with 1e4 where junk_at {arg index:
+        bool mask} holds."""
         for dtype in (torch.bfloat16, torch.float32):
             a = [x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x for x in args]
-            out, ref = fn(*a), plain(*a)
+            out, again, ref = fn(*a), fn(*a), plain(*a)
             for i, m in junk_at.items():
                 a[i] = a[i].clone()
                 a[i][m] = 1e4
@@ -1106,12 +1113,14 @@ def _check_paged_kernels(pa, pg, sa, dev):
             err = float((out.float() - ref.float()).abs().max())
             t = _bf16_tol(ref) if dtype == torch.bfloat16 else 1e-5
             print(f"check {name} {str(dtype)[6:]}: max_abs_err {err:.3g} (tol {t:.3g}); junk in "
-                  f"unseen slots moves it {float((out_j.float() - out.float()).abs().max())}",
-                  flush=True)
+                  f"unseen slots moves it {float((out_j.float() - out.float()).abs().max())}; "
+                  f"two runs bit-equal {torch.equal(out, again)}", flush=True)
             if not err <= t:
                 _fail(f"{name} ({dtype}) disagrees with its plain version: {err} > {t}")
             if not torch.equal(out, out_j) or not torch.isfinite(out).all():
                 _fail(f"{name} ({dtype}) reads slots no row can see")
+            if not torch.equal(out, again):
+                _fail(f"{name} ({dtype}): two runs differ")
 
     engine_lens = ints(129, 150, 171, 190)
     long_lens = ints(1900, 700, 256, 1)
@@ -1120,6 +1129,7 @@ def _check_paged_kernels(pa, pg, sa, dev):
         ("long+pageless", 256, 32, long_lens, 0),
         ("long+pageless+window100", 256, 32, long_lens, 100),
         ("ps16+window37", 16, 512, ints(1900, 333, 17, 1), 37),
+        ("ps48+window29", 48, 64, ints(1900, 333, 49, 1), 29),
     )
 
     # 9. paged_decode_attention: one query per row against layer 7's pool
@@ -1129,7 +1139,7 @@ def _check_paged_kernels(pa, pg, sa, dev):
         kp = torch.randn((P, ps, Hkv, D), generator=g, device=dev)
         vp = torch.randn((P, ps, Hkv, D), generator=g, device=dev)
         lo = [n - w if w else 0 for n in lens.tolist()]
-        hide = ~seen_slots(table, lens, lo, ps, P)
+        hide = ~seen_pool_slots(table, lens, lo, ps, P)
         check(f"paged_decode_attention {case}",
               lambda q, k, v, t=table, n=lens, w=w: pa.paged_decode_attention(q, k, v, t, n, w),
               lambda q, k, v, t=table, n=lens, w=w: pa.paged_decode_attention_plain(
@@ -1142,7 +1152,8 @@ def _check_paged_kernels(pa, pg, sa, dev):
     tk = torch.randn((B, Ts, Hkv, D), generator=g, device=dev)
     tv = torch.randn((B, Ts, Hkv, D), generator=g, device=dev)
     for (case, ps, P, lens, w), T, written in zip(
-        cases, (1, 3, 3, 1), (ints(0, 3, 5, 7), ints(0, 2, 5, 4), ints(5, 0, 3, 1), ints(7, 0, 3, 1))
+        cases, (1, 3, 3, 1, 3),
+        (ints(0, 3, 5, 7), ints(0, 2, 5, 4), ints(5, 0, 3, 1), ints(7, 0, 3, 1), ints(2, 5, 0, 4)),
     ):
         w = 8 if case.startswith("ps16") else w
         table = table_of(lens, ps, P, SEED + 1)
@@ -1150,7 +1161,7 @@ def _check_paged_kernels(pa, pg, sa, dev):
         vp = torch.randn((L, P, ps, Hkv, D), generator=g, device=dev)
         qs = torch.randn((B, T, H, D), generator=g, device=dev)
         lo = [n + wr - w + 1 if w else 0 for n, wr in zip(lens.tolist(), written.tolist())]
-        hide = (~seen_slots(table, lens, lo, ps, P))[None].expand(L, P, ps)
+        hide = (~seen_pool_slots(table, lens, lo, ps, P))[None].expand(L, P, ps)
         slot = torch.arange(Ts, device=dev)[None]
         hide_t = slot > (written + T - 1)[:, None]
         if w:
@@ -1162,39 +1173,47 @@ def _check_paged_kernels(pa, pg, sa, dev):
                   sa.paged_segment_tail_attention_plain(q, k, v, layer, t, n, a, b, wr, w,
                                                         scale=scale),
               [qs, kp, vp, tk, tv], {1: hide, 2: hide, 3: hide_t, 4: hide_t})
+    _check_paged_split_edges(pa, sa, dev)
 
-    # timed at the engine's shapes, bf16
+    # timed at the engine's shapes, bf16, beside #8 / #11 on the same lengths
     bf = torch.bfloat16
     P, ps = 32, 256
     table = table_of(engine_lens, ps, P, SEED)
     kp = torch.randn((L, P, ps, Hkv, D), generator=g, device=dev).to(bf)
     vp = torch.randn((L, P, ps, Hkv, D), generator=g, device=dev).to(bf)
     qb = q.to(bf)
+    written = ints(0, 3, 5, 7)
+    tkb, tvb = tk.to(bf), tv.to(bf)
+    qsb = torch.randn((B, 1, H, D), generator=g, device=dev).to(bf)
+    kc, vc = (torch.randn((L, B, S, Hkv, D), generator=g, device=dev).to(bf) for _ in range(2))
+    same_lengths = {  # #8 and #11 on a contiguous slab with the same lengths
+        "paged_decode_attention": lambda: da.decode_attention(qb, kc[layer], vc[layer],
+                                                              engine_lens),
+        "paged_segment_tail_attention": lambda: sa.segment_tail_attention(
+            qsb, kc, vc, layer, engine_lens, tkb, tvb, written),
+    }
     keys = int(engine_lens.sum())  # visible keys of all rows
     out = pa.paged_decode_attention(qb, kp[layer], vp[layer], table, engine_lens)
     ref = pa.paged_decode_attention_plain(qb, kp[layer], vp[layer], table, engine_lens, scale=scale)
     torch.cuda.synchronize()
     record(
-        "paged_decode_attention", "paged_decode_attention_kernel",
+        "paged_decode_attention", "paged_decode_attention_split_kernel",
         "ultravox_torch/ops/kernels/csrc/paged_attention.cu",
         "ultravox_tpu/ops/pallas/paged_attention.py:150", out, ref,
         lambda: pa.paged_decode_attention(qb, kp[layer], vp[layer], table, engine_lens),
         lambda: pa.paged_decode_attention_plain(qb, kp[layer], vp[layer], table, engine_lens,
                                                 scale=scale),
         None, _nbytes(qb, out, engine_lens, table) + 2 * keys * Hkv * D * 2,
-        4.0 * H * keys * D, BF16_FLOPS,
+        4.0 * H * keys * D, BF16_FLOPS, extra={"cluster": pa.kv_splits(table.shape[1] * ps)},
     )
 
-    written = ints(0, 3, 5, 7)
-    tkb, tvb = tk.to(bf), tv.to(bf)
-    qsb = torch.randn((B, 1, H, D), generator=g, device=dev).to(bf)
     out = sa.paged_segment_tail_attention(qsb, kp, vp, layer, table, engine_lens, tkb, tvb, written)
     ref = sa.paged_segment_tail_attention_plain(qsb, kp, vp, layer, table, engine_lens, tkb, tvb,
                                                 written, scale=scale)
     torch.cuda.synchronize()
     keys_t = keys + int((written + 1).sum())  # prompt keys + tail slots 0..written
     record(
-        "paged_segment_tail_attention", "paged_segment_attention_kernel",
+        "paged_segment_tail_attention", "paged_segment_attention_split_kernel",
         "ultravox_torch/ops/kernels/csrc/segment_attention.cu",
         "ultravox_tpu/ops/pallas/segment_attention.py:392", out, ref,
         lambda: sa.paged_segment_tail_attention(qsb, kp, vp, layer, table, engine_lens, tkb, tvb,
@@ -1203,7 +1222,19 @@ def _check_paged_kernels(pa, pg, sa, dev):
                                                       tvb, written, scale=scale),
         None, _nbytes(qsb, out, engine_lens, written, table) + 2 * keys_t * Hkv * D * 2,
         4.0 * H * keys_t * D, BF16_FLOPS,
+        extra={"cluster": sa.kv_splits(table.shape[1] * ps + Ts)},
     )
+    for row in rows:
+        row["contiguous_ms"] = _time_ms(same_lengths[row["name"]])
+        recorded = PAGED_ONE_BLOCK_MS[row["name"]]  # printed only: not measured in this run
+        print(f"kernel {row['name']} at the paged engine's shape: {row['ms']:.4f} ms in clusters "
+              f"of {row['cluster']}, bound {row['bound_ms']:.5f} ms "
+              f"({row['ms'] / row['bound_ms']:.1f}x); the one-block kernel "
+              f"{recorded} ms as PERF.md records it ({recorded / row['ms']:.2f}x "
+              f"this); {'#8' if 'decode' in row['name'] else '#11'} on the same lengths "
+              f"{row['contiguous_ms']:.4f} ms, so the page lookup costs "
+              f"{row['ms'] - row['contiguous_ms']:+.4f} ms", flush=True)
+    del kc, vc
 
     # 10. gather_pages: the whole pool to the (16, 4, 2048, 8, 64) views a
     # paged block reads (each row owns one page; its 7 sentinel entries copy
@@ -1226,6 +1257,76 @@ def _check_paged_kernels(pa, pg, sa, dev):
         _nbytes(ko, vo, table) + 2 * L * pages_read * page_bytes, 0.0, BF16_FLOPS,
     )
     return rows
+
+
+def _check_paged_split_edges(pa, sa, dev):
+    """Phase 2, continued: the paged instances of the split KV kernel (#9 and
+    #12) on compare_kernels.paged_edge_inputs: one row per PAGED_EDGE_LENS
+    length, in pools of pages of 16, 48 and 256 (n_per = ceil(1920 / ps),
+    clusters of 8; shuffled ids, 3 spare pages, rows of length 0 and 1 own
+    no page, sentinel entries after each row's pages), in bf16 (4 ulps of
+    max|ref|) and fp32 (1e-5), head_dim 64 and 128, GQA 1, 4 and 8, windows
+    0 and 37 (mid-page); #12 at T 1 and 3 with a 32-slot tail at layer 1 of
+    2. Each case: finite, within tolerance, two runs bit-equal, and 1e4 in
+    every pool slot no row reads (and every unseen tail slot, and all of
+    layer 0) leaves the output bit for bit; #9's row of length 0 gives 0."""
+    from ultravox_torch.scripts.compare_kernels import PAGED_EDGE_LENS, paged_edge_inputs
+
+    cases, worst = 0, 0.0
+
+    def hold(name, fn, junk_fn, plain, dtype):
+        nonlocal cases, worst
+        out, again, ref, out_j = fn(), fn(), plain(), junk_fn()
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = _bf16_tol(ref) if dtype == torch.bfloat16 else 1e-5
+        if not (err <= tol and torch.isfinite(out).all()):
+            _fail(f"paged split kernel {name}: {err} > {tol} against its plain version")
+        if not torch.equal(out, again):
+            _fail(f"paged split kernel {name}: two runs differ")
+        if not torch.equal(out, out_j):
+            _fail(f"paged split kernel {name} reads slots no query sees")
+        cases += 1
+        worst = max(worst, err / tol)
+        return out
+
+    def junk(t, hidden):
+        t = t.clone()
+        t[hidden] = 1e4
+        return t
+
+    for dtype, D, ps, G, w in itertools.product((torch.bfloat16, torch.float32), (64, 128),
+                                                (16, 48, 256), (1, 4, 8), (0, 37)):
+        tag = f"{str(dtype)[6:]} D {D} ps {ps} G {G} window {w}"
+        c = paged_edge_inputs(dev, dtype, D, G, ps, w, seed=SEED + ps)
+        q, kp, vp, table, lens = c["q"], c["kp"][1], c["vp"][1], c["table"], c["lens"]
+        jk, jv = junk(kp, c["hidden"]), junk(vp, c["hidden"])
+        out = hold(f"paged_decode_attention {tag}",
+                   lambda: pa.paged_decode_attention(q, kp, vp, table, lens, w),
+                   lambda: pa.paged_decode_attention(q, jk, jv, table, lens, w),
+                   lambda: pa.paged_decode_attention_plain(q, kp, vp, table, lens, w,
+                                                           scale=D**-0.5), dtype)
+        if out[0].any():
+            _fail("paged split kernel paged_decode_attention: a row of length 0 is not 0")
+        for T in (1, 3):
+            c = paged_edge_inputs(dev, dtype, D, G, ps, w, T=T, seed=SEED + ps + T)
+            qs, kp, vp, table, lens = c["q"], c["kp"], c["vp"], c["table"], c["lens"]
+            tk, tv, wr, hidden_t = c["tk"], c["tv"], c["written"], c["hidden_tail"]
+            jkp, jvp = kp.clone(), vp.clone()
+            jkp[1][c["hidden"]], jvp[1][c["hidden"]] = 1e4, 1e4
+            jkp[0], jvp[0] = 1e4, 1e4  # another layer
+            jtk, jtv = junk(tk, hidden_t), junk(tv, hidden_t)
+            hold(f"paged_segment_tail_attention {tag} T {T}",
+                 lambda: sa.paged_segment_tail_attention(qs, kp, vp, 1, table, lens, tk, tv, wr, w),
+                 lambda: sa.paged_segment_tail_attention(qs, jkp, jvp, 1, table, lens, jtk, jtv,
+                                                         wr, w),
+                 lambda: sa.paged_segment_tail_attention_plain(qs, kp, vp, 1, table, lens, tk, tv,
+                                                               wr, w, scale=D**-0.5),
+                 dtype)
+    print(f"check paged split kernel: {cases} cases of #9 and #12 at lengths "
+          f"{list(PAGED_EDGE_LENS)} (bf16/fp32, D 64/128, pages of 16/48/256, G 1/4/8, T 1/3, "
+          f"windows 0/37) within tolerance, two runs bit-equal, junk in unseen slots moving "
+          f"nothing; the largest error {worst:.3g} of its tolerance", flush=True)
 
 
 # library: (its bf16 tensor-core kernels, instantiations of each, a name
@@ -1294,19 +1395,23 @@ def _check_mma_build(_build, name, info):
 
 def _check_split_build(built):
     """Phase 1, continued: ptxas reports no spills for the split KV kernel's
-    head_dim 64 instantiations (bf16 and fp32) in decode_attention (#8) and
-    segment_attention (#11)."""
+    head_dim 64 instantiations (bf16 and fp32): the contiguous ones in
+    decode_attention (#8) and segment_attention (#11), the paged ones in
+    paged_attention (#9) and segment_attention (#12)."""
     for name, kernel in (("decode_attention", "decode_attention_split_kernel"),
-                         ("segment_attention", "segment_attention_split_kernel")):
+                         ("segment_attention", "segment_attention_split_kernel"),
+                         ("paged_attention", "paged_decode_attention_split_kernel"),
+                         ("segment_attention", "paged_segment_attention_split_kernel")):
         log = built[name]["ptxas"]
         if not log:
             print(f"ptxas {name}: library already built, no report to check", flush=True)
             continue
+        mangled = f"_Z{len(kernel)}{kernel}I"  # this __global__'s instances, no other's
         spills, regs, fn = {}, {}, None
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 fn = line.split("'")[1]
-            elif fn is not None and kernel in fn and "Li64E" in fn:
+            elif fn is not None and fn.startswith(mangled) and "Li64E" in fn:
                 if "spill stores" in line:
                     spills[fn] = (int(line.split("bytes spill stores")[0].split(",")[-1]),
                                   int(line.split("bytes spill loads")[0].split(",")[-1]))
@@ -1319,17 +1424,24 @@ def _check_split_build(built):
 
 
 def _one_block_kv_kernels(keys):
-    """Names of #8's and #11's one-block kernels (replaced by the split
-    kernel) among trace keys; the paged kernels' names do not match."""
-    return [k for k in keys if re.search(r"\b(decode|segment)_attention_kernel<", k)]
+    """Names of the one-block KV kernels that the split kernel replaced
+    (#8's, #11's, and #9's and #12's paged ones) among trace keys."""
+    return [k for k in keys
+            if re.search(r"(?<![A-Za-z_])(paged_)?(decode|segment)_attention_kernel(?![a-z_])", k)]
+
+
+SPLIT_KERNELS = ("decode_attention_split_kernel", "segment_attention_split_kernel",
+                 "paged_decode_attention_split_kernel", "paged_segment_attention_split_kernel")
 
 
 def _split_kernel_ms(evs, label):
-    """Print (and return) the device ms and launches of #8's and #11's
-    split kernels among profiler events; fail if a one-block kernel ran."""
+    """Print (and return) the device ms and launches of the split KV
+    kernels (#8, #11, #9, #12) among profiler events; fail if a one-block
+    kernel ran."""
     out = {}
-    for kernel in ("decode_attention_split_kernel", "segment_attention_split_kernel"):
-        mine = [e for e in evs if kernel in e.key]
+    for kernel in SPLIT_KERNELS:
+        # this kernel's name, not inside another's ("paged_" + it)
+        mine = [e for e in evs if re.search(rf"(?<![A-Za-z_]){kernel}(?![a-z_])", e.key)]
         out[kernel] = (sum(e.self_device_time_total for e in mine) / 1e3,
                        sum(e.count for e in mine))
         print(f"  {label}: {kernel} {out[kernel][0]:.3f} ms in {out[kernel][1]} launches",
@@ -2288,7 +2400,7 @@ def main() -> None:
     # 2. kernels against their plain versions
     _check_attention(fa, eap, dev)
     rows = (_check_kernels(fa, ln_mod, dev) + _check_decode_kernels(da, sa, dev)
-            + _check_paged_kernels(pa, pg, sa, dev) + _check_flash(fl, dev)
+            + _check_paged_kernels(pa, pg, sa, da, dev) + _check_flash(fl, dev)
             + _check_unwired_kernels(fa, dm, dev))
 
     # 3. small end-to-end parity
@@ -2483,10 +2595,12 @@ def _serving_main_path(engine, cfg, counters, per_call, dev):
         fused_attention = 16 x prefill chunks,
         each encoder kernel = its per-call count of phase 4 x admissions.
 
-    Returns (metrics per engine, launches of the new kernels)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    Each engine then serves 8 other prompts under torch.profiler: the
+    device's busy share, #3 + #4's time, and the split KV kernels' time and
+    launches (#9 + #12 in (a), #9 in (b), #8 + #11 in (c)); a one-block KV
+    kernel in the trace fails the run.
 
+    Returns (metrics per engine, launches of the new kernels)."""
     import inspect
 
     from ultravox_torch.inference.serving.engine import ServingEngine
@@ -2547,32 +2661,9 @@ def _serving_main_path(engine, cfg, counters, per_call, dev):
                                    srv.stat_prefill_chunks)
             dispatch_s, fetch_s = srv.stat_dispatch_s, srv.stat_fetch_wait_s
             _check_pages(srv, label)
-            busy = split_ms = None
-            if label in ("paged+kernel", "slots+kernel"):
-                # a second, traced run of other prompts: the device's busy share
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    t1 = time.perf_counter()
-                    _serve(srv, [_row(dict(batch, input_ids=batch["input_ids"][::-1].copy()), i)
-                                 for i in range(n_req)], new_tokens)
-                    torch.cuda.synchronize()
-                    traced = time.perf_counter() - t1
-                evs = [e for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-                busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
-                busy = busy_ms / (traced * 1e3)
-                print(f"serving {label} profile: device busy {busy_ms:.3f} ms of {traced * 1e3:.3f} "
-                      f"ms traced ({100 * busy:.1f}% busy)", flush=True)
-                for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:12]:
-                    print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
-                          f"{e.key[:90]}", flush=True)
-                # #3 and #4 launch one kernel (attention.cu's bf16 instantiation)
-                attn = [e for e in evs if "attention_mma_kernel" in e.key]
-                attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
-                print(f"serving {label} profile: #3 + #4 (attention_mma_kernel) {attn_ms:.3f} ms "
-                      f"in {sum(e.count for e in attn)} launches, of {busy_ms:.3f} ms busy",
-                      flush=True)
-                # #8 and #11 (the slots engine) launch the split kernel
-                split_ms = {k: v[0] for k, v in _split_kernel_ms(evs, f"serving {label}").items()}
+            # a second, traced run of other prompts: the device's busy share
+            trace = _traced_serve(srv, [_row(dict(batch, input_ids=batch["input_ids"][::-1].copy()),
+                                             i) for i in range(n_req)], new_tokens, f"serving {label}")
         finally:
             srv.stop()
         del srv
@@ -2595,10 +2686,7 @@ def _serving_main_path(engine, cfg, counters, per_call, dev):
             "output_tok_s": n_req * new_tokens / wall, "wall_ms": wall * 1e3,
             "stat_dispatch_s": dispatch_s, "stat_fetch_wait_s": fetch_s, "peak_memory_gb": peak,
             "decode_dispatches": disp, "single_steps": singles, "blocks": blocks,
-            "prefill_chunks": chunks, "device_busy_share": busy,
-            "device_busy_ms": busy_ms if busy is not None else None,
-            "attention_kernel_ms": attn_ms if busy is not None else None,
-            "split_kernel_ms": split_ms,
+            "prefill_chunks": chunks, **trace,
             "tokens_equal_to_generate": agree,
             "first_tokens_equal_to_generate": sum(ids[0] == r[0] for (ids, _, _), r in zip(out, ref)),
         }
@@ -2617,6 +2705,38 @@ def _serving_main_path(engine, cfg, counters, per_call, dev):
         print(f"serving {label}: {same} of {n_req * new_tokens} tokens equal to paged+kernel's",
               flush=True)
     return metrics, new_launches
+
+
+def _traced_serve(srv, requests, new_tokens, label, loras=None) -> dict:
+    """Serve ``requests`` under torch.profiler: print the device's busy
+    share of the traced wall, the top kernels, #3 + #4's time and the split
+    KV kernels' time and launches (failing on a one-block KV kernel), and
+    return them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        _serve(srv, requests, new_tokens, loras)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t1
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    busy = busy_ms / (traced * 1e3)
+    print(f"{label} profile: device busy {busy_ms:.3f} ms of {traced * 1e3:.3f} ms traced "
+          f"({100 * busy:.1f}% busy)", flush=True)
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}", flush=True)
+    # #3 and #4 launch one kernel (attention.cu's bf16 instantiation)
+    attn = [e for e in evs if "attention_mma_kernel" in e.key]
+    attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
+    print(f"{label} profile: #3 + #4 (attention_mma_kernel) {attn_ms:.3f} ms in "
+          f"{sum(e.count for e in attn)} launches, of {busy_ms:.3f} ms busy", flush=True)
+    split = _split_kernel_ms(evs, label)
+    return {"device_busy_share": busy, "device_busy_ms": busy_ms, "attention_kernel_ms": attn_ms,
+            "split_kernel_ms": {k: v[0] for k, v in split.items()},
+            "split_kernel_launches": {k: v[1] for k, v in split.items()}}
 
 
 def _lora_int8_main_path(tc, uv, cfg, counters, ref_batch, ref_ids, wbytes_bf16, dev):
@@ -2702,6 +2822,10 @@ def _lora_int8_main_path(tc, uv, cfg, counters, ref_batch, ref_ids, wbytes_bf16,
             dispatch_s, fetch_s = srv.stat_dispatch_s, srv.stat_fetch_wait_s
             reused = srv.reused_prefix_tokens
             _check_pages(srv, label)
+            # a second, traced run of other prompts on the same adapters
+            other = dict(ref_batch, input_ids=ref_batch["input_ids"][::-1].copy())
+            trace = _traced_serve(srv, [_row(other, i) for i in range(n_rows)] * 2, new_tokens,
+                                  f"serving {label}", names)
         finally:
             srv.stop()
         del srv
@@ -2727,6 +2851,7 @@ def _lora_int8_main_path(tc, uv, cfg, counters, ref_batch, ref_ids, wbytes_bf16,
             "decode_dispatches": disp, "single_steps": singles, "blocks": blocks,
             "prefill_chunks": chunks, "reused_prefix_tokens": reused,
             "tokens_moved_by_adapter": moved, "base_tokens_equal_to_phase4_generate": base_eq,
+            **trace,
         }
         print(f"serving {label}: {n_req} requests x {new_tokens} tokens in {wall * 1e3:.3f} ms "
               f"({n_req * new_tokens / wall:.2f} tok/s); TTFT p50 {np.median(ttft):.3f} ms, max "

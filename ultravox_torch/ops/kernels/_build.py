@@ -62,11 +62,11 @@ _SIGNATURES = {
     ),
     "paged_segment_attention": (
         _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _P, _P, _P, _I,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
     ),
     "paged_attention": (
         _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _P, _P, _I,
-        _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+        _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P,
     ),
     "paged_gather": (_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P),
     "flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P),

@@ -22,7 +22,7 @@
 // flagship decode shape that is 8 x 8 x 4 = 256 blocks on 132 SMs.
 #include "kv_split.cuh"
 
-UV_KV_SPLIT_KERNEL(decode_attention_split_kernel)
+UV_KV_SPLIT_KERNEL(decode_attention_split_kernel, false)
 
 // strides: 5 element strides: q (batch, head), cache (batch, seq, head); k
 // and v share them, and the head dimension is contiguous. lengths: (B,)
@@ -34,7 +34,7 @@ UV_EXPORT int uv_decode_attention(const void* q, const void* k, const void* v, v
                                   int B, int H, int G, int S, int D, float scale, int splits,
                                   int dtype, void* stream) {
   if (B <= 0 || H <= 0 || G <= 0 || H % G || S <= 0) return cudaErrorInvalidValue;
-  kvattn::Params p = {};
+  kvsplit::Params p = {};
   p.q = q, p.o = o, p.k = k, p.v = v;
   p.q_b = strides[0], p.q_h = strides[1];
   p.o_b = static_cast<long long>(H) * D, p.o_h = D;

@@ -1,9 +1,18 @@
-// Attention of a few queries per row against a contiguous KV cache (and an
-// optional carried tail), with the keys of each row split across a thread
-// block cluster. The kernel of decode_attention.cu (#8) and of
-// segment_attention.cu's uv_segment_attention (#11); each wraps `attend` in
-// its own __global__, so a trace tells them apart. The paged kernels (#9,
-// #12) keep kv_attention.cuh.
+// Attention of a few queries per row against a KV cache (and an optional
+// carried tail), with the keys of each row split across a thread block
+// cluster. The kernel of all four KV attention functions, each wrapped in
+// its own __global__ so a trace tells them apart:
+//   decode_attention.cu                   #8  contiguous cache, one query
+//   segment_attention.cu                  #11 contiguous cache + tail
+//   paged_attention.cu                    #9  paged pool, one query
+//   segment_attention.cu (second entry)   #12 paged pool + tail
+//
+// The cache is contiguous per row (key j of row b at b * c_b + j * c_s) or,
+// with Paged, a pool of pages: key j of row b sits in page
+// min(max(table[b, j / page_size], 0), num_pages - 1) at row j % page_size
+// (page stride c_p, layer stride c_l), so a sentinel (unallocated) id reads
+// finite pool data and never faults. Paged is a template parameter: the
+// contiguous instances hold no page arithmetic.
 //
 // Bound on the card: bytes, and at decode sizes latency. A row reads its
 // visible keys and values once (~1 flop per byte in bf16), a few hundred KB
@@ -28,7 +37,12 @@
 //      into registers (a D = 64 bf16 row is 8 lanes, so one warp instruction
 //      reads 4 keys); kUnroll key steps are in flight together. A key's row
 //      offset is computed once, with no division per element.
-//   4. The LK lanes of a key each hold V of the D dims of every column's
+//   4. Paged rows: each lane group's page-table entries for the NEXT step
+//      load together with this step's K/V, so no K/V load waits on the
+//      table, and the page of key j is j / page_size by a host-computed
+//      multiply-high divisor (any page size, no integer division). The
+//      lanes of a key share one entry (one load of the same address).
+//   5. The LK lanes of a key each hold V of the D dims of every column's
 //      scaled query, so every column of the chunk uses each K load;
 //      log2(LK) shuffles finish each logit, and PV runs from the same
 //      registers. The key groups of a warp share one running max (a few
@@ -42,8 +56,9 @@
 // 1 flop per byte. fp32 runs the same code (4 floats per 16-byte load).
 //
 // Arithmetic, as the TPU kernels (ops/pallas/decode_attention.py:
-// _decode_kernel, ops/pallas/segment_attention.py:_seg_kernel) and
-// kv_attention.cuh: q is multiplied by the scale in q's dtype; logits are
+// _decode_kernel, ops/pallas/paged_attention.py:_paged_decode_kernel,
+// ops/pallas/segment_attention.py:_seg_kernel and _paged_seg_kernel): q is
+// multiplied by the scale in q's dtype; logits are
 // fp32 dot products; hidden keys get NEG_INF and probability 0; the exp is
 // natural; the probabilities stay fp32 into PV; the output is
 // acc / max(z, 1e-30) in q's dtype. A key past a row's length is never read.
@@ -53,7 +68,6 @@
 #include <math.h>
 
 #include "common.cuh"
-#include "kv_attention.cuh"  // kvattn::Params, kvattn::kNegInf
 
 namespace kvsplit {
 
@@ -64,6 +78,50 @@ constexpr int kUnroll = 2;     // key steps whose loads are in flight together
 constexpr int kGranule = 16;   // a rank's share of keys is a multiple of this
 constexpr int kMaxSplits = 8;  // the portable cluster size
 constexpr unsigned kFull = 0xffffffffu;
+
+constexpr float kNegInf = -0.7f * 3.402823466e38f;  // finite mask value
+
+struct Params {
+  const void* q;  // (B, T, H, D) at strides q_b, q_t, q_h
+  void* o;        // (B, T, H, D) at strides o_b, o_t, o_h
+  const void* k;  // cache: (L, B, S, Hkv, D) at strides c_l, c_b, c_s, c_h
+  const void* v;  //   (v shares k's strides)
+  const void* tk; // tail (B, Ts, Hkv, D) at strides t_b, t_s, t_h, or null
+  const void* tv;
+  long long q_b, q_t, q_h, o_b, o_t, o_h;
+  long long c_l, c_b, c_s, c_h, t_b, t_s, t_h;
+  const int* lengths;  // (B,) valid cache entries
+  const int* written;  // (B,) tail slots filled before these queries, or null
+  // paged cache: (B, n_per) int32 page ids; the cache strides are then
+  // layer c_l, page c_p, row in page c_s, head c_h (c_b unused)
+  const int* table;
+  long long c_p;
+  int n_per, page_size, num_pages;
+  unsigned ps_magic;  // j / page_size = (umulhi(j, ps_magic) + j) >> ps_shift
+  int ps_shift;
+  int layer, window, T, G, S, Ts;
+  // 1: the query sits at position n - 1 (lengths count it, decode);
+  // 0: query t sits at n + written + t (segmented decode, after the prompt)
+  int decode;
+  float scale;  // already rounded to the input dtype
+};
+
+// page_size d and its multiply-high divisor, on the host: page_div(p, j) is
+// j / d for every 0 <= j < 2^31, with s = ceil(log2 d) and
+// magic = floor(2^32 (2^s - d) / d) + 1 (it fits in 32 bits).
+inline void set_page_size(Params& p, int d) {
+  int s = 0;
+  while ((1u << s) < static_cast<unsigned>(d)) ++s;
+  const unsigned long long one = 1;
+  p.page_size = d;
+  p.ps_shift = s;
+  p.ps_magic = static_cast<unsigned>(((one << 32) * ((one << s) - d)) / d + 1);
+}
+
+__device__ __forceinline__ int page_div(const Params& p, int j) {
+  const unsigned u = static_cast<unsigned>(j);
+  return static_cast<int>((__umulhi(u, p.ps_magic) + u) >> p.ps_shift);
+}
 
 template <typename T, int D>
 struct Shape {
@@ -88,12 +146,11 @@ __device__ __forceinline__ void widen(const uint4& u, float (&f)[4]) {  // 4 fp3
   f[2] = __uint_as_float(u.z), f[3] = __uint_as_float(u.w);
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void attend(const kvattn::Params& p) {
+template <typename T, int D, bool Paged>
+__device__ __forceinline__ void attend(const Params& p) {
   using Sh = Shape<T, D>;
   constexpr int V = Sh::V, LK = Sh::LK, KW = Sh::KW, CM = Sh::CM;
   constexpr int STEP = kWarps * KW;  // keys of one block step
-  constexpr float kNegInf = kvattn::kNegInf;
   __shared__ float Wm[kWarps][CM], Wz[kWarps][CM];  // each warp's partial
   __shared__ float Wacc[kWarps][CM * D];
   __shared__ float Bm[CM], Bz[CM];  // this block's partial, read by every rank
@@ -148,7 +205,8 @@ __device__ __forceinline__ void attend(const kvattn::Params& p) {
   const int share = ((N + ns - 1) / ns + kGranule - 1) / kGranule * kGranule;
   const int k_begin = min(rank * share, N), k_end = min(k_begin + share, N);
 
-  const long long cbase = p.layer * p.c_l + b * p.c_b + hk * p.c_h + li * V;
+  const long long cbase =
+      p.layer * p.c_l + (Paged ? 0 : b * p.c_b) + hk * p.c_h + li * V;  // paged: page 0
   const T* kc = static_cast<const T*>(p.k) + cbase;
   const T* vc = static_cast<const T*>(p.v) + cbase;
   const long long tbase = b * p.t_b + hk * p.t_h + li * V;
@@ -163,6 +221,25 @@ __device__ __forceinline__ void attend(const kvattn::Params& p) {
     for (int e = 0; e < V; ++e) acc[c][e] = 0.f;
   }
 
+  // paged: the table entry (pg) and row in page (pr) of the cache key that
+  // lane group grp reads at key step u, one step ahead of the K/V loads
+  const int* tb = Paged ? p.table + static_cast<long long>(b) * p.n_per : nullptr;
+  const int c_end = min(nC, k_end);
+  int pg[kUnroll], pr[kUnroll];
+  auto lookup = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = k0 + u * STEP + grp;
+      pg[u] = pr[u] = 0;
+      if (i < c_end) {
+        const int j = lo + i, t = page_div(p, j);
+        pr[u] = j - t * p.page_size;
+        pg[u] = __ldg(tb + t);
+      }
+    }
+  };
+  if constexpr (Paged) lookup(k_begin + warp * KW);
+
   // warp-uniform loop: lane group grp reads key k0 + u * STEP + grp
   for (int k0 = k_begin + warp * KW; k0 < k_end; k0 += kUnroll * STEP) {
     uint4 kr[kUnroll], vr[kUnroll];
@@ -175,13 +252,20 @@ __device__ __forceinline__ void attend(const kvattn::Params& p) {
       const int j = cache ? lo + i : lo_t + (i - nC);  // cache row or tail slot
       in[u] = i < k_end;
       pos[u] = cache ? j : n + j;
-      const long long off = static_cast<long long>(j) * (cache ? p.c_s : p.t_s);
+      long long off;
+      if constexpr (Paged) {
+        const int page = min(max(pg[u], 0), p.num_pages - 1);
+        off = cache ? page * p.c_p + pr[u] * p.c_s : static_cast<long long>(j) * p.t_s;
+      } else {
+        off = static_cast<long long>(j) * (cache ? p.c_s : p.t_s);
+      }
       kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
       if (in[u]) {
         kr[u] = __ldg(reinterpret_cast<const uint4*>((cache ? kc : kt) + off));
         vr[u] = __ldg(reinterpret_cast<const uint4*>((cache ? vc : vt) + off));
       }
     }
+    if constexpr (Paged) lookup(k0 + kUnroll * STEP);  // the next step's pages
     // logits: this lane's V-term partial dot products, summed over the LK lanes
     float s[kUnroll][CM];
 #pragma unroll
@@ -312,7 +396,7 @@ __device__ __forceinline__ void attend(const kvattn::Params& p) {
 // Launch the (T, D) instance `kernel` over (NS * Hkv, B, column chunks) in
 // clusters of NS blocks.
 template <typename T, int D>
-inline int launch(void (*kernel)(kvattn::Params), const kvattn::Params& p, int B, int Hkv,
+inline int launch(void (*kernel)(Params), const Params& p, int B, int Hkv,
                   int ns, cudaStream_t s) {
   constexpr int CM = Shape<T, D>::CM;
   cudaLaunchConfig_t cfg = {};
@@ -332,15 +416,15 @@ inline int launch(void (*kernel)(kvattn::Params), const kvattn::Params& p, int B
 
 }  // namespace kvsplit
 
-// Instantiate a __global__ wrapper of kvsplit::attend named NAME, and
-// NAME_dispatch(dtype, D, ...) that launches its (dtype, head dim) instance
-// in clusters of ns blocks (1 <= ns <= 8).
-#define UV_KV_SPLIT_KERNEL(NAME)                                                         \
+// Instantiate a __global__ wrapper of kvsplit::attend named NAME (PAGED:
+// true for a paged pool), and NAME_dispatch(dtype, D, ...) that launches its
+// (dtype, head dim) instance in clusters of ns blocks (1 <= ns <= 8).
+#define UV_KV_SPLIT_KERNEL(NAME, PAGED)                                                  \
   template <typename T, int D>                                                           \
-  __global__ void __launch_bounds__(kvsplit::kThreads) NAME(const kvattn::Params p) {    \
-    kvsplit::attend<T, D>(p);                                                            \
+  __global__ void __launch_bounds__(kvsplit::kThreads) NAME(const kvsplit::Params p) {   \
+    kvsplit::attend<T, D, PAGED>(p);                                                     \
   }                                                                                      \
-  static int NAME##_dispatch(int dtype, int D, const kvattn::Params& p, int B, int Hkv,  \
+  static int NAME##_dispatch(int dtype, int D, const kvsplit::Params& p, int B, int Hkv, \
                              int ns, cudaStream_t s) {                                   \
     if (ns < 1 || ns > kvsplit::kMaxSplits) return cudaErrorInvalidValue;                \
     if (dtype == UV_F32 && D == 64)                                                      \

@@ -6,9 +6,11 @@ keys in [max(n - window, 0), n) (all of [0, n) when window <= 0), GQA. The
 wrapper takes its plain version for CPU tensors and launches the kernel for
 CUDA tensors; ``decode_attention.launches`` counts kernel launches.
 
-The kernel (``csrc/kv_split.cuh``, shared with ``segment_tail_attention``)
-splits each row's visible keys across a cluster of ``kv_splits(S)`` blocks
-and merges their partial softmax states in rank order.
+The kernel (``csrc/kv_split.cuh``, shared with ``segment_tail_attention``
+and, in its paged instances, with ``paged_decode_attention`` and
+``paged_segment_tail_attention``) splits each row's visible keys across a
+cluster of ``kv_splits(S)`` blocks and merges their partial softmax states
+in rank order.
 ``split_softmax_plain`` emulates that split and merge in plain PyTorch; the
 tests hold it against the TPU kernels.
 """

@@ -5,22 +5,32 @@ version.
 paged_attention.py:paged_decode_attention``: one query per row against one
 layer's (P, page_size, Hkv, D) pool through a (B, n_per) int32 page table,
 keys in [max(n - window, 0), n) (all of [0, n) when window <= 0), GQA. Page
-ids clamp to P - 1, so sentinel entries read finite pool data. The wrapper
-takes its plain version for CPU tensors and launches the kernel for CUDA
-tensors; ``paged_decode_attention.launches`` counts kernel launches.
+ids clamp to [0, P - 1], so sentinel entries read finite pool data. The
+wrapper takes its plain version for CPU tensors and launches the kernel for
+CUDA tensors; ``paged_decode_attention.launches`` counts kernel launches.
+
+On the card the kernel is bound by its chain of dependent loads, not by
+bytes: it is the paged instance of ``decode_attention``'s split kernel
+(``csrc/kv_split.cuh``), a cluster of ``kv_splits(n_per * page_size)``
+blocks per row and kv head, with each key step's page ids loaded a step
+ahead of its K/V so no load waits on the table. The plain version with
+``softmax=split_softmax_plain`` emulates its split and merge.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from ultravox_torch.ops.kernels import _build
 from ultravox_torch.ops.kernels.decode_attention import (
     HEAD_DIMS,
+    check_kv_aligned,
     decode_attention_plain,
+    kv_splits,
+    online_softmax_plain,
     rounded_scale,
 )
 
@@ -44,12 +54,13 @@ def paged_decode_attention_plain(
     window: int = 0,
     *,
     scale: float,
+    softmax: Callable = online_softmax_plain,
 ) -> torch.Tensor:
     """Plain PyTorch: the clamped page gather, then the kernel arithmetic
-    (``decode_attention_plain``). Returns (B, H, D)."""
+    (``decode_attention_plain``, ``softmax`` as its). Returns (B, H, D)."""
     k = gather_pages_plain(k_pool, page_table)
     v = gather_pages_plain(v_pool, page_table)
-    return decode_attention_plain(q, k, v, lengths, window, scale=scale)
+    return decode_attention_plain(q, k, v, lengths, window, scale=scale, softmax=softmax)
 
 
 def paged_decode_attention(
@@ -90,13 +101,15 @@ def paged_decode_attention(
             raise TypeError(f"{name} must be a contiguous int32 tensor")
     if lengths.shape != (B,):
         raise ValueError(f"lengths must be ({B},)")
+    check_kv_aligned("paged_decode_attention", k_pool, v_pool)
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 5)(q.stride(0), q.stride(1), *k_pool.stride()[:3])
     lib = _build.library("paged_attention")
     rc = lib.uv_paged_attention(
         _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool), _build.ptr(out), strides,
         _build.ptr(page_table), _build.ptr(lengths), int(window), B, H, H // Hkv, n_per, ps, P,
-        D, rounded_scale(scale, q.dtype), _build.dtype_code(q), _build.stream_ptr(q.device),
+        D, rounded_scale(scale, q.dtype), kv_splits(n_per * ps), _build.dtype_code(q),
+        _build.stream_ptr(q.device),
     )
     _build.check("paged_attention", rc)
     paged_decode_attention.launches += 1

@@ -14,8 +14,15 @@ q_abs = n + written + t (n = ``lengths[b]``):
 ``paged_segment_tail_attention`` replaces ``segment_attention.py:
 paged_segment_tail_attention``: the same with the prompt segment in the
 stacked (L, P, page_size, Hkv, D) pool at ``layer``, through a (B, n_per)
-int32 page table whose ids clamp to P - 1. Its kernel is a second
-``__global__`` of the same source.
+int32 page table whose ids clamp to [0, P - 1].
+
+On the card both are bound by their chain of dependent loads, not by bytes.
+Both run ``csrc/kv_split.cuh``'s kernel, each as its own ``__global__`` of
+``csrc/segment_attention.cu``: a cluster of ``kv_splits(S + Ts)`` blocks
+(``kv_splits(n_per * page_size + Ts)`` paged) splits each row's visible
+keys, and the paged instance loads each key step's page ids a step ahead of
+its K/V so no load waits on the table. The plain versions with
+``softmax=split_softmax_plain`` emulate the split and merge.
 
 Each wrapper takes its plain version for CPU tensors and launches its kernel
 for CUDA tensors; ``<wrapper>.launches`` counts kernel launches.
@@ -159,13 +166,15 @@ def paged_segment_tail_attention_plain(
     window: int = 0,
     *,
     scale: float,
+    softmax: Callable = online_softmax_plain,
 ) -> torch.Tensor:
     """Plain PyTorch: the clamped page gather of ``layer``, then
-    ``segment_tail_attention_plain``. Returns (B, T, H, D)."""
+    ``segment_tail_attention_plain`` (``softmax`` as its). Returns
+    (B, T, H, D)."""
     k = gather_pages_plain(k_pool[layer], page_table)
     v = gather_pages_plain(v_pool[layer], page_table)
     return segment_tail_attention_plain(
-        q, k, v, 0, lengths, tail_k, tail_v, written, window, scale=scale
+        q, k, v, 0, lengths, tail_k, tail_v, written, window, scale=scale, softmax=softmax
     )
 
 
@@ -217,6 +226,7 @@ def paged_segment_tail_attention(
     for t in (lengths, written):
         if t.shape != (B,) or t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"lengths and written must be contiguous int32 ({B},) tensors")
+    check_kv_aligned("paged_segment_tail_attention", k_pool, v_pool, tail_k, tail_v)
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 10)(
         *q.stride()[:3], *k_pool.stride()[:4], *tail_k.stride()[:3]
@@ -226,8 +236,8 @@ def paged_segment_tail_attention(
         _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool), _build.ptr(tail_k),
         _build.ptr(tail_v), _build.ptr(out), strides, _build.ptr(page_table),
         _build.ptr(lengths), _build.ptr(written), int(layer), int(window), B, T, H, H // Hkv,
-        n_per, ps, P, Ts, D, rounded_scale(scale, q.dtype), _build.dtype_code(q),
-        _build.stream_ptr(q.device),
+        n_per, ps, P, Ts, D, rounded_scale(scale, q.dtype), kv_splits(n_per * ps + Ts),
+        _build.dtype_code(q), _build.stream_ptr(q.device),
     )
     _build.check("segment_attention", rc)
     paged_segment_tail_attention.launches += 1

@@ -1,7 +1,8 @@
 """Hand-written kernels beside an earlier build of the same kernels, in one
 process on one card: the split KV kernel (#8 ``decode_attention``, #11
-``segment_tail_attention``), #14 ``decode_matmul`` and #1
-``fused_layer_norm``.
+``segment_tail_attention``, and in its paged instances #9
+``paged_decode_attention``, #12 ``paged_segment_tail_attention``), #14
+``decode_matmul`` and #1 ``fused_layer_norm``.
 
     python -m ultravox_torch.scripts.compare_kernels --baseline DIR [--only PART ...]
         [--out FILE] [--sweep-splits]
@@ -13,10 +14,10 @@ DIR holds an earlier ``ultravox_torch/ops/kernels/csrc``, for example
 The script builds DIR's decode_attention, segment_attention,
 paged_attention, decode_matmul and layer_norm with the port's nvcc flags
 into DIR/build (each entry point bound with the signature its source
-declares: #8/#11 with or without the cluster size, #14 with or without the
-fp32 partials of its second kernel, #1 with or without the instance), then,
-in bf16 unless said otherwise (``--only`` picks among ``kv``,
-``decode_matmul`` and ``layer_norm``; all by default):
+declares: #8/#9/#11/#12 with or without the cluster size, #14 with or
+without the fp32 partials of its second kernel, #1 with or without the
+instance), then, in bf16 unless said otherwise (``--only`` picks among
+``kv``, ``paged``, ``decode_matmul`` and ``layer_norm``; all by default):
 
 - kv: #8 at the flagship decode step (q (4, 32, 64) against a
   (4, 256, 8, 64) slab with 144 keys) and at serving run (c)'s (a
@@ -28,14 +29,18 @@ in bf16 unless said otherwise (``--only`` picks among ``kv``,
   largest output), and the card ms of baseline, current, current,
   baseline in turn (CUDA events, calls queued ahead), beside the bound over
   the visible bytes and SDPA on the same keys (a yardstick; the port never
-  calls it); #9 ``paged_decode_attention`` and #12
-  ``paged_segment_tail_attention`` at the paged engine's shapes: current
-  and baseline bit-equal, timed in the same turns; ``paged_pin_digests``:
-  the digests of #9's and #12's outputs on ``paged_pin_inputs``, for both
-  libraries (tests/test_torch_cuda.py pins them); with ``--sweep-splits``,
-  #8 and #11 with the cluster size forced to 1, 2, 4 and 8 blocks, and the
-  card's time for one tiny kernel timed the same way (``add_`` on one
-  element: the floor a launch costs back to back);
+  calls it); ``kv_pin_digests``: the digests of #8's and #11's outputs on
+  ``kv_pin_inputs``, which must be equal for both libraries
+  (tests/test_torch_cuda.py pins them); with ``--sweep-splits``, #8 and #11
+  with the cluster size forced to 1, 2, 4 and 8 blocks, and the card's time
+  for one tiny kernel timed the same way (``add_`` on one element: the floor
+  a launch costs back to back);
+- paged: #9 and #12 at serving run (a)'s shapes (layer 7 of a (16, 32, 256,
+  8, 64) pool, one page per row, 129-190 keys; #12 with an 8-slot tail,
+  0-7 written): current and baseline against the plain version, times in
+  turns, the bound, and #8 / #11 on the same lengths from a contiguous
+  (4, 2048, 8, 64) slab (what the page lookup costs is the gap); with
+  ``--sweep-splits``, #9 and #12 at forced cluster sizes;
 - decode_matmul: #14 at 4 rows (a decode step) on each Llama-3.2-1B decoder
   product, with a bf16 weight and an int8 weight + bf16 per-channel scale,
   on weight copies that rotate past the 50 MB L2: current and baseline
@@ -52,7 +57,9 @@ in bf16 unless said otherwise (``--only`` picks among ``kv``,
   ``F.layer_norm`` (bf16 scale and bias for bf16 x).
 
 Prints one line per measurement and one JSON object last (also written to
-``--out``). Needs a CUDA card and raises without one.
+``--out``). Needs a CUDA card and raises without one. ``paged_edge_inputs``
+and ``seen_pool_slots`` build the paged split kernel's edge cases, which
+chip_smoke.py and tests/test_torch_cuda.py both run.
 """
 
 from __future__ import annotations
@@ -81,6 +88,7 @@ from ultravox_torch.ops.kernels import segment_attention as sa
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 B, H, HKV, D, L, LAYER = 4, 32, 8, 64, 16, 7
+SERVING_LENS, SERVING_WRITTEN = (129, 150, 171, 190), (0, 3, 5, 7)  # serving runs' decode
 
 L2_BYTES = 50 * 2**20  # H100 L2
 # Llama-3.2-1B's decoder products (K, N), as chip_smoke.py's DECODE_PRODUCTS
@@ -94,12 +102,13 @@ LN_SHAPES = {"(4,500,768) bf16": ((4, 500, 768), torch.bfloat16),
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _LLP = ctypes.POINTER(ctypes.c_longlong)
-# the earlier interfaces: #8/#11 one block per row (no `splits`), #14 with
-# the fp32 partials of its second kernel, #1 with no instance arguments
+# the earlier interfaces: the KV kernels one block per row (no `splits`),
+# #14 with the fp32 partials of its second kernel, #1 with no instance
+# arguments
+KV_ENTRIES = ("decode_attention", "segment_attention", "paged_attention", "paged_segment_attention")
 OLD_SIGNATURES = {
-    "decode_attention": (_P, _P, _P, _P, _LLP, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-    "segment_attention": (_P, _P, _P, _P, _P, _P, _LLP, _P, _P, _I,
-                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    **{e: tuple(a for i, a in enumerate(_build._SIGNATURES[e])
+                if i != len(_build._SIGNATURES[e]) - 3) for e in KV_ENTRIES},  # drop `splits`
     "decode_matmul": (_P, _LL, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "layer_norm": (_P, _P, _P, _P, _LL, _I, _F, _I, _P),
 }
@@ -107,16 +116,19 @@ BASELINE_NAMES = ("decode_attention", "segment_attention", "paged_attention", "d
                   "layer_norm")
 
 
-def takes_splits(csrc: Path) -> bool:
-    """Whether the baseline's #8 and #11 take the cluster size."""
-    return "int splits" in (csrc / "decode_attention.cu").read_text()
-
-
-def _current_interface(csrc: Path, name: str) -> bool:
-    """Whether the baseline's ``name`` library has the current signature."""
+def takes_splits(csrc: Path, name: str, entry: str) -> bool:
+    """Whether the baseline's KV entry point ``uv_<entry>`` (in
+    ``<name>.cu``) takes the cluster size."""
     text = (csrc / f"{name}.cu").read_text()
-    if name in ("decode_attention", "segment_attention"):
-        return takes_splits(csrc)
+    decl = text[text.index(f"int uv_{entry}("):]
+    return "int splits" in decl[:decl.index("{")]
+
+
+def _current_interface(csrc: Path, name: str, entry: str) -> bool:
+    """Whether the baseline's ``uv_<entry>`` has the current signature."""
+    text = (csrc / f"{name}.cu").read_text()
+    if entry in KV_ENTRIES:
+        return takes_splits(csrc, name, entry)
     if name == "decode_matmul":
         return "void* partial" not in text
     if name == "layer_norm":
@@ -127,7 +139,10 @@ def _current_interface(csrc: Path, name: str) -> bool:
 def build_baseline(csrc: Path) -> dict:
     """nvcc each baseline library into csrc/build; returns name -> CDLL with
     its entry points' argtypes set."""
-    split = takes_splits(csrc)
+    for e in KV_ENTRIES:  # OLD_SIGNATURES drops the `splits` int third from the end
+        now = _build._SIGNATURES[e]
+        if len(OLD_SIGNATURES[e]) + 1 != len(now) or now[-3] is not _I:
+            raise RuntimeError(f"uv_{e}'s signature no longer ends in (splits, ..., ...)")
     out = csrc / "build"
     out.mkdir(exist_ok=True)
     names = BASELINE_NAMES
@@ -144,17 +159,15 @@ def build_baseline(csrc: Path) -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the baseline {name}.cu:\n{log}")
         lib = ctypes.CDLL(str(so))
-        current = _current_interface(csrc, name)
+        lib.current = {}
         for entry in _build.ENTRY_POINTS.get(name, (name,)):
             fn = getattr(lib, f"uv_{entry}")
-            sig = _build._SIGNATURES[entry] if current else OLD_SIGNATURES.get(
-                entry, _build._SIGNATURES[entry])
-            fn.argtypes = list(sig)
+            lib.current[entry] = _current_interface(csrc, name, entry)
+            fn.argtypes = list(_build._SIGNATURES[entry] if lib.current[entry]
+                               else OLD_SIGNATURES.get(entry, _build._SIGNATURES[entry]))
             fn.restype = ctypes.c_int
         getattr(lib, f"uv_{name}_error_string").restype = ctypes.c_char_p
         getattr(lib, f"uv_{name}_error_string").argtypes = [ctypes.c_int]
-        lib.takes_splits = split
-        lib.current = current
         libs[name] = lib
     return libs
 
@@ -171,7 +184,7 @@ def baseline_decode(lib, q, k, v, lengths, window=0):
     S, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     strides = (ctypes.c_longlong * 5)(q.stride(0), q.stride(1), *k.stride()[:3])
-    splits = (da.kv_splits(S),) if lib.takes_splits else ()
+    splits = (da.kv_splits(S),) if lib.current["decode_attention"] else ()
     rc = lib.uv_decode_attention(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), strides,
         _build.ptr(lengths), int(window), Bq, Hq, Hq // Hkv, S, Dq,
@@ -187,12 +200,47 @@ def baseline_segment(lib, q, kc, vc, layer, lengths, tk, tv, written, window=0):
     S, Hkv, Ts = kc.shape[2], kc.shape[3], tk.shape[1]
     out = torch.empty_like(q)
     strides = (ctypes.c_longlong * 10)(*q.stride()[:3], *kc.stride()[:4], *tk.stride()[:3])
-    splits = (da.kv_splits(S + Ts),) if lib.takes_splits else ()
+    splits = (da.kv_splits(S + Ts),) if lib.current["segment_attention"] else ()
     rc = lib.uv_segment_attention(
         _build.ptr(q), _build.ptr(kc), _build.ptr(vc), _build.ptr(tk), _build.ptr(tv),
         _build.ptr(out), strides, _build.ptr(lengths), _build.ptr(written), int(layer),
         int(window), Bq, T, Hq, Hq // Hkv, S, Ts, Dq, da.rounded_scale(Dq**-0.5, q.dtype),
         *splits, _build.dtype_code(q), _build.stream_ptr(q.device))
+    _check(lib, "segment_attention", rc)
+    return out
+
+
+def baseline_paged_decode(lib, q, kp, vp, table, lengths, window=0):
+    """The baseline #9 launch, marshalled as its wrapper did."""
+    Bq, Hq, Dq = q.shape
+    P, ps, Hkv = kp.shape[:3]
+    n_per = table.shape[1]
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 5)(q.stride(0), q.stride(1), *kp.stride()[:3])
+    splits = (da.kv_splits(n_per * ps),) if lib.current["paged_attention"] else ()
+    rc = lib.uv_paged_attention(
+        _build.ptr(q), _build.ptr(kp), _build.ptr(vp), _build.ptr(out), strides,
+        _build.ptr(table), _build.ptr(lengths), int(window), Bq, Hq, Hq // Hkv, n_per, ps, P, Dq,
+        da.rounded_scale(Dq**-0.5, q.dtype), *splits, _build.dtype_code(q),
+        _build.stream_ptr(q.device))
+    _check(lib, "paged_attention", rc)
+    return out
+
+
+def baseline_paged_segment(lib, q, kp, vp, layer, table, lengths, tk, tv, written, window=0):
+    """The baseline #12 launch, marshalled as its wrapper did."""
+    Bq, T, Hq, Dq = q.shape
+    P, ps, Hkv = kp.shape[1:4]
+    n_per, Ts = table.shape[1], tk.shape[1]
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 10)(*q.stride()[:3], *kp.stride()[:4], *tk.stride()[:3])
+    splits = (da.kv_splits(n_per * ps + Ts),) if lib.current["paged_segment_attention"] else ()
+    rc = lib.uv_paged_segment_attention(
+        _build.ptr(q), _build.ptr(kp), _build.ptr(vp), _build.ptr(tk), _build.ptr(tv),
+        _build.ptr(out), strides, _build.ptr(table), _build.ptr(lengths), _build.ptr(written),
+        int(layer), int(window), Bq, T, Hq, Hq // Hkv, n_per, ps, P, Ts, Dq,
+        da.rounded_scale(Dq**-0.5, q.dtype), *splits, _build.dtype_code(q),
+        _build.stream_ptr(q.device))
     _check(lib, "segment_attention", rc)
     return out
 
@@ -214,7 +262,7 @@ def _old_matmul_plan(M, K, N, w, sms):
 def baseline_decode_matmul(lib, x, w, scale, partial=None):
     """The baseline #14 launch at 4 rows (bf16 out), marshalled as its
     wrapper did; an earlier build's K splits write into ``partial``."""
-    if lib.current:
+    if lib.current["decode_matmul"]:
         with baseline_library({"decode_matmul": lib}):
             return dm.decode_matmul(x, w, scale)
     M, K = x.shape
@@ -232,7 +280,7 @@ def baseline_decode_matmul(lib, x, w, scale, partial=None):
 
 def baseline_layer_norm(lib, x, s32, b32):
     """The baseline #1 launch (fp32 scale and bias), as its wrapper did."""
-    if lib.current:
+    if lib.current["layer_norm"]:
         with baseline_library({"layer_norm": lib}):
             return ln.fused_layer_norm(x, s32, b32)
     out = torch.empty_like(x)
@@ -247,18 +295,19 @@ def baseline_layer_norm(lib, x, s32, b32):
 
 @contextlib.contextmanager
 def forced_splits(ns):
-    """#8 and #11 launch clusters of ``ns`` blocks while this is open."""
+    """#8, #9, #11 and #12 launch clusters of ``ns`` blocks while this is
+    open."""
     current = da.kv_splits
-    da.kv_splits = sa.kv_splits = lambda n_keys: ns
+    da.kv_splits = sa.kv_splits = pa.kv_splits = lambda n_keys: ns
     try:
         yield
     finally:
-        da.kv_splits = sa.kv_splits = current
+        da.kv_splits = sa.kv_splits = pa.kv_splits = current
 
 
 @contextlib.contextmanager
 def baseline_library(libs):
-    """The wrappers of the unchanged interfaces (#9, #12) launch the
+    """The wrappers of the unchanged interfaces (#14, #1) launch the
     baseline's build while this is open."""
     current = _build.library
     _build.library = lambda name: libs.get(name) or current(name)
@@ -307,41 +356,97 @@ def _ints(dev, *v):
     return torch.tensor(v, dtype=torch.int32, device=dev)
 
 
-def paged_pin_inputs(dev, dtype):
-    """#9's and #12's inputs for the digest pin, from numpy seed 3: 3 rows
-    of 1, 37 and 100 keys in pages of 16 (shuffled ids, sentinel entries),
-    GQA 4, head_dim 64; #12 with T = 2, an 8-slot tail, written 0/3/5, layer
-    1 of 2, window 20."""
+def kv_pin_inputs(dev, dtype, libs=None):
+    """#8's and #11's inputs for the digest pin, from numpy seed 3: 3 rows
+    of 1, 37 and 100 keys in a 128-slot slab, GQA 4, head_dim 64, window 20;
+    #11 with T = 2, an 8-slot tail, written 0/3/5, layer 1 of 2. Calls the
+    current wrappers, or with ``libs`` the baseline's build."""
     rng = np.random.default_rng(3)
-    P, ps, Hkv, Dh, Hq, n_per = 12, 16, 2, 64, 8, 8
+    S, Hkv, Dh, Hq = 128, 2, 64, 8
     t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)  # noqa: E731
-    table = np.full((3, n_per), P, np.int32)
-    order = list(rng.permutation(P))
-    for b, n in enumerate((1, 37, 100)):
-        for i in range(-(-n // ps)):
-            table[b, i] = order.pop()
-    table = torch.from_numpy(table).to(dev)
-    lens = _ints(dev, 1, 37, 100)
-    q9, kp, vp = t(3, Hq, Dh), t(2, P, ps, Hkv, Dh), t(2, P, ps, Hkv, Dh)
-    q12, tk, tv = t(3, 2, Hq, Dh), t(3, 8, Hkv, Dh), t(3, 8, Hkv, Dh)
+    lens, written = _ints(dev, 1, 37, 100), _ints(dev, 0, 3, 5)
+    q8, k, v = t(3, Hq, Dh), t(3, S, Hkv, Dh), t(3, S, Hkv, Dh)
+    q11, kc, vc, tk, tv = t(3, 2, Hq, Dh), t(2, 3, S, Hkv, Dh), t(2, 3, S, Hkv, Dh), \
+        t(3, 8, Hkv, Dh), t(3, 8, Hkv, Dh)
+    if libs is None:
+        return {
+            "decode_attention": lambda: da.decode_attention(q8, k, v, lens, 20),
+            "segment_tail_attention": lambda: sa.segment_tail_attention(
+                q11, kc, vc, 1, lens, tk, tv, written, 20),
+        }
     return {
-        "paged_decode_attention": lambda: pa.paged_decode_attention(
-            q9, kp[1], vp[1], table, lens, 20),
-        "paged_segment_tail_attention": lambda: sa.paged_segment_tail_attention(
-            q12, kp, vp, 1, table, lens, tk, tv, _ints(dev, 0, 3, 5), 20),
+        "decode_attention": lambda: baseline_decode(libs["decode_attention"], q8, k, v, lens, 20),
+        "segment_tail_attention": lambda: baseline_segment(
+            libs["segment_attention"], q11, kc, vc, 1, lens, tk, tv, written, 20),
     }
 
 
-def paged_pin_digests(dev) -> dict:
-    """sha256 (first 16 hex digits) of #9's and #12's output bytes on
-    ``paged_pin_inputs``, bf16 and fp32."""
+def kv_pin_digests(dev, libs=None) -> dict:
+    """sha256 (first 16 hex digits) of #8's and #11's output bytes on
+    ``kv_pin_inputs``, bf16 and fp32 (the baseline's with ``libs``)."""
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for name, fn in paged_pin_inputs(dev, dtype).items():
+        for name, fn in kv_pin_inputs(dev, dtype, libs).items():
             o = fn()
             torch.cuda.synchronize()
             raw = o.view(torch.int16 if dtype == torch.bfloat16 else torch.int32).cpu().numpy()
             out[f"{name} {str(dtype)[6:]}"] = hashlib.sha256(raw.tobytes()).hexdigest()[:16]
+    return out
+
+
+# lengths at the page (16, 48, 256), granule (16 keys) and split (32 keys a
+# block) edges, a row of length 0, the pageless row of length 1 and a long
+# row, for the paged instances of the split KV kernel (#9, #12)
+PAGED_EDGE_LENS = (0, 1, 15, 16, 17, 47, 48, 49, 255, 256, 257, 1900)
+
+
+def seen_pool_slots(table, lens, lo, ps, P):
+    """(P, ps) bool: the pool slots some row reads, keys [lo_b, n_b) through
+    the clamped table."""
+    seen = torch.zeros((P, ps), dtype=torch.bool, device=table.device)
+    for b, (n, l0) in enumerate(zip(lens.tolist(), lo)):
+        j = torch.arange(max(l0, 0), n, device=table.device)
+        seen[table[b, j // ps].long().clamp(0, P - 1), j % ps] = True
+    return seen
+
+
+def paged_edge_inputs(dev, dtype, D, G, ps, window=0, T=None, Ts=32, seed=0, Hkv=2, L=2):
+    """One row per PAGED_EDGE_LENS length in a 2-layer pool of pages of
+    ``ps``: each row's pages at shuffled ids, 3 spare pages, rows of length 0
+    and 1 own no page (every entry the sentinel P), later entries the
+    sentinel; n_per = ceil(1920 / ps). Returns q ((B, H, D), or (B, T, H, D)
+    with a Ts-slot tail whose row i has (7 i) mod (Ts - T + 1) slots
+    written), kp, vp, table, lens, and ``hidden``: the (P, ps) pool slots of
+    layer 1 no query reads at ``window``; with T also tk, tv, written and
+    ``hidden_tail``: the (B, Ts) tail slots no query of the row sees."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa: E731
+    B, n_per = len(PAGED_EDGE_LENS), -(-1920 // ps)
+    used = [-(-n // ps) if n > 1 else 0 for n in PAGED_EDGE_LENS]
+    P = sum(used) + 3
+    order = np.random.default_rng(seed).permutation(P).tolist()
+    table = np.full((B, n_per), P, np.int32)
+    for b, u in enumerate(used):
+        for i in range(u):
+            table[b, i] = order.pop()
+    table = torch.from_numpy(table).to(dev)
+    lens = torch.tensor(PAGED_EDGE_LENS, dtype=torch.int32, device=dev)
+    out = {"kp": r(L, P, ps, Hkv, D), "vp": r(L, P, ps, Hkv, D), "table": table, "lens": lens}
+    if T is None:
+        out["q"] = r(B, Hkv * G, D)
+        lo = [n - window if window else 0 for n in PAGED_EDGE_LENS]
+    else:
+        written = [(7 * i) % (Ts - T + 1) for i in range(B)]
+        wr = torch.tensor(written, dtype=torch.int32, device=dev)
+        t = torch.arange(T, device=dev)[None, :, None]
+        slot = torch.arange(Ts, device=dev)
+        ok_t = slot <= wr.long()[:, None, None] + t
+        if window:
+            ok_t = ok_t & (wr.long()[:, None, None] + t - slot < window)
+        out.update(q=r(B, T, Hkv * G, D), tk=r(B, Ts, Hkv, D), tv=r(B, Ts, Hkv, D), written=wr,
+                   hidden_tail=~ok_t.any(1))
+        lo = [n + x - window + 1 if window else 0 for n, x in zip(PAGED_EDGE_LENS, written)]
+    out["hidden"] = ~seen_pool_slots(table, lens, lo, ps, P)
     return out
 
 
@@ -392,26 +497,45 @@ def _segment_case(dev, g, S, Ts, lens, written):
 
 
 def _paged_case(dev, g, name):
-    """#9 or #12 at the paged engine's shapes: a pool of 32 pages of 256,
-    one page per row (129-190 keys), layer 7 of 16; #12 with an 8-slot
-    tail, written 0/3/5/7."""
+    """#9 or #12 at serving run (a)'s shapes: layer 7 of a 16-layer pool of
+    32 pages of 256, one shuffled page per row (129-190 keys) and 7
+    sentinel entries; #12 with an 8-slot tail, written 0/3/5/7."""
     bf = torch.bfloat16
     P, ps = 32, 256
     order = np.random.default_rng(0).permutation(P)
     table = np.full((B, 2048 // ps), P, np.int32)
     table[:, 0] = order[:B]
     table = torch.from_numpy(table).to(dev)
-    lens = _ints(dev, 129, 150, 171, 190)
+    lens = _ints(dev, *SERVING_LENS)
     kp = torch.randn((L, P, ps, HKV, D), generator=g, device=dev).to(bf)
     vp = torch.randn((L, P, ps, HKV, D), generator=g, device=dev).to(bf)
+    keys = sum(SERVING_LENS)
     if name == "paged_decode_attention":
         q = torch.randn((B, H, D), generator=g, device=dev).to(bf)
-        return lambda: pa.paged_decode_attention(q, kp[LAYER], vp[LAYER], table, lens)
+        return {
+            "current": lambda: pa.paged_decode_attention(q, kp[LAYER], vp[LAYER], table, lens),
+            "plain": lambda: pa.paged_decode_attention_plain(q, kp[LAYER], vp[LAYER], table, lens,
+                                                             scale=D**-0.5),
+            "baseline": lambda libs: baseline_paged_decode(
+                libs["paged_attention"], q, kp[LAYER], vp[LAYER], table, lens),
+            "bytes": _nbytes(q, q, lens, table) + 2 * keys * HKV * D * 2,
+            "flops": 4.0 * H * keys * D,
+        }
     q = torch.randn((B, 1, H, D), generator=g, device=dev).to(bf)
     tk = torch.randn((B, 8, HKV, D), generator=g, device=dev).to(bf)
     tv = torch.randn((B, 8, HKV, D), generator=g, device=dev).to(bf)
-    written = _ints(dev, 0, 3, 5, 7)
-    return lambda: sa.paged_segment_tail_attention(q, kp, vp, LAYER, table, lens, tk, tv, written)
+    written = _ints(dev, *SERVING_WRITTEN)
+    keys += sum(w + 1 for w in SERVING_WRITTEN)
+    return {
+        "current": lambda: sa.paged_segment_tail_attention(q, kp, vp, LAYER, table, lens, tk, tv,
+                                                           written),
+        "plain": lambda: sa.paged_segment_tail_attention_plain(q, kp, vp, LAYER, table, lens, tk,
+                                                               tv, written, scale=D**-0.5),
+        "baseline": lambda libs: baseline_paged_segment(
+            libs["segment_attention"], q, kp, vp, LAYER, table, lens, tk, tv, written),
+        "bytes": _nbytes(q, q, lens, written, table) + 2 * keys * HKV * D * 2,
+        "flops": 4.0 * H * keys * D,
+    }
 
 
 def _rotating(t, n_bytes=2 * L2_BYTES):
@@ -563,26 +687,48 @@ def compare_layer_norm(libs, dev, g) -> dict:
     return rows
 
 
+def _time_against_baseline(libs, c, label, row_extra=None) -> dict:
+    """A case's current kernel against its plain version and the baseline
+    (4 bf16 ulps of the largest output), then both timed in turns, with the
+    bound over the visible bytes."""
+    out, ref, base = c["current"](), c["plain"](), c["baseline"](libs)
+    torch.cuda.synchronize()
+    row = {"max_abs_err": _err(out, ref), "tol": _tol(ref), "baseline_err": _err(base, ref),
+           "vs_baseline": _err(out, base), "bit_equal_to_baseline": torch.equal(out, base)}
+    if not (row["max_abs_err"] <= row["tol"] and row["baseline_err"] <= row["tol"]):
+        raise RuntimeError(f"{label}: {row}")
+    row.update(in_turns(lambda: c["baseline"](libs), c["current"]))
+    row["bound_ms"] = max(c["bytes"] / HBM_BYTES_PER_S, c["flops"] / BF16_FLOPS) * 1e3
+    row["speedup"] = row["baseline_ms"] / row["ms"]
+    row.update(row_extra or {})
+    return row
+
+
+def _sweep_splits(c, row, label) -> None:
+    """The case's current kernel at clusters of 1, 2, 4 and 8 blocks."""
+    ref_out = c["current"]()
+    row["splits_ms"] = {}
+    for ns in (1, 2, 4, 8):
+        with forced_splits(ns):
+            again = c["current"]()
+            row["splits_ms"][ns] = time_ms(c["current"])
+        if _err(again, ref_out) > row["tol"]:
+            raise RuntimeError(f"{label} with {ns} splits: {_err(again, ref_out)}")
+    print(f"{label}: ms by cluster size {row['splits_ms']}", flush=True)
+
+
 def compare_kv(libs, dev, g, sweep_splits: bool, result: dict) -> None:
-    """#8 and #11 against the baseline, #9 and #12 bit-equal to it."""
-    serving_lens = (129, 150, 171, 190)
+    """#8 and #11 against the baseline; their pinned outputs equal to it."""
     cases = {
         "decode_attention flagship": _decode_case(dev, g, 256, (144,) * 4),
-        "decode_attention serving (c)": _decode_case(dev, g, 2048, serving_lens),
+        "decode_attention serving (c)": _decode_case(dev, g, 2048, SERVING_LENS),
         "segment_tail_attention flagship": _segment_case(dev, g, 256, 31, (128,) * 4, (15,) * 4),
-        "segment_tail_attention serving (c)": _segment_case(dev, g, 2048, 8, serving_lens,
-                                                            (0, 3, 5, 7)),
+        "segment_tail_attention serving (c)": _segment_case(dev, g, 2048, 8, SERVING_LENS,
+                                                            SERVING_WRITTEN),
     }
     for label, c in cases.items():
-        out, ref, base = c["current"](), c["plain"](), c["baseline"](libs)
-        torch.cuda.synchronize()
-        row = {"max_abs_err": _err(out, ref), "tol": _tol(ref), "vs_baseline": _err(out, base)}
-        if not (row["max_abs_err"] <= row["tol"] and row["vs_baseline"] <= row["tol"]):
-            raise RuntimeError(f"{label}: {row}")
-        row.update(in_turns(lambda: c["baseline"](libs), c["current"]))
+        row = _time_against_baseline(libs, c, label)
         row["sdpa_ms"] = time_ms(c["sdpa"])
-        row["bound_ms"] = max(c["bytes"] / HBM_BYTES_PER_S, c["flops"] / BF16_FLOPS) * 1e3
-        row["speedup"] = row["baseline_ms"] / row["ms"]
         row["factor_to_sdpa"] = row["ms"] / row["sdpa_ms"]
         result["cases"][label] = row
         print(f"{label}: {row['ms']:.4f} ms (baseline {row['baseline_ms']:.4f}, "
@@ -590,51 +736,47 @@ def compare_kv(libs, dev, g, sweep_splits: bool, result: dict) -> None:
               f"bound {row['bound_ms']:.5f}); turns {row['turns_ms']}; err {row['max_abs_err']:.3g} "
               f"(tol {row['tol']:.3g}), vs baseline {row['vs_baseline']:.3g}", flush=True)
         if sweep_splits:
-            ref_out = out
-            row["splits_ms"] = {}
-            for ns in (1, 2, 4, 8):
-                with forced_splits(ns):
-                    again = c["current"]()
-                    row["splits_ms"][ns] = time_ms(c["current"])
-                if _err(again, ref_out) > row["tol"]:
-                    raise RuntimeError(f"{label} with {ns} splits: {_err(again, ref_out)}")
-            print(f"{label}: ms by cluster size {row['splits_ms']}", flush=True)
+            _sweep_splits(c, row, label)
     if sweep_splits:
         one = torch.zeros(1, device=dev)
         result["one_launch_ms"] = time_ms(lambda: one.add_(1))
         print(f"one tiny kernel (add_ on one element): {result['one_launch_ms']:.4f} ms",
               flush=True)
-    for name in ("paged_decode_attention", "paged_segment_tail_attention"):
-        fn = _paged_case(dev, g, name)
-        out = fn()
-        with baseline_library(libs):
-            base = fn()
-        torch.cuda.synchronize()
-        if not torch.equal(out, base):
-            raise RuntimeError(f"{name}: the current build differs from the baseline")
-
-        def base_fn(fn=fn):
-            with baseline_library(libs):
-                fn()
-
-        row = dict(in_turns(base_fn, fn), bit_equal=True)
-        row["change"] = row["ms"] / row["baseline_ms"] - 1
-        result["cases"][name] = row
-        print(f"{name}: bit-equal to the baseline; {row['ms']:.4f} ms against "
-              f"{row['baseline_ms']:.4f} ({100 * row['change']:+.2f}%); turns {row['turns_ms']}",
-              flush=True)
-    digests = paged_pin_digests(dev)
-    with baseline_library(libs):
-        base_digests = paged_pin_digests(dev)
-    result["paged_pin_digests"] = digests
-    result["paged_pin_digests_equal"] = digests == base_digests
-    print(f"paged pin digests {digests}; equal to the baseline's {digests == base_digests}",
-          flush=True)
+    digests, base_digests = kv_pin_digests(dev), kv_pin_digests(dev, libs)
+    result["kv_pin_digests"] = digests
+    result["kv_pin_digests_baseline"] = base_digests
+    print(f"kv pin digests {digests}; the baseline's {base_digests}; equal "
+          f"{digests == base_digests}", flush=True)
     if digests != base_digests:
-        raise RuntimeError(f"paged digests differ: {digests} vs {base_digests}")
+        raise RuntimeError(f"#8/#11 digests differ from the baseline's: {digests} vs {base_digests}")
 
 
-PARTS = ("kv", "decode_matmul", "layer_norm")
+def compare_paged(libs, dev, g, sweep_splits: bool, result: dict) -> None:
+    """#9 and #12 against the baseline at serving run (a)'s shapes, beside
+    #8 and #11 on the same lengths (a contiguous 2048-slot slab)."""
+    same = {"paged_decode_attention": _decode_case(dev, g, 2048, SERVING_LENS),
+            "paged_segment_tail_attention": _segment_case(dev, g, 2048, 8, SERVING_LENS,
+                                                          SERVING_WRITTEN)}
+    for name, contiguous in same.items():
+        c = _paged_case(dev, g, name)
+        label = f"{name} serving (a)"
+        row = _time_against_baseline(libs, c, label, {
+            "cluster": da.kv_splits(2048 + (8 if "segment" in name else 0))})
+        row["contiguous_ms"] = time_ms(contiguous["current"])
+        row["page_lookup_ms"] = row["ms"] - row["contiguous_ms"]
+        result["cases"][label] = row
+        print(f"{label}: {row['ms']:.4f} ms (baseline {row['baseline_ms']:.4f}, "
+              f"{row['speedup']:.2f}x; bound {row['bound_ms']:.5f}; cluster {row['cluster']}); "
+              f"{'#8' if 'decode' in name else '#11'} on the same lengths "
+              f"{row['contiguous_ms']:.4f} ms, the page lookup's cost "
+              f"{row['page_lookup_ms']:+.4f} ms; turns {row['turns_ms']}; err "
+              f"{row['max_abs_err']:.3g} (tol {row['tol']:.3g}), baseline err "
+              f"{row['baseline_err']:.3g}", flush=True)
+        if sweep_splits:
+            _sweep_splits(c, row, label)
+
+
+PARTS = ("kv", "paged", "decode_matmul", "layer_norm")
 
 
 def run(baseline: Path, sweep_splits: bool = False, only=PARTS) -> dict:
@@ -647,6 +789,8 @@ def run(baseline: Path, sweep_splits: bool = False, only=PARTS) -> dict:
     result = {"device": torch.cuda.get_device_name(0), "cases": {}}
     if "kv" in only:
         compare_kv(libs, dev, g, sweep_splits, result)
+    if "paged" in only:
+        compare_paged(libs, dev, g, sweep_splits, result)
     if "decode_matmul" in only:
         result["cases"].update(compare_decode_matmul(libs, dev, g, sweep_splits))
     if "layer_norm" in only:
@@ -658,15 +802,13 @@ def run(baseline: Path, sweep_splits: bool = False, only=PARTS) -> dict:
     return result
 
 
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, required=True,
                     help="directory holding the earlier csrc sources")
     ap.add_argument("--out", type=Path, default=None, help="also write the JSON here")
     ap.add_argument("--sweep-splits", action="store_true",
-                    help="also time #8, #11 and #14 at clusters of 1, 2, 4 and 8 blocks")
+                    help="also time #8, #9, #11, #12 and #14 at clusters of 1, 2, 4 and 8 blocks")
     ap.add_argument("--only", nargs="+", choices=PARTS, default=PARTS,
                     help="the kernels to compare (all by default)")
     args = ap.parse_args()
