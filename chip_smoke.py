@@ -5,10 +5,11 @@
 Phases, each fatal on failure:
   1. build every CUDA kernel of the port from ultravox_torch/ops/kernels/csrc
      (one nvcc per source, all thirteen at once); the bf16 kernels of
-     flash_attention, attention (#3/#4), encoder_attn_probe (#15/#16) and
-     decode_matmul (#14, bf16 x) must hold tensor-core instructions (HMMA in
-     cuobjdump's SASS; the fp32 ones none) and ptxas must report no spills
-     for them (the attention kernels at head_dim 64),
+     flash_attention, attention (#3/#4), encoder_attn_probe (#15/#16),
+     decode_matmul (#14, bf16 x) and ln_qkv_head (#2, its three tile
+     instances) must hold tensor-core instructions (HMMA in cuobjdump's
+     SASS; the fp32 ones none) and ptxas must report no spills for them
+     (the attention kernels at head_dim 64),
      nor for the split KV kernel (csrc/kv_split.cuh, both dtypes) at
      head_dim 64, in its contiguous (#8, #11) and paged (#9, #12) instances;
   2. hold each kernel against its plain PyTorch version on the card at the
@@ -44,6 +45,13 @@ Phases, each fatal on failure:
      and 37, each within tolerance, bit-equal twice and unmoved by junk, and
      timed at the paged engine's shapes beside their cluster size, the
      one-block kernel's recorded time and #8 / #11 on the same lengths;
+     ln_qkv_head_fused (#2) at the encoder's (4, 500, 768) and (1, 500,
+     768) x (768, 2304) in heads of 64 (the tensor-core kernel), timed
+     beside its bound, its plain version, torch.mm on the LN'd rows and the
+     unfused four-call chain (yardsticks), and within 4 bf16 ulps and two
+     calls bit-equal there and at T 1, a ragged (2, 77, 96) in heads of 32,
+     whisper-large's (1, 1500, 1280) x (1280, 3840), an unaligned view and
+     fp32 (both the CUDA-core kernel, fp32 within 1e-5);
      qkv_head_transpose is bit-equal in bf16 and fp32 at (4, 500, 2304),
      (1, 500, 2304) and a ragged T with head_dim 128, and timed at B 1 and 4;
      the three kernels no engine launches (as in the reference):
@@ -91,8 +99,9 @@ Phases, each fatal on failure:
      launch counts are checked against the engine's own counters, and TTFT,
      throughput, the loop's dispatch and fetch time, peak memory and (for
      a traced second run of each) the device's busy share are printed, with
-     #3 + #4's device time and the split KV kernels' (#9 + #12, #9, #8 +
-     #11) time and launches; a one-block KV kernel in a trace fails;
+     #2's and #3 + #4's device time and launches and the split KV kernels'
+     (#9 + #12, #9, #8 + #11) time and launches; a one-block KV kernel in a
+     trace fails;
   6. the training step of the v0.6 recipe at flagship widths (KL
      distillation, projector + audio LoRA r 8 trainable, remat, chunked
      vocabulary, flash attention in both towers) on bench.py's batch of 8 x
@@ -332,6 +341,87 @@ def _fused_plain(fa, q, k, v, lens, offs, causal=True, latency_block=0):
         scale=q.shape[-1] ** -0.5, causal=causal, latency_block=latency_block).transpose(1, 2)
 
 
+# #2's edge cases: label, (B, T, D, C, head_dim), dtype, element offset of x
+# in its storage (1: a view the 16-byte copies cannot take)
+LN_QKV_EDGES = (
+    ("T 1", (4, 1, 768, 2304, 64), torch.bfloat16, 0),
+    ("ragged (2,77,96) heads of 32", (2, 77, 96, 288, 32), torch.bfloat16, 0),
+    ("whisper-large (1,1500,1280)", (1, 1500, 1280, 3840, 64), torch.bfloat16, 0),
+    ("unaligned view (2,77,768)", (2, 77, 768, 2304, 64), torch.bfloat16, 1),
+    ("fp32 (4,500,768)", (4, 500, 768, 2304, 64), torch.float32, 0),
+)
+
+
+def _check_ln_qkv_head(fa, x, s, b, s_bf, b_bf, Dh, dev, g):
+    """Phase 2, #2: the tensor-core kernel at the encoder's shapes, at 4
+    requests and at 1 (a serving admission), against its plain version
+    (4 bf16 ulps of the largest output), two calls bit-equal, timed beside
+    its bound, torch.mm on the LN'd rows (the product alone) and the
+    unfused four-call chain; then LN_QKV_EDGES, each routed as _plan says
+    (the unaligned view and fp32 to the CUDA-core kernel, fp32 within
+    1e-5) and bit-equal twice. Returns the kernel's row."""
+    from ultravox_torch.scripts.compare_kernels import ln_qkv_chain
+
+    bf = torch.bfloat16
+    B, T, D = x.shape
+    C = 3 * D
+    w = (0.02 * torch.randn((D, C), generator=g, device=dev)).to(bf)
+    wb = (0.02 * torch.randn((C,), generator=g, device=dev)).to(bf)
+    rec = _recorder([], _bf16_tol)
+    shapes, main = {}, None
+    for label, xs in (("(4,500,768)", x), ("(1,500,768)", x[:1].contiguous())):
+        out, again = fa.ln_qkv_head_fused(xs, s, b, w, wb, Dh), fa.ln_qkv_head_fused(xs, s, b, w, wb, Dh)
+        ref = fa.ln_qkv_head_plain(xs, s, b, w, wb, Dh)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            _fail(f"ln_qkv_head_fused {label}: two calls differ")
+        h = fa._layer_norm_rounded(xs, s, b, 1e-5).view(-1, D)
+        row = rec(
+            f"ln_qkv_head_fused {label}", "ln_qkv_head_mma_kernel",
+            "ultravox_torch/ops/kernels/csrc/ln_qkv_head.cu",
+            "ultravox_tpu/ops/pallas/fused_attention.py:290", out, ref,
+            lambda xs=xs: fa.ln_qkv_head_fused(xs, s, b, w, wb, Dh),
+            lambda xs=xs: fa.ln_qkv_head_plain(xs, s, b, w, wb, Dh),
+            None, _nbytes(xs, s, b, w, wb, out), 2.0 * xs.shape[0] * T * D * C, BF16_FLOPS,
+            extra={"torch_mm_ms": _time_ms(lambda h=h: torch.mm(h, w)),
+                   "chain_ms": _time_ms(lambda xs=xs: ln_qkv_chain(xs, s_bf, b_bf, w, wb, Dh)),
+                   "plan": fa._plan(True, xs.shape[0] * T, D, C, Dh, [0])._asdict()},
+        )
+        shapes[label] = {k: row[k] for k in ("ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms",
+                                             "torch_mm_ms", "chain_ms", "max_abs_err", "plan")}
+        print(f"ln_qkv_head_fused {label}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} "
+              f"({row['ms'] / row['bound_ms']:.1f}x), torch.mm {row['torch_mm_ms']:.4f}, chain "
+              f"{row['chain_ms']:.4f} ({row['ms'] / row['chain_ms']:.2f}x); plan {row['plan']}; "
+              f"two calls bit-equal", flush=True)
+        main = main or row
+    edges = {}
+    gq = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for label, (Bq, Tq, Dq, Cq, Dhq), dtype, offset in LN_QKV_EDGES:
+        base = torch.randn((Bq * Tq * Dq + offset,), generator=gq, device=dev).to(dtype)
+        xq = base[offset:].view(Bq, Tq, Dq)
+        sq = 1 + 0.1 * torch.randn((Dq,), generator=gq, device=dev)
+        bq = 0.1 * torch.randn((Dq,), generator=gq, device=dev)
+        wq = (0.05 * torch.randn((Dq, Cq), generator=gq, device=dev)).to(dtype)
+        wbq = (0.05 * torch.randn((Cq,), generator=gq, device=dev)).to(dtype)
+        mma = fa._plan(dtype == bf, Bq * Tq, Dq, Cq, Dhq, [xq.data_ptr(), sq.data_ptr(),
+                                                          bq.data_ptr(), wq.data_ptr(), 0]).mma
+        if mma != (dtype == bf and offset == 0):
+            _fail(f"ln_qkv_head_fused {label}: routed to the {'tensor' if mma else 'CUDA'} cores")
+        out = fa.ln_qkv_head_fused(xq, sq, bq, wq, wbq, Dhq)
+        again = fa.ln_qkv_head_fused(xq, sq, bq, wq, wbq, Dhq)
+        ref = fa.ln_qkv_head_plain(xq, sq, bq, wq, wbq, Dhq)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = _bf16_tol(ref) if dtype == bf else 1e-5
+        edges[label] = {"max_abs_err": err, "tol": tol, "tensor_cores": mma}
+        print(f"ln_qkv_head_fused {label}: max_abs_err {err:.3g} (tol {tol:.3g}), "
+              f"{'tensor' if mma else 'CUDA'} cores, two calls bit-equal "
+              f"{torch.equal(out, again)}", flush=True)
+        if not (err <= tol and torch.equal(out, again)):
+            _fail(f"ln_qkv_head_fused {label}: {err} > {tol} or two calls differ")
+    return dict(main, name="ln_qkv_head_fused", shapes=shapes, edge_cases=edges)
+
+
 def _check_kernels(fa, ln_mod, dev):
     """Phase 2: every kernel against its plain version at main-path shapes."""
     import torch.nn.functional as F
@@ -376,19 +466,7 @@ def _check_kernels(fa, ln_mod, dev):
     rows.append(dict(ln_row, name="fused_layer_norm", shapes=ln_shapes))
 
     # 2. LN -> qkv -> head-major
-    C = 3 * D
-    w = (0.02 * torch.randn((D, C), generator=g, device=dev)).to(bf)
-    wb = (0.02 * torch.randn((C,), generator=g, device=dev)).to(bf)
-    out = fa.ln_qkv_head_fused(x, s, b, w, wb, Dh)
-    ref = fa.ln_qkv_head_plain(x, s, b, w, wb, Dh)
-    torch.cuda.synchronize()
-    record(
-        "ln_qkv_head_fused", "ln_qkv_head_kernel", "ultravox_torch/ops/kernels/csrc/ln_qkv_head.cu",
-        "ultravox_tpu/ops/pallas/fused_attention.py:290", out, ref,
-        lambda: fa.ln_qkv_head_fused(x, s, b, w, wb, Dh),
-        lambda: fa.ln_qkv_head_plain(x, s, b, w, wb, Dh),
-        None, _nbytes(x, s, b, w, wb, out), 2.0 * B * T * D * C, BF16_FLOPS,
-    )
+    rows.append(_check_ln_qkv_head(fa, x, s, b, s_bf, b_bf, Dh, dev, g))
 
     # 3. head-major encoder attention (all 500 keys valid at 10 s). Unit
     # normal q/k/v give logits of unit spread, so a wrong scale or mask
@@ -1344,18 +1422,24 @@ MMA_BUILDS = {
     # dispatch_mma); fp32 x runs decode_matmul_kernel on the CUDA cores
     "decode_matmul": (("decode_matmul_mma_kernel",), 22, "decode_matmul_kernel",
                       "decode_matmul_mma_kernel", 22),
+    # #2: the 128-, 64- and 32-row tensor-core tiles (ops/kernels/fused_attention.py
+    # MMA_ROWS; no instance depends on D, so the spill check holds at D 768);
+    # fp32 and unaligned views run ln_qkv_head_kernel on the CUDA cores
+    "ln_qkv_head": (("ln_qkv_head_mma_kernel",), 3, "ln_qkv_head_kernelIf",
+                    "ln_qkv_head_mma_kernel", 3),
 }
 
 
 def _check_mma_build(_build, name, info):
     """Phase 1, continued: the bf16 kernels of flash_attention (forward,
     delta, dK/dV, dQ), attention (#3/#4), encoder_attn_probe (#15/#16,
-    both exponents) and decode_matmul (#14, bf16 x) run on the tensor cores.
+    both exponents), decode_matmul (#14, bf16 x) and ln_qkv_head (#2) run
+    on the tensor cores.
     cuobjdump's SASS of the built library must show HMMA in every bf16
     instantiation (head_dim 64 and 128; every #14 instance) and none in the
     fp32 kernels (fp32 stays on the CUDA cores). ptxas must report no spills
-    for the head_dim 64 bf16 attention kernels and every #14 tensor-core
-    kernel."""
+    for the head_dim 64 bf16 attention kernels and every #14 and #2
+    tensor-core kernel."""
     kernels, n_inst, fp32_name, d64_name, n_spill = MMA_BUILDS[name]
     path = info["path"]
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -2709,9 +2793,9 @@ def _serving_main_path(engine, cfg, counters, per_call, dev):
 
 def _traced_serve(srv, requests, new_tokens, label, loras=None) -> dict:
     """Serve ``requests`` under torch.profiler: print the device's busy
-    share of the traced wall, the top kernels, #3 + #4's time and the split
-    KV kernels' time and launches (failing on a one-block KV kernel), and
-    return them."""
+    share of the traced wall, the top kernels, #2's and #3 + #4's time and
+    the split KV kernels' time and launches (failing on a one-block KV
+    kernel), and return them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2733,8 +2817,15 @@ def _traced_serve(srv, requests, new_tokens, label, loras=None) -> dict:
     attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
     print(f"{label} profile: #3 + #4 (attention_mma_kernel) {attn_ms:.3f} ms in "
           f"{sum(e.count for e in attn)} launches, of {busy_ms:.3f} ms busy", flush=True)
+    # #2 launches one kernel a call (its tensor-core or CUDA-core instance)
+    qkv = [e for e in evs if "ln_qkv_head" in e.key]
+    qkv_ms, qkv_n = sum(e.self_device_time_total for e in qkv) / 1e3, sum(e.count for e in qkv)
+    names = sorted({re.search(r"ln_qkv_head\w*(<[^>]*>)?", e.key).group(0) for e in qkv})
+    print(f"{label} profile: #2 ln_qkv_head_fused ({names}) {qkv_ms:.3f} ms in {qkv_n} launches",
+          flush=True)
     split = _split_kernel_ms(evs, label)
     return {"device_busy_share": busy, "device_busy_ms": busy_ms, "attention_kernel_ms": attn_ms,
+            "ln_qkv_head_ms": qkv_ms, "ln_qkv_head_launches": qkv_n,
             "split_kernel_ms": {k: v[0] for k, v in split.items()},
             "split_kernel_launches": {k: v[1] for k, v in split.items()}}
 

@@ -1462,3 +1462,105 @@ def test_layer_norm_is_one_kernel(cuda_device):
     s, b = torch.ones(768, device=cuda_device), torch.zeros(768, device=cuda_device)
     names = _device_kernel_names(lambda: tln.fused_layer_norm(x, s, b))
     assert len(names) == 1 and "layer_norm_warp_kernel" in next(iter(names)), names
+
+
+# #2 ln_qkv_head_fused: (B, T, D, C, head_dim). The encoder's shapes at 4
+# requests and at one (serving's admissions), a single frame, a ragged
+# shape (C not a multiple of any tile's columns, 77 rows), whisper-large's
+# width (the plan's 64-row tile at D 1280).
+LN_QKV_SHAPES = [(4, 500, 768, 2304, 64), (1, 500, 768, 2304, 64), (4, 1, 768, 2304, 64),
+                 (2, 77, 96, 288, 32), (1, 1500, 1280, 3840, 64)]
+
+
+def _ln_qkv_inputs(dev, B, T, D, C, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, T, D), generator=g, device=dev).to(dtype)
+    s = 1 + 0.1 * torch.randn((D,), generator=g, device=dev)
+    b = 0.1 * torch.randn((D,), generator=g, device=dev)
+    w = (0.05 * torch.randn((D, C), generator=g, device=dev)).to(dtype)
+    wb = (0.05 * torch.randn((C,), generator=g, device=dev)).to(dtype)
+    return x, s, b, w, wb
+
+
+def _ln_qkv_check(x, s, b, w, wb, Dh, kernel):
+    """Within 1e-5 (fp32) or 4 bf16 ulps of the plain version, two calls
+    bit-equal, one launch each, and only ``kernel`` in a trace."""
+    before = tfa.ln_qkv_head_fused.launches
+    out = tfa.ln_qkv_head_fused(x, s, b, w, wb, Dh)
+    again = tfa.ln_qkv_head_fused(x, s, b, w, wb, Dh)
+    ref = tfa.ln_qkv_head_plain(x, s, b, w, wb, Dh)
+    torch.cuda.synchronize()
+    assert tfa.ln_qkv_head_fused.launches == before + 2
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert torch.equal(out, again)
+    tol = 1e-5 if x.dtype == torch.float32 else 4 * 2.0**-8 * float(ref.abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    names = _device_kernel_names(lambda: tfa.ln_qkv_head_fused(x, s, b, w, wb, Dh))
+    assert len(names) == 1 and f"{kernel}<" in next(iter(names)), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("shape", LN_QKV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_ln_qkv_head_matches_plain(cuda_device, shape, dt):
+    """bf16 on the tensor cores (ln_qkv_head_mma_kernel), fp32 on the CUDA
+    cores (ln_qkv_head_kernel)."""
+    B, T, D, C, Dh = shape
+    dtype = DTYPES[dt]
+    x, s, b, w, wb = _ln_qkv_inputs(cuda_device, B, T, D, C, dtype)
+    kernel = "ln_qkv_head_mma_kernel" if dtype == torch.bfloat16 else "ln_qkv_head_kernel"
+    _ln_qkv_check(x, s, b, w, wb, Dh, kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 77, 96, 288, 32), (3, 61, 656, 1544, 8), (3, 61, 784, 1544, 8),
+                                   (1, 1, 768, 2304, 64)], ids=lambda s: "x".join(map(str, s)))
+def test_ln_qkv_head_every_tile(cuda_device, shape, monkeypatch):
+    """Each tensor-core tile that fits, forced in turn, at ragged shapes:
+    rows and columns that no tile divides, D 656 and 784 (a last weight
+    stage half full; 784 past 3 pieces a lane, where 128 rows no longer
+    fit), heads of 8. A tile that does not fit raises before any launch."""
+    import functools
+
+    B, T, D, C, Dh = shape
+    plan = tfa._plan
+    fits = [m for m in tfa.MMA_ROWS if tfa.mma_smem_bytes(m, D) <= tfa.MAX_SMEM]
+    assert fits
+    for bm in tfa.MMA_ROWS:
+        monkeypatch.setattr(tfa, "_plan", functools.partial(plan, bm=bm))
+        x, s, b, w, wb = _ln_qkv_inputs(cuda_device, B, T, D, C, torch.bfloat16, seed=bm)
+        if bm in fits:
+            _ln_qkv_check(x, s, b, w, wb, Dh, "ln_qkv_head_mma_kernel")
+        else:
+            with pytest.raises(ValueError, match="cannot run"):
+                tfa.ln_qkv_head_fused(x, s, b, w, wb, Dh)
+
+
+@pytest.mark.cuda
+def test_ln_qkv_head_unaligned_view_takes_the_cuda_cores(cuda_device):
+    """A bf16 x one element off its storage cannot take 16-byte copies: the
+    plan routes it to the CUDA-core kernel, which still holds 4 ulps."""
+    x, s, b, w, wb = _ln_qkv_inputs(cuda_device, 2, 77, 768, 2304, torch.bfloat16)
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+    xv = base[1:].view(x.shape).copy_(x)
+    _ln_qkv_check(xv, s, b, w, wb, 64, "ln_qkv_head_kernel")
+
+
+@pytest.mark.cuda
+def test_ln_qkv_head_tensor_core_kernels_hold_hmma(cuda_device):
+    """cuobjdump's SASS: HMMA in every tensor-core instance, none in the
+    fp32 CUDA-core kernel."""
+    import os
+    import subprocess
+
+    from ultravox_torch.ops.kernels import _build
+
+    path = _build.build_all(["ln_qkv_head"])["ln_qkv_head"]["path"]
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    hmma = {b.split("\n", 1)[0].strip(): b.count("HMMA") for b in sass.split("Function : ")[1:]}
+    mma = [c for n, c in hmma.items() if "ln_qkv_head_mma_kernel" in n]
+    fp32 = [c for n, c in hmma.items() if "ln_qkv_head_kernelIf" in n]
+    assert len(mma) == len(tfa.MMA_ROWS) and all(mma), hmma
+    assert len(fp32) == 1 and not fp32[0], hmma

@@ -1,19 +1,23 @@
-"""The host-side plans of two CUDA kernels' wrappers, as pure Python.
+"""The host-side plans of three CUDA kernels' wrappers, as pure Python.
 
 ``decode_matmul._plan`` picks #14's instance (sum rows, weight columns a
 lane, vector or element loads, warps side by side along N) and how K is
 split over a thread-block cluster and the block's warps;
 ``layer_norm._plan`` picks #1's instance (16-byte or element pieces, how
-many a lane holds, or a block per row). The kernels run only on the card
-(tests/test_torch_cuda.py holds them there); what they are told to do is
-checked here: every K row covered exactly once, the cluster within the
-portable limit, the vector width dividing N and the pointer's alignment,
-and an instance that the CUDA source dispatches.
+many a lane holds, or a block per row); ``fused_attention._plan`` picks
+#2's kernel (the tensor-core tile or the CUDA-core row tile) and its rows.
+The kernels run only on the card (tests/test_torch_cuda.py holds them
+there); what they are told to do is checked here: every K row (#14) or
+output element (#2) covered exactly once, the cluster within the portable
+limit, the vector width dividing N and the pointer's alignment, shared
+memory within a block's limit, and an instance that the CUDA source
+dispatches.
 """
 
 import pytest
 
 from ultravox_torch.ops.kernels import decode_matmul as dm
+from ultravox_torch.ops.kernels import fused_attention as fa
 from ultravox_torch.ops.kernels import layer_norm as ln
 
 SMS = 132  # an H100 SXM
@@ -140,3 +144,85 @@ def test_layer_norm_plan_encoder_width():
     assert ln._plan(768, 2, (0, 16, 32, 48)) == (True, 3)
     assert ln._plan(768, 4, (0, 16, 32, 48)) == (True, 6)
     assert ln._plan(768, 2, (2, 16, 32, 48)) == (False, 32)
+
+
+# #2 ln_qkv_head_fused's plan: (rows, D, C, head_dim)
+LN_QKV_SHAPES = [(2000, 768, 2304, 64), (500, 768, 2304, 64), (4, 768, 2304, 64),
+                 (154, 96, 288, 32), (1500, 1280, 3840, 64), (183, 784, 1544, 8),
+                 (1, 16, 8, 8), (4100, 2048, 6144, 128)]
+ALIGNED = (0, 4096, 8192, 12288, 16384)  # x, scale, bias, weight, output
+
+
+def _ln_qkv_cover(plan, rows, C):
+    """Every (row, 16-byte line of columns) the grid stores, as the kernel's
+    epilogue walks its tiles; each must come once."""
+    seen = []
+    for by in range(-(-rows // plan.bm)):
+        for bx in range(-(-C // plan.bn)):
+            for r in range(plan.bm):
+                for c in range(plan.bn // 8):
+                    row, n = by * plan.bm + r, bx * plan.bn + c * 8
+                    if row < rows and n < C:
+                        seen.append((row, n))
+    return seen
+
+
+@pytest.mark.parametrize("shape", LN_QKV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_ln_qkv_head_plan_routes(shape):
+    """bf16 with D % 16, C % 8, Dh % 8 and 16-byte-aligned pointers takes
+    the tensor cores; fp32, an unaligned pointer or a D, C or head_dim off
+    those multiples takes the CUDA-core row tile, as before."""
+    rows, D, C, Dh = shape
+    plan = fa._plan(True, rows, D, C, Dh, ALIGNED)
+    assert plan.mma and plan.bn == fa.MMA_BN and plan.bm in fa.MMA_ROWS
+    assert plan.smem == fa.mma_smem_bytes(plan.bm, D) <= fa.MAX_SMEM
+    assert not fa._plan(False, rows, D, C, Dh, ALIGNED).mma
+    for i in range(len(ALIGNED)):
+        off = ALIGNED[:i] + (ALIGNED[i] + 2,) + ALIGNED[i + 1:]
+        assert not fa._plan(True, rows, D, C, Dh, off).mma
+    assert not fa._plan(True, rows, D + 8, C, Dh, ALIGNED).mma  # D % 16 == 8
+    assert not fa._plan(True, rows, D, C + 4, Dh, ALIGNED).mma  # C % 8 == 4
+    cuda_core = fa._plan(True, rows, D, C, Dh, ALIGNED[:1] + (2,) + ALIGNED[2:])
+    assert (cuda_core.bm, cuda_core.bn, cuda_core.smem) == (32, 128, (32 * D + 32 * 128) * 4)
+
+
+@pytest.mark.parametrize("shape", LN_QKV_SHAPES[:6], ids=lambda s: "x".join(map(str, s)))
+def test_ln_qkv_head_plan_covers_every_output_once(shape):
+    """The grid's tiles store every output row and 16-byte line of columns
+    exactly once, for the chosen tile and for every tile that fits."""
+    rows, D, C, Dh = shape
+    want = [(r, n) for r in range(rows) for n in range(0, C, 8)]
+    plans = [fa._plan(True, rows, D, C, Dh, ALIGNED)]
+    plans += [fa._plan(True, rows, D, C, Dh, ALIGNED, bm=m) for m in fa.MMA_ROWS
+              if fa.mma_smem_bytes(m, D) <= fa.MAX_SMEM]
+    for plan in plans:
+        assert sorted(_ln_qkv_cover(plan, rows, C)) == want
+
+
+def test_ln_qkv_head_plan_fits_shared_memory_for_every_width():
+    """Every D up to ROW_TILE_MAX_K (and the tile's own limit) is planned
+    within the 232448 bytes a block may use, on either kernel; every bf16
+    D % 16 == 0 up to MMA_MAX_D takes the tensor cores."""
+    for D in range(8, max(fa.ROW_TILE_MAX_K, fa.MMA_MAX_D) + 1, 8):
+        plan = fa._plan(True, 2000, D, 2304, 64, ALIGNED)
+        assert plan.mma == (D % 16 == 0 and D <= fa.MMA_MAX_D), D
+        if plan.mma or D <= fa.ROW_TILE_MAX_K:
+            assert plan.smem <= 232448, (D, plan)
+        if plan.mma:
+            assert plan.smem == fa.mma_smem_bytes(plan.bm, D)
+    with pytest.raises(ValueError, match="cannot run"):
+        fa._plan(True, 2000, 1280, 3840, 64, ALIGNED, bm=128)  # 128 rows of 1280 do not fit
+
+
+@pytest.mark.parametrize("rows,bm,blocks", [
+    (2000, 128, 18 * 16),  # the flagship encoder at 4 requests: (4, 500, 768)
+    (500, 128, 18 * 4),    # at one request (a serving admission)
+    (4, 32, 18),           # a single frame at 4 requests
+    (1500, 128, 18 * 12),  # 30 s of audio at one request
+])
+def test_ln_qkv_head_plan_grid_at_the_flagship(rows, bm, blocks):
+    """(768 -> 2304): the fewest tile rows that hold every row, else 128,
+    in 128-column tiles; the grid's block count."""
+    plan = fa._plan(True, rows, 768, 2304, 64, ALIGNED)
+    assert plan.mma and plan.bm == bm and plan.bn == 128
+    assert -(-rows // plan.bm) * -(-2304 // plan.bn) == blocks

@@ -80,6 +80,26 @@ def test_ln_qkv_head_matches_pallas(dt):
     np.testing.assert_allclose(_np(out), _np(ref), **_tol(dt))
 
 
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_ln_qkv_head_matches_pallas_at_encoder_width(dt):
+    """The whisper-small encoder's width: D 768 -> C 2304 in heads of 64,
+    T 128. The CPU route is the plain version the card holds its kernels
+    against."""
+    tdt, jdt = DTYPES[dt]
+    x, s, b = _ln_inputs(768)
+    rng = np.random.default_rng(4)
+    w = (0.03 * rng.standard_normal((768, 2304))).astype(np.float32)
+    pb = (0.1 * rng.standard_normal(2304)).astype(np.float32)
+    ref = jfa.ln_qkv_head_fused(
+        _j(x, jdt), jnp.asarray(s), jnp.asarray(b), _j(w, jdt), _j(pb, jdt), 64, block_t=128
+    )
+    out = tfa.ln_qkv_head_fused(
+        _t(x, tdt), _t(s, torch.float32), _t(b, torch.float32), _t(w, tdt), _t(pb, tdt), 64
+    )
+    assert out.shape == (2, 36, 128, 64) and out.dtype == tdt
+    np.testing.assert_allclose(_np(out), _np(ref), **_tol(dt))
+
+
 @pytest.mark.parametrize("latency_block", [0, 32])
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_attention_headmajor_matches_pallas(dt, latency_block):

@@ -43,11 +43,13 @@ ENTRY_POINTS = {
     "segment_attention": ("segment_attention", "paged_segment_attention"),
     "flash_attention": ("flash_attention", "flash_attention_bwd"),
     "encoder_attn_probe": ("attn_v2", "attn_nt"),
+    "ln_qkv_head": ("ln_qkv_head", "ln_qkv_head_mma"),
 }
 # C signature of each entry point uv_<entry> (see the .cu sources)
 _SIGNATURES = {
     "layer_norm": (_P, _P, _P, _P, ctypes.c_longlong, _I, _F, _I, _I, _I, _P),
     "ln_qkv_head": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "ln_qkv_head_mma": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "attention": (
         _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
         _I, _I, _I, _I, _I, _I, _F, _P, _P, _I, _I, _I, _P,

@@ -1,7 +1,9 @@
 """Attention kernels of the encoder and of causal prefill, with plain versions.
 
 - ``ln_qkv_head_fused`` (``csrc/ln_qkv_head.cu``) replaces
-  ``ultravox_tpu/ops/pallas/fused_attention.py:ln_qkv_head_fused``.
+  ``ultravox_tpu/ops/pallas/fused_attention.py:ln_qkv_head_fused``. bf16
+  runs on the tensor cores (``csrc/mma_rows.cuh``) where ``_plan`` allows
+  it; fp32 and every other shape or alignment on the CUDA cores.
 - ``attention_headmajor`` and ``fused_attention`` (both ``csrc/attention.cu``)
   replace ``fused_attention.py:attention_headmajor`` (``_headmajor_kernel``)
   and ``fused_attention.py:fused_attention`` (``_attn_kernel``).
@@ -21,7 +23,7 @@ noted at the top of its CUDA source.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,6 +36,13 @@ VEC_BYTES = 16  # qkv_head_transpose and bf16 attention move 16 bytes per load a
 # widest contraction whose 32 rows fit in shared memory beside the weight
 # tile (csrc/row_tile.cuh: (32 * K + 32 * 128) * 4 bytes <= 232448)
 ROW_TILE_MAX_K = (232448 - 32 * 128 * 4) // (32 * 4)
+MAX_SMEM = 232448  # shared memory a block may use on sm_90
+# rows of ln_qkv_head's tensor-core tiles (csrc/ln_qkv_head.cu
+# uv_ln_qkv_head_mma), largest first; each is MMA_BN columns wide
+MMA_ROWS = (128, 64, 32)
+MMA_BN = 128
+MMA_MAX_D = 2048  # widest row of csrc/mma_rows.cuh
+RING_ROWS, RING_STAGES = 32, 3  # the weight ring of csrc/mma_rows.cuh
 
 
 # --------------------------------------------------------------------------
@@ -134,6 +143,48 @@ def attention_plain(
 # --------------------------------------------------------------------------
 
 
+def mma_smem_bytes(bm: int, D: int) -> int:
+    """Dynamic shared memory of a tensor-core block (csrc/mma_rows.cuh
+    smem_bytes): the LN scale and bias (fp32), then BM resident rows of
+    pitch D + 8 and the 3-stage ring of 32 x (MMA_BN + 8) weight tiles, or
+    the BM x (MMA_BN + 8) epilogue tile if larger."""
+    main = bm * (D + 8) + RING_STAGES * RING_ROWS * (MMA_BN + 8)
+    return 8 * D + 2 * max(main, bm * (MMA_BN + 8))
+
+
+class Plan(NamedTuple):
+    mma: bool  # the tensor-core kernel, else the CUDA-core row tile
+    bm: int  # output rows a block owns
+    bn: int  # output columns a block owns
+    smem: int  # its dynamic shared memory, bytes
+
+
+def _plan(bf16: bool, rows: int, D: int, C: int, Dh: int, ptrs, bm: Optional[int] = None) -> Plan:
+    """ln_qkv_head_fused's kernel and tile for ``rows`` rows of (rows, D) x
+    (D, C) in heads of Dh, whose x, LN vectors, weight and output start at
+    ``ptrs``. The tensor-core kernel takes bf16 with D % 16 == 0 (up to
+    MMA_MAX_D), C % 8 == 0, Dh % 8 == 0 (a 16-byte line lies in one head)
+    and 16-byte-aligned pointers, in MMA_BN-wide tiles of the fewest rows
+    of MMA_ROWS that hold all ``rows``, else of the most that fit in shared
+    memory (on the H100 fewer rows, 64-column tiles and blocks that run
+    several column tiles from one LayerNorm all measured slower at the
+    encoder's shapes; PERF.md). Everything else (fp32, other shapes,
+    unaligned views) takes the CUDA-core 32 x 128 row tile. ``bm`` forces
+    the tensor-core tile's rows (ValueError where it cannot run)."""
+    mma = (bf16 and D % 16 == 0 and D <= MMA_MAX_D and C % 8 == 0 and Dh % 8 == 0
+           and all(p % 16 == 0 for p in ptrs))
+    fits = [m for m in MMA_ROWS if mma_smem_bytes(m, D) <= MAX_SMEM] if mma else []
+    if bm is not None:
+        if bm not in fits:
+            raise ValueError(f"ln_qkv_head_fused: a {bm}-row tile cannot run at D={D}, C={C}, "
+                             f"Dh={Dh} (rows that can: {fits})")
+    elif not fits:
+        return Plan(False, 32, 128, (32 * D + 32 * 128) * 4)
+    else:
+        bm = min((m for m in fits if m >= rows), default=fits[0])
+    return Plan(True, bm, MMA_BN, mma_smem_bytes(bm, D))
+
+
 def ln_qkv_head_fused(x, ln_scale, ln_bias, kernel, bias, head_dim: int, *, eps: float = 1e-5):
     """LayerNorm -> (T, D) x (D, C) + bias -> head-major (B, C/Dh, T, Dh)."""
     if x.device.type == "cpu":
@@ -151,12 +202,15 @@ def ln_qkv_head_fused(x, ln_scale, ln_bias, kernel, bias, head_dim: int, *, eps:
     s32 = ln_scale.float().contiguous()
     b32 = ln_bias.float().contiguous()
     out = torch.empty((B, C // head_dim, T, head_dim), dtype=x.dtype, device=x.device)
+    plan = _plan(x.dtype == torch.bfloat16, B * T, D, C, head_dim,
+                 [t.data_ptr() for t in (x, s32, b32, w, out)])
     lib = _build.library("ln_qkv_head")
-    rc = lib.uv_ln_qkv_head(
-        _build.ptr(x), _build.ptr(s32), _build.ptr(b32), _build.ptr(w), _build.ptr(b),
-        _build.ptr(out), B, T, D, C, head_dim, eps, _build.dtype_code(x),
-        _build.stream_ptr(x.device),
-    )
+    args = (_build.ptr(x), _build.ptr(s32), _build.ptr(b32), _build.ptr(w), _build.ptr(b),
+            _build.ptr(out), B, T, D, C, head_dim, eps)
+    if plan.mma:
+        rc = lib.uv_ln_qkv_head_mma(*args, plan.bm, _build.stream_ptr(x.device))
+    else:
+        rc = lib.uv_ln_qkv_head(*args, _build.dtype_code(x), _build.stream_ptr(x.device))
     _build.check("ln_qkv_head", rc)
     ln_qkv_head_fused.launches += 1
     return out

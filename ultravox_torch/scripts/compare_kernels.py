@@ -2,7 +2,7 @@
 process on one card: the split KV kernel (#8 ``decode_attention``, #11
 ``segment_tail_attention``, and in its paged instances #9
 ``paged_decode_attention``, #12 ``paged_segment_tail_attention``), #14
-``decode_matmul`` and #1 ``fused_layer_norm``.
+``decode_matmul``, #1 ``fused_layer_norm`` and #2 ``ln_qkv_head_fused``.
 
     python -m ultravox_torch.scripts.compare_kernels --baseline DIR [--only PART ...]
         [--out FILE] [--sweep-splits]
@@ -11,13 +11,15 @@ DIR holds an earlier ``ultravox_torch/ops/kernels/csrc``, for example
 
     git archive <commit> ultravox_torch/ops/kernels/csrc | tar -x -C DIR
 
-The script builds DIR's decode_attention, segment_attention,
-paged_attention, decode_matmul and layer_norm with the port's nvcc flags
-into DIR/build (each entry point bound with the signature its source
-declares: #8/#9/#11/#12 with or without the cluster size, #14 with or
-without the fp32 partials of its second kernel, #1 with or without the
-instance), then, in bf16 unless said otherwise (``--only`` picks among
-``kv``, ``paged``, ``decode_matmul`` and ``layer_norm``; all by default):
+The script builds the libraries of DIR that the chosen parts need
+(decode_attention, segment_attention, paged_attention, decode_matmul,
+layer_norm, ln_qkv_head, ln_matmul_gelu, attn_out_proj) with the port's
+nvcc flags into DIR/build (each entry point bound with the signature its
+source declares: #8/#9/#11/#12 with or without the cluster size, #14 with
+or without the fp32 partials of its second kernel, #1 with or without the
+instance; an entry point DIR's source lacks is left out), then, in bf16
+unless said otherwise (``--only`` picks among ``kv``, ``paged``,
+``decode_matmul``, ``layer_norm`` and ``ln_qkv_head``; all by default):
 
 - kv: #8 at the flagship decode step (q (4, 32, 64) against a
   (4, 256, 8, 64) slab with 144 keys) and at serving run (c)'s (a
@@ -54,7 +56,22 @@ instance), then, in bf16 unless said otherwise (``--only`` picks among
 - layer_norm: #1 at (4, 500, 768) and (1, 500, 768) bf16 and (4, 500, 768)
   fp32 (scale and bias fp32): current and baseline against the plain
   version, two calls bit-equal, times in turns, the bound and
-  ``F.layer_norm`` (bf16 scale and bias for bf16 x).
+  ``F.layer_norm`` (bf16 scale and bias for bf16 x);
+- ln_qkv_head: #2 at (4, 500, 768) and (1, 500, 768) x (768, 2304) and
+  whisper-large's (1, 1500, 1280) x (1280, 3840), heads of 64 (scale and
+  bias fp32): current and baseline against the plain version (4 bf16 ulps
+  of the largest output), two current calls bit-equal, times in turns, the
+  bound, ``torch.mm`` on the LN'd bf16 rows (the product alone) and the
+  unfused chain ``F.layer_norm`` -> ``torch.mm`` -> ``+ bias`` ->
+  ``view(...).transpose(1, 2).contiguous()`` timed as one run of its four
+  calls (yardsticks; the port calls neither), and the tile ``_plan``
+  chose; with ``--sweep-splits``, the current kernel with each tensor-core
+  tile (128, 64 and 32 rows) that fits forced in turn. Then the routes that must not have moved:
+  fp32 at (4, 500, 768) and a bf16 view one element off its storage (the
+  CUDA-core kernel) bit-equal to the baseline's, and #6
+  ``ln_matmul_gelu`` (encoder fc1, bf16 and fp32) and #7
+  ``attn_out_proj_residual`` (encoder out-projection, bf16 and fp32)
+  bit-equal to the baseline's build.
 
 Prints one line per measurement and one JSON object last (also written to
 ``--out``). Needs a CUDA card and raises without one. ``paged_edge_inputs``
@@ -81,6 +98,7 @@ import torch.nn.functional as F
 from ultravox_torch.ops.kernels import _build
 from ultravox_torch.ops.kernels import decode_attention as da
 from ultravox_torch.ops.kernels import decode_matmul as dm
+from ultravox_torch.ops.kernels import fused_attention as fa
 from ultravox_torch.ops.kernels import layer_norm as ln
 from ultravox_torch.ops.kernels import paged_attention as pa
 from ultravox_torch.ops.kernels import segment_attention as sa
@@ -112,8 +130,18 @@ OLD_SIGNATURES = {
     "decode_matmul": (_P, _LL, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "layer_norm": (_P, _P, _P, _P, _LL, _I, _F, _I, _P),
 }
-BASELINE_NAMES = ("decode_attention", "segment_attention", "paged_attention", "decode_matmul",
-                  "layer_norm")
+# the baseline's libraries each part builds and calls
+PART_LIBS = {
+    "kv": ("decode_attention", "segment_attention"),
+    "paged": ("paged_attention", "segment_attention"),
+    "decode_matmul": ("decode_matmul",),
+    "layer_norm": ("layer_norm",),
+    "ln_qkv_head": ("ln_qkv_head", "ln_matmul_gelu", "attn_out_proj"),
+}
+# #2's shapes: (B, T, D, C), heads of 64
+LN_QKV_SHAPES = {"(4,500,768)": (4, 500, 768, 2304), "(1,500,768)": (1, 500, 768, 2304),
+                 "(1,1500,1280)": (1, 1500, 1280, 3840)}
+LN_QKV_HEAD_DIM = 64
 
 
 def takes_splits(csrc: Path, name: str, entry: str) -> bool:
@@ -136,16 +164,15 @@ def _current_interface(csrc: Path, name: str, entry: str) -> bool:
     return True
 
 
-def build_baseline(csrc: Path) -> dict:
-    """nvcc each baseline library into csrc/build; returns name -> CDLL with
-    its entry points' argtypes set."""
+def build_baseline(csrc: Path, names) -> dict:
+    """nvcc each named baseline library into csrc/build; returns name ->
+    CDLL with its entry points' argtypes set."""
     for e in KV_ENTRIES:  # OLD_SIGNATURES drops the `splits` int third from the end
         now = _build._SIGNATURES[e]
         if len(OLD_SIGNATURES[e]) + 1 != len(now) or now[-3] is not _I:
             raise RuntimeError(f"uv_{e}'s signature no longer ends in (splits, ..., ...)")
     out = csrc / "build"
     out.mkdir(exist_ok=True)
-    names = BASELINE_NAMES
     procs = {}
     for name in names:
         so = out / f"lib{name}.so"
@@ -160,7 +187,10 @@ def build_baseline(csrc: Path) -> dict:
             raise RuntimeError(f"nvcc failed on the baseline {name}.cu:\n{log}")
         lib = ctypes.CDLL(str(so))
         lib.current = {}
+        text = (csrc / f"{name}.cu").read_text()
         for entry in _build.ENTRY_POINTS.get(name, (name,)):
+            if f"int uv_{entry}(" not in text:  # an entry point added since
+                continue
             fn = getattr(lib, f"uv_{entry}")
             lib.current[entry] = _current_interface(csrc, name, entry)
             fn.argtypes = list(_build._SIGNATURES[entry] if lib.current[entry]
@@ -687,6 +717,139 @@ def compare_layer_norm(libs, dev, g) -> dict:
     return rows
 
 
+def baseline_ln_qkv_head(lib, x, s32, b32, w, b, Dh):
+    """The baseline #2 launch (uv_ln_qkv_head, one signature throughout)."""
+    B, T, D = x.shape
+    C = w.shape[1]
+    out = torch.empty((B, C // Dh, T, Dh), dtype=x.dtype, device=x.device)
+    rc = lib.uv_ln_qkv_head(
+        _build.ptr(x), _build.ptr(s32), _build.ptr(b32), _build.ptr(w), _build.ptr(b),
+        _build.ptr(out), B, T, D, C, Dh, 1e-5, _build.dtype_code(x), _build.stream_ptr(x.device))
+    _check(lib, "ln_qkv_head", rc)
+    return out
+
+
+def _ln_qkv_inputs(dev, g, B, T, D, C, dtype):
+    x = torch.randn((B, T, D), generator=g, device=dev).to(dtype)
+    s = 1 + 0.1 * torch.randn((D,), generator=g, device=dev)
+    b = 0.1 * torch.randn((D,), generator=g, device=dev)
+    w = (0.02 * torch.randn((D, C), generator=g, device=dev)).to(dtype)
+    wb = (0.02 * torch.randn((C,), generator=g, device=dev)).to(dtype)
+    return x, s, b, w, wb
+
+
+def ln_qkv_chain(x, s, b, w, wb, Dh):
+    """The unfused form in four PyTorch calls (bf16 LN scale and bias)."""
+    B, T, D = x.shape
+    h = F.layer_norm(x, (D,), s, b, 1e-5)
+    qkv = torch.mm(h.view(B * T, D), w) + wb
+    return qkv.view(B, T, -1, Dh).transpose(1, 2).contiguous()
+
+
+def compare_ln_qkv_head(libs, dev, g, sweep: bool) -> dict:
+    """#2 against the baseline at the encoder's shapes, beside torch.mm and
+    the unfused chain; then fp32, an unaligned view, #6 and #7 bit-equal
+    to the baseline's build."""
+    lib, Dh, bf = libs["ln_qkv_head"], LN_QKV_HEAD_DIM, torch.bfloat16
+    rows = {}
+    for label, (B, T, D, C) in LN_QKV_SHAPES.items():
+        x, s, b, w, wb = _ln_qkv_inputs(dev, g, B, T, D, C, bf)
+        cur = lambda: fa.ln_qkv_head_fused(x, s, b, w, wb, Dh)  # noqa: E731
+        base = lambda: baseline_ln_qkv_head(lib, x, s, b, w, wb, Dh)  # noqa: E731
+        out, again, ref, old = cur(), cur(), fa.ln_qkv_head_plain(x, s, b, w, wb, Dh), base()
+        torch.cuda.synchronize()
+        row = {"max_abs_err": _err(out, ref), "tol": _tol(ref), "baseline_err": _err(old, ref),
+               "bit_equal": torch.equal(out, again),
+               "plan": fa._plan(True, B * T, D, C, Dh, [0])._asdict()}
+        if not (row["max_abs_err"] <= row["tol"] and row["baseline_err"] <= row["tol"]
+                and row["bit_equal"]):
+            raise RuntimeError(f"ln_qkv_head_fused {label}: {row}")
+        row.update(in_turns(base, cur))
+        h = fa._layer_norm_rounded(x, s, b, 1e-5).view(B * T, D)
+        s_bf, b_bf = s.to(bf), b.to(bf)
+        row["torch_mm_ms"] = time_ms(lambda: torch.mm(h, w))
+        row["chain_ms"] = time_ms(lambda: ln_qkv_chain(x, s_bf, b_bf, w, wb, Dh))
+        row["bound_ms"] = max(_nbytes(x, s, b, w, wb, out) / HBM_BYTES_PER_S,
+                              2.0 * B * T * D * C / BF16_FLOPS) * 1e3
+        row["speedup"] = row["baseline_ms"] / row["ms"]
+        if sweep:
+            plan, row["tiles_ms"] = fa._plan, {}
+            for bm in fa.MMA_ROWS:
+                if fa.mma_smem_bytes(bm, D) > fa.MAX_SMEM:
+                    continue
+                fa._plan = functools.partial(plan, bm=bm)
+                try:
+                    if _err(cur(), ref) > row["tol"]:
+                        raise RuntimeError(f"ln_qkv_head_fused {label} with {bm}-row tiles")
+                    row["tiles_ms"][f"{bm}x{fa.MMA_BN}"] = time_ms(cur)
+                finally:
+                    fa._plan = plan
+        rows[f"ln_qkv_head_fused {label}"] = row
+        print(f"ln_qkv_head_fused {label}: {row['ms']:.4f} ms (baseline {row['baseline_ms']:.4f}, "
+              f"{row['speedup']:.2f}x; torch.mm {row['torch_mm_ms']:.4f}, chain "
+              f"{row['chain_ms']:.4f}; bound {row['bound_ms']:.5f}); turns {row['turns_ms']}; "
+              f"err {row['max_abs_err']:.3g} (tol {row['tol']:.3g}); plan {row['plan']}; "
+              f"tiles {row.get('tiles_ms')}", flush=True)
+    rows["unchanged routes"] = _unchanged_routes(libs, dev, g)
+    return rows
+
+
+def _unchanged_routes(libs, dev, g) -> dict:
+    """fp32 and an unaligned bf16 view of #2 (its CUDA-core kernel), #6 and
+    #7 in bf16 and fp32: bit-equal to the baseline's build, and timed."""
+    Dh, out = LN_QKV_HEAD_DIM, {}
+    B, T, D, H = 4, 500, 768, 12
+    lib2, lib6, lib7 = libs["ln_qkv_head"], libs["ln_matmul_gelu"], libs["attn_out_proj"]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        x, s, b, w, wb = _ln_qkv_inputs(dev, g, B, T, D, 3 * D, dtype)
+        if dtype == torch.bfloat16:  # one element off its storage: the CUDA-core route
+            base = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+            x = base[1:].view(B, T, D).copy_(x)
+            name = "bfloat16 unaligned"
+        cases = {f"ln_qkv_head {name}": (
+            lambda: fa.ln_qkv_head_fused(x, s, b, w, wb, Dh),
+            lambda: baseline_ln_qkv_head(lib2, x, s, b, w, wb, Dh))}
+        x6 = torch.randn((B, T, D), generator=g, device=dev).to(dtype)
+        w6 = (0.02 * torch.randn((D, 4 * D), generator=g, device=dev)).to(dtype)
+        b6 = (0.02 * torch.randn((4 * D,), generator=g, device=dev)).to(dtype)
+        a7 = torch.randn((B, H, T, D // H), generator=g, device=dev).to(dtype)
+        w7 = (0.02 * torch.randn((H, D // H, D), generator=g, device=dev)).to(dtype)
+        r7 = torch.randn((B, T, D), generator=g, device=dev).to(dtype)
+
+        def base6(x6=x6, w6=w6, b6=b6, s=s, b=b):
+            o = torch.empty((B, T, 4 * D), dtype=x6.dtype, device=dev)
+            _check(lib6, "ln_matmul_gelu", lib6.uv_ln_matmul_gelu(
+                _build.ptr(x6), _build.ptr(s), _build.ptr(b), _build.ptr(w6), _build.ptr(b6),
+                _build.ptr(o), B * T, D, 4 * D, 1e-5, _build.dtype_code(x6),
+                _build.stream_ptr(x6.device)))
+            return o
+
+        def base7(a7=a7, w7=w7, b6=b6, r7=r7):
+            o = torch.empty_like(r7)
+            _check(lib7, "attn_out_proj", lib7.uv_attn_out_proj(
+                _build.ptr(a7), _build.ptr(w7), _build.ptr(b6[:D]), _build.ptr(r7), _build.ptr(o),
+                B, H, T, D // H, D, _build.dtype_code(r7), _build.stream_ptr(r7.device)))
+            return o
+
+        cases[f"ln_matmul_gelu {str(dtype)[6:]}"] = (
+            lambda: fa.ln_matmul_gelu(x6, s, b, w6, b6), base6)
+        cases[f"attn_out_proj_residual {str(dtype)[6:]}"] = (
+            lambda: fa.attn_out_proj_residual(a7, w7, b6[:D], r7), base7)
+        for label, (cur, old) in cases.items():
+            got, want = cur(), old()
+            torch.cuda.synchronize()
+            row = {"bit_equal_to_baseline": torch.equal(got, want)}
+            if not row["bit_equal_to_baseline"]:
+                raise RuntimeError(f"{label} differs from the baseline's build by "
+                                   f"{_err(got, want)}")
+            row.update(in_turns(old, cur))
+            out[label] = row
+            print(f"{label}: bit-equal to the baseline; {row['ms']:.4f} ms (baseline "
+                  f"{row['baseline_ms']:.4f})", flush=True)
+    return out
+
+
 def _time_against_baseline(libs, c, label, row_extra=None) -> dict:
     """A case's current kernel against its plain version and the baseline
     (4 bf16 ulps of the largest output), then both timed in turns, with the
@@ -776,15 +939,16 @@ def compare_paged(libs, dev, g, sweep_splits: bool, result: dict) -> None:
             _sweep_splits(c, row, label)
 
 
-PARTS = ("kv", "paged", "decode_matmul", "layer_norm")
+PARTS = tuple(PART_LIBS)
 
 
 def run(baseline: Path, sweep_splits: bool = False, only=PARTS) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("compare_kernels needs a CUDA card")
     dev = "cuda"
-    libs = build_baseline(baseline)
-    _build.build_all(BASELINE_NAMES)
+    names = sorted({n for part in only for n in PART_LIBS[part]})
+    libs = build_baseline(baseline, names)
+    _build.build_all(names)
     g = torch.Generator(device=dev).manual_seed(0)
     result = {"device": torch.cuda.get_device_name(0), "cases": {}}
     if "kv" in only:
@@ -795,6 +959,8 @@ def run(baseline: Path, sweep_splits: bool = False, only=PARTS) -> dict:
         result["cases"].update(compare_decode_matmul(libs, dev, g, sweep_splits))
     if "layer_norm" in only:
         result["cases"].update(compare_layer_norm(libs, dev, g))
+    if "ln_qkv_head" in only:
+        result["cases"].update(compare_ln_qkv_head(libs, dev, g, sweep_splits))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     result["nvidia_smi"] = smi
@@ -808,7 +974,8 @@ def main() -> None:
                     help="directory holding the earlier csrc sources")
     ap.add_argument("--out", type=Path, default=None, help="also write the JSON here")
     ap.add_argument("--sweep-splits", action="store_true",
-                    help="also time #8, #9, #11, #12 and #14 at clusters of 1, 2, 4 and 8 blocks")
+                    help="also time #8, #9, #11, #12 and #14 at clusters of 1, 2, 4 and 8 "
+                         "blocks, and #2 at each tensor-core tile")
     ap.add_argument("--only", nargs="+", choices=PARTS, default=PARTS,
                     help="the kernels to compare (all by default)")
     args = ap.parse_args()
