@@ -6,8 +6,8 @@ Phases, each fatal on failure:
   1. build every CUDA kernel of the port from ultravox_torch/ops/kernels/csrc
      (one nvcc per source, all thirteen at once); the bf16 kernels of
      flash_attention, attention (#3/#4), encoder_attn_probe (#15/#16),
-     decode_matmul (#14, bf16 x) and ln_qkv_head (#2, its three tile
-     instances) must hold tensor-core instructions (HMMA in cuobjdump's
+     decode_matmul (#14, bf16 x), ln_qkv_head (#2) and ln_matmul_gelu (#6,
+     three tile instances each) must hold tensor-core instructions (HMMA in cuobjdump's
      SASS; the fp32 ones none) and ptxas must report no spills for them
      (the attention kernels at head_dim 64),
      nor for the split KV kernel (csrc/kv_split.cuh, both dtypes) at
@@ -52,10 +52,19 @@ Phases, each fatal on failure:
      calls bit-equal there and at T 1, a ragged (2, 77, 96) in heads of 32,
      whisper-large's (1, 1500, 1280) x (1280, 3840), an unaligned view and
      fp32 (both the CUDA-core kernel, fp32 within 1e-5);
-     qkv_head_transpose is bit-equal in bf16 and fp32 at (4, 500, 2304),
-     (1, 500, 2304) and a ragged T with head_dim 128, and timed at B 1 and 4;
+     qkv_head_transpose is bit-equal twice in bf16 and fp32 at (4, 500,
+     2304), (1, 500, 2304), T 1, a T its 4-row blocks leave a partial last
+     block of, 3-row blocks forced and a ragged T with head_dim 128 (each
+     call followed by a sync with a watchdog), and timed at B 1 and 4
+     beside transpose(1, 2).contiguous();
      the three kernels no engine launches (as in the reference):
-     ln_matmul_gelu at the encoder's fc1, attn_out_proj_residual at its
+     ln_matmul_gelu (#6) at the encoder's fc1 at 4 requests and at one and
+     whisper-large's (1, 1500, 1280) x (1280, 5120) (the tensor-core
+     kernel), timed beside its bound, its plain version, torch.mm on the
+     LN'd rows and the unfused three-call chain, and within 4 bf16 ulps and
+     two calls bit-equal there and at T 1, a ragged (2, 77, 96) x (96, 384),
+     an unaligned view and fp32 (both the CUDA-core kernel, fp32 within 1e-5
+     of the largest output); attn_out_proj_residual at the encoder's
      out-projection, and decode_matmul on every Llama-3.2-1B decoder product
      with a bf16 and an int8 + scale weight (1, 4 and 32 rows, bf16 and
      fp32, two calls bit-equal, one device kernel a call), timed at 4 rows
@@ -157,6 +166,21 @@ SEED = 0
 def _fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def _synced(label: str, seconds: float = 30.0) -> None:
+    """Wait until the card has run everything queued so far. A kernel that
+    waits on a barrier for bytes that never arrive would hang the run: after
+    ``seconds`` this fails it and ends the process instead."""
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.perf_counter()
+    while not done.query():
+        if time.perf_counter() - t0 > seconds:
+            print(f"chip_smoke: FAIL: {label}: the card has not finished after {seconds} s",
+                  file=sys.stderr, flush=True)
+            os._exit(1)
+        time.sleep(1e-4)
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3, queued: bool = True) -> float:
@@ -422,6 +446,22 @@ def _check_ln_qkv_head(fa, x, s, b, s_bf, b_bf, Dh, dev, g):
     return dict(main, name="ln_qkv_head_fused", shapes=shapes, edge_cases=edges)
 
 
+# #5's cases: label, (B, T, G, head_dim), dtype, rows of T a block owns
+# (None: as the plan picks). 36 heads of 64 at four requests and at one, a
+# single frame, a T the plan's 4-row blocks leave a partial last block of,
+# 3-row blocks forced, fp32 heads of 128 at a ragged T, fp32 at both B.
+TRANSPOSE_EDGES = (
+    ("B 4", (4, 500, 36, 64), torch.bfloat16, None),
+    ("B 1", (1, 500, 36, 64), torch.bfloat16, None),
+    ("T 1", (1, 1, 36, 64), torch.bfloat16, None),
+    ("T 501 (T % 4 == 1)", (4, 501, 36, 64), torch.bfloat16, None),
+    ("T 77 in 3-row blocks", (2, 77, 36, 64), torch.bfloat16, 3),
+    ("fp32 (2,77) head_dim 128", (2, 77, 6, 128), torch.float32, None),
+    ("fp32 B 4", (4, 500, 36, 64), torch.float32, None),
+    ("fp32 B 1", (1, 500, 36, 64), torch.float32, None),
+)
+
+
 def _check_kernels(fa, ln_mod, dev):
     """Phase 2: every kernel against its plain version at main-path shapes."""
     import torch.nn.functional as F
@@ -539,20 +579,29 @@ def _check_kernels(fa, ln_mod, dev):
         "device_ms", "wrapper_ms", "tflops", "library_factor")}
 
     # 5. head-major relayout of the fused encoder's int8 / LoRA q/k/v
-    # product: bit-equal in bf16 and fp32 at both main-path shapes (B 1, one
-    # serving admission; B 4, int8 generate) and a ragged T with head_dim
-    # 128; timed at B 1, with the B 4 time beside it
+    # product: bit-equal to its plain version, twice, at TRANSPOSE_EDGES (each
+    # call followed by a watchdog sync: a barrier count above the bytes its
+    # copies move would hang); timed at B 1 (one serving admission) with the
+    # B 4 time (int8 generate) beside it
+    from ultravox_torch.scripts.compare_kernels import forced
+
     G = 3 * H
-    for dtype in (bf, torch.float32):
-        for shape in ((4, T, G, Dh), (1, T, G, Dh), (2, 77, 6, 128)):
-            Bq, Tq, Gq, Dq = shape
-            qkv = torch.randn((Bq, Tq, Gq * Dq), generator=g, device=dev).to(dtype)
-            out, ref = fa.qkv_head_transpose(qkv, Dq), fa.qkv_head_transpose_plain(qkv, Dq)
-            torch.cuda.synchronize()
-            print(f"check qkv_head_transpose {shape} {str(dtype)[6:]}: bit-equal "
-                  f"{torch.equal(out, ref)}", flush=True)
-            if not torch.equal(out, ref):
-                _fail(f"qkv_head_transpose {shape} {dtype} differs from its plain version")
+    transpose_edges = {}
+    for label, (Bq, Tq, Gq, Dq), dtype, forced_rows in TRANSPOSE_EDGES:
+        qkv = torch.randn((Bq, Tq, Gq * Dq), generator=g, device=dev).to(dtype)
+        with forced("_transpose_plan", **({} if forced_rows is None else {"rows": forced_rows})):
+            out = fa.qkv_head_transpose(qkv, Dq)
+            _synced(f"qkv_head_transpose {label}")
+            again = fa.qkv_head_transpose(qkv, Dq)
+            _synced(f"qkv_head_transpose {label}")
+            used = fa._transpose_plan(Bq, Tq, Gq, Dq * qkv.element_size(), fa._build.sm_count(0))
+        ref = fa.qkv_head_transpose_plain(qkv, Dq)
+        equal = torch.equal(out, ref) and torch.equal(again, ref)
+        transpose_edges[label] = {"bit_equal_twice": equal, "plan": used._asdict()}
+        print(f"check qkv_head_transpose {label} {str(dtype)[6:]}: bit-equal twice {equal}; "
+              f"plan {used._asdict()}", flush=True)
+        if not equal:
+            _fail(f"qkv_head_transpose {label} {dtype} differs from its plain version")
     # Each timed call reads an input and writes an output that the previous
     # 31 calls did not touch (the 50 MB L2 holds a B 4 input and output), so
     # the times are HBM times, comparable with the bound.
@@ -566,6 +615,7 @@ def _check_kernels(fa, ln_mod, dev):
         torch.cuda.synchronize()
         nxt = itertools.cycle(inputs).__next__
         keep = collections.deque(maxlen=len(inputs)).append
+        plan = fa._transpose_plan(Bq, T, G, Dh * 2, fa._build.sm_count(0))._asdict()
         args = ("qkv_head_transpose", "qkv_head_transpose_kernel",
                 "ultravox_torch/ops/kernels/csrc/qkv_head_transpose.cu",
                 "ultravox_tpu/ops/pallas/fused_attention.py:258", out, ref,
@@ -577,9 +627,10 @@ def _check_kernels(fa, ln_mod, dev):
             r = exact(*args)
             times = {f"{k}_b4": r[k] for k in ("ms", "device_ms", "wrapper_ms", "plain_ms",
                                                "library_ms", "bound_ms")}
+            times["plan_b4"] = plan
             rows.pop()
         else:
-            exact(*args, extra=times)
+            exact(*args, extra=dict(times, plan=plan, edge_cases=transpose_edges))
     return rows
 
 
@@ -686,6 +737,95 @@ DECODE_PRODUCTS = {
 L2_BYTES = 50 * 2**20  # H100 L2
 
 
+# #6's cases: label, (B, T, D, F), dtype, element offset of x in its storage
+# (1: a view the 16-byte copies cannot take). Timed: the encoder's fc1 at 4
+# requests and at one, and whisper-large's FFN (the JAX note's bench shape).
+GELU_TIMED = (("fc1 (4,500,768)", (4, 500, 768, 3072)), ("fc1 (1,500,768)", (1, 500, 768, 3072)),
+              ("whisper-large (1,1500,1280)", (1, 1500, 1280, 5120)))
+GELU_EDGES = (
+    ("T 1", (4, 1, 768, 3072), torch.bfloat16, 0),
+    ("ragged (2,77,96) x (96,384)", (2, 77, 96, 384), torch.bfloat16, 0),
+    ("unaligned view (2,77,768)", (2, 77, 768, 3072), torch.bfloat16, 1),
+    ("fp32 (4,500,768)", (4, 500, 768, 3072), torch.float32, 0),
+)
+
+
+def _check_ln_matmul_gelu(fa, dev, g):
+    """Phase 2, #6: the tensor-core kernel at GELU_TIMED against its plain
+    version (4 bf16 ulps of the largest output), two calls bit-equal, timed
+    beside its bound, torch.mm on the LN'd rows (the product alone) and the
+    unfused three-call chain (yardsticks: no single call computes it); then
+    GELU_EDGES, each routed as _gelu_plan says (the unaligned view and fp32
+    to the CUDA-core kernel, fp32 within 1e-5 of the largest output) and
+    bit-equal twice. Returns the kernel's row."""
+    from ultravox_torch.scripts.compare_kernels import gelu_chain
+
+    bf = torch.bfloat16
+    rec = _recorder([], _bf16_tol)
+    shapes, main, edges = {}, None, {}
+
+    def inputs(B, T, D, Fd, dtype, offset=0):
+        base = torch.randn((B * T * D + offset,), generator=g, device=dev).to(dtype)
+        x = base[offset:].view(B, T, D)
+        s = 1 + 0.1 * torch.randn((D,), generator=g, device=dev)
+        b = 0.1 * torch.randn((D,), generator=g, device=dev)
+        w = (0.02 * torch.randn((D, Fd), generator=g, device=dev)).to(dtype)
+        wb = (0.02 * torch.randn((Fd,), generator=g, device=dev)).to(dtype)
+        return x, s, b, w, wb
+
+    for label, (B, T, D, Fd) in GELU_TIMED:
+        x, s, b, w, wb = inputs(B, T, D, Fd, bf)
+        out = fa.ln_matmul_gelu(x, s, b, w, wb)
+        _synced(f"ln_matmul_gelu {label}")
+        again = fa.ln_matmul_gelu(x, s, b, w, wb)
+        ref = fa.ln_matmul_gelu_plain(x, s, b, w, wb)
+        _synced(f"ln_matmul_gelu {label}")
+        if not torch.equal(out, again):
+            _fail(f"ln_matmul_gelu {label}: two calls differ")
+        h = fa._layer_norm_rounded(x, s, b, 1e-5).view(-1, D)
+        s_bf, b_bf = s.to(bf), b.to(bf)
+        row = rec(
+            f"ln_matmul_gelu {label}", "ln_matmul_gelu_mma_kernel",
+            "ultravox_torch/ops/kernels/csrc/ln_matmul_gelu.cu",
+            "ultravox_tpu/ops/pallas/fused_attention.py:363", out, ref,
+            lambda: fa.ln_matmul_gelu(x, s, b, w, wb),
+            lambda: fa.ln_matmul_gelu_plain(x, s, b, w, wb),
+            None, _nbytes(x, s, b, w, wb, out), 2.0 * B * T * D * Fd, BF16_FLOPS,
+            extra={"torch_mm_ms": _time_ms(lambda: torch.mm(h, w)),
+                   "chain_ms": _time_ms(lambda: gelu_chain(x, s_bf, b_bf, w, wb)),
+                   "plan": fa._gelu_plan(True, B * T, D, Fd, [0], fa._build.sm_count(0))._asdict()},
+        )
+        shapes[label] = {k: row[k] for k in ("ms", "device_ms", "wrapper_ms", "plain_ms",
+                                             "bound_ms", "torch_mm_ms", "chain_ms", "max_abs_err",
+                                             "plan")}
+        print(f"ln_matmul_gelu {label}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} "
+              f"({row['ms'] / row['bound_ms']:.1f}x), torch.mm {row['torch_mm_ms']:.4f}, chain "
+              f"{row['chain_ms']:.4f} ({row['ms'] / row['chain_ms']:.2f}x); plan {row['plan']}; "
+              f"two calls bit-equal", flush=True)
+        main = main or row
+        del x, w, out, again, ref, h
+    for label, (B, T, D, Fd), dtype, offset in GELU_EDGES:
+        x, s, b, w, wb = inputs(B, T, D, Fd, dtype, offset)
+        ptrs = [x.data_ptr(), s.data_ptr(), b.data_ptr(), w.data_ptr(), 0]
+        mma = fa._gelu_plan(dtype == bf, B * T, D, Fd, ptrs, fa._build.sm_count(0)).mma
+        if mma != (dtype == bf and offset == 0):
+            _fail(f"ln_matmul_gelu {label}: routed to the {'tensor' if mma else 'CUDA'} cores")
+        out = fa.ln_matmul_gelu(x, s, b, w, wb)
+        _synced(f"ln_matmul_gelu {label}")
+        again = fa.ln_matmul_gelu(x, s, b, w, wb)
+        ref = fa.ln_matmul_gelu_plain(x, s, b, w, wb)
+        _synced(f"ln_matmul_gelu {label}")
+        err = float((out.float() - ref.float()).abs().max())
+        tol = _bf16_tol(ref) if dtype == bf else 1e-5 * max(1.0, float(ref.abs().max()))
+        edges[label] = {"max_abs_err": err, "tol": tol, "tensor_cores": mma}
+        print(f"ln_matmul_gelu {label}: max_abs_err {err:.3g} (tol {tol:.3g}), "
+              f"{'tensor' if mma else 'CUDA'} cores, two calls bit-equal "
+              f"{torch.equal(out, again)}", flush=True)
+        if not (err <= tol and torch.equal(out, again)):
+            _fail(f"ln_matmul_gelu {label}: {err} > {tol} or two calls differ")
+    return dict(main, name="ln_matmul_gelu", shapes=shapes, edge_cases=edges)
+
+
 def _check_unwired_kernels(fa, dm, dev):
     """Phase 2, continued: the three kernels the engines do not call (as in
     the reference), at the flagship's shapes. ln_matmul_gelu at the encoder's
@@ -700,26 +840,12 @@ def _check_unwired_kernels(fa, dm, dev):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
     bf = torch.bfloat16
-    B, T, D, H, Dh, Fd = 4, 500, 768, 12, 64, 3072
+    B, T, D, H, Dh = 4, 500, 768, 12, 64
     rows = []
     record = _recorder(rows, _bf16_tol)
 
     # 6. LN -> fc1 + b -> tanh-GELU of the encoder FFN
-    x = torch.randn((B, T, D), generator=g, device=dev).to(bf)
-    s = 1 + 0.1 * torch.randn((D,), generator=g, device=dev)
-    b = 0.1 * torch.randn((D,), generator=g, device=dev)
-    w = (0.02 * torch.randn((D, Fd), generator=g, device=dev)).to(bf)
-    wb = (0.02 * torch.randn((Fd,), generator=g, device=dev)).to(bf)
-    out = fa.ln_matmul_gelu(x, s, b, w, wb)
-    ref = fa.ln_matmul_gelu_plain(x, s, b, w, wb)
-    torch.cuda.synchronize()
-    record(
-        "ln_matmul_gelu", "ln_matmul_gelu_kernel", "ultravox_torch/ops/kernels/csrc/ln_matmul_gelu.cu",
-        "ultravox_tpu/ops/pallas/fused_attention.py:363", out, ref,
-        lambda: fa.ln_matmul_gelu(x, s, b, w, wb),
-        lambda: fa.ln_matmul_gelu_plain(x, s, b, w, wb),
-        None, _nbytes(x, s, b, w, wb, out), 2.0 * B * T * D * Fd, BF16_FLOPS,
-    )
+    rows.append(_check_ln_matmul_gelu(fa, dev, g))
 
     # 7. out-projection + residual, the attention output read head-major
     attn = torch.randn((B, H, T, Dh), generator=g, device=dev).to(bf)
@@ -771,7 +897,7 @@ def _check_unwired_kernels(fa, dm, dev):
             x4 = torch.randn((4, K), generator=g, device=dev).to(bf)
             out, ref = dm.decode_matmul(x4, wk, sc), dm.decode_matmul_plain(x4, wk, sc)
             torch.cuda.synchronize()
-            plan = dm._plan(4, K, N, wk.element_size(), wk.data_ptr(), True, dm._sm_count(0))
+            plan = dm._plan(4, K, N, wk.element_size(), wk.data_ptr(), True, dm._build.sm_count(0))
             w_bf = wk if sc is None else (wk.to(bf) * sc).to(bf)
             bf_copies = [w_bf] + [w_bf.clone() for _ in range(len(copies) - 1)]
             nxt_bf = itertools.cycle(bf_copies).__next__
@@ -1427,18 +1553,22 @@ MMA_BUILDS = {
     # fp32 and unaligned views run ln_qkv_head_kernel on the CUDA cores
     "ln_qkv_head": (("ln_qkv_head_mma_kernel",), 3, "ln_qkv_head_kernelIf",
                     "ln_qkv_head_mma_kernel", 3),
+    # #6: the same three tiles with a GELU epilogue (fused_attention._gelu_plan);
+    # fp32 and unaligned views run ln_matmul_gelu_kernel on the CUDA cores
+    "ln_matmul_gelu": (("ln_matmul_gelu_mma_kernel",), 3, "ln_matmul_gelu_kernelIf",
+                       "ln_matmul_gelu_mma_kernel", 3),
 }
 
 
 def _check_mma_build(_build, name, info):
     """Phase 1, continued: the bf16 kernels of flash_attention (forward,
     delta, dK/dV, dQ), attention (#3/#4), encoder_attn_probe (#15/#16,
-    both exponents), decode_matmul (#14, bf16 x) and ln_qkv_head (#2) run
-    on the tensor cores.
+    both exponents), decode_matmul (#14, bf16 x), ln_qkv_head (#2) and
+    ln_matmul_gelu (#6) run on the tensor cores.
     cuobjdump's SASS of the built library must show HMMA in every bf16
     instantiation (head_dim 64 and 128; every #14 instance) and none in the
     fp32 kernels (fp32 stays on the CUDA cores). ptxas must report no spills
-    for the head_dim 64 bf16 attention kernels and every #14 and #2
+    for the head_dim 64 bf16 attention kernels and every #14, #2 and #6
     tensor-core kernel."""
     kernels, n_inst, fp32_name, d64_name, n_spill = MMA_BUILDS[name]
     path = info["path"]

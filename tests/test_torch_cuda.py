@@ -660,8 +660,27 @@ def test_attention_bf16_raises_on_misaligned_views(cuda_device):
 
 
 # qkv_head_transpose: the flagship encoder's shapes (B 4 and 1, T 500, 36
-# heads of 64) and a ragged T with head_dim 128
-QKV_SHAPES = [(4, 500, 36, 64), (1, 500, 36, 64), (2, 77, 6, 128)]
+# heads of 64), a ragged T with head_dim 128, a single frame, a T that the
+# plan's 4-row blocks leave a partial last block of (T % 4 == 1 at B 4), and
+# heads too wide for one block's shared memory (split into groups in fp32)
+QKV_SHAPES = [(4, 500, 36, 64), (1, 500, 36, 64), (2, 77, 6, 128), (1, 1, 36, 64),
+              (4, 501, 36, 64), (1, 3, 600, 128)]
+
+
+def _transpose_check(qkv, Dh):
+    """Bit-equal to the plain version, two calls bit-equal, one launch
+    each, and only the kernel in a trace."""
+    B, T, C = qkv.shape
+    before = tfa.qkv_head_transpose.launches
+    out = tfa.qkv_head_transpose(qkv, Dh)
+    again = tfa.qkv_head_transpose(qkv, Dh)
+    ref = tfa.qkv_head_transpose_plain(qkv, Dh)
+    torch.cuda.synchronize()
+    assert tfa.qkv_head_transpose.launches == before + 2
+    assert out.shape == (B, C // Dh, T, Dh) and out.dtype == qkv.dtype
+    assert torch.equal(out, ref) and torch.equal(again, ref)
+    names = _device_kernel_names(lambda: tfa.qkv_head_transpose(qkv, Dh))
+    assert len(names) == 1 and "qkv_head_transpose_kernel" in next(iter(names)), names
 
 
 @pytest.mark.cuda
@@ -671,12 +690,24 @@ def test_qkv_head_transpose_is_bit_equal(cuda_device, shape, dt):
     B, T, G, Dh = shape
     g = torch.Generator(device=cuda_device).manual_seed(0)
     qkv = torch.randn((B, T, G * Dh), generator=g, device=cuda_device).to(DTYPES[dt])
-    before = tfa.qkv_head_transpose.launches
-    out = tfa.qkv_head_transpose(qkv, Dh)
-    ref = tfa.qkv_head_transpose_plain(qkv, Dh)
-    torch.cuda.synchronize()
-    assert tfa.qkv_head_transpose.launches == before + 1
-    assert out.shape == (B, G, T, Dh) and out.dtype == qkv.dtype and torch.equal(out, ref)
+    _transpose_check(qkv, Dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 8, 16])
+@pytest.mark.parametrize("shape,dt", [((1, 500, 36, 64), "bfloat16"), ((2, 77, 6, 128), "float32"),
+                                      ((1, 3, 600, 128), "float32")],
+                         ids=lambda s: "x".join(map(str, s)) if isinstance(s, tuple) else s)
+def test_qkv_head_transpose_every_row_count(cuda_device, shape, dt, rows, monkeypatch):
+    """Each block's rows forced in turn: partial last blocks (T % rows), a
+    row count past T, and head groups where a block's tile would not fit."""
+    import functools
+
+    B, T, G, Dh = shape
+    monkeypatch.setattr(tfa, "_transpose_plan", functools.partial(tfa._transpose_plan, rows=rows))
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    qkv = torch.randn((B, T, G * Dh), generator=g, device=cuda_device).to(DTYPES[dt])
+    _transpose_check(qkv, Dh)
 
 
 @pytest.mark.cuda
@@ -879,22 +910,122 @@ def test_decode_matmul_raises_on_what_the_kernel_lacks(cuda_device):
         tdm.decode_matmul(x, w.cpu())
 
 
+# #6 ln_matmul_gelu: (B, T, D, F). The encoder's fc1 at 4 requests and at
+# one, a single frame, a ragged shape at D 96, whisper-large's FFN (64-row
+# tiles)
+GELU_SHAPES = [(4, 500, 768, 3072), (1, 500, 768, 3072), (4, 1, 768, 3072), (2, 77, 96, 384),
+               (1, 1500, 1280, 5120)]
+
+
+def _gelu_inputs(dev, B, T, D, F, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, T, D), generator=g, device=dev).to(dtype)
+    s = 1 + 0.1 * torch.randn((D,), generator=g, device=dev)
+    b = 0.1 * torch.randn((D,), generator=g, device=dev)
+    w = (0.05 * torch.randn((D, F), generator=g, device=dev)).to(dtype)
+    wb = torch.randn((F,), generator=g, device=dev).to(dtype)
+    return x, s, b, w, wb
+
+
+def _gelu_check(x, s, b, w, wb, kernel, tol32=1e-5):
+    """Within ``tol32`` (fp32) or 4 bf16 ulps of the plain version, two
+    calls bit-equal, one launch each, and only ``kernel`` in a trace."""
+    before = tfa.ln_matmul_gelu.launches
+    out = tfa.ln_matmul_gelu(x, s, b, w, wb)
+    again = tfa.ln_matmul_gelu(x, s, b, w, wb)
+    ref = tfa.ln_matmul_gelu_plain(x, s, b, w, wb)
+    torch.cuda.synchronize()
+    assert tfa.ln_matmul_gelu.launches == before + 2
+    assert out.shape == ref.shape and out.dtype == x.dtype
+    assert torch.equal(out, again)
+    tol = tol32 if x.dtype == torch.float32 else 4 * 2.0**-8 * float(ref.abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    names = _device_kernel_names(lambda: tfa.ln_matmul_gelu(x, s, b, w, wb))
+    assert len(names) == 1 and f"{kernel}<" in next(iter(names)), names
+
+
+def _gelu_kernel(dtype):
+    return "ln_matmul_gelu_mma_kernel" if dtype == torch.bfloat16 else "ln_matmul_gelu_kernel"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_ln_matmul_gelu_matches_plain(cuda_device, dt):
-    """A ragged shape: no dimension is a multiple of the 32 x 128 tile."""
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    r = lambda *s: torch.randn(s, generator=g, device=cuda_device)  # noqa: E731
-    x, w, pb = r(2, 77, 96).to(DTYPES[dt]), (0.1 * r(96, 200)).to(DTYPES[dt]), r(200)
-    s, b = 1 + 0.1 * r(96), 0.1 * r(96)
-    before = tfa.ln_matmul_gelu.launches
-    out = tfa.ln_matmul_gelu(x, s, b, w, pb)
-    ref = tfa.ln_matmul_gelu_plain(x, s, b, w, pb)
-    torch.cuda.synchronize()
-    assert tfa.ln_matmul_gelu.launches == before + 1
-    assert out.shape == (2, 77, 200) and out.dtype == x.dtype
-    tol = 1e-5 if dt == "float32" else 4 * 2.0**-8 * float(ref.abs().max())
-    assert float((out.float() - ref.float()).abs().max()) <= tol
+    """A ragged shape: no dimension is a multiple of either tile. bf16 on
+    the tensor cores (ln_matmul_gelu_mma_kernel), fp32 on the CUDA cores
+    (ln_matmul_gelu_kernel)."""
+    dtype = DTYPES[dt]
+    x, s, b, w, wb = _gelu_inputs(cuda_device, 2, 77, 96, 200, dtype)
+    _gelu_check(x, s, b, w, wb, _gelu_kernel(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("shape", GELU_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_ln_matmul_gelu_at_encoder_shapes(cuda_device, shape, dt):
+    """The encoder's shapes. fp32 within 1e-5 of the largest output: the
+    sums of 768-1280 terms of outputs up to ~5 differ from the plain
+    version's order by a few fp32 ulps."""
+    dtype = DTYPES[dt]
+    x, s, b, w, wb = _gelu_inputs(cuda_device, *shape, dtype)
+    big = float(tfa.ln_matmul_gelu_plain(x, s, b, w, wb).abs().max())
+    _gelu_check(x, s, b, w, wb, _gelu_kernel(dtype), tol32=1e-5 * max(1.0, big))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", [1, 2, 3, 5, 64])
+@pytest.mark.parametrize("shape", [(2, 77, 96, 384), (3, 61, 656, 1544), (3, 61, 784, 1544),
+                                   (1, 1, 768, 3072)], ids=lambda s: "x".join(map(str, s)))
+def test_ln_matmul_gelu_every_tile(cuda_device, shape, tiles, monkeypatch):
+    """Each tensor-core tile that fits and each count of column tiles a
+    block runs, forced in turn, at ragged shapes: rows and columns that no
+    tile divides, a last block with fewer column tiles, D 656 and 784 (a
+    last weight stage half full; 784 past 3 pieces a lane, where 128 rows
+    no longer fit). A tile that does not fit raises before any launch."""
+    import functools
+
+    B, T, D, F = shape
+    plan = tfa._gelu_plan
+    fits = [m for m in tfa.MMA_ROWS if tfa.mma_smem_bytes(m, D) <= tfa.MAX_SMEM]
+    assert fits
+    for bm in tfa.MMA_ROWS:
+        monkeypatch.setattr(tfa, "_gelu_plan", functools.partial(plan, bm=bm, tiles=tiles))
+        x, s, b, w, wb = _gelu_inputs(cuda_device, B, T, D, F, torch.bfloat16, seed=bm + tiles)
+        if bm in fits:
+            _gelu_check(x, s, b, w, wb, "ln_matmul_gelu_mma_kernel")
+        else:
+            with pytest.raises(ValueError, match="cannot run"):
+                tfa.ln_matmul_gelu(x, s, b, w, wb)
+
+
+@pytest.mark.cuda
+def test_ln_matmul_gelu_unaligned_view_takes_the_cuda_cores(cuda_device):
+    """A bf16 x one element off its storage cannot take 16-byte copies: the
+    plan routes it to the CUDA-core kernel, which still holds 4 ulps."""
+    x, s, b, w, wb = _gelu_inputs(cuda_device, 2, 77, 768, 3072, torch.bfloat16)
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+    xv = base[1:].view(x.shape).copy_(x)
+    _gelu_check(xv, s, b, w, wb, "ln_matmul_gelu_kernel")
+
+
+@pytest.mark.cuda
+def test_ln_matmul_gelu_tensor_core_kernels_hold_hmma(cuda_device):
+    """cuobjdump's SASS: HMMA in every tensor-core instance, none in the
+    fp32 CUDA-core kernel."""
+    import os
+    import subprocess
+
+    from ultravox_torch.ops.kernels import _build
+
+    path = _build.build_all(["ln_matmul_gelu"])["ln_matmul_gelu"]["path"]
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    hmma = {b.split("\n", 1)[0].strip(): b.count("HMMA") for b in sass.split("Function : ")[1:]}
+    mma = [c for n, c in hmma.items() if "ln_matmul_gelu_mma_kernel" in n]
+    fp32 = [c for n, c in hmma.items() if "ln_matmul_gelu_kernelIf" in n]
+    assert len(mma) == len(tfa.MMA_ROWS) and all(mma), hmma
+    assert len(fp32) == 1 and not fp32[0], hmma
 
 
 @pytest.mark.cuda

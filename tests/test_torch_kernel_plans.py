@@ -226,3 +226,178 @@ def test_ln_qkv_head_plan_grid_at_the_flagship(rows, bm, blocks):
     plan = fa._plan(True, rows, 768, 2304, 64, ALIGNED)
     assert plan.mma and plan.bm == bm and plan.bn == 128
     assert -(-rows // plan.bm) * -(-2304 // plan.bn) == blocks
+
+
+# #5 qkv_head_transpose's plan: (B, T, G, head_bytes). The flagship
+# encoder at one request and at four (36 heads of 64 bf16), a single frame,
+# a ragged T with fp32 heads of 128, a T no row count divides, and heads so
+# wide that one row of them does not fit a block's shared memory.
+TRANSPOSE_SHAPES = [(1, 500, 36, 128), (4, 500, 36, 128), (1, 1, 36, 128), (2, 77, 6, 512),
+                    (4, 501, 36, 128), (3, 13, 7, 256), (1, 3, 600, 512)]
+
+
+def _transpose_copies(plan, B, T, G, hb):
+    """What csrc/qkv_head_transpose.cu moves for the plan, as (input byte
+    offset, output byte offset) per 16-byte unit: each block's bulk copies
+    (one per row, of its heads' bytes, into shared memory [r][g][d]; their
+    sum is the barrier's count) and its threads' stores (unit j of head g's
+    rows * units span from shared unit (j // units, g, j % units))."""
+    units, moved = hb // 16, []
+    for b in range(B):
+        for gy in range(-(-G // plan.heads)):
+            for bx in range(-(-T // plan.rows)):
+                t0, g0 = bx * plan.rows, gy * plan.heads
+                rows, heads = min(plan.rows, T - t0), min(plan.heads, G - g0)
+                row_bytes, src0 = heads * hb, ((b * T + t0) * G + g0) * hb
+                tile = {}  # shared-memory offset -> input offset
+                for r in range(rows):
+                    for u in range(0, row_bytes, 16):
+                        tile[r * row_bytes + u] = src0 + r * G * hb + u
+                assert len(tile) * 16 == rows * row_bytes  # expect_tx's count
+                assert max(tile) + 16 <= plan.smem
+                dst0, span = ((b * G + g0) * T + t0) * hb, rows * units
+                for e in range(heads * span):
+                    g, j = divmod(e, span)
+                    r, d = divmod(j, units)
+                    src = tile[((r * heads + g) * units + d) * 16]
+                    moved.append((src, dst0 + g * T * hb + j * 16))
+    return moved
+
+
+@pytest.mark.parametrize("rows", [None, 1, 3, 16])
+@pytest.mark.parametrize("shape", TRANSPOSE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_qkv_head_transpose_plan_copies_every_unit_once(shape, rows):
+    """Every 16-byte unit of the input is read once and lands once, where
+    (B, T, G, d) -> (B, G, T, d) puts it; each block's tile fits its shared
+    memory and the grid's limits."""
+    B, T, G, hb = shape
+    plan = fa._transpose_plan(B, T, G, hb, SMS, rows=rows)
+    assert plan.smem == plan.rows * plan.heads * hb <= fa.MAX_SMEM - 16
+    assert plan.blocks == B * -(-T // plan.rows) * -(-G // plan.heads)
+    assert -(-G // plan.heads) <= 65535 and B <= 65535
+    units = {}
+    for src, dst in _transpose_copies(plan, B, T, G, hb):
+        assert src % 16 == 0 and dst % 16 == 0 and dst not in units
+        units[dst] = src
+    assert len(units) == B * T * G * hb // 16
+    assert sorted(units.values()) == list(range(0, B * T * G * hb, 16))  # each read once
+    for dst, src in units.items():  # out[b, g, t, d] = in[b, t, g, d]
+        b, rest = divmod(dst, G * T * hb)
+        g, rest = divmod(rest, T * hb)
+        t, d = divmod(rest, hb)
+        assert src == ((b * T + t) * G + g) * hb + d
+
+
+@pytest.mark.parametrize("B,rows,blocks", [(1, 1, 500), (4, 4, 500)])
+def test_qkv_head_transpose_plan_at_the_flagship(B, rows, blocks):
+    """(B, 500, 36 heads of 64 bf16): the most rows that still give every
+    SM two blocks, all heads in one block; one block's tile well within
+    shared memory."""
+    plan = fa._transpose_plan(B, 500, 36, 128, SMS)
+    assert (plan.rows, plan.heads, plan.blocks) == (rows, 36, blocks)
+    assert plan.blocks >= fa.TRANSPOSE_BLOCKS_PER_SM * SMS
+    assert plan.smem == rows * 36 * 128
+
+
+def test_qkv_head_transpose_plan_splits_heads_that_do_not_fit():
+    """600 fp32 heads of 128 are 307,200 bytes a row: more than a block's
+    232,448, so the heads split into groups that fit."""
+    plan = fa._transpose_plan(1, 3, 600, 512, SMS)
+    assert plan.heads < 600 and plan.smem <= fa.MAX_SMEM - 16
+    forced = fa._transpose_plan(1, 3, 600, 512, SMS, rows=16)
+    assert forced.heads == (fa.MAX_SMEM - 16) // (16 * 512)
+
+
+# #6 ln_matmul_gelu's plan: (rows, D, F). The encoder's fc1 at 4 requests
+# and at one, a single frame, a ragged shape, whisper-large's FFN (the JAX
+# note's bench shape), a D past 3 pieces a lane, and the widest D.
+GELU_SHAPES = [(2000, 768, 3072), (500, 768, 3072), (4, 768, 3072), (154, 96, 384),
+               (1500, 1280, 5120), (183, 784, 1544), (1, 16, 8), (4100, 2048, 6144)]
+
+
+def _gelu_cover(plan, rows, F):
+    """Every (row, 16-byte line of columns) the grid stores: block (bx, by)
+    runs column tiles bx * tiles .. + tiles of rows by * bm .. + bm."""
+    col_tiles = -(-F // plan.bn)
+    seen = []
+    for by in range(-(-rows // plan.bm)):
+        for bx in range(-(-col_tiles // plan.tiles)):
+            for c in range(bx * plan.tiles, min(bx * plan.tiles + plan.tiles, col_tiles)):
+                for r in range(plan.bm):
+                    for piece in range(plan.bn // 8):
+                        row, n = by * plan.bm + r, c * plan.bn + piece * 8
+                        if row < rows and n < F:
+                            seen.append((row, n))
+    return seen
+
+
+@pytest.mark.parametrize("shape", GELU_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_ln_matmul_gelu_plan_routes(shape):
+    """bf16 with D % 16, F % 8 and 16-byte-aligned pointers takes the
+    tensor cores; fp32, an unaligned pointer or a D or F off those
+    multiples takes the CUDA-core row tile, as before."""
+    rows, D, F = shape
+    plan = fa._gelu_plan(True, rows, D, F, ALIGNED, SMS)
+    assert plan.mma and plan.bn == fa.MMA_BN and plan.bm in fa.MMA_ROWS
+    assert 1 <= plan.tiles <= -(-F // fa.MMA_BN)
+    assert plan.smem == fa.mma_smem_bytes(plan.bm, D) <= fa.MAX_SMEM
+    assert plan.bm == fa._plan(True, rows, D, F, 8, ALIGNED).bm  # #2's rows
+    assert not fa._gelu_plan(False, rows, D, F, ALIGNED, SMS).mma
+    for i in range(len(ALIGNED)):
+        off = ALIGNED[:i] + (ALIGNED[i] + 2,) + ALIGNED[i + 1:]
+        assert not fa._gelu_plan(True, rows, D, F, off, SMS).mma
+    assert not fa._gelu_plan(True, rows, D + 8, F, ALIGNED, SMS).mma  # D % 16 == 8
+    assert not fa._gelu_plan(True, rows, D, F + 4, ALIGNED, SMS).mma  # F % 8 == 4
+    cuda_core = fa._gelu_plan(True, rows, D, F, ALIGNED[:1] + (2,) + ALIGNED[2:], SMS)
+    assert cuda_core == fa.GeluPlan(False, 32, 128, 1, (32 * D + 32 * 128) * 4)
+
+
+@pytest.mark.parametrize("shape", GELU_SHAPES[1:7], ids=lambda s: "x".join(map(str, s)))
+def test_ln_matmul_gelu_plan_covers_every_output_once(shape):
+    """The grid stores every output row and 16-byte line of columns exactly
+    once, for the chosen plan and for every tile and column-tile count
+    forced."""
+    rows, D, F = shape
+    want = [(r, n) for r in range(rows) for n in range(0, F, 8)]
+    plans = [fa._gelu_plan(True, rows, D, F, ALIGNED, SMS)]
+    for m in fa.MMA_ROWS:
+        if fa.mma_smem_bytes(m, D) <= fa.MAX_SMEM:
+            plans += [fa._gelu_plan(True, rows, D, F, ALIGNED, SMS, bm=m, tiles=k)
+                      for k in (1, 2, 3, 5, 64)]
+    for plan in plans:
+        assert sorted(_gelu_cover(plan, rows, F)) == want, plan
+
+
+def test_ln_matmul_gelu_plan_fits_shared_memory_for_every_width():
+    """Every D the wrapper takes (up to ROW_TILE_MAX_K) is planned within
+    the 232448 bytes a block may use, on either kernel; a tile that does
+    not fit raises."""
+    for D in range(8, fa.ROW_TILE_MAX_K + 1, 8):
+        plan = fa._gelu_plan(True, 2000, D, 3072, ALIGNED, SMS)
+        assert plan.mma == (D % 16 == 0), D
+        assert plan.smem <= 232448, (D, plan)
+    with pytest.raises(ValueError, match="cannot run"):
+        fa._gelu_plan(True, 1500, 1280, 5120, ALIGNED, SMS, bm=128)
+    with pytest.raises(ValueError, match="cannot run"):
+        fa._gelu_plan(True, 2000, 768, 3072, ALIGNED, SMS, tiles=0)
+
+
+@pytest.mark.parametrize("rows,bm,tiles,blocks", [
+    (2000, 128, 3, 16 * 8),  # fc1 at 4 requests: one wave of 128 blocks, 3 tiles each
+    (500, 128, 1, 4 * 24),   # at one request: 96 blocks, one tile each
+    (4, 32, 1, 24),          # a single frame at 4 requests
+])
+def test_ln_matmul_gelu_plan_grid_at_fc1(rows, bm, tiles, blocks):
+    """(768 -> 3072): #2's tile rows; the column tiles a block runs where
+    the grid's waves times (tiles + one LayerNorm) is least."""
+    plan = fa._gelu_plan(True, rows, 768, 3072, ALIGNED, SMS)
+    assert plan.mma and (plan.bm, plan.tiles) == (bm, tiles)
+    assert -(-rows // plan.bm) * -(-24 // plan.tiles) == blocks
+
+
+def test_ln_matmul_gelu_plan_at_whisper_large():
+    """(1, 1500, 1280) x (1280, 5120): only 64- and 32-row tiles fit at
+    D 1280, as for #2; 24 row tiles x 40 column tiles on 132 SMs."""
+    plan = fa._gelu_plan(True, 1500, 1280, 5120, ALIGNED, SMS)
+    assert plan.mma and plan.bm == 64
+    assert 24 * -(-40 // plan.tiles) <= SMS  # one wave

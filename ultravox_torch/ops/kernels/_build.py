@@ -44,6 +44,7 @@ ENTRY_POINTS = {
     "flash_attention": ("flash_attention", "flash_attention_bwd"),
     "encoder_attn_probe": ("attn_v2", "attn_nt"),
     "ln_qkv_head": ("ln_qkv_head", "ln_qkv_head_mma"),
+    "ln_matmul_gelu": ("ln_matmul_gelu", "ln_matmul_gelu_mma"),
 }
 # C signature of each entry point uv_<entry> (see the .cu sources)
 _SIGNATURES = {
@@ -76,11 +77,12 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P,
     ),
-    "qkv_head_transpose": (_P, _P, _I, _I, _I, _I, _P),
+    "qkv_head_transpose": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "decode_matmul": (
         _P, _LL, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "ln_matmul_gelu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "ln_matmul_gelu_mma": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
     "attn_out_proj": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "attn_v2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P),
     "attn_nt": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P),
@@ -170,6 +172,11 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def dtype_code(t: torch.Tensor) -> int:

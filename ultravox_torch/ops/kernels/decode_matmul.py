@@ -58,10 +58,6 @@ def supports(x_shape, k: int, n: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 class Plan(NamedTuple):
     rows: int  # sum rows (at least M): 8/16/32 on the tensor cores, else 1-32
     cols: int  # weight columns a lane holds
@@ -155,7 +151,7 @@ def decode_matmul(
             raise ValueError(f"scale must be {N} contiguous values, got {tuple(scale.shape)}")
         scale_code = _build.dtype_code(scale)
     plan = _plan(M, K, N, w.element_size(), w.data_ptr(), x.dtype == torch.bfloat16,
-                 _sm_count(x.device.index or 0))
+                 _build.sm_count(x.device.index or 0))
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     lib = _build.library("decode_matmul")
     rc = lib.uv_decode_matmul(

@@ -13,6 +13,9 @@
   ``attn_out_proj_residual`` (``csrc/attn_out_proj.cu``) replace
   ``fused_attention.py:ln_matmul_gelu`` and ``:attn_out_proj_residual``.
   The reference wires neither into its encoder, and neither does the port.
+  #6 in bf16 runs on the tensor cores (``csrc/mma_rows.cuh``) where
+  ``_gelu_plan`` allows it; fp32 and every other shape or alignment on the
+  CUDA cores.
 
 Each wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors; ``<wrapper>.launches`` counts kernel launches.
@@ -43,6 +46,14 @@ MMA_ROWS = (128, 64, 32)
 MMA_BN = 128
 MMA_MAX_D = 2048  # widest row of csrc/mma_rows.cuh
 RING_ROWS, RING_STAGES = 32, 3  # the weight ring of csrc/mma_rows.cuh
+# qkv_head_transpose's rows of T a block may own, most first, and the
+# blocks per SM its plan asks for
+TRANSPOSE_ROWS = (16, 8, 4, 2, 1)
+TRANSPOSE_BLOCKS_PER_SM = 2
+SM_SMEM = 233472  # shared memory of one SM on sm_90 (each block also takes 1 KB)
+# ln_matmul_gelu: what one LayerNorm of a block's rows costs, in column
+# tiles of the product (ln_qkv_head's phase stamps, PERF.md: about one)
+GELU_LN_TILES = 1
 
 
 # --------------------------------------------------------------------------
@@ -219,6 +230,30 @@ def ln_qkv_head_fused(x, ln_scale, ln_bias, kernel, bias, head_dim: int, *, eps:
 ln_qkv_head_fused.launches = 0
 
 
+class TransposePlan(NamedTuple):
+    rows: int  # rows of T a block owns
+    heads: int  # heads a block owns
+    blocks: int  # blocks of the grid
+    smem: int  # a block's dynamic shared memory, bytes
+
+
+def _transpose_plan(B: int, T: int, G: int, head_bytes: int, sms: int,
+                    rows: Optional[int] = None) -> TransposePlan:
+    """qkv_head_transpose's tile (csrc/qkv_head_transpose.cu): a block owns
+    ``rows`` rows of T of one batch row and ``heads`` heads, staged in
+    shared memory whole. The rows are the most of TRANSPOSE_ROWS that still
+    give every SM TRANSPOSE_BLOCKS_PER_SM blocks, else the fewest; heads
+    are all G where the tile fits a block's shared memory, else as many as
+    fit. ``rows`` forces the rows (any positive count)."""
+    if rows is None:
+        rows = next((r for r in TRANSPOSE_ROWS
+                     if B * -(-T // r) >= TRANSPOSE_BLOCKS_PER_SM * sms), TRANSPOSE_ROWS[-1])
+    heads = min(G, (MAX_SMEM - 16) // (rows * head_bytes))
+    if rows <= 0 or heads <= 0:
+        raise ValueError(f"qkv_head_transpose: {rows} rows of {head_bytes}-byte heads do not fit")
+    return TransposePlan(rows, heads, B * -(-T // rows) * -(-G // heads), rows * heads * head_bytes)
+
+
 def qkv_head_transpose(qkv: torch.Tensor, head_dim: int) -> torch.Tensor:
     """Head-major relayout of a fused q/k/v projection's output: (B, T,
     G * head_dim) -> (B, G, T, head_dim), any T, fp32 or bf16, in the
@@ -235,11 +270,12 @@ def qkv_head_transpose(qkv: torch.Tensor, head_dim: int) -> torch.Tensor:
     if qkv.data_ptr() % VEC_BYTES:  # a head (64 or 128 of 2 or 4 bytes) is whole units
         raise ValueError(f"qkv_head_transpose copies in {VEC_BYTES}-byte units: the base must "
                          f"be {VEC_BYTES}-byte aligned")
-    head_bytes = head_dim * qkv.element_size()
-    out = torch.empty((B, C // head_dim, T, head_dim), dtype=qkv.dtype, device=qkv.device)
+    G, head_bytes = C // head_dim, head_dim * qkv.element_size()
+    plan = _transpose_plan(B, T, G, head_bytes, _build.sm_count(qkv.device.index or 0))
+    out = torch.empty((B, G, T, head_dim), dtype=qkv.dtype, device=qkv.device)
     lib = _build.library("qkv_head_transpose")
     rc = lib.uv_qkv_head_transpose(
-        _build.ptr(qkv), _build.ptr(out), B, T, C // head_dim, head_bytes // VEC_BYTES,
+        _build.ptr(qkv), _build.ptr(out), B, T, G, head_bytes, plan.rows, plan.heads,
         _build.stream_ptr(qkv.device),
     )
     _build.check("qkv_head_transpose", rc)
@@ -248,6 +284,46 @@ def qkv_head_transpose(qkv: torch.Tensor, head_dim: int) -> torch.Tensor:
 
 
 qkv_head_transpose.launches = 0
+
+
+class GeluPlan(NamedTuple):
+    mma: bool  # the tensor-core kernel, else the CUDA-core row tile
+    bm: int  # output rows a block owns
+    bn: int  # columns of one column tile
+    tiles: int  # column tiles a block runs in turn from one LayerNorm
+    smem: int  # its dynamic shared memory, bytes
+
+
+def _gelu_plan(bf16: bool, rows: int, D: int, F: int, ptrs, sms: int, bm: Optional[int] = None,
+               tiles: Optional[int] = None) -> GeluPlan:
+    """ln_matmul_gelu's kernel and tile for (rows, D) x (D, F) whose x, LN
+    vectors, weight and output start at ``ptrs``. The tensor-core kernel
+    takes bf16 with D % 16 == 0 (up to MMA_MAX_D), F % 8 == 0 and 16-byte-
+    aligned pointers, with _plan's rows (the fewest of MMA_ROWS that hold
+    all ``rows``, else the most that fit). A block runs ``tiles`` MMA_BN-wide
+    column tiles from one LayerNorm: the count that minimises waves x (tiles
+    + GELU_LN_TILES) on ``sms`` SMs, a LayerNorm costing GELU_LN_TILES
+    column tiles; the fewest tiles on a tie. Everything else (fp32, other
+    shapes, unaligned views) takes the CUDA-core 32 x 128 row tile. ``bm``
+    and ``tiles`` force the tile (ValueError where it cannot run)."""
+    mma = (bf16 and D % 16 == 0 and D <= MMA_MAX_D and F % 8 == 0
+           and all(p % 16 == 0 for p in ptrs))
+    fits = [m for m in MMA_ROWS if mma_smem_bytes(m, D) <= MAX_SMEM] if mma else []
+    if bm is not None or tiles is not None:
+        if (bm is not None and bm not in fits) or not fits or (tiles is not None and tiles < 1):
+            raise ValueError(f"ln_matmul_gelu: a {bm}-row tile of {tiles} column tiles cannot "
+                             f"run at D={D}, F={F} (rows that can: {fits})")
+    if not fits:
+        return GeluPlan(False, 32, 128, 1, (32 * D + 32 * 128) * 4)
+    if bm is None:
+        bm = min((m for m in fits if m >= rows), default=fits[0])
+    smem = mma_smem_bytes(bm, D)
+    col_tiles, row_tiles = -(-F // MMA_BN), -(-rows // bm)
+    if tiles is None:
+        slots = sms * max(1, SM_SMEM // (smem + 1024))  # blocks the card holds at once
+        tiles = min(range(1, col_tiles + 1), key=lambda k: (
+            -(-row_tiles * -(-col_tiles // k) // slots) * (k + GELU_LN_TILES), k))
+    return GeluPlan(True, bm, MMA_BN, min(tiles, col_tiles), smem)
 
 
 def ln_matmul_gelu(x, ln_scale, ln_bias, kernel, bias, *, eps: float = 1e-5):
@@ -270,11 +346,16 @@ def ln_matmul_gelu(x, ln_scale, ln_bias, kernel, bias, *, eps: float = 1e-5):
     s32 = ln_scale.float().contiguous()
     b32 = ln_bias.float().contiguous()
     out = torch.empty((B, T, F), dtype=x.dtype, device=x.device)
+    plan = _gelu_plan(x.dtype == torch.bfloat16, B * T, D, F,
+                      [t.data_ptr() for t in (x, s32, b32, w, out)],
+                      _build.sm_count(x.device.index or 0))
     lib = _build.library("ln_matmul_gelu")
-    rc = lib.uv_ln_matmul_gelu(
-        _build.ptr(x), _build.ptr(s32), _build.ptr(b32), _build.ptr(w), _build.ptr(b),
-        _build.ptr(out), B * T, D, F, eps, _build.dtype_code(x), _build.stream_ptr(x.device),
-    )
+    args = (_build.ptr(x), _build.ptr(s32), _build.ptr(b32), _build.ptr(w), _build.ptr(b),
+            _build.ptr(out), B * T, D, F, eps)
+    if plan.mma:
+        rc = lib.uv_ln_matmul_gelu_mma(*args, plan.bm, plan.tiles, _build.stream_ptr(x.device))
+    else:
+        rc = lib.uv_ln_matmul_gelu(*args, _build.dtype_code(x), _build.stream_ptr(x.device))
     _build.check("ln_matmul_gelu", rc)
     ln_matmul_gelu.launches += 1
     return out

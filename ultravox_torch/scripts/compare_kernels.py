@@ -2,7 +2,8 @@
 process on one card: the split KV kernel (#8 ``decode_attention``, #11
 ``segment_tail_attention``, and in its paged instances #9
 ``paged_decode_attention``, #12 ``paged_segment_tail_attention``), #14
-``decode_matmul``, #1 ``fused_layer_norm`` and #2 ``ln_qkv_head_fused``.
+``decode_matmul``, #1 ``fused_layer_norm``, #2 ``ln_qkv_head_fused``, #6
+``ln_matmul_gelu`` and #5 ``qkv_head_transpose``.
 
     python -m ultravox_torch.scripts.compare_kernels --baseline DIR [--only PART ...]
         [--out FILE] [--sweep-splits]
@@ -13,13 +14,15 @@ DIR holds an earlier ``ultravox_torch/ops/kernels/csrc``, for example
 
 The script builds the libraries of DIR that the chosen parts need
 (decode_attention, segment_attention, paged_attention, decode_matmul,
-layer_norm, ln_qkv_head, ln_matmul_gelu, attn_out_proj) with the port's
-nvcc flags into DIR/build (each entry point bound with the signature its
-source declares: #8/#9/#11/#12 with or without the cluster size, #14 with
-or without the fp32 partials of its second kernel, #1 with or without the
-instance; an entry point DIR's source lacks is left out), then, in bf16
-unless said otherwise (``--only`` picks among ``kv``, ``paged``,
-``decode_matmul``, ``layer_norm`` and ``ln_qkv_head``; all by default):
+layer_norm, ln_qkv_head, ln_matmul_gelu, attn_out_proj, qkv_head_transpose)
+with the port's nvcc flags into DIR/build (each entry point bound with the
+signature its source declares: #8/#9/#11/#12 with or without the cluster
+size, #14 with or without the fp32 partials of its second kernel, #1 with
+or without the instance, #5 with or without the plan's rows and heads; an
+entry point DIR's source lacks is left out), then, in bf16 unless said
+otherwise (``--only`` picks among ``kv``, ``paged``, ``decode_matmul``,
+``layer_norm``, ``ln_qkv_head``, ``ln_matmul_gelu`` and ``transpose``; all
+by default):
 
 - kv: #8 at the flagship decode step (q (4, 32, 64) against a
   (4, 256, 8, 64) slab with 144 keys) and at serving run (c)'s (a
@@ -60,7 +63,8 @@ unless said otherwise (``--only`` picks among ``kv``, ``paged``,
 - ln_qkv_head: #2 at (4, 500, 768) and (1, 500, 768) x (768, 2304) and
   whisper-large's (1, 1500, 1280) x (1280, 3840), heads of 64 (scale and
   bias fp32): current and baseline against the plain version (4 bf16 ulps
-  of the largest output), two current calls bit-equal, times in turns, the
+  of the largest output), two current calls bit-equal, the current
+  bit-equal to the baseline's tensor-core route where it has one, times in turns, the
   bound, ``torch.mm`` on the LN'd bf16 rows (the product alone) and the
   unfused chain ``F.layer_norm`` -> ``torch.mm`` -> ``+ bias`` ->
   ``view(...).transpose(1, 2).contiguous()`` timed as one run of its four
@@ -68,10 +72,25 @@ unless said otherwise (``--only`` picks among ``kv``, ``paged``,
   chose; with ``--sweep-splits``, the current kernel with each tensor-core
   tile (128, 64 and 32 rows) that fits forced in turn. Then the routes that must not have moved:
   fp32 at (4, 500, 768) and a bf16 view one element off its storage (the
-  CUDA-core kernel) bit-equal to the baseline's, and #6
-  ``ln_matmul_gelu`` (encoder fc1, bf16 and fp32) and #7
+  CUDA-core kernel) bit-equal to the baseline's, and #7
   ``attn_out_proj_residual`` (encoder out-projection, bf16 and fp32)
-  bit-equal to the baseline's build.
+  bit-equal to the baseline's build;
+- ln_matmul_gelu: #6 at the encoder's fc1, (4, 500, 768) and (1, 500, 768)
+  x (768, 3072), and whisper-large's FFN, (1, 1500, 1280) x (1280, 5120)
+  (scale and bias fp32): current and baseline against the plain version,
+  the current within 4 bf16 ulps of the baseline too, two current calls
+  bit-equal, times in turns and with the host's dispatch, the bound,
+  ``torch.mm`` on the LN'd rows and the unfused chain ``F.layer_norm`` ->
+  ``torch.addmm`` -> ``F.gelu(approximate="tanh")`` (yardsticks), and the
+  plan; with ``--sweep-splits``, every tile that fits at 1, 2, 3, 4, 6, 8
+  and 12 column tiles a block. Then fp32 and a bf16 view one element off
+  its storage (the CUDA-core kernel) bit-equal to the baseline's build;
+- transpose: #5 bit-equal to its plain version (twice) and to the baseline
+  at (B, 500, 36 heads of 64) for B 4 and 1, T 1, T 501 at B 4 (a partial
+  last block), fp32 heads of 128 at T 77 and fp32 at B 4 and 1; timed at B
+  1 and 4 on 32 inputs and outputs that rotate past L2, in turns, with the
+  host's dispatch, beside the bound and ``transpose(1, 2).contiguous()``;
+  with ``--sweep-splits``, at 1, 2, 4, 8 and 16 rows of T a block.
 
 Prints one line per measurement and one JSON object last (also written to
 ``--out``). Needs a CUDA card and raises without one. ``paged_edge_inputs``
@@ -82,6 +101,7 @@ chip_smoke.py and tests/test_torch_cuda.py both run.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
 import functools
@@ -129,6 +149,7 @@ OLD_SIGNATURES = {
                 if i != len(_build._SIGNATURES[e]) - 3) for e in KV_ENTRIES},  # drop `splits`
     "decode_matmul": (_P, _LL, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "layer_norm": (_P, _P, _P, _P, _LL, _I, _F, _I, _P),
+    "qkv_head_transpose": (_P, _P, _I, _I, _I, _I, _P),  # 16-byte units a head, no plan
 }
 # the baseline's libraries each part builds and calls
 PART_LIBS = {
@@ -136,12 +157,29 @@ PART_LIBS = {
     "paged": ("paged_attention", "segment_attention"),
     "decode_matmul": ("decode_matmul",),
     "layer_norm": ("layer_norm",),
-    "ln_qkv_head": ("ln_qkv_head", "ln_matmul_gelu", "attn_out_proj"),
+    "ln_qkv_head": ("ln_qkv_head", "attn_out_proj"),
+    "ln_matmul_gelu": ("ln_matmul_gelu",),
+    "transpose": ("qkv_head_transpose",),
 }
 # #2's shapes: (B, T, D, C), heads of 64
 LN_QKV_SHAPES = {"(4,500,768)": (4, 500, 768, 2304), "(1,500,768)": (1, 500, 768, 2304),
                  "(1,1500,1280)": (1, 1500, 1280, 3840)}
 LN_QKV_HEAD_DIM = 64
+# #6's shapes: (B, T, D, F), the encoder's fc1 at 4 requests and at one,
+# and whisper-large's FFN (the JAX note's bench shape)
+GELU_SHAPES = {"fc1 (4,500,768)": (4, 500, 768, 3072), "fc1 (1,500,768)": (1, 500, 768, 3072),
+               "whisper-large (1,1500,1280)": (1, 1500, 1280, 5120)}
+GELU_TILES = (1, 2, 3, 4, 6, 8, 12)  # column tiles a block runs, swept
+# #5's shapes: (B, T, G, head_dim); 36 heads of 64 bf16 at one request and at
+# four (timed), then the edges: a single frame, a T the plan's 4-row blocks
+# leave a partial last block of, fp32 heads of 128 at a ragged T
+TRANSPOSE_TIMED = {"B 1": (1, 500, 36, 64), "B 4": (4, 500, 36, 64)}
+TRANSPOSE_EDGES = {"T 1": ((1, 1, 36, 64), torch.bfloat16),
+                   "T 501 (T % 4 == 1)": ((4, 501, 36, 64), torch.bfloat16),
+                   "fp32 head_dim 128 (2,77)": ((2, 77, 6, 128), torch.float32),
+                   "fp32 B 4": ((4, 500, 36, 64), torch.float32),
+                   "fp32 B 1": ((1, 500, 36, 64), torch.float32)}
+TRANSPOSE_ROWS = (1, 2, 4, 8, 16)  # rows of T a block owns, swept
 
 
 def takes_splits(csrc: Path, name: str, entry: str) -> bool:
@@ -161,6 +199,8 @@ def _current_interface(csrc: Path, name: str, entry: str) -> bool:
         return "void* partial" not in text
     if name == "layer_norm":
         return "int nv" in text
+    if name == "qkv_head_transpose":
+        return "int rows" in text
     return True
 
 
@@ -297,7 +337,7 @@ def baseline_decode_matmul(lib, x, w, scale, partial=None):
             return dm.decode_matmul(x, w, scale)
     M, K = x.shape
     N = w.shape[1]
-    mt, cpt, splits, k_split = _old_matmul_plan(M, K, N, w, dm._sm_count(0))
+    mt, cpt, splits, k_split = _old_matmul_plan(M, K, N, w, _build.sm_count(0))
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     rc = lib.uv_decode_matmul(
         _build.ptr(x), x.stride(0), _build.dtype_code(x), _build.ptr(w), dm.W_CODES[w.dtype],
@@ -347,15 +387,28 @@ def baseline_library(libs):
         _build.library = current
 
 
-def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+@contextlib.contextmanager
+def forced(name, **kw):
+    """fa.<name> (a plan) called with ``kw`` while this is open."""
+    plan = getattr(fa, name)
+    setattr(fa, name, functools.partial(plan, **kw))
+    try:
+        yield
+    finally:
+        setattr(fa, name, plan)
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5, queued: bool = True) -> float:
     """Mean card ms per call between CUDA events, the calls queued ahead
-    while the card sleeps."""
+    while the card sleeps (``queued=False``: not, so the time includes the
+    host's dispatch whenever that is the slower side)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
+    if queued:
+        torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -601,7 +654,7 @@ def compare_decode_matmul(libs, dev, g, sweep: bool) -> dict:
         for kind, (wk, sc) in weights.items():
             label = f"decode_matmul {name} {kind}"
             nxt, copies = _rotating(wk)
-            partial = torch.empty((max(1, 2 * dm._sm_count(0)), 4, N), dtype=torch.float32,
+            partial = torch.empty((max(1, 2 * _build.sm_count(0)), 4, N), dtype=torch.float32,
                                   device=dev)
             out, again = dm.decode_matmul(x4, wk, sc), dm.decode_matmul(x4, wk, sc)
             ref = dm.decode_matmul_plain(x4, wk, sc)
@@ -624,7 +677,7 @@ def compare_decode_matmul(libs, dev, g, sweep: bool) -> dict:
             row["factor_to_torch_mm"] = row["ms"] / row["torch_mm_ms"]
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
             row["plan"] = dm._plan(4, K, N, wk.element_size(), wk.data_ptr(), True,
-                                   dm._sm_count(0))._asdict()
+                                   _build.sm_count(0))._asdict()
             if sc is not None:
                 w_t = wk.t().contiguous()  # (N, K), once, outside the timing
                 lib_out, err = _int8pack(x4, w_t, sc)
@@ -748,8 +801,9 @@ def ln_qkv_chain(x, s, b, w, wb, Dh):
 
 def compare_ln_qkv_head(libs, dev, g, sweep: bool) -> dict:
     """#2 against the baseline at the encoder's shapes, beside torch.mm and
-    the unfused chain; then fp32, an unaligned view, #6 and #7 bit-equal
-    to the baseline's build."""
+    the unfused chain, and bit-equal to the baseline's own tensor-core
+    route where the baseline has one; then fp32, an unaligned view and #7
+    bit-equal to the baseline's build."""
     lib, Dh, bf = libs["ln_qkv_head"], LN_QKV_HEAD_DIM, torch.bfloat16
     rows = {}
     for label, (B, T, D, C) in LN_QKV_SHAPES.items():
@@ -761,8 +815,11 @@ def compare_ln_qkv_head(libs, dev, g, sweep: bool) -> dict:
         row = {"max_abs_err": _err(out, ref), "tol": _tol(ref), "baseline_err": _err(old, ref),
                "bit_equal": torch.equal(out, again),
                "plan": fa._plan(True, B * T, D, C, Dh, [0])._asdict()}
+        if lib.current.get("ln_qkv_head_mma"):
+            with baseline_library({"ln_qkv_head": lib}):
+                row["bit_equal_to_baseline_mma"] = torch.equal(cur(), out)
         if not (row["max_abs_err"] <= row["tol"] and row["baseline_err"] <= row["tol"]
-                and row["bit_equal"]):
+                and row["bit_equal"] and row.get("bit_equal_to_baseline_mma", True)):
             raise RuntimeError(f"ln_qkv_head_fused {label}: {row}")
         row.update(in_turns(base, cur))
         h = fa._layer_norm_rounded(x, s, b, 1e-5).view(B * T, D)
@@ -773,17 +830,14 @@ def compare_ln_qkv_head(libs, dev, g, sweep: bool) -> dict:
                               2.0 * B * T * D * C / BF16_FLOPS) * 1e3
         row["speedup"] = row["baseline_ms"] / row["ms"]
         if sweep:
-            plan, row["tiles_ms"] = fa._plan, {}
+            row["tiles_ms"] = {}
             for bm in fa.MMA_ROWS:
                 if fa.mma_smem_bytes(bm, D) > fa.MAX_SMEM:
                     continue
-                fa._plan = functools.partial(plan, bm=bm)
-                try:
+                with forced("_plan", bm=bm):
                     if _err(cur(), ref) > row["tol"]:
                         raise RuntimeError(f"ln_qkv_head_fused {label} with {bm}-row tiles")
                     row["tiles_ms"][f"{bm}x{fa.MMA_BN}"] = time_ms(cur)
-                finally:
-                    fa._plan = plan
         rows[f"ln_qkv_head_fused {label}"] = row
         print(f"ln_qkv_head_fused {label}: {row['ms']:.4f} ms (baseline {row['baseline_ms']:.4f}, "
               f"{row['speedup']:.2f}x; torch.mm {row['torch_mm_ms']:.4f}, chain "
@@ -795,11 +849,11 @@ def compare_ln_qkv_head(libs, dev, g, sweep: bool) -> dict:
 
 
 def _unchanged_routes(libs, dev, g) -> dict:
-    """fp32 and an unaligned bf16 view of #2 (its CUDA-core kernel), #6 and
-    #7 in bf16 and fp32: bit-equal to the baseline's build, and timed."""
+    """fp32 and an unaligned bf16 view of #2 (its CUDA-core kernel) and #7
+    in bf16 and fp32: bit-equal to the baseline's build, and timed."""
     Dh, out = LN_QKV_HEAD_DIM, {}
     B, T, D, H = 4, 500, 768, 12
-    lib2, lib6, lib7 = libs["ln_qkv_head"], libs["ln_matmul_gelu"], libs["attn_out_proj"]
+    lib2, lib7 = libs["ln_qkv_head"], libs["attn_out_proj"]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         x, s, b, w, wb = _ln_qkv_inputs(dev, g, B, T, D, 3 * D, dtype)
@@ -810,32 +864,20 @@ def _unchanged_routes(libs, dev, g) -> dict:
         cases = {f"ln_qkv_head {name}": (
             lambda: fa.ln_qkv_head_fused(x, s, b, w, wb, Dh),
             lambda: baseline_ln_qkv_head(lib2, x, s, b, w, wb, Dh))}
-        x6 = torch.randn((B, T, D), generator=g, device=dev).to(dtype)
-        w6 = (0.02 * torch.randn((D, 4 * D), generator=g, device=dev)).to(dtype)
-        b6 = (0.02 * torch.randn((4 * D,), generator=g, device=dev)).to(dtype)
         a7 = torch.randn((B, H, T, D // H), generator=g, device=dev).to(dtype)
         w7 = (0.02 * torch.randn((H, D // H, D), generator=g, device=dev)).to(dtype)
+        b7 = (0.02 * torch.randn((D,), generator=g, device=dev)).to(dtype)
         r7 = torch.randn((B, T, D), generator=g, device=dev).to(dtype)
 
-        def base6(x6=x6, w6=w6, b6=b6, s=s, b=b):
-            o = torch.empty((B, T, 4 * D), dtype=x6.dtype, device=dev)
-            _check(lib6, "ln_matmul_gelu", lib6.uv_ln_matmul_gelu(
-                _build.ptr(x6), _build.ptr(s), _build.ptr(b), _build.ptr(w6), _build.ptr(b6),
-                _build.ptr(o), B * T, D, 4 * D, 1e-5, _build.dtype_code(x6),
-                _build.stream_ptr(x6.device)))
-            return o
-
-        def base7(a7=a7, w7=w7, b6=b6, r7=r7):
+        def base7(a7=a7, w7=w7, b7=b7, r7=r7):
             o = torch.empty_like(r7)
             _check(lib7, "attn_out_proj", lib7.uv_attn_out_proj(
-                _build.ptr(a7), _build.ptr(w7), _build.ptr(b6[:D]), _build.ptr(r7), _build.ptr(o),
+                _build.ptr(a7), _build.ptr(w7), _build.ptr(b7), _build.ptr(r7), _build.ptr(o),
                 B, H, T, D // H, D, _build.dtype_code(r7), _build.stream_ptr(r7.device)))
             return o
 
-        cases[f"ln_matmul_gelu {str(dtype)[6:]}"] = (
-            lambda: fa.ln_matmul_gelu(x6, s, b, w6, b6), base6)
         cases[f"attn_out_proj_residual {str(dtype)[6:]}"] = (
-            lambda: fa.attn_out_proj_residual(a7, w7, b6[:D], r7), base7)
+            lambda: fa.attn_out_proj_residual(a7, w7, b7, r7), base7)
         for label, (cur, old) in cases.items():
             got, want = cur(), old()
             torch.cuda.synchronize()
@@ -848,6 +890,159 @@ def _unchanged_routes(libs, dev, g) -> dict:
             print(f"{label}: bit-equal to the baseline; {row['ms']:.4f} ms (baseline "
                   f"{row['baseline_ms']:.4f})", flush=True)
     return out
+
+
+def baseline_ln_matmul_gelu(lib, x, s32, b32, w, b):
+    """The baseline #6 launch (uv_ln_matmul_gelu, one signature throughout)."""
+    B, T, D = x.shape
+    F = w.shape[1]
+    out = torch.empty((B, T, F), dtype=x.dtype, device=x.device)
+    _check(lib, "ln_matmul_gelu", lib.uv_ln_matmul_gelu(
+        _build.ptr(x), _build.ptr(s32), _build.ptr(b32), _build.ptr(w), _build.ptr(b),
+        _build.ptr(out), B * T, D, F, 1e-5, _build.dtype_code(x), _build.stream_ptr(x.device)))
+    return out
+
+
+def gelu_chain(x, s, b, w, wb):
+    """The unfused form in three PyTorch calls (bf16 LN scale and bias)."""
+    D = x.shape[-1]
+    h = F.layer_norm(x, (D,), s, b, 1e-5).view(-1, D)
+    return F.gelu(torch.addmm(wb, h, w), approximate="tanh").view(*x.shape[:-1], -1)
+
+
+def compare_ln_matmul_gelu(libs, dev, g, sweep: bool) -> dict:
+    """#6 against the baseline at the encoder's fc1 and whisper-large's FFN:
+    the bf16 tensor-core route within 4 bf16 ulps of the plain version and
+    of the baseline, two calls bit-equal, times in turns, beside its bound,
+    torch.mm on the LN'd rows and the three-call chain; with ``sweep``, each
+    tile that fits at each count of column tiles a block runs. Then fp32
+    and a bf16 view one element off its storage (the CUDA-core kernel)
+    bit-equal to the baseline's build."""
+    lib, bf, rows = libs["ln_matmul_gelu"], torch.bfloat16, {}
+    for label, (B, T, D, Fd) in GELU_SHAPES.items():
+        x, s, b, w, wb = _ln_qkv_inputs(dev, g, B, T, D, Fd, bf)
+        cur = lambda: fa.ln_matmul_gelu(x, s, b, w, wb)  # noqa: E731
+        base = lambda: baseline_ln_matmul_gelu(lib, x, s, b, w, wb)  # noqa: E731
+        out, again, ref, old = cur(), cur(), fa.ln_matmul_gelu_plain(x, s, b, w, wb), base()
+        torch.cuda.synchronize()
+        row = {"max_abs_err": _err(out, ref), "tol": _tol(ref), "baseline_err": _err(old, ref),
+               "vs_baseline": _err(out, old), "bit_equal": torch.equal(out, again),
+               "plan": fa._gelu_plan(True, B * T, D, Fd, [0], _build.sm_count(0))._asdict()}
+        if not (row["max_abs_err"] <= row["tol"] and row["baseline_err"] <= row["tol"]
+                and row["vs_baseline"] <= row["tol"] and row["bit_equal"]):
+            raise RuntimeError(f"ln_matmul_gelu {label}: {row}")
+        row.update(in_turns(base, cur))
+        row["wrapper_ms"] = time_ms(cur, queued=False)
+        h = fa._layer_norm_rounded(x, s, b, 1e-5).view(B * T, D)
+        s_bf, b_bf = s.to(bf), b.to(bf)
+        row["torch_mm_ms"] = time_ms(lambda: torch.mm(h, w))
+        row["chain_ms"] = time_ms(lambda: gelu_chain(x, s_bf, b_bf, w, wb))
+        row["bound_ms"] = max(_nbytes(x, s, b, w, wb, out) / HBM_BYTES_PER_S,
+                              2.0 * B * T * D * Fd / BF16_FLOPS) * 1e3
+        row["speedup"] = row["baseline_ms"] / row["ms"]
+        if sweep:
+            row["tiles_ms"] = {}
+            for bm in fa.MMA_ROWS:
+                if fa.mma_smem_bytes(bm, D) > fa.MAX_SMEM:
+                    continue
+                for k in GELU_TILES:
+                    with forced("_gelu_plan", bm=bm, tiles=k):
+                        if _err(cur(), ref) > row["tol"]:
+                            raise RuntimeError(f"ln_matmul_gelu {label}, {bm} rows x {k} tiles")
+                        row["tiles_ms"][f"{bm}x{fa.MMA_BN} k{k}"] = time_ms(cur)
+        rows[f"ln_matmul_gelu {label}"] = row
+        print(f"ln_matmul_gelu {label}: {row['ms']:.4f} ms (baseline {row['baseline_ms']:.4f}, "
+              f"{row['speedup']:.2f}x; with dispatch {row['wrapper_ms']:.4f}; torch.mm "
+              f"{row['torch_mm_ms']:.4f}, chain {row['chain_ms']:.4f}; bound "
+              f"{row['bound_ms']:.5f}); turns {row['turns_ms']}; err {row['max_abs_err']:.3g} "
+              f"(tol {row['tol']:.3g}), vs baseline {row['vs_baseline']:.3g}; plan "
+              f"{row['plan']}; tiles {row.get('tiles_ms')}", flush=True)
+    B, T, D, Fd = GELU_SHAPES["fc1 (4,500,768)"]
+    for name, dtype, offset in (("fp32", torch.float32, 0), ("bfloat16 unaligned", bf, 1)):
+        x, s, b, w, wb = _ln_qkv_inputs(dev, g, B, T, D, Fd, dtype)
+        if offset:  # one element off its storage: the CUDA-core route
+            x = torch.empty(x.numel() + offset, dtype=dtype, device=dev)[offset:].view(
+                B, T, D).copy_(x)
+        cur = lambda: fa.ln_matmul_gelu(x, s, b, w, wb)  # noqa: E731
+        base = lambda: baseline_ln_matmul_gelu(lib, x, s, b, w, wb)  # noqa: E731
+        got, want = cur(), base()
+        torch.cuda.synchronize()
+        row = {"bit_equal_to_baseline": torch.equal(got, want)}
+        if not row["bit_equal_to_baseline"]:
+            raise RuntimeError(f"ln_matmul_gelu {name} differs from the baseline's build by "
+                               f"{_err(got, want)}")
+        row.update(in_turns(base, cur))
+        rows[f"ln_matmul_gelu {name}"] = row
+        print(f"ln_matmul_gelu {name}: bit-equal to the baseline; {row['ms']:.4f} ms (baseline "
+              f"{row['baseline_ms']:.4f})", flush=True)
+    return rows
+
+
+def baseline_transpose(lib, qkv, Dh):
+    """The baseline #5 launch, marshalled as its wrapper did."""
+    if lib.current["qkv_head_transpose"]:
+        with baseline_library({"qkv_head_transpose": lib}):
+            return fa.qkv_head_transpose(qkv, Dh)
+    B, T, C = qkv.shape
+    out = torch.empty((B, C // Dh, T, Dh), dtype=qkv.dtype, device=qkv.device)
+    _check(lib, "qkv_head_transpose", lib.uv_qkv_head_transpose(
+        _build.ptr(qkv), _build.ptr(out), B, T, C // Dh, Dh * qkv.element_size() // 16,
+        _build.stream_ptr(qkv.device)))
+    return out
+
+
+def compare_transpose(libs, dev, g, sweep: bool) -> dict:
+    """#5 against the baseline: bit-equal to the plain version and to the
+    baseline (twice) at every shape of TRANSPOSE_TIMED and TRANSPOSE_EDGES;
+    timed at TRANSPOSE_TIMED in turns on 32 inputs and outputs that rotate
+    (the 50 MB L2 holds none of them when it is read again), beside its
+    bound (one read and one write of every byte), the time with the host's
+    dispatch and ``transpose(1, 2).contiguous()``; with ``sweep``, at each
+    row count of TRANSPOSE_ROWS."""
+    lib, rows = libs["qkv_head_transpose"], {}
+    cases = {label: (shape, torch.bfloat16) for label, shape in TRANSPOSE_TIMED.items()}
+    cases.update(TRANSPOSE_EDGES)
+    for label, ((B, T, G, Dh), dtype) in cases.items():
+        qkv = torch.randn((B, T, G * Dh), generator=g, device=dev).to(dtype)
+        out, again = fa.qkv_head_transpose(qkv, Dh), fa.qkv_head_transpose(qkv, Dh)
+        old, ref = baseline_transpose(lib, qkv, Dh), fa.qkv_head_transpose_plain(qkv, Dh)
+        torch.cuda.synchronize()
+        plan = fa._transpose_plan(B, T, G, Dh * qkv.element_size(), _build.sm_count(0))
+        row = {"bit_equal": torch.equal(out, ref) and torch.equal(again, ref),
+               "baseline_bit_equal": torch.equal(old, ref), "plan": plan._asdict()}
+        if not (row["bit_equal"] and row["baseline_bit_equal"]):
+            raise RuntimeError(f"qkv_head_transpose {label}: {row}")
+        if label in TRANSPOSE_TIMED:
+            inputs = [qkv] + [torch.randn_like(qkv) for _ in range(31)]
+            nxt = itertools.cycle(inputs).__next__
+            keep = collections.deque(maxlen=len(inputs)).append
+            cur = lambda: keep(fa.qkv_head_transpose(nxt(), Dh))  # noqa: E731
+            base = lambda: keep(baseline_transpose(lib, nxt(), Dh))  # noqa: E731
+            for _ in inputs:  # the allocator holds every kept output before a timed call
+                cur(), base()
+            row.update(in_turns(base, cur))
+            row["wrapper_ms"] = time_ms(cur, queued=False)
+            row["library_ms"] = time_ms(
+                lambda: keep(nxt().view(B, T, G, Dh).transpose(1, 2).contiguous()))
+            row["bound_ms"] = _nbytes(qkv, out) / HBM_BYTES_PER_S * 1e3
+            row["speedup"] = row["baseline_ms"] / row["ms"]
+            if sweep:
+                row["rows_ms"] = {}
+                for r in TRANSPOSE_ROWS:
+                    with forced("_transpose_plan", rows=r):
+                        if not torch.equal(fa.qkv_head_transpose(qkv, Dh), ref):
+                            raise RuntimeError(f"qkv_head_transpose {label} with {r} rows")
+                        row["rows_ms"][r] = time_ms(cur)
+            print(f"qkv_head_transpose {label}: {row['ms']:.4f} ms (baseline "
+                  f"{row['baseline_ms']:.4f}, {row['speedup']:.2f}x; with dispatch "
+                  f"{row['wrapper_ms']:.4f}; transpose(1,2).contiguous() {row['library_ms']:.4f}; "
+                  f"bound {row['bound_ms']:.5f}); turns {row['turns_ms']}; plan {row['plan']}; "
+                  f"rows {row.get('rows_ms')}", flush=True)
+        else:
+            print(f"qkv_head_transpose {label}: bit-equal to the plain version twice and to the "
+                  f"baseline; plan {row['plan']}", flush=True)
+        rows[f"qkv_head_transpose {label}"] = row
+    return rows
 
 
 def _time_against_baseline(libs, c, label, row_extra=None) -> dict:
@@ -961,6 +1156,10 @@ def run(baseline: Path, sweep_splits: bool = False, only=PARTS) -> dict:
         result["cases"].update(compare_layer_norm(libs, dev, g))
     if "ln_qkv_head" in only:
         result["cases"].update(compare_ln_qkv_head(libs, dev, g, sweep_splits))
+    if "ln_matmul_gelu" in only:
+        result["cases"].update(compare_ln_matmul_gelu(libs, dev, g, sweep_splits))
+    if "transpose" in only:
+        result["cases"].update(compare_transpose(libs, dev, g, sweep_splits))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     result["nvidia_smi"] = smi
@@ -975,7 +1174,8 @@ def main() -> None:
     ap.add_argument("--out", type=Path, default=None, help="also write the JSON here")
     ap.add_argument("--sweep-splits", action="store_true",
                     help="also time #8, #9, #11, #12 and #14 at clusters of 1, 2, 4 and 8 "
-                         "blocks, and #2 at each tensor-core tile")
+                         "blocks, #2 and #6 at each tensor-core tile (#6 also at each count "
+                         "of column tiles a block runs) and #5 at each row count")
     ap.add_argument("--only", nargs="+", choices=PARTS, default=PARTS,
                     help="the kernels to compare (all by default)")
     args = ap.parse_args()
