@@ -6,8 +6,9 @@ Phases, each fatal on failure:
   1. build every CUDA kernel of the port from ultravox_torch/ops/kernels/csrc
      (one nvcc per source, all thirteen at once); the bf16 kernels of
      flash_attention, attention (#3/#4), encoder_attn_probe (#15/#16),
-     decode_matmul (#14, bf16 x), ln_qkv_head (#2) and ln_matmul_gelu (#6,
-     three tile instances each) must hold tensor-core instructions (HMMA in cuobjdump's
+     decode_matmul (#14, bf16 x), ln_qkv_head (#2), ln_matmul_gelu (#6) and
+     attn_out_proj (#7, three tile instances each) must hold tensor-core
+     instructions (HMMA in cuobjdump's
      SASS; the fp32 ones none) and ptxas must report no spills for them
      (the attention kernels at head_dim 64),
      nor for the split KV kernel (csrc/kv_split.cuh, both dtypes) at
@@ -64,8 +65,15 @@ Phases, each fatal on failure:
      LN'd rows and the unfused three-call chain, and within 4 bf16 ulps and
      two calls bit-equal there and at T 1, a ragged (2, 77, 96) x (96, 384),
      an unaligned view and fp32 (both the CUDA-core kernel, fp32 within 1e-5
-     of the largest output); attn_out_proj_residual at the encoder's
-     out-projection, and decode_matmul on every Llama-3.2-1B decoder product
+     of the largest output); attn_out_proj_residual (#7) at the encoder's
+     out-projection at 4 requests and at one and whisper-large's (1, 20,
+     1500, 64) x (20, 64, 1280) (the tensor-core kernel), timed beside the
+     same yardsticks (torch.mm on the concatenated heads, the three-call
+     chain), within 4 bf16 ulps and two calls bit-equal there and at T 1,
+     T 501 (a tile straddles two batch rows), M 520, heads of 128, 32 heads
+     of 64 into 2048, every tile and column-tile count forced, an unaligned
+     view and fp32 (both the CUDA-core kernel); and decode_matmul on every
+     Llama-3.2-1B decoder product
      with a bf16 and an int8 + scale weight (1, 4 and 32 rows, bf16 and
      fp32, two calls bit-equal, one device kernel a call), timed at 4 rows
      beside torch.mm (its factor printed), lora.py's w8a16 product and
@@ -146,6 +154,7 @@ without a result when there is no CUDA card or the package is missing.
 from __future__ import annotations
 
 import collections
+import functools
 import itertools
 import json
 import os
@@ -826,10 +835,118 @@ def _check_ln_matmul_gelu(fa, dev, g):
     return dict(main, name="ln_matmul_gelu", shapes=shapes, edge_cases=edges)
 
 
+# #7's edge cases (timed: compare_kernels.OUT_PROJ_SHAPES, the encoder's
+# out-projection at 4 requests and at one, and whisper-large's): label, (B,
+# H, T, Dh, M), dtype, element offset of attn in its storage (1: a view the
+# 16-byte copies cannot take). A single frame, T 501 (a tile straddles two
+# batch rows and the last one is partial), a column-tile tail (M 520),
+# heads of 128, 32 heads of 64 into 2048 (Llama-3.2-1B's o_proj width, past
+# the CUDA-core tile's 1688), then the unaligned view and fp32 (the
+# CUDA-core kernel).
+OUT_PROJ_EDGES = (
+    ("T 1", (4, 12, 1, 64, 768), torch.bfloat16, 0),
+    ("T 501", (2, 12, 501, 64, 768), torch.bfloat16, 0),
+    ("M 520", (1, 12, 500, 64, 520), torch.bfloat16, 0),
+    ("Dh 128 (2,6,77,128)", (2, 6, 77, 128, 768), torch.bfloat16, 0),
+    ("K 2048 M 2048", (2, 32, 100, 64, 2048), torch.bfloat16, 0),
+    ("unaligned view (2,12,77,64)", (2, 12, 77, 64, 768), torch.bfloat16, 1),
+    ("fp32 (4,12,500,64)", (4, 12, 500, 64, 768), torch.float32, 0),
+)
+# the ragged shape at which every (bm, tiles) the plan can force runs
+OUT_PROJ_FORCED = (2, 12, 501, 64, 520)
+
+
+def _check_attn_out_proj(fa, dev, g):
+    """Phase 2, #7: the tensor-core kernel at OUT_PROJ_SHAPES against its
+    plain version (4 bf16 ulps of the largest output), two calls bit-equal,
+    timed beside its bound, torch.mm on the concatenated heads (the product
+    alone) and the unfused three-call chain (yardsticks: no single call
+    computes it); then OUT_PROJ_EDGES, each routed as _out_proj_plan says
+    (the unaligned view and fp32 to the CUDA-core kernel, fp32 within 1e-5
+    of the largest output) and bit-equal twice, and every tile and count of
+    column tiles the plan can force at OUT_PROJ_FORCED. Returns the
+    kernel's row."""
+    from ultravox_torch.scripts.compare_kernels import (
+        OUT_PROJ_SHAPES, _out_proj_inputs, out_proj_chain)
+
+    bf = torch.bfloat16
+    rec = _recorder([], _bf16_tol)
+    sms = fa._build.sm_count(0)
+    shapes, main, edges = {}, None, {}
+
+    def held(label, a, w, b, x, tol_fn):
+        out = fa.attn_out_proj_residual(a, w, b, x)
+        _synced(f"attn_out_proj_residual {label}")
+        again = fa.attn_out_proj_residual(a, w, b, x)
+        ref = fa.attn_out_proj_residual_plain(a, w, b, x)
+        _synced(f"attn_out_proj_residual {label}")
+        err, tol = float((out.float() - ref.float()).abs().max()), tol_fn(ref)
+        if not (err <= tol and torch.equal(out, again) and torch.isfinite(out).all()):
+            _fail(f"attn_out_proj_residual {label}: {err} > {tol} or two calls differ")
+        return out, ref, err, tol
+
+    for label, (B, H, T, Dh, M) in OUT_PROJ_SHAPES.items():
+        a, w, b, x = _out_proj_inputs(dev, g, B, H, T, Dh, M, bf)
+        out, ref, _, _ = held(label, a, w, b, x, _bf16_tol)
+        heads = a.transpose(1, 2).reshape(B * T, H * Dh)
+        w2 = w.view(H * Dh, M)
+        row = rec(
+            f"attn_out_proj_residual {label}", "attn_out_proj_mma_kernel",
+            "ultravox_torch/ops/kernels/csrc/attn_out_proj.cu",
+            "ultravox_tpu/ops/pallas/fused_attention.py:557", out, ref,
+            lambda: fa.attn_out_proj_residual(a, w, b, x),
+            lambda: fa.attn_out_proj_residual_plain(a, w, b, x),
+            None, _nbytes(a, w, b, x, out), 2.0 * B * T * H * Dh * M, BF16_FLOPS,
+            extra={"torch_mm_ms": _time_ms(lambda: torch.mm(heads, w2)),
+                   "chain_ms": _time_ms(lambda: out_proj_chain(a, w, b, x)),
+                   "plan": fa._out_proj_plan(True, B * T, H, Dh, M, [0], sms)._asdict()},
+        )
+        shapes[label] = {k: row[k] for k in ("ms", "device_ms", "wrapper_ms", "plain_ms",
+                                             "bound_ms", "torch_mm_ms", "chain_ms", "max_abs_err",
+                                             "plan")}
+        print(f"attn_out_proj_residual {label}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} "
+              f"({row['ms'] / row['bound_ms']:.1f}x), plain {row['plain_ms']:.4f}, torch.mm "
+              f"{row['torch_mm_ms']:.4f}, chain {row['chain_ms']:.4f} "
+              f"({row['ms'] / row['chain_ms']:.2f}x); plan {row['plan']}; two calls bit-equal",
+              flush=True)
+        main = main or row
+        del a, w, x, out, ref, heads
+    for label, (B, H, T, Dh, M), dtype, offset in OUT_PROJ_EDGES:
+        a, w, b, x = _out_proj_inputs(dev, g, B, H, T, Dh, M, dtype, offset)
+        ptrs = [a.data_ptr(), w.data_ptr(), x.data_ptr(), 0]
+        mma = fa._out_proj_plan(dtype == bf, B * T, H, Dh, M, ptrs, sms).mma
+        if mma != (dtype == bf and offset == 0):
+            _fail(f"attn_out_proj_residual {label}: routed to the "
+                  f"{'tensor' if mma else 'CUDA'} cores")
+        tol_fn = _bf16_tol if dtype == bf else (lambda ref: 1e-5 * max(1.0, float(ref.abs().max())))
+        _, _, err, tol = held(label, a, w, b, x, tol_fn)
+        edges[label] = {"max_abs_err": err, "tol": tol, "tensor_cores": mma}
+        print(f"attn_out_proj_residual {label}: max_abs_err {err:.3g} (tol {tol:.3g}), "
+              f"{'tensor' if mma else 'CUDA'} cores, two calls bit-equal", flush=True)
+    B, H, T, Dh, M = OUT_PROJ_FORCED
+    a, w, b, x = _out_proj_inputs(dev, g, B, H, T, Dh, M, bf)
+    forced = {}
+    plan = fa._out_proj_plan
+    try:
+        for bm in fa.MMA_ROWS:
+            for k in range(1, -(-M // fa.MMA_BN) + 1):
+                fa._out_proj_plan = functools.partial(plan, bm=bm, tiles=k)
+                _, _, err, tol = held(f"{OUT_PROJ_FORCED} bm {bm} tiles {k}", a, w, b, x,
+                                      _bf16_tol)
+                forced[f"{bm}x{fa.MMA_BN} k{k}"] = err
+    finally:
+        fa._out_proj_plan = plan
+    edges[f"forced tiles {OUT_PROJ_FORCED}"] = forced
+    print(f"attn_out_proj_residual {OUT_PROJ_FORCED}: every tile and column-tile count forced "
+          f"within tolerance, two calls bit-equal; errors {forced}", flush=True)
+    return dict(main, name="attn_out_proj_residual", shapes=shapes, edge_cases=edges)
+
+
 def _check_unwired_kernels(fa, dm, dev):
     """Phase 2, continued: the three kernels the engines do not call (as in
     the reference), at the flagship's shapes. ln_matmul_gelu at the encoder's
-    fc1 and attn_out_proj_residual at its out-projection (bf16, B 4 x 10 s);
+    fc1 and attn_out_proj_residual at its out-projection (bf16, B 4 and 1 x
+    10 s, and whisper-large's; _check_ln_matmul_gelu, _check_attn_out_proj);
     decode_matmul on every decoder product of Llama-3.2-1B, with a bf16
     weight and an int8 weight + bf16 scale: held against its plain version
     at 1, 4 and 32 rows in bf16 and fp32, then timed at 4 rows (a decode
@@ -840,29 +957,13 @@ def _check_unwired_kernels(fa, dm, dev):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
     bf = torch.bfloat16
-    B, T, D, H, Dh = 4, 500, 768, 12, 64
     rows = []
-    record = _recorder(rows, _bf16_tol)
 
     # 6. LN -> fc1 + b -> tanh-GELU of the encoder FFN
     rows.append(_check_ln_matmul_gelu(fa, dev, g))
 
     # 7. out-projection + residual, the attention output read head-major
-    attn = torch.randn((B, H, T, Dh), generator=g, device=dev).to(bf)
-    wo = (0.05 * torch.randn((H, Dh, D), generator=g, device=dev)).to(bf)
-    bo = (0.1 * torch.randn((D,), generator=g, device=dev)).to(bf)
-    xr = torch.randn((B, T, D), generator=g, device=dev).to(bf)
-    out = fa.attn_out_proj_residual(attn, wo, bo, xr)
-    ref = fa.attn_out_proj_residual_plain(attn, wo, bo, xr)
-    torch.cuda.synchronize()
-    record(
-        "attn_out_proj_residual", "attn_out_proj_kernel",
-        "ultravox_torch/ops/kernels/csrc/attn_out_proj.cu",
-        "ultravox_tpu/ops/pallas/fused_attention.py:557", out, ref,
-        lambda: fa.attn_out_proj_residual(attn, wo, bo, xr),
-        lambda: fa.attn_out_proj_residual_plain(attn, wo, bo, xr),
-        None, _nbytes(attn, wo, bo, xr, out), 2.0 * B * T * H * Dh * D, BF16_FLOPS,
-    )
+    rows.append(_check_attn_out_proj(fa, dev, g))
 
     # 14. decode_matmul on every decoder product, bf16 and int8 + scale
     products = {}
@@ -1557,18 +1658,23 @@ MMA_BUILDS = {
     # fp32 and unaligned views run ln_matmul_gelu_kernel on the CUDA cores
     "ln_matmul_gelu": (("ln_matmul_gelu_mma_kernel",), 3, "ln_matmul_gelu_kernelIf",
                        "ln_matmul_gelu_mma_kernel", 3),
+    # #7: the same three tiles with a gather prologue and a bias + residual
+    # epilogue (fused_attention._out_proj_plan); fp32 and unaligned views run
+    # attn_out_proj_kernel on the CUDA cores
+    "attn_out_proj": (("attn_out_proj_mma_kernel",), 3, "attn_out_proj_kernelIf",
+                      "attn_out_proj_mma_kernel", 3),
 }
 
 
 def _check_mma_build(_build, name, info):
     """Phase 1, continued: the bf16 kernels of flash_attention (forward,
     delta, dK/dV, dQ), attention (#3/#4), encoder_attn_probe (#15/#16,
-    both exponents), decode_matmul (#14, bf16 x), ln_qkv_head (#2) and
-    ln_matmul_gelu (#6) run on the tensor cores.
+    both exponents), decode_matmul (#14, bf16 x), ln_qkv_head (#2),
+    ln_matmul_gelu (#6) and attn_out_proj (#7) run on the tensor cores.
     cuobjdump's SASS of the built library must show HMMA in every bf16
     instantiation (head_dim 64 and 128; every #14 instance) and none in the
     fp32 kernels (fp32 stays on the CUDA cores). ptxas must report no spills
-    for the head_dim 64 bf16 attention kernels and every #14, #2 and #6
+    for the head_dim 64 bf16 attention kernels and every #14, #2, #6 and #7
     tensor-core kernel."""
     kernels, n_inst, fp32_name, d64_name, n_spill = MMA_BUILDS[name]
     path = info["path"]

@@ -1057,6 +1057,103 @@ def test_attn_out_proj_residual_matches_plain(cuda_device, dt):
     assert float((out.float() - ref.float()).abs().max()) <= tol
 
 
+# #7 on the tensor cores: (B, H, T, Dh, M). The encoder's out-projection at
+# 4 requests and at one, whisper-large's, a single frame, T 501 (a tile
+# straddles two batch rows and the last one is partial), a column-tile tail
+# (M 520), heads of 128, and 32 heads of 64 into 2048 (past the CUDA-core
+# tile's 1688)
+OUT_PROJ_SHAPES = [(4, 12, 500, 64, 768), (1, 12, 500, 64, 768), (1, 20, 1500, 64, 1280),
+                   (4, 12, 1, 64, 768), (2, 12, 501, 64, 768), (1, 12, 500, 64, 520),
+                   (2, 6, 77, 128, 768), (2, 32, 100, 64, 2048)]
+
+
+def _out_proj_inputs(dev, B, H, T, Dh, M, dtype, seed=0, offset=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    attn = torch.randn((B * H * T * Dh + offset,), generator=g, device=dev).to(dtype)
+    attn = attn[offset:].view(B, H, T, Dh)
+    w = (0.05 * torch.randn((H, Dh, M), generator=g, device=dev)).to(dtype)
+    b = (0.1 * torch.randn((M,), generator=g, device=dev)).to(dtype)
+    x = torch.randn((B, T, M), generator=g, device=dev).to(dtype)
+    return attn, w, b, x
+
+
+def _out_proj_check(a, w, b, x, kernel):
+    """Within 1e-5 of the largest output (fp32) or 4 bf16 ulps of the plain
+    version, two calls bit-equal, one launch each, and only ``kernel`` in a
+    trace."""
+    before = tfa.attn_out_proj_residual.launches
+    out = tfa.attn_out_proj_residual(a, w, b, x)
+    again = tfa.attn_out_proj_residual(a, w, b, x)
+    ref = tfa.attn_out_proj_residual_plain(a, w, b, x)
+    torch.cuda.synchronize()
+    assert tfa.attn_out_proj_residual.launches == before + 2
+    assert out.shape == x.shape and out.dtype == x.dtype
+    assert torch.equal(out, again)
+    big = float(ref.abs().max())
+    tol = 1e-5 * max(1.0, big) if x.dtype == torch.float32 else 4 * 2.0**-8 * big
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    names = _device_kernel_names(lambda: tfa.attn_out_proj_residual(a, w, b, x))
+    assert len(names) == 1 and f"{kernel}<" in next(iter(names)), names
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", OUT_PROJ_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_attn_out_proj_residual_tensor_cores_at_every_shape(cuda_device, shape):
+    """bf16 takes attn_out_proj_mma_kernel at every shape, 2048 wide too."""
+    a, w, b, x = _out_proj_inputs(cuda_device, *shape, torch.bfloat16)
+    _out_proj_check(a, w, b, x, "attn_out_proj_mma_kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", [1, 2, 3, 4, 5])
+def test_attn_out_proj_residual_every_tile(cuda_device, tiles, monkeypatch):
+    """Each tensor-core tile and each count of column tiles a block runs,
+    forced in turn, at (2, 12, 501, 64) x 520: rows no tile divides, tiles
+    that straddle two batch rows, a column-tile tail and a last block with
+    fewer column tiles. Every one gives the plan's output bit for bit: each
+    output's sum runs the same mma steps in the same order."""
+    import functools
+
+    a, w, b, x = _out_proj_inputs(cuda_device, 2, 12, 501, 64, 520, torch.bfloat16)
+    want = tfa.attn_out_proj_residual(a, w, b, x)
+    plan = tfa._out_proj_plan
+    for bm in tfa.MMA_ROWS:
+        monkeypatch.setattr(tfa, "_out_proj_plan", functools.partial(plan, bm=bm, tiles=tiles))
+        assert torch.equal(_out_proj_check(a, w, b, x, "attn_out_proj_mma_kernel"), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fp32", "unaligned bf16"])
+def test_attn_out_proj_residual_cuda_core_routes(cuda_device, case):
+    """fp32, and a bf16 attn one element off its storage (no 16-byte
+    copies), take the CUDA-core attn_out_proj_kernel."""
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    a, w, b, x = _out_proj_inputs(cuda_device, 2, 12, 77, 64, 768, dtype,
+                                  offset=int(case != "fp32"))
+    _out_proj_check(a, w, b, x, "attn_out_proj_kernel")
+
+
+@pytest.mark.cuda
+def test_attn_out_proj_residual_tensor_core_kernels_hold_hmma(cuda_device):
+    """cuobjdump's SASS: HMMA in every tensor-core instance, none in the
+    fp32 CUDA-core kernel."""
+    import os
+    import subprocess
+
+    from ultravox_torch.ops.kernels import _build
+
+    path = _build.build_all(["attn_out_proj"])["attn_out_proj"]["path"]
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    hmma = {b.split("\n", 1)[0].strip(): b.count("HMMA") for b in sass.split("Function : ")[1:]}
+    mma = [c for n, c in hmma.items() if "attn_out_proj_mma_kernel" in n]
+    fp32 = [c for n, c in hmma.items() if "attn_out_proj_kernelIf" in n]
+    assert len(mma) == len(tfa.MMA_ROWS) and all(mma), hmma
+    assert len(fp32) == 1 and not fp32[0], hmma
+
+
 @pytest.mark.cuda
 def test_attn_out_proj_residual_raises_on_what_the_kernel_lacks(cuda_device):
     attn = torch.zeros((1, 2, 8, 64), device=cuda_device)
@@ -1069,6 +1166,10 @@ def test_attn_out_proj_residual_raises_on_what_the_kernel_lacks(cuda_device):
         tfa.attn_out_proj_residual(attn.bfloat16(), w, torch.zeros(32, device=cuda_device), x)
     with pytest.raises(ValueError, match="shapes"):
         tfa.attn_out_proj_residual(attn, w[:1], torch.zeros(32, device=cuda_device), x)
+    wide = torch.zeros((1, 32, 8, 64), device=cuda_device)  # fp32 past the row tile's 1688
+    with pytest.raises(ValueError, match="rows of at most"):
+        tfa.attn_out_proj_residual(wide, torch.zeros((32, 64, 32), device=cuda_device),
+                                   torch.zeros(32, device=cuda_device), x)
 
 
 @pytest.mark.cuda

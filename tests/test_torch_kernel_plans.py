@@ -1,20 +1,23 @@
-"""The host-side plans of three CUDA kernels' wrappers, as pure Python.
+"""The host-side plans of the CUDA kernels' wrappers, as pure Python.
 
 ``decode_matmul._plan`` picks #14's instance (sum rows, weight columns a
 lane, vector or element loads, warps side by side along N) and how K is
 split over a thread-block cluster and the block's warps;
 ``layer_norm._plan`` picks #1's instance (16-byte or element pieces, how
 many a lane holds, or a block per row); ``fused_attention._plan`` picks
-#2's kernel (the tensor-core tile or the CUDA-core row tile) and its rows.
+#2's kernel (the tensor-core tile or the CUDA-core row tile) and its rows,
+``_transpose_plan`` #5's tile, and ``_gelu_plan`` and ``_out_proj_plan``
+#6's and #7's kernel, rows and column tiles a block.
 The kernels run only on the card (tests/test_torch_cuda.py holds them
 there); what they are told to do is checked here: every K row (#14) or
-output element (#2) covered exactly once, the cluster within the portable
+output element (#2, #6, #7) covered exactly once, the cluster within the portable
 limit, the vector width dividing N and the pointer's alignment, shared
 memory within a block's limit, and an instance that the CUDA source
 dispatches.
 """
 
 import pytest
+import torch
 
 from ultravox_torch.ops.kernels import decode_matmul as dm
 from ultravox_torch.ops.kernels import fused_attention as fa
@@ -349,7 +352,7 @@ def test_ln_matmul_gelu_plan_routes(shape):
     assert not fa._gelu_plan(True, rows, D + 8, F, ALIGNED, SMS).mma  # D % 16 == 8
     assert not fa._gelu_plan(True, rows, D, F + 4, ALIGNED, SMS).mma  # F % 8 == 4
     cuda_core = fa._gelu_plan(True, rows, D, F, ALIGNED[:1] + (2,) + ALIGNED[2:], SMS)
-    assert cuda_core == fa.GeluPlan(False, 32, 128, 1, (32 * D + 32 * 128) * 4)
+    assert cuda_core == fa.TilesPlan(False, 32, 128, 1, (32 * D + 32 * 128) * 4)
 
 
 @pytest.mark.parametrize("shape", GELU_SHAPES[1:7], ids=lambda s: "x".join(map(str, s)))
@@ -401,3 +404,136 @@ def test_ln_matmul_gelu_plan_at_whisper_large():
     plan = fa._gelu_plan(True, 1500, 1280, 5120, ALIGNED, SMS)
     assert plan.mma and plan.bm == 64
     assert 24 * -(-40 // plan.tiles) <= SMS  # one wave
+
+
+# #7 attn_out_proj_residual's plan: (rows, H, Dh, M). The encoder's
+# out-projection at 4 requests and at one, a single frame, whisper-large's,
+# Llama-3.2-1B's o_proj width (32 heads of 64), a ragged T with a
+# column-tile tail, heads of 128, and small heads of 8 into 136 columns.
+OUT_PROJ_SHAPES = [(2000, 12, 64, 768), (500, 12, 64, 768), (4, 12, 64, 768),
+                   (1500, 20, 64, 1280), (2000, 32, 64, 2048), (1002, 12, 64, 520),
+                   (154, 6, 128, 768), (77, 2, 8, 136)]
+OUT_PROJ_ALIGNED = (0, 4096, 8192, 12288)  # attn, weight, residual, output
+
+
+@pytest.mark.parametrize("shape", OUT_PROJ_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_attn_out_proj_plan_routes(shape):
+    """bf16 with K = H * Dh % 16 == 0 (up to 2048), Dh % 8, M % 8 and
+    16-byte-aligned pointers takes the tensor cores; fp32, an unaligned
+    pointer, or a Dh, M or K off those multiples takes the CUDA-core row
+    tile."""
+    rows, H, Dh, M = shape
+    K = H * Dh
+    plan = fa._out_proj_plan(True, rows, H, Dh, M, OUT_PROJ_ALIGNED, SMS)
+    assert plan.mma and plan.bn == fa.MMA_BN and plan.bm in fa.MMA_ROWS
+    assert 1 <= plan.tiles <= -(-M // fa.MMA_BN)
+    assert plan.smem == fa.mma_smem_bytes(plan.bm, K, ln=False) <= fa.MAX_SMEM
+    assert not fa._out_proj_plan(False, rows, H, Dh, M, OUT_PROJ_ALIGNED, SMS).mma
+    for i in range(len(OUT_PROJ_ALIGNED)):
+        off = OUT_PROJ_ALIGNED[:i] + (OUT_PROJ_ALIGNED[i] + 2,) + OUT_PROJ_ALIGNED[i + 1:]
+        assert not fa._out_proj_plan(True, rows, H, Dh, M, off, SMS).mma
+    assert not fa._out_proj_plan(True, rows, 4, 12, M, OUT_PROJ_ALIGNED, SMS).mma  # Dh % 8, K 48
+    assert not fa._out_proj_plan(True, rows, H, Dh, M + 4, OUT_PROJ_ALIGNED, SMS).mma  # M % 8
+    assert not fa._out_proj_plan(True, rows, 1, 8, M, OUT_PROJ_ALIGNED, SMS).mma  # K % 16 == 8
+    cuda_core = fa._out_proj_plan(True, rows, H, Dh, M, OUT_PROJ_ALIGNED[:1] + (2,) +
+                                  OUT_PROJ_ALIGNED[2:], SMS)
+    assert cuda_core == fa.TilesPlan(False, 32, 128, 1, (32 * K + 32 * 128) * 4)
+
+
+@pytest.mark.parametrize("shape", OUT_PROJ_SHAPES[1:4] + OUT_PROJ_SHAPES[5:],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_attn_out_proj_plan_covers_every_output_once(shape):
+    """The grid stores every output row and 16-byte line of columns exactly
+    once, for the chosen plan and for every tile and column-tile count that
+    can be forced; a tile that does not fit raises."""
+    rows, H, Dh, M = shape
+    want = [(r, n) for r in range(rows) for n in range(0, M, 8)]
+    plans = [fa._out_proj_plan(True, rows, H, Dh, M, OUT_PROJ_ALIGNED, SMS)]
+    for m in fa.MMA_ROWS:
+        if fa.mma_smem_bytes(m, H * Dh, ln=False) > fa.MAX_SMEM:
+            with pytest.raises(ValueError, match="cannot run"):
+                fa._out_proj_plan(True, rows, H, Dh, M, OUT_PROJ_ALIGNED, SMS, bm=m)
+            continue
+        with pytest.raises(ValueError, match="cannot run"):  # no tensor-core route in fp32
+            fa._out_proj_plan(False, rows, H, Dh, M, OUT_PROJ_ALIGNED, SMS, bm=m)
+        plans += [fa._out_proj_plan(True, rows, H, Dh, M, OUT_PROJ_ALIGNED, SMS, bm=m, tiles=k)
+                  for k in (1, 2, 3, 5, 64)]
+    for plan in plans:  # the grid walks its tiles as #6's does
+        assert sorted(_gelu_cover(plan, rows, M)) == want, plan
+
+
+def _mma_rows_constants():
+    """The constants of csrc/mma_rows.cuh that its smem_bytes reads."""
+    import re
+    from pathlib import Path
+
+    src = (Path(fa.__file__).parent / "csrc" / "mma_rows.cuh").read_text()
+    return {name: int(re.search(rf"constexpr (?:int|size_t) {name} = (\d+);", src).group(1))
+            for name in ("BK", "STAGES", "kMaxK", "kMaxSmem")}
+
+
+def test_attn_out_proj_plan_fits_shared_memory_for_every_width():
+    """mma_smem_bytes reckons with csrc/mma_rows.cuh's constants (with and
+    without the LN vectors), and every K % 16 == 0 up to its widest row is
+    planned within a block's shared memory on the tensor cores, with the
+    rows that fit; past it, the CUDA-core tile."""
+    c = _mma_rows_constants()
+    assert (fa.RING_ROWS, fa.RING_STAGES, fa.MMA_MAX_D, fa.MAX_SMEM) == (
+        c["BK"], c["STAGES"], c["kMaxK"], c["kMaxSmem"])
+    for K in range(16, c["kMaxK"] + 1, 16):
+        for bm in fa.MMA_ROWS:
+            main = bm * (K + 8) + c["STAGES"] * c["BK"] * (fa.MMA_BN + 8)
+            body = 2 * max(main, bm * (fa.MMA_BN + 8))
+            assert fa.mma_smem_bytes(bm, K, ln=False) == body
+            assert fa.mma_smem_bytes(bm, K) == 8 * K + body
+        plan = fa._out_proj_plan(True, 2000, K // 16, 16, 768, OUT_PROJ_ALIGNED, SMS)
+        assert plan.mma and plan.smem <= c["kMaxSmem"], (K, plan)
+        assert fa.mma_smem_bytes(plan.bm, K, ln=False) == plan.smem
+    assert not fa._out_proj_plan(True, 2000, 33, 64, 768, OUT_PROJ_ALIGNED, SMS).mma  # K 2112
+    assert [m for m in fa.MMA_ROWS if fa.mma_smem_bytes(m, 2048, ln=False) <= fa.MAX_SMEM] == [32]
+
+
+@pytest.mark.parametrize("rows,H,M,bm,tiles,blocks", [
+    (2000, 12, 768, 128, 1, 16 * 6),  # (4, 12, 500, 64) x 768: one wave of 128-row tiles
+    (500, 12, 768, 64, 1, 8 * 6),     # (1, 12, 500, 64): 64-row tiles, 48 blocks, not 24
+    (1500, 20, 1280, 64, 2, 24 * 5),  # whisper-large: 64-row tiles, 2 column tiles a block
+])
+def test_attn_out_proj_plan_grid(rows, H, M, bm, tiles, blocks):
+    """The tile rows and column tiles a block runs where the waves times
+    the work of a block (its column tiles and its gather) is least: the
+    fastest of every tile the card's sweep timed at these three shapes;
+    the grid's block count. 32-row tiles cost as much as 64-row ones (2
+    warps leave half an SM idle), so 64 rows win the tie at B 1."""
+    plan = fa._out_proj_plan(True, rows, H, 64, M, OUT_PROJ_ALIGNED, SMS)
+    assert plan.mma and (plan.bm, plan.tiles) == (bm, tiles)
+    assert -(-rows // plan.bm) * -(-(-(-M // 128)) // plan.tiles) == blocks
+
+
+def test_attn_out_proj_takes_2048_wide_rows_to_the_tensor_cores(monkeypatch):
+    """A 32 x 64 = 2048-wide out-projection (Llama-3.2-1B's o_proj), past
+    the CUDA-core tile's ROW_TILE_MAX_K, is no longer refused before the
+    route is chosen: on tensors that stand in for the card's (the meta
+    device, the CUDA check stubbed) the wrapper reaches _out_proj_plan,
+    which routes bf16 to the tensor cores; the test stops it there, before
+    any launch."""
+    seen = []
+
+    class Planned(Exception):
+        pass
+
+    def plan(*args, **kw):
+        seen.append(fa._out_proj_plan.__wrapped__(*args, **kw))
+        raise Planned
+
+    plan.__wrapped__ = fa._out_proj_plan
+    monkeypatch.setattr(fa, "_out_proj_plan", plan)
+    monkeypatch.setattr(fa._build, "require_cuda", lambda *ts: None)
+    monkeypatch.setattr(fa._build, "sm_count", lambda index: SMS)
+    B, H, T, Dh, M = 1, 32, 4, 64, 2048
+    assert H * Dh > fa.ROW_TILE_MAX_K
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    with pytest.raises(Planned):
+        fa.attn_out_proj_residual(torch.empty((B, H, T, Dh), **meta),
+                                  torch.empty((H, Dh, M), **meta), torch.empty((M,), **meta),
+                                  torch.empty((B, T, M), **meta))
+    assert len(seen) == 1 and seen[0].mma and seen[0].bm == 32

@@ -147,22 +147,30 @@ def test_ln_matmul_gelu_matches_pallas(dt):
     np.testing.assert_allclose(_np(got), _np(ref), **_tol(dt))
 
 
-def _out_proj_inputs():
+# #7's head layouts (B, H, T, Dh, M): 2 heads of 64 into 256, and 4 heads of
+# 32 into 96 (K 128, three 32-column runs; the JAX kernel needs T % 128 == 0)
+OUT_PROJ_LAYOUTS = {"h2": (2, 2, 128, 64, 256), "h4": (2, 4, 256, 32, 96)}
+
+
+def _out_proj_inputs(layout="h2"):
+    B, H, T, Dh, M = OUT_PROJ_LAYOUTS[layout]
     rng = np.random.default_rng(0)
-    attn = rng.standard_normal((2, 2, 128, 64)).astype(np.float32)
-    w = (0.1 * rng.standard_normal((2, 64, 256))).astype(np.float32)
-    b = (0.1 * rng.standard_normal(256)).astype(np.float32)
-    x = rng.standard_normal((2, 128, 256)).astype(np.float32)
+    attn = rng.standard_normal((B, H, T, Dh)).astype(np.float32)
+    w = (0.1 * rng.standard_normal((H, Dh, M))).astype(np.float32)
+    b = (0.1 * rng.standard_normal(M)).astype(np.float32)
+    x = rng.standard_normal((B, T, M)).astype(np.float32)
     return attn, w, b, x
 
 
-@pytest.mark.parametrize("dt", list(DTYPES))
-def test_attn_out_proj_residual_matches_pallas(dt):
+@pytest.mark.parametrize("dt,layout", [(dt, "h2") for dt in DTYPES] + [(dt, "h4") for dt in DTYPES],
+                         ids=list(DTYPES) + [f"{dt}-h4" for dt in DTYPES])
+def test_attn_out_proj_residual_matches_pallas(dt, layout):
     tdt, jdt = DTYPES[dt]
-    arrays = _out_proj_inputs()
+    arrays = _out_proj_inputs(layout)
+    B, _, T, _, M = OUT_PROJ_LAYOUTS[layout]
     ref = jfa.attn_out_proj_residual(*(_j(a, jdt) for a in arrays))
     got = tfa.attn_out_proj_residual(*(_t(a, tdt) for a in arrays))
-    assert got.shape == (2, 128, 256) and got.dtype == tdt
+    assert got.shape == (B, T, M) and got.dtype == tdt
     np.testing.assert_allclose(_np(got), _np(ref), **_tol(dt))
 
 

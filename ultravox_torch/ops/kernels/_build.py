@@ -45,6 +45,7 @@ ENTRY_POINTS = {
     "encoder_attn_probe": ("attn_v2", "attn_nt"),
     "ln_qkv_head": ("ln_qkv_head", "ln_qkv_head_mma"),
     "ln_matmul_gelu": ("ln_matmul_gelu", "ln_matmul_gelu_mma"),
+    "attn_out_proj": ("attn_out_proj", "attn_out_proj_mma"),
 }
 # C signature of each entry point uv_<entry> (see the .cu sources)
 _SIGNATURES = {
@@ -84,6 +85,7 @@ _SIGNATURES = {
     "ln_matmul_gelu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "ln_matmul_gelu_mma": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
     "attn_out_proj": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "attn_out_proj_mma": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "attn_v2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P),
     "attn_nt": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P),
 }

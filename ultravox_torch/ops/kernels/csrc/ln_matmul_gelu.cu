@@ -104,16 +104,12 @@ __device__ __forceinline__ float gelu_of_sum(float acc, float bias) {
 }
 
 // One output tile from the accumulators: GELU, then 16-byte lines to
-// out[row, n0 + ...]. For each 16-row half mt and pair of 8-column pieces
-// (2p, 2p + 1) a quad of lanes holds four lines (pieces 2p and 2p + 1, rows
-// g and g + 8), each lane a 4-byte word of every line; after a 4 x 4
-// transpose by shuffles lane q holds line q whole and stores it.
+// out[row, n0 + ...] (mma_rows::store_lines).
 template <int BM, int BN>
 __device__ __forceinline__ void gelu_store(const float (&acc)[2][mma_rows::Tile<BM, BN>::kNT][4],
                                            const bf16* __restrict__ bias, bf16* __restrict__ out,
                                            int row0, int rows, int F, int n0) {
   constexpr int NT = mma_rows::Tile<BM, BN>::kNT;
-  const int lane = threadIdx.x & 31, q = lane & 3;
   float b[NT][2];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
@@ -121,34 +117,13 @@ __device__ __forceinline__ void gelu_store(const float (&acc)[2][mma_rows::Tile<
     b[nt][0] = n < F ? __bfloat162float(bias[n]) : 0.f;
     b[nt][1] = n < F ? __bfloat162float(bias[n + 1]) : 0.f;
   }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int p = 0; p < NT / 2; ++p) {
-      uint32_t word[4];  // line i: piece 2p + i / 2, row half i % 2
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int nt = 2 * p + i / 2, e = 2 * (i % 2);
-        word[i] = mma_tile::pack_bf16(gelu_of_sum(acc[mt][nt][e], b[nt][0]),
-                                      gelu_of_sum(acc[mt][nt][e + 1], b[nt][1]));
-      }
-      // round s: lane j sends its word of line (j - s) & 3, lane q takes
-      // from lane (q + s) & 3 that lane's word of line q
-      uint32_t line[4] = {0, 0, 0, 0};
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int k = (q - s) & 3, j = (q + s) & 3;
-        const uint32_t send = k == 0 ? word[0] : k == 1 ? word[1] : k == 2 ? word[2] : word[3];
-        const uint32_t got = __shfl_sync(0xffffffffu, send, (lane & ~3) | j);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) line[t] = j == t ? got : line[t];
-      }
-      const int row = row0 + mma_rows::acc_row<BM, BN>(mt, 2 * (q % 2));
-      const int n = n0 + mma_rows::acc_col<BM, BN>(2 * p + q / 2, 0) - 2 * q;  // the piece's start
-      if (row < rows && n < F)
-        *reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * F + n) =
-            make_uint4(line[0], line[1], line[2], line[3]);
-    }
+  mma_rows::store_lines<BM, BN>(
+      acc, [&](float a, int nt, int j) { return gelu_of_sum(a, b[nt][j]); },
+      [&](int, int, int r, int c, uint4 line) {
+        const int row = row0 + r, n = n0 + c;
+        if (row < rows && n < F)
+          *reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * F + n) = line;
+      });
 }
 
 template <int BM, int BN>

@@ -2,10 +2,11 @@
 // with fp32 sums (mma.sync.m16n8k16, csrc/mma_tile.cuh's primitives), for
 // kernels whose left operand is made inside the kernel and never reaches
 // HBM: the block's BM rows are resident in shared memory for the whole
-// product (the caller makes them there, e.g. with layer_norm_rows), and the
-// weight streams through a STAGES-deep cp.async ring of BK x BN tiles. The
-// caller writes its own epilogue from the accumulators (acc_row / acc_col
-// give each element's place in the tile).
+// product (the caller makes them there, with layer_norm_rows or a gather of
+// its own), and the weight streams through a STAGES-deep cp.async ring of
+// BK x BN tiles. The caller writes its own epilogue from the accumulators
+// (acc_row / acc_col give each element's place in the tile), or hands
+// store_lines a value per element and a store per 16-byte line.
 //
 // Layout. The resident rows keep a pitch of K + 8 elements and the ring's
 // tiles one of BN + 8 (mma_tile.cuh's convention: with K % 16 == 0 the eight
@@ -38,14 +39,14 @@ struct Tile {
   static constexpr int kStage = BK * kPitchB;  // elements of one ring stage
 };
 
-// Dynamic shared memory of a block: the LN scale and bias (2 K fp32), then
-// the resident rows and the ring, or the caller's BM x (BN + 8) epilogue
-// staging tile where that is larger (it reuses both once the product is
-// done).
-inline size_t smem_bytes(int bm, int bn, int K) {
+// Dynamic shared memory of a block: the LN scale and bias (2 K fp32; none
+// for a caller whose rows need no LayerNorm, `ln` false), then the resident
+// rows and the ring, or the caller's BM x (BN + 8) epilogue staging tile
+// where that is larger (it reuses both once the product is done).
+inline size_t smem_bytes(int bm, int bn, int K, bool ln = true) {
   const size_t main = static_cast<size_t>(bm) * (K + 8) + static_cast<size_t>(STAGES) * BK * (bn + 8);
   const size_t stage = static_cast<size_t>(bm) * (bn + 8);
-  return 2 * K * sizeof(float) + (main > stage ? main : stage) * sizeof(bf16);
+  return (ln ? 2 * K * sizeof(float) : 0) + (main > stage ? main : stage) * sizeof(bf16);
 }
 
 // Sum of the 8 bf16 values of a 16-byte piece, as a pairwise tree
@@ -281,6 +282,59 @@ template <int BM, int BN>
 __device__ __forceinline__ int acc_col(int nt, int e) {
   return (threadIdx.x >> 5) % Tile<BM, BN>::kWarpsN * Tile<BM, BN>::kWN + nt * 8 +
          2 * (threadIdx.x & 3) + (e & 1);
+}
+
+// Where this lane's 16-byte output line (mt, p) of store_lines lies in the
+// tile: its row (0 .. BM) and its first column (0 .. BN)
+template <int BM, int BN>
+__device__ __forceinline__ int line_row(int mt) {
+  return acc_row<BM, BN>(mt, 2 * (threadIdx.x & 1));
+}
+template <int BM, int BN>
+__device__ __forceinline__ int line_col(int p) {
+  const int q = threadIdx.x & 3;
+  return acc_col<BM, BN>(2 * p + q / 2, 0) - 2 * q;  // the start of the line's 8-column piece
+}
+
+// The tile from the accumulators as 16-byte lines of 8 bf16 values, each
+// lane holding whole lines: for each 16-row half mt and pair of 8-column
+// pieces (2p, 2p + 1) a quad of lanes holds four lines (pieces 2p and
+// 2p + 1, rows g and g + 8), each lane a 4-byte word of every line; after a
+// 4 x 4 transpose by shuffles lane q holds line q whole. Each element is
+// value(acc, nt, j) rounded to bf16 (nt: its 8-column piece, j: its column
+// parity, for a value that depends on the column); each lane then calls
+// emit(mt, p, row, col, line) with the line's place in the tile (line_row,
+// line_col), inside the output or not: the caller masks.
+template <int BM, int BN, typename Value, typename Emit>
+__device__ __forceinline__ void store_lines(const float (&acc)[2][Tile<BM, BN>::kNT][4],
+                                            Value value, Emit emit) {
+  constexpr int NT = Tile<BM, BN>::kNT;
+  const int lane = threadIdx.x & 31, q = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int p = 0; p < NT / 2; ++p) {
+      uint32_t word[4];  // line i: piece 2p + i / 2, row half i % 2
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int nt = 2 * p + i / 2, e = 2 * (i % 2);
+        word[i] = mma_tile::pack_bf16(value(acc[mt][nt][e], nt, 0),
+                                      value(acc[mt][nt][e + 1], nt, 1));
+      }
+      // round s: lane j sends its word of line (j - s) & 3, lane q takes
+      // from lane (q + s) & 3 that lane's word of line q
+      uint32_t line[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int k = (q - s) & 3, j = (q + s) & 3;
+        const uint32_t send = k == 0 ? word[0] : k == 1 ? word[1] : k == 2 ? word[2] : word[3];
+        const uint32_t got = __shfl_sync(0xffffffffu, send, (lane & ~3) | j);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) line[t] = j == t ? got : line[t];
+      }
+      emit(mt, p, line_row<BM, BN>(mt), line_col<BM, BN>(p),
+           make_uint4(line[0], line[1], line[2], line[3]));
+    }
 }
 
 }  // namespace mma_rows

@@ -1,11 +1,12 @@
 // A 32-row x 128-column output tile of (rows, K) x (K, C), with the 32 rows
 // of the left operand held whole in shared memory as fp32 and the weight
-// streamed through it in 32 x 128 tiles. Shared by the kernels whose left
-// operand is made inside the kernel and never reaches HBM:
+// streamed through it in 32 x 128 tiles. The fp32 (and unaligned bf16)
+// route of the kernels whose left operand is made inside the kernel and
+// never reaches HBM:
 //   - ln_qkv_head.cu and ln_matmul_gelu.cu (LayerNorm'd rows);
 //   - attn_out_proj.cu (attention heads gathered from (B, H, T, Dh)).
-// Each thread accumulates a 4 x 4 register tile with fp32 FMAs (CUDA cores,
-// not the tensor cores: wgmma/TMA tiling is the known next step); the
+// Each thread accumulates a 4 x 4 register tile with fp32 FMAs (CUDA cores:
+// fp32 on the tensor cores would be TF32; bf16 runs mma_rows.cuh); the
 // caller writes its own epilogue from `acc`.
 #pragma once
 

@@ -13,9 +13,9 @@
   ``attn_out_proj_residual`` (``csrc/attn_out_proj.cu``) replace
   ``fused_attention.py:ln_matmul_gelu`` and ``:attn_out_proj_residual``.
   The reference wires neither into its encoder, and neither does the port.
-  #6 in bf16 runs on the tensor cores (``csrc/mma_rows.cuh``) where
-  ``_gelu_plan`` allows it; fp32 and every other shape or alignment on the
-  CUDA cores.
+  In bf16 both run on the tensor cores (``csrc/mma_rows.cuh``) where
+  ``_gelu_plan`` and ``_out_proj_plan`` allow it; fp32 and every other
+  shape or alignment on the CUDA cores.
 
 Each wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors; ``<wrapper>.launches`` counts kernel launches.
@@ -26,6 +26,7 @@ noted at the top of its CUDA source.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -54,6 +55,16 @@ SM_SMEM = 233472  # shared memory of one SM on sm_90 (each block also takes 1 KB
 # ln_matmul_gelu: what one LayerNorm of a block's rows costs, in column
 # tiles of the product (ln_qkv_head's phase stamps, PERF.md: about one)
 GELU_LN_TILES = 1
+# attn_out_proj_residual's cost model, in products of a 128-row column
+# tile, fitted to the card's sweep of every tile (PERF.md): what a
+# block's gather of its rows costs (a copy, well under a tile), what a
+# column tile costs beside its product (its weight stream, the ring's fill
+# and the epilogue: the same for a tile of any rows), and the rows below
+# which a block's product runs no faster (its 2 warps leave half of an
+# SM's 4 sub-partitions idle)
+OUT_PROJ_GATHER_TILES = 0.2
+OUT_PROJ_TILE_COST = 0.75
+OUT_PROJ_MIN_ROWS = 64
 
 
 # --------------------------------------------------------------------------
@@ -154,13 +165,14 @@ def attention_plain(
 # --------------------------------------------------------------------------
 
 
-def mma_smem_bytes(bm: int, D: int) -> int:
+def mma_smem_bytes(bm: int, D: int, ln: bool = True) -> int:
     """Dynamic shared memory of a tensor-core block (csrc/mma_rows.cuh
-    smem_bytes): the LN scale and bias (fp32), then BM resident rows of
-    pitch D + 8 and the 3-stage ring of 32 x (MMA_BN + 8) weight tiles, or
-    the BM x (MMA_BN + 8) epilogue tile if larger."""
+    smem_bytes): the LN scale and bias (fp32; none where ``ln`` is false),
+    then BM resident rows of pitch D + 8 and the 3-stage ring of 32 x
+    (MMA_BN + 8) weight tiles, or the BM x (MMA_BN + 8) epilogue tile if
+    larger."""
     main = bm * (D + 8) + RING_STAGES * RING_ROWS * (MMA_BN + 8)
-    return 8 * D + 2 * max(main, bm * (MMA_BN + 8))
+    return (8 * D if ln else 0) + 2 * max(main, bm * (MMA_BN + 8))
 
 
 class Plan(NamedTuple):
@@ -286,16 +298,17 @@ def qkv_head_transpose(qkv: torch.Tensor, head_dim: int) -> torch.Tensor:
 qkv_head_transpose.launches = 0
 
 
-class GeluPlan(NamedTuple):
+class TilesPlan(NamedTuple):
+    """ln_matmul_gelu's and attn_out_proj_residual's kernel and tile."""
     mma: bool  # the tensor-core kernel, else the CUDA-core row tile
     bm: int  # output rows a block owns
     bn: int  # columns of one column tile
-    tiles: int  # column tiles a block runs in turn from one LayerNorm
+    tiles: int  # column tiles a block runs in turn from its resident rows
     smem: int  # its dynamic shared memory, bytes
 
 
 def _gelu_plan(bf16: bool, rows: int, D: int, F: int, ptrs, sms: int, bm: Optional[int] = None,
-               tiles: Optional[int] = None) -> GeluPlan:
+               tiles: Optional[int] = None) -> TilesPlan:
     """ln_matmul_gelu's kernel and tile for (rows, D) x (D, F) whose x, LN
     vectors, weight and output start at ``ptrs``. The tensor-core kernel
     takes bf16 with D % 16 == 0 (up to MMA_MAX_D), F % 8 == 0 and 16-byte-
@@ -314,7 +327,7 @@ def _gelu_plan(bf16: bool, rows: int, D: int, F: int, ptrs, sms: int, bm: Option
             raise ValueError(f"ln_matmul_gelu: a {bm}-row tile of {tiles} column tiles cannot "
                              f"run at D={D}, F={F} (rows that can: {fits})")
     if not fits:
-        return GeluPlan(False, 32, 128, 1, (32 * D + 32 * 128) * 4)
+        return TilesPlan(False, 32, 128, 1, (32 * D + 32 * 128) * 4)
     if bm is None:
         bm = min((m for m in fits if m >= rows), default=fits[0])
     smem = mma_smem_bytes(bm, D)
@@ -323,7 +336,7 @@ def _gelu_plan(bf16: bool, rows: int, D: int, F: int, ptrs, sms: int, bm: Option
         slots = sms * max(1, SM_SMEM // (smem + 1024))  # blocks the card holds at once
         tiles = min(range(1, col_tiles + 1), key=lambda k: (
             -(-row_tiles * -(-col_tiles // k) // slots) * (k + GELU_LN_TILES), k))
-    return GeluPlan(True, bm, MMA_BN, min(tiles, col_tiles), smem)
+    return TilesPlan(True, bm, MMA_BN, min(tiles, col_tiles), smem)
 
 
 def ln_matmul_gelu(x, ln_scale, ln_bias, kernel, bias, *, eps: float = 1e-5):
@@ -364,6 +377,55 @@ def ln_matmul_gelu(x, ln_scale, ln_bias, kernel, bias, *, eps: float = 1e-5):
 ln_matmul_gelu.launches = 0
 
 
+def _out_proj_plan(bf16: bool, rows: int, H: int, Dh: int, M: int, ptrs, sms: int,
+                   bm: Optional[int] = None, tiles: Optional[int] = None) -> TilesPlan:
+    """attn_out_proj_residual's kernel and tile for ``rows`` rows of (rows,
+    H * Dh) x (H * Dh, M) whose attn, weight, residual and output start at
+    ``ptrs``. The tensor-core kernel takes bf16 with K = H * Dh, K % 16 == 0
+    (up to MMA_MAX_D), Dh % 8 == 0 (a 16-byte piece lies in one head),
+    M % 8 == 0 and 16-byte-aligned pointers, with the tile _out_proj_tile
+    picks. Everything else (fp32, other shapes, unaligned views) takes the
+    CUDA-core 32 x 128 row tile. ``bm`` and ``tiles`` force the tile
+    (ValueError where it cannot run)."""
+    K = H * Dh
+    mma = (bf16 and K % 16 == 0 and K <= MMA_MAX_D and Dh % 8 == 0 and M % 8 == 0
+           and all(p % 16 == 0 for p in ptrs))
+    if not mma:
+        if bm is not None or tiles is not None:
+            raise ValueError(f"attn_out_proj_residual: a {bm}-row tile of {tiles} column tiles "
+                             f"cannot run at H={H}, Dh={Dh}, M={M} (no tensor-core route in "
+                             f"this dtype, shape and alignment)")
+        return TilesPlan(False, 32, 128, 1, (32 * K + 32 * 128) * 4)
+    return _out_proj_tile(rows, K, M, sms, bm, tiles)
+
+
+@functools.lru_cache(maxsize=1024)
+def _out_proj_tile(rows: int, K: int, M: int, sms: int, bm: Optional[int] = None,
+                   tiles: Optional[int] = None) -> TilesPlan:
+    """The tensor-core tile of attn_out_proj_residual: its rows (of
+    MMA_ROWS that fit in shared memory) and the MMA_BN-wide column tiles a
+    block runs from one gather, the pair of least cost on ``sms`` SMs:
+    waves (blocks over SMs) x (tiles x (u + OUT_PROJ_TILE_COST) +
+    OUT_PROJ_GATHER_TILES x u), u = max(bm, OUT_PROJ_MIN_ROWS) / MMA_BN; on
+    a tie the fewest tiles, then the most rows. Cached: the wrapper asks
+    once per shape."""
+    fits = [m for m in MMA_ROWS if mma_smem_bytes(m, K, ln=False) <= MAX_SMEM]
+    if (bm is not None and bm not in fits) or (tiles is not None and tiles < 1):
+        raise ValueError(f"attn_out_proj_residual: a {bm}-row tile of {tiles} column tiles "
+                         f"cannot run at K={K}, M={M} (rows that can: {fits})")
+    col_tiles = -(-M // MMA_BN)
+
+    def cost(m, k):
+        waves = -(-(-(-rows // m) * -(-col_tiles // k)) // sms)
+        u = max(m, OUT_PROJ_MIN_ROWS) / MMA_BN
+        return waves * (k * (u + OUT_PROJ_TILE_COST) + OUT_PROJ_GATHER_TILES * u)
+
+    bm, tiles = min(((m, k) for m in ([bm] if bm is not None else fits)
+                     for k in ([tiles] if tiles is not None else range(1, col_tiles + 1))),
+                    key=lambda mk: (cost(*mk), mk[1], -mk[0]))
+    return TilesPlan(True, bm, MMA_BN, min(tiles, col_tiles), mma_smem_bytes(bm, K, ln=False))
+
+
 def attn_out_proj_residual(attn_t, kernel_w, bias, x_res):
     """x_res + (heads-concat of attn_t) @ W + b, reading attn_t (B, H, T, D)
     in its own layout; W is (H, D, M), x_res (B, T, M), any T. attn_t, W and
@@ -379,18 +441,23 @@ def attn_out_proj_residual(attn_t, kernel_w, bias, x_res):
     if kernel_w.shape != (H, D, M) or bias.shape != (M,) or x_res.shape != (B, T, M):
         raise ValueError(f"bad shapes for attn_out_proj_residual: {attn_t.shape} x "
                          f"{kernel_w.shape} + {bias.shape}, residual {x_res.shape}")
-    if H * D > ROW_TILE_MAX_K:
-        raise ValueError(f"attn_out_proj_residual holds rows of at most {ROW_TILE_MAX_K}, "
-                         f"got {H} x {D}")
     if not attn_t.dtype == kernel_w.dtype == x_res.dtype:
         raise TypeError("attn_t, kernel_w and x_res must share one dtype")
     a, w, b, r = (t.contiguous() for t in (attn_t, kernel_w, bias, x_res))
     out = torch.empty((B, T, M), dtype=x_res.dtype, device=x_res.device)
+    plan = _out_proj_plan(r.dtype == torch.bfloat16, B * T, H, D, M,
+                          [t.data_ptr() for t in (a, w, r, out)],
+                          _build.sm_count(r.device.index or 0))
+    if not plan.mma and H * D > ROW_TILE_MAX_K:
+        raise ValueError(f"attn_out_proj_residual holds rows of at most {ROW_TILE_MAX_K} "
+                         f"outside the bf16 tensor-core route, got {H} x {D}")
     lib = _build.library("attn_out_proj")
-    rc = lib.uv_attn_out_proj(
-        _build.ptr(a), _build.ptr(w), _build.ptr(b), _build.ptr(r), _build.ptr(out),
-        B, H, T, D, M, _build.dtype_code(r), _build.stream_ptr(r.device),
-    )
+    args = (_build.ptr(a), _build.ptr(w), _build.ptr(b), _build.ptr(r), _build.ptr(out),
+            B, H, T, D, M)
+    if plan.mma:
+        rc = lib.uv_attn_out_proj_mma(*args, plan.bm, plan.tiles, _build.stream_ptr(r.device))
+    else:
+        rc = lib.uv_attn_out_proj(*args, _build.dtype_code(r), _build.stream_ptr(r.device))
     _build.check("attn_out_proj", rc)
     attn_out_proj_residual.launches += 1
     return out

@@ -3,7 +3,8 @@ process on one card: the split KV kernel (#8 ``decode_attention``, #11
 ``segment_tail_attention``, and in its paged instances #9
 ``paged_decode_attention``, #12 ``paged_segment_tail_attention``), #14
 ``decode_matmul``, #1 ``fused_layer_norm``, #2 ``ln_qkv_head_fused``, #6
-``ln_matmul_gelu`` and #5 ``qkv_head_transpose``.
+``ln_matmul_gelu``, #7 ``attn_out_proj_residual`` and #5
+``qkv_head_transpose``.
 
     python -m ultravox_torch.scripts.compare_kernels --baseline DIR [--only PART ...]
         [--out FILE] [--sweep-splits]
@@ -21,8 +22,8 @@ size, #14 with or without the fp32 partials of its second kernel, #1 with
 or without the instance, #5 with or without the plan's rows and heads; an
 entry point DIR's source lacks is left out), then, in bf16 unless said
 otherwise (``--only`` picks among ``kv``, ``paged``, ``decode_matmul``,
-``layer_norm``, ``ln_qkv_head``, ``ln_matmul_gelu`` and ``transpose``; all
-by default):
+``layer_norm``, ``ln_qkv_head``, ``ln_matmul_gelu``, ``out_proj`` and
+``transpose``; all by default):
 
 - kv: #8 at the flagship decode step (q (4, 32, 64) against a
   (4, 256, 8, 64) slab with 144 keys) and at serving run (c)'s (a
@@ -72,19 +73,30 @@ by default):
   chose; with ``--sweep-splits``, the current kernel with each tensor-core
   tile (128, 64 and 32 rows) that fits forced in turn. Then the routes that must not have moved:
   fp32 at (4, 500, 768) and a bf16 view one element off its storage (the
-  CUDA-core kernel) bit-equal to the baseline's, and #7
-  ``attn_out_proj_residual`` (encoder out-projection, bf16 and fp32)
-  bit-equal to the baseline's build;
+  CUDA-core kernel) bit-equal to the baseline's;
 - ln_matmul_gelu: #6 at the encoder's fc1, (4, 500, 768) and (1, 500, 768)
   x (768, 3072), and whisper-large's FFN, (1, 1500, 1280) x (1280, 5120)
   (scale and bias fp32): current and baseline against the plain version,
-  the current within 4 bf16 ulps of the baseline too, two current calls
+  the current within 4 bf16 ulps of the baseline too and bit-equal to the
+  baseline's own tensor-core route where it has one, two current calls
   bit-equal, times in turns and with the host's dispatch, the bound,
   ``torch.mm`` on the LN'd rows and the unfused chain ``F.layer_norm`` ->
   ``torch.addmm`` -> ``F.gelu(approximate="tanh")`` (yardsticks), and the
   plan; with ``--sweep-splits``, every tile that fits at 1, 2, 3, 4, 6, 8
   and 12 column tiles a block. Then fp32 and a bf16 view one element off
   its storage (the CUDA-core kernel) bit-equal to the baseline's build;
+- out_proj: #7 at the encoder's out-projection, (4, 12, 500, 64) x (12, 64,
+  768) + (4, 500, 768) and the same at one request, and whisper-large's,
+  (1, 20, 1500, 64) x (20, 64, 1280): current and baseline against the
+  plain version (4 bf16 ulps of the largest output), two current calls
+  bit-equal, times in turns and with the host's dispatch, the plain
+  version's time, the bound, ``torch.mm`` on the heads already
+  concatenated, (B T, H Dh) x (H Dh, M), and the unfused chain
+  ``transpose(1, 2).reshape`` (a copy) -> ``torch.addmm`` -> ``add_`` of
+  the residual (yardsticks), and the plan; with ``--sweep-splits``, every
+  tile that fits at every count of column tiles a block can run. Then fp32
+  and a bf16 view one element off its storage (the CUDA-core kernel)
+  bit-equal to the baseline's build;
 - transpose: #5 bit-equal to its plain version (twice) and to the baseline
   at (B, 500, 36 heads of 64) for B 4 and 1, T 1, T 501 at B 4 (a partial
   last block), fp32 heads of 128 at T 77 and fp32 at B 4 and 1; timed at B
@@ -157,8 +169,9 @@ PART_LIBS = {
     "paged": ("paged_attention", "segment_attention"),
     "decode_matmul": ("decode_matmul",),
     "layer_norm": ("layer_norm",),
-    "ln_qkv_head": ("ln_qkv_head", "attn_out_proj"),
+    "ln_qkv_head": ("ln_qkv_head",),
     "ln_matmul_gelu": ("ln_matmul_gelu",),
+    "out_proj": ("attn_out_proj",),
     "transpose": ("qkv_head_transpose",),
 }
 # #2's shapes: (B, T, D, C), heads of 64
@@ -170,6 +183,11 @@ LN_QKV_HEAD_DIM = 64
 GELU_SHAPES = {"fc1 (4,500,768)": (4, 500, 768, 3072), "fc1 (1,500,768)": (1, 500, 768, 3072),
                "whisper-large (1,1500,1280)": (1, 1500, 1280, 5120)}
 GELU_TILES = (1, 2, 3, 4, 6, 8, 12)  # column tiles a block runs, swept
+# #7's shapes: (B, H, T, Dh, M), the encoder's out-projection at 4 requests
+# and at one, and whisper-large's
+OUT_PROJ_SHAPES = {"(4,12,500,64)x768": (4, 12, 500, 64, 768),
+                   "(1,12,500,64)x768": (1, 12, 500, 64, 768),
+                   "whisper-large (1,20,1500,64)x1280": (1, 20, 1500, 64, 1280)}
 # #5's shapes: (B, T, G, head_dim); 36 heads of 64 bf16 at one request and at
 # four (timed), then the edges: a single frame, a T the plan's 4-row blocks
 # leave a partial last block of, fp32 heads of 128 at a ragged T
@@ -802,7 +820,7 @@ def ln_qkv_chain(x, s, b, w, wb, Dh):
 def compare_ln_qkv_head(libs, dev, g, sweep: bool) -> dict:
     """#2 against the baseline at the encoder's shapes, beside torch.mm and
     the unfused chain, and bit-equal to the baseline's own tensor-core
-    route where the baseline has one; then fp32, an unaligned view and #7
+    route where the baseline has one; then fp32 and an unaligned view
     bit-equal to the baseline's build."""
     lib, Dh, bf = libs["ln_qkv_head"], LN_QKV_HEAD_DIM, torch.bfloat16
     rows = {}
@@ -849,11 +867,11 @@ def compare_ln_qkv_head(libs, dev, g, sweep: bool) -> dict:
 
 
 def _unchanged_routes(libs, dev, g) -> dict:
-    """fp32 and an unaligned bf16 view of #2 (its CUDA-core kernel) and #7
-    in bf16 and fp32: bit-equal to the baseline's build, and timed."""
+    """fp32 and an unaligned bf16 view of #2 (its CUDA-core kernel):
+    bit-equal to the baseline's build, and timed."""
     Dh, out = LN_QKV_HEAD_DIM, {}
-    B, T, D, H = 4, 500, 768, 12
-    lib2, lib7 = libs["ln_qkv_head"], libs["attn_out_proj"]
+    B, T, D = 4, 500, 768
+    lib2 = libs["ln_qkv_head"]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         x, s, b, w, wb = _ln_qkv_inputs(dev, g, B, T, D, 3 * D, dtype)
@@ -861,35 +879,24 @@ def _unchanged_routes(libs, dev, g) -> dict:
             base = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
             x = base[1:].view(B, T, D).copy_(x)
             name = "bfloat16 unaligned"
-        cases = {f"ln_qkv_head {name}": (
-            lambda: fa.ln_qkv_head_fused(x, s, b, w, wb, Dh),
-            lambda: baseline_ln_qkv_head(lib2, x, s, b, w, wb, Dh))}
-        a7 = torch.randn((B, H, T, D // H), generator=g, device=dev).to(dtype)
-        w7 = (0.02 * torch.randn((H, D // H, D), generator=g, device=dev)).to(dtype)
-        b7 = (0.02 * torch.randn((D,), generator=g, device=dev)).to(dtype)
-        r7 = torch.randn((B, T, D), generator=g, device=dev).to(dtype)
-
-        def base7(a7=a7, w7=w7, b7=b7, r7=r7):
-            o = torch.empty_like(r7)
-            _check(lib7, "attn_out_proj", lib7.uv_attn_out_proj(
-                _build.ptr(a7), _build.ptr(w7), _build.ptr(b7), _build.ptr(r7), _build.ptr(o),
-                B, H, T, D // H, D, _build.dtype_code(r7), _build.stream_ptr(r7.device)))
-            return o
-
-        cases[f"attn_out_proj_residual {str(dtype)[6:]}"] = (
-            lambda: fa.attn_out_proj_residual(a7, w7, b7, r7), base7)
-        for label, (cur, old) in cases.items():
-            got, want = cur(), old()
-            torch.cuda.synchronize()
-            row = {"bit_equal_to_baseline": torch.equal(got, want)}
-            if not row["bit_equal_to_baseline"]:
-                raise RuntimeError(f"{label} differs from the baseline's build by "
-                                   f"{_err(got, want)}")
-            row.update(in_turns(old, cur))
-            out[label] = row
-            print(f"{label}: bit-equal to the baseline; {row['ms']:.4f} ms (baseline "
-                  f"{row['baseline_ms']:.4f})", flush=True)
+        out[f"ln_qkv_head {name}"] = _bit_equal_route(
+            f"ln_qkv_head {name}", lambda: fa.ln_qkv_head_fused(x, s, b, w, wb, Dh),
+            lambda: baseline_ln_qkv_head(lib2, x, s, b, w, wb, Dh))
     return out
+
+
+def _bit_equal_route(label, cur, old) -> dict:
+    """A route that must not have moved: bit-equal to the baseline's build
+    (raises otherwise), then both timed in turns."""
+    got, want = cur(), old()
+    torch.cuda.synchronize()
+    row = {"bit_equal_to_baseline": torch.equal(got, want)}
+    if not row["bit_equal_to_baseline"]:
+        raise RuntimeError(f"{label} differs from the baseline's build by {_err(got, want)}")
+    row.update(in_turns(old, cur))
+    print(f"{label}: bit-equal to the baseline; {row['ms']:.4f} ms (baseline "
+          f"{row['baseline_ms']:.4f})", flush=True)
+    return row
 
 
 def baseline_ln_matmul_gelu(lib, x, s32, b32, w, b):
@@ -928,8 +935,12 @@ def compare_ln_matmul_gelu(libs, dev, g, sweep: bool) -> dict:
         row = {"max_abs_err": _err(out, ref), "tol": _tol(ref), "baseline_err": _err(old, ref),
                "vs_baseline": _err(out, old), "bit_equal": torch.equal(out, again),
                "plan": fa._gelu_plan(True, B * T, D, Fd, [0], _build.sm_count(0))._asdict()}
+        if lib.current.get("ln_matmul_gelu_mma"):
+            with baseline_library({"ln_matmul_gelu": lib}):
+                row["bit_equal_to_baseline_mma"] = torch.equal(cur(), out)
         if not (row["max_abs_err"] <= row["tol"] and row["baseline_err"] <= row["tol"]
-                and row["vs_baseline"] <= row["tol"] and row["bit_equal"]):
+                and row["vs_baseline"] <= row["tol"] and row["bit_equal"]
+                and row.get("bit_equal_to_baseline_mma", True)):
             raise RuntimeError(f"ln_matmul_gelu {label}: {row}")
         row.update(in_turns(base, cur))
         row["wrapper_ms"] = time_ms(cur, queued=False)
@@ -963,18 +974,103 @@ def compare_ln_matmul_gelu(libs, dev, g, sweep: bool) -> dict:
         if offset:  # one element off its storage: the CUDA-core route
             x = torch.empty(x.numel() + offset, dtype=dtype, device=dev)[offset:].view(
                 B, T, D).copy_(x)
-        cur = lambda: fa.ln_matmul_gelu(x, s, b, w, wb)  # noqa: E731
-        base = lambda: baseline_ln_matmul_gelu(lib, x, s, b, w, wb)  # noqa: E731
-        got, want = cur(), base()
+        rows[f"ln_matmul_gelu {name}"] = _bit_equal_route(
+            f"ln_matmul_gelu {name}", lambda: fa.ln_matmul_gelu(x, s, b, w, wb),
+            lambda: baseline_ln_matmul_gelu(lib, x, s, b, w, wb))
+    return rows
+
+
+def _out_proj_inputs(dev, g, B, H, T, Dh, M, dtype, offset=0):
+    """attn (B, H, T, Dh) starting ``offset`` elements into its storage, W
+    (H, Dh, M), bias (M,), x_res (B, T, M)."""
+    attn = torch.randn((B * H * T * Dh + offset,), generator=g, device=dev).to(dtype)
+    attn = attn[offset:].view(B, H, T, Dh)
+    w = (0.05 * torch.randn((H, Dh, M), generator=g, device=dev)).to(dtype)
+    b = (0.1 * torch.randn((M,), generator=g, device=dev)).to(dtype)
+    x = torch.randn((B, T, M), generator=g, device=dev).to(dtype)
+    return attn, w, b, x
+
+
+def baseline_out_proj(lib, attn, w, b, x):
+    """The baseline #7 launch (uv_attn_out_proj, one signature throughout)."""
+    B, H, T, Dh = attn.shape
+    out = torch.empty_like(x)
+    _check(lib, "attn_out_proj", lib.uv_attn_out_proj(
+        _build.ptr(attn), _build.ptr(w), _build.ptr(b), _build.ptr(x), _build.ptr(out), B, H, T,
+        Dh, w.shape[-1], _build.dtype_code(x), _build.stream_ptr(x.device)))
+    return out
+
+
+def out_proj_chain(attn, w, b, x):
+    """The unfused form in three PyTorch calls: the heads concatenated (a
+    copy), the product with the bias, the residual added in place."""
+    B, H, T, Dh = attn.shape
+    rows = attn.transpose(1, 2).reshape(B * T, H * Dh)
+    return torch.addmm(b, rows, w.view(H * Dh, -1)).view_as(x).add_(x)
+
+
+def compare_out_proj(libs, dev, g, sweep: bool) -> dict:
+    """#7 against the baseline at OUT_PROJ_SHAPES: the bf16 tensor-core
+    route within 4 bf16 ulps of the plain version and of the baseline, two
+    calls bit-equal, times in turns, beside its bound, the plain version,
+    torch.mm on the concatenated heads and the three-call chain; with
+    ``sweep``, every tile that fits at every count of column tiles (each
+    within 4 ulps, and whether bit-equal to the plan's). Then fp32 and a
+    bf16 view one element off its storage (the CUDA-core kernel) bit-equal
+    to the baseline's build."""
+    lib, bf, rows = libs["attn_out_proj"], torch.bfloat16, {}
+    sms = _build.sm_count(0)
+    for label, (B, H, T, Dh, M) in OUT_PROJ_SHAPES.items():
+        a, w, b, x = _out_proj_inputs(dev, g, B, H, T, Dh, M, bf)
+        cur = lambda: fa.attn_out_proj_residual(a, w, b, x)  # noqa: E731
+        base = lambda: baseline_out_proj(lib, a, w, b, x)  # noqa: E731
+        out, again, ref, old = cur(), cur(), fa.attn_out_proj_residual_plain(a, w, b, x), base()
         torch.cuda.synchronize()
-        row = {"bit_equal_to_baseline": torch.equal(got, want)}
-        if not row["bit_equal_to_baseline"]:
-            raise RuntimeError(f"ln_matmul_gelu {name} differs from the baseline's build by "
-                               f"{_err(got, want)}")
+        row = {"max_abs_err": _err(out, ref), "tol": _tol(ref), "baseline_err": _err(old, ref),
+               "vs_baseline": _err(out, old), "bit_equal": torch.equal(out, again),
+               "plan": fa._out_proj_plan(True, B * T, H, Dh, M, [0], sms)._asdict()}
+        if not (row["max_abs_err"] <= row["tol"] and row["baseline_err"] <= row["tol"]
+                and row["vs_baseline"] <= row["tol"] and row["bit_equal"]):
+            raise RuntimeError(f"attn_out_proj_residual {label}: {row}")
         row.update(in_turns(base, cur))
-        rows[f"ln_matmul_gelu {name}"] = row
-        print(f"ln_matmul_gelu {name}: bit-equal to the baseline; {row['ms']:.4f} ms (baseline "
-              f"{row['baseline_ms']:.4f})", flush=True)
+        row["wrapper_ms"] = time_ms(cur, queued=False)
+        row["plain_ms"] = time_ms(lambda: fa.attn_out_proj_residual_plain(a, w, b, x))
+        heads = a.transpose(1, 2).reshape(B * T, H * Dh)
+        w2 = w.view(H * Dh, M)
+        row["torch_mm_ms"] = time_ms(lambda: torch.mm(heads, w2))
+        row["chain_ms"] = time_ms(lambda: out_proj_chain(a, w, b, x))
+        row["bound_ms"] = max(_nbytes(a, w, b, x, out) / HBM_BYTES_PER_S,
+                              2.0 * B * T * H * Dh * M / BF16_FLOPS) * 1e3
+        row["speedup"] = row["baseline_ms"] / row["ms"]
+        if sweep:
+            row["tiles_ms"], row["tiles_bit_equal"] = {}, {}
+            for bm in fa.MMA_ROWS:
+                if fa.mma_smem_bytes(bm, H * Dh, ln=False) > fa.MAX_SMEM:
+                    continue
+                for k in range(1, -(-M // fa.MMA_BN) + 1):
+                    with forced("_out_proj_plan", bm=bm, tiles=k):
+                        got = cur()
+                        if _err(got, ref) > row["tol"]:
+                            raise RuntimeError(f"attn_out_proj_residual {label}, {bm} rows x "
+                                               f"{k} tiles: {_err(got, ref)}")
+                        key = f"{bm}x{fa.MMA_BN} k{k}"
+                        row["tiles_bit_equal"][key] = torch.equal(got, out)
+                        row["tiles_ms"][key] = time_ms(cur)
+        rows[f"attn_out_proj_residual {label}"] = row
+        print(f"attn_out_proj_residual {label}: {row['ms']:.4f} ms (baseline "
+              f"{row['baseline_ms']:.4f}, {row['speedup']:.2f}x; with dispatch "
+              f"{row['wrapper_ms']:.4f}; plain {row['plain_ms']:.4f}; torch.mm "
+              f"{row['torch_mm_ms']:.4f}, chain {row['chain_ms']:.4f}; bound "
+              f"{row['bound_ms']:.5f}); turns {row['turns_ms']}; err {row['max_abs_err']:.3g} "
+              f"(tol {row['tol']:.3g}), vs baseline {row['vs_baseline']:.3g}; plan "
+              f"{row['plan']}; tiles {row.get('tiles_ms')}; bit-equal to the plan's "
+              f"{row.get('tiles_bit_equal')}", flush=True)
+    B, H, T, Dh, M = OUT_PROJ_SHAPES["(4,12,500,64)x768"]
+    for name, dtype, offset in (("fp32", torch.float32, 0), ("bfloat16 unaligned", bf, 1)):
+        a, w, b, x = _out_proj_inputs(dev, g, B, H, T, Dh, M, dtype, offset)
+        rows[f"attn_out_proj_residual {name}"] = _bit_equal_route(
+            f"attn_out_proj_residual {name}", lambda: fa.attn_out_proj_residual(a, w, b, x),
+            lambda: baseline_out_proj(lib, a, w, b, x))
     return rows
 
 
@@ -1158,6 +1254,8 @@ def run(baseline: Path, sweep_splits: bool = False, only=PARTS) -> dict:
         result["cases"].update(compare_ln_qkv_head(libs, dev, g, sweep_splits))
     if "ln_matmul_gelu" in only:
         result["cases"].update(compare_ln_matmul_gelu(libs, dev, g, sweep_splits))
+    if "out_proj" in only:
+        result["cases"].update(compare_out_proj(libs, dev, g, sweep_splits))
     if "transpose" in only:
         result["cases"].update(compare_transpose(libs, dev, g, sweep_splits))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1174,8 +1272,8 @@ def main() -> None:
     ap.add_argument("--out", type=Path, default=None, help="also write the JSON here")
     ap.add_argument("--sweep-splits", action="store_true",
                     help="also time #8, #9, #11, #12 and #14 at clusters of 1, 2, 4 and 8 "
-                         "blocks, #2 and #6 at each tensor-core tile (#6 also at each count "
-                         "of column tiles a block runs) and #5 at each row count")
+                         "blocks, #2, #6 and #7 at each tensor-core tile (#6 and #7 also at "
+                         "each count of column tiles a block runs) and #5 at each row count")
     ap.add_argument("--only", nargs="+", choices=PARTS, default=PARTS,
                     help="the kernels to compare (all by default)")
     args = ap.parse_args()
