@@ -141,7 +141,19 @@ Phases, each fatal on failure:
      (ultravox_torch.scripts.profile_encoder_attn) at B 8, T = S = 1500, H
      20, D 64: every attn_v2 / attn_nt variant timed beside the production
      kernel and SDPA and held against its plain version at that shape, both
-     probes' counters moved; then the script's time.
+     probes' counters moved; then the script's time;
+  9. a checkpoint of phase 4's weights (see _checkpoint_main_path):
+     save_pretrained in one file and in two shards, each loaded onto the
+     card bit-equal (bytes, write and load GB/s); phase 3's small config
+     loaded from a diff checkpoint with bases by id (without them it must
+     raise), and its ServingEngine's penalties, logit_bias, logprobs and
+     seeded sampling on the card against the CPU; then 8 requests with
+     every option (2 plain, 2 penalized and biased, 2 with logprobs, 2
+     seeded at temperature 0.8) served from the loaded tree, tokens equal
+     to an engine on phase 4's tree, launches checked (#9 in every single
+     step, #12 in no step while such a request is active), seeded requests
+     repeated alone, precomputed audio_embeds against audio, and TTFT,
+     tok/s and the busy share beside phase 5 (a)'s.
 
 Phases 4-7 also hold ln_matmul_gelu, attn_out_proj_residual,
 decode_matmul, attn_v2 and attn_nt at 0 launches: no engine calls them.
@@ -2329,31 +2341,10 @@ def _small_parity(tc, uv, TEngine, dev):
     kernels."""
     from ultravox_torch.ops.kernels.decode_attention import decode_attention
     from ultravox_torch.ops.kernels.segment_attention import segment_tail_attention
-    from ultravox_torch.ops.mel import log_mel_spectrogram_np
 
-    text = dict(vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2,
-                num_heads=4, num_kv_heads=2, head_dim=64, tie_word_embeddings=True)
-    llama = tc.UltravoxConfig(
-        audio_config=tc.WhisperEncoderConfig(d_model=128, num_layers=2, num_heads=2, ffn_dim=256),
-        text_config=tc.DecoderConfig(**text), hidden_size=256, projector_ln_mid=True,
-    )
-    gemma = tc.UltravoxConfig(text_config=tc.DecoderConfig(**dict(
-        text, arch="gemma3", num_layers=4, sliding_window=8, sliding_window_pattern=2,
-        qk_norm=True, use_post_norms=True, scale_embeddings=True, rope_theta=1e6,
-        rope_local_base_freq=10000.0, final_logit_softcapping=30.0,
-        hidden_act="gelu_pytorch_tanh")), llm_only_training=True)
-    rng = np.random.default_rng(SEED)
-    mel = torch.from_numpy(np.stack([log_mel_spectrogram_np(a) for a in _audio(2, 1.5, rng)]))
-    ids = rng.integers(1, 512, (2, 24)).astype(np.int64)
-    mask = np.ones_like(ids)
-    mask[1, 20:] = 0
-    # larger weights make greedy tokens vary (the encoder's only 2x: larger
-    # attention logits there amplify fp32 summation-order noise)
-    scale = {"audio_tower": 2.0, "projector": 8.0, "language_model": 8.0}
-    for name, cfg, batch in (("llama", llama, _batch(llama, mel, 32, rng)),
-                             ("gemma3", gemma, {"input_ids": ids, "attention_mask": mask})):
-        params = uv.init_params(cfg, torch.Generator().manual_seed(SEED))
-        params = {k: _scale(v, scale[k]) for k, v in params.items()}
+    (llama, llama_batch), (gemma, gemma_batch) = _small_models(tc)
+    for name, cfg, batch in (("llama", llama, llama_batch), ("gemma3", gemma, gemma_batch)):
+        params = _small_params(uv, cfg)
         toks = {}
         for device in ("cpu", dev):
             eng = TEngine(params, cfg, max_cache_len=128, cache_dtype=torch.float32,
@@ -2376,6 +2367,44 @@ def _small_parity(tc, uv, TEngine, dev):
         _small_serving_parity(name, params, cfg, [_row(batch, i) for i in range(2)], dev)
         if "audio_values" in batch:
             _small_flash_encoder_parity(params, cfg, batch, TEngine, dev)
+
+
+# larger weights make greedy tokens vary (the encoder's only 2x: larger
+# attention logits there amplify fp32 summation-order noise)
+SMALL_SCALE = {"audio_tower": 2.0, "projector": 8.0, "language_model": 8.0}
+
+
+def _small_models(tc):
+    """Phase 3's small configs, each with its batch: the llama-family speech model (2 rows of 1.5 s audio
+    at position 4 of 32 tokens) and a gemma-3-style decoder (window 8 on
+    every other layer, qk-norm, post-norms, local rope, final softcap;
+    24-token rows, the second padded from 20)."""
+    from ultravox_torch.ops.mel import log_mel_spectrogram_np
+
+    text = dict(vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2,
+                num_heads=4, num_kv_heads=2, head_dim=64, tie_word_embeddings=True)
+    llama = tc.UltravoxConfig(
+        audio_config=tc.WhisperEncoderConfig(d_model=128, num_layers=2, num_heads=2, ffn_dim=256),
+        text_config=tc.DecoderConfig(**text), hidden_size=256, projector_ln_mid=True,
+    )
+    gemma = tc.UltravoxConfig(text_config=tc.DecoderConfig(**dict(
+        text, arch="gemma3", num_layers=4, sliding_window=8, sliding_window_pattern=2,
+        qk_norm=True, use_post_norms=True, scale_embeddings=True, rope_theta=1e6,
+        rope_local_base_freq=10000.0, final_logit_softcapping=30.0,
+        hidden_act="gelu_pytorch_tanh")), llm_only_training=True)
+    rng = np.random.default_rng(SEED)
+    mel = torch.from_numpy(np.stack([log_mel_spectrogram_np(a) for a in _audio(2, 1.5, rng)]))
+    ids = rng.integers(1, 512, (2, 24)).astype(np.int64)
+    mask = np.ones_like(ids)
+    mask[1, 20:] = 0
+    llama_batch = _batch(llama, mel, 32, rng)
+    return (llama, llama_batch), (gemma, {"input_ids": ids, "attention_mask": mask})
+
+
+def _small_params(uv, cfg):
+    """A small config's seeded fp32 parameters, scaled by SMALL_SCALE."""
+    params = uv.init_params(cfg, torch.Generator().manual_seed(SEED))
+    return {k: _scale(v, SMALL_SCALE[k]) for k, v in params.items()}
 
 
 def _small_flash_encoder_parity(params, cfg, batch, TEngine, dev):
@@ -2438,20 +2467,28 @@ def _row(batch, i: int):
     return out
 
 
-def _serve(engine, batches, max_tokens: int, loras=None):
-    """Submit every batch at once (request i on adapter loras[i]); (tokens,
-    finish reason, ttft_s) of each."""
+def _serve(engine, batches, max_tokens: int, loras=None, options=None, events=None):
+    """Submit every batch at once (request i on adapter loras[i], with the
+    submit options options[i]); (tokens, finish reason, ttft_s) of each.
+    ``events``, a list, receives each request's token events."""
     loras = loras or [None] * len(batches)
-    reqs = [engine.submit(dict(b), max_tokens=max_tokens, lora=n) for b, n in zip(batches, loras)]
+    options = options or [{}] * len(batches)
+    reqs = [engine.submit(dict(b), max_tokens=max_tokens, lora=n, **o)
+            for b, n, o in zip(batches, loras, options)]
+    if not engine._running:
+        engine.start()  # queued before the loop starts: a fixed schedule
     out = []
     for r in reqs:
-        ids, end = [], None
+        ids, evs, end = [], [], None
         for ev in engine.stream(r, timeout=600):
             if ev.token_id is None:
                 end = ev
                 break
             ids.append(ev.token_id)
+            evs.append(ev)
         out.append((ids, end.finish_reason, end.ttft_s))
+        if events is not None:
+            events.append(evs)
     return out
 
 
@@ -2882,6 +2919,13 @@ def main() -> None:
     probe_rows, probes = _probe_entry_point(eap, dev)
     rows += probe_rows
 
+    # 9. a flagship checkpoint written, loaded and served with every option
+    checkpoint, ckpt_launches = _checkpoint_main_path(tc, uv, cfg, counters, prefill, serving, dev)
+    for row in rows:
+        if row["name"] in ckpt_launches:
+            row["launches_per_path"] = {"serving (a)": row["launches"],
+                                        "checkpoint serving": ckpt_launches[row["name"]]}
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -2892,7 +2936,8 @@ def main() -> None:
         "kernels": rows, "ttft_ms": ttft_ms, "decode_tok_s": decode_tps,
         "fused_first_token_ms": fused_ttft_ms, "fused_decode_tok_s": fused_tps,
         "scan_kernel_decode_tok_s": seg_tps, "serving": serving, "training": training,
-        "lora_int8": lora_int8, "probes": probes, "total_s": time.perf_counter() - t_script,
+        "lora_int8": lora_int8, "probes": probes, "checkpoint": checkpoint,
+        "total_s": time.perf_counter() - t_script,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -3027,7 +3072,7 @@ def _serving_main_path(engine, cfg, counters, per_call, dev):
     return metrics, new_launches
 
 
-def _traced_serve(srv, requests, new_tokens, label, loras=None) -> dict:
+def _traced_serve(srv, requests, new_tokens, label, loras=None, options=None) -> dict:
     """Serve ``requests`` under torch.profiler: print the device's busy
     share of the traced wall, the top kernels, #2's and #3 + #4's time and
     the split KV kernels' time and launches (failing on a one-block KV
@@ -3037,7 +3082,7 @@ def _traced_serve(srv, requests, new_tokens, label, loras=None) -> dict:
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        _serve(srv, requests, new_tokens, loras)
+        _serve(srv, requests, new_tokens, loras, options)
         torch.cuda.synchronize()
         traced = time.perf_counter() - t1
     evs = [e for e in prof.key_averages()
@@ -3309,6 +3354,361 @@ def _probe_entry_point(eap, dev):
     result["phase_s"] = time.perf_counter() - t0
     print(f"phase 8: {result['phase_s']:.2f} s", flush=True)
     return rows, result
+
+
+def _flat_paths(tree, prefix=""):
+    """{"a/b/c": leaf} of a nested dict of tensors."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_paths(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _bits_differ(want, got) -> list:
+    """Paths of the leaves of ``got`` that are not bit-equal to ``want``'s
+    (dtype and shape too), and of the leaves either tree lacks."""
+    a, b = _flat_paths(want), _flat_paths(got)
+    bad = sorted(set(a) ^ set(b))
+    for k in sorted(set(a) & set(b)):
+        x, y = a[k], b[k].to(a[k].device)
+        if x.dtype != y.dtype or x.shape != y.shape:
+            bad.append(k)
+        elif x.dtype == torch.bfloat16:
+            bad += [k] if not torch.equal(x.view(torch.int16), y.view(torch.int16)) else []
+        elif not torch.equal(x, y):
+            bad.append(k)
+    return bad
+
+
+def _checkpoint_main_path(tc, uv, cfg, counters, per_call, phase5, dev):
+    """Phase 9: a checkpoint of the flagship written, loaded and served with
+    every request option, on phase 4's weights (remade from the seed).
+
+      1. save_pretrained writes the bf16 tree in one file, then in two
+         shards with an index (each leaf in its own dtype); each is loaded
+         onto the card by load_ultravox_checkpoint and must equal phase 4's
+         tree bit for bit. Bytes, write and load GB/s (the load reads what
+         the write left in the host's page cache).
+      2. Phase 3's small llama config: a diff_only checkpoint without bases
+         must raise under strict; with text_model_id / audio_model_id
+         naming sub-model directories written by decoder_to_hf and
+         _encoder_to_hf it must load equal.
+      3. The small config's ServingEngine (paged and slots, kernels, fp32):
+         greedy tokens with penalties and logit_bias, greedy logprobs
+         (within 1e-4, the same top ids) and seeded tokens at temperature
+         0.8 on the card equal the CPU's.
+      4. A paged ServingEngine with the segment kernel (phase 5 (a)'s
+         settings) on the loaded tree serves phase 5's 8 requests on 4
+         slots: 2 plain greedy, 2 greedy with repetition 1.2, presence 0.5,
+         frequency 0.5 and logit_bias +100 on one id, 2 greedy with
+         top_logprobs 5, 2 seeded at temperature 0.8 and top_p 0.9, queued
+         before the loop starts (a fixed schedule). An engine on phase 4's
+         own tree serves them first: every request's tokens must be equal.
+         The biased id comes at every step; greedy logprobs have the chosen
+         logprob equal to the top-1's, in descending order; each seeded
+         request alone (full prefill) repeats its tokens, another seed
+         does not; a request with audio_embeds (encode_audio on the card)
+         gives its audio request's tokens. Launches against the engine's
+         counters: #1-#3 per admission and #4 per chunk as in phase 5, #9
+         16 a single step, #12 16 x 8 a block, and no block dispatched
+         while a request that needs single steps is active. TTFT, tok/s and
+         (traced) busy share beside phase 5 (a)'s.
+
+    Returns (metrics, launches of #9 and #12 in step 4)."""
+    import dataclasses
+    import inspect
+    import tempfile
+
+    from ultravox_torch.inference.serving.engine import ServingEngine, _needs_single_step
+    from ultravox_torch.inference.ultravox_infer import load_ultravox_checkpoint
+    from ultravox_torch.models import weights as weights_lib
+    from ultravox_torch.ops.mel import log_mel_spectrogram
+    from ultravox_torch.tools.publish import _encoder_to_hf, save_pretrained
+
+    t_phase = time.perf_counter()
+    metrics = {}
+
+    # 1. the flagship checkpoint, one file and two shards
+    params = uv.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), torch.bfloat16, dev)
+    loaded = None
+    for shards in (1, 2):
+        with tempfile.TemporaryDirectory() as d:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_pretrained(params, cfg, d, dtype=None, shards=shards)
+            t_write = time.perf_counter() - t0
+            files = sorted(f for f in os.listdir(d) if f.endswith(".safetensors"))
+            disk = sum(os.path.getsize(os.path.join(d, f)) for f in files)
+            t0 = time.perf_counter()
+            lcfg, lparams, _ = load_ultravox_checkpoint(d, torch.bfloat16)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+        bad = _bits_differ(params, lparams)
+        label = f"checkpoint, {shards} file{'s' if shards > 1 else ''}"
+        print(f"{label}: {disk} bytes in {files}; write {t_write:.3f} s ({disk / t_write / 1e9:.3f} "
+              f"GB/s); load onto the card {t_load:.3f} s ({disk / t_load / 1e9:.3f} GB/s); "
+              f"{len(_flat_paths(lparams))} leaves, {len(bad)} not bit-equal to phase 4's", flush=True)
+        if bad:
+            _fail(f"{label}: leaves {bad[:8]} differ from phase 4's")
+        if lcfg != cfg:
+            _fail(f"{label}: the loaded config {lcfg} differs from the saved one")
+        metrics[f"shards_{shards}"] = {"bytes": disk, "files": len(files), "write_s": t_write,
+                                       "write_gb_s": disk / t_write / 1e9, "load_s": t_load,
+                                       "load_gb_s": disk / t_load / 1e9}
+        if loaded is None:
+            loaded = lparams
+        else:
+            del lparams
+
+    # 2. the small config: strict diff checkpoints, bases by id
+    (small, small_batch), _ = _small_models(tc)
+    sp = _small_params(uv, small)
+    with tempfile.TemporaryDirectory() as d:
+        diff = save_pretrained(sp, small, os.path.join(d, "diff"), diff_only=True)
+        try:
+            load_ultravox_checkpoint(diff, torch.float32)
+            _fail("a diff_only checkpoint without bases loaded under strict")
+        except ValueError as e:
+            if "random init" not in str(e):
+                raise
+        text_dir, audio_dir = os.path.join(d, "text"), os.path.join(d, "audio")
+        weights_lib.save_safetensors_dir(
+            weights_lib.decoder_to_hf(sp["language_model"], small.text_config), text_dir)
+        weights_lib.save_safetensors_dir(_encoder_to_hf(sp["audio_tower"], small), audio_dir)
+        ids_cfg = dataclasses.replace(small, text_model_id=text_dir, audio_model_id=audio_dir)
+        diff = save_pretrained(sp, ids_cfg, os.path.join(d, "diff_ids"), diff_only=True)
+        _, got, _ = load_ultravox_checkpoint(diff, torch.float32)
+        bad = _bits_differ(sp, got)
+    print(f"checkpoint, small config: a diff without bases raised under strict; with bases by "
+          f"id {len(_flat_paths(got))} leaves loaded, {len(bad)} not bit-equal", flush=True)
+    if bad:
+        _fail(f"small diff checkpoint with bases: leaves {bad[:8]} differ")
+
+    # 3. the small config's options, card against CPU
+    small_opts = [
+        dict(repetition_penalty=1.2, presence_penalty=0.5, frequency_penalty=0.5,
+             logit_bias={7: 5.0}),
+        dict(logprobs=True, top_logprobs=5),
+        dict(temperature=0.8, top_p=0.9, seed=1234),
+    ]
+    small_reqs = [_row(small_batch, i % 2) for i in range(len(small_opts))]
+    for mode in ("paged", "slots"):
+        res = {}
+        for device in ("cpu", dev):
+            srv = ServingEngine(
+                sp, small, num_slots=4, max_seq_len=128, cache_dtype=torch.float32,
+                cache_mode=mode, page_size=16, num_pages=20 if mode == "paged" else None,
+                prefill_len_buckets=(64, 128), mel_len_buckets=(400,), prefill_chunk_tokens=16,
+                decode_block_steps=4, encoder_attn_impl="fused", prefill_attn_impl="fused",
+                decode_attn_impl="kernel", block_attn_impl="kernel", device=device)
+            evs = []
+            try:
+                out = _serve(srv, small_reqs, 12, options=small_opts, events=evs)
+            finally:
+                srv.stop()
+            res[device] = ([ids for ids, _, _ in out], evs)
+        cpu, gpu = res["cpu"], res[dev]
+        lp_err = max(abs(a.logprob - b.logprob) for a, b in zip(cpu[1][1], gpu[1][1]))
+        top_err = max(max(abs(x - y) for x, y in zip(a.top_logprobs, b.top_logprobs))
+                      for a, b in zip(cpu[1][1], gpu[1][1]))
+        same_top = all(a.top_ids == b.top_ids for a, b in zip(cpu[1][1], gpu[1][1]))
+        print(f"small serving options {mode}: cpu {cpu[0]} gpu {gpu[0]}; logprobs max |diff| "
+              f"{lp_err:.3g} (top-5 {top_err:.3g}), the same top ids {same_top}", flush=True)
+        if cpu[0] != gpu[0]:
+            _fail(f"small serving options {mode}: the card's tokens differ from the CPU's")
+        if lp_err > 1e-4 or top_err > 1e-4 or not same_top:
+            _fail(f"small serving options {mode}: logprobs differ from the CPU's")
+        metrics[f"small_{mode}_logprob_max_abs_diff"] = max(lp_err, top_err)
+
+    # 4. serve the loaded flagship with every option
+    n_req, seconds, prompt_len, new_tokens, K = 8, 10.0, 128, 32, 8
+    L_dec = cfg.text_config.num_layers
+    rng = np.random.default_rng(SEED + 5)  # phase 5's requests
+    mel = log_mel_spectrogram(torch.from_numpy(_audio(n_req, seconds, rng)).to(dev))
+    batch = _batch(cfg, mel, prompt_len, rng)
+    requests = [_row(batch, i) for i in range(n_req)]
+    bias_id = 1000
+    kinds = (
+        ("plain", {}),
+        ("penalized", dict(repetition_penalty=1.2, presence_penalty=0.5, frequency_penalty=0.5,
+                           logit_bias={bias_id: 100.0})),
+        ("logprobs", dict(top_logprobs=5)),
+        ("seeded", dict(temperature=0.8, top_p=0.9)),
+    )
+    names = [kinds[i % 4][0] for i in range(n_req)]
+    options = [dict(kinds[i % 4][1]) for i in range(n_req)]
+    for i, name in enumerate(names):
+        if name == "seeded":
+            options[i]["seed"] = 100 + i
+    warm_ids = batch["input_ids"][:4] % (cfg.vocab_size - 1) + 1  # other prompts: no reuse
+    warm = [_row(dict(batch, input_ids=warm_ids), i) for i in range(4)]
+    fetch = ServingEngine._process_oldest_decode_inner
+    lines, first = inspect.getsourcelines(fetch)
+    fetch_lines = {(inspect.getsourcefile(fetch), first + i) for i in range(len(lines))}
+
+    def engine(tree):
+        return ServingEngine(
+            tree, cfg, num_slots=4, max_seq_len=2048, page_size=256, cache_mode="paged",
+            prefill_chunk_tokens=64, decode_block_steps=K, encoder_attn_impl="fused",
+            prefill_attn_impl="fused", decode_attn_impl="kernel", block_attn_impl="kernel",
+            device=dev)
+
+    # the reference: an engine on phase 4's own tree, the same queued requests
+    ref_srv = engine(params)
+    try:
+        _serve(ref_srv, warm, 12, options=options[:4])
+        ref_srv.stop()
+        ref = [ids for ids, _, _ in _serve(ref_srv, requests, new_tokens, options=options)]
+    finally:
+        ref_srv.stop()
+    del ref_srv, params
+    torch.cuda.empty_cache()
+
+    srv = engine(loaded)
+    del loaded
+    label = "checkpoint serving"
+    dispatches = []
+    try:
+        _serve(srv, warm, 12, options=options[:4])
+        # the same prompts again with CUDA sync debugging on: only the
+        # loop's fetch may wait for the card
+        sites = _sync_sites(lambda: (_serve(srv, warm, 12, options=options[:4]), time.sleep(0.5)))
+        bad = [site for site in sites if site not in fetch_lines]
+        print(f"{label}: {len(sites)} host waits for the card, {len(sites) - len(bad)} in the "
+              f"fetch, others at {sorted(set(bad))}", flush=True)
+        if bad:
+            _fail(f"{label}: the loop waits for the card outside its fetch at {bad}")
+        srv.stop()
+        dispatch = srv._dispatch_decode
+
+        def spy(n_steps):
+            gated = any(_needs_single_step(r) for r in srv._active.values())
+            dispatches.append((n_steps, gated))
+            return dispatch(n_steps)
+
+        srv._dispatch_decode = spy
+        for c in counters.values():
+            c.launches = 0
+        for stat in ("stat_decode_dispatches", "stat_decode_steps", "stat_prefill_chunks"):
+            setattr(srv, stat, 0)
+        srv.stat_fetch_wait_s = srv.stat_dispatch_s = 0.0
+        torch.cuda.synchronize()
+        evs = []
+        t0 = time.perf_counter()
+        out = _serve(srv, requests, new_tokens, options=options, events=evs)
+        wall = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        disp, steps, chunks = (srv.stat_decode_dispatches, srv.stat_decode_steps,
+                               srv.stat_prefill_chunks)
+        del srv._dispatch_decode
+        srv.stop()
+        _check_pages(srv, label)
+
+        # each seeded request alone, prefilled in full as in the batch
+        srv.min_reuse_tokens = 1 << 30
+        alone = {i: _serve(srv, [requests[i]], new_tokens, options=[options[i]])[0][0]
+                 for i, n in enumerate(names) if n == "seeded"}
+        srv.stop()
+        i0 = names.index("seeded")
+        other_seed = _serve(srv, [requests[i0]], new_tokens,
+                            options=[dict(options[i0], seed=options[i0]["seed"] + 1)])[0][0]
+        srv.stop()
+
+        # precomputed audio_embeds against the same request with its audio,
+        # on prompts not served before, each alone
+        fresh = _row(dict(batch, input_ids=(batch["input_ids"] + 7) % (cfg.vocab_size - 1) + 1), 0)
+        padded = srv._pad_request(fresh)
+        with torch.inference_mode():
+            ae = uv.encode_audio(
+                srv.params, cfg, torch.from_numpy(padded["audio_values"]).to(dev, torch.bfloat16),
+                torch.from_numpy(padded["audio_lens"]).to(dev), encoder_attn_impl="fused")
+        with_audio = _serve(srv, [fresh], new_tokens)[0][0]
+        srv.stop()
+        text_only = {k: v for k, v in fresh.items() if k not in ("audio_values", "audio_lens")}
+        with_embeds = _serve(srv, [text_only], new_tokens, options=[dict(audio_embeds=ae)])[0][0]
+        srv.stop()
+
+        # a traced run of other prompts with the same options
+        trace = _traced_serve(srv, [_row(dict(batch, input_ids=batch["input_ids"][::-1].copy()), i)
+                                    for i in range(n_req)], new_tokens, label, options=options)
+    finally:
+        srv.stop()
+    del srv
+    torch.cuda.empty_cache()
+
+    # launches against the engine's counters
+    singles = sum(1 for n, _ in dispatches if n == 1)
+    blocks = sum(1 for n, _ in dispatches if n == K)
+    gated_blocks = sum(1 for n, g in dispatches if n > 1 and g)
+    want = {name: 0 for name in counters}
+    want.update({name: per_call[name] * n_req for name in
+                 ("fused_layer_norm", "ln_qkv_head_fused", "attention_headmajor")})
+    want.update(fused_attention=L_dec * chunks, paged_decode_attention=L_dec * singles,
+                paged_segment_tail_attention=L_dec * K * blocks)
+    print(f"{label}: {disp} decode dispatches ({singles} single steps, {blocks} blocks of {K}, "
+          f"{gated_blocks} blocks while a request needing single steps was active), {chunks} "
+          f"prefill chunks; launches {launches} expected {want}", flush=True)
+    if singles + blocks != disp or singles + K * blocks != steps or gated_blocks:
+        _fail(f"{label}: dispatches {dispatches} against {disp} dispatches and {steps} steps")
+    for name, n in launches.items():
+        if n != want[name]:
+            _fail(f"{label}: {name} launched {n} times, expected {want[name]}")
+
+    # what came out
+    toks = [ids for ids, _, _ in out]
+    for i, (ids, finish, _) in enumerate(out):
+        if finish != "length" or len(ids) != new_tokens:
+            _fail(f"{label}: request {i} ({names[i]}) finished {finish!r} with {len(ids)} tokens")
+        if any(not 0 <= t < cfg.vocab_size for t in ids):
+            _fail(f"{label}: token id out of range")
+    equal = [a == b for a, b in zip(toks, ref)]
+    print(f"{label}: tokens equal to the engine on phase 4's tree per request "
+          f"{dict(zip(names, equal))}; first tokens {[t[:6] for t in toks]}", flush=True)
+    if not all(equal):
+        _fail(f"{label}: the loaded tree's tokens differ from phase 4's tree's")
+    for i, name in enumerate(names):
+        if name == "penalized" and toks[i] != [bias_id] * new_tokens:
+            _fail(f"{label}: request {i} should emit the biased id {bias_id} at every step: {toks[i]}")
+        if name == "logprobs":
+            for ev in evs[i]:
+                if (len(ev.top_ids) != 5 or ev.top_ids[0] != ev.token_id
+                        or ev.top_logprobs[0] != ev.logprob
+                        or list(ev.top_logprobs) != sorted(ev.top_logprobs, reverse=True)):
+                    _fail(f"{label}: request {i}'s logprobs are inconsistent: {ev}")
+        if name != "logprobs" and any(ev.logprob is not None for ev in evs[i]):
+            _fail(f"{label}: request {i} got logprobs it did not ask for")
+    for i, ids in alone.items():
+        if ids != toks[i]:
+            _fail(f"{label}: seeded request {i} alone gave {ids}, in the batch {toks[i]}")
+    if other_seed == toks[i0]:
+        _fail(f"{label}: another seed gave the same tokens")
+    print(f"{label}: seeded requests alone repeat their tokens {sorted(alone)}; another seed "
+          f"differs; audio_embeds tokens equal to the audio request's {with_embeds == with_audio} "
+          f"({with_embeds[:6]} / {with_audio[:6]})", flush=True)
+    if with_embeds != with_audio or len(with_audio) != new_tokens:
+        _fail(f"{label}: the request with audio_embeds gave {with_embeds}, with audio {with_audio}")
+
+    ttft = sorted(t * 1e3 for _, _, t in out)
+    a5 = phase5["paged+kernel"]
+    metrics["serving"] = {
+        "ttft_p50_ms": float(np.median(ttft)), "ttft_max_ms": ttft[-1],
+        "output_tok_s": n_req * new_tokens / wall, "wall_ms": wall * 1e3,
+        "decode_dispatches": disp, "single_steps": singles, "blocks": blocks,
+        "prefill_chunks": chunks, "kinds": names, **trace,
+    }
+    print(f"{label}: {n_req} requests x {new_tokens} tokens in {wall * 1e3:.3f} ms "
+          f"({n_req * new_tokens / wall:.2f} tok/s); TTFT p50 {np.median(ttft):.3f} ms, max "
+          f"{ttft[-1]:.3f} ms; traced busy {100 * trace['device_busy_share']:.1f}%; phase 5 (a) "
+          f"(plain greedy, blocks of {K}): {a5['output_tok_s']:.2f} tok/s, TTFT p50 "
+          f"{a5['ttft_p50_ms']:.3f} ms, max {a5['ttft_max_ms']:.3f} ms, busy "
+          f"{100 * a5['device_busy_share']:.1f}%", flush=True)
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 9: {metrics['phase_s']:.2f} s", flush=True)
+    return metrics, {name: launches[name] for name in
+                     ("paged_decode_attention", "paged_segment_tail_attention")}
 
 
 def _check_serving_launches(label, launches, counters, encoder, disp, steps, chunks, K, L_dec,

@@ -1796,3 +1796,74 @@ def test_ln_qkv_head_tensor_core_kernels_hold_hmma(cuda_device):
     fp32 = [c for n, c in hmma.items() if "ln_qkv_head_kernelIf" in n]
     assert len(mma) == len(tfa.MMA_ROWS) and all(mma), hmma
     assert len(fp32) == 1 and not fp32[0], hmma
+
+
+@pytest.mark.cuda
+def test_checkpoint_load_on_cuda_is_bit_equal_to_cpu(cuda_device, tmp_path):
+    """load_ultravox_checkpoint onto the card (bf16, from the committed
+    fp32 checkpoint and from a two-shard bf16 copy the port wrote) gives
+    the CPU load's bits, every leaf on the card."""
+    import os
+
+    from ultravox_torch.inference.ultravox_infer import load_ultravox_checkpoint
+    from ultravox_torch.models.weights import _leaves
+    from ultravox_torch.tools.publish import save_pretrained
+
+    fixture = os.path.join(os.path.dirname(__file__), "assets", "tiny_ultravox")
+    cfg, cpu, _ = load_ultravox_checkpoint(fixture, torch.bfloat16, device="cpu")
+    sharded = save_pretrained(cpu, cfg, str(tmp_path / "sharded"), dtype=None, shards=2)
+    for path in (fixture, sharded):
+        _, gpu, _ = load_ultravox_checkpoint(path, torch.bfloat16)
+        for a, b in zip(_leaves(cpu), _leaves(gpu)):
+            assert b.device.type == "cuda" and b.dtype == a.dtype == torch.bfloat16
+            assert torch.equal(a.view(torch.int16), b.cpu().view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_seeded_noise_is_equal_on_cuda_and_cpu(cuda_device):
+    """The seeded draw's hash bits and its fp32 Exp(1) noise are the same on
+    the card and the CPU at the flagship vocabulary, and so are the seeded
+    tokens of one sample_slots call."""
+    from ultravox_torch.ops import sampling as tsamp
+
+    V = 128256
+    seeds = torch.tensor([0, 1234, 0x7FFFFFFE, 99], dtype=torch.int32)
+    pos = torch.tensor([128, 129, 7, 2047], dtype=torch.int32)
+    bits = tsamp.seeded_bits(seeds, pos, V)
+    assert torch.equal(bits, tsamp.seeded_bits(seeds.to(cuda_device), pos.to(cuda_device), V).cpu())
+    noise = tsamp.seeded_exponential(seeds, pos, V)
+    got = tsamp.seeded_exponential(seeds.to(cuda_device), pos.to(cuda_device), V).cpu()
+    assert torch.equal(noise.view(torch.int32), got.view(torch.int32))
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn((4, V), generator=g) * 3
+    samp = torch.tensor([[0.8, 0, 0.9, 0]] * 4)
+    kw = dict(sampled=True, filtered=True)
+    cpu = tsamp.sample_slots(logits, samp, None, seeds=seeds, positions=pos, **kw)
+    gpu = tsamp.sample_slots(logits.to(cuda_device), samp.to(cuda_device),
+                             torch.Generator(device=cuda_device), seeds=seeds.to(cuda_device),
+                             positions=pos.to(cuda_device), **kw)
+    assert torch.equal(cpu, gpu.cpu())
+
+
+@pytest.mark.cuda
+def test_penalties_and_logprobs_on_cuda_match_cpu(cuda_device):
+    """apply_penalties and token_logprobs on the card: within 1e-6 of the
+    CPU's at the flagship vocabulary, the same top ids."""
+    from ultravox_torch.ops import sampling as tsamp
+
+    g = torch.Generator().manual_seed(1)
+    B, V = 4, 128256
+    logits = torch.randn((B, V), generator=g) * 3
+    counts = torch.randint(0, 3, (B, V), generator=g, dtype=torch.int32)
+    mask = torch.rand((B, V), generator=g) < 0.01
+    samp = torch.tensor([[0.8, 0, 0.9, 0, 0.5, 0.5, 1.2], [0, 0, 1, 0, 0, 0, 1],
+                         [0, 0, 1, 0, 1.0, 0.0, 1.5], [1, 5, 1, 0, 0, 2.0, 0.9]])
+    cpu = tsamp.apply_penalties(logits, counts, mask, samp)
+    gpu = tsamp.apply_penalties(*(t.to(cuda_device) for t in (logits, counts, mask, samp)))
+    assert (gpu.cpu() - cpu).abs().max().item() <= 1e-6
+    toks = cpu.argmax(-1).to(torch.int32)
+    lc = tsamp.token_logprobs(cpu, toks)
+    lg = tsamp.token_logprobs(gpu, toks.to(cuda_device))
+    assert (lg[0].cpu() - lc[0]).abs().max().item() <= 1e-6
+    assert torch.equal(lg[1].cpu(), lc[1])
+    assert (lg[2].cpu() - lc[2]).abs().max().item() <= 1e-6

@@ -1,6 +1,7 @@
 """ultravox_torch and chip_smoke.py stand alone: no module imports jax or
-the JAX package (the machine with the card has no JAX), and importing the
-package builds or loads no kernel."""
+the JAX package (the machine with the card has no JAX), the checkpoint
+modules import neither ``safetensors`` nor ``transformers``, and importing
+the package builds or loads no kernel."""
 
 import ast
 import os
@@ -36,11 +37,14 @@ def test_no_jax_or_reference_imports(path):
 def test_package_imports_without_jax_and_builds_nothing():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'ultravox_tpu', 'triton'):\n"
+        "for m in ('jax', 'jaxlib', 'ultravox_tpu', 'triton', 'safetensors', 'transformers'):\n"
         "    sys.modules[m] = None\n"
         "import ultravox_torch\n"
         "import ultravox_torch.inference.engine\n"
         "import ultravox_torch.models.weights\n"
+        "import ultravox_torch.inference.ultravox_infer\n"
+        "import ultravox_torch.tools.publish\n"
+        "import ultravox_torch.inference.serving.engine\n"
         "from ultravox_torch.ops.kernels import _build\n"
         "assert _build.library.cache_info().currsize == 0\n"
         "assert not any(m.startswith('ultravox_tpu') or m == 'jax' for m in sys.modules"

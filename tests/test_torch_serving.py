@@ -7,8 +7,8 @@ token count), with single steps and 4-step blocks, and with the XLA forms
 and the kernels' plain versions; a gemma-3-style decoder with sliding
 windows likewise in paged mode. Then stop tokens inside a block, sampled
 requests beside greedy ones, cancellation, pool backpressure, conversation
-reuse, ``_resolve_auto`` against JAX's, and every option that is not
-ported (multi-LoRA and int8 serving: tests/test_torch_lora_serving.py and
+reuse, ``_resolve_auto`` against JAX's, every request option accepted, and
+the engine options that are not ported (multi-LoRA and int8 serving: tests/test_torch_lora_serving.py and
 tests/test_torch_int8.py). Page accounting is checked after every paged run.
 """
 
@@ -310,16 +310,23 @@ def test_unported_engine_options_raise(setup, kw):
     dict(seed=7, temperature=0.8), dict(lora="a"), dict(audio_embeds=np.zeros((1, 4, 128))),
 ])
 def test_unported_request_options_raise(setup, kw):
-    """Each unported request option raises at submit. ``lora`` is ported: on
-    an engine without that adapter the request finishes "unknown_lora"."""
-    _, tcfg, _, tparams, batches, _ = setup
+    """Every request option of the JAX engine's ``submit`` is accepted (the
+    name dates from when the port refused them): each request finishes
+    "length" with its tokens, and the options that leave greedy decoding
+    alone (logprobs, an empty audio splice) give the JAX engine's tokens.
+    ``lora`` names an adapter this engine lacks, so that request finishes
+    "unknown_lora", as in the JAX package. The options' tokens against the
+    JAX ServingEngine: tests/test_torch_serving_options.py."""
+    _, tcfg, _, tparams, batches, expected = setup
     eng = _engine(tparams, tcfg, cache_mode="slots")
     if "lora" in kw:
         assert _serve(eng, [batches[0]], **kw) == [([], "unknown_lora")]
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eng.submit(dict(batches[0]), **kw)
-    eng.submit(dict(batches[0]), seed=7)  # a seeded greedy request is plain argmax
+    [(ids, finish)] = _serve(eng, [batches[0]], max_tokens=MAX_NEW, **kw)
+    assert finish == "length" and len(ids) == MAX_NEW
+    assert all(0 <= t < tcfg.vocab_size for t in ids)
+    if set(kw) <= {"logprobs", "top_logprobs", "audio_embeds"}:
+        assert ids == expected[0]
 
 
 def test_default_device_is_cuda_and_never_falls_back(setup, monkeypatch):

@@ -6,8 +6,10 @@ kernel for ``sm_90a`` under ``ops/kernels/csrc``. Importing this package
 builds and loads nothing: kernels are compiled on their first launch.
 
 Entry points: ``ultravox_torch.inference.engine.GenerationEngine`` and
-``inference.serving.engine.ServingEngine`` (serving), and
-``ultravox_torch.training.train_step.make_train_step`` (training).
+``inference.serving.engine.ServingEngine`` (serving),
+``ultravox_torch.training.train_step.make_train_step`` (training), and
+``inference.ultravox_infer.load_ultravox_checkpoint`` /
+``tools.publish.save_pretrained`` (checkpoints).
 """
 
 __version__ = "0.1.0"

@@ -40,10 +40,19 @@ decode dispatch gathers its rows' adapters from the decoder banks
 (``_with_lora``); the encoder's adapter is gathered once per admission.
 ``quantize="int8"`` serves an int8 decoder, adapters riding on top.
 
-Out of scope (each raises ``NotImplementedError``): speculative decoding
-and meshes at construction; penalties, ``logit_bias``, logprobs, seeded
-sampling at a temperature above 0 and precomputed ``audio_embeds`` at
-``submit``.
+Request options, as in the JAX package: presence / frequency / repetition
+penalties (vLLM semantics) and ``logit_bias`` run through a single-step
+program that carries per-slot output-token counts and the prompt's token
+mask on the card (``_decode_all_slots`` with ``out_counts``); logprobs come
+from the same single step (``with_logprobs``); a seeded request at a
+temperature above 0 draws its noise from a hash of (seed, position)
+(``ops.sampling.seeded_exponential``). While any active request needs one
+of these (``_needs_single_step``), decode runs single steps only: no
+K-step blocks. Precomputed ``audio_embeds`` (the streaming voice path)
+skip the audio tower: the text is embedded and the embeddings spliced in.
+
+Out of scope (each raises ``NotImplementedError`` at construction):
+speculative decoding and meshes.
 """
 
 from __future__ import annotations
@@ -72,7 +81,13 @@ from ultravox_torch.models.whisper_encoder import (
     fuse_encoder_inference_params,
 )
 from ultravox_torch.ops.kernels.paged_gather import gather_pages
-from ultravox_torch.ops.sampling import sample_slots, sampling_flags
+from ultravox_torch.ops.sampling import (
+    MAX_TOP_LOGPROBS,
+    apply_penalties,
+    sample_slots,
+    sampling_flags,
+    token_logprobs,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -92,9 +107,16 @@ class Request:
     top_k: int = 0  # 0 = disabled
     top_p: float = 1.0  # 1.0 = disabled
     min_p: float = 0.0  # 0 = disabled
+    presence_penalty: float = 0.0  # 0 = disabled (output tokens)
+    frequency_penalty: float = 0.0  # 0 = disabled (output counts)
+    repetition_penalty: float = 1.0  # 1 = disabled (prompt + output)
+    logit_bias: Tuple[Tuple[int, float], ...] = ()  # (token_id, bias) pairs
+    seed: Optional[int] = None  # batch-independent reproducible sampling
+    lora: Optional[str] = None  # adapter name (multi-LoRA serving)
+    logprobs: bool = False  # emit per-token logprobs (OpenAI logprobs)
+    top_logprobs: int = 0  # alternatives per token (0..MAX_TOP_LOGPROBS)
     cancelled: bool = False  # set via ServingEngine.cancel()
     stop_token_ids: Tuple[int, ...] = ()
-    lora: Optional[str] = None  # adapter name (multi-LoRA serving)
     out_queue: "queue.Queue" = dataclasses.field(default_factory=queue.Queue)
     submit_time: float = dataclasses.field(default_factory=time.monotonic)
     # filled by the engine
@@ -107,6 +129,9 @@ class Request:
     reused_prefix: int = 0  # tokens served from a retained slot cache
     token_ids: Any = None  # (prompt_len,) np.int32, filled at admission
     audio_spans: Tuple = ()
+    # precomputed audio token embeddings (N_chunks, Ta, D), host numpy: the
+    # admission skips the audio tower and only embeds and splices
+    audio_embeds: Any = None
 
 
 @dataclasses.dataclass
@@ -124,6 +149,10 @@ class StreamEvent:
     token_id: Optional[int]  # None => end of stream
     finish_reason: Optional[str] = None
     ttft_s: Optional[float] = None
+    # filled only for requests with logprobs=True
+    logprob: Optional[float] = None  # logprob of token_id
+    top_ids: Optional[Tuple[int, ...]] = None  # top_logprobs alternatives
+    top_logprobs: Optional[Tuple[float, ...]] = None
 
 
 @dataclasses.dataclass
@@ -147,17 +176,25 @@ class PrefillJob:
     prefix_src_slot: int = -1
 
 
-def _request_tokens_and_spans(batch: Dict[str, np.ndarray]):
+def _request_tokens_and_spans(batch: Dict[str, np.ndarray], audio_embeds=None):
     """Valid prompt token ids + audio-chunk fingerprints (start_idx,
-    token_len, sha1) for prefix matching."""
+    token_len, sha1) for prefix matching. A request with precomputed
+    ``audio_embeds`` and no audio is fingerprinted by its embeddings' bytes
+    (the JAX package leaves such a request's spans empty unless the caller
+    supplies them, so placeholder tokens alone could match another audio's
+    cached prefix)."""
     ids = np.asarray(batch["input_ids"]).reshape(-1)
     n = int(np.asarray(batch["attention_mask"]).sum())
     ids = np.ascontiguousarray(ids[:n])
     spans = []
-    if batch.get("audio_values") is not None:
-        vals = np.asarray(batch["audio_values"])
-        starts = np.asarray(batch["audio_token_start_idx"]).reshape(-1)
-        lens = np.asarray(batch["audio_token_len"]).reshape(-1)
+    vals = batch.get("audio_values")
+    if vals is None:
+        vals = audio_embeds
+    if vals is not None:
+        vals = np.asarray(vals)
+        zeros = np.zeros((vals.shape[0],), np.int32)
+        starts = np.asarray(batch.get("audio_token_start_idx", zeros)).reshape(-1)
+        lens = np.asarray(batch.get("audio_token_len", zeros)).reshape(-1)
         for i in range(vals.shape[0]):
             sha = hashlib.sha1(np.ascontiguousarray(vals[i]).tobytes()).hexdigest()
             spans.append((int(starts[i]), int(lens[i]), sha))
@@ -182,6 +219,68 @@ def _match_prefix(tokens, spans, retained: RetainedCache) -> int:
                 m = s
                 changed = True
     return m
+
+
+MAX_LOGIT_BIAS = 32
+
+
+def _lp_row(lp, row: int):
+    """Host view of one slot's logprob stats from a program's fetched
+    (chosen, top_ids, top_logprobs) arrays; None passes through."""
+    if lp is None:
+        return None
+    chosen, ids, vals = lp
+    return (
+        float(chosen[row]),
+        tuple(int(t) for t in ids[row]),
+        tuple(float(v) for v in vals[row]),
+    )
+
+
+def _normalize_logit_bias(bias) -> Tuple[Tuple[int, float], ...]:
+    items = bias.items() if hasattr(bias, "items") else bias
+    out = tuple(sorted((int(t), float(b)) for t, b in items))
+    if len(out) > MAX_LOGIT_BIAS:
+        raise ValueError(f"logit_bias supports at most {MAX_LOGIT_BIAS} entries")
+    return out
+
+
+def _uses_penalties(req: Request) -> bool:
+    """True when the request needs the stateful decode program: penalties
+    and/or logit_bias."""
+    return bool(
+        req.presence_penalty
+        or req.frequency_penalty
+        or req.repetition_penalty != 1.0
+        or req.logit_bias
+    )
+
+
+def _needs_single_step(req: Request) -> bool:
+    """Penalties and bias need per-step count state, a sampled seed the
+    per-position noise, logprobs the per-step statistics: all exact only on
+    the single-step program, so decode blocks disengage while such a
+    request is active. A seeded greedy request draws nothing and rides
+    blocks."""
+    return (
+        _uses_penalties(req)
+        or req.logprobs
+        or (req.seed is not None and req.temperature > 0)
+    )
+
+
+def _bias_rows(rows, vocab: int):
+    """(ids (n, MAX_LOGIT_BIAS) int64, values (n, MAX_LOGIT_BIAS) fp32) of
+    each row's ``logit_bias`` pairs. Padding, and ids outside the
+    vocabulary (which the JAX package's scatter drops), add 0.0 at id 0: an
+    exact no-op that writes nothing out of bounds."""
+    ids = np.zeros((len(rows), MAX_LOGIT_BIAS), np.int64)
+    vals = np.zeros((len(rows), MAX_LOGIT_BIAS), np.float32)
+    for i, pairs in enumerate(rows):
+        for j, (t, b) in enumerate(pairs):
+            if 0 <= t < vocab:
+                ids[i, j], vals[i, j] = t, b
+    return ids, vals
 
 
 def _bucket(n: int, buckets) -> int:
@@ -361,6 +460,12 @@ class ServingEngine:
         self.cache_lens = torch.zeros((num_slots,), dtype=torch.int32, device=dev)
         self.last_tokens = torch.zeros((num_slots,), dtype=torch.int32, device=dev)
         self.generator = torch.Generator(device=dev).manual_seed(0)
+        # penalty state, allocated at the first penalized admission (the
+        # fast path never reads it): per-slot output-token counts, advanced
+        # on the card inside each step, and the prompt's token mask
+        self._pen_counts: Optional[torch.Tensor] = None  # (num_slots, V) int32
+        self._pen_prompt_mask: Optional[torch.Tensor] = None  # (num_slots, V) bool
+        self._enc_bypass_warned: set = set()
         self._stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
 
         # K decode steps per dispatch in steady state (multi-step scheduling)
@@ -400,7 +505,7 @@ class ServingEngine:
         # results + the active-set snapshot they were dispatched against)
         self._inflight: "collections.deque" = collections.deque()
         self._max_inflight = 2
-        self._mask_cache = None  # (key, active mask, samp, sampled, filtered, lora index)
+        self._mask_cache = None  # (key, active mask, samp, sampled, filtered, lora index, bias, seeds)
         self._free_slots = list(range(num_slots))
         # conversation-prefix reuse: finished slots keep their cache rows
         # until reallocated; min_reuse_tokens gates trivial matches
@@ -534,25 +639,30 @@ class ServingEngine:
         audio_embeds=None,
         audio_spans: Optional[Tuple] = None,
     ) -> Request:
-        """Queue one request (a single-row collated batch). Per-request
-        temperature / top_k / top_p / min_p apply slot-wise inside the shared
-        decode call. ``audio_spans`` supplies the prefix-matching content
-        fingerprints otherwise derived from ``audio_values``. A ``seed`` is
-        accepted for greedy requests only, where it draws nothing."""
-        unported = [
-            name for name, on in (
-                ("presence_penalty", presence_penalty != 0.0),
-                ("frequency_penalty", frequency_penalty != 0.0),
-                ("repetition_penalty", repetition_penalty != 1.0),
-                ("logit_bias", bool(logit_bias)),
-                ("logprobs", bool(logprobs) or int(top_logprobs) > 0),
-                ("seeded sampling (seed with temperature > 0)",
-                 seed is not None and temperature > 0),
-                ("precomputed audio_embeds", audio_embeds is not None),
-            ) if on
-        ]
-        if unported:
-            raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
+        """Queue one request (a single-row collated batch).
+
+        Sampling: per-request temperature / top_k / top_p / min_p apply
+        slot-wise inside the shared decode call. Penalties (presence and
+        frequency over output tokens, repetition over prompt and output:
+        vLLM semantics) and ``logit_bias`` (a mapping or (token_id, bias)
+        pairs, at most 32) run in a single-step program with per-slot token
+        counts. A ``seed`` (any int, reduced mod 0x7FFFFFFF) makes a sampled
+        request reproducible whatever else is batched with it.
+        ``logprobs`` / ``top_logprobs`` (0..5) fill each StreamEvent's
+        ``logprob``, ``top_ids`` and ``top_logprobs``.
+
+        ``audio_embeds``: precomputed audio token embeddings (N_chunks, Ta,
+        D), numpy or a tensor (copied to the host here); the batch then
+        carries the splice coordinates and no ``audio_values``, and the
+        admission skips the audio tower. ``audio_spans`` supplies the
+        prefix-matching content fingerprints otherwise derived from
+        ``audio_values`` (or from the embeddings' bytes)."""
+        if isinstance(audio_embeds, torch.Tensor):
+            audio_embeds = audio_embeds.detach().float().cpu().numpy()
+        elif audio_embeds is not None:
+            audio_embeds = np.asarray(audio_embeds)
+            if audio_embeds.dtype.name == "bfloat16":
+                audio_embeds = audio_embeds.astype(np.float32)
         req = Request(
             request_id=next(self._id_counter),
             batch=batch,
@@ -561,9 +671,22 @@ class ServingEngine:
             top_k=int(top_k),
             top_p=float(top_p),
             min_p=float(min_p),
-            stop_token_ids=tuple(stop_token_ids),
+            presence_penalty=float(presence_penalty),
+            frequency_penalty=float(frequency_penalty),
+            repetition_penalty=float(repetition_penalty),
+            logit_bias=_normalize_logit_bias(logit_bias),
+            # any int is a legal seed: reduce into the non-negative int32
+            # range (negative values would collide with the -1 unseeded
+            # sentinel; >= 2**31 would overflow int32)
+            seed=None if seed is None else int(seed) % 0x7FFFFFFF,
             lora=lora,
+            logprobs=bool(logprobs) or int(top_logprobs) > 0,
+            top_logprobs=int(top_logprobs),
+            stop_token_ids=tuple(stop_token_ids),
+            audio_embeds=audio_embeds,
         )
+        if not 0 <= req.top_logprobs <= MAX_TOP_LOGPROBS:
+            raise ValueError(f"top_logprobs must be in [0, {MAX_TOP_LOGPROBS}]")
         if audio_spans is not None:
             req.audio_spans = tuple(audio_spans)
         # registration and enqueue are atomic with respect to
@@ -786,6 +909,14 @@ class ServingEngine:
             req.out_queue.put(StreamEvent(token_id=None, finish_reason="unknown_lora"))
             self._requests.pop(req.request_id, None)
             return
+        if (req.audio_embeds is not None and self._enc_lora_banks is not None
+                and req.lora is not None and req.lora not in self._enc_bypass_warned):
+            # precomputed embeddings bypass the audio tower, so an encoder
+            # adapter cannot apply; the decoder half still does
+            self._enc_bypass_warned.add(req.lora)
+            logger.warning(
+                "request with precomputed audio_embeds selected lora=%r: any encoder "
+                "(audio-tower) half of the adapter is bypassed for such requests", req.lora)
         prompt_len = int(np.asarray(req.batch["attention_mask"]).sum())
         # a prompt of max_seq_len - 1 is servable (one token, then
         # cache_full); anything beyond that, or beyond the largest prefill
@@ -797,7 +928,7 @@ class ServingEngine:
             return
         # conversation-prefix reuse: prefer a retained slot whose cache
         # already holds a long prefix of this prompt
-        req.token_ids, spans = _request_tokens_and_spans(req.batch)
+        req.token_ids, spans = _request_tokens_and_spans(req.batch, req.audio_embeds)
         if not req.audio_spans:  # submit() may have supplied fingerprints
             req.audio_spans = spans
         best_slot, best_m = None, 0
@@ -912,16 +1043,19 @@ class ServingEngine:
             req.reused_prefix = start
             self.reused_prefix_tokens += start
             padded = self._pad_request(req.batch)
-            batch = {k: self._upload(np.asarray(padded[k])) for k in _EMBED_KEYS
-                     if padded.get(k) is not None}
             adapter = self._lora_index.get(req.lora, 0)  # 0: the base model
-            enc_idx = None
-            if self._enc_lora_banks is not None:
-                enc_idx = self._upload(np.asarray(adapter, np.int32))
-            # one call embeds the whole prompt (audio tower + projector +
-            # splice); the LLM prefill then proceeds in chunks
-            embeds = _embed_prompt(self.params, batch, self._enc_lora_banks, enc_idx, cfg=self.cfg,
-                                   encoder_attn_impl=self.encoder_attn_impl)
+            if req.audio_embeds is not None:
+                embeds = self._embed_with_precomputed(padded, req.audio_embeds)
+            else:
+                batch = {k: self._upload(np.asarray(padded[k])) for k in _EMBED_KEYS
+                         if padded.get(k) is not None}
+                enc_idx = None
+                if self._enc_lora_banks is not None:
+                    enc_idx = self._upload(np.asarray(adapter, np.int32))
+                # one call embeds the whole prompt (audio tower + projector +
+                # splice); the LLM prefill then proceeds in chunks
+                embeds = _embed_prompt(self.params, batch, self._enc_lora_banks, enc_idx,
+                                       cfg=self.cfg, encoder_attn_impl=self.encoder_attn_impl)
             lora_idx = None
             if self._lora_banks is not None:
                 lora_idx = self._upload(np.asarray([adapter], np.int32))
@@ -940,12 +1074,41 @@ class ServingEngine:
             self._free_slots.append(slot)  # the slot must not leak
             req.slot = -1
             raise
+        if _uses_penalties(req) and self._pen_counts is None:
+            V = self.cfg.text_config.vocab_size
+            self._pen_counts = torch.zeros((self.num_slots, V), dtype=torch.int32, device=self.device)
+            self._pen_prompt_mask = torch.zeros((self.num_slots, V), dtype=torch.bool,
+                                                device=self.device)
+        if self._pen_counts is not None:
+            # reset this slot's rows (in stream order, after every in-flight
+            # step of the slot's previous request); requests without
+            # penalties run exact no-op penalties, so stale rows elsewhere
+            # are harmless
+            self._pen_counts[slot].zero_()
+            self._pen_prompt_mask[slot].zero_()
+            ids = self._upload(np.asarray(req.token_ids, np.int64))
+            self._pen_prompt_mask[slot].index_fill_(0, ids, True)
         self._prefilling.append(
             PrefillJob(
                 req=req, embeds=embeds, chunk=chunk, pos=start,
                 needs_scratch_load=self.paged and start > 0, prefix_src_slot=src_slot,
                 lora_idx=lora_idx,
             )
+        )
+
+    def _embed_with_precomputed(self, padded: Dict[str, np.ndarray], audio_embeds):
+        """Prompt embeddings with precomputed audio token embeddings spliced
+        in: the text is embedded, the audio tower does not run."""
+        ae = np.asarray(audio_embeds)
+        N = ae.shape[0]
+
+        def ints(key):
+            arr = np.asarray(padded.get(key, np.zeros((N,), np.int32))).reshape(-1)[:N]
+            return self._upload(arr.astype(np.int32))
+
+        return _embed_precomputed(
+            self.params, self._upload(np.asarray(padded["input_ids"])), self._upload(ae),
+            ints("audio_token_start_idx"), ints("audio_token_len"), ints("audio_chunk_batch_idx"),
         )
 
     def _prefill_one_chunk(self, job: PrefillJob) -> bool:
@@ -991,15 +1154,40 @@ class ServingEngine:
         # emit ride the in-flight queue. (Scalars go to the card through
         # fill_: an item assignment from a Python number would copy it from
         # host memory and wait for the stream.)
-        samp1 = np.array([[req.temperature, req.top_k, req.top_p, req.min_p]], np.float32)
+        samp1 = np.array([[req.temperature, req.top_k, req.top_p, req.min_p,
+                           req.presence_penalty, req.frequency_penalty, req.repetition_penalty]],
+                         np.float32)
         sampled, filtered = sampling_flags(samp1)
-        tok = _sample_slots(logits_last, self._upload(samp1), self.generator, sampled, filtered)
+        samp1_dev = self._upload(samp1)
+        if _uses_penalties(req):
+            # the first token honours the repetition penalty over the prompt
+            # and logit_bias exactly like every later step
+            bias_ids, bias_vals = _bias_rows([req.logit_bias], self.cfg.text_config.vocab_size)
+            row = slice(req.slot, req.slot + 1)
+            logits_last = _first_token_extras(
+                logits_last, samp1_dev, self._pen_counts[row], self._pen_prompt_mask[row],
+                self._upload(bias_ids), self._upload(bias_vals))
+        seeds = positions = None
+        if req.seed is not None and sampled:
+            # the first token's seeded position is prompt_len; step n's is
+            # prompt_len + n (cache_lens + 1 in _decode_all_slots)
+            seeds = self._upload(np.array([req.seed], np.int32))
+            positions = self._upload(np.array([req.prompt_len], np.int32))
+        tok = _sample_slots(logits_last, samp1_dev, self.generator, sampled, filtered,
+                            seeds, positions)
+        if _uses_penalties(req):
+            # the first token is an output token: presence / frequency see
+            # it from the next step on, as every token the step counts
+            self._pen_counts[req.slot: req.slot + 1].scatter_add_(
+                1, tok.long()[:, None], torch.ones((1, 1), dtype=torch.int32, device=tok.device))
         self.cache_lens[req.slot].fill_(req.prompt_len)
         self.last_tokens[req.slot] = tok[0]
         self._active[req.slot] = req
         self._mask_cache = None  # active set changed
         req.first_token_time = time.monotonic()
-        self._inflight.append(("first", tok, req))
+        # first-token logprobs come from the logits the sample used
+        lp1 = token_logprobs(logits_last, tok) if req.logprobs else None
+        self._inflight.append(("first", tok, req, lp1))
         return True
 
     def _decode_tick(self):
@@ -1023,8 +1211,13 @@ class ServingEngine:
         cap = self.max_seq_len - 1 - max(
             r.prompt_len + r.generated for r in self._active.values()
         )
+        # penalties, logprobs and sampled seeds are exact only on single
+        # steps: blocks disengage while any active request needs them (each
+        # such request was active, so single-stepped, from its first token)
+        single = any(_needs_single_step(r) for r in self._active.values())
         n_steps = 1
-        if self.decode_block_steps > 1 and not churn and cap - lag >= self.decode_block_steps:
+        if (self.decode_block_steps > 1 and not churn and not single
+                and cap - lag >= self.decode_block_steps):
             # the capacity bound must hold for the whole block plus the
             # in-flight lag; per-request token budgets need not (mid-block
             # stop or length finishes drop the leftover columns)
@@ -1056,32 +1249,57 @@ class ServingEngine:
         snapshot = [(s, self._active[s]) for s in slots]
         key = (
             tuple(slots),
-            tuple((r.temperature, r.top_k, r.top_p, r.min_p, r.lora) for _, r in snapshot),
+            tuple((r.temperature, r.top_k, r.top_p, r.min_p, r.presence_penalty,
+                   r.frequency_penalty, r.repetition_penalty, r.logit_bias, r.seed, r.lora)
+                  for _, r in snapshot),
         )
         if self._mask_cache is None or self._mask_cache[0] != key:
             active_mask = np.zeros((self.num_slots,), bool)
             active_mask[slots] = True
-            # per-slot sampling parameters [temperature, top_k, top_p, min_p]
-            samp = np.zeros((self.num_slots, 4), np.float32)
+            # per-slot sampling parameters [temperature, top_k, top_p, min_p,
+            # presence_penalty, frequency_penalty, repetition_penalty]
+            samp = np.zeros((self.num_slots, 7), np.float32)
             samp[:, 2] = 1.0
+            samp[:, 6] = 1.0
+            seeds = np.full((self.num_slots,), -1, np.int32)
             lora_idx = np.zeros((self.num_slots,), np.int32)  # 0 = the base model
+            bias = [()] * self.num_slots
             for s, req in snapshot:
-                samp[s] = (req.temperature, req.top_k, req.top_p, req.min_p)
+                samp[s] = (req.temperature, req.top_k, req.top_p, req.min_p,
+                           req.presence_penalty, req.frequency_penalty, req.repetition_penalty)
+                bias[s] = req.logit_bias
+                if req.seed is not None:
+                    seeds[s] = req.seed
                 if req.lora is not None:
                     lora_idx[s] = self._lora_index[req.lora]
+            sampled, filtered = sampling_flags(samp)
+            extras = None
+            if any(_uses_penalties(r) for _, r in snapshot):
+                extras = tuple(self._upload(a) for a in _bias_rows(
+                    bias, self.cfg.text_config.vocab_size))
+            seeded = sampled and bool(((seeds >= 0) & (samp[:, 0] > 0)).any())
             self._mask_cache = (
-                key, self._upload(active_mask), self._upload(samp), *sampling_flags(samp),
+                key, self._upload(active_mask), self._upload(samp), sampled, filtered,
                 self._upload(lora_idx) if self._lora_banks is not None else None,
+                extras, self._upload(seeds) if seeded else None,
             )
-        _, mask_dev, samp_dev, sampled, filtered, lora_idx_dev = self._mask_cache
+        (_, mask_dev, samp_dev, sampled, filtered, lora_idx_dev, extras,
+         seeds_dev) = self._mask_cache
         lm = _with_lora(self.params["language_model"], self._lora_banks, lora_idx_dev)
         tc = self.cfg.text_config
+        lp = None
         if n_steps == 1:
-            toks, self.cache_lens, self.last_tokens = _decode_all_slots(
+            pen = {}
+            if extras is not None:
+                # the penalized step: counts advance inside it, on the card
+                pen = dict(out_counts=self._pen_counts, prompt_mask=self._pen_prompt_mask,
+                           bias_ids=extras[0], bias_vals=extras[1])
+            toks, self.cache_lens, self.last_tokens, lp = _decode_all_slots(
                 lm, tc, self.cache, self.last_tokens, self.cache_lens, mask_dev, samp_dev,
                 self.generator, sampled, filtered,
                 page_table=self.page_table if self.paged else None,
-                decode_kernel=self.decode_kernel,
+                decode_kernel=self.decode_kernel, seeds=seeds_dev,
+                with_logprobs=any(r.logprobs for _, r in snapshot), **pen,
             )
         else:
             block = _decode_block_paged if self.paged else _decode_block
@@ -1092,7 +1310,7 @@ class ServingEngine:
                 n_steps=n_steps, attn_impl=self._seg_attn_impl,
             )
         self.stat_dispatch_s += time.monotonic() - t_disp
-        self._inflight.append(("decode", toks, snapshot, n_steps))
+        self._inflight.append(("decode", toks, snapshot, n_steps, lp))
 
     def _process_oldest_decode(self):
         """Fetch the oldest in-flight result and emit its tokens. Slots whose
@@ -1111,20 +1329,23 @@ class ServingEngine:
         if entry[0] == "first":
             # a prefill-completion token (stream order holds: the queue is
             # FIFO and this was appended before any decode of the slot)
-            _, tok, req = entry
+            _, tok, req, lp1 = entry
             tok_i = int(tok.cpu()[0])
+            lp_np = None if lp1 is None else tuple(x.cpu().numpy() for x in lp1)
             if self._active.get(req.slot) is req:
-                self._emit(req, tok_i)
+                self._emit(req, tok_i, lp=_lp_row(lp_np, 0))
             return
-        _, toks, snapshot, _ = entry
+        _, toks, snapshot, _, lp = entry
         toks_np = toks.cpu().numpy()
         if toks_np.ndim == 1:
             toks_np = toks_np[:, None]
+        lp_np = None if lp is None else tuple(x.cpu().numpy() for x in lp)
         for s, req in snapshot:
             for j in range(toks_np.shape[1]):
                 if self._active.get(s) is not req:
                     break  # finished; later columns are dropped
-                self._emit(req, int(toks_np[s, j]))
+                row = _lp_row(lp_np, s) if req.logprobs else None
+                self._emit(req, int(toks_np[s, j]), lp=row)
 
     def _drain_decodes(self):
         while self._inflight:
@@ -1166,7 +1387,7 @@ class ServingEngine:
         req.out_queue.put(StreamEvent(token_id=None, finish_reason="cancelled"))
         self._requests.pop(req.request_id, None)
 
-    def _emit(self, req: Request, token_id: int):
+    def _emit(self, req: Request, token_id: int, lp=None):
         finish = None
         if token_id in req.stop_token_ids:
             finish = "stop"
@@ -1176,7 +1397,13 @@ class ServingEngine:
             log = self.token_time_log  # read once: another thread may reset it
             if log is not None:
                 log.append(time.monotonic())
-            req.out_queue.put(StreamEvent(token_id=token_id))
+            ev = StreamEvent(token_id=token_id)
+            if lp is not None:
+                ev.logprob = lp[0]
+                n = min(req.top_logprobs, len(lp[1]))
+                ev.top_ids = lp[1][:n]
+                ev.top_logprobs = lp[2][:n]
+            req.out_queue.put(ev)
             if req.generated >= req.max_tokens:
                 finish = "length"
             if finish is None and req.prompt_len + req.generated >= self.max_seq_len - 1:
@@ -1287,6 +1514,13 @@ def _embed_prompt(params, batch, enc_banks=None, enc_idx=None, *, cfg: UltravoxC
                              encoder_attn_impl=encoder_attn_impl)
 
 
+def _embed_precomputed(params, input_ids, audio_embeds, starts, lens, bidx):
+    """Prompt embeddings from precomputed audio token embeddings: text
+    embedding lookup + splice, no audio tower."""
+    emb = decoder_lib.embed_lookup(params["language_model"], input_ids)
+    return uv.splice_audio_embeds(emb, audio_embeds.to(emb.dtype), starts, lens, bidx)
+
+
 def _with_lora(lm, lora_banks, lora_idx):
     """The LM tree with each row's adapter gathered from the banks (no-op
     without banks)."""
@@ -1371,21 +1605,40 @@ def _scratch_to_pages(pool, scratch, table_row):
         dst[:, ids] = s.reshape(L, n_per, ps, Hkv, Dh).to(dst.dtype)
 
 
-def _sample_slots(logits, samp, generator, sampled: bool, filtered: bool):
+def _sample_slots(logits, samp, generator, sampled: bool, filtered: bool, seeds=None,
+                  positions=None):
     """Per-slot sampling: greedy where temperature == 0, with per-slot
-    top-k / top-p / min-p; the branches are the host's."""
-    return sample_slots(logits, samp, generator, sampled=sampled, filtered=filtered)
+    top-k / top-p / min-p and seeded noise for rows with seed >= 0; the
+    branches are the host's."""
+    return sample_slots(logits, samp, generator, sampled=sampled, filtered=filtered,
+                        seeds=seeds, positions=positions)
+
+
+def _first_token_extras(logits, samp, counts_row, mask_row, bias_ids, bias_vals):
+    """Penalties + logit_bias for the prefill-completion (first) token: the
+    output counts are all zero here, so presence and frequency are no-ops
+    and the repetition penalty applies over the prompt mask; the same
+    arithmetic as the penalized step."""
+    return apply_penalties(logits, counts_row, mask_row, samp).scatter_add_(1, bias_ids, bias_vals)
 
 
 def _decode_all_slots(
     lm, tc, cache, tokens, cache_lens, active_mask, samp, generator, sampled: bool,
-    filtered: bool, *, page_table=None, decode_kernel: bool = False,
+    filtered: bool, *, page_table=None, decode_kernel: bool = False, out_counts=None,
+    prompt_mask=None, bias_ids=None, bias_vals=None, seeds=None, with_logprobs: bool = False,
 ):
     """One decode step for every slot with per-slot sampling. Inactive slots
     keep their length and last token; their logits are computed and
     ignored, and their k/v writes go to spare storage (a freed slot's length
     is 0, so a live write would clobber position 0 of its retained cache).
-    Returns (sampled (B,), new lengths, new last tokens)."""
+
+    With ``out_counts`` (the penalized step): presence / frequency /
+    repetition penalties (``samp`` columns 4..6) from the per-slot output
+    counts and prompt mask, then ``logit_bias``; the counts advance in place
+    by each active slot's sampled token (inactive slots add 0). ``seeds``:
+    rows with seed >= 0 draw at position ``cache_lens + 1``. Returns
+    (sampled (B,), new lengths, new last tokens, logprob stats of the final
+    logits when ``with_logprobs``, else None)."""
     if page_table is not None:
         max_len = page_table.shape[1] * cache.page_size
     else:
@@ -1402,10 +1655,19 @@ def _decode_all_slots(
         write_pos=write_pos,
         decode_kernel=decode_kernel,
     )
-    toks = _sample_slots(logits[:, 0], samp, generator, sampled, filtered)
+    logits = logits[:, 0]
+    if out_counts is not None:
+        # logit_bias (_bias_rows' padding adds 0.0 at id 0)
+        logits = apply_penalties(logits, out_counts, prompt_mask, samp).scatter_add_(
+            1, bias_ids, bias_vals)
+    positions = None if seeds is None else cache_lens + 1
+    toks = _sample_slots(logits, samp, generator, sampled, filtered, seeds, positions)
+    if out_counts is not None:
+        out_counts.scatter_add_(1, toks.long()[:, None], active_mask[:, None].to(torch.int32))
     new_lens = torch.where(active_mask, cache_lens + 1, cache_lens)
     new_last = torch.where(active_mask, toks, tokens)
-    return toks, new_lens, new_last
+    lp = token_logprobs(logits, toks) if with_logprobs else None
+    return toks, new_lens, new_last, lp
 
 
 def _decode_block(

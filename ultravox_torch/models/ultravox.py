@@ -66,6 +66,30 @@ def splice_audio_embeds(
     return out[: B * T].reshape(B, T, D)
 
 
+def encode_audio(
+    params: Params,
+    cfg: UltravoxConfig,
+    audio_values: torch.Tensor,  # (N, n_mels, T_mel)
+    audio_lens: torch.Tensor,  # (N,) valid mel frames
+    *,
+    remat: bool = False,
+    encoder_attn_impl: str = "xla",
+) -> torch.Tensor:
+    """Audio token embeddings (N, T_a, D) of each chunk: audio tower +
+    projector, in ``audio_values``' dtype (what ``ServingEngine.submit``
+    takes as precomputed ``audio_embeds``)."""
+    enc = encoder_lib.encoder_forward(
+        params["audio_tower"],
+        cfg.audio_config,
+        audio_values,
+        mel_lens=audio_lens,
+        latency_block_size=cfg.audio_latency_block_size,
+        remat=remat,
+        attn_impl=encoder_attn_impl,
+    )
+    return projector_lib.projector_forward(params["projector"], cfg, enc)
+
+
 def prepare_audio_embeds(
     params: Params,
     cfg: UltravoxConfig,
@@ -80,16 +104,10 @@ def prepare_audio_embeds(
     encoder_attn_impl: str = "xla",
 ) -> torch.Tensor:
     """Audio tower + projector + splice."""
-    enc = encoder_lib.encoder_forward(
-        params["audio_tower"],
-        cfg.audio_config,
-        audio_values.to(inputs_embeds.dtype),
-        mel_lens=audio_lens,
-        latency_block_size=cfg.audio_latency_block_size,
-        remat=remat,
-        attn_impl=encoder_attn_impl,
+    audio_embeds = encode_audio(
+        params, cfg, audio_values.to(inputs_embeds.dtype), audio_lens,
+        remat=remat, encoder_attn_impl=encoder_attn_impl,
     )
-    audio_embeds = projector_lib.projector_forward(params["projector"], cfg, enc)
     return splice_audio_embeds(
         inputs_embeds, audio_embeds, audio_token_start_idx, audio_token_len,
         audio_chunk_batch_idx,

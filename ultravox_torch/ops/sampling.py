@@ -1,7 +1,13 @@
-"""Token sampling: greedy, temperature, top-k, top-p, min-p.
+"""Token sampling: greedy, temperature, top-k, top-p, min-p; the serving
+penalties (``apply_penalties``) and logprobs (``token_logprobs``).
 
 Sampled draws use an explicit ``torch.Generator``; they cannot reproduce the
-JAX package's threefry draws, only its distribution. Greedy is exact.
+JAX package's threefry draws, only its distribution. Greedy is exact. A
+seeded row (``sample_slots(seeds=...)``) draws its noise instead from a
+counter-based hash of (seed, position, vocabulary index)
+(``seeded_exponential``): integer arithmetic and an fp64 log, so the card
+and the CPU draw the same noise, and nothing else (the batch, the
+schedule) moves it.
 
 ``sample_slots`` is the serving engine's per-row sampler: each row carries
 its own parameters in a (B, >=4) ``[temperature, top_k, top_p, min_p]``
@@ -85,9 +91,45 @@ def scale_and_filter_logits(
     # keep tokens until the cumulative probability exceeds top_p (top-1 always)
     keep &= (cum - probs) <= top_ps[:, None]
     keep &= probs >= min_ps[:, None] * probs[:, :1]
-    inf = torch.tensor(float("inf"), device=scaled.device)
-    cutoff = torch.where(keep, desc, inf).amin(dim=-1, keepdim=True)
-    return torch.where(scaled < cutoff, -inf, scaled)
+    # Python-number fills: a tensor made from one would be a blocking copy
+    # from host memory, which waits for the card
+    cutoff = desc.masked_fill(~keep, float("inf")).amin(dim=-1, keepdim=True)
+    return scaled.masked_fill(scaled < cutoff, float("-inf"))
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32), in two 16-bit halves of c
+    so that no int64 product overflows."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (xor-shift-multiply, a bijection on 32 bits),
+    on int64 tensors holding values in [0, 2^32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def seeded_bits(seeds: torch.Tensor, positions: torch.Tensor, vocab: int) -> torch.Tensor:
+    """(B, vocab) int64 hashes in [0, 2^32) of each row's (seed, position)
+    and the vocabulary index."""
+    row = _mix32(_mix32(seeds.long() & _M32) ^ (positions.long() & _M32))
+    idx = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
+    return _mix32(row[:, None] ^ idx[None])
+
+
+def seeded_exponential(seeds: torch.Tensor, positions: torch.Tensor, vocab: int) -> torch.Tensor:
+    """(B, vocab) fp32 Exp(1) noise that depends only on each row's (seed,
+    position) and the vocabulary index: u = (hash + 0.5) / 2^32 in (0, 1),
+    then -log(u) in fp64 rounded to fp32."""
+    u = (seeded_bits(seeds, positions, vocab).double() + 0.5) * 2.0**-32
+    return (-torch.log(u)).float()
 
 
 def sample_slots(
@@ -97,18 +139,64 @@ def sample_slots(
     *,
     sampled: bool,
     filtered: bool,
+    seeds: Optional[torch.Tensor] = None,  # (B,) int32, -1 = unseeded
+    positions: Optional[torch.Tensor] = None,  # (B,) int32 per-request progress
 ) -> torch.Tensor:
     """Next token ids (B,) int32: argmax where a row's temperature is 0, else
     a draw from its scaled and filtered distribution. ``sampled`` and
     ``filtered`` come from ``sampling_flags`` on the host. The draw is the
     exponential race (argmax of p / E with E ~ Exp(1)), which is what
     ``torch.multinomial`` computes for one sample, without its validity
-    check that reads a value back from the card."""
+    check that reads a value back from the card. Rows with seed >= 0 race
+    ``seeded_exponential`` noise of (seed, position), so a seeded request
+    repeats its draws whatever else shares the batch; the others draw from
+    ``generator``."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     if not sampled:
         return greedy
     probs = torch.softmax(scale_and_filter_logits(logits, samp, filtered=filtered), dim=-1)
     race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    if seeds is not None:
+        hashed = seeded_exponential(seeds, positions, probs.shape[-1])
+        race = torch.where((seeds >= 0)[:, None], hashed, race)
     race.clamp_(min=torch.finfo(torch.float32).tiny)
     drawn = torch.argmax(probs / race, dim=-1).to(torch.int32)
     return torch.where(samp[:, 0] > 0, drawn, greedy)
+
+
+def apply_penalties(
+    logits: torch.Tensor,  # (B, V)
+    out_counts: torch.Tensor,  # (B, V) int32: each row's OUTPUT token counts
+    prompt_mask: torch.Tensor,  # (B, V) bool: tokens present in the prompt
+    samp: torch.Tensor,  # (B, >=7) float32; cols 4..6 = presence, frequency, repetition
+) -> torch.Tensor:
+    """vLLM-semantics penalties per row, in fp32: the repetition penalty over
+    prompt and output tokens (divides positive logits, multiplies negative
+    ones; a value <= 0 counts as 1), then presence (flat) and frequency
+    (count-proportional) penalties over output tokens. A row with 0 / 0 / 1
+    is an exact no-op."""
+    pres = samp[:, 4:5]
+    freq = samp[:, 5:6]
+    rep = torch.where(samp[:, 6:7] <= 0, torch.ones_like(samp[:, 6:7]), samp[:, 6:7])
+    lf = logits.float()
+    seen = (out_counts > 0) | prompt_mask
+    lf = torch.where(seen, torch.where(lf > 0, lf / rep, lf * rep), lf)
+    return lf - pres * (out_counts > 0) - freq * out_counts.float()
+
+
+MAX_TOP_LOGPROBS = 5
+
+
+def token_logprobs(logits: torch.Tensor, sampled: torch.Tensor, k: int = MAX_TOP_LOGPROBS):
+    """(chosen logprob (B,), top-k ids (B, k) int32, top-k logprobs (B, k))
+    of each row's log-softmax, for OpenAI ``logprobs``. Taken from the
+    post-penalty, post-bias logits before temperature (vLLM semantics):
+    temperature and the filters shape sampling only. The normaliser is
+    summed in fp64 and each logprob rounded to fp32 once, so the card and
+    the CPU, which sum a row in different orders, agree to the last bit
+    but for rare ties of rounding."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf.double(), dim=-1, keepdim=True)
+    chosen = lf.gather(-1, sampled[:, None].long()).double()
+    top_vals, top_ids = torch.topk(lf, k, dim=-1)
+    return (chosen - lse)[:, 0].float(), top_ids.to(torch.int32), (top_vals.double() - lse).float()
