@@ -153,7 +153,17 @@ Phases, each fatal on failure:
      to an engine on phase 4's tree, launches checked (#9 in every single
      step, #12 in no step while such a request is active), seeded requests
      repeated alone, precomputed audio_embeds against audio, and TTFT,
-     tok/s and the busy share beside phase 5 (a)'s.
+     tok/s and the busy share beside phase 5 (a)'s;
+ 10. the voice path on phase 4's weights with 1 s latency blocks (see
+     _voice_main_path): StreamingAudioEncoder on 10 s of speech against
+     the batch block-causal encode (bf16 within a relative RMS of 2^-5,
+     fp32 within 1e-4), the stream step, finalize and batch encode ms;
+     the HTTP server (4 + 1 requests, one resampled from 24 kHz, plain
+     and streamed) with TTFT, tok/s and launches checked, each request
+     alone equal to submit; the voice WebSocket (two turns of 6 s paced
+     at real time) through the streaming encoder (no launch of #1-#3),
+     pause-to-first-token beside the batch path's TTFT, and the decode
+     step with and without concurrent stream steps.
 
 Phases 4-7 also hold ln_matmul_gelu, attn_out_proj_residual,
 decode_matmul, attn_v2 and attn_nt at 0 launches: no engine calls them.
@@ -2930,13 +2940,21 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+
+    # 10. the voice path: streaming encode, HTTP and the voice WebSocket
+    voice, voice_launches = _voice_main_path(tc, uv, cfg, counters, prefill, smi, dev)
+    for row in rows:
+        if row["name"] in voice_launches:
+            row.setdefault("launches_per_path", {"main": row["launches"]})["voice http"] = (
+                voice_launches[row["name"]])
+
     print(f"chip_smoke: {time.perf_counter() - t_script:.2f} s in all", flush=True)
     print(smi, flush=True)
     print(json.dumps({
         "kernels": rows, "ttft_ms": ttft_ms, "decode_tok_s": decode_tps,
         "fused_first_token_ms": fused_ttft_ms, "fused_decode_tok_s": fused_tps,
         "scan_kernel_decode_tok_s": seg_tps, "serving": serving, "training": training,
-        "lora_int8": lora_int8, "probes": probes, "checkpoint": checkpoint,
+        "lora_int8": lora_int8, "probes": probes, "checkpoint": checkpoint, "voice": voice,
         "total_s": time.perf_counter() - t_script,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3852,6 +3870,569 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# --------------------------------------------------------------------------
+# phase 10: the voice path (streaming encode, HTTP, the voice WebSocket)
+# --------------------------------------------------------------------------
+
+# bf16 streamed embeddings against the batch encode of the same clip: each
+# path rounds 12 layers of activations to bf16 in its own order. A relative
+# RMS of 2^-5, about twice what the two paths differed by on the CPU at
+# d 256 (0.0163).
+STREAM_RMS_TOL = 2.0**-5
+# fp32 streamed embeddings against the fp32 batch encode: summation order only
+STREAM_RMS_TOL_FP32 = 1e-4
+VOICE_FRAME = 1365  # the demo page's 4096-sample buffer at 48 kHz, at 16 kHz
+
+
+class _ByteTokenizer:
+    """Test scaffolding of the smoke run (the card's machine has no
+    tokenizer package): ids 0-255 are bytes, 256-259 the special tokens of
+    a fixed llama-3-style chat template, and any other id decodes as
+    "<id>". It has the methods UltravoxProcessor and ServingAPI call."""
+
+    SPECIAL = ("<|begin_of_text|>", "<|eot_id|>", "<|start_header_id|>", "<|end_header_id|>")
+    eos_token = "<|eot_id|>"
+    eos_token_id = pad_token_id = 257
+
+    def get_vocab(self):
+        vocab = {f"<0x{b:02X}>": b for b in range(256)}
+        vocab.update({s: 256 + i for i, s in enumerate(self.SPECIAL)})
+        return vocab
+
+    def _encode(self, text: str):
+        ids, i = [], 0
+        while i < len(text):
+            for j, s in enumerate(self.SPECIAL):
+                if text.startswith(s, i):
+                    ids.append(256 + j)
+                    i += len(s)
+                    break
+            else:
+                ids.extend(text[i].encode("utf-8"))
+                i += 1
+        return ids
+
+    def __call__(self, text, add_special_tokens=False):
+        if isinstance(text, str):
+            return {"input_ids": self._encode(text)}
+        return {"input_ids": [self._encode(t) for t in text]}
+
+    def apply_chat_template(self, messages, tokenize=False, add_generation_prompt=True):
+        out = "<|begin_of_text|>" + "".join(
+            f"<|start_header_id|>{m['role']}<|end_header_id|>\n\n{m['content']}<|eot_id|>"
+            for m in messages)
+        if add_generation_prompt:
+            out += "<|start_header_id|>assistant<|end_header_id|>\n\n"
+        return out
+
+    def decode(self, ids, skip_special_tokens=False):
+        parts, buf = [], bytearray()
+        for t in (int(t) for t in ids):
+            if t < 256:
+                buf.append(t)
+                continue
+            parts.append(buf.decode("utf-8", errors="replace"))
+            buf = bytearray()
+            if t < 256 + len(self.SPECIAL):
+                if not skip_special_tokens:
+                    parts.append(self.SPECIAL[t - 256])
+            else:
+                parts.append(f"<{t}>")
+        parts.append(buf.decode("utf-8", errors="replace"))
+        return "".join(parts)
+
+
+class _WsClient:
+    """A raw-socket WebSocket client: masked frames out, JSON text frames in."""
+
+    def __init__(self, port: int):
+        import base64
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=300)
+        self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)  # frames go out at once
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((f"GET /ws/voice HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\n"
+                           "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                           f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n"
+                           ).encode())
+        resp = b""
+        while b"\r\n\r\n" not in resp:
+            resp += self.sock.recv(4096)
+        head, _, self._buf = resp.partition(b"\r\n\r\n")  # frames may follow the header
+        if b" 101 " not in head.split(b"\r\n")[0]:
+            _fail(f"phase 10: the WebSocket handshake failed: {head[:200]!r}")
+
+    def send(self, opcode: int, payload: bytes):
+        import struct
+
+        mask = os.urandom(4)
+        n = len(payload)
+        head = bytes([0x80 | opcode])
+        if n < 126:
+            head += bytes([0x80 | n])
+        elif n < 1 << 16:
+            head += bytes([0x80 | 126]) + struct.pack("!H", n)
+        else:
+            head += bytes([0x80 | 127]) + struct.pack("!Q", n)
+        m = np.frombuffer(mask * (n // 4 + 1), np.uint8)[:n]
+        self.sock.sendall(head + mask + (np.frombuffer(payload, np.uint8) ^ m).tobytes())
+
+    def _read(self, n: int) -> bytes:
+        data, self._buf = self._buf[:n], self._buf[n:]
+        while len(data) < n:
+            chunk = self.sock.recv(n - len(data))
+            if not chunk:
+                raise ConnectionError("the server closed the WebSocket")
+            data += chunk
+        return data
+
+    def recv_json(self):
+        import struct
+
+        head = self._read(2)
+        n = head[1] & 0x7F
+        if n == 126:
+            (n,) = struct.unpack("!H", self._read(2))
+        elif n == 127:
+            (n,) = struct.unpack("!Q", self._read(8))
+        payload = self._read(n)
+        return None if head[0] & 0x0F == 8 else json.loads(payload.decode())
+
+    def close(self):
+        self.sock.close()
+
+
+def _post_chat(port: int, body: dict):
+    """POST /v1/chat/completions: (text of each choice, seconds to the first
+    content chunk for a stream, else None)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/chat/completions", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        _fail(f"phase 10: HTTP {resp.status}: {resp.read()[:300]!r}")
+    if not body.get("stream"):
+        out = json.loads(resp.read())
+        conn.close()
+        return [c["message"]["content"] for c in out["choices"]], None
+    text, first, buf = "", None, b""
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        buf += line
+        if not line.strip() or not line.startswith(b"data: "):
+            continue
+        data = line[6:].strip()
+        if data == b"[DONE]":
+            break
+        delta = json.loads(data)["choices"][0]["delta"].get("content", "")
+        if delta and first is None:
+            first = time.perf_counter() - t0
+        text += delta
+    conn.close()
+    return [text], first
+
+
+def _voice_main_path(tc, uv, cfg, counters, per_call, smi, dev):
+    """Phase 10: the voice path at flagship width, on phase 4's weights
+    (remade from the seed) with audio_latency_block_size 100 (1 s blocks of
+    100 encoder positions, as training/configs/streaming_tinyllama_tpu.yaml
+    of the JAX package), served by a paged bf16 ServingEngine (phase 5
+    (a)'s settings) behind api_server.make_handler on 127.0.0.1, with the
+    byte-level tokenizer above.
+
+      1. StreamingAudioEncoder on 10 s of speech in frames of 1365 samples.
+         finalize()'s bf16 embeddings against the plain batch block-causal
+         encode plus projector of the same clip (mel padded past the
+         positions the last token stacks, as the stream pads), in bf16 and
+         in fp32 (relative RMS within STREAM_RMS_TOL), and the fp32 stream
+         against the fp32 batch (STREAM_RMS_TOL_FP32). The ms of a stream
+         step (p50 over the blocks, the frame's mel included), of finalize
+         and of the engine's batch encode (the fused path) of the clip.
+      2. HTTP: 4 requests of a 10 s WAV at 16 kHz and one at 24 kHz (the
+         resample path), greedy, max_tokens 32, sent at once, plain and
+         then streamed: TTFT p50 (the engine's, submit to first token),
+         output tok/s, and launches against the engine's counters (#1-#3
+         with the latency block 12 each per admission, #4 16 a prefill
+         chunk, #9 16 a single step, #12 16 x 8 a block). Then each request
+         alone, plain and streamed, against submit on the same batch
+         (decoded by the same tokenizer): the texts must be equal. Alone,
+         because greedy bf16 tokens depend on whether a step ran in a block
+         or alone, which concurrency decides; the prefix reuse is off so
+         every prefill starts at 0.
+      3. The voice WebSocket: 6 s of speech and 1 s of silence in PCM16
+         frames of 1365 samples, paced at real time, two turns. Each turn
+         must reach the engine as audio_embeds, with no launch of #1-#3
+         while it runs. Pause-to-first-token (from sending the frame that
+         completes the pause, found by running the same VAD here, to the
+         first token frame) beside the TTFT of the same utterance sent as
+         raw audio (processor to first token: the batch path). Then the
+         decode step time of 4 text requests with and without stream steps
+         running back to back on another thread.
+
+    Returns (metrics, launches of #1/#2/#3/#9/#12 in step 2's plain round)."""
+    import base64
+    import dataclasses
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from ultravox_torch.data.sample import audio_to_wav_bytes
+    from ultravox_torch.inference.serving import api_server
+    from ultravox_torch.inference.serving.engine import ServingEngine
+    from ultravox_torch.inference.streaming import StreamingAudioEncoder
+    from ultravox_torch.models.processor import DataCollatorWithAudio, UltravoxProcessor
+    from ultravox_torch.ops.mel import log_mel_spectrogram_np
+    from ultravox_torch.utils.audio import resample
+    from ultravox_torch.utils.vad import ReplyOnPause
+
+    t_phase = time.perf_counter()
+    metrics = {}
+    scfg = dataclasses.replace(cfg, audio_latency_block_size=100)
+    L_enc, L_dec, K, new_tokens = scfg.audio_config.num_layers, scfg.text_config.num_layers, 8, 32
+    params = uv.init_params(scfg, torch.Generator(device=dev).manual_seed(SEED), torch.bfloat16, dev)
+    engine = ServingEngine(
+        params, scfg, num_slots=4, max_seq_len=2048, page_size=256, cache_mode="paged",
+        prefill_chunk_tokens=64, decode_block_steps=K, encoder_attn_impl="fused",
+        prefill_attn_impl="fused", decode_attn_impl="kernel", block_attn_impl="kernel", device=dev)
+    del params
+    rng = np.random.default_rng(SEED + 10)
+    clips = _audio(6, 10.0, rng)  # 10 s each at 16 kHz
+
+    # 1. streaming encode on the card
+    def stream(tree, clip, dtype, times=None):
+        enc = StreamingAudioEncoder(tree, scfg, dtype=dtype)
+        for i in range(0, len(clip), VOICE_FRAME):
+            before = enc.blocks_encoded
+            t0 = time.perf_counter()
+            enc.feed(clip[i: i + VOICE_FRAME])
+            torch.cuda.synchronize()
+            if times is not None and enc.blocks_encoded > before:
+                times.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        out = enc.finalize()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, enc.blocks_encoded
+
+    clip = clips[0]
+    stream(engine.params, clip, torch.bfloat16)  # warm-up
+    step_ms = []
+    emb16, final_ms, blocks = stream(engine.params, clip, torch.bfloat16, step_ms)
+    tree32 = {k: _to_float(engine.params[k]) for k in ("audio_tower", "projector")}
+    emb32, _, _ = stream(tree32, clip, torch.float32)
+    mel = log_mel_spectrogram_np(clip)  # (80, 1000)
+    n_tok = emb16.shape[0]
+    padded = np.zeros((1, 80, 2 * n_tok * scfg.stack_factor), np.float32)  # 1008 frames
+    padded[0, :, : mel.shape[1]] = mel
+    lens = torch.tensor([mel.shape[1]], device=dev)
+    with torch.inference_mode():
+        ref32 = uv.encode_audio(tree32, scfg, torch.from_numpy(padded).to(dev), lens)[0, :n_tok]
+        ref16 = uv.encode_audio(engine.params, scfg, torch.from_numpy(padded).to(dev, torch.bfloat16),
+                                lens)[0, :n_tok]
+        mel16 = torch.from_numpy(mel[None]).to(dev, torch.bfloat16)
+        fused = lambda: uv.encode_audio(engine.params, scfg, mel16, lens,  # noqa: E731
+                                        encoder_attn_impl="fused")
+        fused16 = fused()[0, :n_tok]
+        fused()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fused()
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) / 5 * 1e3
+    errs = {"bf16 stream vs bf16 batch": _rel_rms(emb16, ref16),
+            "bf16 stream vs fp32 batch": _rel_rms(emb16, ref32),
+            "fp32 stream vs fp32 batch": _rel_rms(emb32, ref32),
+            "fused bf16 batch (the engine's, tanh GELU) vs fp32 batch": _rel_rms(fused16[:-1],
+                                                                                  ref32[:-1])}
+    print(f"voice stream: 10 s in frames of {VOICE_FRAME}: {blocks} blocks of 100 positions, "
+          f"{n_tok} tokens; relative RMS {errs} (tolerance {STREAM_RMS_TOL}, fp32 "
+          f"{STREAM_RMS_TOL_FP32}); stream step p50 {np.median(step_ms):.3f} ms (of "
+          f"{len(step_ms)} steps during the feed), finalize {final_ms:.3f} ms, batch encode "
+          f"(fused) {batch_ms:.3f} ms; {smi}", flush=True)
+    if emb16.shape != (63, scfg.text_config.hidden_size) or not torch.isfinite(emb16).all():
+        _fail(f"phase 10: streamed embeddings {tuple(emb16.shape)} or not finite")
+    if (errs["fp32 stream vs fp32 batch"] > STREAM_RMS_TOL_FP32
+            or errs["bf16 stream vs bf16 batch"] > STREAM_RMS_TOL
+            or errs["bf16 stream vs fp32 batch"] > STREAM_RMS_TOL):
+        _fail(f"phase 10: the streamed embeddings differ from the batch encode: {errs}")
+    metrics["stream"] = {"step_ms_p50": float(np.median(step_ms)), "step_ms": step_ms,
+                         "finalize_ms": final_ms, "batch_encode_ms": batch_ms, "blocks": blocks,
+                         "rel_rms": errs}
+    del tree32, emb32, ref32
+
+    # 2. HTTP
+    tok = _ByteTokenizer()
+    processor = UltravoxProcessor(tok, num_mel_bins=80, stack_factor=scfg.stack_factor)
+    collator = DataCollatorWithAudio(pad_token_id=tok.pad_token_id, mel_pad_multiple=500)
+    api = api_server.ServingAPI(engine, processor, collator)
+    api.handle_voice_ws = functools.partial(api_server.ServingAPI.handle_voice_ws, api,
+                                            max_tokens=new_tokens)
+    submitted = []
+    submit = engine.submit
+
+    def spy(batch, **kw):
+        req = submit(batch, **kw)
+        submitted.append((kw.get("audio_embeds") is not None, batch.get("audio_values"), req))
+        return req
+
+    engine.submit = spy
+    engine.start()
+    server = ThreadingHTTPServer(("127.0.0.1", 0), api_server.make_handler(api))
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        wav24 = resample(clips[4], 16000, 24000)
+        wavs = [(clips[i], 16000) for i in range(4)] + [(wav24, 24000)]
+        bodies = [{"model": "ultravox-torch", "max_tokens": new_tokens, "temperature": 0,
+                   "messages": [{"role": "user", "content": [
+                       {"type": "text", "text": "Transcribe: "},
+                       {"type": "input_audio", "input_audio": {
+                           "data": base64.b64encode(audio_to_wav_bytes(a, sr)).decode(),
+                           "format": "wav"}}]}]} for a, sr in wavs]
+        _post_chat(port, dict(bodies[0], max_tokens=4))  # warm-up
+
+        def round_(stream_):
+            out = [None] * len(bodies)
+
+            def one(i):
+                out[i] = _post_chat(port, dict(bodies[i], stream=stream_))
+
+            del submitted[:]
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            return out, time.perf_counter() - t0
+
+        http = {}
+        for stream_ in (False, True):
+            label = "stream" if stream_ else "plain"
+            for c in counters.values():
+                c.launches = 0
+            for stat in ("stat_decode_dispatches", "stat_decode_steps", "stat_prefill_chunks"):
+                setattr(engine, stat, 0)
+            out, wall = round_(stream_)
+            torch.cuda.synchronize()
+            launches = {name: c.launches for name, c in counters.items()}
+            reqs = [r for _, _, r in submitted]
+            if any(o is None for o in out) or len(reqs) != len(bodies):
+                _fail(f"phase 10: HTTP {label}: {len(reqs)} requests reached the engine")
+            n_gen = sum(r.generated for r in reqs)
+            ttft = sorted((r.first_token_time - r.submit_time) * 1e3 for r in reqs)
+            http[label] = {"ttft_p50_ms": float(np.median(ttft)), "ttft_max_ms": ttft[-1],
+                           "output_tok_s": n_gen / wall, "wall_ms": wall * 1e3,
+                           "client_first_chunk_ms": [o[1] * 1e3 for o in out] if stream_ else None}
+            print(f"voice http {label}: {len(bodies)} requests x {new_tokens} tokens (4 at 16 kHz, "
+                  f"1 at 24 kHz) in {wall * 1e3:.3f} ms ({n_gen / wall:.2f} tok/s); TTFT p50 "
+                  f"{np.median(ttft):.3f} ms, max {ttft[-1]:.3f} ms; {smi}", flush=True)
+            if not stream_:
+                encoder = {name: per_call[name] * len(bodies) for name in
+                           ("fused_layer_norm", "ln_qkv_head_fused", "attention_headmajor")}
+                _check_serving_launches(
+                    "voice http", launches, counters, encoder, engine.stat_decode_dispatches,
+                    engine.stat_decode_steps, engine.stat_prefill_chunks, K, L_dec,
+                    "paged_decode_attention", "paged_segment_tail_attention")
+                http_launches = {k: launches[k] for k in (
+                    "fused_layer_norm", "ln_qkv_head_fused", "attention_headmajor",
+                    "paged_decode_attention", "paged_segment_tail_attention")}
+                if any(r.batch["audio_values"].shape[-1] != 1000 for r in reqs):
+                    _fail("phase 10: an HTTP request's mel is not 1000 frames")
+
+        # each request alone: HTTP plain and streamed against a direct submit
+        reuse, engine.min_reuse_tokens = engine.min_reuse_tokens, 1 << 30
+        equal = []
+        for body in bodies:
+            plain = _post_chat(port, body)[0][0]
+            streamed = _post_chat(port, dict(body, stream=True))[0][0]
+            messages, audios = api.parse_messages(body["messages"])
+            text = tok.apply_chat_template(messages, tokenize=False, add_generation_prompt=True)
+            batch = collator([processor(text=text, audios=audios)])
+            req = engine.submit(batch, max_tokens=new_tokens, stop_token_ids=(tok.eos_token_id,))
+            ids = [ev.token_id for ev in engine.stream(req, timeout=600) if ev.token_id is not None]
+            direct = tok.decode(ids, skip_special_tokens=True)
+            equal.append(plain == streamed == direct)
+            if not equal[-1] or len(ids) != new_tokens:
+                _fail(f"phase 10: HTTP alone gave {plain[:80]!r} / streamed {streamed[:80]!r}, "
+                      f"submit {direct[:80]!r} ({len(ids)} tokens)")
+        print(f"voice http: each request alone, plain and streamed, equal to submit on the same "
+              f"batch: {equal}; first text {plain[:60]!r}", flush=True)
+        metrics["http"] = http
+
+        # 3. the voice WebSocket (prefix reuse back on: turn 2 adopts turn 1)
+        engine.min_reuse_tokens = reuse
+        vad_frames = []
+        turns = []
+        vad = ReplyOnPause()  # the server's VAD sees both turns in order
+        for clip in (clips[1][:96000], clips[2][:96000]):
+            pcm = (np.clip(np.concatenate([clip, np.zeros(16000, np.float32)]), -1, 1)
+                   * 32767).astype(np.int16)
+            frames = [pcm[i: i + VOICE_FRAME] for i in range(0, len(pcm), VOICE_FRAME)]
+            fired = [j for j, f in enumerate(frames)
+                     if vad.process(f.astype(np.float32) / 32768.0) is not None]
+            if len(fired) != 1:
+                _fail(f"phase 10: the VAD fired at frames {fired}, expected once")
+            vad_frames.append(fired[0])
+            turns.append(frames)
+        utterances = []
+        client = _WsClient(port)
+        ws = []
+        try:
+            if client.recv_json() != {"type": "ready"}:
+                _fail("phase 10: the WebSocket did not say ready")
+            for frames, pause_at in zip(turns, vad_frames):
+                for c in counters.values():
+                    c.launches = 0
+                del submitted[:]
+                sent = [None] * len(frames)
+
+                def send(frames=frames, sent=sent):
+                    t0 = time.monotonic()  # the engine's clock (submit and token times)
+                    for j, f in enumerate(frames):
+                        wait = t0 + j * VOICE_FRAME / 16000 - time.monotonic()
+                        if wait > 0:
+                            time.sleep(wait)
+                        sent[j] = time.monotonic()
+                        client.send(0x2, f.tobytes())
+
+                sender = threading.Thread(target=send)
+                sender.start()
+                events, first = [], None
+                while True:
+                    ev = client.recv_json()
+                    if ev is None:
+                        _fail("phase 10: the WebSocket closed mid-turn")
+                    if ev["type"] == "token" and first is None:
+                        first = time.monotonic()
+                    events.append(ev)
+                    if ev["type"] == "turn_end":
+                        break
+                sender.join()
+                torch.cuda.synchronize()
+                launches = {name: c.launches for name, c in counters.items()}
+                kinds = [e["type"] for e in events]
+                if kinds[0] != "utterance" or "token" not in kinds or first is None:
+                    _fail(f"phase 10: WebSocket events {kinds[:8]}")
+                if len(submitted) != 1 or not submitted[0][0]:
+                    _fail("phase 10: a voice turn did not reach the engine as audio_embeds")
+                enc = {k: launches[k] for k in ("fused_layer_norm", "ln_qkv_head_fused",
+                                                "attention_headmajor", "qkv_head_transpose")}
+                if any(enc.values()):
+                    _fail(f"phase 10: a streaming turn launched encoder kernels {enc}")
+                req = submitted[0][2]
+                ptft = (first - sent[pause_at]) * 1e3
+                # where it went: the handler up to submit (VAD, the stream's
+                # tail and projector, processor, copy to the host), the
+                # engine to its first token, then the frame to the client
+                split = {"handler_ms": (req.submit_time - sent[pause_at]) * 1e3,
+                         "engine_ttft_ms": (req.first_token_time - req.submit_time) * 1e3,
+                         "delivery_ms": (first - req.first_token_time) * 1e3}
+                ws.append({"pause_to_first_token_ms": ptft, "utterance_s": events[0]["seconds"],
+                           **split,
+                           "audio_chunks": int(req.audio_embeds.shape[0]),
+                           "reply_tokens": req.generated, "launches": launches})
+                utterances.append(events[0]["seconds"])
+                print(f"voice ws turn {len(ws)}: utterance {events[0]['seconds']:.3f} s, "
+                      f"{req.audio_embeds.shape[0]} audio chunk(s) as audio_embeds; "
+                      f"pause-to-first-token {ptft:.3f} ms: handler to submit "
+                      f"{split['handler_ms']:.3f}, engine TTFT {split['engine_ttft_ms']:.3f}, "
+                      f"delivery {split['delivery_ms']:.3f}; encoder kernels {enc}; #4 "
+                      f"{launches['fused_attention']}, #9 {launches['paged_decode_attention']}, "
+                      f"#12 {launches['paged_segment_tail_attention']}; reply "
+                      f"{events[-1]['text'][:40]!r}; {smi}", flush=True)
+        finally:
+            client.close()
+
+        # the first turn's utterance as raw audio: the batch path's TTFT
+        vad = ReplyOnPause()
+        utt = None
+        for f in turns[0]:
+            utt = vad.process(f.astype(np.float32) / 32768.0) if utt is None else utt
+        msgs = [{"role": "user", "content": "<|audio|>"}]
+        batch_ttft, batch_engine = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            text = tok.apply_chat_template(msgs, tokenize=False, add_generation_prompt=True)
+            req = engine.submit(collator([processor(text=text, audios=[utt])]), max_tokens=2,
+                                stop_token_ids=(tok.eos_token_id,))
+            for ev in engine.stream(req, timeout=600):
+                batch_ttft.append((time.perf_counter() - t0) * 1e3)
+                break
+            for _ in engine.stream(req, timeout=600):
+                pass
+            batch_engine.append((req.first_token_time - req.submit_time) * 1e3)
+        print(f"voice ws: pause-to-first-token {[round(w['pause_to_first_token_ms'], 3) for w in ws]} "
+              f"ms beside the same first utterance ({len(utt) / 16000:.3f} s) as raw audio, "
+              f"processor to first token {[round(t, 3) for t in batch_ttft]} ms (engine TTFT "
+              f"{[round(t, 3) for t in batch_engine]}); {smi}", flush=True)
+        metrics["ws"] = {"turns": ws, "batch_path_ttft_ms": batch_ttft,
+                         "batch_path_engine_ttft_ms": batch_engine}
+
+        # decode steps with and without stream steps on another thread
+        ids = rng.integers(300, scfg.vocab_size, (4, 128)).astype(np.int64)
+        text_reqs = [{"input_ids": ids[i: i + 1], "attention_mask": np.ones((1, 128), np.int64)}
+                     for i in range(4)]
+
+        def decode_step_ms(concurrent: bool):
+            stop, steps = threading.Event(), [0]
+
+            def streamer():
+                while not stop.is_set():
+                    enc = StreamingAudioEncoder(engine.params, scfg, dtype=torch.bfloat16)
+                    for i in range(0, len(clips[5]), VOICE_FRAME):
+                        if stop.is_set():
+                            break
+                        before = enc.blocks_encoded
+                        enc.feed(clips[5][i: i + VOICE_FRAME])
+                        steps[0] += enc.blocks_encoded - before
+
+            th = threading.Thread(target=streamer)
+            if concurrent:
+                th.start()
+            reqs = [engine.submit(dict(b), max_tokens=64) for b in text_reqs]
+            for r in reqs:
+                for _ in engine.stream(r, timeout=600):
+                    pass
+            stop.set()
+            if concurrent:
+                th.join()
+            per = [(r.finish_time - r.first_token_time) / (r.generated - 1) * 1e3 for r in reqs]
+            return float(np.median(per)), steps[0]
+
+        decode_step_ms(False)  # warm-up
+        alone, _ = decode_step_ms(False)
+        with_stream, n_steps = decode_step_ms(True)
+        alone2, _ = decode_step_ms(False)
+        print(f"voice: decode step (4 text requests x 64 tokens, blocks of {K}) {alone:.3f} / "
+              f"{alone2:.3f} ms alone, {with_stream:.3f} ms with {n_steps} stream steps run back "
+              f"to back on another thread ({with_stream / alone:.3f}x); {smi}", flush=True)
+        metrics["decode_step_ms"] = {"alone": [alone, alone2], "with_stream_steps": with_stream,
+                                     "stream_steps": n_steps}
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+    _check_pages(engine, "voice")
+    del engine, api
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 10: {metrics['phase_s']:.2f} s", flush=True)
+    return metrics, http_launches
+
+
+def _to_float(tree):
+    if isinstance(tree, dict):
+        return {k: _to_float(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
 
 
 if __name__ == "__main__":

@@ -1867,3 +1867,47 @@ def test_penalties_and_logprobs_on_cuda_match_cpu(cuda_device):
     assert (lg[0].cpu() - lc[0]).abs().max().item() <= 1e-6
     assert torch.equal(lg[1].cpu(), lc[1])
     assert (lg[2].cpu() - lc[2]).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_stream_step_on_cuda_matches_cpu(cuda_device, dt):
+    """The streaming encoder (plain torch: encoder_stream_step and the
+    projector) on the card against its CPU run, on the tiny block-causal
+    config of tests/test_streaming_encoder.py: every block's output and
+    the embeddings within 1e-5 in fp32 and 4 bf16 ulps of the largest
+    value in bf16."""
+    from ultravox_torch.inference.streaming import StreamingAudioEncoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tc.UltravoxConfig(
+        audio_config=tc.WhisperEncoderConfig(d_model=32, num_layers=2, num_heads=2, ffn_dim=64,
+                                             max_source_positions=64),
+        text_config=tc.DecoderConfig(vocab_size=384, hidden_size=48, intermediate_size=96,
+                                     num_layers=2, num_heads=4, num_kv_heads=2, head_dim=12),
+        hidden_size=64, audio_latency_block_size=8,
+    )
+    dtype = DTYPES[dt]
+    params = tuv.init_params(cfg, torch.Generator().manual_seed(0), dtype)
+    rng = np.random.default_rng(3)
+    audio = (rng.standard_normal(9600) * 0.1).astype(np.float32)
+    audio[:960] *= 4.0
+    runs = []
+    for tree in (params, _to_device(params, cuda_device)):
+        enc = StreamingAudioEncoder(tree, cfg, dtype=dtype)
+        for i in range(0, len(audio), 1365):
+            enc.feed(audio[i: i + 1365])
+        embeds = enc.finalize()
+        torch.cuda.synchronize()
+        runs.append([o.float().cpu() for o in enc._outputs] + [embeds.float().cpu()])
+    assert len(runs[0]) == len(runs[1]) == 5  # four blocks, then the embeddings
+    for ref, out in zip(*runs):
+        tol = 1e-5 if dt == "float32" else 4 * 2.0**-8 * float(ref.abs().max())
+        assert float((out - ref).abs().max()) <= tol
+
+
+def _to_device(tree, device):
+    """A parameter tree's copy on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

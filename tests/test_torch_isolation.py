@@ -1,7 +1,8 @@
 """ultravox_torch and chip_smoke.py stand alone: no module imports jax or
-the JAX package (the machine with the card has no JAX), the checkpoint
-modules import neither ``safetensors`` nor ``transformers``, and importing
-the package builds or loads no kernel."""
+the JAX package (the machine with the card has no JAX), the checkpoint,
+streaming and serving modules (the HTTP and voice front end included)
+import neither ``safetensors`` nor ``transformers``, and importing the
+package builds or loads no kernel."""
 
 import ast
 import os
@@ -45,6 +46,15 @@ def test_package_imports_without_jax_and_builds_nothing():
         "import ultravox_torch.inference.ultravox_infer\n"
         "import ultravox_torch.tools.publish\n"
         "import ultravox_torch.inference.serving.engine\n"
+        "import ultravox_torch.inference.streaming\n"
+        "import ultravox_torch.inference.serving.api_server\n"
+        "import ultravox_torch.inference.serving.websocket\n"
+        "import ultravox_torch.inference.serving.demo_page\n"
+        "import ultravox_torch.utils.vad\n"
+        "import ultravox_torch.utils.audio\n"
+        "import ultravox_torch.data.sample\n"
+        "import ultravox_torch.models.processor\n"
+        "import ultravox_torch.models.tokenizer\n"
         "from ultravox_torch.ops.kernels import _build\n"
         "assert _build.library.cache_info().currsize == 0\n"
         "assert not any(m.startswith('ultravox_tpu') or m == 'jax' for m in sys.modules"

@@ -7,6 +7,8 @@ builds and loads nothing: kernels are compiled on their first launch.
 
 Entry points: ``ultravox_torch.inference.engine.GenerationEngine`` and
 ``inference.serving.engine.ServingEngine`` (serving),
+``inference.serving.api_server.serve`` (the HTTP server and the voice
+WebSocket, over ``inference.streaming.StreamingAudioEncoder``),
 ``ultravox_torch.training.train_step.make_train_step`` (training), and
 ``inference.ultravox_infer.load_ultravox_checkpoint`` /
 ``tools.publish.save_pretrained`` (checkpoints).

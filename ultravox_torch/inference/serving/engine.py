@@ -383,7 +383,8 @@ class ServingEngine:
                 raise ValueError(f"unknown {name}={value!r}")
         params = _to_device(params, self.device)
         self.params = dict(params)
-        self._lora_banks, self._enc_lora_banks, self._lora_index = _lora_banks(
+        (self._lora_banks, self._enc_lora_banks, self._lora_index,
+         self._enc_adapter_names) = _lora_banks(
             _to_device(lora_adapters, self.device) if lora_adapters else None)
         self.params["language_model"] = decoder_lib.fuse_inference_params(
             params["language_model"], cfg.text_config
@@ -909,10 +910,10 @@ class ServingEngine:
             req.out_queue.put(StreamEvent(token_id=None, finish_reason="unknown_lora"))
             self._requests.pop(req.request_id, None)
             return
-        if (req.audio_embeds is not None and self._enc_lora_banks is not None
-                and req.lora is not None and req.lora not in self._enc_bypass_warned):
-            # precomputed embeddings bypass the audio tower, so an encoder
-            # adapter cannot apply; the decoder half still does
+        if (req.audio_embeds is not None and req.lora in self._enc_adapter_names
+                and req.lora not in self._enc_bypass_warned):
+            # precomputed embeddings bypass the audio tower, so the adapter's
+            # encoder half cannot apply; its decoder half still does
             self._enc_bypass_warned.add(req.lora)
             logger.warning(
                 "request with precomputed audio_embeds selected lora=%r: any encoder "
@@ -1446,12 +1447,13 @@ class ServingEngine:
 
 
 def _lora_banks(adapters):
-    """(decoder banks, encoder banks, index) of ``lora_adapters``: name ->
-    a tree with ``language_model`` and/or ``audio_tower`` adapters, or a bare
-    LM tree. Both towers are banked over one sorted-name index; a tower no
-    adapter targets has no banks (None)."""
+    """(decoder banks, encoder banks, index, names of the adapters with an
+    encoder half) of ``lora_adapters``: name -> a tree with
+    ``language_model`` and/or ``audio_tower`` adapters, or a bare LM tree.
+    Both towers are banked over one sorted-name index; a tower no adapter
+    targets has no banks (None)."""
     if not adapters:
-        return None, None, {}
+        return None, None, {}, frozenset()
 
     def has_lora(tree) -> bool:
         return isinstance(tree, dict) and any(
@@ -1475,7 +1477,8 @@ def _lora_banks(adapters):
         lm_banks, index = lora_lib.build_lora_banks(lms)
     if n_enc:
         enc_banks, index = lora_lib.build_lora_banks(encs)  # the same names, the same index
-    return lm_banks, enc_banks, index
+    enc_names = frozenset(name for name, t in encs.items() if has_lora(t))
+    return lm_banks, enc_banks, index, enc_names
 
 
 def _validate_enc_lora_banks(tower, banks) -> None:

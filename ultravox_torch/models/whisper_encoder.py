@@ -23,10 +23,13 @@ leading axis (``layers/<name>`` of shape (L, ...)), linear kernels as
   kernels mask ragged tiles themselves, so the port runs at T unpadded.
 
 ``quantize_encoder_int8`` gives the int8 tree (q/k/v/out, fc1/fc2).
+``encoder_stream_step`` encodes one latency block of a block-causal encoder
+against a K/V cache of the blocks before it (the streaming voice path).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
@@ -36,7 +39,7 @@ from ultravox_torch.models.config import WhisperEncoderConfig
 from ultravox_torch.models.decoder import _quantize_kernel
 from ultravox_torch.models.lora import proj_apply
 from ultravox_torch.models.remat import remat as checkpoint_remat
-from ultravox_torch.ops.attention import block_causal_bias, length_mask_bias, mha
+from ultravox_torch.ops.attention import NEG_INF, block_causal_bias, length_mask_bias, mha
 from ultravox_torch.ops.kernels.flash_attention import flash_attention
 from ultravox_torch.ops.kernels.fused_attention import (
     attention_headmajor,
@@ -282,3 +285,104 @@ def encoder_forward(
         else:
             x = layer_fn(x, p)
     return layer_norm(x, params["layer_norm"]["scale"], params["layer_norm"]["bias"])
+
+
+# --------------------------------------------------------------------------
+# Incremental (streaming) block-causal encode
+# --------------------------------------------------------------------------
+#
+# With audio_latency_block_size set, encoder position i attends only to the
+# blocks up to its own, so a block's outputs are final once its audio has
+# arrived. The stream state holds every layer's K/V of the positions encoded
+# so far, and a step encodes one block of C new positions against it: O(C)
+# work per block instead of re-encoding the prefix.
+#
+# Position q is conv2(gelu(conv1(mel)))[q], whose receptive field is mel
+# frames [2q-2, 2q+2]; a block [kC, (k+1)C) therefore needs only the mel
+# window [2kC-2, 2(k+1)C+1) (2C+3 frames, zero-padded at the stream's edges
+# by the caller), and no conv state is carried.
+
+
+@dataclasses.dataclass
+class EncoderStreamState:
+    """Per-layer K/V over the encoded positions, updated in place by
+    ``encoder_stream_step``, and their count (a host int, so a step reads
+    nothing back from the device)."""
+
+    k: torch.Tensor  # (L, S_max, H, Dh)
+    v: torch.Tensor  # (L, S_max, H, Dh)
+    pos: int = 0
+
+    @classmethod
+    def zeros(cls, cfg: WhisperEncoderConfig, dtype=torch.float32, device=None):
+        shape = (cfg.num_layers, cfg.max_source_positions, cfg.num_heads, cfg.head_dim)
+        return cls(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+        )
+
+
+def _conv1d_valid(x, kernel, bias, stride: int):
+    """x (B, C_in, T), kernel (K, C_in, C_out), no padding -> (B, T_out,
+    C_out). x is cast to the kernel's dtype and the product accumulates in
+    fp32 (a matmul over the K x C_in patches, so no TF32 convolution can
+    apply), then the bias is added and the result cast back to x's dtype."""
+    K, C_in, C_out = kernel.shape
+    patches = x.to(kernel.dtype).unfold(2, K, stride)  # (B, C_in, T_out, K)
+    B, _, T_out, _ = patches.shape
+    patches = patches.permute(0, 2, 3, 1).reshape(B, T_out, K * C_in)
+    out = patches.float() @ kernel.reshape(K * C_in, C_out).float()
+    return (out + bias.float()).to(x.dtype)
+
+
+def encoder_stream_step(
+    params: Params,
+    state: EncoderStreamState,
+    mel_window: torch.Tensor,  # (n_mels, 2C+3): frames [2kC-2, 2(k+1)C+1)
+    n_valid: int,  # valid positions of this block: C, or fewer in the last
+    *,
+    cfg: WhisperEncoderConfig,
+    block_size: int,  # C, the latency block in encoder positions
+):
+    """One latency block of streaming encode. Writes the block's K/V into
+    ``state`` at ``state.pos`` and advances it by ``n_valid``; returns
+    (state, out (C, d_model)). Rows of out past ``n_valid`` are finite
+    garbage that the audio token count excludes, as the batch path's
+    padding positions are. The activations run in the window's dtype."""
+    C, pos = block_size, state.pos
+    H, Dh, D = cfg.num_heads, cfg.head_dim, cfg.d_model
+    x = F.gelu(_conv1d_valid(mel_window[None], params["conv1"]["kernel"],
+                             params["conv1"]["bias"], cfg.conv1_stride))
+    if pos == 0:
+        # the window's first conv1 column is index 2kC-1: at the stream's
+        # start that is conv2's zero padding in the batch path, not a conv1
+        # output (gelu(conv1(zero mel) + bias) is not 0)
+        x[:, 0] = 0
+    x = F.gelu(_conv1d_valid(x.transpose(1, 2), params["conv2"]["kernel"],
+                             params["conv2"]["bias"], cfg.conv2_stride))  # (1, C, D)
+    x = x + params["embed_positions"][pos: pos + C][None].to(x.dtype)
+    # every encoded position plus this block's valid ones; later blocks are
+    # not cached yet, so the latency mask needs no term of its own
+    kpos = torch.arange(state.k.shape[1], device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    bias = torch.where(kpos < pos + n_valid, zero, NEG_INF)[None, None, None]
+    layers = params["layers"]
+    for l in range(cfg.num_layers):
+        p = _layer(layers, l)
+        h = layer_norm(x, p["attn_ln"]["scale"], p["attn_ln"]["bias"])
+        if "qkv_proj" in p:  # the inference-fused tower
+            qkv = proj_apply(h, p["qkv_proj"]).reshape(1, C, 3, D)
+            q, k, v = qkv[:, :, 0], qkv[0, :, 1], qkv[0, :, 2]
+        else:
+            q, k, v = (proj_apply(h, p[n]) for n in ("q_proj", "k_proj", "v_proj"))
+            k, v = k[0], v[0]
+        state.k[l, pos: pos + C] = k.reshape(C, H, Dh)
+        state.v[l, pos: pos + C] = v.reshape(C, H, Dh)
+        attn = mha(q.reshape(1, C, H, Dh), state.k[l][None], state.v[l][None], bias=bias,
+                   scale=Dh**-0.5)
+        x = x + proj_apply(attn.reshape(1, C, D), p["out_proj"])
+        h = layer_norm(x, p["final_ln"]["scale"], p["final_ln"]["bias"])
+        x = x + proj_apply(F.gelu(proj_apply(h, p["fc1"])), p["fc2"])
+    out = layer_norm(x, params["layer_norm"]["scale"], params["layer_norm"]["bias"])[0]
+    state.pos = pos + int(n_valid)
+    return state, out

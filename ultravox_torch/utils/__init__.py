@@ -1,1 +1,2 @@
-"""Checkpoint addressing helpers (``wandb_utils``)."""
+"""Utilities: checkpoint addressing (``wandb_utils``), resampling
+(``audio``) and voice activity detection (``vad``)."""
