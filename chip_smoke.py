@@ -79,6 +79,11 @@ Phases, each fatal on failure:
      beside torch.mm (its factor printed), lora.py's w8a16 product and
      torch._weight_int8pack_mm; fused_layer_norm also at (1, 500, 768) bf16
      and (4, 500, 768) fp32 beside F.layer_norm, two calls bit-equal;
+     #11 and #12 at the speculative verify forward of phase 11 (q (4, 9,
+     32, 64), Hkv 8, 129-190 keys of a 2048-slot slab and of the same keys
+     in shuffled pages of 256, a 72-slot tail with 0-18 written), bf16
+     within 4 ulps of the plain versions, two runs bit-equal, timed beside
+     the bound and SDPA (their own rows of the kernels line);
   3. small configs (a llama-family speech model and a gemma-3-style decoder
      with sliding windows): greedy tokens from the kernel paths on the card
      equal those of the plain paths on the CPU (fp32) for generate with the
@@ -163,9 +168,26 @@ Phases, each fatal on failure:
      alone equal to submit; the voice WebSocket (two turns of 6 s paced
      at real time) through the streaming encoder (no launch of #1-#3),
      pause-to-first-token beside the batch path's TTFT, and the decode
-     step with and without concurrent stream steps.
+     step with and without concurrent stream steps;
+ 11. the front doors and speculative decoding on phase 4's weights (see
+     _front_doors_main_path and _spec_serving): a checkpoint directory with
+     a tokenizer over all 128256 ids (built here with ``tokenizers``, a
+     llama-3-style chat template written inline) read by the port's
+     loader; UltravoxInference's infer (launches of #1-#4 and #8 as phase
+     4's generate), infer_stream (TTFT), two conversation turns (the
+     second prefills only its suffix) and one pipeline() call; the server
+     built by api_server.build_api from argv with --spec-decode ngram
+     --spec-k 8 (the attention flags left to "auto", which picks every
+     kernel) on an ephemeral port, OpenAIInference plain and streamed
+     equal to submit on the same engine; phase 5's traffic on slots and
+     paged engines with the segment kernels, without speculation, with it
+     (guard off: #11 / #12 at T = 9 in multi-round blocks, launches checked
+     against the engine's counters) and with the default guard: tok/s,
+     TTFT, accepted tokens a round a slot, autopauses, every run's tokens
+     held to SPEC_MARGIN's rule at every position against a teacher-forced
+     forward, and the requests equal to the run without speculation.
 
-Phases 4-7 also hold ln_matmul_gelu, attn_out_proj_residual,
+Each phase prints its seconds. Phases 4-7 also hold ln_matmul_gelu, attn_out_proj_residual,
 decode_matmul, attn_v2 and attn_nt at 0 launches: no engine calls them.
 
 Prints the card's name and power limit, one JSON line with the kernels'
@@ -1280,6 +1302,86 @@ def _check_decode_kernels(da, sa, dev):
                   f"{r['bound_ms']:.5f} ms ({r['ms'] / r['bound_ms']:.1f}x), SDPA "
                   f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x), the one-block "
                   f"kernel {old} ms as recorded ({old / r['ms']:.2f}x this)", flush=True)
+    return rows
+
+
+def _check_spec_verify_kernels(sa, dev):
+    """Phase 2, continued: #11 and #12 at the speculative verify forward of
+    phase 11 (d): q (4, 9, 32, 64) (T = K+1 = 9, 36 query columns a KV
+    head), Hkv 8, prompt lengths 129-190 at layer 7 of the slots engine's
+    (16, 4, 2048, 8, 64) cache and of a (16, 32, 256, 8, 64) pool of
+    shuffled pages holding the same keys, a 72-slot tail (8 rounds of 9)
+    with 0, 6, 12 and 18 slots written. bf16, held against the plain
+    versions within _bf16_tol, two runs bit-equal, and timed beside the
+    bound and (for the slab) SDPA on the concatenated keys."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    B, T, H, Hkv, D, L, layer, S, Ts, ps = 4, 9, 32, 8, 64, 16, 7, 2048, 72, 256
+    bf = torch.bfloat16
+    scale = D**-0.5
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    q, kc, vc, tk, tv = r(B, T, H, D), r(L, B, S, Hkv, D), r(L, B, S, Hkv, D), r(B, Ts, Hkv, D), r(
+        B, Ts, Hkv, D)
+    lens = torch.tensor([129, 150, 171, 190], dtype=torch.int32, device=dev)
+    written = torch.tensor([0, 6, 12, 18], dtype=torch.int32, device=dev)
+    n_per = S // ps
+    table = torch.from_numpy(
+        np.random.default_rng(SEED + 9).permutation(B * n_per).astype(np.int32)).view(B, n_per)
+    table = table.to(dev)
+    kp = torch.empty((L, B * n_per, ps, Hkv, D), dtype=bf, device=dev)
+    vp = torch.empty_like(kp)
+    for b in range(B):
+        for i in range(n_per):
+            kp[:, table[b, i]] = kc[:, b, i * ps:(i + 1) * ps]
+            vp[:, table[b, i]] = vc[:, b, i * ps:(i + 1) * ps]
+    t = torch.arange(T, device=dev)[None, :, None]
+    ok_p = torch.arange(S, device=dev) < lens.long()[:, None, None]  # (B, 1, S)
+    ok_p = ok_p.expand(B, T, S)
+    ok_t = torch.arange(Ts, device=dev) <= written.long()[:, None, None] + t  # (B, T, Ts)
+    keys = int(ok_p.any(1).sum() + ok_t.any(1).sum())  # slots any query of a row sees
+    pairs = int(ok_p.sum() + ok_t.sum())  # visible (query, key) pairs, per head
+    k_cat = torch.cat([kc[layer], tk], dim=1).transpose(1, 2)
+    v_cat = torch.cat([vc[layer], tv], dim=1).transpose(1, 2)
+    mask = torch.cat([ok_p, ok_t], dim=-1)[:, None]
+    rows = []
+    record = _recorder(rows, _bf16_tol)
+    slab = lambda: sa.segment_tail_attention(q, kc, vc, layer, lens, tk, tv, written)  # noqa: E731
+    paged = lambda: sa.paged_segment_tail_attention(  # noqa: E731
+        q, kp, vp, layer, table, lens, tk, tv, written)
+    slab_plain = lambda: sa.segment_tail_attention_plain(  # noqa: E731
+        q, kc, vc, layer, lens, tk, tv, written, scale=scale)
+    paged_plain = lambda: sa.paged_segment_tail_attention_plain(  # noqa: E731
+        q, kp, vp, layer, table, lens, tk, tv, written, scale=scale)
+    out, again, out_p, again_p = slab(), slab(), paged(), paged()
+    ref, ref_p = slab_plain(), paged_plain()
+    torch.cuda.synchronize()
+    for name, o, a in (("segment_tail_attention", out, again),
+                       ("paged_segment_tail_attention", out_p, again_p)):
+        if not torch.equal(o, a):
+            _fail(f"{name} at T = 9: two runs differ")
+    if not torch.equal(ref, ref_p):
+        _fail("the plain versions of #11 and #12 differ on the same keys at T = 9")
+    kv_bytes = 2 * keys * Hkv * D * 2
+    flops = 4.0 * H * pairs * D
+    record("segment_tail_attention (T=9 spec verify)", "segment_attention_split_kernel",
+           "ultravox_torch/ops/kernels/csrc/segment_attention.cu",
+           "ultravox_tpu/ops/pallas/segment_attention.py:203", out, ref, slab, slab_plain,
+           lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k_cat, v_cat, attn_mask=mask,
+                                                  enable_gqa=True),
+           _nbytes(q, out, lens, written) + kv_bytes, flops, BF16_FLOPS)
+    record("paged_segment_tail_attention (T=9 spec verify)",
+           "paged_segment_attention_split_kernel",
+           "ultravox_torch/ops/kernels/csrc/segment_attention.cu",
+           "ultravox_tpu/ops/pallas/segment_attention.py:392", out_p, ref_p, paged, paged_plain,
+           None, _nbytes(q, out_p, lens, written, table) + kv_bytes, flops, BF16_FLOPS)
+    for row in rows:
+        print(f"kernel {row['name']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+              f"({row['ms'] / row['bound_ms']:.1f}x), plain {row['plain_ms']:.4f} ms, library "
+              f"{row['library_ms']} ms", flush=True)
     return rows
 
 
@@ -2764,18 +2866,27 @@ def main() -> None:
         _check_mma_build(_build, name, built[name])
     _check_split_build(built)
 
+    print(f"phase 1: {time.perf_counter() - t_script:.2f} s", flush=True)
+
     # 2. kernels against their plain versions
+    t0 = time.perf_counter()
     _check_attention(fa, eap, dev)
     rows = (_check_kernels(fa, ln_mod, dev) + _check_decode_kernels(da, sa, dev)
             + _check_paged_kernels(pa, pg, sa, da, dev) + _check_flash(fl, dev)
             + _check_unwired_kernels(fa, dm, dev))
+    t9_rows = _check_spec_verify_kernels(sa, dev)
+    rows += t9_rows
+    print(f"phase 2: {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. small end-to-end parity
+    t0 = time.perf_counter()
     _small_parity(tc, uv, GenerationEngine, dev)
     _small_train_parity(tc, dev)
     _small_lora_int8_parity(tc, uv, GenerationEngine, dev)
+    print(f"phase 3: {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 4. main path at flagship widths
+    t_phase4 = time.perf_counter()
     cfg = _flagship_config(tc)
     t0 = time.perf_counter()
     params = uv.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), torch.bfloat16, dev)
@@ -2898,7 +3009,10 @@ def main() -> None:
         "generate": (t_end - t_start) * 1e3, "generate_fused": (f_end - f_start) * 1e3,
         "kernel scan": (s_end - s_start) * 1e3})
 
+    print(f"phase 4: {time.perf_counter() - t_phase4:.2f} s", flush=True)
+
     # 5. the ServingEngine at flagship widths, on the same weights
+    t0 = time.perf_counter()
     counters.update({
         "paged_decode_attention": pa.paged_decode_attention,
         "paged_segment_tail_attention": sa.paged_segment_tail_attention,
@@ -2909,10 +3023,14 @@ def main() -> None:
         if row["name"] in serve_launches:
             row["launches"] = serve_launches[row["name"]]
 
+    print(f"phase 5: {time.perf_counter() - t0:.2f} s", flush=True)
+
     # 6. the training step at flagship widths, on weights of its own
     del engine
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     training, train_launches = _train_main_path(tc, uv, dev)
+    print(f"phase 6: {time.perf_counter() - t0:.2f} s", flush=True)
     for row in rows:
         if row["name"] in train_launches:
             row["launches"] = train_launches[row["name"]]
@@ -2948,6 +3066,12 @@ def main() -> None:
             row.setdefault("launches_per_path", {"main": row["launches"]})["voice http"] = (
                 voice_launches[row["name"]])
 
+    # 11. the front doors, main() and speculative decoding
+    front_doors, t9 = _front_doors_main_path(tc, uv, cfg, counters, prefill, launches, smi, dev)
+    for row in t9_rows:
+        row["launches"] = t9[row["name"].split(" ")[0]]
+        row["launches_note"] = "T = 9 launches in phase 11 (d)'s guard-off speculative run"
+
     print(f"chip_smoke: {time.perf_counter() - t_script:.2f} s in all", flush=True)
     print(smi, flush=True)
     print(json.dumps({
@@ -2955,7 +3079,7 @@ def main() -> None:
         "fused_first_token_ms": fused_ttft_ms, "fused_decode_tok_s": fused_tps,
         "scan_kernel_decode_tok_s": seg_tps, "serving": serving, "training": training,
         "lora_int8": lora_int8, "probes": probes, "checkpoint": checkpoint, "voice": voice,
-        "total_s": time.perf_counter() - t_script,
+        "front_doors": front_doors, "total_s": time.perf_counter() - t_script,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -3886,62 +4010,45 @@ STREAM_RMS_TOL_FP32 = 1e-4
 VOICE_FRAME = 1365  # the demo page's 4096-sample buffer at 48 kHz, at 16 kHz
 
 
-class _ByteTokenizer:
-    """Test scaffolding of the smoke run (the card's machine has no
-    tokenizer package): ids 0-255 are bytes, 256-259 the special tokens of
-    a fixed llama-3-style chat template, and any other id decodes as
-    "<id>". It has the methods UltravoxProcessor and ServingAPI call."""
+# a llama-3-style chat template, written here (nothing is downloaded)
+LLAMA3_CHAT_TEMPLATE = (
+    "{{ bos_token }}{% for message in messages %}"
+    "{% if message['role'] not in ['system', 'user', 'assistant'] %}"
+    "{{ raise_exception('roles must be system, user or assistant') }}{% endif %}"
+    "<|start_header_id|>{{ message['role'] }}<|end_header_id|>\n\n"
+    "{{ message['content'] | trim }}<|eot_id|>{% endfor %}"
+    "{% if add_generation_prompt %}<|start_header_id|>assistant<|end_header_id|>\n\n{% endif %}"
+)
 
-    SPECIAL = ("<|begin_of_text|>", "<|eot_id|>", "<|start_header_id|>", "<|end_header_id|>")
-    eos_token = "<|eot_id|>"
-    eos_token_id = pad_token_id = 257
 
-    def get_vocab(self):
-        vocab = {f"<0x{b:02X}>": b for b in range(256)}
-        vocab.update({s: 256 + i for i, s in enumerate(self.SPECIAL)})
-        return vocab
+def _write_flagship_tokenizer(out_dir: str, vocab_size: int = 128256) -> str:
+    """A tokenizer over the flagship's whole vocabulary, built here with
+    ``tokenizers`` and written as a checkpoint's tokenizer files
+    (tokenizer.json, tokenizer_config.json with LLAMA3_CHAT_TEMPLATE): a
+    byte-level BPE whose ids 0-255 are the byte alphabet, 256-127999
+    unmergeable tokens "t<id>" (so every id a random model emits decodes
+    to text) and 128000-128255 llama-3's special tokens. Returns out_dir."""
+    from tokenizers import AddedToken, Tokenizer, decoders, models, pre_tokenizers
 
-    def _encode(self, text: str):
-        ids, i = [], 0
-        while i < len(text):
-            for j, s in enumerate(self.SPECIAL):
-                if text.startswith(s, i):
-                    ids.append(256 + j)
-                    i += len(s)
-                    break
-            else:
-                ids.extend(text[i].encode("utf-8"))
-                i += 1
-        return ids
-
-    def __call__(self, text, add_special_tokens=False):
-        if isinstance(text, str):
-            return {"input_ids": self._encode(text)}
-        return {"input_ids": [self._encode(t) for t in text]}
-
-    def apply_chat_template(self, messages, tokenize=False, add_generation_prompt=True):
-        out = "<|begin_of_text|>" + "".join(
-            f"<|start_header_id|>{m['role']}<|end_header_id|>\n\n{m['content']}<|eot_id|>"
-            for m in messages)
-        if add_generation_prompt:
-            out += "<|start_header_id|>assistant<|end_header_id|>\n\n"
-        return out
-
-    def decode(self, ids, skip_special_tokens=False):
-        parts, buf = [], bytearray()
-        for t in (int(t) for t in ids):
-            if t < 256:
-                buf.append(t)
-                continue
-            parts.append(buf.decode("utf-8", errors="replace"))
-            buf = bytearray()
-            if t < 256 + len(self.SPECIAL):
-                if not skip_special_tokens:
-                    parts.append(self.SPECIAL[t - 256])
-            else:
-                parts.append(f"<{t}>")
-        parts.append(buf.decode("utf-8", errors="replace"))
-        return "".join(parts)
+    n_special = 256
+    alphabet = sorted(pre_tokenizers.ByteLevel.alphabet())
+    vocab = {ch: i for i, ch in enumerate(alphabet)}
+    vocab.update({f"t{i}": i for i in range(len(vocab), vocab_size - n_special)})
+    tok = Tokenizer(models.BPE(vocab=vocab, merges=[]))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    names = {0: "<|begin_of_text|>", 1: "<|end_of_text|>", 6: "<|start_header_id|>",
+             7: "<|end_header_id|>", 9: "<|eot_id|>"}
+    tok.add_special_tokens([
+        AddedToken(names.get(i, f"<|reserved_special_token_{i}|>"), special=True,
+                   normalized=False) for i in range(n_special)])
+    os.makedirs(out_dir, exist_ok=True)
+    tok.save(os.path.join(out_dir, "tokenizer.json"))
+    with open(os.path.join(out_dir, "tokenizer_config.json"), "w") as f:
+        json.dump({"bos_token": "<|begin_of_text|>", "eos_token": "<|eot_id|>",
+                   "chat_template": LLAMA3_CHAT_TEMPLATE, "clean_up_tokenization_spaces": False,
+                   "tokenizer_class": "PreTrainedTokenizerFast"}, f)
+    return out_dir
 
 
 class _WsClient:
@@ -4046,7 +4153,8 @@ def _voice_main_path(tc, uv, cfg, counters, per_call, smi, dev):
     100 encoder positions, as training/configs/streaming_tinyllama_tpu.yaml
     of the JAX package), served by a paged bf16 ServingEngine (phase 5
     (a)'s settings) behind api_server.make_handler on 127.0.0.1, with the
-    byte-level tokenizer above.
+    flagship tokenizer of _write_flagship_tokenizer read by the port's
+    loader.
 
       1. StreamingAudioEncoder on 10 s of speech in frames of 1365 samples.
          finalize()'s bf16 embeddings against the plain batch block-causal
@@ -4080,11 +4188,13 @@ def _voice_main_path(tc, uv, cfg, counters, per_call, smi, dev):
     Returns (metrics, launches of #1/#2/#3/#9/#12 in step 2's plain round)."""
     import base64
     import dataclasses
+    import tempfile
     import threading
     from http.server import ThreadingHTTPServer
 
     from ultravox_torch.data.sample import audio_to_wav_bytes
     from ultravox_torch.inference.serving import api_server
+    from ultravox_torch.models.tokenizer import load_tokenizer
     from ultravox_torch.inference.serving.engine import ServingEngine
     from ultravox_torch.inference.streaming import StreamingAudioEncoder
     from ultravox_torch.models.processor import DataCollatorWithAudio, UltravoxProcessor
@@ -4168,7 +4278,9 @@ def _voice_main_path(tc, uv, cfg, counters, per_call, smi, dev):
     del tree32, emb32, ref32
 
     # 2. HTTP
-    tok = _ByteTokenizer()
+    with tempfile.TemporaryDirectory() as tok_dir:
+        tok = load_tokenizer(_write_flagship_tokenizer(tok_dir))
+    tok.pad_token = tok.eos_token
     processor = UltravoxProcessor(tok, num_mel_bins=80, stack_factor=scfg.stack_factor)
     collator = DataCollatorWithAudio(pad_token_id=tok.pad_token_id, mel_pad_multiple=500)
     api = api_server.ServingAPI(engine, processor, collator)
@@ -4427,6 +4539,457 @@ def _voice_main_path(tc, uv, cfg, counters, per_call, smi, dev):
     metrics["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 10: {metrics['phase_s']:.2f} s", flush=True)
     return metrics, http_launches
+
+
+# --------------------------------------------------------------------------
+# phase 11: the offline front doors, main() and speculative decoding
+# --------------------------------------------------------------------------
+
+# Speculative greedy tokens against the same engine without speculation:
+# in exact arithmetic the two are equal; in bf16 a verify forward at T = 9
+# rounds otherwise than a single step, so the two may part where the top
+# two logits are close. The rule, at every generated position of every run
+# (with and without speculation): one teacher-forced bf16 forward of the
+# run's own tokens gives the logits there, and the emitted token must be
+# their argmax or lie less than SPEC_MARGIN below it. 0.09375 is 6 bf16
+# ulps at logits in [2, 4): above the largest top-2 margin at a first
+# difference seen on the card (0.0625) and below the median top-2 margin
+# of this traffic (0.1641), so a token picked at random would fail.
+SPEC_MARGIN = 0.09375
+
+
+def _stream_equal(streamed: str, full: str) -> bool:
+    """Streamed text against the whole decode: equal, but for a trailing
+    U+FFFD (bytes not valid UTF-8) that a stream holds back and never
+    sends."""
+    return streamed == full or (full.endswith("\ufffd") and full.startswith(streamed))
+
+
+def _wait_idle(engine, timeout: float = 60.0) -> None:
+    """Until the loop has nothing active, queued or in flight: a request's
+    last event can come before the loop has processed the lagged
+    dispatches behind it, which still feed the speculation guard."""
+    t_end = time.perf_counter() + timeout
+    while (engine._active or engine._inflight or engine._prefilling
+           or not engine._pending.empty() or not engine._cancels.empty()):
+        if time.perf_counter() > t_end:
+            _fail("the serving loop did not go idle")
+        time.sleep(0.005)
+    time.sleep(0.05)  # the tick that saw the last entry go
+
+
+def _reset_spec_guard(engine) -> None:
+    """The engine's speculation guard back to its cold start, once the loop
+    is idle."""
+    _wait_idle(engine)
+    engine._reset_spec_guard()
+
+
+def _spec_stats(engine) -> dict:
+    return {k: getattr(engine, k) for k in (
+        "spec_dispatches", "spec_single_dispatches", "spec_probe_dispatches", "spec_syncs",
+        "spec_autopauses", "spec_rows", "spec_accepted_sum", "spec_emitted_tokens",
+        "spec_wasted_tokens")}
+
+
+def _teacher_forced(params, cfg, batch, tokens, prompt_len: int, dev):
+    """(top-1 minus top-2 logit, argmax, top-1 minus the emitted token's
+    logit) at each generated position of ``tokens`` (n rows of
+    new_tokens), from one bf16 forward of prompt + tokens[:-1] without a
+    cache (the plain attention)."""
+    from ultravox_torch.models import decoder as decoder_lib
+
+    toks = np.asarray(tokens, np.int64)
+    ids = np.concatenate([batch["input_ids"], toks[:, :-1]], axis=1)
+    b = {k: torch.as_tensor(v).to(dev) for k, v in dict(
+        batch, input_ids=ids, attention_mask=np.ones_like(ids)).items()}
+    n, T = ids.shape
+    lm, tc = params["language_model"], cfg.text_config
+    with torch.inference_mode():
+        from ultravox_torch.models import ultravox as uv
+
+        emb = uv.ultravox_embed(params, cfg, b["input_ids"], b, encoder_attn_impl="fused")
+        hidden, _ = decoder_lib.decoder_forward(
+            lm, tc, inputs_embeds=emb, positions=torch.arange(T, device=dev)[None].expand(n, T),
+            kv_valid_len=torch.full((n,), T, dtype=torch.int32, device=dev), return_hidden=True)
+        logits = decoder_lib.compute_logits(lm, tc, hidden[:, prompt_len - 1:]).float()
+        top2 = logits.topk(2, dim=-1).values
+        emitted = logits.gather(-1, torch.as_tensor(toks, device=dev)[..., None])[..., 0]
+        return ((top2[..., 0] - top2[..., 1]).cpu().numpy(), logits.argmax(-1).cpu().numpy(),
+                (top2[..., 0] - emitted).cpu().numpy())
+
+
+def _check_greedy_tokens(label, params, cfg, batch, tokens, prompt_len, dev):
+    """SPEC_MARGIN's rule at every position of one run; returns (positions
+    off the teacher's argmax, their largest gap, the top-2 margins)."""
+    margins, argmax, gaps = _teacher_forced(params, cfg, batch, tokens, prompt_len, dev)
+    off = argmax != np.asarray(tokens)
+    worst = np.unravel_index(int(np.argmax(gaps)), gaps.shape)
+    if not gaps[worst] < SPEC_MARGIN:
+        _fail(f"{label}: request {worst[0]} emitted at position {worst[1]} a token "
+              f"{gaps[worst]:.4f} below the teacher-forced top logit (the bound is {SPEC_MARGIN})")
+    return int(off.sum()), float(gaps.max()), margins
+
+
+def _first_differences(spec_tokens, base_tokens, margins):
+    """(requests fully equal, first differences from the run without
+    speculation, each with its top-2 margin there)."""
+    equal, parts = 0, []
+    for i, (a, b) in enumerate(zip(spec_tokens, base_tokens)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            equal += len(a) == len(b)
+        else:
+            parts.append((i, j, float(margins[i][j])))
+    return equal, parts
+
+
+def _spec_serving(params, cfg, counters, per_call, smi, dev):
+    """Phase 11 (d): phase 5's traffic (8 greedy requests, 10 s of audio in
+    a 128-token prompt, 32 tokens, 4 slots, chunks of 64, blocks of 8, the
+    segment kernels in blocks) on two engines, slots + kernel and paged +
+    kernel, each run three ways in turn: without speculation, with
+    spec_decode="ngram" (K 8) and the health guard off (spec_min_accept 0,
+    so multi-round speculative blocks run: #11 / #12 at T = 9), and with the
+    default guard (cold-start probe of single rounds, then multi-round or a
+    pause). Each run: launches against the engine's counters,
+
+        blocks = (decode steps - decode dispatches) / 7,
+        singles = decode dispatches - blocks,
+        single-round spec = spec_single_dispatches + spec_probe_dispatches,
+        multi-round rounds = spec_dispatches - single-round spec,
+        #8 / #9 = 16 x singles, #11 / #12 = 16 x (8 x blocks + multi-round
+        rounds), #4 = 16 x prefill chunks, #1-#3 per admission,
+
+    (a single-round verify is decoder_forward at T = 9 against the cache:
+    the plain attention, no kernel), tok/s, TTFT p50, accepted tokens a
+    round a slot, spec dispatches and autopauses; the speculative tokens
+    and every run's tokens under SPEC_MARGIN's rule at every position, with
+    the requests equal to the run without speculation counted.
+
+    Returns (metrics, #11 and #12 launches at T = 9 in the guard-off runs)."""
+    from ultravox_torch.inference.serving.engine import ServingEngine
+    from ultravox_torch.ops.mel import log_mel_spectrogram
+
+    n_req, seconds, prompt_len, new_tokens, K = 8, 10.0, 128, 32, 8
+    L_dec = cfg.text_config.num_layers
+    rng = np.random.default_rng(SEED + 5)  # phase 5's requests
+    mel = log_mel_spectrogram(torch.from_numpy(_audio(n_req, seconds, rng)).to(dev))
+    batch = _batch(cfg, mel, prompt_len, rng)
+    warm_ids = batch["input_ids"][:2] % (cfg.vocab_size - 1) + 1  # other prompts: no reuse
+    warm = [_row(dict(batch, input_ids=warm_ids), i) for i in range(2)]
+    requests = [_row(batch, i) for i in range(n_req)]
+    encoder = {name: per_call[name] * n_req for name in
+               ("fused_layer_norm", "ln_qkv_head_fused", "attention_headmajor")}
+    metrics, t9 = {}, {}
+    for label, mode, single_k, block_k in (
+            ("slots+kernel", "slots", "decode_attention", "segment_tail_attention"),
+            ("paged+kernel", "paged", "paged_decode_attention", "paged_segment_tail_attention")):
+        runs = {}
+        for variant, spec_kw in (("no spec", {}),
+                                 ("spec", dict(spec_decode="ngram", spec_k=K, spec_min_accept=0)),
+                                 ("spec+guard", dict(spec_decode="ngram", spec_k=K))):
+            srv = ServingEngine(
+                params, cfg, num_slots=4, max_seq_len=2048, page_size=256, cache_mode=mode,
+                prefill_chunk_tokens=64, decode_block_steps=K, encoder_attn_impl="fused",
+                prefill_attn_impl="fused", decode_attn_impl="kernel", block_attn_impl="kernel",
+                device=dev, **spec_kw)
+            try:
+                _serve(srv, warm, 12)
+                _wait_idle(srv)
+                if srv.spec_decode:
+                    srv._reset_spec_guard()
+                st0 = _spec_stats(srv)
+                for c in counters.values():
+                    c.launches = 0
+                for stat in ("stat_decode_dispatches", "stat_decode_steps", "stat_prefill_chunks"):
+                    setattr(srv, stat, 0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _serve(srv, requests, new_tokens)
+                wall = time.perf_counter() - t0
+                launches = {name: c.launches for name, c in counters.items()}
+                _check_pages(srv, f"spec serving {label} {variant}")
+            finally:
+                srv.stop()
+            disp, steps, chunks = (srv.stat_decode_dispatches, srv.stat_decode_steps,
+                                   srv.stat_prefill_chunks)
+            st = {k: v - st0[k] for k, v in _spec_stats(srv).items()}
+            del srv
+            torch.cuda.empty_cache()
+            name = f"spec serving {label}, {variant}"
+            if (steps - disp) % (K - 1):
+                _fail(f"{name}: {steps} steps in {disp} dispatches is no mix of 1 and {K}")
+            blocks = (steps - disp) // (K - 1)
+            singles = disp - blocks
+            single_rounds = st["spec_single_dispatches"] + st["spec_probe_dispatches"]
+            multi = st["spec_dispatches"] - single_rounds
+            want = {n: 0 for n in counters}
+            want.update(encoder)
+            want["fused_attention"] = L_dec * chunks
+            want[single_k] = L_dec * singles
+            want[block_k] = L_dec * (K * blocks + multi)
+            print(f"{name}: {disp} decode dispatches ({singles} single steps, {blocks} blocks of "
+                  f"{K}), {st['spec_dispatches']} speculative rounds ({single_rounds} single-round "
+                  f"dispatches, {multi} rounds in multi-round blocks), {chunks} prefill chunks; "
+                  f"launches {launches} expected {want}", flush=True)
+            for n, c in launches.items():
+                if c != want[n]:
+                    _fail(f"{name}: {n} launched {c} times, expected {want[n]}")
+            if variant == "spec" and multi == 0:
+                _fail(f"{name}: no multi-round speculative block ran")
+            for i, (ids, finish, _) in enumerate(out):
+                if finish != "length" or len(ids) != new_tokens:
+                    _fail(f"{name}: request {i} finished {finish!r} with {len(ids)} tokens")
+                if any(not 0 <= t < cfg.vocab_size for t in ids):
+                    _fail(f"{name}: token id out of range")
+            ttft = sorted(t * 1e3 for _, _, t in out)
+            acc = st["spec_accepted_sum"] / st["spec_rows"] if st["spec_rows"] else None
+            runs[variant] = {
+                "tokens": [ids for ids, _, _ in out], "output_tok_s": n_req * new_tokens / wall,
+                "wall_ms": wall * 1e3, "ttft_p50_ms": float(np.median(ttft)),
+                "ttft_max_ms": ttft[-1], "decode_dispatches": disp, "single_steps": singles,
+                "blocks": blocks, "prefill_chunks": chunks, "multi_round_rounds": multi,
+                "t9_launches": L_dec * multi, "accepted_per_round_per_slot": acc, **st,
+            }
+            print(f"{name}: {n_req} requests x {new_tokens} tokens in {wall * 1e3:.3f} ms "
+                  f"({n_req * new_tokens / wall:.2f} tok/s); TTFT p50 {np.median(ttft):.3f} ms, max "
+                  f"{ttft[-1]:.3f} ms; accepted tokens a round a slot {acc}; speculative rounds "
+                  f"{st['spec_dispatches']}, autopauses {st['spec_autopauses']}; {block_k} at T = 9 "
+                  f"{L_dec * multi} launches; {smi}", flush=True)
+        base = runs["no spec"]["tokens"]
+        for variant, run in runs.items():
+            off, worst, margins = _check_greedy_tokens(
+                f"spec serving {label}, {variant}", params, cfg, batch, run["tokens"], prompt_len,
+                dev)
+            run["off_argmax"], run["largest_gap"] = off, worst
+            print(f"spec serving {label}, {variant}: {n_req * new_tokens - off} of "
+                  f"{n_req * new_tokens} tokens are the teacher-forced argmax, the largest gap "
+                  f"below it {worst:.6f} (bound {SPEC_MARGIN}); top-2 margin p10/p50 "
+                  f"{np.percentile(margins, 10):.4f} / {np.median(margins):.4f}", flush=True)
+            if variant == "no spec":
+                base_margins = margins
+        for variant in ("spec", "spec+guard"):
+            equal, parts = _first_differences(runs[variant]["tokens"], base, base_margins)
+            runs[variant]["requests_equal"] = equal
+            runs[variant]["first_differences"] = parts
+            print(f"spec serving {label}, {variant}: {equal} of {n_req} requests equal to the run "
+                  f"without speculation; first differences (request, position, top-2 margin) "
+                  f"{parts}; tok/s {runs[variant]['output_tok_s']:.2f} "
+                  f"against {runs['no spec']['output_tok_s']:.2f}, TTFT p50 "
+                  f"{runs[variant]['ttft_p50_ms']:.3f} against {runs['no spec']['ttft_p50_ms']:.3f} "
+                  f"ms", flush=True)
+        for r_ in runs.values():
+            del r_["tokens"]
+        metrics[label] = runs
+        t9[block_k] = runs["spec"]["t9_launches"]
+    return metrics, t9
+
+
+def _front_doors_main_path(tc, uv, cfg, counters, per_call, gen_launches, smi, dev):
+    """Phase 11: the front doors and speculative decoding at flagship width
+    on phase 4's weights (remade from the seed).
+
+      (a) A checkpoint directory: save_pretrained of the bf16 tree and the
+          tokenizer of _write_flagship_tokenizer (128256 ids, a llama-3-style
+          chat template written inline).
+      (b) UltravoxInference(dir) on the card (the fused encoder, the fused
+          prefill, the decode kernel): infer on 10 s of audio, its launches
+          of #1-#4 and #8 checked against phase 4's generate (12/12/12/16,
+          16 a decode step); infer_stream, chunks printed and joined equal
+          to infer's text, stats and TTFT; two conversation turns, the
+          second prefilling only its suffix (printed); one
+          ultravox_torch.pipeline(dir) call on int16 audio.
+      (c) The command-line server: api_server.build_api with --spec-decode
+          ngram --spec-k 8 at 8192 positions (auto: paged, every kernel,
+          bf16), served by make_server on
+          an ephemeral port; OpenAIInference plain and streamed on two
+          clips, each alone with the prefix reuse off and the guard reset,
+          equal to submit of the batch the server built, on the same engine.
+      (d) _spec_serving.
+
+    Returns (metrics, #11 / #12 launches at T = 9 in (d))."""
+    import tempfile
+    import threading
+
+    import ultravox_torch
+    from ultravox_torch.data.sample import VoiceSample
+    from ultravox_torch.inference.serving import api_server
+    from ultravox_torch.inference.ultravox_infer import UltravoxInference
+    from ultravox_torch.tools.infer_api import OpenAIInference
+    from ultravox_torch.tools.publish import save_pretrained
+
+    t_phase = time.perf_counter()
+    metrics = {}
+    L_dec, new_tokens = cfg.text_config.num_layers, 32
+    rng = np.random.default_rng(SEED + 11)
+    clips = _audio(2, 10.0, rng)
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {name: c.launches for name, c in counters.items()}
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        # (a) the checkpoint directory
+        params = uv.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), torch.bfloat16,
+                                dev)
+        t0 = time.perf_counter()
+        save_pretrained(params, cfg, ckpt, dtype=None)
+        _write_flagship_tokenizer(ckpt, cfg.vocab_size)
+        del params
+        torch.cuda.empty_cache()
+        print(f"front doors (a): checkpoint with tokenizer written in "
+              f"{time.perf_counter() - t0:.3f} s: {sorted(os.listdir(ckpt))}", flush=True)
+
+        # (b) the offline doors
+        t0 = time.perf_counter()
+        inf = UltravoxInference(ckpt, max_cache_len=1024)
+        load_s = time.perf_counter() - t0
+        if len(inf.tokenizer) != cfg.vocab_size or inf.tokenizer.eos_token_id != 128009:
+            _fail(f"front doors: the tokenizer has {len(inf.tokenizer)} ids, eos "
+                  f"{inf.tokenizer.eos_token_id}")
+        sample = VoiceSample.from_prompt_and_audio("Transcribe the following audio: <|audio|>",
+                                                   clips[0])
+        inf.infer(sample, max_tokens=2)  # warm-up
+        out, secs, launches = counted(lambda: inf.infer(sample, max_tokens=new_tokens))
+        sampled = out.output_tokens + (out.output_tokens < new_tokens)  # a stop token was sampled
+        want = {name: 0 for name in counters}
+        want.update(per_call)
+        want["decode_attention"] = L_dec * (sampled - 1)
+        print(f"front doors (b) infer: {out.input_tokens} prompt tokens, {out.output_tokens} "
+              f"generated in {secs * 1e3:.3f} ms (load {load_s:.3f} s); text {out.text[:60]!r}; "
+              f"launches {launches} expected {want}; phase 4's generate {gen_launches}", flush=True)
+        for name, n in launches.items():
+            if n != want[name]:
+                _fail(f"front doors infer: {name} launched {n} times, expected {want[name]}")
+        if sampled == new_tokens and any(launches[k] != gen_launches.get(k, 0) for k in want):
+            _fail("front doors infer: launches differ from phase 4's generate")
+        t0 = time.perf_counter()
+        msgs = list(inf.infer_stream(sample, max_tokens=new_tokens))
+        stream_s = time.perf_counter() - t0
+        stats, chunks = msgs[-1], [m.text for m in msgs[:-1]]
+        if not _stream_equal("".join(chunks), out.text):
+            _fail("front doors: the streamed chunks do not join to infer's text")
+        print(f"front doors (b) infer_stream: {len(chunks)} chunks {chunks[:4]}...; stats "
+              f"{stats}; TTFT {stats.ttft_s * 1e3:.3f} ms, "
+              f"{stats.output_tokens / stats.total_s:.2f} tok/s, {stream_s * 1e3:.3f} ms; {smi}",
+              flush=True)
+        inf.conversation_mode = True
+        inf.update_conversation()
+        turn1 = inf.infer(sample, max_tokens=new_tokens)
+        pre1 = inf.last_prefilled_tokens
+        turn2 = inf.infer(VoiceSample.from_prompt("Now say that again, shorter."),
+                          max_tokens=new_tokens)
+        pre2 = inf.last_prefilled_tokens
+        print(f"front doors (b) conversation: turn 1 prefilled {pre1} of {turn1.input_tokens} "
+              f"tokens, turn 2 {pre2} of {turn2.input_tokens} (its suffix); texts "
+              f"{turn1.text[:40]!r} / {turn2.text[:40]!r}", flush=True)
+        # turn 2's prompt starts with turn 1's whole prompt, which is cached
+        if not (pre1 == turn1.input_tokens and 0 < pre2 <= turn2.input_tokens - turn1.input_tokens):
+            _fail("front doors: the second conversation turn did not reuse the first's cache")
+        inf.conversation_mode = False
+        inf.update_conversation()
+        t0 = time.perf_counter()
+        pipe = ultravox_torch.pipeline(ckpt, max_cache_len=1024)
+        text = pipe({"audio": (clips[1] * 32767).astype(np.int16), "sampling_rate": 16000,
+                     "prompt": "What is said here?"}, max_new_tokens=new_tokens)
+        print(f"front doors (b) pipeline: {text[:60]!r} in {time.perf_counter() - t0:.3f} s "
+              "(load included)", flush=True)
+        del pipe
+        metrics["offline"] = {
+            "load_s": load_s, "infer_ms": secs * 1e3, "infer_tokens": out.output_tokens,
+            "stream_ttft_ms": stats.ttft_s * 1e3, "stream_total_ms": stats.total_s * 1e3,
+            "stream_chunks": len(chunks), "conversation_prefilled": [pre1, pre2],
+            "conversation_prompt_tokens": [turn1.input_tokens, turn2.input_tokens],
+            "launches": launches,
+        }
+
+        # (d) speculative serving, on the loaded tree
+        metrics["spec_serving"], t9 = _spec_serving(inf.engine.params, cfg, counters, per_call,
+                                                    smi, dev)
+        del inf
+        torch.cuda.empty_cache()
+
+        # (c) the command-line server
+        # the attention flags left to "auto": on the card at 16 MiB of KV a
+        # layer (8192 positions) it picks every kernel, the block kernel too
+        api, args = api_server.build_api([
+            "--model", ckpt, "--host", "127.0.0.1", "--port", "0", "--num-slots", "4",
+            "--max-seq-len", "8192", "--page-size", "256", "--spec-decode", "ngram",
+            "--spec-k", "8"])
+        eng = api.engine
+        kernels = {"cache_mode": "paged", "decode_attn_impl": "kernel",
+                   "prefill_attn_impl": "fused", "encoder_attn_impl": "fused",
+                   "block_attn_impl": "kernel", "decode_block_steps": 8}
+        if (eng.spec_decode != "ngram" or eng.spec_k != 8 or eng.resolved_flags != kernels
+                or eng.cache.k.dtype != torch.bfloat16):
+            _fail(f"front doors: build_api made {eng.resolved_flags}, spec {eng.spec_decode}, "
+                  f"cache {eng.cache.k.dtype}")
+        eng.min_reuse_tokens = 1 << 30  # every prefill starts at 0
+        submitted = []
+        submit = eng.submit
+
+        def spy(batch, **kw):
+            req = submit(batch, **kw)
+            submitted.append((batch, req))
+            return req
+
+        eng.submit = spy
+        server = api_server.make_server(api, args.host, args.port)
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            client = OpenAIInference(f"http://127.0.0.1:{port}", model="ultravox-torch",
+                                     timeout=600)
+            client.infer(sample, max_tokens=4)  # warm-up
+            http = []
+            for i, clip in enumerate(clips):
+                s_i = VoiceSample.from_prompt_and_audio("Transcribe: <|audio|>", clip)
+                del submitted[:]
+                _reset_spec_guard(eng)
+                t0 = time.perf_counter()
+                plain = client.infer(s_i, max_tokens=new_tokens)
+                plain_s = time.perf_counter() - t0
+                _reset_spec_guard(eng)
+                t0 = time.perf_counter()
+                parts = list(client.infer_stream(s_i, max_tokens=new_tokens))
+                stream_s = time.perf_counter() - t0
+                streamed = "".join(p.text for p in parts[:-1])
+                batch, req = submitted[0]
+                _reset_spec_guard(eng)
+                again = submit(dict(batch), max_tokens=new_tokens)
+                ids = [ev.token_id for ev in eng.stream(again, timeout=600)
+                       if ev.token_id is not None]
+                direct = api.tokenizer.decode(ids, skip_special_tokens=True)
+                ttft = (req.first_token_time - req.submit_time) * 1e3
+                http.append({"ttft_ms": ttft, "plain_ms": plain_s * 1e3,
+                             "stream_ms": stream_s * 1e3, "tokens": plain.output_tokens})
+                print(f"front doors (c) request {i}: HTTP plain {plain.text[:40]!r} "
+                      f"({plain.output_tokens} tokens, {plain_s * 1e3:.3f} ms, engine TTFT "
+                      f"{ttft:.3f} ms), streamed in {len(parts) - 1} chunks ({stream_s * 1e3:.3f} "
+                      f"ms), submit {direct[:40]!r}; {smi}", flush=True)
+                if not (plain.text == direct and _stream_equal(streamed, direct)):
+                    _fail(f"front doors (c): HTTP plain {plain.text!r}, streamed {streamed!r} "
+                          f"and submit {direct!r} differ")
+            st = _spec_stats(eng)
+            print(f"front doors (c): the server's speculation {st}", flush=True)
+            metrics["server"] = {"requests": http, "spec": st}
+        finally:
+            server.shutdown()
+            server.server_close()
+            eng.stop()
+            thread.join(timeout=30)
+        del api, eng
+        torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 11: {metrics['phase_s']:.2f} s", flush=True)
+    return metrics, t9
 
 
 def _to_float(tree):

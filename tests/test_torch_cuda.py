@@ -1352,6 +1352,49 @@ def test_split_kernels_at_the_serving_slab(cuda_device, dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("window", [0, 32])
+def test_segment_kernels_at_the_spec_verify_shape(cuda_device, dt, window):
+    """#11 and #12 at the speculative verify forward of the flagship: q (4,
+    9, 32, 64) (T = K+1 = 9, 36 query columns a KV head), Hkv 8, a 2048-slot
+    slab with 129-190 keys (and the same keys in shuffled pages of 256), a
+    72-slot tail (8 rounds) with 0, 6, 12 and 18 slots written; within
+    tolerance of the plain versions, one launch a call, two runs bit-equal,
+    paged equal to the slab."""
+    dtype = DTYPES[dt]
+    lens = [129, 150, 171, 190]
+    q, kc, vc, tk, tv, n, _ = _split_segment(cuda_device, dtype, 64, 4, 9, 2048, 72, lens,
+                                             seed=5, Hkv=8)
+    written = torch.tensor([0, 6, 12, 18], dtype=torch.int32, device=cuda_device)
+    before = tsa.segment_tail_attention.launches
+    out, again = (tsa.segment_tail_attention(q, kc, vc, 1, n, tk, tv, written, window)
+                  for _ in range(2))
+    ref = tsa.segment_tail_attention_plain(q, kc, vc, 1, n, tk, tv, written, window, scale=0.125)
+    ps, n_per = 256, 8
+    order = torch.from_numpy(np.random.default_rng(6).permutation(4 * n_per).astype(np.int32))
+    table = order.view(4, n_per).to(cuda_device)
+    kp = torch.empty((2, 4 * n_per, ps, 8, 64), dtype=dtype, device=cuda_device)
+    vp = torch.empty_like(kp)
+    for b in range(4):
+        for i in range(n_per):
+            kp[:, table[b, i]] = kc[:, b, i * ps:(i + 1) * ps]
+            vp[:, table[b, i]] = vc[:, b, i * ps:(i + 1) * ps]
+    before_p = tsa.paged_segment_tail_attention.launches
+    out_p, again_p = (tsa.paged_segment_tail_attention(q, kp, vp, 1, table, n, tk, tv, written,
+                                                       window) for _ in range(2))
+    ref_p = tsa.paged_segment_tail_attention_plain(q, kp, vp, 1, table, n, tk, tv, written,
+                                                   window, scale=0.125)
+    torch.cuda.synchronize()
+    assert tsa.segment_tail_attention.launches == before + 2
+    assert tsa.paged_segment_tail_attention.launches == before_p + 2
+    for o, a, r_ in ((out, again, ref), (out_p, again_p, ref_p)):
+        assert o.shape == (4, 9, 32, 64) and o.dtype == dtype
+        assert float((o.float() - r_.float()).abs().max()) <= _kv_tol(dtype, r_)
+        assert torch.equal(o, a)
+    assert torch.equal(ref, ref_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("window", [0, 8, 32])
 def test_split_kernels_ignore_hidden_slots(cuda_device, dt, window):
     """1e4 in every cache and tail slot that no query of a row sees moves

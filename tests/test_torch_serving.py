@@ -8,7 +8,7 @@ and the kernels' plain versions; a gemma-3-style decoder with sliding
 windows likewise in paged mode. Then stop tokens inside a block, sampled
 requests beside greedy ones, cancellation, pool backpressure, conversation
 reuse, ``_resolve_auto`` against JAX's, every request option accepted, and
-the engine options that are not ported (multi-LoRA and int8 serving: tests/test_torch_lora_serving.py and
+the engine options that are not ported or are checked elsewhere (multi-LoRA and int8 serving: tests/test_torch_lora_serving.py and
 tests/test_torch_int8.py). Page accounting is checked after every paged run.
 """
 
@@ -291,11 +291,19 @@ def test_resolve_auto_matches_jax(setup, monkeypatch, on_card):
     dict(mesh=object()), dict(encoder_attn_impl="bogus"),
 ])
 def test_unported_engine_options_raise(setup, kw):
-    """Speculative decoding and meshes are not ported (NotImplementedError);
-    an unknown quantize mode or encoder_attn_impl and adapters without LoRA
-    leaves raise ValueError, as in the JAX package (int8 and multi-LoRA
-    serving run: tests/test_torch_int8.py, tests/test_torch_lora_serving.py)."""
+    """Meshes are not ported (NotImplementedError); an unknown quantize mode
+    or encoder_attn_impl and adapters without LoRA leaves raise ValueError,
+    as in the JAX package (int8 and multi-LoRA serving run:
+    tests/test_torch_int8.py, tests/test_torch_lora_serving.py).
+    Speculative decoding is ported (tests/test_torch_spec_decode.py): "ngram"
+    constructs and an unknown mode raises ValueError."""
     _, tcfg, _, tparams, _, _ = setup
+    if "spec_decode" in kw:
+        eng = tserve.ServingEngine(tparams, tcfg, device="cpu", **kw)
+        assert eng.spec_decode == "ngram" and eng.token_hist is not None
+        with pytest.raises(ValueError, match="spec_decode"):
+            tserve.ServingEngine(tparams, tcfg, device="cpu", spec_decode="bogus")
+        return
     if "quantize" in kw or "lora_adapters" in kw or "encoder_attn_impl" in kw:
         with pytest.raises(ValueError, match="quantize|no lora_a|encoder_attn_impl"):
             tserve.ServingEngine(tparams, tcfg, device="cpu", **kw)

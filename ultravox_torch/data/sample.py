@@ -1,9 +1,13 @@
-"""WAV codecs for 16 kHz mono float32 audio, without librosa: the
-``soundfile`` package where present, else the stdlib ``wave`` module."""
+"""``VoiceSample``, the data record of the offline front doors (chat
+``messages`` + float32 16 kHz mono ``audio``), and WAV codecs for such audio
+without librosa: the ``soundfile`` package where present, else the stdlib
+``wave`` module."""
 
 from __future__ import annotations
 
+import dataclasses
 import io
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -51,3 +55,48 @@ def audio_to_wav_bytes(audio: np.ndarray, sample_rate: int = SAMPLE_RATE) -> byt
         w.setframerate(sample_rate)
         w.writeframes(pcm.tobytes())
     return buf.getvalue()
+
+
+def normalize_audio_dtype(audio: np.ndarray) -> np.ndarray:
+    """int16 / int32 / float64 audio to float32 in [-1, 1]."""
+    audio = np.asarray(audio)
+    if audio.dtype == np.float32:
+        return audio
+    if audio.dtype == np.float64:
+        return audio.astype(np.float32)
+    if audio.dtype == np.int16:
+        return (audio / np.float32(32768.0)).astype(np.float32)
+    if audio.dtype == np.int32:
+        return (audio / np.float32(2147483648.0)).astype(np.float32)
+    raise ValueError(f"unsupported audio dtype {audio.dtype}")
+
+
+@dataclasses.dataclass
+class VoiceSample:
+    """A chat conversation with optional audio bound to an ``<|audio|>``
+    placeholder in one of the messages."""
+
+    messages: List[Dict[str, str]]
+    audio: Optional[np.ndarray] = None
+    sample_rate: int = SAMPLE_RATE
+    audio_transcript: Optional[str] = None
+    label: Optional[str] = None
+    extra_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.audio is not None:
+            self.audio = normalize_audio_dtype(self.audio)
+
+    @classmethod
+    def from_prompt(cls, prompt: str) -> "VoiceSample":
+        return cls(messages=[{"role": "user", "content": prompt}])
+
+    @classmethod
+    def from_prompt_and_audio(
+        cls, prompt: str, audio: np.ndarray, sample_rate: int = SAMPLE_RATE
+    ) -> "VoiceSample":
+        if "<|audio|>" not in prompt:
+            prompt = "<|audio|>\n" + prompt if prompt else "<|audio|>"
+        return cls(messages=[{"role": "user", "content": prompt}], audio=audio,
+                   sample_rate=sample_rate)
+

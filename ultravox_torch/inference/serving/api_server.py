@@ -15,8 +15,17 @@ Stdlib http.server with a thread pool: the engine serialises decode work on
 its own thread, so the HTTP layer only shuttles tokens. The voice
 WebSocket's streaming encoder runs on its handler's thread, on the same
 CUDA stream as the engine (the default stream), so the two serialise on
-the device. ``serve`` is the entry point; the caller builds the engine,
-the processor (which carries the tokenizer) and the collator.
+the device.
+
+From the command line (the CUDA card unless ``--device cpu``):
+
+    python -m ultravox_torch.inference.serving.api_server --model DIR \
+        [--spec-decode ngram --spec-k 8] [--device cpu]
+
+``build_api(argv)`` builds the ``ServingAPI`` from those flags without
+starting it; ``serve`` blocks, ``make_server`` binds and returns the server.
+A caller with its own engine, processor (which carries the tokenizer) and
+collator builds ``ServingAPI`` directly.
 """
 
 from __future__ import annotations
@@ -731,11 +740,130 @@ def make_handler(api: ServingAPI):
     return Handler
 
 
-def serve(api: ServingAPI, host: str = "0.0.0.0", port: int = 8000):
+def make_server(api: ServingAPI, host: str = "0.0.0.0", port: int = 8000) -> ThreadingHTTPServer:
+    """Start the engine and bind the HTTP server (``port=0`` picks a free
+    port: ``server.server_address[1]``); the caller runs
+    ``serve_forever``, then ``shutdown`` and ``api.engine.stop()``."""
     api.engine.start()
-    server = ThreadingHTTPServer((host, port), make_handler(api))
-    logger.info("serving on %s:%d", host, port)
+    try:
+        server = ThreadingHTTPServer((host, port), make_handler(api))
+    except Exception:
+        api.engine.stop()
+        raise
+    logger.info("serving on %s:%d", host, server.server_address[1])
+    return server
+
+
+def serve(api: ServingAPI, host: str = "0.0.0.0", port: int = 8000):
+    """Serve until interrupted (the entry point of ``main``)."""
+    server = make_server(api, host, port)
     try:
         server.serve_forever()
     finally:
+        server.server_close()
         api.engine.stop()
+
+
+def build_api(argv=None):
+    """(ServingAPI, parsed args) from command-line arguments: the checkpoint
+    and its tokenizer loaded (``load_ultravox_checkpoint``,
+    ``load_tokenizer``) and the engine built from the flags, not started."""
+    import argparse
+
+    from ultravox_torch.inference.engine import resolve_device
+    from ultravox_torch.inference.serving.engine import ServingEngine
+    from ultravox_torch.inference.ultravox_infer import load_ultravox_checkpoint
+    from ultravox_torch.models.processor import DataCollatorWithAudio, UltravoxProcessor
+    from ultravox_torch.models.tokenizer import load_tokenizer
+
+    parser = argparse.ArgumentParser(
+        description="OpenAI-protocol HTTP server and voice WebSocket over the port's "
+        "ServingEngine, from an Ultravox checkpoint directory")
+    parser.add_argument("--model", required=True,
+                        help="checkpoint directory (config.json, safetensors, tokenizer.json), "
+                        "hf://repo or wandb://entity/project/artifact:vN")
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--device", default=None,
+                        help="torch device; default the CUDA card, in bf16 (cpu runs the plain "
+                        "versions, in fp32)")
+    parser.add_argument("--num-slots", type=int, default=16)
+    parser.add_argument("--max-seq-len", type=int, default=4096)
+    parser.add_argument(
+        "--encoder-attn", default="auto", choices=["auto", "xla", "fused"],
+        help="fused = the fused encoder (fused_layer_norm, ln_qkv_head_fused, "
+        "attention_headmajor kernels; auto: fused on the card)")
+    parser.add_argument(
+        "--decode-attn", default="auto", choices=["auto", "xla", "kernel"],
+        help="kernel = the decode_attention / paged_decode_attention kernels, which read "
+        "only each row's valid cache (auto: kernel on the card from 4 MiB of KV a layer)")
+    parser.add_argument(
+        "--prefill-attn", default="auto", choices=["auto", "xla", "fused"],
+        help="fused = the causal fused_attention prefill kernel (auto: on the card from "
+        "1K contexts)")
+    parser.add_argument(
+        "--decode-block", type=int, default=None,
+        help="decode steps (speculative rounds) a dispatch in steady state (default 8); "
+        ">1 spreads the host's dispatch cost at the price of up to block-1 wasted steps "
+        "a finished request")
+    parser.add_argument(
+        "--quantize", default=None, choices=[None, "int8"],
+        help="int8 = int8 decoder weights with a per-channel scale (half the weight bytes)")
+    parser.add_argument(
+        "--cache-mode", default="auto", choices=["auto", "slots", "paged"],
+        help="paged = a shared KV page pool with per-request page tables (conversation "
+        "reuse copies pages on adoption; auto: paged from 1K contexts)")
+    parser.add_argument("--page-size", type=int, default=256)
+    parser.add_argument(
+        "--num-pages", type=int, default=None,
+        help="KV pool size in pages (default: the slot mode's token count; a smaller pool "
+        "trades memory for admission backpressure)")
+    parser.add_argument(
+        "--spec-decode", default=None, choices=[None, "ngram"],
+        help="ngram = prompt-lookup speculative decoding: greedy requests emit up to "
+        "spec-k+1 tokens a verify forward when the output repeats earlier text; a health "
+        "guard pauses it while drafts miss")
+    parser.add_argument("--spec-k", type=int, default=8)
+    args = parser.parse_args(argv)
+    dev = resolve_device(args.device)
+    dtype = torch.float32 if dev.type == "cpu" else torch.bfloat16
+    # base sub-models first, the checkpoint last; a diff checkpoint that
+    # leaves a tower at random init raises
+    cfg, params, model_dir = load_ultravox_checkpoint(args.model, dtype, device=dev)
+    tokenizer = load_tokenizer(model_dir)
+    if tokenizer.pad_token_id is None:
+        tokenizer.pad_token = tokenizer.eos_token
+    processor = UltravoxProcessor(
+        tokenizer, num_mel_bins=cfg.audio_config.num_mel_bins, stack_factor=cfg.stack_factor)
+    collator = DataCollatorWithAudio(
+        pad_token_id=tokenizer.pad_token_id,
+        max_audio_len=processor.audio_context_size or 3000,
+    )
+    engine = ServingEngine(
+        params, cfg,
+        num_slots=args.num_slots,
+        max_seq_len=args.max_seq_len,
+        cache_dtype=dtype,
+        encoder_attn_impl=args.encoder_attn,
+        decode_attn_impl=args.decode_attn,
+        prefill_attn_impl=args.prefill_attn,
+        quantize=args.quantize,
+        decode_block_steps=args.decode_block,
+        cache_mode=args.cache_mode,
+        page_size=args.page_size,
+        num_pages=args.num_pages,
+        spec_decode=args.spec_decode,
+        spec_k=args.spec_k,
+        device=dev,
+    )
+    return ServingAPI(engine, processor, collator), args
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO)
+    api, args = build_api(argv)
+    serve(api, host=args.host, port=args.port)
+
+
+if __name__ == "__main__":
+    main()

@@ -51,8 +51,25 @@ of these (``_needs_single_step``), decode runs single steps only: no
 K-step blocks. Precomputed ``audio_embeds`` (the streaming voice path)
 skip the audio tower: the text is embedded and the embeddings spliced in.
 
-Out of scope (each raises ``NotImplementedError`` at construction):
-speculative decoding and meshes.
+Prompt-lookup speculative decoding (``spec_decode="ngram"``): in steady
+state a dispatch drafts ``spec_k`` tokens per slot from the slot's token
+history on the card (``_ngram_drafts``: the continuation of the most recent
+earlier occurrence of the history's last n-gram), verifies them in one
+(K+1)-token forward and emits the accepted run (``_spec_accept``: an argmax
+match for greedy rows, rejection sampling for sampled ones), 1 to K+1
+tokens a slot a round. With cache headroom a dispatch runs several rounds
+(``_spec_decode_block``: ``decoder.segmented_spec_scan``, the segment
+kernels #11 / #12 with ``block_attn_impl="kernel"``); otherwise one round
+(``_spec_decode_all_slots``: ``decoder_forward`` at T = K+1 against the
+cache, with the plain ``mha`` attention, over the gathered view of the
+pages in paged mode). A health guard pauses speculation while the windowed
+acceptance is below ``spec_min_accept`` tokens a round a slot and re-probes
+every ``spec_probe_period`` dispatches, backing off after failed probes;
+the engine starts in that probe mode (single rounds). Requests that need
+single steps (``_needs_single_step``) disengage it, as they do blocks.
+
+Out of scope: meshes (``mesh`` raises ``NotImplementedError`` at
+construction).
 """
 
 from __future__ import annotations
@@ -86,6 +103,7 @@ from ultravox_torch.ops.sampling import (
     apply_penalties,
     sample_slots,
     sampling_flags,
+    spec_accept_slots,
     token_logprobs,
 )
 
@@ -351,20 +369,26 @@ class ServingEngine:
         prefill_attn_impl: str = "auto",  # "fused": the fused_attention prefill kernel
         quantize: Optional[str] = None,
         lora_adapters: Optional[Dict[str, Any]] = None,
-        spec_decode: Optional[str] = None,
+        spec_decode: Optional[str] = None,  # "ngram": prompt-lookup speculative decoding
+        spec_k: int = 8,  # drafted tokens a speculative round
+        spec_ngram: int = 2,  # the longest history n-gram matched (down to 1)
+        spec_min_accept: float = 1.35,  # accepted tokens a round a slot below
+        # which speculation pauses (a verify round costs more than a decode
+        # step); 0 disables the guard
+        spec_probe_period: int = 512,  # dispatches between re-probes while paused
         mesh=None,
         device=None,
     ):
         """Runs on the CUDA card unless ``device="cpu"``. ``"auto"`` options
         resolve in ``_resolve_auto``; explicit values override."""
-        unported = [
-            name for name, on in (
-                ("spec_decode (speculative decoding)", spec_decode not in (None, "none", "")),
-                ("mesh (sharded serving)", mesh is not None),
-            ) if on
-        ]
-        if unported:
-            raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
+        if mesh is not None:
+            raise NotImplementedError("not ported yet: mesh (sharded serving)")
+        if spec_decode in ("none", ""):
+            spec_decode = None
+        if spec_decode not in (None, "ngram"):
+            raise ValueError(f"unsupported spec_decode={spec_decode!r}")
+        if spec_decode and (int(spec_k) < 1 or int(spec_ngram) < 1):
+            raise ValueError("spec_k and spec_ngram must be >= 1")
         if quantize and quantize != "int8":
             raise ValueError(f"unsupported quantize={quantize!r}")
         self.device = resolve_device(device)
@@ -497,6 +521,52 @@ class ServingEngine:
         # optional measurement hook: set to a list and _emit appends one
         # monotonic timestamp per emitted token, on the loop thread
         self.token_time_log: Optional[list] = None
+
+        # prompt-lookup speculative decoding: drafts come from a token
+        # history on the card, so consecutive speculative dispatches need no
+        # host state; the history is uploaded again from the host's tokens
+        # only when it went stale (a non-speculative dispatch ran, or the
+        # active set changed)
+        self.spec_decode = spec_decode
+        self.spec_k = int(spec_k)
+        self.spec_ngram = int(spec_ngram)
+        self.spec_emitted_tokens = 0  # tokens emitted by speculative dispatches
+        self.spec_dispatches = 0  # speculative rounds dispatched
+        self.spec_syncs = 0  # history uploads (each after a drain)
+        self.spec_sync_s = 0.0  # host time in those drains and uploads
+        self.spec_single_dispatches = 0  # one-round dispatches outside probe mode
+        self.spec_wasted_tokens = 0  # accepted, then dropped (request finished)
+        # the acceptance health guard: mean accepted tokens a round a slot
+        # over a window of dispatches; below spec_min_accept speculation
+        # pauses, and re-probes after spec_probe_period dispatches
+        self.spec_min_accept = float(spec_min_accept)
+        self.spec_probe_period = max(1, int(spec_probe_period))
+        self.spec_rows = 0  # rounds x active slots (the mean's denominator)
+        self.spec_accepted_sum = 0  # accepted tokens, wasted ones included
+        self.spec_autopauses = 0  # times the guard paused speculation
+        self._dispatch_count = 0  # decode and speculative dispatches (the probe clock)
+        # a probe (after a pause, and at a cold start) runs single rounds
+        # and decides on a small window; failed probes double the period up
+        # to _spec_backoff_cap times, a healthy one re-engages multi-round
+        # dispatches
+        self._spec_probe_evidence_rounds = 4
+        self._spec_backoff_cap = 8
+        self._reset_spec_guard()
+        self.spec_probe_dispatches = 0
+        self.token_hist: Optional[torch.Tensor] = None
+        if spec_decode:
+            self.token_hist = torch.zeros((num_slots, max_seq_len), dtype=torch.int32, device=dev)
+            # multi-round speculative blocks: up to decode_block_steps rounds
+            # a dispatch, in halving depths as the cache headroom shrinks
+            self.spec_rounds = max(1, self.decode_block_steps)
+            self._spec_round_buckets: List[int] = []
+            nr = self.spec_rounds
+            while nr > 1:
+                self._spec_round_buckets.append(nr)
+                nr //= 2
+        self._hist_dirty = True
+        self._spec_key = None  # the (slot, request_id) set the history matches
+        self._spec_cache = None  # (key, active mask, samp, sampled, filtered, lora index)
 
         self._pending: "queue.Queue[Request]" = queue.Queue()
         self._cancels: "queue.Queue[int]" = queue.Queue()
@@ -775,6 +845,8 @@ class ServingEngine:
         (slots, pages, pins, retained prefixes, in-flight dispatches)."""
         self._inflight.clear()
         self._mask_cache = None
+        self._spec_cache = None
+        self._spec_key = None
         with self._lock:
             while not self._pending.empty():
                 try:
@@ -841,6 +913,8 @@ class ServingEngine:
                 logger.exception("decode step failed; failing active requests")
                 self._inflight.clear()  # results are worthless now
                 self._mask_cache = None
+                self._spec_cache = None
+                self._spec_key = None
                 for slot, req in list(self._active.items()):
                     req.out_queue.put(StreamEvent(token_id=None, finish_reason="error"))
                     del self._active[slot]
@@ -1208,14 +1282,27 @@ class ServingEngine:
         # blocks engage only in steady-state decode (no prefill work, nothing
         # queued): under churn they would delay admissions by K steps
         churn = bool(self._prefilling) or not self._pending.empty()
-        lag = sum(e[3] for e in self._inflight if e[0] == "decode")
+        lag = sum(
+            e[3] if e[0] == "decode" else e[4] if e[0] == "spec" else 0 for e in self._inflight
+        )
         cap = self.max_seq_len - 1 - max(
             r.prompt_len + r.generated for r in self._active.values()
         )
         # penalties, logprobs and sampled seeds are exact only on single
-        # steps: blocks disengage while any active request needs them (each
-        # such request was active, so single-stepped, from its first token)
+        # steps: blocks and speculation disengage while any active request
+        # needs them (each such request was active, so single-stepped, from
+        # its first token)
         single = any(_needs_single_step(r) for r in self._active.values())
+        # speculation: steady state only, with the worst case of K+1 tokens a
+        # slot inside the cache headroom (as blocks)
+        if (self.spec_decode and not churn and not single and not self._spec_paused()
+                and cap - lag >= self.spec_k + 1):
+            if self._dispatch_spec(cap - lag):
+                while len(self._inflight) > self._max_inflight:
+                    self._process_oldest_decode()
+            # False: the drain before the history upload finished every
+            # active request; either way this tick's decision is made
+            return
         n_steps = 1
         if (self.decode_block_steps > 1 and not churn and not single
                 and cap - lag >= self.decode_block_steps):
@@ -1244,6 +1331,8 @@ class ServingEngine:
         current active set; its device result and the active-set snapshot go
         on ``_inflight`` for lagged processing."""
         t_disp = time.monotonic()
+        self._hist_dirty = True  # the card's histories miss these tokens
+        self._dispatch_count += 1
         self.stat_decode_dispatches += 1
         self.stat_decode_steps += n_steps
         slots = sorted(self._active)
@@ -1313,6 +1402,161 @@ class ServingEngine:
         self.stat_dispatch_s += time.monotonic() - t_disp
         self._inflight.append(("decode", toks, snapshot, n_steps, lp))
 
+    def _reset_spec_guard(self):
+        """The health guard's cold start: probe mode when the guard is on, no
+        pause, an empty window and no failed probes. Outside the constructor,
+        call it only while the loop has nothing active or in flight, so that
+        runs compared token for token see the same schedule."""
+        self._spec_window: "collections.deque" = collections.deque(maxlen=32)
+        self._spec_paused_flag = False
+        self._spec_resume_at = 0
+        self._spec_probe_mode = self.spec_min_accept > 0
+        self._spec_fail_streak = 0
+
+    def _spec_paused(self) -> bool:
+        """True while the health guard holds speculation off. The pause ends
+        after its period of dispatches, in probe mode (single rounds, a small
+        window), so a workload that turns repetitive is found again."""
+        if not self._spec_paused_flag:
+            return False
+        if self._dispatch_count >= self._spec_resume_at:
+            self._spec_paused_flag = False
+            self._spec_probe_mode = True
+            self._spec_window.clear()
+            return False
+        return True
+
+    def _spec_health_update(self, rounds: int, rows: int, accepted: int):
+        """Feed one processed speculative dispatch's accepted counts to the
+        window; pause speculation when the window's mean says verify rounds
+        emit too few tokens to beat decode steps."""
+        self.spec_rows += rows
+        self.spec_accepted_sum += accepted
+        if self.spec_min_accept <= 0:
+            return
+        self._spec_window.append((rounds, rows, accepted))
+        total_rounds = sum(w[0] for w in self._spec_window)
+        need = self._spec_probe_evidence_rounds if self._spec_probe_mode else 24
+        if total_rounds < need:
+            return  # not enough evidence yet
+        total_rows = sum(w[1] for w in self._spec_window)
+        mean = sum(w[2] for w in self._spec_window) / max(total_rows, 1)
+        if mean < self.spec_min_accept:
+            if self._spec_probe_mode:
+                # a failed probe: back off exponentially
+                self._spec_fail_streak += 1
+            period = self.spec_probe_period * min(
+                2 ** max(self._spec_fail_streak - 1, 0), self._spec_backoff_cap)
+            self._spec_paused_flag = True
+            self._spec_probe_mode = False
+            self._spec_resume_at = self._dispatch_count + period
+            self._spec_window.clear()
+            self.spec_autopauses += 1
+            logger.info(
+                "speculation paused: windowed acceptance %.2f tok/round/slot < %.2f floor "
+                "(re-probe after %d dispatches)", mean, self.spec_min_accept, period)
+        elif self._spec_probe_mode:
+            # a healthy probe: multi-round speculation again, no backoff
+            self._spec_probe_mode = False
+            self._spec_fail_streak = 0
+
+    def _sync_spec_hist(self):
+        """Upload the active slots' token histories (prompt and everything
+        emitted). Called only after a drain, when the host's tokens are
+        exact: a history holds cache_lens + 1 tokens (the last sampled token
+        is in it but not yet in the cache)."""
+        hist = np.zeros((self.num_slots, self.max_seq_len), np.int32)
+        for s, req in self._active.items():
+            toks = np.concatenate(
+                [req.token_ids, np.asarray(req.emitted_ids, np.int32)])[: self.max_seq_len]
+            hist[s, : len(toks)] = toks
+        self.token_hist = self._upload(hist)
+        self._hist_dirty = False
+
+    def _dispatch_spec(self, headroom: int) -> bool:
+        """Queue one speculative dispatch: a multi-round block when
+        ``headroom`` (cache capacity less the in-flight lag) covers its worst
+        case, else one round. Returns False when the drain before the
+        history upload finished every active request."""
+        key = tuple((s, self._active[s].request_id) for s in sorted(self._active))
+        if self._hist_dirty or self._spec_key != key:
+            # the card's history is stale: retire in-flight work so the
+            # host's tokens are exact, then upload
+            t_sync = time.monotonic()
+            self.spec_syncs += 1
+            self._drain_decodes()
+            if not self._active:
+                return False
+            headroom = self.max_seq_len - 1 - max(
+                r.prompt_len + r.generated for r in self._active.values())
+            if headroom < self.spec_k + 1:
+                # the drain brought a request to the cache edge, where a
+                # round could lose accepted tokens' k/v
+                self.spec_sync_s += time.monotonic() - t_sync
+                self._dispatch_decode(1)
+                return True
+            self._sync_spec_hist()
+            # the set the upload covered (the drain may have finished some)
+            key = tuple((s, self._active[s].request_id) for s in sorted(self._active))
+            self._spec_key = key
+            self.spec_sync_s += time.monotonic() - t_sync
+        t_disp = time.monotonic()
+        worst = self.spec_k + 1
+        n_rounds = 1
+        if self._spec_probe_mode:
+            self.spec_probe_dispatches += 1
+        elif self.spec_rounds > 1:
+            for nr in self._spec_round_buckets:
+                if headroom >= nr * worst:
+                    n_rounds = nr
+                    worst = nr * worst
+                    break
+            else:
+                self.spec_single_dispatches += 1
+        else:
+            self.spec_single_dispatches += 1
+        slots = sorted(self._active)
+        snapshot = [(s, self._active[s]) for s in slots]
+        if self._spec_cache is None or self._spec_cache[0] != key:
+            active_mask = np.zeros((self.num_slots,), bool)
+            active_mask[slots] = True
+            # greedy rows temperature 0 (argmax acceptance); sampled rows
+            # rejection-sample with their own filters
+            samp = np.zeros((self.num_slots, 4), np.float32)
+            samp[:, 2] = 1.0
+            lora_idx = np.zeros((self.num_slots,), np.int32)  # 0 = the base model
+            for s, req in snapshot:
+                samp[s] = (req.temperature, req.top_k, req.top_p, req.min_p)
+                if req.lora is not None:
+                    lora_idx[s] = self._lora_index[req.lora]
+            sampled, filtered = sampling_flags(samp)
+            self._spec_cache = (
+                key, self._upload(active_mask), self._upload(samp), sampled, filtered,
+                self._upload(lora_idx) if self._lora_banks is not None else None,
+            )
+        _, mask_dev, samp_dev, sampled, filtered, lora_idx_dev = self._spec_cache
+        lm = _with_lora(self.params["language_model"], self._lora_banks, lora_idx_dev)
+        tc = self.cfg.text_config
+        args = (lm, tc, self.cache, self.token_hist, self.last_tokens, self.cache_lens, mask_dev,
+                samp_dev, self.generator, sampled, filtered)
+        if n_rounds > 1:
+            block = _spec_decode_block_paged if self.paged else _spec_decode_block
+            extra = (self.page_table,) if self.paged else ()
+            out, accepted, self.cache_lens, self.last_tokens = block(
+                *args, *extra, K=self.spec_k, ngram=self.spec_ngram, n_rounds=n_rounds,
+                attn_impl=self._seg_attn_impl,
+            )
+        else:
+            out, accepted, self.cache_lens, self.last_tokens = _spec_decode_all_slots(
+                *args, K=self.spec_k, ngram=self.spec_ngram,
+                page_table=self.page_table if self.paged else None,
+            )
+        self.spec_dispatches += n_rounds
+        self._dispatch_count += 1
+        self.stat_dispatch_s += time.monotonic() - t_disp
+        self._inflight.append(("spec", out, accepted, snapshot, worst))
+        return True
+
     def _process_oldest_decode(self):
         """Fetch the oldest in-flight result and emit its tokens. Slots whose
         request finished in an earlier (lagged) dispatch, or was replaced by
@@ -1335,6 +1579,31 @@ class ServingEngine:
             lp_np = None if lp1 is None else tuple(x.cpu().numpy() for x in lp1)
             if self._active.get(req.slot) is req:
                 self._emit(req, tok_i, lp=_lp_row(lp_np, 0))
+            return
+        if entry[0] == "spec":
+            # each slot's accepted tokens, 1 to K+1 a round; a request that
+            # finished in an earlier (lagged) dispatch drops its columns
+            _, out, accepted, snapshot, _ = entry
+            out_np = out.cpu().numpy()
+            acc_np = accepted.cpu().numpy()
+            if out_np.ndim == 2:  # one round: (1, B, K+1)
+                out_np, acc_np = out_np[None], acc_np[None]
+            n_rounds = out_np.shape[0]
+            slots = [s for s, _ in snapshot]
+            self._spec_health_update(
+                n_rounds, n_rounds * max(len(slots), 1),
+                int(acc_np[:, slots].sum()) if slots else 0)
+            for r in range(n_rounds):
+                for s, req in snapshot:
+                    for j in range(int(acc_np[r, s])):
+                        if self._active.get(s) is not req:
+                            self.spec_wasted_tokens += int(acc_np[r, s]) - j
+                            break
+                        tok = int(out_np[r, s, j])
+                        if tok not in req.stop_token_ids:
+                            # a stop token finishes without being delivered
+                            self.spec_emitted_tokens += 1
+                        self._emit(req, tok)
             return
         _, toks, snapshot, _, lp = entry
         toks_np = toks.cpu().numpy()
@@ -1740,3 +2009,159 @@ def _decode_block_paged(
     new_lens = torch.where(active_mask, cache_lens + n_steps, cache_lens)
     new_last = torch.where(active_mask, new_toks[:, -1], tokens)
     return new_toks, new_lens, new_last
+
+
+# --------------------------------------------------------------------------
+# prompt-lookup speculative decoding (device programs)
+# --------------------------------------------------------------------------
+
+
+def _ngram_drafts(hist, hist_len, K: int, ngram: int, ngram_min: int = 1):
+    """Prompt-lookup drafts on the card: for each row, the K tokens that
+    followed the most recent earlier occurrence of the longest final n-gram
+    of its history (n from ``ngram`` down to ``ngram_min``). A row with no
+    match gets arbitrary drafts, which verification rejects at position 0
+    (the dispatch still emits its one certain token).
+
+    ``hist``: (B, S) int32 history; ``hist_len``: (B,) its valid tokens
+    (prompt and everything sampled). Returns (B, K) int32."""
+    B, S = hist.shape
+    dev = hist.device
+    hl = hist_len.long()
+    best_start = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    for n in range(ngram, ngram_min - 1, -1):
+        W = S - n + 1  # candidate window starts
+        jpos = torch.arange(W, device=dev)
+        # start j matches iff hist[j:j+n] equals the final n-gram and its
+        # continuation j+n is a known token (j < hl - n, which also keeps
+        # the final n-gram from matching itself)
+        m = jpos[None] < (hl - n)[:, None]
+        for t in range(n):
+            ctx_t = hist.gather(1, (hl - n + t).clamp(0, S - 1)[:, None])  # (B, 1)
+            m &= hist[:, t: t + W] == ctx_t
+        jstar = torch.where(m, jpos[None], -1).amax(dim=1)  # -1 = none
+        best_start = torch.where((best_start < 0) & (jstar >= 0), jstar + n, best_start)
+    start = best_start.clamp(0, max(S - K, 0))
+    cols = (start[:, None] + torch.arange(K, device=dev)[None]).clamp(max=S - 1)
+    return hist.gather(1, cols).to(torch.int32)
+
+
+def _spec_accept(logits, drafts, samp, generator, sampled: bool, filtered: bool, hist_len):
+    """The engine's acceptance rule: ``spec_accept_slots`` with the rows'
+    sampling parameters; emit position i of a row is position hist_len + i."""
+    return spec_accept_slots(logits, drafts, samp, generator, sampled=sampled, filtered=filtered,
+                             positions=hist_len)
+
+
+def _spec_decode_all_slots(
+    lm, tc, cache, hist, tokens, cache_lens, active_mask, samp, generator, sampled: bool,
+    filtered: bool, *, K: int, ngram: int, page_table=None,
+):
+    """One speculative round for every slot: K drafts a slot from the card's
+    history (``_ngram_drafts``), then ``[last_token, drafts]`` verified in
+    one (K+1)-token ``decoder_forward`` against the cache (the plain
+    ``mha``; in paged mode over the gathered view of each row's pages), and
+    the accepted run emitted. Every position's k/v is written; cache_lens
+    advances only past the accepted tokens, so rejected ones stay invisible
+    until overwritten. Inactive slots' writes go to spare storage and they
+    accept 0. The accepted tokens are appended to ``hist`` in place.
+    Returns (out (B, K+1), accepted (B,), new lengths, new last tokens)."""
+    B = tokens.shape[0]
+    T = K + 1
+    dev = tokens.device
+    hl = cache_lens + 1  # known tokens, the pending last token included
+    drafts = _ngram_drafts(hist, hl, K, ngram)
+    toks = torch.cat([tokens[:, None].to(torch.int32), drafts], dim=1)  # (B, T)
+    if page_table is not None:
+        max_len = page_table.shape[1] * cache.page_size
+    else:
+        max_len = cache.max_len
+    positions = cache_lens[:, None] + torch.arange(T, dtype=torch.int32, device=dev)[None]
+    write_pos = torch.where(active_mask, cache_lens, max_len)
+    logits, _ = decoder_lib.decoder_forward(
+        lm, tc, input_ids=toks, positions=positions, kv_valid_len=cache_lens + T, cache=cache,
+        page_table=page_table, write_pos=write_pos,
+    )
+    out, accepted = _spec_accept(logits, drafts, samp, generator, sampled, filtered, hl)
+    accepted = torch.where(active_mask, accepted, 0)
+    new_lens = cache_lens + accepted
+    bidx = torch.arange(B, device=dev)
+    new_last = torch.where(active_mask, out[bidx, accepted.clamp(min=1).long() - 1], tokens)
+    decoder_lib.append_accepted(hist, hl, out, accepted)
+    return out, accepted, new_lens, new_last
+
+
+def _spec_scan(lm, tc, prompt_cache, hist, tokens, cache_lens, samp, generator, sampled: bool,
+               filtered: bool, *, K: int, ngram: int, n_rounds: int, attn_impl: str,
+               page_table=None):
+    """``n_rounds`` rounds of ``decoder.segmented_spec_scan`` with the
+    engine's drafting and acceptance."""
+    return decoder_lib.segmented_spec_scan(
+        lm, tc, prompt_cache, cache_lens, tokens, hist,
+        lambda h, hl: _ngram_drafts(h, hl, K, ngram),
+        lambda logits, drafts, hl: _spec_accept(logits, drafts, samp, generator, sampled,
+                                                filtered, hl),
+        n_rounds=n_rounds, K=K, attn_impl=attn_impl, page_table=page_table,
+    )
+
+
+def _spec_decode_block(
+    lm, tc, cache, hist, tokens, cache_lens, active_mask, samp, generator, sampled: bool,
+    filtered: bool, *, K: int, ngram: int, n_rounds: int, attn_impl: str = "xla",
+):
+    """``n_rounds`` speculative rounds for every slot in one dispatch against
+    the slot cache (``segmented_spec_scan``: the cache is only read; with
+    ``attn_impl="kernel"`` through the ``segment_tail_attention`` kernel at
+    q (B, K+1, H, D)). The accepted tokens' tail k/v is then written at each
+    row's length; rejected positions and inactive slots go to the spare
+    position. Returns (outs (n_rounds, B, K+1), accepts (n_rounds, B), new
+    lengths, new last tokens)."""
+    outs, accepts, tail, written, last, _ = _spec_scan(
+        lm, tc, cache, hist, tokens, cache_lens, samp, generator, sampled, filtered, K=K,
+        ngram=ngram, n_rounds=n_rounds, attn_impl=attn_impl,
+    )
+    B = tokens.shape[0]
+    Ts = n_rounds * (K + 1)
+    dev = tokens.device
+    bidx = torch.arange(B, device=dev)[:, None]
+    t = torch.arange(Ts, device=dev)[None]
+    valid = (t < written.long()[:, None]) & active_mask[:, None]
+    tpos = torch.where(valid, cache_lens.long()[:, None] + t, cache.max_len).clamp(
+        max=cache.k.shape[2] - 1)
+    cache.k[:, bidx, tpos] = tail.k.to(cache.k.dtype)
+    cache.v[:, bidx, tpos] = tail.v.to(cache.v.dtype)
+    written = torch.where(active_mask, written, 0)
+    accepts = accepts * active_mask[None].to(accepts.dtype)
+    return outs, accepts, cache_lens + written, torch.where(active_mask, last, tokens)
+
+
+def _spec_decode_block_paged(
+    lm, tc, pool, hist, tokens, cache_lens, active_mask, samp, generator, sampled: bool,
+    filtered: bool, page_table, *, K: int, ngram: int, n_rounds: int, attn_impl: str = "xla",
+):
+    """Paged speculative rounds. With ``attn_impl="kernel"`` the verify
+    attention reads each row's pool pages directly
+    (``paged_segment_tail_attention``); otherwise the pages are gathered
+    once into a contiguous view (``gather_pages``) and the scan runs on it as
+    in slot mode. Either way the accepted tail publishes as one per-token
+    page scatter (rejected and inactive positions to the write-only page)."""
+    P, ps = pool.num_pages, pool.page_size
+    if attn_impl == "kernel":
+        prompt_cache, scan_table = pool, page_table
+    else:
+        vk, vv = _paged_view(pool, page_table)
+        prompt_cache, scan_table = decoder_lib.KVCache(k=vk, v=vv), None
+    outs, accepts, tail, written, last, _ = _spec_scan(
+        lm, tc, prompt_cache, hist, tokens, cache_lens, samp, generator, sampled, filtered, K=K,
+        ngram=ngram, n_rounds=n_rounds, attn_impl=attn_impl, page_table=scan_table,
+    )
+    Ts = n_rounds * (K + 1)
+    t = torch.arange(Ts, device=tokens.device)[None]
+    valid = (t < written.long()[:, None]) & active_mask[:, None]
+    pos = torch.where(valid, cache_lens.long()[:, None] + t, -1)
+    page, off = decoder_lib.paged_positions_to_indices(page_table, pos, ps, P)
+    pool.k[:, page, off] = tail.k.to(pool.k.dtype)
+    pool.v[:, page, off] = tail.v.to(pool.v.dtype)
+    written = torch.where(active_mask, written, 0)
+    accepts = accepts * active_mask[None].to(accepts.dtype)
+    return outs, accepts, cache_lens + written, torch.where(active_mask, last, tokens)

@@ -1,23 +1,27 @@
-"""Checkpoint resolution and loading for the port.
+"""Checkpoint resolution and loading, and ``UltravoxInference``.
 
-The counterpart of the JAX package's ``inference/ultravox_infer.py``
-(``resolve_checkpoint``, ``load_ultravox_checkpoint``): a published
-Ultravox checkpoint directory (``config.json`` + safetensors) loads into
-the port's parameter tree on the card, or on the CPU with
-``device="cpu"``. ``UltravoxInference``, which builds a ``transformers``
-tokenizer around a ``LocalInference`` engine, is not ported yet.
+``resolve_checkpoint`` and ``load_ultravox_checkpoint`` load a published
+Ultravox checkpoint directory (``config.json`` + safetensors) into the
+port's parameter tree on the card, or on the CPU with ``device="cpu"``.
+``UltravoxInference`` is a ``LocalInference`` built from such a directory:
+the checkpoint, its tokenizer (``models.tokenizer.load_tokenizer``, on
+``tokenizers`` and ``jinja2``) and the processor.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import torch
 
 from ultravox_torch.inference.engine import resolve_device
+from ultravox_torch.inference.infer import LocalInference
 from ultravox_torch.models import ultravox as uv
 from ultravox_torch.models import weights as weights_lib
 from ultravox_torch.models.config import UltravoxConfig
+from ultravox_torch.models.processor import UltravoxProcessor
+from ultravox_torch.models.tokenizer import load_tokenizer
 from ultravox_torch.utils import wandb_utils
 
 
@@ -104,3 +108,42 @@ def load_ultravox_checkpoint(
                 "load (pass strict=False to override)."
             )
     return cfg, params, model_dir
+
+
+class UltravoxInference(LocalInference):
+    """A LocalInference from a checkpoint reference (a directory,
+    ``hf://repo`` or ``wandb://...``), on the card unless ``device="cpu"``."""
+
+    def __init__(
+        self,
+        model_path: str,
+        *,
+        dtype=torch.bfloat16,
+        max_cache_len: int = 4096,
+        conversation_mode: bool = False,
+        mesh=None,
+        fused_greedy_decode: bool = False,
+        strict: bool = True,
+        quantize: Optional[str] = None,
+        device=None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError("mesh (sharded inference) is not ported yet")
+        dev = resolve_device(device)
+        cfg, params, model_dir = load_ultravox_checkpoint(model_path, dtype, strict=strict,
+                                                          device=dev)
+        tokenizer = load_tokenizer(model_dir)
+        tokenizer.padding_side = "right"
+        if tokenizer.pad_token_id is None:
+            tokenizer.pad_token = tokenizer.eos_token
+        # the port's towers are Whisper's (wav2vec2: ROADMAP.md queue A)
+        processor = UltravoxProcessor(
+            tokenizer,
+            num_mel_bins=getattr(cfg.audio_config, "num_mel_bins", 80),
+            stack_factor=cfg.stack_factor,
+        )
+        super().__init__(
+            params, cfg, processor, max_cache_len=max_cache_len,
+            conversation_mode=conversation_mode, cache_dtype=dtype,
+            fused_greedy_decode=fused_greedy_decode, quantize=quantize, device=dev,
+        )

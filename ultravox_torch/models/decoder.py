@@ -18,6 +18,8 @@ qwen-3's qk-norm.
 
 ``segmented_decode_scan`` is the one-call decode loop: a read-only prompt
 cache plus a small carried tail of the new tokens' k/v.
+``segmented_spec_scan`` is its speculative form: rounds of K drafted tokens
+verified in one (K+1)-token forward against the same two segments.
 """
 
 from __future__ import annotations
@@ -741,3 +743,147 @@ def segmented_decode_scan(
     if return_tail:
         return toks, tail
     return toks
+
+
+def append_accepted(hist: torch.Tensor, hist_len: torch.Tensor, out: torch.Tensor,
+                    accepted: torch.Tensor) -> None:
+    """hist[b, hist_len[b] + i] = out[b, i] for i < accepted[b], in place.
+    Positions past the history are dropped, as the JAX package's
+    ``mode="drop"`` scatter drops them; a select over the (B, S) history,
+    so no write needs a spare column or a host-side check."""
+    S, T = hist.shape[1], out.shape[1]
+    rel = torch.arange(S, device=hist.device)[None] - hist_len.long()[:, None]  # (B, S)
+    sel = (rel >= 0) & (rel < accepted.long()[:, None])
+    vals = out.to(hist.dtype).gather(1, rel.clamp(0, T - 1))
+    hist.copy_(torch.where(sel, vals, hist))
+
+
+def segmented_spec_scan(
+    params: Params,
+    cfg: DecoderConfig,
+    prompt_cache,  # KVCache (L, B, S, Hkv, Dh), read-only here, or with
+    # ``page_table`` a PagedKVCache pool read by the kernel
+    prompt_lens: torch.Tensor,  # (B,) valid positions in the cache
+    first_tokens: torch.Tensor,  # (B,) int32, pending (sampled, not written)
+    hist: torch.Tensor,  # (B, S_hist) int32 token history (prompt + sampled), updated in place
+    draft_fn: Callable,  # (hist, hist_len (B,)) -> (B, K) int32 drafts
+    accept_fn: Callable,  # (logits (B, T, V), drafts, positions (B,)) ->
+    #   (out (B, T) int32 emitted tokens, accepted (B,) in [1, T])
+    *,
+    n_rounds: int,
+    K: int,
+    attn_impl: str = "xla",  # "kernel" = the segment_tail_attention kernel
+    page_table: Optional[torch.Tensor] = None,  # kernel-only paged mode
+):
+    """``n_rounds`` speculative draft + verify rounds in one call. Each round
+    drafts K tokens from the carried history (``draft_fn``), verifies
+    ``[pending, draft_0 .. draft_{K-1}]`` in one (K+1)-token forward against
+    the read-only prompt cache plus a carried KV tail, and emits the tokens
+    ``accept_fn`` keeps. A row's tail holds its accepted tokens' k/v
+    contiguously: a round writes its K+1 tokens at ``written + i`` and the
+    next round overwrites the rejected ones.
+
+    ``attn_impl="xla"`` attends with ``_merged_attention``; ``"kernel"``
+    runs each layer's attention in ``segment_tail_attention`` with q of
+    (B, K+1, H, D), or with ``page_table`` in
+    ``paged_segment_tail_attention`` (the XLA form takes a gathered view, so
+    a page table with ``attn_impl="xla"`` raises ValueError). Sliding-window
+    layers mask by absolute distance in both forms.
+
+    Returns ``(outs (n_rounds, B, K+1), accepts (n_rounds, B), tail
+    KVCache (L, B, n_rounds * (K+1), Hkv, Dh), written (B,), last (B,),
+    hist)``: round r of row b emitted ``outs[r, b, :accepts[r, b]]``; tail
+    slots [0, written[b]) hold row b's accepted tokens' k/v; ``last`` is
+    each row's new pending token; ``hist`` (the argument, updated) carries
+    the accepted tokens appended."""
+    if attn_impl not in ("xla", "kernel"):
+        raise ValueError(f"unknown attn_impl={attn_impl!r}")
+    use_kernel = attn_impl == "kernel"
+    if use_kernel and cfg.attn_logit_softcapping is not None:
+        raise ValueError("the segment kernel does not softcap; use attn_impl='xla'")
+    if page_table is not None:
+        if not use_kernel:
+            raise ValueError("the paged segmented spec scan needs attn_impl='kernel'")
+        L, _, _, Hkv, Dh = prompt_cache.k.shape
+        B = first_tokens.shape[0]
+        S = page_table.shape[1] * prompt_cache.page_size
+    else:
+        L, B, _, Hkv, Dh = prompt_cache.k.shape
+        S = prompt_cache.max_len
+    T = K + 1
+    Ts = n_rounds * T
+    dev = prompt_cache.k.device
+    local = is_local_layer(cfg)
+    inv_g, inv_l = _inv_freqs(cfg, dev)
+    layers = params["layers"]
+    bidx = torch.arange(B, device=dev)[:, None]
+    seg_i = torch.arange(T, dtype=torch.int32, device=dev)  # in-segment query index
+    tail = KVCache(
+        k=torch.zeros((L, B, Ts, Hkv, Dh), dtype=prompt_cache.k.dtype, device=dev),
+        v=torch.zeros((L, B, Ts, Hkv, Dh), dtype=prompt_cache.v.dtype, device=dev),
+    )
+    lens = prompt_lens.to(device=dev, dtype=torch.int32).contiguous()
+    written = torch.zeros((B,), dtype=torch.int32, device=dev)
+    tok = first_tokens.to(torch.int32)
+    window = cfg.sliding_window
+    if not use_kernel:
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        kpos = torch.arange(S, device=dev)[None]  # (1, S)
+        tail_t = torch.arange(Ts, device=dev)  # tail key slot
+        # every query sits after the prompt: the prompt mask is the same
+        # for all of them
+        ok_p = kpos < lens[:, None]  # (B, S)
+        bias_p = torch.where(ok_p, zero, NEG_INF)[:, None]  # (B, 1, S)
+    outs, accepts = [], []
+    for _ in range(n_rounds):
+        hl = lens + written + 1  # known tokens, the pending one included
+        drafts = draft_fn(hist, hl)  # (B, K)
+        seg = torch.cat([tok[:, None], drafts.to(torch.int32)], dim=1)  # (B, T)
+        x = _scale_embeddings(cfg, embed_lookup(params, seg))
+        positions = (lens + written)[:, None] + seg_i[None]  # (B, T)
+        rope_g = rope_cos_sin(positions, inv_g)
+        rope_l = rope_cos_sin(positions, inv_l) if inv_l is not inv_g else rope_g
+        tpos_w = (written[:, None] + seg_i[None]).long()  # (B, T), in bounds
+        if not use_kernel:
+            # tail slot t visible to query i iff t <= written + i: the
+            # accepted tokens and in-segment causality; slots past it hold
+            # rejected drafts
+            q_slot = (written[:, None] + seg_i[None])[:, :, None]  # (B, T, 1)
+            ok_t = tail_t[None, None] <= q_slot  # (B, T, Ts)
+            biases = {False: (bias_p, torch.where(ok_t, zero, NEG_INF))}
+            if window is not None:
+                d_p = positions[:, :, None] - kpos[:, None]  # (B, T, S)
+                biases[True] = (
+                    torch.where(ok_p[:, None] & (d_p < window), zero, NEG_INF),
+                    torch.where(ok_t & (q_slot - tail_t < window), zero, NEG_INF),
+                )
+
+        for l in range(L):
+            is_loc = bool(local[l])
+
+            def attend(q, k, v):
+                tail.k[l, bidx, tpos_w] = k.to(tail.k.dtype)
+                tail.v[l, bidx, tpos_w] = v.to(tail.v.dtype)
+                if use_kernel:
+                    return _segment_kernel_attention(
+                        cfg, q, prompt_cache, page_table, l, lens, tail.k[l], tail.v[l],
+                        written, is_loc,
+                    )
+                b_p, b_t = biases[is_loc and window is not None]
+                kp, vp = prompt_cache.live(l)
+                return _merged_attention(
+                    q, kp, vp, b_p, tail.k[l], tail.v[l], b_t, cfg.attn_scale,
+                    softcap=cfg.attn_logit_softcapping,
+                )
+
+            x = _layer_forward(cfg, x, _layer(layers, l), *(rope_l if is_loc else rope_g), attend)
+
+        x = rms_norm(x, params["norm"], cfg.rms_norm_eps, plus_one=_plus_one(cfg))
+        out, acc = accept_fn(compute_logits(params, cfg, x), drafts, hl)
+        acc = acc.to(torch.int32)
+        append_accepted(hist, hl, out, acc)
+        tok = out.gather(1, (acc - 1).long()[:, None])[:, 0].to(torch.int32)
+        written = (written + acc).contiguous()
+        outs.append(out)
+        accepts.append(acc)
+    return torch.stack(outs), torch.stack(accepts), tail, written, tok, hist

@@ -9,6 +9,9 @@ counter-based hash of (seed, position, vocabulary index)
 and the CPU draw the same noise, and nothing else (the batch, the
 schedule) moves it.
 
+``spec_accept_slots`` is speculative decoding's accept / reject rule against
+a point-mass draft; greedy rows reduce to an argmax match.
+
 ``sample_slots`` is the serving engine's per-row sampler: each row carries
 its own parameters in a (B, >=4) ``[temperature, top_k, top_p, min_p]``
 tensor. Where the JAX package decides on the device whether any row samples
@@ -116,20 +119,31 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def seeded_bits(seeds: torch.Tensor, positions: torch.Tensor, vocab: int) -> torch.Tensor:
+def seeded_bits(seeds: torch.Tensor, positions: torch.Tensor, vocab: int,
+                stream: int = 0) -> torch.Tensor:
     """(B, vocab) int64 hashes in [0, 2^32) of each row's (seed, position)
-    and the vocabulary index."""
+    and the vocabulary index. A nonzero ``stream`` gives an independent
+    family of hashes for the same (seed, position)."""
     row = _mix32(_mix32(seeds.long() & _M32) ^ (positions.long() & _M32))
+    if stream:
+        row = _mix32(row ^ (_mix32(torch.full_like(row, stream & _M32)) | 1))
     idx = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
     return _mix32(row[:, None] ^ idx[None])
 
 
-def seeded_exponential(seeds: torch.Tensor, positions: torch.Tensor, vocab: int) -> torch.Tensor:
+def seeded_uniform(seeds: torch.Tensor, positions: torch.Tensor, vocab: int,
+                   stream: int = 0) -> torch.Tensor:
+    """(B, vocab) fp64 uniforms (hash + 0.5) / 2^32 in (0, 1) of
+    ``seeded_bits``."""
+    return (seeded_bits(seeds, positions, vocab, stream).double() + 0.5) * 2.0**-32
+
+
+def seeded_exponential(seeds: torch.Tensor, positions: torch.Tensor, vocab: int,
+                       stream: int = 0) -> torch.Tensor:
     """(B, vocab) fp32 Exp(1) noise that depends only on each row's (seed,
-    position) and the vocabulary index: u = (hash + 0.5) / 2^32 in (0, 1),
-    then -log(u) in fp64 rounded to fp32."""
-    u = (seeded_bits(seeds, positions, vocab).double() + 0.5) * 2.0**-32
-    return (-torch.log(u)).float()
+    position) and the vocabulary index: -log(u) of ``seeded_uniform`` in
+    fp64, rounded to fp32."""
+    return (-torch.log(seeded_uniform(seeds, positions, vocab, stream))).float()
 
 
 def sample_slots(
@@ -162,6 +176,79 @@ def sample_slots(
     race.clamp_(min=torch.finfo(torch.float32).tiny)
     drawn = torch.argmax(probs / race, dim=-1).to(torch.int32)
     return torch.where(samp[:, 0] > 0, drawn, greedy)
+
+
+# independent hash streams of a seeded row's speculative draws
+_ACCEPT_STREAM = 0x51EC
+_RESIDUAL_STREAM = 0x2E51
+
+
+def spec_accept_slots(
+    logits: torch.Tensor,  # (B, T, V) verify logits; T = K + 1
+    drafts: torch.Tensor,  # (B, K) int32 proposed tokens
+    samp: torch.Tensor,  # (B, >=4) float32: temperature, top_k, top_p, min_p
+    generator: Optional[torch.Generator],
+    *,
+    sampled: bool,
+    filtered: bool,
+    seeds: Optional[torch.Tensor] = None,  # (B,) int32, -1 = unseeded
+    positions: Optional[torch.Tensor] = None,  # (B,) absolute index of emit 0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Speculative accept / reject against a point-mass draft (prompt-lookup
+    drafts are deterministic), per row with its own sampling parameters.
+
+    Returns ``(out (B, T) int32, accepted (B,) int32 in [1, T])``: row b
+    emits ``out[b, :accepted[b]]``. A greedy row (temperature 0) accepts
+    draft i iff it equals the argmax of position i and emits the argmax: the
+    tokens of non-speculative greedy decode. A sampled row accepts draft x_i
+    with probability p_i(x_i) (p the scaled, filtered softmax); at the first
+    rejection it draws from the residual (p_i with x_i removed,
+    renormalised), and when all K drafts are accepted it draws a bonus token
+    from p_K: the emitted tokens are distributed as ancestral sampling from
+    p. ``sampled`` and ``filtered`` are ``sampling_flags`` of the host copy
+    of ``samp``. Rows with seed >= 0 draw from ``seeded_uniform`` /
+    ``seeded_exponential`` at ``positions + i`` (the accept test and the
+    residual on independent streams), the others from ``generator``."""
+    B, T, V = logits.shape
+    K = T - 1
+    dev = logits.device
+    bidx = torch.arange(B, device=dev)
+    argmaxes = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, T)
+    drafts = drafts.to(torch.int32)
+    acc_ok = drafts == argmaxes[:, :K]
+    if sampled:
+        scaled = scale_and_filter_logits(
+            logits.reshape(B * T, V), samp.repeat_interleave(T, dim=0), filtered=filtered,
+        ).reshape(B, T, V)
+        probs = torch.softmax(scaled, dim=-1)
+        u = torch.rand((B, K), generator=generator, device=dev, dtype=torch.float64)
+        if seeds is not None:
+            hashed = torch.stack([
+                seeded_uniform(seeds, positions + i, 1, _ACCEPT_STREAM)[:, 0] for i in range(K)
+            ], dim=1)
+            u = torch.where((seeds >= 0)[:, None], hashed, u)
+        p_draft = probs[:, :K].gather(-1, drafts.long()[..., None])[..., 0]
+        acc_ok = torch.where((samp[:, 0] > 0)[:, None], u < p_draft.double(), acc_ok)
+    # leading accepts: emit position ``lead`` holds the fresh token
+    lead = torch.cumprod(acc_ok.to(torch.int32), dim=1).sum(dim=1)
+    fresh = argmaxes[bidx, lead]
+    padded = torch.cat([drafts, drafts[:, -1:]], dim=1)  # (B, T)
+    if sampled:
+        # the residual at the first rejection (the draft removed), the
+        # bonus from p_K when every draft was accepted
+        final = scaled[bidx, lead]  # (B, V)
+        rejected = padded.gather(1, lead[:, None].long())[:, 0]
+        kill = (lead < K)[:, None] & (torch.arange(V, device=dev)[None] == rejected[:, None])
+        final_probs = torch.softmax(final.masked_fill(kill, float("-inf")), dim=-1)
+        race = torch.empty_like(final_probs).exponential_(1.0, generator=generator)
+        if seeds is not None:
+            hashed = seeded_exponential(seeds, positions + lead, V, _RESIDUAL_STREAM)
+            race = torch.where((seeds >= 0)[:, None], hashed, race)
+        race.clamp_(min=torch.finfo(torch.float32).tiny)
+        drawn = torch.argmax(final_probs / race, dim=-1).to(torch.int32)
+        fresh = torch.where(samp[:, 0] > 0, drawn, fresh)
+    out = padded.scatter(1, lead[:, None].long(), fresh[:, None])
+    return out, (lead + 1).to(torch.int32)
 
 
 def apply_penalties(

@@ -1,1 +1,2 @@
-"""Checkpoint publishing (``publish.save_pretrained``)."""
+"""Checkpoint publishing (``publish.save_pretrained``) and the OpenAI-protocol
+client (``infer_api.OpenAIInference``)."""
