@@ -187,6 +187,18 @@ Phases, each fatal on failure:
      held to SPEC_MARGIN's rule at every position against a teacher-forced
      forward, and the requests equal to the run without speculation.
 
+ 12. the training loop at flagship width (see _train_loop_main_path):
+     training/train.py::train on the port's copy of the v0.6 recipe (KL,
+     audio LoRA r 8, remat, flash, vocab chunk 256, bf16) with
+     TRAIN_LOOP_OVERRIDES (synthetic-asr, batch 8, 2 micro-steps an
+     update, 3 updates, a checkpoint every 4 micro-steps, validation at 6):
+     #13's launches checked, micro-step 1's loss against the plain
+     versions, the output files, and a resumed second run whose restored
+     state equals the first run's final state bit for bit; the loop's ms a
+     micro-step beside the step alone, the data pipeline alone, the busy
+     share over two traced micro-steps, checkpoint write / restore /
+     validation ms.
+
 Each phase prints its seconds. Phases 4-7 also hold ln_matmul_gelu, attn_out_proj_residual,
 decode_matmul, attn_v2 and attn_nt at 0 launches: no engine calls them.
 
@@ -2234,7 +2246,6 @@ def _train_main_path(tc, uv, dev):
     backward 12 + 16 = 28 times (x BWD_LAUNCHES kernels). Then one traced
     step (busy share, kernels by time) and one step with CUDA sync
     debugging, which fails on any host wait."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ultravox_torch.models import lora
@@ -2331,13 +2342,13 @@ def _train_main_path(tc, uv, dev):
         one()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    evs, annotated_ms = _device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
     runtime_launches = sum(e.count for e in prof.key_averages()
                            if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
     print(f"train step profile: device busy {busy_ms:.3f} ms of {traced_ms:.3f} ms traced "
-          f"({100 * busy_ms / traced_ms:.1f}% busy); {sum(e.count for e in evs)} device "
+          f"({100 * busy_ms / traced_ms:.1f}% busy; the optimizer's annotation span "
+          f"{annotated_ms:.3f} ms, not counted); {sum(e.count for e in evs)} device "
           f"kernels, {runtime_launches} kernel launch calls on the host", flush=True)
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:15]
     for e in top:
@@ -2374,29 +2385,35 @@ def _train_main_path(tc, uv, dev):
 # back, and each kernel output may differ from the plain one by a few ulps
 # (FLASH_RMS_TOL), so the two calls agree to about bf16 precision, not to
 # fp32's. 2^-6 relative for the loss, 2^-4 for the gradient norm.
+# The gradients themselves, leaf by leaf: the norm of their difference
+# within 2^-3 of the plain gradient's norm (phase 6 shows about 2^-4.6).
 FLASH_E2E_LOSS_RTOL = 2.0**-6
 FLASH_E2E_GRAD_RTOL = 2.0**-4
+FLASH_E2E_GRAD_DIFF_RTOL = 2.0**-3
 
 
-def _flash_loss_vs_plain(cfg, tc, uv, ts, fl, state, template, batch):
-    """Phase 6, continued: one forward and backward of the flagship KL loss
-    (remat, vocab_chunk 256) on phase 6's batch and state through the bf16
+def _flash_loss_vs_plain(cfg, tc, uv, ts, fl, state, template, batch, lc=None,
+                         phase="phase 6"):
+    """One forward and backward of the flagship loss (``lc``, by default
+    KL; remat, vocab_chunk 256) on ``batch`` and ``state`` through the bf16
     flash kernels, then the same call with ``_FlashPlain`` swapped in for
-    the kernels for that call only. Loss and the trainable leaves' gradient
-    norm within FLASH_E2E_LOSS_RTOL / FLASH_E2E_GRAD_RTOL; the norm of the
-    gradients' difference is printed."""
-    lc = tc.LossConfig(loss_function=tc.LossFunction.KL_DIVERGENCE)
+    the kernels for that call only. Loss, the trainable leaves' gradient
+    norm and the norm of the gradients' difference within
+    FLASH_E2E_LOSS_RTOL / FLASH_E2E_GRAD_RTOL / FLASH_E2E_GRAD_DIFF_RTOL.
+    Phase 6 runs it on its batch and state, phase 12 on the loop's first
+    batch and initial state."""
+    lc = lc or tc.LossConfig(loss_function=tc.LossFunction.KL_DIVERGENCE)
 
     def loss_and_grads():
         params = ts.merge_params(template, state.trainable, state.frozen)
         loss = uv.ultravox_loss(params, cfg, batch, lc, remat=True, attn_impl="flash",
                                 vocab_chunk=256)
-        return float(loss), torch.autograd.grad(loss, list(state.trainable.values()))
+        return float(loss.detach()), torch.autograd.grad(loss, list(state.trainable.values()))
 
     before = fl.flash_attention.launches
     loss_k, grads_k = loss_and_grads()
     if fl.flash_attention.launches == before:
-        _fail("phase 6: the kernel's loss call launched no flash_attention kernel")
+        _fail(f"{phase}: the kernel's loss call launched no flash_attention kernel")
     kernel_fn = fl._FlashKernel
     fl._FlashKernel = fl._FlashPlain
     try:
@@ -2408,17 +2425,21 @@ def _flash_loss_vs_plain(cfg, tc, uv, ts, fl, state, template, batch):
     out = {"loss_kernel": loss_k, "loss_plain": loss_p, "grad_norm_kernel": norm_k,
            "grad_norm_plain": norm_p, "grad_diff_norm": diff,
            "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
-           "grad_norm_rel_err": abs(norm_k - norm_p) / norm_p}
-    print(f"train loss, flash kernels vs _FlashPlain: loss {loss_k:.6f} vs {loss_p:.6f} (rel "
-          f"{out['loss_rel_err']:.3g}, tol {FLASH_E2E_LOSS_RTOL:.3g}); grad norm {norm_k:.6f} vs "
-          f"{norm_p:.6f} (rel {out['grad_norm_rel_err']:.3g}, tol {FLASH_E2E_GRAD_RTOL:.3g}); "
-          f"|g_kernel - g_plain| {diff:.4g} ({diff / norm_p:.3g} of |g_plain|)", flush=True)
+           "grad_norm_rel_err": abs(norm_k - norm_p) / norm_p, "grad_diff_rel": diff / norm_p}
+    print(f"{phase} train loss, flash kernels vs _FlashPlain: loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(rel {out['loss_rel_err']:.3g}, tol {FLASH_E2E_LOSS_RTOL:.3g}); grad norm "
+          f"{norm_k:.6f} vs {norm_p:.6f} (rel {out['grad_norm_rel_err']:.3g}, tol "
+          f"{FLASH_E2E_GRAD_RTOL:.3g}); |g_kernel - g_plain| {diff:.4g} ({diff / norm_p:.3g} of "
+          f"|g_plain|, tol {FLASH_E2E_GRAD_DIFF_RTOL:.3g})", flush=True)
     if not (np.isfinite(loss_k) and out["loss_rel_err"] <= FLASH_E2E_LOSS_RTOL):
-        _fail(f"phase 6: the loss through the flash kernels {loss_k} vs the plain version's "
+        _fail(f"{phase}: the loss through the flash kernels {loss_k} vs the plain version's "
               f"{loss_p}")
     if not (np.isfinite(norm_k) and out["grad_norm_rel_err"] <= FLASH_E2E_GRAD_RTOL):
-        _fail(f"phase 6: the gradient norm through the flash kernels {norm_k} vs the plain "
+        _fail(f"{phase}: the gradient norm through the flash kernels {norm_k} vs the plain "
               f"version's {norm_p}")
+    if not (np.isfinite(diff) and out["grad_diff_rel"] <= FLASH_E2E_GRAD_DIFF_RTOL):
+        _fail(f"{phase}: the gradients through the flash kernels differ from the plain "
+              f"version's by {diff} against a norm of {norm_p}")
     return out
 
 
@@ -3072,6 +3093,14 @@ def main() -> None:
         row["launches"] = t9[row["name"].split(" ")[0]]
         row["launches_note"] = "T = 9 launches in phase 11 (d)'s guard-off speculative run"
 
+    # 12. the training loop: train() with checkpoints, validation and resume
+    train_loop, loop_launches = _train_loop_main_path(
+        tc, counters, training["step_ms_median"], smi, dev)
+    for row in rows:
+        if row["name"] in ("flash_attention", "flash_attention_bwd"):
+            row["launches_per_path"] = {"train steps (phase 6)": row["launches"],
+                                        "train loop (phase 12)": loop_launches[row["name"]]}
+
     print(f"chip_smoke: {time.perf_counter() - t_script:.2f} s in all", flush=True)
     print(smi, flush=True)
     print(json.dumps({
@@ -3079,7 +3108,8 @@ def main() -> None:
         "fused_first_token_ms": fused_ttft_ms, "fused_decode_tok_s": fused_tps,
         "scan_kernel_decode_tok_s": seg_tps, "serving": serving, "training": training,
         "lora_int8": lora_int8, "probes": probes, "checkpoint": checkpoint, "voice": voice,
-        "front_doors": front_doors, "total_s": time.perf_counter() - t_script,
+        "front_doors": front_doors, "train_loop": train_loop,
+        "total_s": time.perf_counter() - t_script,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -3887,6 +3917,24 @@ def _check_serving_launches(label, launches, counters, encoder, disp, steps, chu
     if blocks == 0 or singles == 0:
         _fail(f"serving {label}: expected both single steps and blocks")
     return singles, blocks
+
+
+def _device_events(prof):
+    """(kernel and copy events with device time, ms of device time under
+    user annotations): torch.optim's ``Optimizer.step#AdamW.step`` range
+    shows as a device event spanning the step's kernels and the gaps
+    between them, so it is kept out of the busy sum."""
+    from torch.autograd import DeviceType
+
+    evs, annotated = [], 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        if getattr(e, "is_user_annotation", False):
+            annotated += e.self_device_time_total / 1e3
+        else:
+            evs.append(e)
+    return evs, annotated
 
 
 def _sync_sites(fn):
@@ -4990,6 +5038,509 @@ def _front_doors_main_path(tc, uv, cfg, counters, per_call, gen_launches, smi, d
     metrics["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 11: {metrics['phase_s']:.2f} s", flush=True)
     return metrics, t9
+
+
+# Phase 12's recipe: the port's copy of the JAX package's v0.6 recipe (KL at
+# T 2, audio LoRA r 8 on q_proj / v_proj, remat, attn_impl flash,
+# vocab_loss_chunk 256, bf16) at the flagship widths, on synthetic-asr.
+TRAIN_LOOP_RECIPE = "ultravox_torch/training/configs/v0.6_llama3_8b_tpu.yaml"
+TRAIN_LOOP_OVERRIDES = {
+    "text_model": "", "audio_model": "", "projector_hidden_size": 3072,
+    "data_sets": ["synthetic-asr"], "data_weights": None, "val_sets": ["synthetic-asr"],
+    "batch_size": 8, "grad_accum_steps": 2, "max_steps": 3, "lr_warmup_steps": 0,
+    "logging_steps": 1, "save_steps": 4, "val_steps": 6, "val_num_samples": 16,
+    "report_logs_to": [],
+}
+
+
+def _flagship_hf_dicts():
+    """(text, audio) HF config dicts of _flagship_config's towers."""
+    text = {"model_type": "llama", "vocab_size": 128256, "hidden_size": 2048,
+            "intermediate_size": 8192, "num_hidden_layers": 16, "num_attention_heads": 32,
+            "num_key_value_heads": 8, "head_dim": 64, "rope_theta": 500000.0,
+            "rms_norm_eps": 1e-5, "tie_word_embeddings": True, "max_position_embeddings": 8192}
+    audio = {"model_type": "whisper", "num_mel_bins": 80, "d_model": 768, "encoder_layers": 12,
+             "encoder_attention_heads": 12, "encoder_ffn_dim": 3072,
+             "max_source_positions": 1500}
+    return text, audio
+
+
+def _train_loop_argv(out_dir: str, tok_dir: str, **extra) -> list:
+    """The training CLI's argv for phase 12, each value in YAML's flow
+    style, which the config's reader parses back to the same value (JSON
+    would not do: YAML reads 1e-05 as a string)."""
+    import yaml
+
+    text, audio = _flagship_hf_dicts()
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = ["--config_path", os.path.join(root, TRAIN_LOOP_RECIPE)]
+    kv = dict(TRAIN_LOOP_OVERRIDES, text_model_config=text, audio_model_config=audio,
+              tokenizer_path=tok_dir, output_dir=out_dir, **extra)
+    for k, v in kv.items():
+        argv += [f"--{k}", yaml.safe_dump(v, default_flow_style=True, width=1 << 30)]
+    return argv
+
+
+def _opt_snapshot(state) -> dict:
+    """A copy of what a checkpoint holds, on the card."""
+    import copy
+
+    opt = state.opt_state
+    return {"step": state.step, "count": opt.count, "mini_step": opt.mini_step,
+            "trainable": {k: v.detach().clone() for k, v in state.trainable.items()},
+            "adamw": copy.deepcopy(opt.adamw.state_dict()),
+            "acc": None if opt.acc is None else [a.clone() for a in opt.acc]}
+
+
+def _snapshot_diffs(a: dict, b: dict) -> list:
+    """What differs, bit for bit, between two _opt_snapshot()s."""
+    bad = [k for k in ("step", "count", "mini_step") if a[k] != b[k]]
+    if sorted(a["trainable"]) != sorted(b["trainable"]):
+        return bad + ["trainable leaves"]
+    bad += [k for k in a["trainable"] if not torch.equal(a["trainable"][k], b["trainable"][k])]
+    sa, sb = a["adamw"]["state"], b["adamw"]["state"]
+    if sorted(sa) != sorted(sb):
+        return bad + ["adamw state"]
+    bad += [f"adamw {i} {k}" for i in sa for k in sa[i]
+            if not torch.equal(torch.as_tensor(sa[i][k]), torch.as_tensor(sb[i][k]))]
+    if a["adamw"]["param_groups"] != b["adamw"]["param_groups"]:
+        bad.append("adamw param_groups")
+    if (a["acc"] is None) != (b["acc"] is None) or any(
+            not torch.equal(x, y) for x, y in zip(a["acc"] or [], b["acc"] or [])):
+        bad.append("accumulation buffers")
+    return bad
+
+
+# Phase 12's timing run: the recipe's own logging_steps, save_steps and
+# val_steps (a read-back every 20 micro-steps, no checkpoint or validation
+# inside the windows), TIMING_MAX_STEPS updates. Micro-step 1 warms up;
+# the intervals after micro-steps TIMING_LOOP are the loop as a user runs
+# it (no synchronisation of the script's); micro-steps TIMING_ALONE are
+# timed alone, each between two synchronisations; micro-steps
+# TIMING_TRACED are traced.
+TIMING_MAX_STEPS = 20
+TIMING_LOOP = range(2, 33)
+TIMING_ALONE = range(33, 38)
+TIMING_TRACED = range(38, 40)
+
+
+def _train_loop_main_path(tc, counters, bare_step_ms, smi, dev):
+    """Phase 12: the training CLI's loop, ``training/train.py::train``, at
+    the flagship widths (whisper-small + Llama-3.2-1B as HF config dicts,
+    _write_flagship_tokenizer's 128256 ids) on TRAIN_LOOP_RECIPE with
+    TRAIN_LOOP_OVERRIDES: batch 8 of synthetic-asr, 2 micro-steps an update,
+    3 updates (6 micro-steps), a checkpoint every 4 micro-steps, validation
+    (16 samples) at micro-step 6.
+
+      (a) #13's counts (and every other kernel's) set to 0 just before the
+          first train() and read just after: forward 6 x (2 x 12 + 3 x 16)
+          (encoder forward and remat recompute, student forward and
+          recompute, teacher) + 2 validation batches x (12 + 16), backward
+          6 x (12 + 16) x BWD_LAUNCHES; no other kernel.
+      (b) on the loop's first collated batch and initial weights (a pack
+          built from the same config), the loss and the trainable leaves'
+          gradients through the kernels, forward and backward, against
+          _FlashPlain (_flash_loss_vs_plain); micro-step 1's logged loss and
+          grad_norm against the plain ones within FLASH_E2E_LOSS_RTOL and
+          FLASH_E2E_GRAD_RTOL.
+      (c) every logged loss, grad_norm and validation loss finite;
+          train_config.json, train_log.jsonl, checkpoint-4, checkpoint-6
+          and model.safetensors (multi_modal_projector.* keys) written.
+      (d) a second train() from the first output (resume_from_load_dir,
+          max_steps 4): the state it restores equals, bit for bit, the
+          state the first run ended with (trainable leaves, AdamW moments,
+          update count, step); it writes checkpoint-8.
+
+    Then a third train(), for timing only (_train_loop_timing). Printed
+    beside the card: the loop's ms a micro-step (host clock, the median of
+    the intervals between step calls in TIMING_LOOP that hold no read-back,
+    no pass end and no data set restart) and samples/s, and the whole
+    window's mean; the step alone (median over TIMING_ALONE's full
+    batches) beside phase 6's bare step; the loop's wait for each batch;
+    the device's time a micro-step and its busy share over TIMING_TRACED;
+    the data pipeline alone; peak memory; checkpoint write ms and MB,
+    restore ms, validation ms (runs 1-2); the phase's seconds."""
+    import shutil
+    import tempfile
+
+    from ultravox_torch.models import ultravox as uv
+    from ultravox_torch.models.weights import read_safetensors
+    from ultravox_torch.ops.kernels import flash_attention as fl
+    from ultravox_torch.training import checkpoint as ckpt_lib
+    from ultravox_torch.training import config as train_config
+    from ultravox_torch.training import model_factory
+    from ultravox_torch.training import train as train_mod
+    from ultravox_torch.training import train_step as ts
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="train_loop_")
+    metrics = {}
+    try:
+        tok = _write_flagship_tokenizer(os.path.join(root, "tok"))
+        out1, out2, out3 = (os.path.join(root, f"run{i}") for i in (1, 2, 3))
+        cfg1 = train_config.get_train_config(_train_loop_argv(out1, tok))
+        if not (cfg1.device is None and cfg1.attn_impl == "flash" and cfg1.remat
+                and cfg1.vocab_loss_chunk == 256 and cfg1.loss_function == "kl"
+                and cfg1.param_dtype == "bfloat16" and cfg1.audio_model_lora["r"] == 8):
+            _fail(f"phase 12: the recipe did not give the v0.6 settings: {cfg1}")
+
+        # the data pipeline alone, and the first batch and weights for (b)
+        t0 = time.perf_counter()
+        pack = model_factory.create_model_pack(cfg1)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        if pack.config != _flagship_config(tc):
+            _fail(f"phase 12: the model pack's config {pack.config} is not the flagship's")
+        batches = train_mod.batch_iterator(train_mod.prepare_train_dataset(cfg1, pack),
+                                           pack.collator, cfg1.batch_size)
+        t0 = time.perf_counter()
+        first = next(batches)
+        first_batch_s = time.perf_counter() - t0
+        n_timed = 6
+        t0 = time.perf_counter()
+        for _ in range(n_timed):
+            next(batches)
+        data_sps = n_timed * cfg1.batch_size / (time.perf_counter() - t0)
+        batches.close()
+        shapes = {k: tuple(v.shape) for k, v in first.items()}
+        print(f"phase 12: model pack {pack_s:.3f} s; data pipeline alone (prepare_dataset + "
+              f"collation, {cfg1.num_data_workers} threads, no card): first batch "
+              f"{first_batch_s * 1e3:.3f} ms, then {data_sps:.3f} samples/s; batch {shapes}; "
+              f"{smi}", flush=True)
+
+        # (b), first half: the kernels' loss and gradients against the
+        # plain versions' on the state train() starts from
+        state0, template0 = ts.init_train_state(pack.params, ts.make_optimizer(),
+                                                cfg1.effective_trainable_patterns, device=dev)
+        vs_plain = _flash_loss_vs_plain(
+            pack.config, tc, uv, ts, fl, state0, template0,
+            train_mod.to_device(first, torch.device(dev)), lc=cfg1.loss_config,
+            phase="phase 12")
+        del pack, batches, state0, template0
+        torch.cuda.empty_cache()
+
+        # spies: saves, restores, validation (runs 1-2)
+        saves, restores, vals, final = [], [], [], {}
+        save, restore, validate = (ckpt_lib.save_checkpoint, ckpt_lib.restore_checkpoint,
+                                   train_mod.validate)
+
+        def timed_save(base, state):
+            path = os.path.join(os.path.abspath(base), f"checkpoint-{state.step}")
+            new = not os.path.exists(path)
+            if state.step == cfg1.max_steps * cfg1.grad_accum_steps:  # run 1's final state
+                final.setdefault("snapshot", _opt_snapshot(state))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = save(base, state)
+            if new:
+                mb = os.path.getsize(os.path.join(out, ckpt_lib.STATE_FILE)) / 1e6
+                saves.append({"step": state.step, "ms": (time.perf_counter() - t0) * 1e3,
+                              "mb": mb})
+            return out
+
+        def timed_restore(path, state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = restore(path, state)
+            torch.cuda.synchronize()
+            restores.append({"path": os.path.basename(path),
+                             "ms": (time.perf_counter() - t0) * 1e3,
+                             "snapshot": _opt_snapshot(out)})
+            return out
+
+        def timed_validate(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = validate(*a, **kw)
+            vals.append({"ms": (time.perf_counter() - t0) * 1e3, **out})
+            return out
+
+        ckpt_lib.save_checkpoint, ckpt_lib.restore_checkpoint = timed_save, timed_restore
+        train_mod.validate = timed_validate
+        try:
+            # (a) the first run, every count from 0
+            counters = dict(counters, flash_attention=fl.flash_attention)
+            for c in counters.values():
+                c.launches = 0
+            fl.flash_attention.bwd_launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            train_mod.train(cfg1)
+            torch.cuda.synchronize()
+            run1_s = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            launches = {name: c.launches for name, c in counters.items()}
+            launches["flash_attention_bwd"] = fl.flash_attention.bwd_launches
+
+            # (d) the second run, resumed from the first's output
+            cfg2 = train_config.get_train_config(_train_loop_argv(
+                out2, tok, model_load_dir=out1, resume_from_load_dir=True, max_steps=4))
+            t0 = time.perf_counter()
+            train_mod.train(cfg2)
+            torch.cuda.synchronize()
+            run2_s = time.perf_counter() - t0
+        finally:
+            ckpt_lib.save_checkpoint, ckpt_lib.restore_checkpoint = save, restore
+            train_mod.validate = validate
+
+        # (a)
+        micro = cfg1.max_steps * cfg1.grad_accum_steps
+        L_enc, L_dec = cfg1.audio_model_config["encoder_layers"], cfg1.text_model_config[
+            "num_hidden_layers"]
+        val_batches = -(-cfg1.val_num_samples // cfg1.batch_size)
+        fwd_step, fwd_val, bwd_step = 2 * L_enc + 3 * L_dec, L_enc + L_dec, L_enc + L_dec
+        want = {name: 0 for name in counters}
+        want["flash_attention"] = micro * fwd_step + val_batches * fwd_val
+        want["flash_attention_bwd"] = micro * bwd_step * fl.BWD_LAUNCHES
+        print(f"launches, train loop ({micro} micro-steps x {fwd_step} forward calls + "
+              f"{val_batches} validation batches x {fwd_val}; backward {micro} x {bwd_step} "
+              f"calls x {fl.BWD_LAUNCHES} kernels): {launches} expected {want}", flush=True)
+        if launches != want:
+            _fail(f"phase 12: launches {launches}, expected {want}")
+
+        # (c)
+        with open(os.path.join(out1, "train_log.jsonl")) as f:
+            log1 = [json.loads(line) for line in f]
+        with open(os.path.join(out2, "train_log.jsonl")) as f:
+            log2 = [json.loads(line) for line in f]
+        steps = [r for r in log1 if "loss" in r]
+        val_rows = [r for r in log1 if "val_loss/synthetic-asr" in r]
+        for r in steps:
+            print(f"train loop step {r['step']}: loss {r['loss']:.6f} grad_norm "
+                  f"{r['grad_norm']:.6f} param_norm {r['param_norm']:.6f}", flush=True)
+        if [r["step"] for r in steps] != list(range(1, micro + 1)):
+            _fail(f"phase 12: logged micro-steps {[r['step'] for r in steps]}")
+        if [r["step"] for r in log2 if "loss" in r] != [micro + 1, micro + 2]:
+            _fail(f"phase 12: the resumed run logged {[r['step'] for r in log2]}")
+        vals_ok = [r["val_loss/synthetic-asr"] for r in val_rows]
+        if len(vals_ok) != 1 or val_rows[0]["step"] != micro:
+            _fail(f"phase 12: validation rows {val_rows}")
+        for r in steps + [r for r in log2 if "loss" in r]:
+            if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) and r["grad_norm"] > 0):
+                _fail(f"phase 12: step {r['step']} logged loss {r['loss']} grad_norm "
+                      f"{r['grad_norm']}")
+        if not np.isfinite(vals_ok[0]):
+            _fail(f"phase 12: validation loss {vals_ok[0]}")
+        names = sorted(os.listdir(out1))
+        for name in ("train_config.json", "train_log.jsonl", "checkpoint-4", "checkpoint-6",
+                     "model.safetensors"):
+            if name not in names:
+                _fail(f"phase 12: {name} missing from the first run's output {names}")
+        exported = read_safetensors(os.path.join(out1, "model.safetensors"))
+        if not exported or not all(k.startswith("multi_modal_projector.") for k in exported):
+            _fail(f"phase 12: model.safetensors holds {sorted(exported)}")
+        if "checkpoint-8" not in os.listdir(out2):
+            _fail(f"phase 12: the resumed run wrote {sorted(os.listdir(out2))}")
+
+        # (b), second half: micro-step 1 as the loop logged it
+        loss_rel = abs(steps[0]["loss"] - vs_plain["loss_plain"]) / abs(vs_plain["loss_plain"])
+        norm_rel = (abs(steps[0]["grad_norm"] - vs_plain["grad_norm_plain"])
+                    / vs_plain["grad_norm_plain"])
+        print(f"train loop micro-step 1: logged loss {steps[0]['loss']:.6f} vs "
+              f"{vs_plain['loss_plain']:.6f} through _FlashPlain (rel {loss_rel:.3g}, tol "
+              f"{FLASH_E2E_LOSS_RTOL:.3g}); logged grad_norm {steps[0]['grad_norm']:.6f} vs "
+              f"{vs_plain['grad_norm_plain']:.6f} through _FlashPlain (rel {norm_rel:.3g}, tol "
+              f"{FLASH_E2E_GRAD_RTOL:.3g}) and {vs_plain['grad_norm_kernel']:.6f} through the "
+              f"kernels outside the loop", flush=True)
+        if not loss_rel <= FLASH_E2E_LOSS_RTOL:
+            _fail(f"phase 12: micro-step 1's loss {steps[0]['loss']} vs the plain "
+                  f"{vs_plain['loss_plain']}")
+        if not norm_rel <= FLASH_E2E_GRAD_RTOL:
+            _fail(f"phase 12: micro-step 1's grad_norm {steps[0]['grad_norm']} vs the plain "
+                  f"{vs_plain['grad_norm_plain']}")
+
+        # (d)
+        if len(restores) != 1 or "snapshot" not in final:
+            _fail(f"phase 12: {len(restores)} restores, final state captured: {'snapshot' in final}")
+        diffs = _snapshot_diffs(final["snapshot"], restores[0]["snapshot"])
+        print(f"train loop resume: restored {restores[0]['path']} (step "
+              f"{restores[0]['snapshot']['step']}, {restores[0]['snapshot']['count']} updates, "
+              f"{len(final['snapshot']['trainable'])} trainable leaves) in "
+              f"{restores[0]['ms']:.3f} ms; {len(diffs)} differences from the first run's "
+              f"final state {diffs[:8]}", flush=True)
+        if diffs:
+            _fail(f"phase 12: the restored state differs from the first run's: {diffs[:8]}")
+        del final["snapshot"], restores[0]["snapshot"]
+
+        timing = _train_loop_timing(tok, out3)
+        print(f"train loop: {timing['micro_step_ms']:.3f} ms a micro-step (median of the "
+              f"intervals after micro-steps {timing['clean']}), {timing['samples_per_s']:.3f} "
+              f"samples/s; over the whole window, its read-back, pass ends, data set "
+              f"restarts and the card's drain included, {timing['window_ms']:.3f} ms a "
+              f"micro-step; the step alone {timing['step_alone_ms']:.3f} ms (median of "
+              f"{timing['alone']}), the loop around it {timing['loop_around_step_ms']:.3f} ms; "
+              f"phase 6's bare step (10 s audio, T 190) {bare_step_ms}; data set restarts (s "
+              f"after micro-step {TIMING_LOOP[0]}'s call, start and first item) "
+              f"{timing['restarts_s']}; every interval (after micro-step, ms, the loop's wait "
+              f"for the next batch ms, batch size, what else it holds) {timing['intervals']}; "
+              f"every step alone {timing['steps_alone_ms']}; {smi}", flush=True)
+        print(f"train loop trace (micro-steps {list(TIMING_TRACED)} in the loop): device busy "
+              f"{timing['device_busy_ms']:.3f} ms of {timing['traced_ms']:.3f} ms "
+              f"({100 * timing['device_busy_share']:.1f}%; the optimizer's annotation span "
+              f"{timing['annotated_ms']:.3f} ms, not counted): {timing['device_ms']:.3f} ms of "
+              f"device time a micro-step, {100 * timing['busy_share_untraced']:.1f}% of the "
+              f"untraced loop's median", flush=True)
+        for key, count, ms in timing["top_kernels"]:
+            print(f"  {ms:9.3f} ms  x{count:<6d} {key}", flush=True)
+        print(f"train loop: peak memory {peak_gb:.3f} GB; checkpoint writes "
+              f"{[(s['step'], round(s['ms'], 3), round(s['mb'], 3)) for s in saves]} (step, ms, "
+              f"MB); restore {restores[0]['ms']:.3f} ms; validation "
+              f"{[round(v['ms'], 3) for v in vals]} ms (loss {vals_ok[0]:.6f}); train() "
+              f"{run1_s:.3f} s, {run2_s:.3f} s (resumed) and {timing['train_s']:.3f} s (timing, "
+              f"{timing['micro_steps']} micro-steps); {smi}", flush=True)
+        metrics = dict(
+            timing, bare_step_phase6_ms=bare_step_ms, data_samples_per_s=data_sps,
+            data_first_batch_ms=first_batch_s * 1e3, peak_memory_gb=peak_gb,
+            checkpoint_writes=saves, restore_ms=restores[0]["ms"],
+            validation_ms=[v["ms"] for v in vals], val_loss=vals_ok[0],
+            losses=[r["loss"] for r in steps], grad_norms=[r["grad_norm"] for r in steps],
+            flash_kernel_vs_plain=vs_plain, loss_step1_rel_err=loss_rel,
+            grad_norm_step1_rel_err=norm_rel, train_s=[run1_s, run2_s, timing["train_s"]],
+            batch_shapes=shapes)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 12: {metrics['phase_s']:.2f} s", flush=True)
+    return metrics, launches
+
+
+def _train_loop_timing(tok, out_dir):
+    """Phase 12's third train(): the recipe's own logging, save and
+    validation intervals, TIMING_MAX_STEPS updates, laid out by TIMING_*.
+    A spy on the step records when the loop calls it and each batch's
+    size; one on the prefetcher, how long the loop waited for each batch;
+    one on the data set, when each pass over it starts and yields its
+    first item (a restart: Dataproc's fresh pool deep-copies the processor
+    on each thread, which holds the interpreter from the step). The
+    interval after micro-step k runs from its call to the next and holds
+    the step, the loop's bookkeeping, the wait for batch k + 1 and its copy
+    to the card. The median leaves out the intervals that also hold a
+    read-back, a pass's short last batch or part of a restart. The
+    window's mean runs from micro-step TIMING_LOOP[0]'s call until the
+    card has finished micro-step TIMING_LOOP[-1]."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ultravox_torch.training import train as train_mod
+    from ultravox_torch.training import train_step as ts
+    from ultravox_torch.training.config import get_train_config
+
+    base = get_train_config(["--config_path", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), TRAIN_LOOP_RECIPE)])
+    cfg = get_train_config(_train_loop_argv(
+        out_dir, tok, max_steps=TIMING_MAX_STEPS, logging_steps=base.logging_steps,
+        save_steps=base.save_steps, val_steps=base.val_steps))
+    micro = cfg.max_steps * cfg.grad_accum_steps
+    if not (micro >= TIMING_TRACED[-1] + 1 and cfg.save_steps > micro
+            and cfg.val_steps > micro):
+        _fail(f"phase 12: the timing run's layout does not fit its config {cfg}")
+    calls, sizes, alone, waits, trace, restarts = [], [], {}, [], {}, []
+    make_step, prefetcher, batch_iterator = (ts.make_train_step, train_mod.Prefetcher,
+                                             train_mod.batch_iterator)
+
+    class TimedPasses:
+        def __init__(self, dataset):
+            self.dataset = dataset
+
+        def __iter__(self):
+            t0 = time.perf_counter()
+            for i, item in enumerate(self.dataset):
+                if i == 0:
+                    restarts.append((t0, time.perf_counter()))
+                yield item
+
+    def timed_batches(dataset, *a, **kw):
+        return batch_iterator(TimedPasses(dataset), *a, **kw)
+
+    def timed_make(*a, **kw):
+        fn = make_step(*a, **kw)
+
+        def step(state, batch):
+            calls.append(time.perf_counter())
+            sizes.append(int(batch["input_ids"].shape[0]))
+            n = len(calls)
+            if n == TIMING_TRACED[0]:
+                torch.cuda.synchronize()
+                trace["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                trace["prof"].__enter__()
+                trace["t0"] = time.perf_counter()
+            elif n == TIMING_TRACED[-1] + 1:
+                torch.cuda.synchronize()
+                trace["ms"] = (time.perf_counter() - trace["t0"]) * 1e3
+                trace["prof"].__exit__(None, None, None)
+            if n not in TIMING_ALONE:
+                return fn(state, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trace.setdefault("drained", t0)
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            alone[n] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        return step
+
+    class TimedPrefetcher(prefetcher):
+        def __iter__(self):
+            items = super().__iter__()
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(items)
+                except StopIteration:
+                    return
+                waits.append((time.perf_counter() - t0) * 1e3)
+                yield item
+
+    ts.make_train_step, train_mod.Prefetcher = timed_make, TimedPrefetcher
+    train_mod.batch_iterator = timed_batches
+    try:
+        t0 = time.perf_counter()
+        train_mod.train(cfg)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        ts.make_train_step, train_mod.Prefetcher = make_step, prefetcher
+        train_mod.batch_iterator = batch_iterator
+        if "prof" in trace and "ms" not in trace:
+            trace["prof"].__exit__(None, None, None)
+    if len(calls) != micro or "ms" not in trace:
+        _fail(f"phase 12: the timing run made {len(calls)} step calls, expected {micro}")
+
+    # waits[k] is batch k + 1's; a batch smaller than batch_size ends a pass
+    def holds(k):
+        t0, t1 = calls[k - 1], calls[k]
+        return [what for what, yes in (
+            ("read-back", k == 1 or k % cfg.logging_steps == 0),
+            ("pass end", sizes[k - 1] < cfg.batch_size),
+            ("restart", any(a < t1 and b > t0 for a, b in restarts[1:]))) if yes]
+
+    intervals = [(k, round((calls[k] - calls[k - 1]) * 1e3, 3), round(waits[k], 3),
+                  sizes[k - 1], holds(k)) for k in TIMING_LOOP]
+    clean = [k for k, _, _, _, what in intervals if not what]
+    loop_ms = statistics.median(ms for k, ms, _, _, _ in intervals if k in clean)
+    full = [n for n in TIMING_ALONE if sizes[n - 1] == cfg.batch_size]
+    step_ms = statistics.median(alone[n] for n in full)
+    evs, annotated_ms = _device_events(trace["prof"])
+    busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "micro_step_ms": loop_ms, "samples_per_s": cfg.batch_size / loop_ms * 1e3,
+        "window_ms": (trace["drained"] - calls[TIMING_LOOP[0] - 1]) * 1e3 / len(TIMING_LOOP),
+        "step_alone_ms": step_ms, "loop_around_step_ms": loop_ms - step_ms,
+        "clean": clean, "alone": full, "intervals": intervals,
+        "restarts_s": [(round(a - calls[TIMING_LOOP[0] - 1], 3),
+                        round(b - calls[TIMING_LOOP[0] - 1], 3)) for a, b in restarts[1:]],
+        "steps_alone_ms": [round(alone[n], 3) for n in TIMING_ALONE],
+        "device_ms": busy_ms / len(TIMING_TRACED),
+        "busy_share_untraced": busy_ms / len(TIMING_TRACED) / loop_ms,
+        "device_busy_ms": busy_ms, "traced_ms": trace["ms"],
+        "device_busy_share": busy_ms / trace["ms"], "annotated_ms": annotated_ms,
+        "top_kernels": [(e.key[:90], e.count, e.self_device_time_total / 1e3) for e in top],
+        "train_s": train_s, "micro_steps": micro,
+    }
 
 
 def _to_float(tree):

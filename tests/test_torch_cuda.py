@@ -1954,3 +1954,58 @@ def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def _smoke_tokenizer(out_dir, vocab_size: int) -> str:
+    """chip_smoke.py's tokenizer writer (byte-level, llama-3's special
+    tokens and chat template, ``tokenizers`` alone) over ``vocab_size`` ids."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke._write_flagship_tokenizer(str(out_dir), vocab_size)
+
+
+@pytest.mark.cuda
+def test_train_loop_on_cuda_launches_flash(cuda_device, tmp_path):
+    """The training CLI's config path on the card: test_train.yaml with
+    attn_impl flash, widened to heads of 64 (the kernels' head dims), and
+    no device given. Two KL micro-steps launch #13 forward for the encoder
+    layer and the student's and teacher's decoder layers (no remat), and
+    its backward for the student's decoder layers; the losses are finite
+    and the files are written."""
+    import json
+    import os
+
+    from ultravox_torch.ops.kernels import flash_attention as tfl
+    from ultravox_torch.training import config as tcfg
+    from ultravox_torch.training import train as ttrain
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    text = {"model_type": "llama", "vocab_size": 512, "hidden_size": 128,
+            "intermediate_size": 256, "num_hidden_layers": 2, "num_attention_heads": 2,
+            "num_key_value_heads": 1}
+    audio = {"model_type": "whisper", "num_mel_bins": 80, "d_model": 128, "encoder_layers": 1,
+             "encoder_attention_heads": 2, "encoder_ffn_dim": 256, "max_source_positions": 1500}
+    cfg = tcfg.get_train_config([
+        "--config_path", os.path.join(root, "ultravox_torch/training/configs/test_train.yaml"),
+        "--output_dir", str(tmp_path / "out"), "--text_model", "",
+        "--tokenizer_path", _smoke_tokenizer(tmp_path / "tok", 512), "--attn_impl", "flash",
+        "--text_model_config", json.dumps(text), "--audio_model_config", json.dumps(audio),
+        "--report_logs_to", "[]"])
+    assert cfg.device is None and cfg.remat is False
+    tfl.flash_attention.launches = tfl.flash_attention.bwd_launches = 0
+    ttrain.train(cfg)
+    steps, L_enc, L_dec = 2, 1, 2
+    assert tfl.flash_attention.launches == steps * (L_enc + 2 * L_dec)
+    # the tower is frozen (the projector trains), so no backward runs through it
+    assert tfl.flash_attention.bwd_launches == steps * L_dec * tfl.BWD_LAUNCHES
+    with open(tmp_path / "out" / "train_log.jsonl") as f:
+        log = [json.loads(line) for line in f]
+    assert [r["step"] for r in log] == [1, 2]
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in log)
+    assert {"checkpoint-2", "model.safetensors", "train_config.json"} <= set(
+        os.listdir(tmp_path / "out"))

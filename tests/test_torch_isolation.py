@@ -1,11 +1,15 @@
 """ultravox_torch and chip_smoke.py stand alone: no module imports jax or
-the JAX package (the machine with the card has no JAX), nor ``transformers``
-or ``safetensors``; the checkpoint, streaming and serving modules, the
-offline front doors and the tokenizer loader import and run without them
-(the loader needs only ``tokenizers`` and ``jinja2``, which the card's
-machine has), and importing the package builds or loads no kernel."""
+the JAX package (the machine with the card has no JAX), nor ``transformers``,
+``safetensors``, ``optax`` or ``orbax``; the checkpoint, streaming and
+serving modules, the offline front doors, the tokenizer loader and the
+training loop import and run without them (the loader needs only
+``tokenizers`` and ``jinja2``, the training config ``yaml``, all on the
+card's machine), HF ``datasets`` is imported in one function only
+(``data/datasets.py::_load_hf_dataset``, for HF-hosted sets), and importing
+the package builds or loads no kernel."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -15,9 +19,14 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "ultravox_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "ultravox_tpu", "flax", "optax", "transformers", "safetensors")
-# the tokenizer loader's two packages, both on the card's machine
-ALLOWED_THIRD_PARTY = ("tokenizers", "jinja2")
+FORBIDDEN = ("jax", "jaxlib", "ultravox_tpu", "flax", "optax", "orbax", "transformers",
+             "safetensors")
+# the tokenizer loader's two packages and the training config's reader
+# (PyYAML 6.0.3 on the card's machine, read there by the first chip call of
+# the training loop's PR), all on the card's machine
+ALLOWED_THIRD_PARTY = ("tokenizers", "jinja2", "yaml")
+# (file, function) of the one place the port imports HF ``datasets``
+HF_DATASETS_SITE = ("ultravox_torch/data/datasets.py", "_load_hf_dataset")
 
 
 def _imports(path: Path):
@@ -38,10 +47,41 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def _hf_datasets_sites(path: Path):
+    """(function name or None) of each import of the top-level ``datasets``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    sites = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            inner = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            if isinstance(child, ast.Import) and any(
+                    a.name.split(".")[0] == "datasets" for a in child.names):
+                sites.append(func)
+            elif (isinstance(child, ast.ImportFrom) and child.level == 0 and child.module
+                  and child.module.split(".")[0] == "datasets"):
+                sites.append(func)
+            visit(child, inner)
+
+    visit(tree, None)
+    return sites
+
+
+def test_hf_datasets_only_in_its_loader():
+    found = {}
+    for path in FILES:
+        sites = _hf_datasets_sites(path)
+        if sites:
+            found[str(path.relative_to(ROOT))] = sites
+    file, func = HF_DATASETS_SITE
+    assert found == {file: [func]}
+
+
 def test_package_imports_without_jax_and_builds_nothing():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'ultravox_tpu', 'triton', 'safetensors', 'transformers'):\n"
+        "for m in ('jax', 'jaxlib', 'ultravox_tpu', 'triton', 'safetensors', 'transformers',"
+        " 'optax', 'orbax', 'datasets'):\n"
         "    sys.modules[m] = None\n"
         "import ultravox_torch\n"
         "import ultravox_torch.inference.engine\n"
@@ -67,6 +107,16 @@ def test_package_imports_without_jax_and_builds_nothing():
         "from ultravox_torch.inference.serving.engine import _ngram_drafts, _spec_decode_block\n"
         "from ultravox_torch.models.decoder import segmented_spec_scan\n"
         "from ultravox_torch.ops.sampling import spec_accept_slots\n"
+        "import ultravox_torch.training.train\n"
+        "import ultravox_torch.training.checkpoint\n"
+        "import ultravox_torch.training.model_factory\n"
+        "import ultravox_torch.evaluation.validate\n"
+        "import ultravox_torch.models.data_proc\n"
+        "import ultravox_torch.data.mds\n"
+        "import ultravox_torch.data.registry\n"
+        "import ultravox_torch.data.aug\n"
+        "import ultravox_torch.tools.data_tool\n"
+        "import ultravox_torch.tools.mds_tool\n"
         "from ultravox_torch.ops.kernels import _build\n"
         "assert _build.library.cache_info().currsize == 0\n"
         "assert not any(m.startswith('ultravox_tpu') or m == 'jax' for m in sys.modules"
@@ -122,3 +172,38 @@ def test_tokenizer_loader_and_front_doors_run_without_transformers(tmp_path):
     assert out.stdout.strip().endswith("ok")
     for mod in ALLOWED_THIRD_PARTY:
         assert mod not in FORBIDDEN
+
+
+def test_training_loop_runs_without_jax_or_hf(tmp_path):
+    """With JAX, the JAX package, ``transformers``, ``safetensors``,
+    ``optax``, ``orbax`` and HF ``datasets`` blocked, the training CLI's
+    ``main()`` trains 2 steps of ``test_train.yaml`` on the CPU (the
+    tokenizer saved here beforehand with ``transformers``) and writes its
+    config, log, checkpoint and export."""
+    from tests.helpers import make_tiny_tokenizer
+
+    make_tiny_tokenizer().save_pretrained(tmp_path / "tok")
+    out = tmp_path / "out"
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'ultravox_tpu', 'triton', 'safetensors', 'transformers',"
+        " 'optax', 'orbax', 'datasets'):\n"
+        "    sys.modules[m] = None\n"
+        "from ultravox_torch.training import train\n"
+        "sys.argv = ['train', '--config_path', 'ultravox_torch/training/configs/test_train.yaml',"
+        f" '--device', 'cpu', '--tokenizer_path', {str(tmp_path / 'tok')!r}, '--text_model', '',"
+        f" '--output_dir', {str(out)!r}, '--report_logs_to', '[]']\n"
+        "train.main()\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+    assert sorted(os.listdir(out)) == ["checkpoint-2", "model.safetensors", "train_config.json",
+                                       "train_log.jsonl"]
+    with open(out / "train_log.jsonl") as f:
+        assert [json.loads(line)["step"] for line in f] == [1, 2]

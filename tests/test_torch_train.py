@@ -536,7 +536,8 @@ def test_optimizer_schedule_and_update_match_optax(schedule):
     for n in range(13):
         u, s = jopt.update(jnp.ones(3), s, p)
         before = tp.detach().clone()
-        topt.update(adam, [tp], [torch.ones(3)], torch.tensor(3.0**0.5), n)
+        topt.update(adam, [tp], [torch.ones(3)], torch.tensor(3.0**0.5))
+        assert adam.count == n + 1  # the schedule counts updates
         lr_j = -float(u[0]) * (1 + 1e-8)
         np.testing.assert_allclose(topt.schedule(n), lr_j, rtol=1e-5, atol=1e-12, err_msg=str(n))
         np.testing.assert_allclose(_np(tp - before), np.asarray(u), rtol=1e-5, atol=1e-12)

@@ -464,7 +464,7 @@ def test_unported_parts_raise_and_checkpoints_resolve(tmp_path, monkeypatch):
     directory resolves to itself, a missing one raises; hf:// and wandb://
     go to their (lazily imported) downloaders."""
     Wav2Vec2EncoderConfig = type("Wav2Vec2EncoderConfig", (), {})
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         tw.convert_audio_tower_checkpoint({}, Wav2Vec2EncoderConfig())
     cfg, params, _ = tinfer.load_ultravox_checkpoint(FIXTURE, torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match="include_code"):

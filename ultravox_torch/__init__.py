@@ -18,7 +18,11 @@ Entry points, each on the CUDA card unless given ``device="cpu"``:
   or ``build_api`` and ``serve``, over
   ``inference.streaming.StreamingAudioEncoder``) and its client
   ``tools.infer_api.OpenAIInference``;
-- training: ``training.train_step.make_train_step``;
+- training: ``python -m ultravox_torch.training.train --config_path <yaml>``
+  (``training.train.train``: the recipes of ``training/configs``, the data
+  pipeline of ``data/``, checkpoints with resume, gradient accumulation and
+  validation; ``evaluation.validate`` for the validation loss alone) on
+  ``training.train_step.make_train_step``;
 - checkpoints: ``inference.ultravox_infer.load_ultravox_checkpoint``,
   ``models.tokenizer.load_tokenizer`` and ``tools.publish.save_pretrained``.
 """

@@ -1,3 +1,4 @@
-"""Data helpers the serving front end needs: WAV codecs (``sample``)."""
+"""Data: the ``VoiceSample`` record and WAV codecs (``sample``), datasets,
+augmentations and the registry of named data sets."""
 
-from ultravox_torch.data.sample import SAMPLE_RATE  # noqa: F401
+from ultravox_torch.data.sample import SAMPLE_RATE, VoiceSample  # noqa: F401

@@ -1,10 +1,11 @@
-"""``VoiceSample``, the data record of the offline front doors (chat
-``messages`` + float32 16 kHz mono ``audio``), and WAV codecs for such audio
-without librosa: the ``soundfile`` package where present, else the stdlib
-``wave`` module."""
+"""``VoiceSample``, the data record of the front doors and the data pipeline
+(chat ``messages`` + float32 16 kHz mono ``audio``), and WAV codecs for such
+audio without librosa: the ``soundfile`` package where present, else the
+stdlib ``wave`` module."""
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 import io
 from typing import Any, Dict, List, Optional
@@ -100,3 +101,26 @@ class VoiceSample:
         return cls(messages=[{"role": "user", "content": prompt}], audio=audio,
                    sample_rate=sample_rate)
 
+    @classmethod
+    def from_prompt_and_raw_wav(cls, prompt: str, wav_bytes: bytes) -> "VoiceSample":
+        audio, sr = audio_from_wav_bytes(wav_bytes)
+        return cls.from_prompt_and_audio(prompt, audio, sr)
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "VoiceSample":
+        audio = None
+        sr = d.get("sample_rate", SAMPLE_RATE)
+        if d.get("audio_b64"):
+            audio, sr = audio_from_wav_bytes(base64.b64decode(d["audio_b64"]))
+        return cls(messages=d["messages"], audio=audio, sample_rate=sr)
+
+    def to_json(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"messages": self.messages}
+        if self.audio is not None:
+            out["audio_b64"] = base64.b64encode(
+                audio_to_wav_bytes(self.audio, self.sample_rate)).decode()
+            out["sample_rate"] = self.sample_rate
+        return out
+
+    def add_past_messages(self, past: List[Dict[str, str]]) -> None:
+        self.messages = past + self.messages

@@ -1,0 +1,36 @@
+"""Standalone val-loss CLI (reference: evaluation/validate.py:22-226):
+teacher-forcing forward over the configured datasets, label-count-weighted
+loss, on the card unless ``--device cpu``.
+
+Usage: ``python -m ultravox_torch.evaluation.validate --config_path <train yaml>
+[--val_sets ...]``.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+from typing import Dict
+
+from ultravox_torch.training import train_step as ts
+from ultravox_torch.training.config import get_train_config
+from ultravox_torch.training.model_factory import create_model_pack
+from ultravox_torch.training.train import _check_single_process, validate
+
+
+def main():
+    logging.basicConfig(level=logging.INFO)
+    config = get_train_config()
+    _check_single_process(config)
+    model_pack = create_model_pack(config)
+    optimizer = ts.make_optimizer(config.lr)
+    state, template = ts.init_train_state(
+        model_pack.params, optimizer, config.effective_trainable_patterns,
+        device=config.device,
+    )
+    results: Dict[str, float] = validate(config, model_pack, state, template)
+    print(json.dumps(results, indent=2))
+
+
+if __name__ == "__main__":
+    main()

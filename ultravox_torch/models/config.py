@@ -18,6 +18,14 @@ class LossFunction(str, enum.Enum):
     KL_DIVERGENCE = "kl"
 
 
+class LossMaskType(str, enum.Enum):
+    """How far the label mask extends (reference: ultravox_config.py:26-34)."""
+
+    LAST_ASSISTANT = "last_assistant"
+    ALL = "all"
+    AFTER_AUDIO = "after_audio"
+
+
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
     loss_function: LossFunction = LossFunction.CROSS_ENTROPY
@@ -40,6 +48,17 @@ class LoraConfig:
     lora_alpha: float = 8.0
     target_modules: Tuple[str, ...] = ("k_proj", "q_proj", "linear_k", "linear_q")
     unfreeze_layers: Tuple[str, ...] = ()
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "LoraConfig":
+        if not d:
+            return cls()
+        return cls(
+            r=int(d.get("r", 0)),
+            lora_alpha=float(d.get("lora_alpha", 8.0)),
+            target_modules=tuple(d.get("target_modules") or ()),
+            unfreeze_layers=tuple(d.get("unfreeze_layers") or ()),
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,6 +213,16 @@ class DecoderConfig:
                 "gelu_pytorch_tanh" if arch in ("gemma2", "gemma3") else "silu",
             ),
         )
+
+
+def make_audio_config(d: Dict[str, Any]) -> "WhisperEncoderConfig":
+    """Audio-tower config from an HF config dict. Whisper only: the wav2vec2
+    family is not ported yet (ROADMAP.md queue A item 6)."""
+    model_type = (d.get("model_type") or "whisper").lower()
+    if "wav2vec2" in model_type:
+        raise NotImplementedError(
+            "wav2vec2 audio towers are not ported yet (ROADMAP.md queue A item 6)")
+    return WhisperEncoderConfig.from_hf_dict(d)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -194,6 +194,10 @@ def merge_lora(
     return out
 
 
+def lora_trainable_patterns() -> Tuple[str, ...]:
+    return (r".*lora_[ab]$",)
+
+
 def build_lora_banks(adapters: Dict[str, Params]) -> Tuple[Params, Dict[str, int]]:
     """Stack several adapters into per-target banks for multi-LoRA serving.
 

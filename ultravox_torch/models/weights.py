@@ -263,7 +263,7 @@ def convert_audio_tower_checkpoint(
     the configured tower."""
     if _is_wav2vec2(audio_cfg):
         raise NotImplementedError(
-            "wav2vec2 audio towers are not ported yet (ROADMAP.md queue A item 8)")
+            "wav2vec2 audio towers are not ported yet (ROADMAP.md queue A item 6)")
     for prefix in ("model.encoder.", "encoder.", ""):
         sub = _strip_prefix(sd, prefix) if prefix else sd
         if "conv1.weight" in sub:
@@ -353,7 +353,7 @@ def convert_ultravox(
     if audio_sd:
         if _is_wav2vec2(cfg.audio_config):
             raise NotImplementedError(
-                "wav2vec2 audio towers are not ported yet (ROADMAP.md queue A item 8)")
+                "wav2vec2 audio towers are not ported yet (ROADMAP.md queue A item 6)")
         if _covers_encoder(audio_sd, cfg.audio_config):
             params["audio_tower"] = convert_whisper_encoder(audio_sd, cfg.audio_config, dtype, device)
         elif "audio_tower" in params:
@@ -518,7 +518,7 @@ def _overlay_decoder(base: Params, sd: FlatDict, cfg: DecoderConfig, dtype) -> P
 def _overlay_encoder(base: Params, sd: FlatDict, cfg, dtype) -> Params:
     if _is_wav2vec2(cfg):
         raise NotImplementedError(
-            "wav2vec2 audio towers are not ported yet (ROADMAP.md queue A item 8)")
+            "wav2vec2 audio towers are not ported yet (ROADMAP.md queue A item 6)")
     return _overlay_tower(base, sd, _encoder_key_to_path, "encoder")
 
 

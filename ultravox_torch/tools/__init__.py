@@ -1,2 +1,3 @@
-"""Checkpoint publishing (``publish.save_pretrained``) and the OpenAI-protocol
-client (``infer_api.OpenAIInference``)."""
+"""Checkpoint publishing (``publish.save_pretrained``), the OpenAI-protocol
+client (``infer_api.OpenAIInference``), the dataset browser (``data_tool``)
+and HF -> MDS conversion (``mds_tool``)."""

@@ -25,7 +25,7 @@ def config_to_hf_dict(cfg: UltravoxConfig) -> dict:
     audio = cfg.audio_config
     if not isinstance(audio, WhisperEncoderConfig):
         raise NotImplementedError(
-            "wav2vec2 audio towers are not ported yet (ROADMAP.md queue A item 8)")
+            "wav2vec2 audio towers are not ported yet (ROADMAP.md queue A item 6)")
     return {
         "model_type": "ultravox",
         "audio_model_id": cfg.audio_model_id,

@@ -13,6 +13,12 @@ Unlike the JAX package's functional step, the update is in place: the
 trainable tensors and the optimizer's moments are updated where they lie,
 and the returned state holds the same tensors. Nothing in a step reads a
 number back from the card; the metrics are 0-dim tensors.
+
+Gradient accumulation (``multi_steps``) follows ``optax.MultiSteps``: each
+call is one micro-step (``TrainState.step`` counts them, as the JAX
+package's does); the gradients' running mean lives in fp32 buffers beside
+the optimizer, and clipping and the AdamW update run on that mean every
+k-th call only. The schedule counts updates (``OptState.count``).
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,11 +38,23 @@ Params = Any
 
 
 @dataclasses.dataclass
+class OptState:
+    """The optimizer's state: AdamW over the trainable leaves, the updates
+    applied so far (the schedule reads it), and, with accumulation, the
+    micro-steps since the last update and the gradients' running mean."""
+
+    adamw: torch.optim.AdamW
+    count: int = 0
+    mini_step: int = 0
+    acc: Optional[List[torch.Tensor]] = None  # fp32, one per trainable leaf
+
+
+@dataclasses.dataclass
 class TrainState:
-    step: int  # updates applied so far (a host number: the schedule reads it)
+    step: int  # micro-steps taken so far (train_step calls)
     trainable: Dict[str, torch.Tensor]  # the optimized leaves, by path
     frozen: Dict[str, torch.Tensor]  # everything else
-    opt_state: Any  # the torch.optim.AdamW over ``trainable``
+    opt_state: OptState
 
 
 def _path_items(tree: Params, prefix: str = ""):
@@ -120,7 +138,9 @@ class Optimizer:
     learning-rate schedule, after clipping by the global norm: gradients
     are scaled by max / norm only when norm >= max, as optax does (no
     epsilon, unlike ``torch.nn.utils.clip_grad_norm_``). The lr of update
-    n (from 0) is ``schedule(n)``."""
+    n (from 0) is ``schedule(n)``. ``every_k`` > 1 accumulates that many
+    micro-steps' gradients into their mean before each update
+    (``optax.MultiSteps``)."""
 
     schedule: Callable[[int], float]
     weight_decay: float
@@ -128,27 +148,61 @@ class Optimizer:
     b1: float
     b2: float
     eps: float = 1e-8
+    every_k: int = 1
 
-    def init(self, trainable: Dict[str, torch.Tensor]) -> torch.optim.AdamW:
-        return torch.optim.AdamW(
+    def init(self, trainable: Dict[str, torch.Tensor]) -> OptState:
+        adamw = torch.optim.AdamW(
             list(trainable.values()), lr=self.schedule(0), betas=(self.b1, self.b2),
             eps=self.eps, weight_decay=self.weight_decay,
         )
+        acc = None
+        if self.every_k > 1:
+            acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+                   for t in trainable.values()]
+        return OptState(adamw, acc=acc)
 
     @torch.no_grad()
-    def update(self, opt: torch.optim.AdamW, params: Sequence[torch.Tensor],
-               grads: Sequence[torch.Tensor], grad_norm: torch.Tensor, step: int) -> None:
-        """One update of ``params`` in place from their (unclipped) grads."""
+    def _apply(self, opt: OptState, params: Sequence[torch.Tensor],
+               grads: Sequence[torch.Tensor], grad_norm: torch.Tensor) -> None:
         if self.max_grad_norm:
             grads = [torch.where(grad_norm < self.max_grad_norm, g,
                                  g / grad_norm.to(g.dtype) * self.max_grad_norm) for g in grads]
         for p, g in zip(params, grads):
             p.grad = g
-        for group in opt.param_groups:
-            group["lr"] = self.schedule(step)
-        opt.step()
+        for group in opt.adamw.param_groups:
+            group["lr"] = self.schedule(opt.count)
+        opt.adamw.step()
         for p in params:
             p.grad = None
+        opt.count += 1
+
+    @torch.no_grad()
+    def update(self, opt: OptState, params: Sequence[torch.Tensor],
+               grads: Sequence[torch.Tensor], grad_norm: torch.Tensor) -> None:
+        """One micro-step: with every_k 1 an update of ``params`` in place
+        from their (unclipped) grads, whose norm is ``grad_norm``; else the
+        grads join the running mean (Welford, as optax's) and every k-th
+        call updates from the mean and zeroes it."""
+        if self.every_k == 1:
+            self._apply(opt, params, grads, grad_norm)
+            return
+        n = opt.mini_step
+        for a, g in zip(opt.acc, grads):
+            a.add_((g.float() - a) / (n + 1))
+        opt.mini_step = (n + 1) % self.every_k
+        if opt.mini_step == 0:
+            mean = [a.to(p.dtype) for a, p in zip(opt.acc, params)]
+            self._apply(opt, params, mean, global_norm(mean))
+            for a in opt.acc:
+                a.zero_()
+
+
+def multi_steps(optimizer: Optimizer, every_k: int) -> Optimizer:
+    """``optimizer`` updating once every ``every_k`` calls, from the mean of
+    their gradients (``optax.MultiSteps(optimizer, every_k)``)."""
+    if every_k < 1:
+        raise ValueError(f"every_k must be at least 1, got {every_k}")
+    return dataclasses.replace(optimizer, every_k=every_k)
 
 
 def make_optimizer(
@@ -221,7 +275,8 @@ def make_train_step(
     pipe_mesh=None,
 ) -> Callable:
     """The train step: (state, batch) -> (state, metrics), metrics ``loss``,
-    ``grad_norm`` (before clipping) and ``param_norm`` (after the update).
+    ``grad_norm`` (this call's gradients, before clipping) and
+    ``param_norm`` (after the update, if this call made one).
     ``batch`` holds tensors on the state's device."""
     if pipe_mesh is not None:
         raise NotImplementedError("pipeline-parallel training is not ported yet")
@@ -233,7 +288,7 @@ def make_train_step(
         leaves = list(state.trainable.values())
         grads = torch.autograd.grad(loss, leaves)
         grad_norm = global_norm(grads)
-        optimizer.update(state.opt_state, leaves, grads, grad_norm, state.step)
+        optimizer.update(state.opt_state, leaves, grads, grad_norm)
         with torch.no_grad():
             param_norm = global_norm(leaves)
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "param_norm": param_norm}

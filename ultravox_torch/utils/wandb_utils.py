@@ -1,11 +1,17 @@
 """W&B checkpoint addressing: ``wandb://entity/project/artifact:vN``.
 
-A copy of the JAX package's ``utils/wandb_utils.py`` addressing and
-download helpers. ``wandb`` is imported only when such a path is resolved;
-it is an optional dependency.
+A copy of the JAX package's ``utils/wandb_utils.py`` addressing, download
+and checkpoint-artifact helpers. ``wandb`` is imported only when one is
+called; it is an optional dependency.
 """
 
 from __future__ import annotations
+
+import logging
+import os
+from typing import Optional
+
+logger = logging.getLogger(__name__)
 
 WANDB_PREFIX = "wandb://"
 
@@ -35,3 +41,19 @@ def download_model_from_wandb(model_url: str) -> str:
     if path is None:
         raise ValueError(f"artifact {model_url} has no files")
     return path
+
+
+def log_checkpoint_artifact(
+    run, checkpoint_dir: str, name: Optional[str] = None
+) -> None:
+    """Log a checkpoint directory as a W&B model artifact (reference:
+    WANDB_LOG_MODEL=checkpoint flow, train.py:167-175)."""
+    import wandb
+
+    artifact = wandb.Artifact(
+        name=name or f"model-{os.path.basename(checkpoint_dir)}",
+        type="model",
+    )
+    artifact.add_dir(checkpoint_dir)
+    run.log_artifact(artifact)
+    logger.info("logged checkpoint artifact %s", artifact.name)
