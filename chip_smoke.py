@@ -199,6 +199,25 @@ Phases, each fatal on failure:
      share over two traced micro-steps, checkpoint write / restore /
      validation ms.
 
+ 13. the wav2vec2 tower (see _w2v_main_path), random bf16 weights from the
+     seed, 4 requests of synthesized speech of 10, 7.3, 4.1 and 1 s: (a)
+     the published large-lv60 and base towers alone at full width, bf16
+     against the same weights in fp32 on the card (W2V_RMS_TOL), each row
+     of the layer variant alone against its padded row, ms per call and the
+     device time of the conv stack, the positional conv and the layers;
+     (b) tiny wav2vec2 + llama models in both variants, greedy tokens on
+     the card (kernels) equal to the CPU's (plain) for generate,
+     generate_fused and the ServingEngine in slots and paged modes with
+     sample buckets; (c) GenerationEngine(decode_attn_impl="kernel") with
+     the large tower under the flagship decoder: #4 16, #8 496, #1-#3 and
+     #13 none, TTFT and tok/s, an int8 engine that leaves the tower as it
+     was; (d) a paged ServingEngine with #9 + #12 on phase 5's traffic,
+     launches against its counters, TTFT and tok/s; (e) save_pretrained
+     loaded back bit for bit, and a Wav2Vec2ForCTC-layout tower file read
+     through convert_audio_tower_checkpoint; (f) three KL train steps
+     (projector trainable) with #13's launches in the decoder only, the
+     loss and gradient norm against _FlashPlain, step ms and peak memory.
+
 Each phase prints its seconds. Phases 4-7 also hold ln_matmul_gelu, attn_out_proj_residual,
 decode_matmul, attn_v2 and attn_nt at 0 launches: no engine calls them.
 
@@ -2639,11 +2658,12 @@ def _check_pages(engine, label: str) -> None:
         _fail(f"{label}: page accounting broken")
 
 
-def _small_serving_parity(name, params, cfg, requests, dev):
+def _small_serving_parity(name, params, cfg, requests, dev, audio_buckets=(400,)):
     """The ServingEngine on the card against the same engine on the CPU,
     fp32, greedy tokens identical, in slots and paged modes (pages of 16, a
     pool smaller than the slots' tokens) with both block attentions. Each
-    card run must launch its mode's kernels."""
+    card run must launch its mode's kernels. ``audio_buckets``: the
+    engine's padded audio lengths (mel frames, or samples for wav2vec2)."""
     from ultravox_torch.inference.serving.engine import ServingEngine
     from ultravox_torch.ops.kernels import decode_attention as da
     from ultravox_torch.ops.kernels import paged_attention as pa
@@ -2663,9 +2683,10 @@ def _small_serving_parity(name, params, cfg, requests, dev):
             srv = ServingEngine(
                 params, cfg, num_slots=4, max_seq_len=128, cache_dtype=torch.float32,
                 cache_mode=mode, page_size=16, num_pages=20 if mode == "paged" else None,
-                prefill_len_buckets=(64, 128), mel_len_buckets=(400,), prefill_chunk_tokens=16,
-                decode_block_steps=4, encoder_attn_impl="fused", prefill_attn_impl="fused",
-                decode_attn_impl="kernel", block_attn_impl=impl, device=device)
+                prefill_len_buckets=(64, 128), mel_len_buckets=audio_buckets,
+                prefill_chunk_tokens=16, decode_block_steps=4, encoder_attn_impl="fused",
+                prefill_attn_impl="fused", decode_attn_impl="kernel", block_attn_impl=impl,
+                device=device)
             srv.start()
             try:
                 out = _serve(srv, requests, 12)
@@ -2841,9 +2862,31 @@ def _small_lora_int8_parity(tc, uv, TEngine, dev):
               f"RMS {rms}, max_abs_err {err} of the largest")
 
 
+def _counted_run(counters, label, fn, expected):
+    """fn() with every count set to 0 just before and read just after, each
+    against ``expected`` (0 where it names none): (fn's result, start and
+    end on the host clock, the launches)."""
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = {name: c.launches for name, c in counters.items()}
+    want = {name: expected.get(name, 0) for name in counters}
+    print(f"launches, {label}: {launches} expected {want}", flush=True)
+    for name, n in launches.items():
+        if n != want[name]:
+            _fail(f"{name} launched {n} times in {label}, expected {want[name]}")
+    return out, t_start, t_end, launches
+
+
 def _scale(tree, f):
     if isinstance(tree, dict):
         return {k: _scale(v, f) for k, v in tree.items()}
+    if isinstance(tree, list):  # the wav2vec2 conv stack
+        return [_scale(v, f) for v in tree]
     return tree * f if tree.ndim >= 2 else tree
 
 
@@ -2951,23 +2994,6 @@ def main() -> None:
         "attention_headmajor": L_enc, "fused_attention": L_dec,
     }
 
-    def run(label, fn, expected):
-        """fn() with every count set to 0 just before and read just after."""
-        for c in counters.values():
-            c.launches = 0
-        torch.cuda.synchronize()
-        t_start = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        t_end = time.perf_counter()
-        launches = {name: c.launches for name, c in counters.items()}
-        want = {name: expected.get(name, 0) for name in counters}
-        print(f"launches, {label}: {launches} expected {want}", flush=True)
-        for name, n in launches.items():
-            if n != want[name]:
-                _fail(f"{name} launched {n} times in {label}, expected {want[name]}")
-        return out, t_start, t_end, launches
-
     def check_tokens(label, ids):
         if len(ids) != n_req or any(len(r) != new_tokens for r in ids):
             _fail(f"{label}: expected {n_req} x {new_tokens} tokens, got {[len(r) for r in ids]}")
@@ -2977,8 +3003,8 @@ def main() -> None:
     # 4.1 generate, decode through the decode_attention kernel
     torch.cuda.reset_peak_memory_stats()
     stamps = []
-    result, t_start, t_end, launches = run(
-        "generate(decode_attn_impl='kernel')",
+    result, t_start, t_end, launches = _counted_run(
+        counters, "generate(decode_attn_impl='kernel')",
         lambda: engine.generate(
             batch, max_new_tokens=new_tokens,
             token_callback=lambda step, toks, done: stamps.append(time.perf_counter())),
@@ -2995,8 +3021,9 @@ def main() -> None:
 
     # 4.2 generate_fused: one segmented scan with the plain merged attention,
     # as the JAX engine's generate_fused runs it
-    fused, f_start, f_end, _ = run(
-        "generate_fused", lambda: engine.generate_fused(batch, max_new_tokens=new_tokens), prefill)
+    fused, f_start, f_end, _ = _counted_run(
+        counters, "generate_fused",
+        lambda: engine.generate_fused(batch, max_new_tokens=new_tokens), prefill)
     check_tokens("generate_fused", fused.token_ids)
     fused_ttft_ms = _first_token_ms(engine, batch)
     fused_tps = n_req * steps / ((f_end - f_start) - fused_ttft_ms / 1e3)
@@ -3004,8 +3031,8 @@ def main() -> None:
           f"{fused_ttft_ms:.3f} ms (timed apart); decode {fused_tps:.2f} tok/s", flush=True)
 
     # 4.3 the segmented scan through the segment_tail_attention kernel
-    seg, s_start, s_end, seg_launches = run(
-        "segmented_decode_scan(attn_impl='kernel')",
+    seg, s_start, s_end, seg_launches = _counted_run(
+        counters, "segmented_decode_scan(attn_impl='kernel')",
         lambda: _scan_tokens(engine, batch, steps, "kernel"),
         dict(prefill, segment_tail_attention=L_dec * steps),
     )
@@ -3101,6 +3128,14 @@ def main() -> None:
             row["launches_per_path"] = {"train steps (phase 6)": row["launches"],
                                         "train loop (phase 12)": loop_launches[row["name"]]}
 
+    # 13. the wav2vec2 tower at full width through every path that takes it
+    wav2vec2, w2v_launches = _w2v_main_path(tc, uv, counters, smi, dev)
+    for row in rows:
+        for path, launched in w2v_launches.items():
+            if row["name"] in launched and launched[row["name"]]:
+                row.setdefault("launches_per_path", {"main": row["launches"]})[
+                    f"wav2vec2 {path}"] = launched[row["name"]]
+
     print(f"chip_smoke: {time.perf_counter() - t_script:.2f} s in all", flush=True)
     print(smi, flush=True)
     print(json.dumps({
@@ -3108,7 +3143,7 @@ def main() -> None:
         "fused_first_token_ms": fused_ttft_ms, "fused_decode_tok_s": fused_tps,
         "scan_kernel_decode_tok_s": seg_tps, "serving": serving, "training": training,
         "lora_int8": lora_int8, "probes": probes, "checkpoint": checkpoint, "voice": voice,
-        "front_doors": front_doors, "train_loop": train_loop,
+        "front_doors": front_doors, "train_loop": train_loop, "wav2vec2": wav2vec2,
         "total_s": time.perf_counter() - t_script,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3529,13 +3564,14 @@ def _probe_entry_point(eap, dev):
 
 
 def _flat_paths(tree, prefix=""):
-    """{"a/b/c": leaf} of a nested dict of tensors."""
+    """{"a/b/c": leaf} of a nested dict of tensors (a list's items under
+    their index, as the wav2vec2 conv stack)."""
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    for k, v in (enumerate(tree) if isinstance(tree, list) else tree.items()):
+        if isinstance(v, (dict, list)):
             out.update(_flat_paths(v, f"{prefix}{k}/"))
         else:
-            out[prefix + k] = v
+            out[f"{prefix}{k}"] = v
     return out
 
 
@@ -4037,8 +4073,8 @@ def _breakdown(engine, batch, new_tokens: int, untraced_ms) -> None:
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     else:
         yield tree
@@ -5543,9 +5579,476 @@ def _train_loop_timing(tok, out_dir):
     }
 
 
+# --------------------------------------------------------------------------
+# Phase 13: the wav2vec2 tower and every path that carries it
+# --------------------------------------------------------------------------
+
+# The published towers, as their config.json files give them:
+# facebook/wav2vec2-large-960h-lv60-self (the stable, LayerNorm variant) and
+# facebook/wav2vec2-base-960h (the GroupNorm variant).
+W2V_LARGE_LV60 = {
+    "model_type": "wav2vec2", "hidden_size": 1024, "num_hidden_layers": 24,
+    "num_attention_heads": 16, "intermediate_size": 4096, "conv_dim": [512] * 7,
+    "conv_kernel": [10, 3, 3, 3, 3, 2, 2], "conv_stride": [5, 2, 2, 2, 2, 2, 2],
+    "conv_bias": True, "feat_extract_norm": "layer", "do_stable_layer_norm": True,
+    "num_conv_pos_embeddings": 128, "num_conv_pos_embedding_groups": 16, "layer_norm_eps": 1e-5,
+}
+W2V_BASE = dict(W2V_LARGE_LV60, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                intermediate_size=3072, conv_bias=False, feat_extract_norm="group",
+                do_stable_layer_norm=False)
+W2V_SECONDS = (10.0, 7.3, 4.1, 1.0)  # phase 13's four ragged requests
+# the bf16 tower against the same weights in fp32 on the card: the bound the
+# bf16 streaming encode is held to (phase 10); a row alone against its row
+# of the padded batch, fp32 (cuDNN picks its convolution per shape)
+W2V_RMS_TOL = 2.0**-5
+W2V_ROW_RMS_TOL = 1e-4
+W2V_SMALL_SCALE = {"audio_tower": 1.0, "projector": 2.0, "language_model": 8.0}
+
+
+def _same_leaves(a, b) -> bool:
+    """The two trees hold the very same tensors."""
+    la, lb = list(_leaves(a)), list(_leaves(b))
+    return len(la) == len(lb) and all(x is y for x, y in zip(la, lb))
+
+
+def _w2v_config(tc, audio: dict):
+    """Phase 4's flagship decoder and projector over a wav2vec2 tower."""
+    import dataclasses
+
+    return dataclasses.replace(_flagship_config(tc), audio_config=tc.make_audio_config(audio))
+
+
+def _w2v_audio(seconds, rng):
+    """(N, 1, T) raw audio, row i the first seconds[i] of phase 4's
+    synthesized speech, normalised per utterance and zero-padded as the
+    processor's feature extractor gives it; and the lengths in samples."""
+    from ultravox_torch.models.processor import RawAudioFeatureExtractor
+
+    raw = _audio(len(seconds), max(seconds), rng)
+    feats, lens = RawAudioFeatureExtractor()(
+        [raw[i, : int(s * 16000)] for i, s in enumerate(seconds)])
+    return feats.astype(np.float32), lens.astype(np.int32)
+
+
+def _w2v_batch(cfg, feats, lens, prompt_len: int, rng):
+    """A collated batch of raw audio spliced at position 4 of each prompt."""
+    n = len(lens)
+    frames = cfg.audio_config.feature_lengths(lens.astype(np.int64))
+    return {
+        "input_ids": rng.integers(1, cfg.vocab_size, (n, prompt_len)).astype(np.int64),
+        "attention_mask": np.ones((n, prompt_len), np.int64),
+        "audio_values": feats,
+        "audio_lens": lens,
+        "audio_token_len": (-(-frames // cfg.stack_factor)).astype(np.int32),
+        "audio_token_start_idx": np.full((n,), 4, np.int32),
+        "audio_chunk_batch_idx": np.arange(n, dtype=np.int32),
+    }
+
+
+def _w2v_flops(acfg, B: int, T_samples: int) -> dict:
+    """Matmul and convolution FLOPs of one tower call on B rows of
+    T_samples, by part (2 per multiply-add)."""
+    conv, t, c_in = 0.0, T_samples, 1
+    for c, k, st in zip(acfg.conv_dim, acfg.conv_kernel, acfg.conv_stride):
+        t = (t - k) // st + 1
+        conv += 2.0 * B * t * c * c_in * k
+        c_in = c
+    D, F_, L = acfg.hidden_size, acfg.ffn_dim, acfg.num_layers
+    groups, k = acfg.num_conv_pos_embedding_groups, acfg.num_conv_pos_embeddings
+    return {
+        "conv_stack": conv + 2.0 * B * t * c_in * D,  # with the feature projection
+        "pos_conv": 2.0 * B * t * D * (D // groups) * k,
+        "layer_products": 2.0 * B * t * L * (4 * D * D + 2 * D * F_),
+        "attention": 4.0 * B * L * t * t * D,
+    }
+
+
+def _w2v_device_ms(fn):
+    """(device ms, top kernels) of one call of fn from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs, _ = _device_events(prof)
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
+    return (sum(e.self_device_time_total for e in evs) / 1e3,
+            [(e.key[:70], e.count, e.self_device_time_total / 1e3) for e in top])
+
+
+def _w2v_tower(tc, w2v, smi, dev) -> dict:
+    """Phase 13 (a): both published towers alone at full width on 4 ragged
+    requests (W2V_SECONDS), random bf16 weights from the seed: the bf16
+    tower against the same weights in fp32 on the card over every valid
+    frame (relative RMS within W2V_RMS_TOL); for the layer variant each row
+    alone, fp32, against its row of the padded batch (W2V_ROW_RMS_TOL);
+    ms per call (CUDA events) and the device time of the conv stack, the
+    positional conv and the rest (the 24 layers, the projection, masks)
+    from torch.profiler, beside the FLOPs of each part."""
+    feats, lens = _w2v_audio(W2V_SECONDS, np.random.default_rng(SEED + 13))
+    audio32 = torch.from_numpy(feats[:, 0]).to(dev)
+    audio = audio32.bfloat16()
+    lens_t = torch.from_numpy(lens).to(dev)
+    out = {}
+    for name, d in (("large-lv60", W2V_LARGE_LV60), ("base", W2V_BASE)):
+        acfg = tc.make_audio_config(d)
+        p = w2v.init_params(acfg, torch.Generator(device=dev).manual_seed(SEED), torch.bfloat16, dev)
+        p32 = _to_float(p)
+        frames = [int(f) for f in acfg.feature_lengths(lens)]
+        with torch.inference_mode():
+            got = w2v.encoder_forward(p, acfg, audio, lens_t)
+            ref = w2v.encoder_forward(p32, acfg, audio32, lens_t)
+            torch.cuda.synchronize()
+            valid_got = torch.cat([got[i, :f] for i, f in enumerate(frames)])
+            valid_ref = torch.cat([ref[i, :f] for i, f in enumerate(frames)])
+            rms = _rel_rms(valid_got, valid_ref)
+            finite = bool(torch.isfinite(got).all())
+            print(f"wav2vec2 {name}: out {tuple(got.shape)} {got.dtype}, frames {frames}; bf16 "
+                  f"against fp32 on the card: relative RMS {rms:.5f} (tol {W2V_RMS_TOL:.5f})",
+                  flush=True)
+            if got.shape != (len(lens), frames[0], acfg.hidden_size) or not finite:
+                _fail(f"wav2vec2 {name}: output {tuple(got.shape)}, finite {finite}")
+            if not rms <= W2V_RMS_TOL:
+                _fail(f"wav2vec2 {name}: the bf16 tower differs from fp32 by a relative RMS of {rms}")
+            row_rms = None
+            if acfg.do_stable_layer_norm:
+                row_rms = [_rel_rms(w2v.encoder_forward(p32, acfg, audio32[i: i + 1, : lens[i]])[0],
+                                    ref[i, :f]) for i, f in enumerate(frames)]
+                print(f"wav2vec2 {name}: each row alone against its row of the padded batch (fp32): "
+                      f"relative RMS {[f'{r:.2e}' for r in row_rms]} (tol {W2V_ROW_RMS_TOL:g})",
+                      flush=True)
+                if not max(row_rms) <= W2V_ROW_RMS_TOL:
+                    _fail(f"wav2vec2 {name}: a row alone differs from its padded row: {row_rms}")
+            h = torch.randn((len(lens), frames[0], acfg.hidden_size), device=dev,
+                            dtype=torch.bfloat16)
+            parts = {
+                "tower": lambda: w2v.encoder_forward(p, acfg, audio, lens_t),
+                "conv_stack": lambda: w2v.feature_extractor(p, acfg, audio),
+                "pos_conv": lambda: w2v.pos_conv_embedding(p, acfg, h),
+            }
+            ms = {k: _time_ms(fn, iters=10) for k, fn in parts.items()}
+            dev_ms, tops = {}, {}
+            for k, fn in parts.items():
+                dev_ms[k], tops[k] = _w2v_device_ms(fn)
+            ms32 = _time_ms(lambda: w2v.encoder_forward(p32, acfg, audio32, lens_t), iters=3)
+        flops = _w2v_flops(acfg, len(lens), audio.shape[-1])
+        total = sum(flops.values())
+        rest = dev_ms["tower"] - dev_ms["conv_stack"] - dev_ms["pos_conv"]
+        print(f"wav2vec2 {name} ({smi}): {ms['tower']:.3f} ms per call of 4 requests (bf16; fp32 "
+              f"{ms32:.3f} ms), {total / 1e12:.3f} TFLOP ({total / ms['tower'] / 1e9:.1f} TF/s); "
+              f"device time {dev_ms['tower']:.3f} ms: conv stack {dev_ms['conv_stack']:.3f} ms "
+              f"({flops['conv_stack'] / 1e12:.3f} TFLOP), positional conv {dev_ms['pos_conv']:.3f} "
+              f"ms ({flops['pos_conv'] / 1e12:.3f} TFLOP), layers and the rest {rest:.3f} ms "
+              f"({flops['layer_products'] / 1e12:.3f} TFLOP in products, "
+              f"{flops['attention'] / 1e12:.3f} in attention); busy share of the call "
+              f"{dev_ms['tower'] / ms['tower']:.3f}", flush=True)
+        for k, top in tops.items():
+            for key, count, t in top[:4]:
+                print(f"  {name} {k}: {t:9.3f} ms x{count:<4d} {key}", flush=True)
+        out[name] = {"rel_rms_bf16_vs_fp32": rms, "row_alone_rel_rms": row_rms, "ms": ms["tower"],
+                     "fp32_ms": ms32, "part_ms": ms, "device_ms": dev_ms, "rest_device_ms": rest,
+                     "tflop": {k: v / 1e12 for k, v in flops.items()}, "frames": frames,
+                     "top_kernels": tops}
+        del p, p32, got, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def _w2v_small(tc, uv, TEngine, dev) -> None:
+    """Phase 13 (b): a tiny wav2vec2 + llama model in each variant, fp32:
+    greedy tokens of generate with the decode kernel, generate_fused and the
+    ServingEngine in slots and paged modes (sample buckets) on the card
+    equal those of the plain versions on the CPU."""
+    from ultravox_torch.ops.kernels.decode_attention import decode_attention
+
+    text = dict(vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2,
+                num_heads=4, num_kv_heads=2, head_dim=64, tie_word_embeddings=True)
+    for style in ("group", "layer"):
+        tiny = {"model_type": "wav2vec2", "hidden_size": 64, "num_hidden_layers": 2,
+                "num_attention_heads": 4, "intermediate_size": 128, "conv_dim": [32, 32, 32],
+                "conv_kernel": [10, 3, 2], "conv_stride": [5, 2, 2],
+                "conv_bias": style == "layer", "feat_extract_norm": style,
+                "do_stable_layer_norm": style == "layer", "num_conv_pos_embeddings": 16,
+                "num_conv_pos_embedding_groups": 4}
+        cfg = tc.UltravoxConfig(audio_config=tc.make_audio_config(tiny),
+                                text_config=tc.DecoderConfig(**text), hidden_size=256,
+                                projector_ln_mid=True)
+        params = uv.init_params(cfg, torch.Generator().manual_seed(SEED))
+        params = {k: _scale(v, W2V_SMALL_SCALE[k]) for k, v in params.items()}
+        rng = np.random.default_rng(SEED + 13)
+        feats, lens = _w2v_audio((0.25, 0.16), rng)
+        batch = _w2v_batch(cfg, feats, lens, 40, rng)
+        toks = {}
+        for device in ("cpu", dev):
+            eng = TEngine(params, cfg, max_cache_len=128, cache_dtype=torch.float32,
+                          encoder_attn_impl="fused", prefill_attn_impl="fused",
+                          decode_attn_impl="kernel", device=device)
+            before = decode_attention.launches
+            toks[device] = {
+                "generate": eng.generate(batch, max_new_tokens=12).token_ids,
+                "generate_fused": eng.generate_fused(batch, max_new_tokens=12).token_ids,
+            }
+            if device != "cpu" and decode_attention.launches == before:
+                _fail(f"small wav2vec2 {style}: decode_attention was not launched on the card")
+        for path, cpu in toks["cpu"].items():
+            print(f"small wav2vec2 {style} {path}: cpu {cpu} gpu {toks[dev][path]}", flush=True)
+            if cpu != toks[dev][path]:
+                _fail(f"small wav2vec2 {style} {path}: greedy tokens on the card differ from the "
+                      "CPU's")
+        _small_serving_parity(f"wav2vec2 {style}", params, cfg, [_row(batch, i) for i in range(2)],
+                              dev, audio_buckets=(4800,))
+
+
+def _w2v_main_path(tc, uv, counters, smi, dev):
+    """Phase 13: the wav2vec2 tower at full width through every entry point
+    that takes a tower (see the module docstring); returns (metrics,
+    launches of the decoder kernels by path)."""
+    from ultravox_torch.inference.engine import GenerationEngine
+    from ultravox_torch.models import wav2vec2_encoder as w2v
+    from ultravox_torch.ops.kernels import flash_attention as fl
+
+    t_phase = time.perf_counter()
+    metrics = {"tower": _w2v_tower(tc, w2v, smi, dev)}
+    _w2v_small(tc, uv, GenerationEngine, dev)
+
+    # (c) GenerationEngine at full width: large-lv60 + the flagship decoder
+    cfg = _w2v_config(tc, W2V_LARGE_LV60)
+    params = uv.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), torch.bfloat16, dev)
+    tower_bytes = sum(_nbytes(t) for t in _leaves(params["audio_tower"]))
+    counters = dict(counters, flash_attention=fl.flash_attention)
+    L_dec = cfg.text_config.num_layers
+    n_req, prompt_len, new_tokens = len(W2V_SECONDS), 128, 32
+    steps = new_tokens - 1
+    rng = np.random.default_rng(SEED + 13)
+    feats, lens = _w2v_audio(W2V_SECONDS, rng)
+    batch = _w2v_batch(cfg, feats, lens, prompt_len, rng)
+
+    launches_by_path = {}
+    engine = GenerationEngine(params, cfg, max_cache_len=1024, encoder_attn_impl="fused",
+                              prefill_attn_impl="fused", decode_attn_impl="kernel", device=dev)
+    if not _same_leaves(engine.params["audio_tower"], params["audio_tower"]):
+        _fail("wav2vec2 generate: the engine replaced the tower (only a Whisper tower is fused)")
+    engine.generate(batch, max_new_tokens=2)  # warm-up
+    stamps = []
+    torch.cuda.reset_peak_memory_stats()
+    res, t0, t1, launches_by_path["generate"] = _counted_run(
+        counters, "wav2vec2 generate(decode_attn_impl='kernel')",
+        lambda: engine.generate(batch, max_new_tokens=new_tokens,
+                                token_callback=lambda *a: stamps.append(time.perf_counter())),
+        {"fused_attention": L_dec, "decode_attention": L_dec * steps})
+    ids = res.token_ids
+    if len(ids) != n_req or any(len(r) != new_tokens or not all(0 <= t < cfg.vocab_size for t in r)
+                                for r in ids):
+        _fail(f"wav2vec2 generate: tokens {[len(r) for r in ids]}")
+    gen = {"ttft_ms": (stamps[0] - t0) * 1e3,
+           "decode_tok_s": n_req * steps / (stamps[-1] - stamps[0]),
+           "total_ms": (t1 - t0) * 1e3, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "first_tokens": [r[:8] for r in ids]}
+    print(f"wav2vec2 generate ({smi}): {n_req} requests of {list(W2V_SECONDS)} s, prompt "
+          f"{prompt_len}, {new_tokens} greedy tokens; TTFT {gen['ttft_ms']:.3f} ms; decode "
+          f"{gen['decode_tok_s']:.2f} tok/s; total {gen['total_ms']:.3f} ms; peak memory "
+          f"{gen['peak_memory_gb']:.3f} GB; first tokens {gen['first_tokens']}", flush=True)
+    # the tower keeps its dtype under int8, as in the JAX engine
+    eng8 = GenerationEngine(params, cfg, max_cache_len=1024, quantize="int8",
+                            encoder_attn_impl="fused", prefill_attn_impl="fused",
+                            decode_attn_impl="kernel", device=dev)
+    bytes8 = sum(_nbytes(t) for t in _leaves(eng8.params["audio_tower"]))
+    res8, _, _, _ = _counted_run(counters, "wav2vec2 generate, int8",
+                                 lambda: eng8.generate(batch, max_new_tokens=4),
+                                 {"fused_attention": L_dec, "decode_attention": L_dec * 3})
+    print(f"wav2vec2 int8 engine: tower {bytes8} bytes (bf16 tree {tower_bytes}); first tokens "
+          f"{[r[:4] for r in res8.token_ids]}", flush=True)
+    if bytes8 != tower_bytes or not _same_leaves(eng8.params["audio_tower"], params["audio_tower"]):
+        _fail("wav2vec2 int8: the engine changed the tower")
+    gen["int8_tower_bytes"] = bytes8
+    del eng8, engine
+    torch.cuda.empty_cache()
+    metrics["generate"] = gen
+
+    metrics["serving"], launches_by_path["serving"] = _w2v_serving(cfg, params, counters, smi, dev)
+    metrics["checkpoint"] = _w2v_checkpoint(cfg, params, dev)
+    metrics["train"], launches_by_path["train"] = _w2v_train(tc, uv, cfg, params, smi, dev)
+    del params
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 13: {metrics['phase_s']:.2f} s", flush=True)
+    return metrics, launches_by_path
+
+
+def _w2v_serving(cfg, params, counters, smi, dev):
+    """Phase 13 (d): a paged ServingEngine (the decode and segment kernels,
+    sample buckets by default) on phase 5's traffic with the large tower: 8
+    greedy requests of 10 s of audio in a 128-token prompt, 32 tokens each,
+    4 slots. Launches against the engine's counters (#1-#3 none)."""
+    from ultravox_torch.inference.serving.engine import SAMPLE_LEN_BUCKETS, ServingEngine
+
+    n_req, prompt_len, new_tokens, K = 8, 128, 32, 8
+    rng = np.random.default_rng(SEED + 5)
+    feats, lens = _w2v_audio((10.0,) * n_req, rng)
+    batch = _w2v_batch(cfg, feats, lens, prompt_len, rng)
+    requests = [_row(batch, i) for i in range(n_req)]
+    warm = [_row(dict(batch, input_ids=batch["input_ids"] % (cfg.vocab_size - 1) + 1), i)
+            for i in range(2)]
+    srv = ServingEngine(params, cfg, num_slots=4, max_seq_len=2048, page_size=256,
+                        cache_mode="paged", prefill_chunk_tokens=64, decode_block_steps=K,
+                        encoder_attn_impl="fused", prefill_attn_impl="fused",
+                        decode_attn_impl="kernel", block_attn_impl="kernel", device=dev)
+    if srv.mel_len_buckets != SAMPLE_LEN_BUCKETS:
+        _fail(f"wav2vec2 serving: buckets {srv.mel_len_buckets}, expected samples")
+    srv.start()
+    try:
+        _serve(srv, warm, 12)
+        for c in counters.values():
+            c.launches = 0
+        for stat in ("stat_decode_dispatches", "stat_decode_steps", "stat_prefill_chunks"):
+            setattr(srv, stat, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _serve(srv, requests, new_tokens)
+        wall = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        disp, steps, chunks = (srv.stat_decode_dispatches, srv.stat_decode_steps,
+                               srv.stat_prefill_chunks)
+        _check_pages(srv, "wav2vec2 serving")
+    finally:
+        srv.stop()
+    singles, blocks = _check_serving_launches(
+        "wav2vec2 paged+kernel", launches, counters, {}, disp, steps, chunks, K,
+        cfg.text_config.num_layers, "paged_decode_attention", "paged_segment_tail_attention")
+    for i, (ids, finish, _) in enumerate(out):
+        if finish != "length" or len(ids) != new_tokens:
+            _fail(f"wav2vec2 serving: request {i} finished {finish!r} with {len(ids)} tokens")
+    ttft = sorted(t * 1e3 for _, _, t in out)
+    m = {"ttft_p50_ms": float(np.median(ttft)), "ttft_max_ms": ttft[-1],
+         "output_tok_s": n_req * new_tokens / wall, "wall_ms": wall * 1e3,
+         "decode_dispatches": disp, "single_steps": singles, "blocks": blocks,
+         "prefill_chunks": chunks}
+    print(f"wav2vec2 serving ({smi}): {n_req} requests x {new_tokens} tokens in "
+          f"{wall * 1e3:.3f} ms ({m['output_tok_s']:.2f} tok/s); TTFT p50 {m['ttft_p50_ms']:.3f} "
+          f"ms, max {ttft[-1]:.3f} ms", flush=True)
+    return m, launches
+
+
+def _w2v_checkpoint(cfg, params, dev) -> dict:
+    """Phase 13 (e): save_pretrained of the full-width tree (each leaf in its
+    own dtype) loaded onto the card by load_ultravox_checkpoint bit for bit;
+    a standalone Wav2Vec2ForCTC-layout tower file (``wav2vec2.`` prefix,
+    weight_g / weight_v, fp32) written with save_safetensors and read
+    through convert_audio_tower_checkpoint: every leaf bit-equal but the
+    positional conv, rebuilt from g * v / ||v||, within one bf16 ulp."""
+    import tempfile
+
+    from ultravox_torch.inference.ultravox_infer import load_ultravox_checkpoint
+    from ultravox_torch.models import weights as weights_lib
+    from ultravox_torch.tools.publish import _wav2vec2_to_hf, save_pretrained
+
+    m = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        save_pretrained(params, cfg, d, dtype=None)
+        m["write_s"] = time.perf_counter() - t0
+        m["bytes"] = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        t0 = time.perf_counter()
+        lcfg, lparams, _ = load_ultravox_checkpoint(d, torch.bfloat16)
+        torch.cuda.synchronize()
+        m["load_s"] = time.perf_counter() - t0
+    bad = _bits_differ(params, lparams)
+    print(f"wav2vec2 checkpoint: {m['bytes']} bytes, write {m['write_s']:.3f} s, load onto the "
+          f"card {m['load_s']:.3f} s; {len(_flat_paths(lparams))} leaves, {len(bad)} not "
+          "bit-equal", flush=True)
+    if bad or lcfg != cfg:
+        _fail(f"wav2vec2 checkpoint: leaves {bad[:8]} differ, or the config {lcfg.audio_config}")
+    del lparams
+    sd = {f"wav2vec2.{k}": v for k, v in _wav2vec2_to_hf(params["audio_tower"], cfg).items()}
+    sd["lm_head.weight"] = torch.zeros((32, cfg.audio_config.hidden_size))
+    if "wav2vec2.encoder.pos_conv_embed.conv.weight_g" not in sd:
+        _fail("wav2vec2 tower file: no weight_g")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "model.safetensors")
+        weights_lib.save_safetensors(sd, path)
+        tower = weights_lib.convert_audio_tower_checkpoint(
+            weights_lib.read_safetensors(path), cfg.audio_config, torch.bfloat16, dev)
+    want = params["audio_tower"]
+    bad = [k for k in _bits_differ(want, tower) if k != "pos_conv/kernel"]
+    a, b = tower["pos_conv"]["kernel"].float(), want["pos_conv"]["kernel"].float()
+    ulps = float(((a - b).abs() / (2.0**-8 * b.abs()).clamp(min=2.0**-133)).max())
+    print(f"wav2vec2 tower file (Wav2Vec2ForCTC layout, fp32): {len(sd)} tensors; leaves not "
+          f"bit-equal {bad}; the positional conv within {ulps:.3g} bf16 ulps", flush=True)
+    if bad or not ulps <= 1.0:
+        _fail(f"wav2vec2 tower file: leaves {bad} differ, positional conv by {ulps} ulps")
+    m["tower_file_pos_conv_ulps"] = ulps
+    return m
+
+
+def _w2v_train(tc, uv, cfg, params, smi, dev):
+    """Phase 13 (f): three KL train steps at full width (large-lv60 + the
+    flagship decoder, bf16, the projector trainable, remat, vocab chunk
+    256, flash attention): 8 rows of 10 s of raw audio (499 frames, 63
+    audio tokens at position 4), T 191, T2 128, 40 labelled tokens.
+    flash_attention runs in the decoder only (the tower's attention is the
+    plain mha, as in the JAX package): 3 x 16 forward and 16 x
+    BWD_LAUNCHES backward launches a step. Then the first batch's loss and
+    gradient norm through the kernels against _FlashPlain, as phase 6."""
+    from ultravox_torch.ops.kernels import flash_attention as fl
+    from ultravox_torch.training import train_step as ts
+
+    opt = ts.make_optimizer(1e-4, warmup_steps=0, total_steps=100)
+    state, template = ts.init_train_state(params, opt, (r".*projector/.*",), device=dev)
+    step = ts.make_train_step(cfg, tc.LossConfig(loss_function=tc.LossFunction.KL_DIVERGENCE),
+                              opt, template, remat=True, attn_impl="flash", vocab_chunk=256)
+    B, T2 = 8, 128
+    rng = np.random.default_rng(SEED + 6)
+    feats, lens = _w2v_audio((10.0,) * B, rng)
+    n_tok = int(-(-cfg.audio_config.feature_lengths(160000) // cfg.stack_factor))
+    T = 64 + n_tok + 64
+    labels = np.full((B, T), -100, np.int64)
+    labels[:, -40:] = rng.integers(1, cfg.vocab_size, (B, 40))
+    alt_labels = np.full((B, T2), -100, np.int64)
+    alt_labels[:, -40:] = labels[:, -40:]
+    batch = _w2v_batch(cfg, feats, lens, T, rng)
+    batch.update(labels=labels, alt_input_ids=rng.integers(1, cfg.vocab_size, (B, T2)),
+                 alt_attention_mask=np.ones((B, T2), np.int64), alt_labels=alt_labels)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    vs_plain = _flash_loss_vs_plain(cfg, tc, uv, ts, fl, state, template, batch,
+                                    phase="phase 13")
+    L_dec = cfg.text_config.num_layers
+    fl.flash_attention.launches = fl.flash_attention.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append((float(m["loss"]), float(m["grad_norm"])))
+    launches = {"flash_attention": fl.flash_attention.launches,
+                "flash_attention_bwd": fl.flash_attention.bwd_launches}
+    want = {"flash_attention": 3 * 3 * L_dec,
+            "flash_attention_bwd": 3 * L_dec * fl.BWD_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"launches, wav2vec2 train, 3 steps: {launches} expected {want}", flush=True)
+    if launches != want:
+        _fail(f"wav2vec2 train: flash_attention launches {launches}, expected {want}")
+    if not all(np.isfinite(l) and g > 0 for l, g in losses):
+        _fail(f"wav2vec2 train: (loss, grad_norm) {losses}")
+    step_ms = [t * 1e3 for t in times]
+    print(f"wav2vec2 train ({smi}): B {B} x 10 s, T {T}, T2 {T2}; (loss, grad_norm) {losses}; "
+          f"step ms {[f'{t:.3f}' for t in step_ms]} (the first after the kernel-vs-plain call), "
+          f"peak memory {peak:.3f} GB", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return ({"step_ms": step_ms, "step_ms_median": float(np.median(step_ms)),
+             "peak_memory_gb": peak, "losses": losses, "flash_kernel_vs_plain": vs_plain},
+            launches)
+
+
 def _to_float(tree):
     if isinstance(tree, dict):
         return {k: _to_float(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_float(v) for v in tree]
     return tree.float() if tree.is_floating_point() else tree
 
 

@@ -112,3 +112,63 @@ def serve(engine, batches, names, max_tokens: int):
         return [drain(engine, r) for r in reqs]
     finally:
         engine.stop()
+
+
+# --------------------------------------------------------------------------
+# the wav2vec2 tower: a tiny HF config in both norm styles, composed with the
+# llama decoder above (vocab 384, the tiny tokenizer's)
+# --------------------------------------------------------------------------
+
+W2V_STYLES = ("group", "layer")
+
+
+def w2v_hf_dict(style: str, pos_taps: int = 16) -> dict:
+    """A tiny wav2vec2 ``config.json`` dict: ``"group"`` is the base
+    variant (GroupNorm, post-norm blocks), ``"layer"`` the stable
+    large-lv60 one (LayerNorm convs with bias, pre-norm blocks)."""
+    return {
+        "model_type": "wav2vec2", "hidden_size": 64, "num_hidden_layers": 2,
+        "num_attention_heads": 4, "intermediate_size": 128, "conv_dim": [32, 32, 32],
+        "conv_kernel": [10, 3, 2], "conv_stride": [5, 2, 2], "conv_bias": style == "layer",
+        "feat_extract_norm": style, "do_stable_layer_norm": style == "layer",
+        "num_conv_pos_embeddings": pos_taps, "num_conv_pos_embedding_groups": 4,
+    }
+
+
+def make_w2v_configs(style: str):
+    """(JAX config, port config) of a tiny wav2vec2 + llama speech model."""
+    from ultravox_torch.models import config as tc
+    from ultravox_tpu.models import config as jc
+
+    def mk(c):
+        return c.UltravoxConfig(
+            audio_config=c.make_audio_config(w2v_hf_dict(style)),
+            text_config=c.DecoderConfig(
+                vocab_size=384, hidden_size=128, intermediate_size=256,
+                num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                rope_theta=500000.0, tie_word_embeddings=True,
+            ),
+            hidden_size=256,
+            projector_ln_mid=True,
+        )
+
+    return mk(jc), mk(tc)
+
+
+def make_w2v_params(jcfg, tcfg, lm_scale: float = 8.0):
+    """(JAX params, the same values as port params), the projector's
+    matrices scaled 2x and the decoder's ``lm_scale`` x, so that greedy
+    tokens vary from step to step (the stable tower ends in a LayerNorm, so
+    its outputs are O(1), larger than the Whisper fixture's)."""
+    import jax
+
+    from ultravox_torch.models.weights import from_jax_params
+    from ultravox_tpu.models import ultravox as juv
+
+    params = juv.init_params(jcfg, jax.random.key(0))
+    scale = {"audio_tower": 1.0, "projector": 2.0, "language_model": lm_scale}
+    params = {
+        k: jax.tree.map(lambda a, f=scale[k]: a * f if a.ndim >= 2 else a, v)
+        for k, v in params.items()
+    }
+    return params, from_jax_params(jax.tree.map(np.asarray, params), tcfg)

@@ -8,7 +8,8 @@ synchronisation until its token matrix is read. The attention options are
 ``encoder_attn_impl`` (``"flash"``: the plain encoder with its attention in
 the ``flash_attention`` kernel), ``prefill_attn_impl`` and ``decode_attn_impl``;
 ``quantize="int8"`` serves int8 weights in the decoder and the Whisper
-tower, and a tree with one LoRA adapter runs it through ``proj_apply``. It
+tower (a wav2vec2 tower is neither quantised nor fused and keeps its
+dtype, as in the JAX engine), and a tree with one LoRA adapter runs it through ``proj_apply``. It
 runs on the CUDA card unless the caller passes ``device="cpu"``; there is
 no silent fallback, and a failed kernel build or launch raises.
 """
@@ -62,7 +63,15 @@ def resolve_device(device=None) -> torch.device:
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):  # the wav2vec2 conv stack
+        return [_to_device(v, device) for v in tree]
     return torch.as_tensor(tree).to(device)
+
+
+def is_whisper_tower(params) -> bool:
+    """The engines fuse and quantise only a Whisper tower (one with
+    ``conv1``), as the JAX engines do; a wav2vec2 tower keeps its tree."""
+    return "conv1" in params.get("audio_tower", {})
 
 
 @dataclasses.dataclass
@@ -112,9 +121,9 @@ class GenerationEngine:
         if quantize:
             self.params["language_model"] = decoder_lib.quantize_decoder_int8(
                 self.params["language_model"])
-            if "conv1" in self.params.get("audio_tower", {}):
+            if is_whisper_tower(self.params):
                 self.params["audio_tower"] = quantize_encoder_int8(self.params["audio_tower"])
-        if encoder_attn_impl == "fused" and "audio_tower" in self.params:
+        if encoder_attn_impl == "fused" and is_whisper_tower(self.params):
             self.params["audio_tower"] = fuse_encoder_inference_params(self.params["audio_tower"])
         self.cfg = cfg
         self.max_cache_len = max_cache_len

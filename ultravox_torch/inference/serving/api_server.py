@@ -550,11 +550,13 @@ class ServingAPI:
 
 
 def tower_dtype(tower) -> torch.dtype:
-    """The dtype an audio tower computes in: its conv1 kernel's (an int8
-    tower keeps its convolutions and norms in bf16, the dtype its
+    """The dtype an audio tower computes in: a Whisper tower's conv1 kernel's
+    (an int8 tower keeps its convolutions and norms in bf16, the dtype its
     activations run in; a fused tower's fp32 LayerNorm vectors do not set
-    it)."""
-    return tower["conv1"]["kernel"].dtype
+    it), a wav2vec2 tower's feature projection's."""
+    if "conv1" in tower:
+        return tower["conv1"]["kernel"].dtype
+    return tower["feature_projection"]["projection"]["kernel"].dtype
 
 
 MAX_CHOICES = 8  # OpenAI `n` upper bound served per request
@@ -773,7 +775,7 @@ def build_api(argv=None):
     from ultravox_torch.inference.engine import resolve_device
     from ultravox_torch.inference.serving.engine import ServingEngine
     from ultravox_torch.inference.ultravox_infer import load_ultravox_checkpoint
-    from ultravox_torch.models.processor import DataCollatorWithAudio, UltravoxProcessor
+    from ultravox_torch.models.processor import DataCollatorWithAudio, make_processor
     from ultravox_torch.models.tokenizer import load_tokenizer
 
     parser = argparse.ArgumentParser(
@@ -833,12 +835,13 @@ def build_api(argv=None):
     tokenizer = load_tokenizer(model_dir)
     if tokenizer.pad_token_id is None:
         tokenizer.pad_token = tokenizer.eos_token
-    processor = UltravoxProcessor(
-        tokenizer, num_mel_bins=cfg.audio_config.num_mel_bins, stack_factor=cfg.stack_factor)
+    processor = make_processor(tokenizer, cfg)
     collator = DataCollatorWithAudio(
         pad_token_id=tokenizer.pad_token_id,
         max_audio_len=processor.audio_context_size or 3000,
     )
+    # the engine's default buckets follow the tower: mel frames for
+    # Whisper, samples for wav2vec2 (4 to 30 s of audio either way)
     engine = ServingEngine(
         params, cfg,
         num_slots=args.num_slots,

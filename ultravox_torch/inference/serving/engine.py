@@ -88,7 +88,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ultravox_torch.inference.engine import _to_device, resolve_device
+from ultravox_torch.inference.engine import _to_device, is_whisper_tower, resolve_device
 from ultravox_torch.models import decoder as decoder_lib
 from ultravox_torch.models import lora as lora_lib
 from ultravox_torch.models import ultravox as uv
@@ -240,6 +240,10 @@ def _match_prefix(tokens, spans, retained: RetainedCache) -> int:
 
 
 MAX_LOGIT_BIAS = 32
+# the default buckets of the tower's padded input: 4, 10, 20 and 30 s of
+# audio in mel frames (100 a second) or, for wav2vec2, in samples at 16 kHz
+MEL_LEN_BUCKETS = (400, 1000, 2000, 3000)
+SAMPLE_LEN_BUCKETS = (64000, 160000, 320000, 480000)
 
 
 def _lp_row(lp, row: int):
@@ -359,7 +363,9 @@ class ServingEngine:
         page_size: int = 256,
         num_pages: Optional[int] = None,  # default: the slot mode's token count
         prefill_len_buckets: Optional[Tuple[int, ...]] = None,
-        mel_len_buckets: Tuple[int, ...] = (400, 1000, 2000, 3000),
+        # the padded lengths of the tower's input: mel frames for Whisper,
+        # raw samples for wav2vec2; None: 4, 10, 20 and 30 s of audio
+        mel_len_buckets: Optional[Tuple[int, ...]] = None,
         max_prefills_per_step: int = 2,
         prefill_chunk_tokens: int = 256,
         decode_block_steps: Optional[int] = None,  # None = auto (8)
@@ -422,8 +428,11 @@ class ServingEngine:
             self._lora_banks = lora_lib.fuse_lora_banks(
                 self._lora_banks, qkv_dims=(tc.num_heads * tc.head_dim, kv, kv),
                 gateup_dims=(tc.intermediate_size, tc.intermediate_size))
-        if encoder_attn_impl == "fused" and "audio_tower" in self.params:
+        if encoder_attn_impl == "fused" and is_whisper_tower(self.params):
             self.params["audio_tower"] = fuse_encoder_inference_params(self.params["audio_tower"])
+        if self._enc_lora_banks is not None and cfg.audio_arch == "wav2vec2":
+            raise ValueError("lora_adapters carry audio_tower (encoder) adapters, which a wav2vec2 "
+                             "audio tower does not run")
         if self._enc_lora_banks is not None:
             if "qkv_proj" in self.params.get("audio_tower", {}).get("layers", {}):
                 D = cfg.audio_config.d_model
@@ -442,6 +451,9 @@ class ServingEngine:
                 buckets.append(min(buckets[-1] * 2, max_seq_len))
             prefill_len_buckets = tuple(buckets)
         self.prefill_len_buckets = prefill_len_buckets
+        if mel_len_buckets is None:
+            mel_len_buckets = (SAMPLE_LEN_BUCKETS if cfg.audio_arch == "wav2vec2"
+                               else MEL_LEN_BUCKETS)
         self.mel_len_buckets = mel_len_buckets
         self.max_prefills_per_step = max_prefills_per_step
         self.prefill_chunk_tokens = prefill_chunk_tokens

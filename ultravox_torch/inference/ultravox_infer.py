@@ -20,7 +20,7 @@ from ultravox_torch.inference.infer import LocalInference
 from ultravox_torch.models import ultravox as uv
 from ultravox_torch.models import weights as weights_lib
 from ultravox_torch.models.config import UltravoxConfig
-from ultravox_torch.models.processor import UltravoxProcessor
+from ultravox_torch.models.processor import make_processor
 from ultravox_torch.models.tokenizer import load_tokenizer
 from ultravox_torch.utils import wandb_utils
 
@@ -136,12 +136,7 @@ class UltravoxInference(LocalInference):
         tokenizer.padding_side = "right"
         if tokenizer.pad_token_id is None:
             tokenizer.pad_token = tokenizer.eos_token
-        # the port's towers are Whisper's (wav2vec2: ROADMAP.md queue A)
-        processor = UltravoxProcessor(
-            tokenizer,
-            num_mel_bins=getattr(cfg.audio_config, "num_mel_bins", 80),
-            stack_factor=cfg.stack_factor,
-        )
+        processor = make_processor(tokenizer, cfg)
         super().__init__(
             params, cfg, processor, max_cache_len=max_cache_len,
             conversation_mode=conversation_mode, cache_dtype=dtype,

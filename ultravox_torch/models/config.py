@@ -1,4 +1,5 @@
-"""Model configuration dataclasses (Whisper encoder, decoder LLM, composite).
+"""Model configuration dataclasses (Whisper and wav2vec2 towers, decoder LLM,
+composite).
 
 The port's own copy of the configuration surface: the same field names and
 defaults as the JAX package, so a configuration means the same model in both.
@@ -9,8 +10,9 @@ from __future__ import annotations
 import dataclasses
 import enum
 import json
+import math
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 
 class LossFunction(str, enum.Enum):
@@ -215,13 +217,84 @@ class DecoderConfig:
         )
 
 
-def make_audio_config(d: Dict[str, Any]) -> "WhisperEncoderConfig":
-    """Audio-tower config from an HF config dict. Whisper only: the wav2vec2
-    family is not ported yet (ROADMAP.md queue A item 6)."""
+@dataclasses.dataclass(frozen=True)
+class Wav2Vec2EncoderConfig:
+    """Wav2Vec2-family raw-waveform tower (the subset of HF
+    ``Wav2Vec2Config`` used): ``feat_extract_norm="group"`` with post-norm
+    blocks (base) or ``"layer"`` with ``do_stable_layer_norm`` pre-norm
+    blocks (large-lv60). The class name is what ``UltravoxConfig.audio_arch``
+    tests, as in the JAX package."""
+
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    ffn_dim: int = 3072
+    conv_dim: Tuple[int, ...] = (512, 512, 512, 512, 512, 512, 512)
+    conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = False
+    feat_extract_norm: str = "group"  # "group" (base) | "layer" (large)
+    do_stable_layer_norm: bool = False
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    layer_norm_eps: float = 1e-5
+
+    @property
+    def d_model(self) -> int:
+        return self.hidden_size
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    def feature_lengths(self, sample_lengths):
+        """Conv-stack output frames for raw-sample input length(s): an int,
+        a numpy array or a tensor (floor division, as HF)."""
+        lens = sample_lengths
+        for k, s in zip(self.conv_kernel, self.conv_stride):
+            lens = (lens - k) // s + 1
+        return lens
+
+    @property
+    def downsample_factor(self) -> int:
+        return math.prod(self.conv_stride)
+
+    @property
+    def min_samples(self) -> int:
+        """The receptive field: the shortest input that gives one frame."""
+        n = 1
+        for k, s in reversed(list(zip(self.conv_kernel, self.conv_stride))):
+            n = (n - 1) * s + k
+        return n
+
+    @classmethod
+    def from_hf_dict(cls, d: Dict[str, Any]) -> "Wav2Vec2EncoderConfig":
+        return cls(
+            hidden_size=d.get("hidden_size", 768),
+            num_layers=d.get("num_hidden_layers", 12),
+            num_heads=d.get("num_attention_heads", 12),
+            ffn_dim=d.get("intermediate_size", 3072),
+            conv_dim=tuple(d.get("conv_dim", (512,) * 7)),
+            conv_kernel=tuple(d.get("conv_kernel", (10, 3, 3, 3, 3, 2, 2))),
+            conv_stride=tuple(d.get("conv_stride", (5, 2, 2, 2, 2, 2, 2))),
+            conv_bias=d.get("conv_bias", False),
+            feat_extract_norm=d.get("feat_extract_norm", "group"),
+            do_stable_layer_norm=d.get("do_stable_layer_norm", False),
+            num_conv_pos_embeddings=d.get("num_conv_pos_embeddings", 128),
+            num_conv_pos_embedding_groups=d.get("num_conv_pos_embedding_groups", 16),
+            layer_norm_eps=d.get("layer_norm_eps", 1e-5),
+        )
+
+
+AudioConfig = Union[WhisperEncoderConfig, Wav2Vec2EncoderConfig]
+
+
+def make_audio_config(d: Dict[str, Any]) -> AudioConfig:
+    """Audio-tower config from an HF config dict: Whisper (mel) or the
+    Wav2Vec2 family (raw waveform), by ``model_type``."""
     model_type = (d.get("model_type") or "whisper").lower()
     if "wav2vec2" in model_type:
-        raise NotImplementedError(
-            "wav2vec2 audio towers are not ported yet (ROADMAP.md queue A item 6)")
+        return Wav2Vec2EncoderConfig.from_hf_dict(d)
     return WhisperEncoderConfig.from_hf_dict(d)
 
 
@@ -231,9 +304,7 @@ class UltravoxConfig:
     into the LLM embedding space: ``stack -> RMSNorm -> Linear -> SwiGLU ->
     [ln_mid] -> Linear -> [ln_post]``."""
 
-    audio_config: WhisperEncoderConfig = dataclasses.field(
-        default_factory=WhisperEncoderConfig
-    )
+    audio_config: AudioConfig = dataclasses.field(default_factory=WhisperEncoderConfig)
     text_config: DecoderConfig = dataclasses.field(default_factory=DecoderConfig)
     audio_model_id: Optional[str] = None
     text_model_id: Optional[str] = None
@@ -256,13 +327,19 @@ class UltravoxConfig:
         """Mel frames consumed per LLM token: encoder downsample x stack."""
         return self.audio_config.downsample_factor * self.stack_factor
 
+    @property
+    def audio_arch(self) -> str:
+        """'whisper' (mel tower) or 'wav2vec2' (raw-waveform tower)."""
+        return (
+            "wav2vec2"
+            if type(self.audio_config).__name__ == "Wav2Vec2EncoderConfig"
+            else "whisper"
+        )
+
     @classmethod
     def from_hf_dict(cls, d: Dict[str, Any]) -> "UltravoxConfig":
-        audio_cfg = d.get("audio_config") or {}
-        if "wav2vec2" in (audio_cfg.get("model_type") or "whisper").lower():
-            raise NotImplementedError("wav2vec2 audio towers are not ported yet")
         return cls(
-            audio_config=WhisperEncoderConfig.from_hf_dict(audio_cfg),
+            audio_config=make_audio_config(d.get("audio_config") or {}),
             text_config=DecoderConfig.from_hf_dict(d.get("text_config") or {}),
             audio_model_id=d.get("audio_model_id"),
             text_model_id=d.get("text_model_id"),

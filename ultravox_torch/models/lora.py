@@ -94,6 +94,10 @@ def apply_lora_to_model(
         out["language_model"] = add_lora(out["language_model"], text_lora, generator,
                                          DECODER_TARGETS, dtype)
     if audio_lora.r > 0 and "audio_tower" in out:
+        if "feature_extractor" in out["audio_tower"]:
+            # the JAX package adds such adapters, and its wav2vec2 tower
+            # multiplies the kernels alone: they would train nothing
+            raise ValueError("audio LoRA (r > 0) is not supported on a wav2vec2 audio tower")
         out["audio_tower"] = add_lora(out["audio_tower"], audio_lora, generator,
                                       ENCODER_TARGETS, dtype)
     return out

@@ -304,6 +304,19 @@ class UltravoxProcessor:
         return self.tokenizer.batch_decode(*args, **kwargs)
 
 
+def make_processor(tokenizer, cfg) -> UltravoxProcessor:
+    """The processor for an ``UltravoxConfig``'s tower: log-mel features for
+    Whisper, raw samples (normalised per utterance) for wav2vec2."""
+    w2v = cfg.audio_arch == "wav2vec2"
+    return UltravoxProcessor(
+        tokenizer,
+        num_mel_bins=getattr(cfg.audio_config, "num_mel_bins", 80),
+        stack_factor=cfg.stack_factor,
+        audio_arch=cfg.audio_arch,
+        wav2vec2_config=cfg.audio_config if w2v else None,
+    )
+
+
 def _pad_to(arr: np.ndarray, length: int, value=0) -> np.ndarray:
     pad = [(0, 0)] * arr.ndim
     pad[-1] = (0, length - arr.shape[-1])

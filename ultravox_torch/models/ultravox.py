@@ -17,6 +17,7 @@ import torch
 
 from ultravox_torch.models import decoder as decoder_lib
 from ultravox_torch.models import projector as projector_lib
+from ultravox_torch.models import wav2vec2_encoder as w2v_lib
 from ultravox_torch.models import whisper_encoder as encoder_lib
 from ultravox_torch.models.config import LossConfig, LossFunction, UltravoxConfig
 from ultravox_torch.models.remat import remat as _remat
@@ -34,7 +35,8 @@ def init_params(
         "language_model": decoder_lib.init_params(cfg.text_config, generator, dtype, device),
     }
     if not cfg.llm_only_training:
-        params["audio_tower"] = encoder_lib.init_params(cfg.audio_config, generator, dtype, device)
+        tower_lib = w2v_lib if cfg.audio_arch == "wav2vec2" else encoder_lib
+        params["audio_tower"] = tower_lib.init_params(cfg.audio_config, generator, dtype, device)
         params["projector"] = projector_lib.init_params(cfg, generator, dtype, device)
     return params
 
@@ -69,24 +71,32 @@ def splice_audio_embeds(
 def encode_audio(
     params: Params,
     cfg: UltravoxConfig,
-    audio_values: torch.Tensor,  # (N, n_mels, T_mel)
-    audio_lens: torch.Tensor,  # (N,) valid mel frames
+    audio_values: torch.Tensor,  # (N, n_mels, T_mel), or (N, 1, T_samples) for wav2vec2
+    audio_lens: torch.Tensor,  # (N,) valid mel frames (samples for wav2vec2)
     *,
     remat: bool = False,
     encoder_attn_impl: str = "xla",
 ) -> torch.Tensor:
     """Audio token embeddings (N, T_a, D) of each chunk: audio tower +
     projector, in ``audio_values``' dtype (what ``ServingEngine.submit``
-    takes as precomputed ``audio_embeds``)."""
-    enc = encoder_lib.encoder_forward(
-        params["audio_tower"],
-        cfg.audio_config,
-        audio_values,
-        mel_lens=audio_lens,
-        latency_block_size=cfg.audio_latency_block_size,
-        remat=remat,
-        attn_impl=encoder_attn_impl,
-    )
+    takes as precomputed ``audio_embeds``). The wav2vec2 tower takes raw
+    samples and ignores ``remat`` and ``encoder_attn_impl``, as in the JAX
+    package: its attention is the plain ``mha``."""
+    if cfg.audio_arch == "wav2vec2":
+        if cfg.audio_latency_block_size:
+            raise ValueError("only the whisper audio tower supports latency masking")
+        enc = w2v_lib.encoder_forward(
+            params["audio_tower"], cfg.audio_config, audio_values[:, 0, :], sample_lens=audio_lens)
+    else:
+        enc = encoder_lib.encoder_forward(
+            params["audio_tower"],
+            cfg.audio_config,
+            audio_values,
+            mel_lens=audio_lens,
+            latency_block_size=cfg.audio_latency_block_size,
+            remat=remat,
+            attn_impl=encoder_attn_impl,
+        )
     return projector_lib.projector_forward(params["projector"], cfg, enc)
 
 
@@ -94,8 +104,8 @@ def prepare_audio_embeds(
     params: Params,
     cfg: UltravoxConfig,
     inputs_embeds: torch.Tensor,
-    audio_values: torch.Tensor,  # (N, n_mels, T_mel)
-    audio_lens: torch.Tensor,  # (N,) valid mel frames
+    audio_values: torch.Tensor,  # (N, n_mels, T_mel), or (N, 1, T_samples)
+    audio_lens: torch.Tensor,  # (N,) valid mel frames (or samples)
     audio_token_start_idx: torch.Tensor,
     audio_token_len: torch.Tensor,
     audio_chunk_batch_idx: torch.Tensor,

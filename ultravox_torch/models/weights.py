@@ -1,8 +1,8 @@
 """Checkpoints and parameter conversion into the port's tensors.
 
 The counterpart of the JAX package's ``models/weights.py``: fixie-ai
-Ultravox checkpoints (and the Whisper / Llama / Mistral / Gemma / Qwen
-checkpoints beneath them) load into the same stacked-layer trees
+Ultravox checkpoints (and the Whisper / wav2vec2 / Llama / Mistral / Gemma /
+Qwen checkpoints beneath them) load into the same stacked-layer trees
 (``language_model``, ``audio_tower``, ``projector``) that
 ``from_jax_params`` gives, from a flat ``{name: tensor}`` state dict:
 
@@ -29,7 +29,12 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ultravox_torch.models.config import DecoderConfig, UltravoxConfig, WhisperEncoderConfig
+from ultravox_torch.models.config import (
+    DecoderConfig,
+    UltravoxConfig,
+    Wav2Vec2EncoderConfig,
+    WhisperEncoderConfig,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -250,6 +255,85 @@ def convert_whisper_encoder(
     }
 
 
+def convert_wav2vec2_encoder(
+    sd: FlatDict, cfg: Wav2Vec2EncoderConfig, dtype=torch.float32, device=None
+) -> Params:
+    """HF Wav2Vec2Model state dict (prefix stripped: keys like
+    ``feature_extractor.conv_layers.0.conv.weight``) -> wav2vec2 tower
+    tree (``models/wav2vec2_encoder.py``)."""
+    r = _Reader(sd, dtype, device)
+    L = cfg.num_layers
+
+    def conv_kernel(name):  # torch Conv1d (out, in, k) -> the tree's (k, in, out)
+        return r(name).permute(2, 1, 0).contiguous()
+
+    convs = []
+    for i in range(len(cfg.conv_dim)):
+        stem = f"feature_extractor.conv_layers.{i}"
+        conv: Params = {"kernel": conv_kernel(f"{stem}.conv.weight")}
+        if f"{stem}.conv.bias" in sd:
+            conv["bias"] = r(f"{stem}.conv.bias")
+        if f"{stem}.layer_norm.weight" in sd:
+            conv["norm"] = {
+                "scale": r(f"{stem}.layer_norm.weight"),
+                "bias": r(f"{stem}.layer_norm.bias"),
+            }
+        convs.append(conv)
+
+    # the weight-normalised positional conv: weight = g * v / ||v|| over
+    # dims (0, 1) (torch weight_norm, dim=2), the norm in float64 as the
+    # JAX package takes it; keys weight_g / weight_v, or the newer
+    # parametrizations.weight.original0 / original1
+    pc = "encoder.pos_conv_embed.conv"
+    if f"{pc}.weight_g" in sd:
+        g, v = sd[f"{pc}.weight_g"], sd[f"{pc}.weight_v"]
+    else:
+        g = sd[f"{pc}.parametrizations.weight.original0"]
+        v = sd[f"{pc}.parametrizations.weight.original1"]
+    g, v = g.to(r.device), v.to(r.device)
+    norm = v.double().square().sum(dim=(0, 1), keepdim=True).sqrt()
+    pos_kernel = ((g * v) / norm.clamp(min=1e-12)).float()
+
+    def ln(stem):
+        return {"scale": r.stack(stem + ".weight", L), "bias": r.stack(stem + ".bias", L)}
+
+    def lin(stem):
+        return {"kernel": r.stack(stem + ".weight", L, transpose=True),
+                "bias": r.stack(stem + ".bias", L)}
+
+    return {
+        "feature_extractor": convs,
+        "feature_projection": {
+            "ln": {
+                "scale": r("feature_projection.layer_norm.weight"),
+                "bias": r("feature_projection.layer_norm.bias"),
+            },
+            "projection": {
+                "kernel": r("feature_projection.projection.weight", transpose=True),
+                "bias": r("feature_projection.projection.bias"),
+            },
+        },
+        "pos_conv": {
+            "kernel": _cast(pos_kernel.permute(2, 1, 0), dtype).contiguous(),
+            "bias": r(f"{pc}.bias"),
+        },
+        "encoder_ln": {
+            "scale": r("encoder.layer_norm.weight"),
+            "bias": r("encoder.layer_norm.bias"),
+        },
+        "layers": {
+            "attn_ln": ln("encoder.layers.{i}.layer_norm"),
+            "q_proj": lin("encoder.layers.{i}.attention.q_proj"),
+            "k_proj": lin("encoder.layers.{i}.attention.k_proj"),
+            "v_proj": lin("encoder.layers.{i}.attention.v_proj"),
+            "out_proj": lin("encoder.layers.{i}.attention.out_proj"),
+            "final_ln": ln("encoder.layers.{i}.final_layer_norm"),
+            "fc1": lin("encoder.layers.{i}.feed_forward.intermediate_dense"),
+            "fc2": lin("encoder.layers.{i}.feed_forward.output_dense"),
+        },
+    }
+
+
 def _is_wav2vec2(audio_cfg) -> bool:
     return type(audio_cfg).__name__ == "Wav2Vec2EncoderConfig"
 
@@ -259,11 +343,14 @@ def convert_audio_tower_checkpoint(
 ) -> Optional[Params]:
     """Standalone audio-model checkpoint -> tower params, handling the
     common key prefixes (WhisperModel nests the encoder under
-    ``model.encoder.``). Returns None when the state dict does not look like
-    the configured tower."""
+    ``model.encoder.``; Wav2Vec2ForCTC under ``wav2vec2.``). Returns None
+    when the state dict does not look like the configured tower."""
     if _is_wav2vec2(audio_cfg):
-        raise NotImplementedError(
-            "wav2vec2 audio towers are not ported yet (ROADMAP.md queue A item 6)")
+        for prefix in ("wav2vec2.", ""):
+            sub = _strip_prefix(sd, prefix) if prefix else sd
+            if "feature_extractor.conv_layers.0.conv.weight" in sub:
+                return convert_wav2vec2_encoder(sub, audio_cfg, dtype, device)
+        return None
     for prefix in ("model.encoder.", "encoder.", ""):
         sub = _strip_prefix(sd, prefix) if prefix else sd
         if "conv1.weight" in sub:
@@ -351,11 +438,10 @@ def convert_ultravox(
         params["projector"] = convert_projector(proj_sd, cfg, dtype, device)
     audio_sd = _strip_prefix(sd, "audio_tower.")
     if audio_sd:
-        if _is_wav2vec2(cfg.audio_config):
-            raise NotImplementedError(
-                "wav2vec2 audio towers are not ported yet (ROADMAP.md queue A item 6)")
         if _covers_encoder(audio_sd, cfg.audio_config):
-            params["audio_tower"] = convert_whisper_encoder(audio_sd, cfg.audio_config, dtype, device)
+            convert = (convert_wav2vec2_encoder if _is_wav2vec2(cfg.audio_config)
+                       else convert_whisper_encoder)
+            params["audio_tower"] = convert(audio_sd, cfg.audio_config, dtype, device)
         elif "audio_tower" in params:
             params["audio_tower"] = _overlay_encoder(params["audio_tower"], audio_sd, cfg.audio_config, dtype)
         else:
@@ -515,10 +601,45 @@ def _overlay_decoder(base: Params, sd: FlatDict, cfg: DecoderConfig, dtype) -> P
     return _overlay_tower(base, sd, _decoder_key_to_path, "decoder")
 
 
+_W2V_LIN = {
+    "attention.q_proj": "q_proj", "attention.k_proj": "k_proj",
+    "attention.v_proj": "v_proj", "attention.out_proj": "out_proj",
+    "feed_forward.intermediate_dense": "fc1",
+    "feed_forward.output_dense": "fc2",
+}
+_W2V_NORM = {"layer_norm": "attn_ln", "final_layer_norm": "final_ln"}
+
+
+def _wav2vec2_key_to_path(name: str):
+    """HF wav2vec2 key -> overlay path. The weight-normalised positional
+    conv and the conv stack are left to the full converter: trainable
+    diffs never hold them."""
+    m = re.match(r"^feature_projection\.layer_norm\.(weight|bias)$", name)
+    if m:
+        return ("feature_projection", "ln",
+                "scale" if m.group(1) == "weight" else "bias"), None, None
+    m = re.match(r"^feature_projection\.projection\.(weight|bias)$", name)
+    if m:
+        leaf = "kernel" if m.group(1) == "weight" else "bias"
+        return ("feature_projection", "projection", leaf), None, "T" if leaf == "kernel" else None
+    m = re.match(r"^encoder\.layer_norm\.(weight|bias)$", name)
+    if m:
+        return ("encoder_ln", "scale" if m.group(1) == "weight" else "bias"), None, None
+    m = re.match(r"^encoder\.layers\.(\d+)\.(.+)\.(weight|bias)$", name)
+    if not m:
+        return None
+    idx, stem, leaf = int(m.group(1)), m.group(2), m.group(3)
+    if stem in _W2V_NORM:
+        return ("layers", _W2V_NORM[stem], "scale" if leaf == "weight" else "bias"), idx, None
+    if stem in _W2V_LIN:
+        sub = "kernel" if leaf == "weight" else "bias"
+        return ("layers", _W2V_LIN[stem], sub), idx, "T" if leaf == "weight" else None
+    return None
+
+
 def _overlay_encoder(base: Params, sd: FlatDict, cfg, dtype) -> Params:
     if _is_wav2vec2(cfg):
-        raise NotImplementedError(
-            "wav2vec2 audio towers are not ported yet (ROADMAP.md queue A item 6)")
+        return _overlay_tower(base, sd, _wav2vec2_key_to_path, "wav2vec2")
     return _overlay_tower(base, sd, _encoder_key_to_path, "encoder")
 
 
@@ -527,6 +648,14 @@ def _covers_encoder(sd: FlatDict, cfg) -> bool:
     reads: layer stacks and the non-layer leaves (a diff checkpoint that
     unfreezes every layer but not the conv stack takes the per-key overlay
     path)."""
+    if _is_wav2vec2(cfg):
+        return (
+            "feature_extractor.conv_layers.0.conv.weight" in sd
+            and "feature_projection.projection.weight" in sd
+            and "encoder.layer_norm.weight" in sd
+            and all(f"encoder.layers.{i}.attention.q_proj.weight" in sd
+                    for i in range(cfg.num_layers))
+        )
     return (
         "conv1.weight" in sd
         and "embed_positions.weight" in sd
@@ -612,14 +741,17 @@ def from_jax_params(
     device=None,
     dtype: Optional[torch.dtype] = None,
 ) -> Any:
-    """The JAX package's parameter pytree, given as nested dicts of numpy
-    arrays, as the port's nested dicts of tensors: the same keys and the
-    same stacked (L, ...) layer layout, so no leaf is reshaped. Floating
-    leaves are cast to ``dtype`` when given; ``device`` defaults to the CPU.
+    """The JAX package's parameter pytree, given as nested dicts (and the
+    wav2vec2 conv stack's list) of numpy arrays, as the port's tensors: the
+    same keys, lists and stacked (L, ...) layer layout, so no leaf is
+    reshaped. Floating leaves are cast to ``dtype`` when given; ``device``
+    defaults to the CPU.
     """
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):  # the wav2vec2 conv stack
+            return [conv(v) for v in node]
         return _to_tensor(node, device, dtype)
 
     params = conv(np_tree)
@@ -642,7 +774,9 @@ def from_jax_params(
 
 def _leaves(node):
     if isinstance(node, dict):
-        for v in node.values():
+        node = list(node.values())
+    if isinstance(node, (list, tuple)):
+        for v in node:
             yield from _leaves(v)
     else:
         yield node

@@ -17,15 +17,51 @@ from typing import Any
 import torch
 
 from ultravox_torch.models import weights as weights_lib
-from ultravox_torch.models.config import UltravoxConfig, WhisperEncoderConfig
+from ultravox_torch.models.config import UltravoxConfig
 from ultravox_torch.models.lora import merge_lora
 
 
-def config_to_hf_dict(cfg: UltravoxConfig) -> dict:
+def _audio_config_to_hf(cfg: UltravoxConfig) -> dict:
     audio = cfg.audio_config
-    if not isinstance(audio, WhisperEncoderConfig):
-        raise NotImplementedError(
-            "wav2vec2 audio towers are not ported yet (ROADMAP.md queue A item 6)")
+    if cfg.audio_arch == "wav2vec2":
+        return {
+            "model_type": "wav2vec2",
+            "_name_or_path": cfg.audio_model_id or "wav2vec2-encoder",
+            "hidden_size": audio.hidden_size,
+            "num_hidden_layers": audio.num_layers,
+            "num_attention_heads": audio.num_heads,
+            "intermediate_size": audio.ffn_dim,
+            "conv_dim": list(audio.conv_dim),
+            "conv_kernel": list(audio.conv_kernel),
+            "conv_stride": list(audio.conv_stride),
+            "conv_bias": audio.conv_bias,
+            "feat_extract_norm": audio.feat_extract_norm,
+            "do_stable_layer_norm": audio.do_stable_layer_norm,
+            "num_conv_pos_embeddings": audio.num_conv_pos_embeddings,
+            "num_conv_pos_embedding_groups": audio.num_conv_pos_embedding_groups,
+            "layer_norm_eps": audio.layer_norm_eps,
+        }
+    return {
+        "model_type": "whisper",
+        # the reference selects its ModifiedWhisperEncoder path by
+        # substring-matching _name_or_path
+        "_name_or_path": cfg.audio_model_id or "whisper-encoder",
+        "num_mel_bins": audio.num_mel_bins,
+        "d_model": audio.d_model,
+        "encoder_layers": audio.num_layers,
+        "encoder_attention_heads": audio.num_heads,
+        "encoder_ffn_dim": audio.ffn_dim,
+        # decoder dims kept consistent so a full WhisperModel is also
+        # constructible from this config
+        "decoder_layers": audio.num_layers,
+        "decoder_attention_heads": audio.num_heads,
+        "decoder_ffn_dim": audio.ffn_dim,
+        "max_source_positions": audio.max_source_positions,
+        "activation_function": audio.activation,
+    }
+
+
+def config_to_hf_dict(cfg: UltravoxConfig) -> dict:
     return {
         "model_type": "ultravox",
         "audio_model_id": cfg.audio_model_id,
@@ -39,24 +75,7 @@ def config_to_hf_dict(cfg: UltravoxConfig) -> dict:
         "projector_ln_mid": cfg.projector_ln_mid,
         "audio_latency_block_size": cfg.audio_latency_block_size,
         "llm_only_training": cfg.llm_only_training,
-        "audio_config": {
-            "model_type": "whisper",
-            # the reference selects its ModifiedWhisperEncoder path by
-            # substring-matching _name_or_path
-            "_name_or_path": cfg.audio_model_id or "whisper-encoder",
-            "num_mel_bins": audio.num_mel_bins,
-            "d_model": audio.d_model,
-            "encoder_layers": audio.num_layers,
-            "encoder_attention_heads": audio.num_heads,
-            "encoder_ffn_dim": audio.ffn_dim,
-            # decoder dims kept consistent so a full WhisperModel is also
-            # constructible from this config
-            "decoder_layers": audio.num_layers,
-            "decoder_attention_heads": audio.num_heads,
-            "decoder_ffn_dim": audio.ffn_dim,
-            "max_source_positions": audio.max_source_positions,
-            "activation_function": audio.activation,
-        },
+        "audio_config": _audio_config_to_hf(cfg),
         "text_config": _text_config_to_hf(cfg.text_config),
     }
 
@@ -141,7 +160,8 @@ def save_pretrained(
             ).items():
                 sd[f"language_model.{k}"] = v
         if "audio_tower" in params:
-            for k, v in _encoder_to_hf(params["audio_tower"], cfg, dtype).items():
+            enc_to_hf = _wav2vec2_to_hf if cfg.audio_arch == "wav2vec2" else _encoder_to_hf
+            for k, v in enc_to_hf(params["audio_tower"], cfg, dtype).items():
                 sd[f"audio_tower.{k}"] = v
     weights_lib.save_safetensors_dir(sd, out_dir, shards)
     if tokenizer is not None:
@@ -181,4 +201,55 @@ def _encoder_to_hf(params: Any, cfg: UltravoxConfig, dtype=torch.float32) -> dic
     for name, mine in [("self_attn_layer_norm", "attn_ln"), ("final_layer_norm", "final_ln")]:
         unstack("layers.{i}." + name + ".weight", ly[mine]["scale"])
         unstack("layers.{i}." + name + ".bias", ly[mine]["bias"])
+    return out
+
+
+def _wav2vec2_to_hf(params: Any, cfg: UltravoxConfig, dtype=torch.float32) -> dict:
+    """wav2vec2 tower tree -> HF Wav2Vec2Model state dict, the reverse of
+    ``weights.convert_wav2vec2_encoder``. The weight-normalised positional
+    conv is written as weight_v = kernel and weight_g = ||kernel|| over
+    dims (0, 1) (taken in float64), both in fp32 at least, so g * v / ||v||
+    gives the kernel back (bit for bit once cast back to bf16)."""
+    out = {}
+    hf = weights_lib._hf
+    for i, conv in enumerate(params["feature_extractor"]):
+        stem = f"feature_extractor.conv_layers.{i}"
+        out[f"{stem}.conv.weight"] = hf(conv["kernel"], dtype).permute(2, 1, 0)
+        if "bias" in conv:
+            out[f"{stem}.conv.bias"] = hf(conv["bias"], dtype)
+        if "norm" in conv:
+            out[f"{stem}.layer_norm.weight"] = hf(conv["norm"]["scale"], dtype)
+            out[f"{stem}.layer_norm.bias"] = hf(conv["norm"]["bias"], dtype)
+    fp = params["feature_projection"]
+    out["feature_projection.layer_norm.weight"] = hf(fp["ln"]["scale"], dtype)
+    out["feature_projection.layer_norm.bias"] = hf(fp["ln"]["bias"], dtype)
+    out["feature_projection.projection.weight"] = hf(fp["projection"]["kernel"], dtype).T
+    out["feature_projection.projection.bias"] = hf(fp["projection"]["bias"], dtype)
+    # the pair in fp32 at least: a bf16 g would round the kernel it rebuilds
+    pos_kernel = hf(params["pos_conv"]["kernel"], dtype).permute(2, 1, 0)
+    pos_kernel = pos_kernel.to(torch.promote_types(pos_kernel.dtype, torch.float32))
+    norm = pos_kernel.double().square().sum(dim=(0, 1), keepdim=True).sqrt()
+    out["encoder.pos_conv_embed.conv.weight_v"] = pos_kernel
+    out["encoder.pos_conv_embed.conv.weight_g"] = norm.to(pos_kernel.dtype)
+    out["encoder.pos_conv_embed.conv.bias"] = hf(params["pos_conv"]["bias"], dtype)
+    out["encoder.layer_norm.weight"] = hf(params["encoder_ln"]["scale"], dtype)
+    out["encoder.layer_norm.bias"] = hf(params["encoder_ln"]["bias"], dtype)
+    L = cfg.audio_config.num_layers
+
+    def unstack(pattern, arr, transpose=False):
+        a = hf(arr, dtype)
+        for i in range(L):
+            out[pattern.format(i=i)] = a[i].T if transpose else a[i]
+
+    ly = params["layers"]
+    for name, mine in [
+        ("attention.q_proj", "q_proj"), ("attention.k_proj", "k_proj"),
+        ("attention.v_proj", "v_proj"), ("attention.out_proj", "out_proj"),
+        ("feed_forward.intermediate_dense", "fc1"), ("feed_forward.output_dense", "fc2"),
+    ]:
+        unstack("encoder.layers.{i}." + name + ".weight", ly[mine]["kernel"], transpose=True)
+        unstack("encoder.layers.{i}." + name + ".bias", ly[mine]["bias"])
+    for name, mine in [("layer_norm", "attn_ln"), ("final_layer_norm", "final_ln")]:
+        unstack("encoder.layers.{i}." + name + ".weight", ly[mine]["scale"])
+        unstack("encoder.layers.{i}." + name + ".bias", ly[mine]["bias"])
     return out

@@ -29,7 +29,11 @@ from ultravox_torch.models.config import (
 )
 from ultravox_torch.models.data_proc import UltravoxDataproc
 from ultravox_torch.models.lora import apply_lora_to_model
-from ultravox_torch.models.processor import DataCollatorWithAudio, UltravoxProcessor
+from ultravox_torch.models.processor import (
+    DataCollatorWithAudio,
+    UltravoxProcessor,
+    make_processor,
+)
 from ultravox_torch.models.tokenizer import load_tokenizer
 from ultravox_torch.training.config import TrainConfig
 
@@ -158,11 +162,7 @@ def create_model_pack(config: TrainConfig) -> ModelPack:
     tokenizer = load_tokenizer(tok_path)
     if tokenizer.pad_token_id is None:
         tokenizer.pad_token = tokenizer.eos_token
-    processor = UltravoxProcessor(
-        tokenizer,
-        num_mel_bins=getattr(uv_cfg.audio_config, "num_mel_bins", 80),
-        stack_factor=config.stack_factor,
-    )
+    processor = make_processor(tokenizer, uv_cfg)
     collator = DataCollatorWithAudio(
         pad_token_id=tokenizer.pad_token_id,
         include_alt_fields=config.loss_config.requires_alt_fields,

@@ -57,23 +57,38 @@ class TrainState:
     opt_state: OptState
 
 
+def _children(node):
+    """(key, child) pairs of a dict (sorted keys) or a list (index order),
+    the JAX package's flattening order; None for a leaf."""
+    if isinstance(node, dict):
+        return [(k, node[k]) for k in sorted(node)]
+    if isinstance(node, list):  # the wav2vec2 conv stack (a template leaf is a tuple)
+        return list(enumerate(node))
+    return None
+
+
 def _path_items(tree: Params, prefix: str = ""):
-    """(path, leaf) pairs in the JAX package's flattening order (sorted
-    keys), paths joined with "/"."""
-    for k in sorted(tree):
+    """(path, leaf) pairs in the JAX package's flattening order, paths
+    joined with "/" and a list index written as its number, as the JAX
+    package's ``parallel/sharding.py`` names it
+    ("audio_tower/feature_extractor/0/kernel")."""
+    for k, v in _children(tree):
         path = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(tree[k], dict):
-            yield from _path_items(tree[k], path)
+        if _children(v) is None:
+            yield path, v
         else:
-            yield path, tree[k]
+            yield from _path_items(v, path)
 
 
 def _map_paths(fn, tree: Params, prefix: str = "") -> Params:
-    out = {}
-    for k, v in tree.items():
+    """The tree with each leaf replaced by fn(path, leaf)."""
+    def one(k, v):
         path = f"{prefix}/{k}" if prefix else str(k)
-        out[k] = _map_paths(fn, v, path) if isinstance(v, dict) else fn(path, v)
-    return out
+        return fn(path, v) if _children(v) is None else _map_paths(fn, v, path)
+
+    if isinstance(tree, dict):
+        return {k: one(k, v) for k, v in tree.items()}
+    return [one(i, v) for i, v in enumerate(tree)]
 
 
 def trainable_mask(
