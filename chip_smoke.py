@@ -218,6 +218,21 @@ Phases, each fatal on failure:
      (projector trainable) with #13's launches in the decoder only, the
      loss and gradient norm against _FlashPlain, step ms and peak memory.
 
+ 14. several processes, one a card (see _multiprocess_main_path): as many
+     ranks of this script as the machine has cards, each started with
+     torchrun's environment, NCCL on cuda:LOCAL_RANK: (a) train() on phase
+     12's run-1 config with mesh_fsdp -1 through parallel/ (a checkpoint
+     at micro-step 4 through the gather), #13's launches checked, every
+     logged loss, grad_norm and the validation loss held against phase
+     12's (bit for bit at world 1), each step call's ms beside phase 12's
+     step alone; (b) that checkpoint resumed in this process without a
+     process group, its next step equal to the run's; (c) the eval CLI's
+     main() on a flagship checkpoint (16 synthetic-asr samples, batches of
+     8, greedy), #1-#4 and #8 checked per generate call, rank 0's two
+     JSON files with 16 samples in index order, samples/s. The world size
+     is printed first. ``--phases 12,14`` runs the build and these two
+     phases alone, without a result line.
+
 Each phase prints its seconds. Phases 4-7 also hold ln_matmul_gelu, attn_out_proj_residual,
 decode_matmul, attn_v2 and attn_nt at 0 launches: no engine calls them.
 
@@ -2439,8 +2454,9 @@ def _flash_loss_vs_plain(cfg, tc, uv, ts, fl, state, template, batch, lc=None,
         loss_p, grads_p = loss_and_grads()
     finally:
         fl._FlashKernel = kernel_fn
-    norm_k, norm_p = float(ts.global_norm(grads_k)), float(ts.global_norm(grads_p))
-    diff = float(ts.global_norm([a - b for a, b in zip(grads_k, grads_p)]))
+    norm_k = float(ts.global_norm(grads_k, grads_k))
+    norm_p = float(ts.global_norm(grads_p, grads_p))
+    diff = float(ts.global_norm([a - b for a, b in zip(grads_k, grads_p)], grads_k))
     out = {"loss_kernel": loss_k, "loss_plain": loss_p, "grad_norm_kernel": norm_k,
            "grad_norm_plain": norm_p, "grad_diff_norm": diff,
            "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
@@ -2931,6 +2947,9 @@ def main() -> None:
     _check_split_build(built)
 
     print(f"phase 1: {time.perf_counter() - t_script:.2f} s", flush=True)
+    if sys.argv[1:] == ["--phases", "12,14"]:  # a developer's short run: no result line
+        _phases_12_14(tc, uv, dev)
+        return
 
     # 2. kernels against their plain versions
     t0 = time.perf_counter()
@@ -3136,6 +3155,15 @@ def main() -> None:
                 row.setdefault("launches_per_path", {"main": row["launches"]})[
                     f"wav2vec2 {path}"] = launched[row["name"]]
 
+    # 14. several processes over NCCL: train(), resume and the eval CLI
+    multiprocess, mp_launches = _multiprocess_main_path(tc, uv, cfg, counters, prefill,
+                                                        train_loop, smi, dev)
+    for row in rows:
+        for path, launched in mp_launches.items():
+            if launched.get(row["name"]):
+                row.setdefault("launches_per_path", {"main": row["launches"]})[
+                    f"multi-process {path} (phase 14)"] = launched[row["name"]]
+
     print(f"chip_smoke: {time.perf_counter() - t_script:.2f} s in all", flush=True)
     print(smi, flush=True)
     print(json.dumps({
@@ -3144,6 +3172,7 @@ def main() -> None:
         "scan_kernel_decode_tok_s": seg_tps, "serving": serving, "training": training,
         "lora_int8": lora_int8, "probes": probes, "checkpoint": checkpoint, "voice": voice,
         "front_doors": front_doors, "train_loop": train_loop, "wav2vec2": wav2vec2,
+        "multiprocess": multiprocess,
         "total_s": time.perf_counter() - t_script,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6044,6 +6073,433 @@ def _w2v_train(tc, uv, cfg, params, smi, dev):
             launches)
 
 
+# --------------------------------------------------------------------------
+# Phase 14: several processes over NCCL, one a card
+# --------------------------------------------------------------------------
+
+MP_EVAL_SAMPLES, MP_EVAL_BATCH, MP_EVAL_TOKENS = 16, 8, 16
+MP_TIMEOUT_S = 600
+
+
+def _kernel_counters():
+    """Every kernel wrapper with a launch count, by name (as main's)."""
+    from ultravox_torch.ops.kernels import decode_attention as da
+    from ultravox_torch.ops.kernels import decode_matmul as dm
+    from ultravox_torch.ops.kernels import encoder_attn_probe as eap
+    from ultravox_torch.ops.kernels import flash_attention as fl
+    from ultravox_torch.ops.kernels import fused_attention as fa
+    from ultravox_torch.ops.kernels import layer_norm as ln_mod
+    from ultravox_torch.ops.kernels import paged_attention as pa
+    from ultravox_torch.ops.kernels import paged_gather as pg
+    from ultravox_torch.ops.kernels import segment_attention as sa
+
+    return {
+        "fused_layer_norm": ln_mod.fused_layer_norm, "ln_qkv_head_fused": fa.ln_qkv_head_fused,
+        "qkv_head_transpose": fa.qkv_head_transpose,
+        "attention_headmajor": fa.attention_headmajor, "fused_attention": fa.fused_attention,
+        "decode_attention": da.decode_attention,
+        "segment_tail_attention": sa.segment_tail_attention,
+        "paged_decode_attention": pa.paged_decode_attention,
+        "paged_segment_tail_attention": sa.paged_segment_tail_attention,
+        "gather_pages": pg.gather_pages, "flash_attention": fl.flash_attention,
+        "ln_matmul_gelu": fa.ln_matmul_gelu, "attn_out_proj_residual": fa.attn_out_proj_residual,
+        "decode_matmul": dm.decode_matmul, "attn_v2": eap.attn_v2, "attn_nt": eap.attn_nt,
+    }
+
+
+def _count_launches(counters, fn):
+    """fn() with every count (and #13's backward) set to 0 just before and
+    read just after: (result, {name: launches})."""
+    flash = counters["flash_attention"]
+    for c in counters.values():
+        c.launches = 0
+    flash.bwd_launches = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    launches["flash_attention_bwd"] = flash.bwd_launches
+    return out, launches
+
+
+def _phase14_rank(spec_path: str) -> None:
+    """One rank of phase 14, started by _multiprocess_main_path with
+    torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT): (a) train() on phase 12's run-1 config with mesh_fsdp -1
+    and a checkpoint at micro-step 4, each step call timed between two
+    synchronisations; (c) the eval CLI's main() on the flagship checkpoint,
+    each generate call's token counts and each batch's seconds recorded.
+    Writes its counts, times and facts to <out>.<rank> as JSON."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ultravox_torch.evaluation import eval as eval_mod
+    from ultravox_torch.inference.engine import GenerationEngine
+    from ultravox_torch.inference.infer import LocalInference
+    from ultravox_torch.training import config as train_config
+    from ultravox_torch.training import train as train_mod
+    from ultravox_torch.training import train_step as ts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    counters = _kernel_counters()
+    out = {"rank": rank}
+
+    # (a) train() through parallel/
+    cfg = train_config.get_train_config(spec["train_argv"])
+    step_ms, last = [], {}
+    make_step = ts.make_train_step
+
+    def timed_make(*a, **kw):
+        fn = make_step(*a, **kw)
+        last["mesh"] = kw["mesh"]
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            last["state"] = res[0]
+            return res
+
+        return step
+
+    ts.make_train_step = timed_make
+    try:
+        t0 = time.perf_counter()
+        _, out["train_launches"] = _count_launches(counters, lambda: train_mod.train(cfg))
+        out["train_s"] = time.perf_counter() - t0
+    finally:
+        ts.make_train_step = make_step
+    out.update(step_ms=step_ms, world=dist.get_world_size(), backend=dist.get_backend(),
+               device=torch.cuda.current_device(), local_rank=int(os.environ["LOCAL_RANK"]),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # what the group adds to a step, timed alone: the gradients' all-reduce
+    # (one flat bucket a dtype) and the three scalar ones of the KL loss
+    # (the two counts and the logged loss); none at world 1, where the mesh
+    # has no groups
+    from ultravox_torch.parallel.sharding import all_reduce_, reduce_gradients
+
+    mesh, leaves = last["mesh"], list(last["state"].trainable.values())
+    grads = [t.detach().clone() for t in leaves]
+    scalar = torch.ones((), device=leaves[0].device)
+
+    def added():
+        reduce_gradients(leaves, grads, mesh)
+        for _ in range(3):
+            all_reduce_(scalar.clone(), mesh.batch_group)
+
+    out["group_ms"] = _time_ms(added)
+    out["grad_bucket_mb"] = sum(g.numel() * g.element_size() for g in grads) / 1e6
+    del last, leaves, grads
+    torch.cuda.empty_cache()
+
+    # (c) the evaluation CLI
+    calls, batch_s = [], []
+    generate, infer_batch = GenerationEngine.generate, LocalInference.infer_batch
+
+    def spy_generate(self, batch, **kw):
+        res = generate(self, batch, **kw)
+        calls.append({"max_new_tokens": kw["max_new_tokens"],
+                      "tokens": [len(ids) for ids in res.token_ids]})
+        return res
+
+    def timed_batch(self, samples, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = infer_batch(self, samples, *a, **kw)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+        return res
+
+    GenerationEngine.generate, LocalInference.infer_batch = spy_generate, timed_batch
+    sys.argv = ["eval", "--model", spec["model"], "--eval_sets", "[synthetic-asr]",
+                "--num_samples", str(MP_EVAL_SAMPLES), "--batch_size", str(MP_EVAL_BATCH),
+                "--max_tokens", str(MP_EVAL_TOKENS), "--output_dir", spec["eval_dir"]]
+    try:
+        t0 = time.perf_counter()
+        _, out["eval_launches"] = _count_launches(counters, eval_mod.main)
+        out["eval_s"] = time.perf_counter() - t0
+    finally:
+        GenerationEngine.generate, LocalInference.infer_batch = generate, infer_batch
+    out.update(generate_calls=calls, batch_s=batch_s)
+    with open(f"{spec['out']}.{rank}", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _phases_12_14(tc, uv, dev) -> None:
+    """Phases 12 and 14 alone, after the build (``--phases 12,14``): for
+    working on phase 14 in a shorter call. Prints no result line."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    cfg = _flagship_config(tc)
+    counters = {k: v for k, v in _kernel_counters().items() if k != "flash_attention"}
+    L_enc, L_dec = cfg.audio_config.num_layers, cfg.text_config.num_layers
+    prefill = {"fused_layer_norm": L_enc, "ln_qkv_head_fused": L_enc,
+               "attention_headmajor": L_enc, "fused_attention": L_dec}
+    train_loop, _ = _train_loop_main_path(tc, counters, None, smi, dev)
+    _multiprocess_main_path(tc, uv, cfg, counters, prefill, train_loop, smi, dev)
+    print("chip_smoke: phases 12 and 14 only, no result", flush=True)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(spec: dict, root: str, n: int) -> list:
+    """Start n ranks of this script (--phase14-rank), one a card, with
+    torchrun's environment; wait for all, kill all on a failure or at
+    MP_TIMEOUT_S; their results in rank order."""
+    path = os.path.join(root, "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    port = _free_port()
+    procs, logs = [], []
+    for rank in range(n):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n), LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        log = open(os.path.join(root, f"rank{rank}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                       "--phase14-rank", path], env=env, stdout=log,
+                                      stderr=subprocess.STDOUT))
+    deadline = time.time() + MP_TIMEOUT_S
+    failed = False
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.time() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                failed = True
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    tails = []
+    for rank, log in enumerate(logs):
+        log.seek(0)
+        tails.append(log.read()[-6000:])
+        log.close()
+    if failed or any(p.returncode != 0 for p in procs):
+        for rank, tail in enumerate(tails):
+            print(f"--- phase 14 rank {rank} (return code {procs[rank].returncode}):\n{tail}",
+                  file=sys.stderr, flush=True)
+        _fail(f"phase 14: ranks ended with {[p.returncode for p in procs]}"
+              f"{' (timed out)' if time.time() > deadline else ''}")
+    out = []
+    for rank in range(n):
+        with open(f"{spec['out']}.{rank}") as f:
+            out.append(json.load(f))
+    return out
+
+
+def _same(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(x == y for x, y in zip(a, b))
+
+
+def _multiprocess_main_path(tc, uv, cfg, counters, prefill, train_loop, smi, dev):
+    """Phase 14: the data x fsdp layer over NCCL, one process a card (as
+    many as torch.cuda.device_count(); 1 on a one-card machine, where the
+    mesh has no groups and no step issues a collective), through the
+    user's entry points:
+
+      (a) train() in each rank (torchrun's environment, initialize_multihost
+          -> NCCL on cuda:LOCAL_RANK, make_mesh, shard_params, the gathers
+          at _layer, the reductions), on phase 12's run-1 config with
+          mesh_fsdp -1: 6 micro-steps (3 updates), a checkpoint at 4 written
+          through the gather, validation at 6. #13's launches as phase 12's
+          (and no other kernel's); every logged loss and grad_norm and the
+          validation loss against phase 12's run 1 (bit for bit at world 1);
+          each step call timed between two synchronisations, beside phase
+          12's step alone: what the process group costs.
+      (b) checkpoint-4 resumed in this process, with no process group: the
+          next step (micro-step 5 on the data's 5th batch) equal to the
+          rank's logged micro-step 5 (bit for bit at world 1).
+      (c) python -m ultravox_torch.evaluation.eval's main() in each rank on
+          a flagship checkpoint (phase 9's tree from the seed, phase 11's
+          128256-id tokenizer), 16 synthetic-asr samples in batches of 8,
+          greedy, 16 tokens, WER: #1-#4 and #8 launched as phase 11's
+          UltravoxInference counts them for each generate call, no other
+          kernel; rank 0 alone wrote synthetic-asr.json and summary.json,
+          16 samples in index order; samples/s.
+
+    Returns (metrics, {path: launches})."""
+    import shutil
+    import tempfile
+
+    from ultravox_torch.training import checkpoint as ckpt_lib
+    from ultravox_torch.training import config as train_config
+    from ultravox_torch.training import model_factory
+    from ultravox_torch.training import train as train_mod
+    from ultravox_torch.training import train_step as ts
+    from ultravox_torch.tools.publish import save_pretrained
+
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    print(f"phase 14: {n} process(es), one a card, NCCL, torchrun's environment; {smi}",
+          flush=True)
+    root = tempfile.mkdtemp(prefix="multiproc_")
+    try:
+        tok = _write_flagship_tokenizer(os.path.join(root, "tok"))
+        out_train, ckpt, eval_dir = (os.path.join(root, d) for d in ("train", "ckpt", "eval"))
+        t0 = time.perf_counter()
+        params = uv.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), torch.bfloat16,
+                                dev)
+        save_pretrained(params, cfg, ckpt, dtype=None)
+        _write_flagship_tokenizer(ckpt, cfg.vocab_size)
+        del params
+        torch.cuda.empty_cache()
+        ckpt_s = time.perf_counter() - t0
+        argv = _train_loop_argv(out_train, tok, mesh_fsdp=-1)
+        spec = {"train_argv": argv, "model": ckpt, "eval_dir": eval_dir,
+                "out": os.path.join(root, "result.json")}
+        t0 = time.perf_counter()
+        ranks = _run_ranks(spec, root, n)
+        ranks_s = time.perf_counter() - t0
+        r0 = ranks[0]
+
+        # (a)
+        cfg14 = train_config.get_train_config(argv)
+        micro = cfg14.max_steps * cfg14.grad_accum_steps
+        L_enc, L_dec = cfg.audio_config.num_layers, cfg.text_config.num_layers
+        fwd_step, fwd_val, bwd_step = 2 * L_enc + 3 * L_dec, L_enc + L_dec, L_enc + L_dec
+        val_batches = -(-(cfg14.val_num_samples // n) // (cfg14.batch_size // n))
+        from ultravox_torch.ops.kernels import flash_attention as fl
+
+        want = {name: 0 for name in r0["train_launches"]}
+        want["flash_attention"] = micro * fwd_step + val_batches * fwd_val
+        want["flash_attention_bwd"] = micro * bwd_step * fl.BWD_LAUNCHES
+        facts = [(r["world"], r["backend"], r["device"], r["local_rank"]) for r in ranks]
+        print(f"phase 14 (a): world {n}; ranks (world, backend, device, LOCAL_RANK) {facts}; "
+              f"launches {r0['train_launches']} expected {want}", flush=True)
+        if any(f != (n, "nccl", i, i) for i, f in enumerate(facts)):
+            _fail(f"phase 14: the ranks ran as {facts}")
+        for r in ranks:
+            if r["train_launches"] != want:
+                _fail(f"phase 14: rank {r['rank']} train launches {r['train_launches']}, "
+                      f"expected {want}")
+        with open(os.path.join(out_train, "train_log.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        steps = [r for r in log if "loss" in r]
+        losses, norms = [r["loss"] for r in steps], [r["grad_norm"] for r in steps]
+        val = [r["val_loss/synthetic-asr"] for r in log if "val_loss/synthetic-asr" in r]
+        bits = (_same(losses, train_loop["losses"]) and _same(norms, train_loop["grad_norms"])
+                and _same(val, [train_loop["val_loss"]]))
+        rel = max([abs(a - b) / abs(b) for a, b in zip(losses + norms + val, train_loop["losses"]
+                                                        + train_loop["grad_norms"]
+                                                        + [train_loop["val_loss"]])] or [np.inf])
+        print(f"phase 14 (a): losses {losses}; grad_norms {norms}; val_loss {val}; phase 12 run 1 "
+              f"{train_loop['losses']} / {train_loop['grad_norms']} / {train_loop['val_loss']}: "
+              f"bit for bit {bits}, largest relative difference {rel:.3g}", flush=True)
+        if len(steps) != micro or len(val) != 1 or not np.isfinite(rel):
+            _fail(f"phase 14: logged {len(steps)} micro-steps and {len(val)} validations")
+        if (n == 1 and not bits) or rel > FLASH_E2E_LOSS_RTOL:
+            _fail(f"phase 14: the losses differ from phase 12's (largest relative difference "
+                  f"{rel}; world {n})")
+        for name in ("checkpoint-4", "checkpoint-6", "model.safetensors", "train_config.json"):
+            if not os.path.exists(os.path.join(out_train, name)):
+                _fail(f"phase 14: {name} missing from {sorted(os.listdir(out_train))}")
+        step_ms = r0["step_ms"]
+        mp_step = float(np.median(step_ms[1:]))
+        print(f"phase 14 (a): step call ms (synced) {[round(t, 3) for t in step_ms]}; median of "
+              f"micro-steps 2-{micro} {mp_step:.3f} ms against phase 12's step alone "
+              f"{train_loop['step_alone_ms']:.3f} ms ({mp_step - train_loop['step_alone_ms']:+.3f} "
+              f"ms; phase 12's loop {train_loop['micro_step_ms']:.3f} ms a micro-step); the "
+              f"group's own work timed alone (the {r0['grad_bucket_mb']:.3f} MB gradient bucket's "
+              f"all-reduce and three scalar ones, none issued at world 1) "
+              f"{r0['group_ms']:.4f} ms; train() "
+              f"{r0['train_s']:.3f} s, peak memory {r0['peak_memory_gb']:.3f} GB; {smi}",
+              flush=True)
+
+        # (b) resume in this process, no process group
+        t0 = time.perf_counter()
+        pack = model_factory.create_model_pack(cfg14)
+        optimizer = train_mod.make_train_optimizer(cfg14)
+        state, template = ts.init_train_state(pack.params, optimizer,
+                                              cfg14.effective_trainable_patterns, device=dev)
+        state = ckpt_lib.restore_checkpoint(os.path.join(out_train, "checkpoint-4"), state)
+        step_fn = ts.make_train_step(pack.config, cfg14.loss_config, optimizer, template,
+                                     remat=cfg14.remat, attn_impl=cfg14.attn_impl,
+                                     vocab_chunk=cfg14.vocab_loss_chunk)
+        batches = train_mod.batch_iterator(train_mod.prepare_train_dataset(cfg14, pack),
+                                           pack.collator, cfg14.batch_size)
+        batch5 = [next(batches) for _ in range(5)][-1]
+        batches.close()
+        state, m = step_fn(state, train_mod.to_device(batch5, torch.device(dev)))
+        resumed = (float(m["loss"]), float(m["grad_norm"]))
+        logged = (steps[4]["loss"], steps[4]["grad_norm"])
+        resume_s = time.perf_counter() - t0
+        print(f"phase 14 (b): checkpoint-4 (step {state.step - 1}) resumed in one process "
+              f"without a process group; micro-step 5 (loss, grad_norm) {resumed} against the "
+              f"rank's {logged}; {resume_s:.3f} s", flush=True)
+        if state.step != 5 or (n == 1 and resumed != logged) or abs(
+                resumed[0] - logged[0]) > FLASH_E2E_LOSS_RTOL * abs(logged[0]):
+            _fail(f"phase 14: the resumed micro-step 5 {resumed} differs from the run's {logged}")
+        del pack, state, template, step_fn, m
+        torch.cuda.empty_cache()
+
+        # (c)
+        want_eval = {name: 0 for name in r0["eval_launches"]}
+        for call in r0["generate_calls"]:
+            for name, k in prefill.items():
+                want_eval[name] += k
+            cap = call["max_new_tokens"]
+            sampled = max(min(t + 1, cap) for t in call["tokens"])
+            want_eval["decode_attention"] += L_dec * (sampled - 1)
+        names = sorted(os.listdir(eval_dir))
+        with open(os.path.join(eval_dir, "synthetic-asr.json")) as f:
+            result = json.load(f)
+        with open(os.path.join(eval_dir, "summary.json")) as f:
+            summary = json.load(f)
+        sps = MP_EVAL_SAMPLES / max(sum(r["batch_s"]) for r in ranks)
+        print(f"phase 14 (c): eval CLI, {MP_EVAL_SAMPLES} synthetic-asr samples in batches of "
+              f"{MP_EVAL_BATCH}, greedy, {MP_EVAL_TOKENS} tokens; generate calls "
+              f"{r0['generate_calls']}; launches {r0['eval_launches']} expected {want_eval}; "
+              f"files {names}; WER {summary.get('synthetic-asr', {}).get('score')} (random "
+              f"weights); batch seconds {[round(t, 4) for t in r0['batch_s']]}; {sps:.3f} "
+              f"samples/s; main() {r0['eval_s']:.3f} s; {smi}", flush=True)
+        if r0["eval_launches"] != want_eval or not r0["generate_calls"]:
+            _fail(f"phase 14: eval launches {r0['eval_launches']}, expected {want_eval}")
+        if names != ["summary.json", "synthetic-asr.json"]:
+            _fail(f"phase 14: the eval wrote {names}")
+        idx = [smp["index"] for smp in result["samples"]]
+        if idx != list(range(MP_EVAL_SAMPLES)) or result["num_samples"] != MP_EVAL_SAMPLES:
+            _fail(f"phase 14: the eval JSON holds samples {idx}")
+        if sorted(summary) != ["synthetic-asr"] or not np.isfinite(summary["synthetic-asr"]["score"]):
+            _fail(f"phase 14: summary.json {summary}")
+        metrics = {
+            "world": n, "checkpoint_write_s": ckpt_s, "ranks_s": ranks_s,
+            "train": {"losses": losses, "grad_norms": norms, "val_loss": val[0],
+                      "bit_equal_phase12": bits, "max_rel_diff_phase12": rel,
+                      "step_ms": step_ms, "step_ms_median": mp_step,
+                      "phase12_step_alone_ms": train_loop["step_alone_ms"],
+                      "group_ms": r0["group_ms"], "grad_bucket_mb": r0["grad_bucket_mb"],
+                      "train_s": r0["train_s"], "peak_memory_gb": r0["peak_memory_gb"]},
+            "resume": {"resumed": resumed, "logged": logged, "s": resume_s},
+            "eval": {"samples_per_s": sps, "batch_s": r0["batch_s"], "eval_s": r0["eval_s"],
+                     "wer": summary["synthetic-asr"]["score"],
+                     "generate_calls": r0["generate_calls"]},
+        }
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 14: {metrics['phase_s']:.2f} s", flush=True)
+    return metrics, {"train": r0["train_launches"], "eval": r0["eval_launches"]}
+
+
 def _to_float(tree):
     if isinstance(tree, dict):
         return {k: _to_float(v) for k, v in tree.items()}
@@ -6053,4 +6509,7 @@ def _to_float(tree):
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase14-rank":
+        _phase14_rank(sys.argv[2])
+    else:
+        main()

@@ -6,7 +6,11 @@ training loop import and run without them (the loader needs only
 ``tokenizers`` and ``jinja2``, the training config ``yaml``, all on the
 card's machine), HF ``datasets`` is imported in one function only
 (``data/datasets.py::_load_hf_dataset``, for HF-hosted sets), and importing
-the package builds or loads no kernel."""
+the package builds or loads no kernel. ``parallel/`` and ``evaluation/``
+use ``torch.distributed`` and nothing of the above (the evaluation suite
+scores WER with its own copy of Whisper's English normaliser); the
+multi-process entry points join NCCL, never gloo, where CUDA is present
+and the CPU was not asked for, and default to the card."""
 
 import ast
 import json
@@ -117,6 +121,12 @@ def test_package_imports_without_jax_and_builds_nothing():
         "import ultravox_torch.data.aug\n"
         "import ultravox_torch.tools.data_tool\n"
         "import ultravox_torch.tools.mds_tool\n"
+        "import ultravox_torch.parallel\n"
+        "import ultravox_torch.parallel.multihost\n"
+        "import ultravox_torch.evaluation.eval\n"
+        "import ultravox_torch.evaluation.voicebench\n"
+        "from ultravox_torch.evaluation import string_metrics\n"
+        "assert string_metrics.wer(['it costs $25'], ['It costs twenty-five dollars!']) == 0.0\n"
         "from ultravox_torch.ops.kernels import _build\n"
         "assert _build.library.cache_info().currsize == 0\n"
         "assert not any(m.startswith('ultravox_tpu') or m == 'jax' for m in sys.modules"
@@ -207,3 +217,86 @@ def test_training_loop_runs_without_jax_or_hf(tmp_path):
                                        "train_log.jsonl"]
     with open(out / "train_log.jsonl") as f:
         assert [json.loads(line)["step"] for line in f] == [1, 2]
+
+
+def _spy_init(monkeypatch, cuda: bool):
+    """initialize_multihost's view of a machine with or without CUDA: the
+    backend and init URL it asks for, and the card it binds first."""
+    import torch.distributed as dist
+
+    from ultravox_torch.parallel import mesh
+
+    calls = {}
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: calls.update(backend=backend, **kw))
+    monkeypatch.setattr(mesh.torch.cuda, "is_available", lambda: cuda)
+    monkeypatch.setattr(mesh.torch.cuda, "device_count", lambda: 8 if cuda else 0)
+    monkeypatch.setattr(mesh.torch.cuda, "set_device", lambda i: calls.update(card=i))
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    return mesh, calls
+
+
+@pytest.mark.parametrize("launch", ["torchrun", "explicit"])
+def test_initialize_multihost_never_picks_gloo_with_cuda(monkeypatch, launch):
+    """With CUDA present the group is NCCL, each process bound to its card
+    (cuda:LOCAL_RANK) before it joins; gloo only without CUDA; a plain
+    single process joins nothing."""
+    mesh, calls = _spy_init(monkeypatch, cuda=True)
+    if launch == "torchrun":
+        for k, v in dict(RANK="5", WORLD_SIZE="8", LOCAL_RANK="5", MASTER_ADDR="127.0.0.1",
+                         MASTER_PORT="29500").items():
+            monkeypatch.setenv(k, v)
+        mesh.initialize_multihost()
+        want = dict(backend="nccl", init_method="env://", world_size=8, rank=5, card=5)
+    else:
+        mesh.initialize_multihost("10.0.0.1:1234", 4, 3)
+        want = dict(backend="nccl", init_method="tcp://10.0.0.1:1234", world_size=4, rank=3,
+                    card=3)
+    assert calls == want
+
+    mesh, calls = _spy_init(monkeypatch, cuda=False)
+    mesh.initialize_multihost("file:///tmp/rendezvous", 2, 1)
+    assert calls == dict(backend="gloo", init_method="file:///tmp/rendezvous", world_size=2,
+                         rank=1)
+
+    mesh, calls = _spy_init(monkeypatch, cuda=True)
+    mesh.initialize_multihost()
+    mesh.initialize_multihost(num_processes=1)
+    assert calls == {}
+
+
+def test_initialize_multihost_takes_the_backend_from_the_device(monkeypatch):
+    """The backend follows the device the run asked for, not the machine:
+    a run asked onto the CPU joins gloo even where CUDA is present (its
+    tensors could not travel over NCCL), and one asked onto a card joins
+    NCCL bound to cuda:LOCAL_RANK."""
+    import torch
+
+    mesh, calls = _spy_init(monkeypatch, cuda=True)
+    mesh.initialize_multihost("file:///tmp/rendezvous", 2, 1, device="cpu")
+    assert calls == dict(backend="gloo", init_method="file:///tmp/rendezvous", world_size=2,
+                         rank=1)
+
+    mesh, calls = _spy_init(monkeypatch, cuda=True)
+    mesh.initialize_multihost("file:///tmp/rendezvous", 2, 1, device=torch.device("cuda"))
+    assert calls == dict(backend="nccl", init_method="file:///tmp/rendezvous", world_size=2,
+                         rank=1, card=1)
+
+
+def test_multi_process_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """The eval CLI, like training and validation, runs on the card unless
+    asked for the CPU: without one it raises before loading anything."""
+    import sys
+
+    from ultravox_torch.evaluation import eval as teval
+
+    monkeypatch.setattr(teval.collectives.dist, "is_initialized", lambda: False)
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", ["eval", "--model", str(tmp_path), "--eval_sets",
+                                      "[synthetic-asr]"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        teval.main()

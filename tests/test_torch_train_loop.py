@@ -17,8 +17,9 @@ run's model factory output, handed to the port through
   transpose of its checkpoint's kernels;
 - KL and CE; ``attn_impl: flash`` (the plain version of #13, the CPU route of
   the kernel wrapper) against the JAX loop at ``"xla"``, the same attention;
-- the layouts and options the port raises ``NotImplementedError`` for, and
-  the card as the default device.
+- the layouts the port raises ``NotImplementedError`` (pipeline, tensor)
+  or ``ValueError`` (more processes than the run has) for, and the card as
+  the default device.
 
 Gradient accumulation, resume, validation and the latency-block mask are in
 ``tests/test_torch_train_resume.py``.
@@ -174,16 +175,30 @@ def test_flash_loop_matches_xla(kl_runs, tmp_path, tokenizer_dir):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"mesh_pipe": 2}, "item 7"),
-    ({"num_processes": 2}, "item 7"),
-    ({"mesh_tensor": 2}, "item 7"),
-    ({"mesh_data": 2}, "item 7"),
-    ({"do_eval": True, "eval_sets": ["synthetic-asr"]}, "item 8"),
+    ({"mesh_pipe": 2}, "item 7b"),
+    ({"mesh_tensor": 2}, "item 7b"),
+    ({"mesh_pipe": 2, "mesh_tensor": 2}, "item 7b"),
 ])
 def test_single_process_only(tmp_path, tokenizer_dir, overrides, match):
+    """The layouts that are not ported (pipeline and tensor stages) raise
+    before any work, naming the slice that ports them."""
     with pytest.raises(NotImplementedError, match=match):
         run_port(tmp_path / "out", tokenizer_dir, **overrides)
     assert not os.path.exists(tmp_path / "out")  # raised before any work
+
+
+@pytest.mark.parametrize("overrides,match", [
+    ({"num_processes": 2}, "world size and rank"),
+    ({"mesh_data": 2}, "needs more than the 1 available devices"),
+    ({"mesh_fsdp": 2}, "needs more than the 1 available devices"),
+])
+def test_layouts_beyond_the_processes_raise(tmp_path, tokenizer_dir, overrides, match):
+    """A layout that needs more processes than the run has raises
+    ValueError before any work (a second process without its rank, a
+    mesh larger than one process)."""
+    with pytest.raises(ValueError, match=match):
+        run_port(tmp_path / "out", tokenizer_dir, **overrides)
+    assert not os.path.exists(tmp_path / "out")
 
 
 def test_device_defaults_to_the_card(tmp_path, tokenizer_dir, monkeypatch):

@@ -1,0 +1,226 @@
+"""One rank of a multi-process run of the port on the CPU (gloo), for the
+tests/test_torch_parallel*.py and tests/test_torch_eval.py modules. It
+imports no JAX: the pytest process computes the JAX side and hands the
+ranks their inputs in a spec file.
+
+    python -m tests.torch_dist_worker <task> <spec.pt>
+
+with ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` in the environment (set by
+``spawn``). The spec carries the rendezvous URL (``file://`` in the test's
+tmp_path) and the task's inputs; rank 0 writes the task's result to
+``spec["out"]`` (every rank to ``spec["out"] + ".<rank>"`` where a task
+reports per-rank facts).
+
+Tasks:
+
+- ``step``: from JAX parameters as numpy, shard over the (data, fsdp)
+  mesh, run the train step on each step's per-rank batch, and report the
+  metrics, the whole trainable leaves after the steps, each sharded
+  frozen leaf's bytes on this rank, and optionally resume from / save a
+  checkpoint and export;
+- ``train``: ``training/train.py::main`` on the given argv, the model
+  pack's parameters replaced by the given numpy tree when there is one;
+- ``eval``: ``evaluation/eval.py::eval_datasets`` through
+  ``UltravoxInference`` on a checkpoint directory.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class Ranks:
+    """``world`` ranks of ``task`` started in the background (``start``);
+    ``result()`` waits for them and returns rank 0's result with each
+    rank's per-rank facts under "per_rank". Raises with every rank's
+    output when one fails or the run outlasts ``timeout``."""
+
+    def __init__(self, task: str, spec: dict, tmp_dir: str, world: int, timeout: float):
+        os.makedirs(tmp_dir, exist_ok=True)
+        self.task, self.world = task, world
+        self.spec = dict(spec, init=f"file://{os.path.join(tmp_dir, 'rendezvous')}",
+                         out=os.path.join(tmp_dir, "result.pt"))
+        path = os.path.join(tmp_dir, "spec.pt")
+        torch.save(self.spec, path)
+        self.procs, self.logs = [], []
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                       PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+            for k in ("MASTER_ADDR", "MASTER_PORT"):
+                env.pop(k, None)
+            log = open(os.path.join(tmp_dir, f"rank{rank}.log"), "w+")
+            self.logs.append(log)
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-m", "tests.torch_dist_worker", task, path], cwd=ROOT,
+                env=env, stdout=log, stderr=subprocess.STDOUT))
+        self.deadline = time.time() + timeout
+        self._out = None
+
+    def result(self) -> dict:
+        if self._out is not None:
+            return self._out
+        try:
+            for p in self.procs:
+                p.wait(timeout=max(self.deadline - time.time(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        texts = []
+        for log in self.logs:
+            log.seek(0)
+            texts.append(log.read())
+            log.close()
+        if any(p.returncode != 0 for p in self.procs):
+            raise RuntimeError(f"{self.task} at world {self.world}: return codes "
+                               f"{[p.returncode for p in self.procs]}\n" + "\n".join(
+                                   f"--- rank {r}\n{t[-4000:]}" for r, t in enumerate(texts)))
+        out_path = self.spec["out"]
+        out = torch.load(out_path, weights_only=False)
+        out["per_rank"] = [torch.load(f"{out_path}.{r}", weights_only=False)
+                           if os.path.exists(f"{out_path}.{r}") else None
+                           for r in range(self.world)]
+        self._out = out
+        return out
+
+
+def start(task: str, spec: dict, tmp_dir: str, world: int, timeout: float = 240) -> Ranks:
+    """Start ``world`` ranks of ``task`` in the background."""
+    return Ranks(task, spec, tmp_dir, world, timeout)
+
+
+def spawn(task: str, spec: dict, tmp_dir: str, world: int, timeout: float = 240) -> dict:
+    """Run ``task`` on ``world`` ranks and wait: rank 0's result."""
+    return start(task, spec, tmp_dir, world, timeout).result()
+
+
+def _tensors(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _join(spec):
+    from ultravox_torch.parallel.mesh import initialize_multihost
+
+    initialize_multihost(spec["init"], int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]),
+                         device="cpu")
+
+
+def task_step(spec, rank, world):
+    """Each of ``spec["runs"]`` from the same initial parameters, one
+    process group for all: {"batches": [[per-rank batch] a step], "accum",
+    "fault", "resume", "save"}."""
+    from ultravox_torch.models import ultravox as uv
+    from ultravox_torch.models.weights import from_jax_params
+    from ultravox_torch.parallel import mesh as pm
+    from ultravox_torch.parallel import sharding
+    from ultravox_torch.training import checkpoint as ckpt
+    from ultravox_torch.training import train_step as ts
+
+    _join(spec)
+    mesh = pm.make_mesh(pm.MeshConfig(spec["data"], spec["fsdp"]))
+    cfg = spec["cfg"]
+    global_count = uv._global
+    results, facts = [], []
+    for run in spec["runs"]:
+        params = sharding.shard_params(from_jax_params(spec["params"], cfg), mesh)
+        opt = ts.make_optimizer(spec["lr"], **spec["opt"])
+        if run.get("accum", 1) > 1:
+            opt = ts.multi_steps(opt, run["accum"])
+        state, template = ts.init_train_state(params, opt, spec["trainable"], device="cpu")
+        facts.append({k: (v.untyped_storage().nbytes(), v.numel() * v.element_size(),
+                          sharding.full_shape(v), sharding.shard_of(v) is not None)
+                      for k, v in state.frozen.items()})
+        if run.get("resume"):
+            state = ckpt.restore_checkpoint(run["resume"], state)
+        if run.get("fault") == "mean_of_means":  # each rank's mean, averaged over the ranks
+            uv._global = lambda count, group: count * world if group is not None else count
+        step = ts.make_train_step(cfg, spec["loss_config"], opt, template, remat=True,
+                                  attn_impl="flash", vocab_chunk=spec.get("vocab_chunk"),
+                                  mesh=mesh)
+        metrics = []
+        for per_rank in run["batches"]:  # the mesh is row-major: rank i holds block i
+            state, m = step(state, _tensors(per_rank[rank]))
+            metrics.append({k: float(v) for k, v in m.items()})
+        uv._global = global_count
+        trainable = {k: sharding.gather_as(v, v).detach().clone()
+                     for k, v in state.trainable.items()}
+        if run.get("save"):
+            ckpt.save_checkpoint(run["save"], state)
+            ckpt.export_safetensors(state, os.path.join(run["save"], "model.safetensors"))
+        results.append({"metrics": metrics, "trainable": trainable, "step": state.step})
+    torch.save({"held": facts}, f"{spec['out']}.{rank}")
+    if rank == 0:
+        torch.save({"runs": results, "mesh": mesh.shape}, spec["out"])
+
+
+def task_train(spec, rank, world):
+    from ultravox_torch.models.weights import from_jax_params
+    from ultravox_torch.training import train as ttrain
+
+    if spec.get("params") is not None:
+        make = ttrain.create_model_pack
+
+        def pack(c):
+            p = make(c)
+            p.params = from_jax_params(spec["params"], p.config, device="cpu")
+            return p
+
+        ttrain.create_model_pack = pack
+    sys.argv = ["train"] + spec["argv"] + [
+        "--coordinator_address", spec["init"], "--num_processes", str(world),
+        "--process_id", str(rank)]
+    config = ttrain.get_train_config()
+    metrics = ttrain.train(config)
+    torch.save({"metrics": metrics}, f"{spec['out']}.{rank}")
+    if rank == 0:
+        torch.save({"metrics": metrics}, spec["out"])
+
+
+def task_eval(spec, rank, world):
+    """``eval_datasets`` through ``UltravoxInference`` on the checkpoint
+    directory ``spec["model"]`` (fp32, the CPU), each rank's batch sizes
+    recorded."""
+    from ultravox_torch.evaluation.eval import eval_datasets
+    from ultravox_torch.inference.ultravox_infer import UltravoxInference
+
+    _join(spec)
+    inference = UltravoxInference(spec["model"], dtype=torch.float32, max_cache_len=256,
+                                  device="cpu")
+    seen = []
+    infer_batch = inference.infer_batch
+
+    def spy(samples, *a, **kw):
+        seen.append(len(samples))
+        return infer_batch(samples, *a, **kw)
+
+    inference.infer_batch = spy
+    scores = eval_datasets(inference, spec["eval_config"])
+    torch.save({"scores": scores, "batches": seen}, f"{spec['out']}.{rank}")
+    if rank == 0:
+        torch.save({"scores": scores}, spec["out"])
+
+
+def main():
+    task, path = sys.argv[1], sys.argv[2]
+    torch.set_num_threads(1)
+    spec = torch.load(path, weights_only=False)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    {"step": task_step, "train": task_train, "eval": task_eval}[task](spec, rank, world)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,3 @@
-"""Evaluation: the standalone validation-loss CLI (``validate``)."""
+"""Evaluation: the eval CLI (``eval``), the metric registries (``metrics``,
+``string_metrics``, ``ifeval``, ``voicebench``) and the validation-loss
+CLI (``validate``)."""

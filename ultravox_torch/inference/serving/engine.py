@@ -388,7 +388,8 @@ class ServingEngine:
         """Runs on the CUDA card unless ``device="cpu"``. ``"auto"`` options
         resolve in ``_resolve_auto``; explicit values override."""
         if mesh is not None:
-            raise NotImplementedError("not ported yet: mesh (sharded serving)")
+            raise NotImplementedError(
+                "not ported yet: mesh (sharded serving, ROADMAP.md queue A item 7b)")
         if spec_decode in ("none", ""):
             spec_decode = None
         if spec_decode not in (None, "ngram"):

@@ -128,7 +128,8 @@ class UltravoxInference(LocalInference):
         device=None,
     ):
         if mesh is not None:
-            raise NotImplementedError("mesh (sharded inference) is not ported yet")
+            raise NotImplementedError(
+                "mesh (sharded inference) is not ported yet (ROADMAP.md queue A item 7b)")
         dev = resolve_device(device)
         cfg, params, model_dir = load_ultravox_checkpoint(model_path, dtype, strict=strict,
                                                           device=dev)

@@ -49,6 +49,7 @@ from ultravox_torch.ops.kernels.segment_attention import (
 )
 from ultravox_torch.ops.norms import rms_norm
 from ultravox_torch.ops.rope import apply_rope, rope_cos_sin, rope_frequencies
+from ultravox_torch.parallel.sharding import gather, gather_layer
 
 Params = Dict[str, Any]
 
@@ -244,7 +245,9 @@ def _mlp(cfg: DecoderConfig, h: torch.Tensor, p: Params) -> torch.Tensor:
 
 
 def _layer(layers: Params, l: int) -> Params:
-    return {k: _layer(v, l) if isinstance(v, dict) else v[l] for k, v in layers.items()}
+    """Layer l's parameters, each fsdp-sharded leaf gathered whole."""
+    return {k: _layer(v, l) if isinstance(v, dict) else gather_layer(v, l)
+            for k, v in layers.items()}
 
 
 def _plus_one(cfg: DecoderConfig) -> bool:
@@ -312,6 +315,12 @@ def _layer_forward(
     return x + mlp
 
 
+def _gathered_layer_forward(cfg, x, layers, l, cos, sin, attend):
+    """``_layer_forward`` on layer l, gathered inside: under remat only
+    the shards are kept for the backward, which gathers again."""
+    return _layer_forward(cfg, x, _layer(layers, l), cos, sin, attend)
+
+
 def make_attention_bias(
     cfg: DecoderConfig,
     q_positions: torch.Tensor,  # (B, T) absolute query positions
@@ -341,7 +350,22 @@ def embed_lookup(params: Params, ids: torch.Tensor) -> torch.Tensor:
     if "embed_tokens_q" in params:
         scales = params["embed_scale"][ids]
         return params["embed_tokens_q"][ids].to(scales.dtype) * scales[..., None]
-    return params["embed_tokens"][ids]
+    return gather(params["embed_tokens"])[ids]
+
+
+def gathered_head(params: Params, cfg: DecoderConfig) -> Params:
+    """``params`` with the leaf ``compute_logits`` reads gathered whole
+    once, for a caller that projects chunk after chunk: the processes of
+    an fsdp group then gather the same number of times, whatever their
+    chunk counts."""
+    head = params.get("lm_head")
+    if head is not None and (not cfg.tie_word_embeddings or "kernel_q" in head):
+        if "kernel" not in head:
+            return params
+        return dict(params, lm_head=dict(head, kernel=gather(head["kernel"])))
+    if "embed_tokens" not in params:
+        return params
+    return dict(params, embed_tokens=gather(params["embed_tokens"]))
 
 
 def compute_logits(params: Params, cfg: DecoderConfig, hidden: torch.Tensor) -> torch.Tensor:
@@ -357,11 +381,11 @@ def compute_logits(params: Params, cfg: DecoderConfig, hidden: torch.Tensor) -> 
                 "kernel_q": params["embed_tokens_q"].T, "scale": params["embed_scale"][None],
             }).float()
         else:
-            logits = (hidden @ params["embed_tokens"].T).float()
+            logits = (hidden @ gather(params["embed_tokens"]).T).float()
     elif "kernel_q" in head:
         logits = proj_apply(hidden, head).float()
     else:
-        logits = (hidden @ head["kernel"]).float()
+        logits = (hidden @ gather(head["kernel"])).float()
     if cfg.final_logit_softcapping:
         cap = cfg.final_logit_softcapping
         logits = torch.tanh(logits / cap) * cap
@@ -568,11 +592,11 @@ def decoder_forward(
             bias = bias_local if (bias_local is not None and local[l]) else bias_global
             return mha(q, k, v, bias=bias, scale=cfg.attn_scale, softcap=cfg.attn_logit_softcapping)
 
-        args = (cfg, x, _layer(layers, l), *(rope_l if local[l] else rope_g), attend)
+        args = (cfg, x, layers, l, *(rope_l if local[l] else rope_g), attend)
         if remat and cache is None:
-            x = checkpoint_remat(_layer_forward, *args)
+            x = checkpoint_remat(_gathered_layer_forward, *args)
         else:
-            x = _layer_forward(*args)
+            x = _gathered_layer_forward(*args)
 
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps, plus_one=_plus_one(cfg))
     if return_hidden:

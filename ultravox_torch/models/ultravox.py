@@ -2,6 +2,12 @@
 and the training losses (cross-entropy, or KL distillation against the
 text-only teacher, each dense or with the vocabulary projected in chunks).
 
+In a multi-process run each process holds its own rows of the global
+batch (``parallel/multihost.py``): given the processes' ``batch_group``, a
+loss divides its local sum by the count summed over the group, so the
+processes' losses (and gradients) add up to the one loss over the global
+batch, as the JAX package computes it.
+
 The losses use fixed-shape masked reductions: masked rows are compacted by
 index writes into a buffer with one spare slot that is dropped, never by
 selecting with a boolean mask (which would make the host wait for the
@@ -21,6 +27,7 @@ from ultravox_torch.models import wav2vec2_encoder as w2v_lib
 from ultravox_torch.models import whisper_encoder as encoder_lib
 from ultravox_torch.models.config import LossConfig, LossFunction, UltravoxConfig
 from ultravox_torch.models.remat import remat as _remat
+from ultravox_torch.parallel.sharding import all_reduce_, carry_shard
 
 Params = Dict[str, Any]
 
@@ -161,7 +168,8 @@ def ultravox_forward(
     losses. ``batch``: input_ids, attention_mask (right-padded) and
     optionally the audio fields of ``ultravox_embed``."""
     if pipe_mesh is not None:
-        raise NotImplementedError("pipeline-parallel decoders are not ported yet")
+        raise NotImplementedError(
+            "pipeline-parallel decoders are not ported yet (ROADMAP.md queue A item 7b)")
     input_ids = batch["input_ids"]
     inputs_embeds = ultravox_embed(
         params, cfg, input_ids, batch, remat=remat,
@@ -184,24 +192,33 @@ def ultravox_forward(
 
 
 def _detached(tree):
-    """The parameter tree cut from autograd (the reference's stop_gradient)."""
+    """The parameter tree cut from autograd (the reference's stop_gradient),
+    fsdp shards still tagged as shards."""
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
-    return tree.detach()
+    return carry_shard(tree, tree.detach())
+
+
+def _global(count: torch.Tensor, group) -> torch.Tensor:
+    """``count`` summed over the processes of ``group`` (those splitting
+    the batch); ``count`` itself without one."""
+    return count if group is None else all_reduce_(count.clone(), group)
 
 
 def causal_lm_loss(
     logits: torch.Tensor,  # (B, T, V) fp32
     labels: torch.Tensor,  # (B, T) with -100 = ignored
+    batch_group=None,
 ) -> torch.Tensor:
-    """Mean next-token cross-entropy over the non-ignored positions."""
+    """Mean next-token cross-entropy over the non-ignored positions (of
+    the global batch, with ``batch_group``)."""
     shift_labels = labels[:, 1:]
     valid = shift_labels != -100
     safe = torch.where(valid, shift_labels, 0).long()
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / valid.sum().clamp(min=1)
+    return nll.sum() / _global(valid.sum(), batch_group).clamp(min=1)
 
 
 def _chunks(x: torch.Tensor, chunk: int, fill) -> torch.Tensor:
@@ -226,6 +243,7 @@ def chunked_nll_sums(
     states, projecting to the vocabulary ``chunk`` positions at a time
     (each chunk checkpointed): the (B, T, V) logits never exist. The same
     fp32 logsumexp as the dense loss."""
+    lm_params = decoder_lib.gathered_head(lm_params, tc)
     D = hidden.shape[-1]
     hs = _chunks(hidden[:, :-1].reshape(-1, D), chunk, 0)
     lbl = _chunks(labels[:, 1:].reshape(-1), chunk, -100)
@@ -244,10 +262,11 @@ def chunked_nll_sums(
     return total, (lbl != -100).sum()
 
 
-def causal_lm_loss_chunked(lm_params: Params, tc, hidden, labels, *, chunk: int = 128):
+def causal_lm_loss_chunked(lm_params: Params, tc, hidden, labels, *, chunk: int = 128,
+                           batch_group=None):
     """Mean next-token CE over supervised positions (see chunked_nll_sums)."""
     s, c = chunked_nll_sums(lm_params, tc, hidden, labels, chunk=chunk)
-    return s / c.clamp(min=1)
+    return s / _global(c, batch_group).clamp(min=1)
 
 
 def prediction_masks(labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -294,6 +313,7 @@ def _masked_kl(
     s_mask: torch.Tensor,  # (B, T) bool
     t_mask: torch.Tensor,  # (B, T2) bool
     temperature: float,
+    batch_group=None,
 ) -> torch.Tensor:
     """KL(teacher || student) with torch kl_div 'batchmean' semantics: the
     sum of per-position KLs over the number of masked positions, the two
@@ -303,7 +323,7 @@ def _masked_kl(
     t = _compact_rows(teacher_logits.float(), t_mask, R)
     row_valid = _common_rows(s_mask, t_mask, R)
     kl = torch.where(row_valid, _kl_rows(s, t, temperature), 0.0)
-    return kl.sum() / row_valid.sum().clamp(min=1)
+    return kl.sum() / _global(row_valid.sum(), batch_group).clamp(min=1)
 
 
 def _masked_kl_chunked(
@@ -318,10 +338,12 @@ def _masked_kl_chunked(
     *,
     rows: Optional[int] = None,
     chunk: int = 128,
+    batch_group=None,
 ) -> torch.Tensor:
     """``_masked_kl`` with the vocabulary projected lazily: both streams'
     hidden states are compacted to the common masked rows (B, rows, D),
-    and the logits exist one checkpointed ``chunk`` of rows at a time."""
+    and the logits exist one checkpointed ``chunk`` of rows at a time.
+    ``lm_s`` and ``lm_t`` carry their heads whole (``gathered_head``)."""
     D = h_s.shape[-1]
     R = min(h_s.shape[1], h_t.shape[1]) if rows is None else rows
     sf = _compact_rows(h_s, s_mask, R).reshape(-1, D)
@@ -338,7 +360,7 @@ def _masked_kl_chunked(
     total = torch.zeros((), dtype=torch.float32, device=h_s.device)
     for i in range(sf.shape[0]):
         total = total + _remat(body, sf[i], tf[i], rv[i])
-    return total / row_valid.sum().clamp(min=1)
+    return total / _global(row_valid.sum(), batch_group).clamp(min=1)
 
 
 def kl_distillation_loss_chunked(
@@ -351,20 +373,23 @@ def kl_distillation_loss_chunked(
     loss_config: LossConfig,
     *,
     chunk: int = 128,
+    batch_group=None,
 ) -> torch.Tensor:
     """``kl_distillation_loss`` from hidden states (see _masked_kl_chunked);
     the EOT term compacts to one row per sequence. The teacher's head
     projection takes detached weights."""
+    lm_params = decoder_lib.gathered_head(lm_params, tc)
     lm_teacher = _detached(lm_params)
     pred_mask, eot_mask = prediction_masks(labels)
     alt_pred_mask, alt_eot_mask = prediction_masks(alt_labels)
     temp = loss_config.kl_temperature
     loss = _masked_kl_chunked(lm_params, lm_teacher, tc, student_hidden, teacher_hidden,
-                              pred_mask, alt_pred_mask, temp, chunk=chunk)
+                              pred_mask, alt_pred_mask, temp, chunk=chunk,
+                              batch_group=batch_group)
     if loss_config.eot_loss_weight > 0:
         loss = loss + loss_config.eot_loss_weight * _masked_kl_chunked(
             lm_params, lm_teacher, tc, student_hidden, teacher_hidden, eot_mask, alt_eot_mask,
-            temp, rows=1, chunk=chunk,
+            temp, rows=1, chunk=chunk, batch_group=batch_group,
         )
     return loss
 
@@ -375,6 +400,7 @@ def kl_distillation_loss(
     teacher_logits: torch.Tensor,
     alt_labels: torch.Tensor,
     loss_config: LossConfig,
+    batch_group=None,
 ) -> torch.Tensor:
     """Audio-student vs text-teacher loss: batchmean KL at ``kl_temperature``
     over prediction positions, plus ``eot_loss_weight`` times the same KL
@@ -382,10 +408,11 @@ def kl_distillation_loss(
     pred_mask, eot_mask = prediction_masks(labels)
     alt_pred_mask, alt_eot_mask = prediction_masks(alt_labels)
     temp = loss_config.kl_temperature
-    loss = _masked_kl(student_logits, teacher_logits, pred_mask, alt_pred_mask, temp)
+    loss = _masked_kl(student_logits, teacher_logits, pred_mask, alt_pred_mask, temp,
+                      batch_group)
     if loss_config.eot_loss_weight > 0:
         loss = loss + loss_config.eot_loss_weight * _masked_kl(
-            student_logits, teacher_logits, eot_mask, alt_eot_mask, temp)
+            student_logits, teacher_logits, eot_mask, alt_eot_mask, temp, batch_group)
     return loss
 
 
@@ -399,12 +426,15 @@ def ultravox_loss(
     attn_impl: str = "xla",
     vocab_chunk: Optional[int] = None,
     pipe_mesh=None,
+    batch_group=None,
 ) -> torch.Tensor:
     """Training loss: CE, or KL distillation against the text-only teacher
     (the same LLM weights on the alt_* token stream, run without gradient).
     ``vocab_chunk`` computes the loss from hidden states, projecting to the
     vocabulary ``vocab_chunk`` positions at a time; the same value and
-    gradients as the dense path."""
+    gradients as the dense path. With ``batch_group`` (the processes that
+    split the batch) the loss is this process's share of the global
+    batch's: its local sum over the global count."""
     chunked = vocab_chunk is not None and vocab_chunk > 0
     out = ultravox_forward(params, cfg, batch, remat=remat, attn_impl=attn_impl,
                            return_hidden=chunked, pipe_mesh=pipe_mesh)
@@ -412,8 +442,8 @@ def ultravox_loss(
     if loss_config.loss_function == LossFunction.CROSS_ENTROPY:
         if chunked:
             return causal_lm_loss_chunked(lm, cfg.text_config, out, batch["labels"],
-                                          chunk=vocab_chunk)
-        return causal_lm_loss(out, batch["labels"])
+                                          chunk=vocab_chunk, batch_group=batch_group)
+        return causal_lm_loss(out, batch["labels"], batch_group)
 
     alt_ids = batch["alt_input_ids"]
     B, T2 = alt_ids.shape
@@ -427,6 +457,6 @@ def ultravox_loss(
     if chunked:
         return kl_distillation_loss_chunked(lm, cfg.text_config, out, batch["labels"],
                                             teacher_out, batch["alt_labels"], loss_config,
-                                            chunk=vocab_chunk)
+                                            chunk=vocab_chunk, batch_group=batch_group)
     return kl_distillation_loss(out, batch["labels"], teacher_out, batch["alt_labels"],
-                                loss_config)
+                                loss_config, batch_group)

@@ -49,6 +49,7 @@ from ultravox_torch.ops.kernels.fused_attention import (
 )
 from ultravox_torch.ops.kernels.layer_norm import fused_layer_norm
 from ultravox_torch.ops.norms import layer_norm
+from ultravox_torch.parallel.sharding import gather, gather_layer
 
 Params = Dict[str, Any]
 ENCODER_ATTN_IMPLS = ("xla", "fused", "flash")  # encoder_forward's attn_impl
@@ -127,7 +128,9 @@ def _conv1d(x, kernel, bias, stride: int, transpose_out: bool = False):
 
 
 def _layer(layers: Params, l: int) -> Params:
-    return {k: _layer(v, l) if isinstance(v, dict) else v[l] for k, v in layers.items()}
+    """Layer l's parameters, each fsdp-sharded leaf gathered whole."""
+    return {k: _layer(v, l) if isinstance(v, dict) else gather_layer(v, l)
+            for k, v in layers.items()}
 
 
 def _encoder_layer(cfg, x, bias, p, *, attn_fn=None, attn_qkv_fn=None, ln_fn=None, approx_gelu=False):
@@ -235,7 +238,7 @@ def encoder_forward(
         approximate=gelu,
     )
     B, T, _ = x.shape
-    x = x + params["embed_positions"][:T][None].to(x.dtype)
+    x = x + gather(params["embed_positions"])[:T][None].to(x.dtype)
     layers = params["layers"]
     lat = latency_block_size or 0
     scale = cfg.head_dim**-0.5
@@ -272,18 +275,19 @@ def encoder_forward(
             blk = block_causal_bias(T, lat, device=x.device)
             bias = blk if bias is None else torch.minimum(bias, blk)
 
-    def layer_fn(x, p):
+    def layer_fn(x, l):
+        # gathered inside: under remat only the shards are kept for the
+        # backward, which gathers again
         return _encoder_layer(
-            cfg, x, bias, p,
+            cfg, x, bias, _layer(layers, l),
             attn_fn=attn_fn, attn_qkv_fn=attn_qkv_fn, ln_fn=ln_fn, approx_gelu=fused,
         )
 
     for l in range(cfg.num_layers):
-        p = _layer(layers, l)
         if remat:
-            x = checkpoint_remat(layer_fn, x, p)
+            x = checkpoint_remat(layer_fn, x, l)
         else:
-            x = layer_fn(x, p)
+            x = layer_fn(x, l)
     return layer_norm(x, params["layer_norm"]["scale"], params["layer_norm"]["bias"])
 
 

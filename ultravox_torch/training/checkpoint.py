@@ -15,6 +15,13 @@ changes, so it is adapter-sized:
   fp32, so the reference implementation can load it.
 
 The JAX package writes orbax directories; this format is the port's own.
+
+A checkpoint does not depend on the number of processes that wrote it:
+over an fsdp mesh every process joins the gathers of its shards (leaves,
+AdamW moments, accumulation buffer), the master writes exactly what one
+process writes, and all meet at a barrier; a restore reads the whole
+file on every process and cuts each shard again from the state it is
+given. The export is the master's, after the same gathers.
 """
 
 from __future__ import annotations
@@ -28,6 +35,14 @@ from typing import Dict, Optional
 import torch
 
 from ultravox_torch.models.weights import save_safetensors
+from ultravox_torch.parallel.collectives import is_global_master, sync_hosts
+from ultravox_torch.parallel.sharding import (
+    carry_shard,
+    full_shape,
+    gather_as,
+    local_slice,
+    shard_of,
+)
 from ultravox_torch.training.train_step import OptState, TrainState
 
 logger = logging.getLogger(__name__)
@@ -39,24 +54,38 @@ def _ckpt_dir(base: str, step: int) -> str:
     return os.path.join(os.path.abspath(base), f"checkpoint-{step}")
 
 
+def _whole_adamw(adamw: torch.optim.Optimizer, leaves) -> Dict:
+    """The AdamW state dict with each shard's moments gathered whole."""
+    sd = adamw.state_dict()
+    for i, p in enumerate(leaves):
+        if shard_of(p) is not None and i in sd["state"]:
+            sd["state"][i] = {k: gather_as(v, p) if v.shape == p.shape and v.dim() else v
+                              for k, v in sd["state"][i].items()}
+    return sd
+
+
 def save_checkpoint(base_dir: str, state: TrainState) -> str:
+    """Write ``checkpoint-<step>``; every process of the run must call it."""
     path = _ckpt_dir(base_dir, state.step)
     if os.path.exists(path):  # idempotent per step (e.g. save_steps + final)
         return path
     opt = state.opt_state
+    leaves = list(state.trainable.values())
     payload = {
         "step": state.step,
-        "trainable": {k: v.detach() for k, v in state.trainable.items()},
-        "adamw": opt.adamw.state_dict(),
+        "trainable": {k: gather_as(v, v).detach() for k, v in state.trainable.items()},
+        "adamw": _whole_adamw(opt.adamw, leaves),
         "count": opt.count,
         "mini_step": opt.mini_step,
-        "acc": opt.acc,
+        "acc": None if opt.acc is None else [gather_as(a, p) for a, p in zip(opt.acc, leaves)],
     }
-    # write beside, then rename: a cut save leaves no checkpoint-<step>
-    tmp = path + ".tmp"
-    os.makedirs(tmp, exist_ok=True)
-    torch.save(payload, os.path.join(tmp, STATE_FILE))
-    os.replace(tmp, path)
+    if is_global_master():
+        # write beside, then rename: a cut save leaves no checkpoint-<step>
+        tmp = path + ".tmp"
+        os.makedirs(tmp, exist_ok=True)
+        torch.save(payload, os.path.join(tmp, STATE_FILE))
+        os.replace(tmp, path)
+    sync_hosts("checkpoint")
     return path
 
 
@@ -71,9 +100,16 @@ def latest_checkpoint(base_dir: str) -> Optional[str]:
     return best
 
 
+def _local(saved: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A whole saved tensor cut as ``like``'s leaf is (itself if whole)."""
+    s = shard_of(like)
+    return saved if s is None or tuple(saved.shape) != s.full_shape else local_slice(saved, s)
+
+
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """The checkpoint at ``path`` in the structure of ``state``, on the
-    device of its trainable leaves; ``state`` itself is left as it was."""
+    device of its trainable leaves, each shard cut from the whole as the
+    state's leaf is; ``state`` itself is left as it was."""
     leaves = list(state.trainable.values())
     dev = leaves[0].device if leaves else torch.device("cpu")
     # on the host first: AdamW keeps its step counts there, and
@@ -87,16 +123,22 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
             f"{sorted(set(saved) ^ set(state.trainable))[:8]}")
     trainable = {}
     for k, cur in state.trainable.items():
-        if saved[k].shape != cur.shape or saved[k].dtype != cur.dtype:
+        if tuple(saved[k].shape) != full_shape(cur) or saved[k].dtype != cur.dtype:
             raise ValueError(f"checkpoint {path}: {k} is {saved[k].dtype} "
-                             f"{tuple(saved[k].shape)}, the state's {cur.dtype} {tuple(cur.shape)}")
-        trainable[k] = saved[k].to(dev, copy=True).requires_grad_(True)
+                             f"{tuple(saved[k].shape)}, the state's {cur.dtype} {full_shape(cur)}")
+        trainable[k] = carry_shard(cur, _local(saved[k], cur).to(dev, copy=True)
+                                   .requires_grad_(True))
+    cur_leaves = list(state.trainable.values())
+    adamw_sd = payload["adamw"]
+    for i, p in enumerate(cur_leaves):
+        if shard_of(p) is not None and i in adamw_sd["state"]:
+            adamw_sd["state"][i] = {k: _local(v, p) for k, v in adamw_sd["state"][i].items()}
     # the saved param groups carry every setting (lr, betas, eps, decay)
     adamw = type(state.opt_state.adamw)(list(trainable.values()))
-    adamw.load_state_dict(payload["adamw"])
+    adamw.load_state_dict(adamw_sd)
     acc = payload["acc"]
     if acc is not None:
-        acc = [a.to(dev) for a in acc]
+        acc = [_local(a, p).to(dev) for a, p in zip(acc, cur_leaves)]
     if (acc is None) != (state.opt_state.acc is None):
         raise ValueError(f"checkpoint {path} was written with another grad_accum_steps")
     opt = OptState(adamw, count=payload["count"], mini_step=payload["mini_step"], acc=acc)
@@ -109,7 +151,8 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
 def export_safetensors(state: TrainState, out_path: str) -> Dict[str, torch.Tensor]:
     """Write the trainable subtree as an HF-naming safetensors file the
     reference can load (projector keys under ``multi_modal_projector.``,
-    linear weights as (out, in), fp32)."""
+    linear weights as (out, in), fp32). Every process of the run must call
+    it (shards are gathered); the master writes."""
     out: Dict[str, torch.Tensor] = {}
     skipped = []
     for path, leaf in state.trainable.items():
@@ -119,7 +162,7 @@ def export_safetensors(state: TrainState, out_path: str) -> Dict[str, torch.Tens
         if not path.startswith("projector/"):
             skipped.append(path)
             continue
-        t = leaf.detach().to("cpu", torch.float32)
+        t = gather_as(leaf, leaf).detach().to("cpu", torch.float32)
         name = _hf_name(path)
         if name.endswith((".linear_1.weight", ".linear_2.weight")):
             t = t.T  # our kernels are (in, out); HF stores (out, in)
@@ -130,8 +173,10 @@ def export_safetensors(state: TrainState, out_path: str) -> Dict[str, torch.Tens
             "exported in HF naming (use tools.publish.save_pretrained for a "
             "full checkpoint): %s", len(skipped), skipped[:4],
         )
-    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
-    save_safetensors(out, out_path)
+    if is_global_master():
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        save_safetensors(out, out_path)
+    sync_hosts("export")
     return out
 
 

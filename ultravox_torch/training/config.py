@@ -159,10 +159,10 @@ class TrainConfig:
     # the loss (chunked cross-entropy + KL): the (B, T, V) fp32 logits never
     # materialize. None/0 = dense loss.
     vocab_loss_chunk: Optional[int] = 256
-    # the parallel layout of the JAX package's recipes. The port trains in
-    # one process on one card: mesh_data 1 and mesh_fsdp -1 / 1 are
-    # accepted, more processes, pipeline or tensor stages raise
-    # (ROADMAP.md queue A item 7)
+    # the parallel layout of the JAX package's recipes: one process a
+    # device over the data and fsdp axes (torchrun's environment or the
+    # three keys below); pipeline or tensor stages raise (ROADMAP.md queue
+    # A item 7b)
     mesh_data: int = 1
     mesh_fsdp: int = -1
     mesh_tensor: int = 1

@@ -5,13 +5,20 @@ the recipe, CLI overrides), the model pack, host-side data loading on a
 background prefetch thread (numpy only), the train step (forward, backward,
 gradient accumulation, AdamW) with each batch copied to the card from pinned
 memory, JSONL / TensorBoard / W&B logging, checkpoints every ``save_steps``,
-validation every ``val_steps``, and at the end the last checkpoint and
-``model.safetensors``. ``model_load_dir`` + ``resume_from_load_dir`` resume
-from its latest checkpoint. ``--device cpu`` runs the plain versions of the
+validation every ``val_steps``, at the end the last checkpoint and
+``model.safetensors``, and with ``do_eval`` the evaluation suite on the
+trained model. ``model_load_dir`` + ``resume_from_load_dir`` resume from
+its latest checkpoint. ``--device cpu`` runs the plain versions of the
 kernels on the CPU; left unset, it trains on the card.
 
-One process only: several processes, pipeline or tensor stages raise
-(ROADMAP.md queue A item 7), as does the post-training eval (item 8).
+Several processes, one a device, train one model over the ``mesh_data`` x
+``mesh_fsdp`` mesh (``parallel/``): launched by ``torchrun --nproc_per_node
+N -m ultravox_torch.training.train --config_path <yaml>`` (or given
+``coordinator_address``, ``num_processes`` and ``process_id``), each process
+loads a mod-N shard of the samples and runs ``batch_size / N`` rows of
+every global batch, holds its 1/fsdp slice of the sharded leaves, and only
+the master writes the config, the logs and the files. Pipeline or tensor
+stages raise (ROADMAP.md queue A item 7b).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import math
 import os
 import queue
 import threading
@@ -27,12 +35,29 @@ from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ultravox_torch.data import registry
 from ultravox_torch.data import types as data_types
 from ultravox_torch.data.aug import AugmentationArgs, create_augmentation
 from ultravox_torch.data.datasets import InterleaveDataset, Range
 from ultravox_torch.inference.engine import resolve_device
+from ultravox_torch.parallel import multihost
+from ultravox_torch.parallel.collectives import is_global_master, process_count, process_index
+from ultravox_torch.parallel.mesh import (
+    NEXT_SLICE,
+    MeshConfig,
+    initialize_multihost,
+    make_mesh,
+    rank_device,
+)
+from ultravox_torch.parallel.sharding import (
+    all_reduce_,
+    full_shape,
+    gather_tree,
+    map_paths,
+    shard_params,
+)
 from ultravox_torch.training import checkpoint as ckpt_lib
 from ultravox_torch.training import train_step as ts
 from ultravox_torch.training.config import TrainConfig, get_train_config
@@ -207,21 +232,11 @@ def prepare_train_dataset(config: TrainConfig, model_pack):
 
 
 def _check_single_process(config: TrainConfig) -> None:
-    """The layouts this loop runs: one process, no pipeline or tensor
-    stages, no data or fsdp split (mesh_fsdp -1 means "whatever is left",
-    one card here)."""
-    if (config.num_processes or 1) > 1:
-        raise NotImplementedError(
-            "multi-process training is not ported yet (ROADMAP.md queue A item 7)")
+    """Refuse the layouts that are not ported: pipeline and tensor stages
+    (the data and fsdp axes run over any number of processes)."""
     if config.mesh_pipe > 1 or config.mesh_tensor > 1:
         raise NotImplementedError(
-            "pipeline and tensor stages are not ported yet (ROADMAP.md queue A item 7)")
-    if config.mesh_data != 1 or config.mesh_fsdp not in (-1, 1):
-        raise NotImplementedError(
-            "data and fsdp splits are not ported yet (ROADMAP.md queue A item 7)")
-    if config.do_eval and config.eval_sets:
-        raise NotImplementedError(
-            "the post-training eval is not ported yet (ROADMAP.md queue A item 8)")
+            f"pipeline and tensor stages are not ported yet ({NEXT_SLICE})")
 
 
 def to_device(batch: Dict[str, np.ndarray], dev: torch.device) -> Dict[str, torch.Tensor]:
@@ -231,6 +246,20 @@ def to_device(batch: Dict[str, np.ndarray], dev: torch.device) -> Dict[str, torc
         return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(dev, non_blocking=True)
             for k, v in batch.items()}
+
+
+def _mesh(config: TrainConfig):
+    """Join the run's processes (before any device access), then lay the
+    mesh over them: (mesh, this process's device)."""
+    dev = resolve_device(config.device)
+    initialize_multihost(config.coordinator_address, config.num_processes, config.process_id,
+                         device=dev)
+    mesh = make_mesh(MeshConfig(config.mesh_data, config.mesh_fsdp, config.mesh_tensor,
+                                config.mesh_pipe))
+    n_proc = process_count()
+    if config.batch_size % n_proc:
+        raise ValueError(f"batch_size {config.batch_size} not divisible by {n_proc} processes")
+    return mesh, rank_device(dev)
 
 
 def make_augmentation(config: TrainConfig):
@@ -248,22 +277,8 @@ def make_augmentation(config: TrainConfig):
     return Augmentation(AugmentationArgs(seed=config.seed), children=augs)
 
 
-def train(config: TrainConfig) -> Dict[str, float]:
-    logging.basicConfig(
-        level=logging.DEBUG if config.verbose else logging.INFO,
-        format="%(asctime)s %(levelname)s %(message)s",
-    )
-    t_start = time.time()
-    _check_single_process(config)
-    dev = resolve_device(config.device)
-    logger.info("device: %s", torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev)
-    os.makedirs(config.output_dir, exist_ok=True)
-    with open(os.path.join(config.output_dir, "train_config.json"), "w") as f:
-        json.dump(dataclasses.asdict(config), f, indent=2, default=str)
-
-    model_pack = create_model_pack(config)
-
-    # -- optimizer & state ---------------------------------------------------
+def make_train_optimizer(config: TrainConfig) -> ts.Optimizer:
+    """The config's AdamW, schedule and clipping, with its accumulation."""
     optimizer = ts.make_optimizer(
         config.lr,
         schedule=config.lr_scheduler,
@@ -277,11 +292,36 @@ def train(config: TrainConfig) -> Dict[str, float]:
     )
     if config.grad_accum_steps > 1:
         optimizer = ts.multi_steps(optimizer, config.grad_accum_steps)
-    state, template = ts.init_train_state(
-        model_pack.params, optimizer, config.effective_trainable_patterns, device=dev
+    return optimizer
+
+
+def train(config: TrainConfig) -> Dict[str, float]:
+    logging.basicConfig(
+        level=logging.DEBUG if config.verbose else logging.INFO,
+        format="%(asctime)s %(levelname)s %(message)s",
     )
-    n_trainable = sum(x.numel() for x in state.trainable.values())
-    n_frozen = sum(x.numel() for x in state.frozen.values())
+    t_start = time.time()
+    _check_single_process(config)
+    mesh, dev = _mesh(config)
+    n_proc = process_count()
+    logger.info("process %d/%d, device: %s", process_index(), n_proc,
+                torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev)
+    os.makedirs(config.output_dir, exist_ok=True)
+    if is_global_master():
+        with open(os.path.join(config.output_dir, "train_config.json"), "w") as f:
+            json.dump(dataclasses.asdict(config), f, indent=2, default=str)
+
+    model_pack = create_model_pack(config)
+    params = shard_params(model_pack.params, mesh)
+
+    # -- optimizer & state ---------------------------------------------------
+    optimizer = make_train_optimizer(config)
+    state, template = ts.init_train_state(
+        params, optimizer, config.effective_trainable_patterns, device=dev
+    )
+    del params
+    n_trainable = sum(math.prod(full_shape(x)) for x in state.trainable.values())
+    n_frozen = sum(math.prod(full_shape(x)) for x in state.frozen.values())
     logger.info(
         "trainable params: %s || frozen: %s || trainable%%: %.2f%%",
         f"{n_trainable:,d}",
@@ -303,14 +343,20 @@ def train(config: TrainConfig) -> Dict[str, float]:
         remat=config.remat,
         attn_impl=config.attn_impl,
         vocab_chunk=config.vocab_loss_chunk,
+        mesh=mesh,
     )
 
     # -- data -----------------------------------------------------------------
+    # each process loads a mod-N shard of the samples and collates its own
+    # rows of every global batch
     train_ds = prepare_train_dataset(config, model_pack)
-    batches = Prefetcher(batch_iterator(train_ds, model_pack.collator, config.batch_size))
+    local_batch_size = config.batch_size // n_proc
+    if n_proc > 1:
+        train_ds = multihost.ShardedDataset(train_ds, n_proc, process_index())
+    batches = Prefetcher(batch_iterator(train_ds, model_pack.collator, local_batch_size))
 
     # -- loop -------------------------------------------------------------------
-    metrics_logger = MetricsLogger(config)
+    metrics_logger = MetricsLogger(config) if is_global_master() else None
     opt_steps = config.max_steps * config.grad_accum_steps
     final_metrics: Dict[str, float] = {}
     step = state.step
@@ -325,43 +371,95 @@ def train(config: TrainConfig) -> Dict[str, float]:
                 host_metrics["samples_per_s"] = (
                     step * config.batch_size / (time.time() - t_start)
                 )
-                metrics_logger.log(step, host_metrics)
+                if metrics_logger is not None:
+                    metrics_logger.log(step, host_metrics)
                 final_metrics = host_metrics
             if config.save_steps and step % config.save_steps == 0:
                 path = save_checkpoint_multihost(config.output_dir, state)
                 logger.info("saved checkpoint %s", path)
-                metrics_logger.log_checkpoint(path)
+                if metrics_logger is not None:
+                    metrics_logger.log_checkpoint(path)
             if config.val_steps and step % config.val_steps == 0 and config.val_sets:
-                metrics_logger.log(step, validate(config, model_pack, state, template))
+                val = validate(config, model_pack, state, template, mesh)
+                if metrics_logger is not None:
+                    metrics_logger.log(step, val)
     except BaseException:
         logger.exception("training failed at step %d", step)
         raise
     finally:
         batches.close()
-        metrics_logger.close()
+        if metrics_logger is not None:
+            metrics_logger.close()
 
     # final artifacts
     save_checkpoint_multihost(config.output_dir, state)
     ckpt_lib.export_safetensors(state, os.path.join(config.output_dir, "model.safetensors"))
+
+    # post-train in-process eval (reference: train.py:343-382 merges LoRA and
+    # runs LocalInference over the eval sets)
+    if config.do_eval and config.eval_sets:
+        final_metrics.update(post_train_eval(config, model_pack, state, template, dev))
     logger.info("training done in %.1fs", time.time() - t_start)
     return final_metrics
 
 
 def save_checkpoint_multihost(output_dir: str, state) -> Optional[str]:
-    """The checkpoint write; one process, so a plain save."""
+    """The checkpoint write: every process joins the gathers of its
+    shards, the master writes (``training/checkpoint.py``)."""
     return ckpt_lib.save_checkpoint(output_dir, state)
 
 
-def validate(config, model_pack, state, template) -> Dict[str, float]:
+def post_train_eval(config, model_pack, state, template, dev) -> Dict[str, float]:
+    """The evaluation suite on the trained model, LoRA merged: each
+    process holds the whole model and runs its mod-N share of the samples;
+    the master scores them (``eval/<tag>``, empty on the others)."""
+    from ultravox_torch.evaluation.eval import EvalConfig, eval_datasets
+    from ultravox_torch.inference.infer import LocalInference
+    from ultravox_torch.models.lora import merge_lora
+
+    params = gather_tree(ts.merge_params(template, state.trainable, state.frozen))
+    params = merge_lora(map_paths(lambda _, v: v.detach(), params))
+    inference = LocalInference(
+        params, model_pack.config, model_pack.processor, max_cache_len=2048, device=dev,
+    )
+    scores = eval_datasets(
+        inference,
+        EvalConfig(
+            eval_sets=config.eval_sets,
+            num_samples=config.eval_num_samples,
+            batch_size=config.eval_batch_size,
+            max_tokens=config.eval_max_tokens,
+            output_dir=os.path.join(config.output_dir, "eval"),
+        ),
+    )
+    return {f"eval/{name}": float(s["score"]) for name, s in scores.items()}
+
+
+def _without_labels(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``batch`` supervising nothing: a forward that adds 0 to the sums."""
+    out = dict(batch)
+    for k in ("labels", "alt_labels"):
+        if k in out:
+            out[k] = np.full_like(out[k], -100)
+    return out
+
+
+def validate(config, model_pack, state, template, mesh=None) -> Dict[str, float]:
     """Weighted val loss over the configured val sets (reference:
     evaluation/validate.py semantics), through the train step's attention
-    and vocabulary chunking."""
+    and vocabulary chunking. Over several processes each runs a mod-N
+    shard of the set in ``batch_size / N`` rows, the same number of
+    forwards on every process (the short ones run a batch that supervises
+    nothing, since a forward gathers fsdp shards), and the (sum, count)
+    pairs are summed over the batch axes."""
     eval_fn = ts.make_eval_step(
         model_pack.config, config.loss_config, template,
         vocab_chunk=config.vocab_loss_chunk,
         attn_impl=config.attn_impl,
     )
     dev = next(iter(state.frozen.values())).device
+    group = mesh.batch_group if mesh is not None else None
+    n_proc = process_count()
     out: Dict[str, float] = {}
     args = data_types.ValDatasetArgs()
     for name in config.val_sets:
@@ -369,11 +467,29 @@ def validate(config, model_pack, state, template) -> Dict[str, float]:
             config, model_pack, [name], args,
             num_samples=config.val_num_samples,
         )
+        if n_proc > 1:
+            ds = multihost.ShardedDataset(ds, n_proc, process_index())
+        local = list(batch_iterator(ds, model_pack.collator, config.batch_size // n_proc,
+                                    infinite=False))
+        n = len(local)
+        if group is not None:
+            # the most and the fewest batches a process has, on every process,
+            # so that all of them refuse a set some cannot take part in
+            n_all = torch.tensor([n, -n], device=dev)
+            dist.all_reduce(n_all, op=dist.ReduceOp.MAX, group=group)
+            n, fewest = int(n_all[0]), -int(n_all[1])
+            if n and not fewest:
+                raise ValueError(f"val set {name} has fewer samples than the {n_proc} processes")
         total, count = 0.0, 0
-        for batch in batch_iterator(ds, model_pack.collator, config.batch_size, infinite=False):
+        for i in range(n):
+            batch = local[i] if i < len(local) else _without_labels(local[-1])
             s, c = eval_fn(state, to_device(batch, dev))
             total += float(s)
             count += int(c)
+        if group is not None:
+            sums = all_reduce_(torch.tensor([total, count], dtype=torch.float64, device=dev),
+                               group)
+            total, count = float(sums[0]), int(sums[1])
         if count:
             out[f"val_loss/{name}"] = total / count
     return out

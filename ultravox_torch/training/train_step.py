@@ -19,6 +19,14 @@ call is one micro-step (``TrainState.step`` counts them, as the JAX
 package's does); the gradients' running mean lives in fp32 buffers beside
 the optimizer, and clipping and the AdamW update run on that mean every
 k-th call only. The schedule counts updates (``OptState.count``).
+
+Over several processes (``mesh``), each process runs its own rows of the
+global batch: the loss is its share of the global batch's
+(``models/ultravox.py``), the gradients are summed over the processes
+that hold the same leaf (``parallel/sharding.py::reduce_gradients``; a
+fsdp shard's gather already summed it over its group), and the norms
+count every element of the whole leaves once. A shard's AdamW moments
+and accumulation buffer are the shard's own.
 """
 
 from __future__ import annotations
@@ -33,6 +41,10 @@ import torch
 from ultravox_torch.inference.engine import resolve_device
 from ultravox_torch.models import ultravox as uv
 from ultravox_torch.models.config import LossConfig, UltravoxConfig
+from ultravox_torch.parallel.mesh import NEXT_SLICE, Mesh
+from ultravox_torch.parallel.sharding import all_reduce_, carry_shard, reduce_gradients, sq_sum
+from ultravox_torch.parallel.sharding import map_paths as _map_paths
+from ultravox_torch.parallel.sharding import path_items as _path_items
 
 Params = Any
 
@@ -55,40 +67,6 @@ class TrainState:
     trainable: Dict[str, torch.Tensor]  # the optimized leaves, by path
     frozen: Dict[str, torch.Tensor]  # everything else
     opt_state: OptState
-
-
-def _children(node):
-    """(key, child) pairs of a dict (sorted keys) or a list (index order),
-    the JAX package's flattening order; None for a leaf."""
-    if isinstance(node, dict):
-        return [(k, node[k]) for k in sorted(node)]
-    if isinstance(node, list):  # the wav2vec2 conv stack (a template leaf is a tuple)
-        return list(enumerate(node))
-    return None
-
-
-def _path_items(tree: Params, prefix: str = ""):
-    """(path, leaf) pairs in the JAX package's flattening order, paths
-    joined with "/" and a list index written as its number, as the JAX
-    package's ``parallel/sharding.py`` names it
-    ("audio_tower/feature_extractor/0/kernel")."""
-    for k, v in _children(tree):
-        path = f"{prefix}/{k}" if prefix else str(k)
-        if _children(v) is None:
-            yield path, v
-        else:
-            yield from _path_items(v, path)
-
-
-def _map_paths(fn, tree: Params, prefix: str = "") -> Params:
-    """The tree with each leaf replaced by fn(path, leaf)."""
-    def one(k, v):
-        path = f"{prefix}/{k}" if prefix else str(k)
-        return fn(path, v) if _children(v) is None else _map_paths(fn, v, path)
-
-    if isinstance(tree, dict):
-        return {k: one(k, v) for k, v in tree.items()}
-    return [one(i, v) for i, v in enumerate(tree)]
 
 
 def trainable_mask(
@@ -207,7 +185,7 @@ class Optimizer:
         opt.mini_step = (n + 1) % self.every_k
         if opt.mini_step == 0:
             mean = [a.to(p.dtype) for a, p in zip(opt.acc, params)]
-            self._apply(opt, params, mean, global_norm(mean))
+            self._apply(opt, params, mean, global_norm(mean, params))
             for a in opt.acc:
                 a.zero_()
 
@@ -251,9 +229,11 @@ def make_optimizer(
     return Optimizer(lr, weight_decay, max_grad_norm, b1, b2)
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in fp32 (optax's)."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+def global_norm(tensors: Iterable[torch.Tensor], like: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32 (optax's), of
+    the whole leaves: ``tensors`` are shaped as the leaves ``like`` holds,
+    and fsdp shards' sums are added over their group."""
+    return torch.sqrt(sq_sum(tensors, like))
 
 
 def init_train_state(
@@ -270,8 +250,9 @@ def init_train_state(
     dev = resolve_device(device)
     mask = trainable_mask(params, trainable_patterns)
     trainable, frozen = partition_params(params, mask)
-    trainable = {k: v.detach().to(dev).clone().requires_grad_(True) for k, v in trainable.items()}
-    frozen = {k: v.detach().to(dev) for k, v in frozen.items()}
+    trainable = {k: carry_shard(v, v.detach().to(dev).clone().requires_grad_(True))
+                 for k, v in trainable.items()}
+    frozen = {k: carry_shard(v, v.detach().to(dev)) for k, v in frozen.items()}
     template = _map_paths(lambda _, v: (tuple(v.shape), v.dtype), params)
     state = TrainState(step=0, trainable=trainable, frozen=frozen,
                        opt_state=optimizer.init(trainable))
@@ -288,25 +269,33 @@ def make_train_step(
     attn_impl: str = "xla",
     vocab_chunk: Optional[int] = None,
     pipe_mesh=None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable:
     """The train step: (state, batch) -> (state, metrics), metrics ``loss``,
     ``grad_norm`` (this call's gradients, before clipping) and
     ``param_norm`` (after the update, if this call made one).
-    ``batch`` holds tensors on the state's device."""
+    ``batch`` holds tensors on the state's device: with ``mesh``, this
+    process's rows of the global batch, and the metrics are the global
+    batch's."""
     if pipe_mesh is not None:
-        raise NotImplementedError("pipeline-parallel training is not ported yet")
+        raise NotImplementedError(f"pipeline-parallel training is not ported yet ({NEXT_SLICE})")
+    group = mesh.batch_group if mesh is not None else None
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = merge_params(params_template, state.trainable, state.frozen)
         loss = uv.ultravox_loss(params, cfg, batch, loss_config, remat=remat,
-                                attn_impl=attn_impl, vocab_chunk=vocab_chunk)
+                                attn_impl=attn_impl, vocab_chunk=vocab_chunk,
+                                batch_group=group)
         leaves = list(state.trainable.values())
         grads = torch.autograd.grad(loss, leaves)
-        grad_norm = global_norm(grads)
+        if mesh is not None:
+            grads = reduce_gradients(leaves, grads, mesh)
+        grad_norm = global_norm(grads, leaves)
         optimizer.update(state.opt_state, leaves, grads, grad_norm)
         with torch.no_grad():
-            param_norm = global_norm(leaves)
-        metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "param_norm": param_norm}
+            param_norm = global_norm(leaves, leaves)
+        loss = all_reduce_(loss.detach().clone(), group)
+        metrics = {"loss": loss, "grad_norm": grad_norm, "param_norm": param_norm}
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return train_step
@@ -325,7 +314,8 @@ def make_eval_step(
     weighted averaging; ``vocab_chunk`` and ``attn_impl`` as in the train
     step."""
     if pipe_mesh is not None:
-        raise NotImplementedError("pipeline-parallel evaluation is not ported yet")
+        raise NotImplementedError(
+            f"pipeline-parallel evaluation is not ported yet ({NEXT_SLICE})")
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
