@@ -232,6 +232,17 @@ Phases, each fatal on failure:
      JSON files with 16 samples in index order, samples/s. The world size
      is printed first. ``--phases 12,14`` runs the build and these two
      phases alone, without a result line.
+ 15. the tensor axis (see _tensor_main_path): two ranks of this script on
+     the one card over a gloo group, mesh data 1 x fsdp 1 x tensor 2, the
+     model of v0.6_qwen3_32b_tpu.yaml (Qwen3-32B widths, 8 layers;
+     whisper-large-v3-turbo's encoder): (a) 3 KL train steps, the ranks'
+     losses bit-equal and within bf16 tolerance of one process's, #13 at
+     the local heads; (b) ServingEngine(mesh=) slots, paged and both with
+     speculative decoding, 4 requests of 10 s x 32 tokens, both ranks'
+     tokens identical, launches checked at the local shapes, the first
+     decode step's logits within a relative RMS of one process's, token
+     agreement, TTFT and tok/s beside one process's. ``--phases 15`` runs
+     the build and this phase alone, without a result line.
 
 Each phase prints its seconds. Phases 4-7 also hold ln_matmul_gelu, attn_out_proj_residual,
 decode_matmul, attn_v2 and attn_nt at 0 launches: no engine calls them.
@@ -470,6 +481,8 @@ LN_QKV_EDGES = (
     ("T 1", (4, 1, 768, 2304, 64), torch.bfloat16, 0),
     ("ragged (2,77,96) heads of 32", (2, 77, 96, 288, 32), torch.bfloat16, 0),
     ("whisper-large (1,1500,1280)", (1, 1500, 1280, 3840, 64), torch.bfloat16, 0),
+    ("a tensor-2 rank of whisper-large (1,500,1280) -> 1920", (1, 500, 1280, 1920, 64),
+     torch.bfloat16, 0),
     ("unaligned view (2,77,768)", (2, 77, 768, 2304, 64), torch.bfloat16, 1),
     ("fp32 (4,500,768)", (4, 500, 768, 2304, 64), torch.float32, 0),
 )
@@ -747,6 +760,11 @@ ATTN_CASES = (
     ("T63 S500 causal offsets gqa 4", 2, 63, 500, 8, 2, 64, [200, 463], [137, 400], True, 0),
     ("serving T64 S2048", 2, 64, 2048, 32, 8, 64, [129, 190], [65, 126], True, 0),
     ("serving T64 S2048 head_dim 128", 2, 64, 2048, 8, 2, 128, [129, 190], [65, 126], True, 0),
+    # a tensor-2 rank of phase 15: whisper-large's 10 of 20 heads, Qwen3-32B's
+    # 32 of 64 query heads over 4 of 8 KV heads of 128 at a serving chunk
+    ("tensor 2 encoder T500 10 heads", 1, 500, 500, 10, 10, 64, None, None, False, 0),
+    ("tensor 2 prefill T64 S1024 32/4 heads of 128", 2, 64, 1024, 32, 4, 128, [129, 190],
+     [65, 126], True, 0),
 )
 
 
@@ -2950,6 +2968,9 @@ def main() -> None:
     if sys.argv[1:] == ["--phases", "12,14"]:  # a developer's short run: no result line
         _phases_12_14(tc, uv, dev)
         return
+    if sys.argv[1:] == ["--phases", "15"]:
+        _phase15_only(tc, uv, dev)
+        return
 
     # 2. kernels against their plain versions
     t0 = time.perf_counter()
@@ -3164,6 +3185,14 @@ def main() -> None:
                 row.setdefault("launches_per_path", {"main": row["launches"]})[
                     f"multi-process {path} (phase 14)"] = launched[row["name"]]
 
+    # 15. the tensor axis: two ranks on the card, trained and served sharded
+    tensor, tp_launches = _tensor_main_path(tc, uv, _kernel_counters(), smi, dev)
+    for row in rows:
+        for path, launched in tp_launches.items():
+            if launched.get(row["name"]):
+                row.setdefault("launches_per_path", {"main": row["launches"]})[
+                    f"tensor 2 {path} (phase 15, a rank)"] = launched[row["name"]]
+
     print(f"chip_smoke: {time.perf_counter() - t_script:.2f} s in all", flush=True)
     print(smi, flush=True)
     print(json.dumps({
@@ -3172,7 +3201,7 @@ def main() -> None:
         "scan_kernel_decode_tok_s": seg_tps, "serving": serving, "training": training,
         "lora_int8": lora_int8, "probes": probes, "checkpoint": checkpoint, "voice": voice,
         "front_doors": front_doors, "train_loop": train_loop, "wav2vec2": wav2vec2,
-        "multiprocess": multiprocess,
+        "multiprocess": multiprocess, "tensor": tensor,
         "total_s": time.perf_counter() - t_script,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6258,22 +6287,24 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run_ranks(spec: dict, root: str, n: int) -> list:
-    """Start n ranks of this script (--phase14-rank), one a card, with
-    torchrun's environment; wait for all, kill all on a failure or at
-    MP_TIMEOUT_S; their results in rank order."""
+def _run_ranks(spec: dict, root: str, n: int, phase: int = 14, one_card: bool = False) -> list:
+    """Start n ranks of this script (--phase<phase>-rank), one a card (or
+    all on cuda:0 with ``one_card``), with torchrun's environment; wait for
+    all, kill all on a failure or at MP_TIMEOUT_S; their results in rank
+    order."""
     path = os.path.join(root, "spec.json")
     with open(path, "w") as f:
         json.dump(spec, f)
     port = _free_port()
     procs, logs = [], []
     for rank in range(n):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n), LOCAL_RANK=str(rank),
-                   LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n),
+                   LOCAL_RANK=str(0 if one_card else rank), LOCAL_WORLD_SIZE=str(n),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
         log = open(os.path.join(root, f"rank{rank}.log"), "w+")
         logs.append(log)
         procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                       "--phase14-rank", path], env=env, stdout=log,
+                                       f"--phase{phase}-rank", path], env=env, stdout=log,
                                       stderr=subprocess.STDOUT))
     deadline = time.time() + MP_TIMEOUT_S
     failed = False
@@ -6295,10 +6326,14 @@ def _run_ranks(spec: dict, root: str, n: int) -> list:
         log.close()
     if failed or any(p.returncode != 0 for p in procs):
         for rank, tail in enumerate(tails):
-            print(f"--- phase 14 rank {rank} (return code {procs[rank].returncode}):\n{tail}",
+            print(f"--- phase {phase} rank {rank} (return code {procs[rank].returncode}):\n{tail}",
                   file=sys.stderr, flush=True)
-        _fail(f"phase 14: ranks ended with {[p.returncode for p in procs]}"
+        _fail(f"phase {phase}: ranks ended with {[p.returncode for p in procs]}"
               f"{' (timed out)' if time.time() > deadline else ''}")
+    for rank, tail in enumerate(tails):  # a rank's own lines, for the record
+        for line in tail.splitlines():
+            if line.startswith(f"phase {phase}"):
+                print(f"[rank {rank}] {line}", flush=True)
     out = []
     for rank in range(n):
         with open(f"{spec['out']}.{rank}") as f:
@@ -6508,8 +6543,461 @@ def _to_float(tree):
     return tree.float() if tree.is_floating_point() else tree
 
 
+# --------------------------------------------------------------------------
+# phase 15: the tensor axis (Megatron splits in both towers), two ranks
+# --------------------------------------------------------------------------
+
+TP_SEED = 15
+TP_TRAIN_STEPS = 3
+TP_REQ, TP_SECONDS, TP_PROMPT, TP_NEW = 4, 10.0, 128, 32
+# tensor 2's bf16 logits against one process's fp32 ones, at most this
+# factor times one process's own bf16 distance from them: the row-split
+# products round their partial sums to bf16 once more before the
+# all-reduce (80 more roundings in 40 layers), nothing else differs
+TP_LOGITS_FACTOR = 1.5
+TP_SERVING = (  # (label, engine options); spec decoding with the guard off
+    ("slots", dict(cache_mode="slots")),
+    ("paged", dict(cache_mode="paged", page_size=256)),
+    ("slots+spec", dict(cache_mode="slots", spec_decode="ngram", spec_min_accept=0)),
+    ("paged+spec", dict(cache_mode="paged", page_size=256, spec_decode="ngram",
+                        spec_min_accept=0)),
+)
+
+
+def _tp_config(tc):
+    """The model of v0.6_qwen3_32b_tpu.yaml: Qwen3-32B at its published
+    widths (8 of its 64 layers), whisper-large-v3-turbo's encoder, the
+    4096-wide projector with ln_mid."""
+    return tc.UltravoxConfig(
+        audio_config=tc.WhisperEncoderConfig(
+            num_mel_bins=128, d_model=1280, num_layers=32, num_heads=20, ffn_dim=5120,
+            max_source_positions=1500,
+        ),
+        text_config=tc.DecoderConfig(
+            arch="qwen3", vocab_size=151936, hidden_size=5120, intermediate_size=25600,
+            num_layers=8, num_heads=64, num_kv_heads=8, head_dim=128, rope_theta=1000000.0,
+            rms_norm_eps=1e-6, qk_norm=True, tie_word_embeddings=False,
+            max_position_embeddings=40960,
+        ),
+        hidden_size=4096,
+        projector_ln_mid=True,
+    )
+
+
+def _tp_params(tc, uv, cfg, dev):
+    """Phase 15's weights from the seed (bf16, the fp32 audio LoRA of the
+    recipe: r 8 on q_proj / v_proj), whole: the same in every process."""
+    from ultravox_torch.models import lora
+
+    gen = torch.Generator(device=dev).manual_seed(TP_SEED)
+    params = uv.init_params(cfg, gen, torch.bfloat16, dev)
+    return lora.apply_lora_to_model(
+        params, tc.LoraConfig(), tc.LoraConfig(r=8, lora_alpha=8.0,
+                                               target_modules=("q_proj", "v_proj")), gen)
+
+
+def _tp_base(tree):
+    """The tree without its LoRA leaves: the served model is the base one,
+    whose encoder q/k/v fuse (a LoRA'd projection does not)."""
+    if isinstance(tree, dict):
+        return {k: _tp_base(v) for k, v in tree.items()
+                if k not in ("lora_a", "lora_b", "lora_scale")}
+    return tree
+
+
+def _tp_mel(n, seconds, rng, dev):
+    from ultravox_torch.ops.mel import log_mel_spectrogram
+
+    return log_mel_spectrogram(torch.from_numpy(_audio(n, seconds, rng)).to(dev),
+                               num_mel_filters=128)
+
+
+def _tp_train_batch(cfg, step: int, dev):
+    """A KL batch of 2 rows of 10 s audio (1000 mel frames of 128 bins, 63
+    audio tokens at position 4), T 191, T2 128, 40 labelled tokens."""
+    B, mel_frames = 2, 1000
+    n_tok = -(-mel_frames // 2 // 8)
+    T, T2 = 64 + n_tok + 64, 128
+    rng = np.random.default_rng(TP_SEED + 100 + step)
+    labels = np.full((B, T), -100, np.int64)
+    labels[:, -40:] = rng.integers(1, cfg.vocab_size, (B, 40))
+    alt_labels = np.full((B, T2), -100, np.int64)
+    alt_labels[:, -40:] = labels[:, -40:]
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in {
+        "input_ids": rng.integers(1, cfg.vocab_size, (B, T)),
+        "attention_mask": np.ones((B, T), np.int64),
+        "labels": labels,
+        "alt_input_ids": rng.integers(1, cfg.vocab_size, (B, T2)),
+        "alt_attention_mask": np.ones((B, T2), np.int64),
+        "alt_labels": alt_labels,
+        "audio_lens": np.full((B,), mel_frames, np.int32),
+        "audio_token_len": np.full((B,), n_tok, np.int32),
+        "audio_token_start_idx": np.full((B,), 4, np.int32),
+        "audio_chunk_batch_idx": np.arange(B, dtype=np.int32),
+    }.items()}
+    batch["audio_values"] = _tp_mel(B, 10.0, rng, dev)
+    return batch
+
+
+def _tp_requests(cfg, dev):
+    """TP_REQ requests of 10 s audio in a prompt of TP_PROMPT tokens, as a
+    collated batch (numpy)."""
+    rng = np.random.default_rng(TP_SEED + 200)
+    return _batch(cfg, _tp_mel(TP_REQ, TP_SECONDS, rng, dev), TP_PROMPT, rng)
+
+
+def _tp_train(tc, uv, cfg, params, counters, dev, mesh=None):
+    """TP_TRAIN_STEPS KL steps (projector + audio LoRA trained, remat,
+    vocab_chunk 256, flash in both towers, the recipe's kl_temperature 2),
+    each timed between two synchronisations: (losses, grad norms, step ms,
+    launches)."""
+    from ultravox_torch.training import train_step as ts
+
+    opt = ts.make_optimizer(1e-4, warmup_steps=0, total_steps=100)
+    state, template = ts.init_train_state(params, opt, TRAINABLE, device=dev)
+    step = ts.make_train_step(
+        cfg, tc.LossConfig(loss_function=tc.LossFunction.KL_DIVERGENCE, kl_temperature=2.0), opt,
+        template, remat=True, attn_impl="flash", vocab_chunk=256, mesh=mesh)
+    batches = [_tp_train_batch(cfg, s, dev) for s in range(TP_TRAIN_STEPS)]
+    losses, norms, step_ms = [], [], []
+
+    def run():
+        nonlocal state
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+
+    _, launches = _count_launches(counters, run)
+    del state, step
+    torch.cuda.empty_cache()
+    return losses, norms, step_ms, launches
+
+
+def _tp_first_logits(cfg, params, dev, mesh=None, cache_dtype=torch.bfloat16):
+    """The requests' prefill through a GenerationEngine (fused encoder, #4
+    prefill, #8 decode), then one decode step on fixed tokens (not the
+    argmax, which near-flat random-weight logits may flip between two sums
+    of the same values): (prefill logits, decode-step logits), fp32 on the
+    host."""
+    from ultravox_torch.inference.engine import GenerationEngine
+
+    eng = GenerationEngine(params, cfg, max_cache_len=1024, encoder_attn_impl="fused",
+                           prefill_attn_impl="fused", decode_attn_impl="kernel", mesh=mesh,
+                           device=dev, cache_dtype=cache_dtype)
+    batch = eng.pad_batch({k: np.asarray(v) for k, v in _tp_requests(cfg, dev).items()})
+    tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    with torch.inference_mode():
+        cache = eng._ensure_cache(None, tb["input_ids"].shape[0], 1024)
+        first, cache, lens = eng._prefill(tb, cache, 0)
+        toks = torch.arange(first.shape[0], dtype=torch.int32, device=first.device) + 100
+        logits, _, _ = eng._decode(cache, toks, lens)
+    out = torch.stack([first[:TP_REQ].float().cpu(), logits[:TP_REQ].float().cpu()])
+    del eng, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_serve(cfg, params, counters, dev, label, kw, mesh=None, leader=True):
+    """One ServingEngine (fused encoder, #4 prefill, the decode and block
+    kernels) serving the requests, queued before its loop starts: (tokens
+    of each request, TTFT ms of each, tok/s, launches, engine stats). A
+    mesh's other rank only runs its loop (its tokens from its copies)."""
+    from ultravox_torch.inference.serving.engine import ServingEngine
+
+    batch = _tp_requests(cfg, dev)
+    eng = ServingEngine(params, cfg, num_slots=TP_REQ, max_seq_len=1024,
+                        encoder_attn_impl="fused", prefill_attn_impl="fused",
+                        decode_attn_impl="kernel", block_attn_impl="kernel", mesh=mesh,
+                        device=dev, **kw)
+    out = {}
+
+    def run():
+        if leader:
+            t0 = time.perf_counter()
+            res = _serve(eng, [_row(batch, i) for i in range(TP_REQ)], TP_NEW)
+            out["wall_s"] = time.perf_counter() - t0
+            out["tokens"] = [ids for ids, _, _ in res]
+            out["ttft_ms"] = [t * 1e3 for _, _, t in res]
+            out["finish"] = [f for _, f, _ in res]
+            eng.stop()
+        else:
+            eng.start()
+            eng.stop()  # returns when rank 0's loop has stopped every rank's
+            out["tokens"], out["finish"] = [], []
+            for r in sorted(eng.mirrored, key=lambda r: r.request_id):
+                ids, end = [], None
+                while end is None:
+                    ev = r.out_queue.get(timeout=60)
+                    if ev.token_id is None:
+                        end = ev.finish_reason
+                    else:
+                        ids.append(ev.token_id)
+                out["tokens"].append(ids)
+                out["finish"].append(end)
+
+    _, launches = _count_launches(counters, run)
+    out["launches"] = launches
+    out["stats"] = {"dispatches": eng.stat_decode_dispatches, "steps": eng.stat_decode_steps,
+                    "chunks": eng.stat_prefill_chunks, "K": eng.decode_block_steps,
+                    "spec_dispatches": eng.spec_dispatches}
+    if out["finish"] != ["length"] * TP_REQ or any(len(t) != TP_NEW for t in out["tokens"]):
+        _fail(f"phase 15 serving {label}: finishes {out['finish']}, "
+              f"{[len(t) for t in out['tokens']]} tokens")
+    if leader and out.get("wall_s"):
+        out["tok_s"] = TP_REQ * TP_NEW / out["wall_s"]
+    L_enc, L_dec = cfg.audio_config.num_layers, cfg.text_config.num_layers
+    enc = {"fused_layer_norm": L_enc * TP_REQ, "ln_qkv_head_fused": L_enc * TP_REQ,
+           "attention_headmajor": L_enc * TP_REQ}
+    st = out["stats"]
+    names = {k: v for k, v in launches.items() if k in counters}
+    if "spec" not in label:
+        paged = label.startswith("paged")
+        _check_serving_launches(
+            f"phase 15 {label}", names, counters, enc, st["dispatches"], st["steps"],
+            st["chunks"], st["K"], L_dec,
+            "paged_decode_attention" if paged else "decode_attention",
+            "paged_segment_tail_attention" if paged else "segment_tail_attention")
+    else:
+        block = ("paged_segment_tail_attention" if label.startswith("paged")
+                 else "segment_tail_attention")
+        if st["spec_dispatches"] == 0 or names[block] == 0 or any(
+                names[k] != v for k, v in enc.items()):
+            _fail(f"phase 15 serving {label}: launches {names}, stats {st}")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase15_rank(spec_path: str) -> None:
+    """One rank of phase 15, started by _tensor_main_path with torchrun's
+    environment and LOCAL_RANK 0 (two ranks share the one card): a gloo
+    group opened here (NCCL refuses two ranks on one device; make_mesh
+    leaves an open group alone), the mesh data 1 x fsdp 1 x tensor 2, the
+    model cut over it, then (a) the train steps, (b) the serving runs and
+    the first decode step's logits. Writes its facts to <out>.<rank> (JSON)
+    and its logits to <out>.<rank>.pt."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ultravox_torch.models import config as tc
+    from ultravox_torch.models import ultravox as uv
+    from ultravox_torch.parallel import mesh as pm
+    from ultravox_torch.parallel.sharding import path_items, shard_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, dev = int(os.environ["RANK"]), "cuda"
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+                            world_size=2, rank=rank)
+    pm.initialize_multihost(device=dev)  # the open group is left alone
+    mesh = pm.make_mesh(pm.MeshConfig(1, 1, 2, 1))
+    counters = _kernel_counters()
+    cfg = _tp_config(tc)
+    t0 = time.perf_counter()
+    whole = _tp_params(tc, uv, cfg, dev)
+    whole_bytes = sum(_nbytes(t) for _, t in path_items(whole))
+    params = shard_params(whole, mesh, cfg=cfg)
+    del whole
+    torch.cuda.empty_cache()
+    held = sum(t.untyped_storage().nbytes() for _, t in path_items(params))
+    out = {"rank": rank, "backend": dist.get_backend(), "mesh": mesh.shape,
+           "coords": mesh.coords, "whole_gb": whole_bytes / 1e9, "held_gb": held / 1e9,
+           "init_s": time.perf_counter() - t0}
+    print(f"phase 15 rank {rank}: mesh {mesh.shape} at {mesh.coords}, backend "
+          f"{out['backend']}; holds {held / 1e9:.3f} GB of the {whole_bytes / 1e9:.3f} GB model",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_ms, launches = _tp_train(tc, uv, cfg, params, counters, dev, mesh)
+    out["train"] = {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
+                    "launches": launches,
+                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["serving"] = {}
+    base = _tp_base(params)
+    for label, kw in TP_SERVING:
+        out["serving"][label] = _tp_serve(cfg, base, counters, dev, label, kw, mesh,
+                                          leader=rank == 0)
+    logits = _tp_first_logits(cfg, base, dev, mesh)
+    torch.save(logits, f"{spec['out']}.{rank}.pt")
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(f"{spec['out']}.{rank}", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _tensor_main_path(tc, uv, counters, smi, dev):
+    """Phase 15: the tensor axis on the one card. Two ranks of this script
+    share cuda:0 over a gloo group of their own (each rank's collectives
+    carry CUDA tensors through the host), the mesh data 1 x fsdp 1 x tensor
+    2 over the model of v0.6_qwen3_32b_tpu.yaml (Qwen3-32B at its published
+    widths, 8 of its 64 layers, whisper-large-v3-turbo's encoder, random
+    weights from the seed), through the user's entry points:
+
+      (a) TP_TRAIN_STEPS train steps (KL, projector + audio LoRA trained,
+          flash in both towers, remat, vocab_chunk 256): the two ranks'
+          losses and grad norms bit-equal, each within FLASH_E2E_LOSS_RTOL
+          / FLASH_E2E_GRAD_RTOL (bf16) of one process on the same weights
+          and batches (this process, after the ranks); #13 launched 2 x 32
+          + 3 x 8 times forward and 32 + 8 backward (x BWD_LAUNCHES) a step
+          at a rank's local heads (10 of 20 encoder heads, 32 / 4 of 64 / 8
+          decoder heads); each rank's held bytes against the whole model,
+          peak memory, step ms;
+      (b) on the base model (the LoRA leaves dropped, so the encoder's
+          q/k/v fuse), ServingEngine(mesh=) slots, paged, and both with
+          speculative decoding (the guard off, so #11 / #12 run at T = 9):
+          4 requests of 10 s audio x 32 greedy tokens; both ranks' tokens
+          identical; launches checked on each rank against its engine's
+          counters (#1-#3 32 an admission at (1, 500, 1280) -> (1, 30,
+          500, 64) -> (1, 10, 500, 64); #4, #8 / #9, #11 / #12 at 4 local
+          KV heads); token agreement with one process's engines (slots,
+          paged) and their TTFT and tok/s; the prefill's and the first
+          decode step's logits (GenerationEngine(mesh=)) bit-equal on the
+          ranks and, against one process's fp32 logits, at most
+          TP_LOGITS_FACTOR times one process's own bf16 relative RMS.
+
+    Returns (metrics, {path: launches})."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    cfg = _tp_config(tc)
+    print(f"phase 15: 2 ranks on cuda:0 over gloo, mesh data 1 x fsdp 1 x tensor 2; {smi}",
+          flush=True)
+    root = tempfile.mkdtemp(prefix="tensor_")
+    try:
+        spec = {"out": os.path.join(root, "result.json")}
+        t0 = time.perf_counter()
+        ranks = _run_ranks(spec, root, 2, phase=15, one_card=True)
+        ranks_s = time.perf_counter() - t0
+        logits = [torch.load(f"{spec['out']}.{r}.pt") for r in range(2)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0, r1 = ranks
+    if (r0["backend"], r1["backend"]) != ("gloo", "gloo") or [r["coords"]["tensor"]
+                                                              for r in ranks] != [0, 1]:
+        _fail(f"phase 15: the ranks ran as {[(r['backend'], r['coords']) for r in ranks]}")
+
+    # (a) against one process
+    from ultravox_torch.ops.kernels import flash_attention as fl
+
+    L_enc, L_dec = cfg.audio_config.num_layers, cfg.text_config.num_layers
+    want = {name: 0 for name in r0["train"]["launches"]}
+    want["flash_attention"] = TP_TRAIN_STEPS * (2 * L_enc + 3 * L_dec)
+    want["flash_attention_bwd"] = TP_TRAIN_STEPS * (L_enc + L_dec) * fl.BWD_LAUNCHES
+    for r in ranks:
+        if r["train"]["launches"] != want:
+            _fail(f"phase 15: rank {r['rank']} train launches {r['train']['launches']}, "
+                  f"expected {want}")
+    if (r0["train"]["losses"], r0["train"]["grad_norms"]) != (r1["train"]["losses"],
+                                                               r1["train"]["grad_norms"]):
+        _fail(f"phase 15: the ranks' losses differ: {r0['train']} / {r1['train']}")
+    t0 = time.perf_counter()
+    whole = _tp_params(tc, uv, cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    ref_losses, ref_norms, ref_ms, _ = _tp_train(tc, uv, cfg, whole, counters, dev)
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(r0["train"]["losses"], ref_losses))
+    rel_norm = max(abs(a - b) / abs(b) for a, b in zip(r0["train"]["grad_norms"], ref_norms))
+    print(f"phase 15 (a): losses {r0['train']['losses']} (both ranks bit-equal) against one "
+          f"process's {ref_losses}: largest relative difference {rel_loss:.3g} (tolerance "
+          f"{FLASH_E2E_LOSS_RTOL}); grad norms {r0['train']['grad_norms']} against "
+          f"{ref_norms}: {rel_norm:.3g} ({FLASH_E2E_GRAD_RTOL}); launches a rank {want}; {smi}",
+          flush=True)
+    if not rel_loss <= FLASH_E2E_LOSS_RTOL or not rel_norm <= FLASH_E2E_GRAD_RTOL:
+        _fail(f"phase 15: tensor 2 against one process: loss {rel_loss}, grad norm {rel_norm}")
+    for r in ranks:
+        print(f"phase 15 (a): rank {r['rank']} holds {r['held_gb']:.3f} GB of the "
+              f"{r['whole_gb']:.3f} GB model ({r['held_gb'] / r['whole_gb']:.3f}); train peak "
+              f"memory {r['train']['peak_memory_gb']:.3f} GB (one process "
+              f"{ref_peak:.3f} GB); step ms {[round(t, 3) for t in r['train']['step_ms']]} (one "
+              f"process {[round(t, 3) for t in ref_ms]}); {smi}", flush=True)
+
+    # (b) serving against one process
+    whole = _tp_base(whole)
+    ref_logits = _tp_first_logits(cfg, whole, dev)
+    f32 = _to_float(whole)
+    f32_logits = _tp_first_logits(cfg, f32, dev, cache_dtype=torch.float32)
+    del f32
+    torch.cuda.empty_cache()
+    same_logits = bool(torch.equal(logits[0], logits[1]))
+    rms = {}
+    for i, name in enumerate(("prefill", "decode_step")):
+        rms[name] = {"tensor2_one": _rel_rms(logits[0][i], ref_logits[i]),
+                     "tensor2_fp32": _rel_rms(logits[0][i], f32_logits[i]),
+                     "one_fp32": _rel_rms(ref_logits[i], f32_logits[i])}
+    print(f"phase 15 (b): logits' relative RMS (the prefill's last, the first decode step's): "
+          f"tensor 2 against one process {[round(r['tensor2_one'], 5) for r in rms.values()]}; "
+          f"against one process in fp32: tensor 2 "
+          f"{[round(r['tensor2_fp32'], 5) for r in rms.values()]}, one process in bf16 "
+          f"{[round(r['one_fp32'], 5) for r in rms.values()]} (tensor 2 at most "
+          f"{TP_LOGITS_FACTOR}x); the ranks' bit-equal {same_logits}", flush=True)
+    if not same_logits or any(not r["tensor2_fp32"] <= TP_LOGITS_FACTOR * r["one_fp32"]
+                              for r in rms.values()):
+        _fail(f"phase 15: logits {rms}, ranks equal {same_logits}")
+    serving = {}
+    for label, kw in TP_SERVING:
+        a, b = r0["serving"][label], r1["serving"][label]
+        if a["tokens"] != b["tokens"]:
+            _fail(f"phase 15 serving {label}: the ranks' tokens differ")
+        row = {"ttft_ms": a["ttft_ms"], "tok_s": a["tok_s"], "launches": a["launches"],
+               "stats": a["stats"]}
+        agree = None
+        if "spec" not in label:
+            ref = _tp_serve(cfg, whole, counters, dev, label, kw)
+            agree = sum(x == y for p, q in zip(a["tokens"], ref["tokens"]) for x, y in zip(p, q))
+            row.update(one_process_ttft_ms=ref["ttft_ms"], one_process_tok_s=ref["tok_s"],
+                       agree=agree)
+        serving[label] = row
+        one = ""
+        if agree is not None:
+            one = (f"; {agree} of {TP_REQ * TP_NEW} equal to one process's (TTFT ms "
+                   f"{[round(t, 3) for t in row['one_process_ttft_ms']]}, "
+                   f"{row['one_process_tok_s']:.3f} tok/s)")
+        launched = {k: v for k, v in a["launches"].items() if v}
+        print(f"phase 15 (b) {label}: both ranks' {TP_REQ} x {TP_NEW} tokens identical; TTFT "
+              f"ms {[round(t, 3) for t in a['ttft_ms']]}; {a['tok_s']:.3f} tok/s{one}; stats "
+              f"{a['stats']}; launches a rank {launched}; {smi}", flush=True)
+    del whole
+    torch.cuda.empty_cache()
+    metrics = {
+        "ranks_s": ranks_s, "held_gb": [r["held_gb"] for r in ranks], "whole_gb": r0["whole_gb"],
+        "peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
+        "train": {"losses": r0["train"]["losses"], "grad_norms": r0["train"]["grad_norms"],
+                  "one_process_losses": ref_losses, "one_process_grad_norms": ref_norms,
+                  "max_rel_loss": rel_loss, "max_rel_grad_norm": rel_norm,
+                  "step_ms": [r["train"]["step_ms"] for r in ranks],
+                  "one_process_step_ms": ref_ms},
+        "logits_rel_rms": rms, "serving": serving,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(f"phase 15: {metrics['phase_s']:.2f} s", flush=True)
+    launched = {"train": r0["train"]["launches"]}
+    launched.update({label: r0["serving"][label]["launches"] for label, _ in TP_SERVING})
+    return metrics, launched
+
+
+def _phase15_only(tc, uv, dev) -> None:
+    """Phase 15 alone, after the build (``--phases 15``). No result line."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    _tensor_main_path(tc, uv, _kernel_counters(), smi, dev)
+    print("chip_smoke: phase 15 only, no result", flush=True)
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--phase14-rank":
         _phase14_rank(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--phase15-rank":
+        _phase15_rank(sys.argv[2])
     else:
         main()

@@ -26,6 +26,7 @@ from ultravox_torch.data.sample import VoiceSample
 from ultravox_torch.inference import base as tbase
 from ultravox_torch.inference.infer import LocalInference, _split_thinking
 from ultravox_torch.inference.ultravox_infer import UltravoxInference
+from ultravox_torch.parallel.mesh import Mesh, MeshConfig
 from ultravox_tpu.data.sample import VoiceSample as JVoiceSample
 from ultravox_tpu.inference.ultravox_infer import UltravoxInference as JUltravoxInference
 
@@ -181,8 +182,10 @@ def test_pipeline_matches_jax(ckpt):
     again = ultravox_torch.pipeline(ckpt, dtype=torch.float32, max_cache_len=256, device="cpu",
                                     chat_template="{{ messages[0].content }}")
     assert again.tokenizer.chat_template == "{{ messages[0].content }}"
-    with pytest.raises(NotImplementedError, match="mesh"):
-        UltravoxInference(ckpt, device="cpu", mesh=object())
+    # a mesh serves (tests/test_torch_parallel_tensor.py), but not int8
+    mesh = Mesh.local(MeshConfig(1, 1, 2, 1), 2)
+    with pytest.raises(ValueError, match="quantize= is not supported together with mesh="):
+        UltravoxInference(ckpt, device="cpu", mesh=mesh, quantize="int8")
 
 
 def test_split_thinking_and_extra_stop_tokens(ckpt):

@@ -11,7 +11,8 @@
 - the helpers' single-process behaviour: every collective a no-op, the
   mesh of ones without groups (with or without a process group of one),
   ``shard_params`` the identity;
-- ``make_mesh`` refusing tensor and pipe axes (ROADMAP.md queue A item 7b).
+- ``make_mesh`` refusing the pipe axis (ROADMAP.md queue A item 7b-ii)
+  and laying out a tensor axis.
 
 The multi-process semantics are in tests/test_torch_parallel_train.py.
 """
@@ -159,10 +160,15 @@ def test_collectives_are_noops_in_one_process():
 
 
 def test_make_mesh_refuses_tensor_and_pipe(monkeypatch):
+    """Only the pipe axis is refused (item 7b-ii); tensor 2 lays out (no
+    process group here, so no groups)."""
     monkeypatch.setattr(tmesh, "process_count", lambda: 2)
-    for cfg in (tmesh.MeshConfig(1, 1, 2, 1), tmesh.MeshConfig(1, 1, 1, 2)):
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            tmesh.make_mesh(cfg)
+    monkeypatch.setattr(tmesh, "process_index", lambda: 1)
+    with pytest.raises(NotImplementedError, match="item 7b-ii"):
+        tmesh.make_mesh(tmesh.MeshConfig(1, 1, 1, 2))
+    mesh = tmesh.make_mesh(tmesh.MeshConfig(1, 1, 2, 1))
+    assert mesh.shape == {"data": 1, "fsdp": 1, "tensor": 2, "pipe": 1}
+    assert mesh.coords["tensor"] == 1 and mesh.batch_shards == 1 and mesh.batch_index == 0
     with pytest.raises(ValueError, match="must cover all 2 processes"):
         tmesh.make_mesh(tmesh.MeshConfig(1, 1, 1, 1))
 

@@ -23,6 +23,9 @@ Held (fp32; each tolerance stated where it is used):
   leaf JAX shards over fsdp, and all of every other;
 - a planted fault, each rank's mean averaged over the ranks in place of
   the global sum over the global count, fails that check;
+- ranks that differ in carrying audio (fsdp 2, rank 0 with audio, rank 1
+  text-only): the step equals JAX's on the global batch (the text-only
+  rank runs the tower's gathers on a dummy chunk that adds zero);
 - checkpoints: saved at world 2 and resumed at world 1, and the other way
   round, the next step equals an uninterrupted world-1 run; the master's
   export at world 2 is byte-equal to one process's export of the same
@@ -140,9 +143,9 @@ def concat(batches):
         out[k] = np.concatenate([np.pad(b[k], ((0, 0), (0, width - b[k].shape[1])),
                                         constant_values=fill) for b in batches])
     offsets = np.cumsum([0] + [b["input_ids"].shape[0] for b in batches[:-1]])
-    for k in CHUNK_KEYS:
+    for k in CHUNK_KEYS:  # a text-only batch has no chunks
         out[k] = np.concatenate([b[k] + (o if k == "audio_chunk_batch_idx" else 0)
-                                 for b, o in zip(batches, offsets)])
+                                 for b, o in zip(batches, offsets) if k in b])
     return out
 
 
@@ -151,6 +154,13 @@ def world2_batches(step):
     tokens, 3 chunks (two in row 0)."""
     return [local_batch(10 * step, 2, 32, 20, [0, 1], [160, 120]),
             local_batch(10 * step + 1, 2, 40, 24, [0, 0, 1], [160, 96, 144])]
+
+
+def mixed_batches(step):
+    """world2_batches with rank 1's batch text-only (as the collator gives
+    a batch in which no sample has audio: no chunk keys)."""
+    a, b = world2_batches(step)
+    return [a, {k: v for k, v in b.items() if k not in CHUNK_KEYS}]
 
 
 def world4_batches(step):
@@ -172,7 +182,7 @@ def jax_run(world, steps, accum=1):
     Adam's first update moves an element by lr (g / (|g| + eps) + decay x
     p), so |g| / (|g| + eps) is known and |g| with it. JAX runs without
     remat (the same values)."""
-    _, batches, data, fsdp = WORLDS[world]
+    _, batches, data, fsdp = {**WORLDS, **MIXED}[world]
     jcfg, _ = configs()
     jp = jax_params(jcfg)
     mesh = jmesh.make_mesh(jmesh.MeshConfig(data=data, fsdp=fsdp, tensor=1, pipe=1),
@@ -271,6 +281,8 @@ def world2(setup, world1, tmp_path_factory):
         {"batches": [world2_batches(0)], "fault": "mean_of_means"},
         {"batches": [world2_batches(0), world2_batches(1)], "save": save},
         {"batches": [world2_batches(2)], "resume": os.path.join(world1[0], "checkpoint-2")},
+        {"batches": [mixed_batches(0)]},
+        {"batches": [mixed_batches(0)], "eval": True},
     ]
     ranks = start("step", dict(params=npp, cfg=tcfg, data=1, fsdp=2, lr=LR, opt=OPT,
                                trainable=TRAINABLE, loss_config=_loss_configs()[1],
@@ -291,6 +303,7 @@ def world4(setup, tmp_path_factory):
 
 WORLDS = {"world2-fsdp2": ("world2", world2_batches, 1, 2),
           "world4-data2xfsdp2": ("world4", world4_batches, 2, 2)}
+MIXED = {"world2-fsdp2-mixed": ("world2", mixed_batches, 1, 2)}
 
 
 def _ranks(request, name):
@@ -353,6 +366,35 @@ def test_mean_of_rank_means_fails_the_check(world2):
     with pytest.raises(AssertionError):
         assert_metrics(out["runs"][2]["metrics"], jm)
     assert_metrics(out["runs"][0]["metrics"], jm)
+
+
+def test_ranks_that_differ_in_carrying_audio_match_jax(world2):
+    """fsdp 2, rank 0's batch with audio and rank 1's text-only: the ranks
+    run the same gathers and reduce-scatters (rank 1 on a dummy chunk), and
+    the step equals JAX's on the global batch."""
+    a, b = mixed_batches(0)
+    assert "audio_values" in a and "audio_values" not in b
+    out = world2[0].result()
+    jm, jtr, grad = jax_run("world2-fsdp2-mixed", 1, 1)
+    run = out["runs"][5]
+    assert_metrics(run["metrics"], jm)
+    assert_trainables(run["trainable"], jtr, grad)
+
+
+def test_validation_on_ranks_that_differ_in_carrying_audio(setup, world2):
+    """The validation step (``make_eval_step(mesh=)``, as ``validate()``
+    runs it) on the same mixed ranks: the (sum, count) added over the ranks
+    equal one process's on the global batch."""
+    _, tcfg, _, npp = setup
+    opt = tts.make_optimizer(LR, **OPT)
+    state, template = tts.init_train_state(from_jax_params(npp, tcfg), opt, TRAINABLE,
+                                           device="cpu")
+    eval_fn = tts.make_eval_step(tcfg, _loss_configs()[1], template, vocab_chunk=CHUNK,
+                                 attn_impl="flash")
+    s, c = eval_fn(state, {k: torch.from_numpy(v) for k, v in concat(mixed_batches(0)).items()})
+    got = world2[0].result()["runs"][6]["metrics"][0]
+    assert got["count"] == float(c)
+    np.testing.assert_allclose(got["nll_sum"], float(s), rtol=1e-5)
 
 
 def test_resume_world2_checkpoint_at_world1(setup, world1, world2):

@@ -288,12 +288,13 @@ def test_resolve_auto_matches_jax(setup, monkeypatch, on_card):
 
 @pytest.mark.parametrize("kw", [
     dict(quantize="int4"), dict(lora_adapters={"a": {}}), dict(spec_decode="ngram"),
-    dict(mesh=object()), dict(encoder_attn_impl="bogus"),
+    dict(mesh=object(), quantize="int8"), dict(encoder_attn_impl="bogus"),
 ])
 def test_unported_engine_options_raise(setup, kw):
-    """Meshes are not ported (NotImplementedError); an unknown quantize mode
-    or encoder_attn_impl and adapters without LoRA leaves raise ValueError,
-    as in the JAX package (int8 and multi-LoRA serving run:
+    """A mesh with int8 weights raises ValueError, as in the JAX package
+    (meshes serve: tests/test_torch_parallel_tensor.py); an unknown quantize
+    mode or encoder_attn_impl and adapters without LoRA leaves raise
+    ValueError, as in the JAX package (int8 and multi-LoRA serving run:
     tests/test_torch_int8.py, tests/test_torch_lora_serving.py).
     Speculative decoding is ported (tests/test_torch_spec_decode.py): "ngram"
     constructs and an unknown mode raises ValueError."""
@@ -304,11 +305,11 @@ def test_unported_engine_options_raise(setup, kw):
         with pytest.raises(ValueError, match="spec_decode"):
             tserve.ServingEngine(tparams, tcfg, device="cpu", spec_decode="bogus")
         return
-    if "quantize" in kw or "lora_adapters" in kw or "encoder_attn_impl" in kw:
-        with pytest.raises(ValueError, match="quantize|no lora_a|encoder_attn_impl"):
+    if "mesh" in kw:
+        with pytest.raises(ValueError, match="quantize= is not supported together with mesh="):
             tserve.ServingEngine(tparams, tcfg, device="cpu", **kw)
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="quantize|no lora_a|encoder_attn_impl"):
         tserve.ServingEngine(tparams, tcfg, device="cpu", **kw)
 
 

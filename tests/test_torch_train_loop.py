@@ -17,9 +17,9 @@ run's model factory output, handed to the port through
   transpose of its checkpoint's kernels;
 - KL and CE; ``attn_impl: flash`` (the plain version of #13, the CPU route of
   the kernel wrapper) against the JAX loop at ``"xla"``, the same attention;
-- the layouts the port raises ``NotImplementedError`` (pipeline, tensor)
-  or ``ValueError`` (more processes than the run has) for, and the card as
-  the default device.
+- the layouts the port raises ``NotImplementedError`` (pipeline) or
+  ``ValueError`` (more processes than the run has, tensor 2 included)
+  for, and the card as the default device.
 
 Gradient accumulation, resume, validation and the latency-block mask are in
 ``tests/test_torch_train_resume.py``.
@@ -176,12 +176,14 @@ def test_flash_loop_matches_xla(kl_runs, tmp_path, tokenizer_dir):
 
 @pytest.mark.parametrize("overrides,match", [
     ({"mesh_pipe": 2}, "item 7b"),
-    ({"mesh_tensor": 2}, "item 7b"),
+    ({"mesh_pipe": 4}, "item 7b"),
     ({"mesh_pipe": 2, "mesh_tensor": 2}, "item 7b"),
 ])
 def test_single_process_only(tmp_path, tokenizer_dir, overrides, match):
-    """The layouts that are not ported (pipeline and tensor stages) raise
-    before any work, naming the slice that ports them."""
+    """The layout that is not ported (pipeline stages; 4 as
+    v0.6_llama3_70b_pipe_tpu.yaml asks) raises before any work, naming the
+    slice that ports it (item 7b-ii); with tensor stages too (which run,
+    over processes enough: tests/test_torch_parallel_tensor.py)."""
     with pytest.raises(NotImplementedError, match=match):
         run_port(tmp_path / "out", tokenizer_dir, **overrides)
     assert not os.path.exists(tmp_path / "out")  # raised before any work
@@ -191,11 +193,12 @@ def test_single_process_only(tmp_path, tokenizer_dir, overrides, match):
     ({"num_processes": 2}, "world size and rank"),
     ({"mesh_data": 2}, "needs more than the 1 available devices"),
     ({"mesh_fsdp": 2}, "needs more than the 1 available devices"),
+    ({"mesh_tensor": 2}, "needs more than the 1 available devices"),
 ])
 def test_layouts_beyond_the_processes_raise(tmp_path, tokenizer_dir, overrides, match):
     """A layout that needs more processes than the run has raises
     ValueError before any work (a second process without its rank, a
-    mesh larger than one process)."""
+    mesh larger than one process, tensor 2 included)."""
     with pytest.raises(ValueError, match=match):
         run_port(tmp_path / "out", tokenizer_dir, **overrides)
     assert not os.path.exists(tmp_path / "out")

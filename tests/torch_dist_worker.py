@@ -13,11 +13,16 @@ reports per-rank facts).
 
 Tasks:
 
-- ``step``: from JAX parameters as numpy, shard over the (data, fsdp)
-  mesh, run the train step on each step's per-rank batch, and report the
-  metrics, the whole trainable leaves after the steps, each sharded
-  frozen leaf's bytes on this rank, and optionally resume from / save a
-  checkpoint and export;
+- ``step``: from JAX parameters as numpy, shard over the (data, fsdp,
+  tensor) mesh, run the train step on each step's batch of the rank's
+  batch coordinate (tensor peers share it), and report the metrics, the
+  whole trainable leaves after the steps, each frozen leaf's bytes on this
+  rank, and optionally resume from / save a checkpoint and export; a run
+  may plant a fault, or run the validation step instead (``eval``);
+- ``serve``: ``ServingEngine(mesh=)`` runs (rank 0 submits, every rank
+  reports the tokens its copies of the requests emitted) and
+  ``UltravoxInference(mesh=)`` on a checkpoint directory, every rank
+  calling ``infer`` with the same samples;
 - ``train``: ``training/train.py::main`` on the given argv, the model
   pack's parameters replaced by the given numpy tree when there is one;
 - ``eval``: ``evaluation/eval.py::eval_datasets`` through
@@ -126,13 +131,15 @@ def task_step(spec, rank, world):
     from ultravox_torch.training import checkpoint as ckpt
     from ultravox_torch.training import train_step as ts
 
+    from ultravox_torch.models import decoder
+
     _join(spec)
-    mesh = pm.make_mesh(pm.MeshConfig(spec["data"], spec["fsdp"]))
+    mesh = pm.make_mesh(pm.MeshConfig(spec["data"], spec["fsdp"], spec.get("tensor", 1)))
     cfg = spec["cfg"]
-    global_count = uv._global
-    results, facts = [], []
+    global_count, proj_apply = uv._global, decoder.proj_apply
+    results, facts, splits = [], [], []
     for run in spec["runs"]:
-        params = sharding.shard_params(from_jax_params(spec["params"], cfg), mesh)
+        params = sharding.shard_params(from_jax_params(spec["params"], cfg), mesh, cfg=cfg)
         opt = ts.make_optimizer(spec["lr"], **spec["opt"])
         if run.get("accum", 1) > 1:
             opt = ts.multi_steps(opt, run["accum"])
@@ -140,25 +147,47 @@ def task_step(spec, rank, world):
         facts.append({k: (v.untyped_storage().nbytes(), v.numel() * v.element_size(),
                           sharding.full_shape(v), sharding.shard_of(v) is not None)
                       for k, v in state.frozen.items()})
+        splits.append({k: getattr(sharding.split_of(v), "dim", None)
+                       for k, v in state.frozen.items()})
         if run.get("resume"):
             state = ckpt.restore_checkpoint(run["resume"], state)
         if run.get("fault") == "mean_of_means":  # each rank's mean, averaged over the ranks
             uv._global = lambda count, group: count * world if group is not None else count
+        if run.get("fault") == "no_o_proj_reduce":  # o_proj's partial sums never added
+            o_rows = cfg.text_config.num_heads * cfg.text_config.head_dim // mesh.shape["tensor"]
+
+            def faulty(x, p):
+                sp = sharding.split_of(p.get("kernel"))
+                if sp is not None and sp.dim == -2 and p["kernel"].shape[-2] == o_rows:
+                    return x @ p["kernel"]
+                return proj_apply(x, p)
+
+            decoder.proj_apply = faulty
         step = ts.make_train_step(cfg, spec["loss_config"], opt, template, remat=True,
                                   attn_impl="flash", vocab_chunk=spec.get("vocab_chunk"),
                                   mesh=mesh)
         metrics = []
-        for per_rank in run["batches"]:  # the mesh is row-major: rank i holds block i
-            state, m = step(state, _tensors(per_rank[rank]))
+        if run.get("eval"):  # the validation step's (sum, count), added over the batch axes
+            eval_fn = ts.make_eval_step(cfg, spec["loss_config"], template,
+                                        vocab_chunk=spec.get("vocab_chunk"), attn_impl="flash",
+                                        mesh=mesh)
+            for per_shard in run["batches"]:
+                s, c = eval_fn(state, _tensors(per_shard[mesh.batch_index]))
+                sums = sharding.all_reduce_(torch.stack([s.double(), c.double()]),
+                                            mesh.batch_group)
+                metrics.append({"nll_sum": float(sums[0]), "count": float(sums[1])})
+            run = dict(run, batches=[])
+        for per_shard in run["batches"]:  # one batch a batch coordinate
+            state, m = step(state, _tensors(per_shard[mesh.batch_index]))
             metrics.append({k: float(v) for k, v in m.items()})
-        uv._global = global_count
+        uv._global, decoder.proj_apply = global_count, proj_apply
         trainable = {k: sharding.gather_as(v, v).detach().clone()
                      for k, v in state.trainable.items()}
         if run.get("save"):
             ckpt.save_checkpoint(run["save"], state)
             ckpt.export_safetensors(state, os.path.join(run["save"], "model.safetensors"))
         results.append({"metrics": metrics, "trainable": trainable, "step": state.step})
-    torch.save({"held": facts}, f"{spec['out']}.{rank}")
+    torch.save({"held": facts, "split": splits}, f"{spec['out']}.{rank}")
     if rank == 0:
         torch.save({"runs": results, "mesh": mesh.shape}, spec["out"])
 
@@ -210,12 +239,86 @@ def task_eval(spec, rank, world):
         torch.save({"scores": scores}, spec["out"])
 
 
+def _serving_run(run, params, cfg, mesh, rank):
+    """One ServingEngine(mesh=): rank 0 submits every request and drains
+    its stream; each rank reports the tokens and finish reason of its own
+    copies, in request order, and its engine's counters."""
+    from ultravox_torch.inference.serving.engine import ServingEngine
+
+    eng = ServingEngine(params, cfg, mesh=mesh, device="cpu", cache_dtype=torch.float32,
+                        **run["kw"])
+    eng.start()
+    try:
+        if rank == 0:
+            reqs = [eng.submit(dict(b), max_tokens=run["max_tokens"], lora=n)
+                    for b, n in zip(run["batches"], run["names"])]
+        out = []
+        if rank == 0:
+            for r in reqs:
+                ids, finish = [], None
+                for ev in eng.stream(r, timeout=120):
+                    if ev.token_id is None:
+                        finish = ev.finish_reason
+                        break
+                    ids.append(ev.token_id)
+                out.append((ids, finish))
+    finally:
+        eng.stop()
+    if rank != 0:
+        for r in sorted(eng.mirrored, key=lambda r: r.request_id):
+            ids, finish = [], None
+            while True:
+                ev = r.out_queue.get(timeout=10)
+                if ev.token_id is None:
+                    finish = ev.finish_reason
+                    break
+                ids.append(ev.token_id)
+            out.append((ids, finish))
+    return {"tokens": out, "spec_dispatches": eng.spec_dispatches,
+            "blocks": eng.stat_decode_steps > eng.stat_decode_dispatches}
+
+
+def task_serve(spec, rank, world):
+    """Each of ``spec["runs"]``: {"kw", "batches", "names", "max_tokens"}
+    through ``ServingEngine(mesh=)`` on ``spec["params"]`` (JAX numpy),
+    and ``spec["infer"]`` samples through ``UltravoxInference(mesh=)`` on
+    ``spec["ckpt"]``; every rank reports."""
+    from ultravox_torch.data.sample import VoiceSample
+    from ultravox_torch.inference.ultravox_infer import UltravoxInference
+    from ultravox_torch.models.weights import from_jax_params
+    from ultravox_torch.parallel import mesh as pm
+
+    _join(spec)
+    mesh = pm.make_mesh(pm.MeshConfig(1, spec.get("fsdp", 1), spec["tensor"]))
+    cfg = spec["cfg"]
+    runs = []
+    for run in spec["runs"]:
+        params = from_jax_params(spec["params"], cfg)
+        if run.get("adapters"):
+            run = dict(run, kw=dict(run["kw"], lora_adapters={
+                k: from_jax_params(v, cfg) for k, v in run["adapters"].items()}))
+        runs.append(_serving_run(run, params, cfg, mesh, rank))
+    infer = []
+    if spec.get("infer"):
+        inf = UltravoxInference(spec["ckpt"], dtype=torch.float32, max_cache_len=256,
+                                device="cpu", mesh=mesh)
+        for text, audio in spec["infer"]:
+            sample = (VoiceSample.from_prompt(text) if audio is None
+                      else VoiceSample.from_prompt_and_audio(text, audio, 16000))
+            o = inf.infer(sample, max_tokens=spec["max_tokens"])
+            infer.append((o.text, o.input_tokens, o.output_tokens))
+    torch.save({"runs": runs, "infer": infer}, f"{spec['out']}.{rank}")
+    if rank == 0:
+        torch.save({"runs": runs, "infer": infer}, spec["out"])
+
+
 def main():
     task, path = sys.argv[1], sys.argv[2]
     torch.set_num_threads(1)
     spec = torch.load(path, weights_only=False)
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    {"step": task_step, "train": task_train, "eval": task_eval}[task](spec, rank, world)
+    {"step": task_step, "train": task_train, "eval": task_eval,
+     "serve": task_serve}[task](spec, rank, world)
     import torch.distributed as dist
 
     if dist.is_initialized():

@@ -1,7 +1,8 @@
 """Standalone val-loss CLI (reference: evaluation/validate.py:22-226):
 teacher-forcing forward over the configured datasets, label-count-weighted
 loss, on the card unless ``--device cpu``; under torchrun each process runs
-a mod-N shard of every set over the config's data x fsdp mesh, and the
+a mod-N shard of every set over the config's data x fsdp x tensor mesh
+(N batch shards; tensor peers run the same rows), and the
 master prints the sums' ratio.
 
 Usage: ``python -m ultravox_torch.evaluation.validate --config_path <train yaml>
@@ -30,8 +31,8 @@ def main():
     model_pack = create_model_pack(config)
     optimizer = ts.make_optimizer(config.lr)
     state, template = ts.init_train_state(
-        shard_params(model_pack.params, mesh), optimizer, config.effective_trainable_patterns,
-        device=dev,
+        shard_params(model_pack.params, mesh, cfg=model_pack.config), optimizer,
+        config.effective_trainable_patterns, device=dev,
     )
     results: Dict[str, float] = validate(config, model_pack, state, template, mesh)
     if is_global_master():

@@ -12,6 +12,13 @@ tower (a wav2vec2 tower is neither quantised nor fused and keeps its
 dtype, as in the JAX engine), and a tree with one LoRA adapter runs it through ``proj_apply``. It
 runs on the CUDA card unless the caller passes ``device="cpu"``; there is
 no silent fallback, and a failed kernel build or launch raises.
+
+``mesh`` (``parallel/``, data 1) serves a model split over the fsdp and
+tensor axes, one process a device: every process builds the engine and
+calls ``generate`` with the same inputs, and each runs its own heads and
+FFN columns (Megatron) of the same rows. As in the JAX engine the decoder's
+products stay unfused under a mesh, and ``quantize`` with ``mesh`` raises;
+the fused encoder concatenates the rank's own q/k/v slices.
 """
 
 from __future__ import annotations
@@ -31,6 +38,14 @@ from ultravox_torch.models.whisper_encoder import (
     quantize_encoder_int8,
 )
 from ultravox_torch.ops.sampling import sample_token
+from ultravox_torch.parallel.sharding import (
+    is_placed,
+    local_kv_heads,
+    path_items,
+    shard_params,
+    split_of,
+    whole_outside_layers,
+)
 
 CACHE_BUCKET = 256
 
@@ -68,6 +83,29 @@ def _to_device(tree, device):
     return torch.as_tensor(tree).to(device)
 
 
+def place_params(params, cfg: UltravoxConfig, mesh, device):
+    """The engines' parameters on ``device``. With ``mesh`` they are cut
+    over it (unless the caller already did, on this device), and the
+    leaves read whole outside the layers (embedding, head, projector) are
+    gathered once, since every step reads them."""
+    if mesh is not None and mesh.shape["data"] > 1:
+        raise ValueError("an engine shards over fsdp and tensor (mesh data 1); serve each data "
+                         "replica with an engine of its own")
+    params = _to_device(params, device)
+    if mesh is None:
+        return params
+    if not any(is_placed(x) or split_of(x) is not None for _, x in path_items(params)):
+        params = shard_params(params, mesh, cfg=cfg)
+    return whole_outside_layers(params)
+
+
+def cache_kv_heads(cfg: UltravoxConfig, mesh) -> int:
+    """The KV heads a process's cache holds: a tensor rank's own."""
+    tc = cfg.text_config
+    return tc.num_kv_heads if mesh is None else local_kv_heads(tc.num_kv_heads,
+                                                               mesh.shape["tensor"])
+
+
 def is_whisper_tower(params) -> bool:
     """The engines fuse and quantise only a Whisper tower (one with
     ``conv1``), as the JAX engines do; a wav2vec2 tower keeps its tree."""
@@ -101,6 +139,7 @@ class GenerationEngine:
         quantize: Optional[str] = None,  # "int8" = weight-only int8
         device=None,
         seed: int = 0,
+        mesh=None,  # a parallel.Mesh of data 1: fsdp and tensor splits
     ):
         if encoder_attn_impl not in ENCODER_ATTN_IMPLS:
             raise ValueError(f"unknown encoder_attn_impl={encoder_attn_impl!r}")
@@ -110,14 +149,20 @@ class GenerationEngine:
             raise ValueError(f"unknown decode_attn_impl={decode_attn_impl!r}")
         if quantize and quantize != "int8":
             raise ValueError(f"unsupported quantize={quantize!r}")
+        if mesh is not None and quantize:
+            raise ValueError("quantize= is not supported together with mesh=; quantize the "
+                             "params before sharding or serve unquantized")
         self.device = resolve_device(device)
-        params = _to_device(params, self.device)
+        self.mesh = mesh
+        params = place_params(params, cfg, mesh, self.device)
         self.params = dict(params)
-        # fused q/k/v and gate/up products (a no-op for LoRA'd trees), then
-        # int8, then the fused encoder tree: the JAX engine's order
-        self.params["language_model"] = decoder_lib.fuse_inference_params(
-            params["language_model"], cfg.text_config
-        )
+        # fused q/k/v and gate/up products (a no-op for LoRA'd trees; none
+        # under a mesh, as in the JAX engine), then int8, then the fused
+        # encoder tree: the JAX engine's order
+        if mesh is None:
+            self.params["language_model"] = decoder_lib.fuse_inference_params(
+                params["language_model"], cfg.text_config
+            )
         if quantize:
             self.params["language_model"] = decoder_lib.quantize_decoder_int8(
                 self.params["language_model"])
@@ -151,7 +196,8 @@ class GenerationEngine:
         if cache is not None and cache.max_len >= length:
             return cache
         new = decoder_lib.KVCache.zeros(
-            self.cfg.text_config, batch, length, self.cache_dtype, self.device
+            self.cfg.text_config, batch, length, self.cache_dtype, self.device,
+            kv_heads=cache_kv_heads(self.cfg, self.mesh),
         )
         if cache is not None:
             n = cache.max_len

@@ -56,6 +56,7 @@ class LocalInference(base.VoiceInference):
         fused_greedy_decode: bool = False,
         quantize: Optional[str] = None,
         device=None,
+        mesh=None,  # a parallel.Mesh of data 1: every process calls with the same inputs
     ):
         self.cfg = cfg
         self.processor = processor
@@ -78,6 +79,7 @@ class LocalInference(base.VoiceInference):
             encoder_attn_impl="fused" if on_card else "xla",
             prefill_attn_impl="fused" if on_card else "xla",
             decode_attn_impl="kernel" if on_card else "xla",
+            mesh=mesh,
         )
         self.collator = DataCollatorWithAudio(
             pad_token_id=self.tokenizer.pad_token_id,

@@ -68,8 +68,19 @@ every ``spec_probe_period`` dispatches, backing off after failed probes;
 the engine starts in that probe mode (single rounds). Requests that need
 single steps (``_needs_single_step``) disengage it, as they do blocks.
 
-Out of scope: meshes (``mesh`` raises ``NotImplementedError`` at
-construction).
+A mesh (``mesh``, a ``parallel.Mesh`` of data 1): one engine a process,
+each holding its fsdp and tensor parts of the model (``parallel/``; the
+decoder's products unfused, as in the JAX engine; ``quantize`` raises),
+every one running the same device programs in the same order, since each
+product's all-reduce and each layer's gather meets the other processes
+there. Requests enter at the mesh's rank 0 (``submit`` and ``cancel``
+elsewhere raise): each tick, before any dispatch, rank 0 broadcasts the
+tick's new requests (their options and inputs), its cancellations and
+whether it still runs (``_sync_plan``). Every later decision (admission,
+pages, the prefix cache, speculation, sampling) then follows from the same
+state and the same tokens on every rank; the other ranks' copies of the
+requests are in ``mirrored``, their events in their queues. ``stop()`` on
+rank 0 ends every rank's loop; on another rank it waits for that.
 """
 
 from __future__ import annotations
@@ -86,9 +97,16 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from ultravox_torch.inference.engine import _to_device, is_whisper_tower, resolve_device
+from ultravox_torch.inference.engine import (
+    _to_device,
+    cache_kv_heads,
+    is_whisper_tower,
+    place_params,
+    resolve_device,
+)
 from ultravox_torch.models import decoder as decoder_lib
 from ultravox_torch.models import lora as lora_lib
 from ultravox_torch.models import ultravox as uv
@@ -106,6 +124,8 @@ from ultravox_torch.ops.sampling import (
     spec_accept_slots,
     token_logprobs,
 )
+from ultravox_torch.parallel.collectives import process_count, process_index
+from ultravox_torch.parallel.sharding import full_shape, split_of
 
 logger = logging.getLogger(__name__)
 
@@ -386,10 +406,12 @@ class ServingEngine:
         device=None,
     ):
         """Runs on the CUDA card unless ``device="cpu"``. ``"auto"`` options
-        resolve in ``_resolve_auto``; explicit values override."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "not ported yet: mesh (sharded serving, ROADMAP.md queue A item 7b)")
+        resolve in ``_resolve_auto``; explicit values override. ``mesh``:
+        see the module's docstring (every process of the mesh builds its
+        engine with the same arguments)."""
+        if mesh is not None and quantize:
+            raise ValueError("quantize= is not supported together with mesh=; quantize the "
+                             "params before sharding or serve unquantized")
         if spec_decode in ("none", ""):
             spec_decode = None
         if spec_decode not in (None, "ngram"):
@@ -412,14 +434,16 @@ class ServingEngine:
         ):
             if value not in allowed:
                 raise ValueError(f"unknown {name}={value!r}")
-        params = _to_device(params, self.device)
+        self.mesh = mesh
+        params = place_params(params, cfg, mesh, self.device)
         self.params = dict(params)
         (self._lora_banks, self._enc_lora_banks, self._lora_index,
          self._enc_adapter_names) = _lora_banks(
             _to_device(lora_adapters, self.device) if lora_adapters else None)
-        self.params["language_model"] = decoder_lib.fuse_inference_params(
-            params["language_model"], cfg.text_config
-        )
+        if mesh is None:  # fused products do not compose with the splits
+            self.params["language_model"] = decoder_lib.fuse_inference_params(
+                params["language_model"], cfg.text_config
+            )
         if quantize:  # the decoder only, as the reference serves int8
             self.params["language_model"] = decoder_lib.quantize_decoder_int8(
                 self.params["language_model"])
@@ -429,7 +453,10 @@ class ServingEngine:
             self._lora_banks = lora_lib.fuse_lora_banks(
                 self._lora_banks, qkv_dims=(tc.num_heads * tc.head_dim, kv, kv),
                 gateup_dims=(tc.intermediate_size, tc.intermediate_size))
+        enc_split = None
         if encoder_attn_impl == "fused" and is_whisper_tower(self.params):
+            q_proj = self.params["audio_tower"]["layers"].get("q_proj", {})
+            enc_split = split_of(q_proj.get("kernel"))
             self.params["audio_tower"] = fuse_encoder_inference_params(self.params["audio_tower"])
         if self._enc_lora_banks is not None and cfg.audio_arch == "wav2vec2":
             raise ValueError("lora_adapters carry audio_tower (encoder) adapters, which a wav2vec2 "
@@ -437,6 +464,9 @@ class ServingEngine:
         if self._enc_lora_banks is not None:
             if "qkv_proj" in self.params.get("audio_tower", {}).get("layers", {}):
                 D = cfg.audio_config.d_model
+                if enc_split is not None:  # the fused leaf holds the rank's q/k/v columns
+                    self._enc_lora_banks = _local_qkv_banks(self._enc_lora_banks, enc_split)
+                    D //= enc_split.size
                 self._enc_lora_banks = lora_lib.fuse_lora_banks(
                     self._enc_lora_banks, qkv_dims=(D, D, D), gateup_dims=())
             # fail here, not inside the first admission's tick
@@ -478,7 +508,9 @@ class ServingEngine:
             if num_pages is None:
                 num_pages = num_slots * self.pages_per_seq
             self.num_pages = num_pages
-            self.cache = decoder_lib.PagedKVCache.zeros(tc, num_pages, page_size, cache_dtype, dev)
+            kv_heads = cache_kv_heads(cfg, mesh)
+            self.cache = decoder_lib.PagedKVCache.zeros(tc, num_pages, page_size, cache_dtype, dev,
+                                                        kv_heads=kv_heads)
             # host-side allocator state: exclusive page ownership per slot
             self._free_pages: List[int] = list(range(num_pages))
             self._slot_pages: List[List[int]] = [[] for _ in range(num_slots)]
@@ -488,10 +520,12 @@ class ServingEngine:
             # (the fused prefill kernel applies, no page gather per chunk);
             # the finished prompt scatters into the pool as whole pages once
             Ts = min(self.prefill_len_buckets[-1], max_seq_len)
-            self._scratch = decoder_lib.KVCache.zeros(tc, 1, Ts, cache_dtype, dev, spare=1)
+            self._scratch = decoder_lib.KVCache.zeros(tc, 1, Ts, cache_dtype, dev, spare=1,
+                                                      kv_heads=kv_heads)
         elif cache_mode == "slots":
             self.cache = decoder_lib.KVCache.zeros(
-                tc, num_slots, max_seq_len, cache_dtype, dev, spare=1
+                tc, num_slots, max_seq_len, cache_dtype, dev, spare=1,
+                kv_heads=cache_kv_heads(cfg, mesh),
             )
         else:
             raise ValueError(f"unknown cache_mode={cache_mode!r}")
@@ -606,6 +640,12 @@ class ServingEngine:
         self._wake = threading.Event()
         self._running = False
         self._thread: Optional[threading.Thread] = None
+        # a mesh's rank 0 broadcasts each tick's plan over the default group
+        self._group = dist.group.WORLD if mesh is not None and process_count() > 1 else None
+        self._leader = self._group is None or process_index() == 0
+        self._inbox: "queue.Queue[Request]" = queue.Queue()  # rank 0's new requests
+        self._cancel_inbox: "queue.Queue[int]" = queue.Queue()
+        self.mirrored: List[Request] = []  # another rank's copies of rank 0's requests
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device. On the card the copy is
@@ -697,6 +737,11 @@ class ServingEngine:
         self._thread.start()
 
     def stop(self):
+        if not self._leader:
+            # a mesh's other ranks stop when rank 0's plan says so
+            if self._thread:
+                self._thread.join()
+            return
         self._running = False
         self._wake.set()
         if self._thread:
@@ -741,6 +786,8 @@ class ServingEngine:
         admission skips the audio tower. ``audio_spans`` supplies the
         prefix-matching content fingerprints otherwise derived from
         ``audio_values`` (or from the embeddings' bytes)."""
+        if not self._leader:
+            raise RuntimeError("requests enter a mesh's engine at its rank 0")
         if isinstance(audio_embeds, torch.Tensor):
             audio_embeds = audio_embeds.detach().float().cpu().numpy()
         elif audio_embeds is not None:
@@ -777,7 +824,7 @@ class ServingEngine:
         # _fail_all_requests' drain and clear
         with self._lock:
             self._requests[req.request_id] = req
-            self._pending.put(req)
+            (self._pending if self._group is None else self._inbox).put(req)
         self._wake.set()
         return req
 
@@ -816,8 +863,10 @@ class ServingEngine:
         requests finish "cancelled" instead of admitting, prefilling jobs
         drop (slot and pages freed, adoption pins released), active slots
         stop decoding and free at once."""
+        if not self._leader:
+            raise RuntimeError("requests are cancelled at a mesh's rank 0")
         rid = req_or_id.request_id if isinstance(req_or_id, Request) else int(req_or_id)
-        self._cancels.put(rid)
+        (self._cancels if self._group is None else self._cancel_inbox).put(rid)
         self._wake.set()
 
     # -- serving loop --------------------------------------------------------
@@ -831,8 +880,32 @@ class ServingEngine:
             else:
                 self._loop_body()
 
+    def _sync_plan(self) -> bool:
+        """A mesh's tick plan, before any dispatch: rank 0's new requests
+        (everything but their queues and times), cancellations and whether
+        it still runs, broadcast to every rank and queued on each in one
+        order. Returns whether the loop runs on."""
+        if self._leader:
+            reqs = _drain(self._inbox)
+            plan = [self._running, [{f: getattr(r, f) for f in _PLAN_FIELDS} for r in reqs],
+                    _drain(self._cancel_inbox)]
+        obj = [plan if self._leader else None]
+        dist.broadcast_object_list(obj, src=0, group=self._group)
+        running, specs, cancels = obj[0]
+        if not self._leader:
+            reqs = [Request(**spec) for spec in specs]
+            self.mirrored.extend(reqs)
+            with self._lock:
+                for r in reqs:
+                    self._requests[r.request_id] = r
+        for r in reqs:
+            self._pending.put(r)
+        for rid in cancels:
+            self._cancels.put(rid)
+        return running
+
     def _loop_body(self):
-        while self._running:
+        while self._sync_plan() if self._group is not None else self._running:
             try:
                 self._loop_tick()
             except Exception:  # noqa: BLE001 - the scheduler itself raised
@@ -1723,6 +1796,33 @@ class ServingEngine:
         self._requests.pop(req.request_id, None)
 
 
+# the Request fields a mesh's rank 0 broadcasts: the options and inputs
+_PLAN_FIELDS = (
+    "request_id", "batch", "max_tokens", "temperature", "top_k", "top_p", "min_p",
+    "presence_penalty", "frequency_penalty", "repetition_penalty", "logit_bias", "seed", "lora",
+    "logprobs", "top_logprobs", "stop_token_ids", "audio_spans", "audio_embeds")
+
+
+def _drain(q: "queue.Queue") -> list:
+    out = []
+    while True:
+        try:
+            out.append(q.get_nowait())
+        except queue.Empty:
+            return out
+
+
+def _local_qkv_banks(banks, split):
+    """Encoder banks with the q/k/v targets' ``b`` cut to this tensor
+    rank's columns, to be fused over the rank's fused q/k/v leaf."""
+    out = dict(banks)
+    for tgt in ("q_proj", "k_proj", "v_proj"):
+        if tgt in out:
+            b = out[tgt]["b"]
+            out[tgt] = dict(out[tgt], b=b.chunk(split.size, -1)[split.index].contiguous())
+    return out
+
+
 # --------------------------------------------------------------------------
 # device programs (eager; caches are updated in place)
 # --------------------------------------------------------------------------
@@ -1780,7 +1880,8 @@ def _validate_enc_lora_banks(tower, banks) -> None:
             raise ValueError(f"encoder LoRA adapters target {tgt!r}, which the served audio "
                              f"tower does not have (tower projections: {have})")
         L, d_in, d_out = bank["a"].shape[0], bank["a"].shape[-2], bank["b"].shape[-1]
-        if (kern.shape[0], kern.shape[-2], kern.shape[-1]) != (L, d_in, d_out):
+        shape = full_shape(kern)  # a split kernel's banks stay whole
+        if (shape[0], shape[-2], shape[-1]) != (L, d_in, d_out):
             raise ValueError(f"encoder LoRA bank for {tgt!r} is shaped for (layers={L}, "
                              f"d_in={d_in}, d_out={d_out}) but the served tower's projection is "
                              f"{tuple(kern.shape)}")

@@ -5,7 +5,9 @@ Ultravox checkpoint directory (``config.json`` + safetensors) into the
 port's parameter tree on the card, or on the CPU with ``device="cpu"``.
 ``UltravoxInference`` is a ``LocalInference`` built from such a directory:
 the checkpoint, its tokenizer (``models.tokenizer.load_tokenizer``, on
-``tokenizers`` and ``jinja2``) and the processor.
+``tokenizers`` and ``jinja2``) and the processor. With ``mesh`` (data 1)
+every process loads the checkpoint, keeps its fsdp and tensor parts
+(``parallel.shard_params``) and is called with the same inputs.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from ultravox_torch.models import weights as weights_lib
 from ultravox_torch.models.config import UltravoxConfig
 from ultravox_torch.models.processor import make_processor
 from ultravox_torch.models.tokenizer import load_tokenizer
+from ultravox_torch.parallel.sharding import shard_params
 from ultravox_torch.utils import wandb_utils
 
 
@@ -127,12 +130,11 @@ class UltravoxInference(LocalInference):
         quantize: Optional[str] = None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (sharded inference) is not ported yet (ROADMAP.md queue A item 7b)")
         dev = resolve_device(device)
         cfg, params, model_dir = load_ultravox_checkpoint(model_path, dtype, strict=strict,
                                                           device=dev)
+        if mesh is not None:
+            params = shard_params(params, mesh, cfg=cfg)
         tokenizer = load_tokenizer(model_dir)
         tokenizer.padding_side = "right"
         if tokenizer.pad_token_id is None:
@@ -141,5 +143,5 @@ class UltravoxInference(LocalInference):
         super().__init__(
             params, cfg, processor, max_cache_len=max_cache_len,
             conversation_mode=conversation_mode, cache_dtype=dtype,
-            fused_greedy_decode=fused_greedy_decode, quantize=quantize, device=dev,
+            fused_greedy_decode=fused_greedy_decode, quantize=quantize, device=dev, mesh=mesh,
         )

@@ -49,7 +49,7 @@ from ultravox_torch.ops.kernels.segment_attention import (
 )
 from ultravox_torch.ops.norms import rms_norm
 from ultravox_torch.ops.rope import apply_rope, rope_cos_sin, rope_frequencies
-from ultravox_torch.parallel.sharding import gather, gather_layer
+from ultravox_torch.parallel.sharding import gather_layer, gather_whole, split_of, to_tensor
 
 Params = Dict[str, Any]
 
@@ -82,8 +82,10 @@ class KVCache:
 
     @classmethod
     def zeros(cls, cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None,
-              spare: int = 0):
-        shape = (cfg.num_layers, batch, max_len + spare, cfg.num_kv_heads, cfg.head_dim)
+              spare: int = 0, kv_heads: Optional[int] = None):
+        """``kv_heads``: a tensor rank's local KV heads (default all)."""
+        shape = (cfg.num_layers, batch, max_len + spare, kv_heads or cfg.num_kv_heads,
+                 cfg.head_dim)
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
@@ -126,8 +128,10 @@ class PagedKVCache:
 
     @classmethod
     def zeros(cls, cfg: DecoderConfig, num_pages: int, page_size: int, dtype=torch.bfloat16,
-              device=None):
-        shape = (cfg.num_layers, num_pages + 1, page_size, cfg.num_kv_heads, cfg.head_dim)
+              device=None, kv_heads: Optional[int] = None):
+        """``kv_heads``: a tensor rank's local KV heads (default all)."""
+        shape = (cfg.num_layers, num_pages + 1, page_size, kv_heads or cfg.num_kv_heads,
+                 cfg.head_dim)
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
@@ -224,6 +228,8 @@ def _act(cfg: DecoderConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _qkv(cfg: DecoderConfig, h: torch.Tensor, p: Params):
+    """The (B, T, heads, Dh) q, k, v: a tensor rank's own heads under a
+    split (the widths of its slices say how many)."""
     B, T, _ = h.shape
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "qkv_proj" in p:
@@ -233,10 +239,16 @@ def _qkv(cfg: DecoderConfig, h: torch.Tensor, p: Params):
         v = qkv[..., (Hq + Hkv) * Dh :]
     else:
         q, k, v = (proj_apply(h, p[n]) for n in ("q_proj", "k_proj", "v_proj"))
-    return q.reshape(B, T, Hq, Dh), k.reshape(B, T, Hkv, Dh), v.reshape(B, T, Hkv, Dh)
+    return q.reshape(B, T, -1, Dh), k.reshape(B, T, -1, Dh), v.reshape(B, T, -1, Dh)
+
+
+def _split(p: Params, name: str):
+    """The tensor split of projection ``name``'s kernel, None unsplit."""
+    return split_of(p[name].get("kernel")) if name in p else None
 
 
 def _mlp(cfg: DecoderConfig, h: torch.Tensor, p: Params) -> torch.Tensor:
+    h = to_tensor(h, _split(p, "gate_proj"))
     if "gateup_proj" in p:
         gate, up = proj_apply(h, p["gateup_proj"]).chunk(2, dim=-1)
     else:
@@ -292,14 +304,18 @@ def _layer_forward(
 ) -> torch.Tensor:
     """One decoder layer. ``attend(q, k, v)`` takes the roped (B, T, H|Hkv,
     Dh) heads, stores k/v wherever its caller keeps them and returns the
-    attention output (B, T, H, Dh)."""
+    attention output (B, T, H, Dh). Under a tensor split the heads are the
+    rank's own, the normed input enters them through ``to_tensor`` and
+    ``o_proj`` / ``down_proj`` all-reduce (``proj_apply``), inside this
+    function, so a recompute under remat issues them again in order."""
     B, T, _ = x.shape
     eps, plus_one = cfg.rms_norm_eps, _plus_one(cfg)
-    h = rms_norm(x, p["input_ln"], eps, plus_one=plus_one)
+    sp = _split(p, "q_proj")
+    h = to_tensor(rms_norm(x, p["input_ln"], eps, plus_one=plus_one), sp)
     q, k, v = _qkv(cfg, h, p)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], eps, plus_one=plus_one)
-        k = rms_norm(k, p["k_norm"], eps, plus_one=plus_one)
+    if cfg.qk_norm:  # per head, on the rank's own heads
+        q = rms_norm(q, to_tensor(p["q_norm"], sp), eps, plus_one=plus_one)
+        k = rms_norm(k, to_tensor(p["k_norm"], sp), eps, plus_one=plus_one)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = proj_apply(attend(q, k, v).reshape(B, T, -1), p["o_proj"])
@@ -350,22 +366,22 @@ def embed_lookup(params: Params, ids: torch.Tensor) -> torch.Tensor:
     if "embed_tokens_q" in params:
         scales = params["embed_scale"][ids]
         return params["embed_tokens_q"][ids].to(scales.dtype) * scales[..., None]
-    return gather(params["embed_tokens"])[ids]
+    return gather_whole(params["embed_tokens"])[ids]
 
 
 def gathered_head(params: Params, cfg: DecoderConfig) -> Params:
     """``params`` with the leaf ``compute_logits`` reads gathered whole
-    once, for a caller that projects chunk after chunk: the processes of
-    an fsdp group then gather the same number of times, whatever their
-    chunk counts."""
+    once (over fsdp and ``tensor``), for a caller that projects chunk after
+    chunk: the processes of an fsdp group then gather the same number of
+    times, whatever their chunk counts."""
     head = params.get("lm_head")
     if head is not None and (not cfg.tie_word_embeddings or "kernel_q" in head):
         if "kernel" not in head:
             return params
-        return dict(params, lm_head=dict(head, kernel=gather(head["kernel"])))
+        return dict(params, lm_head=dict(head, kernel=gather_whole(head["kernel"])))
     if "embed_tokens" not in params:
         return params
-    return dict(params, embed_tokens=gather(params["embed_tokens"]))
+    return dict(params, embed_tokens=gather_whole(params["embed_tokens"]))
 
 
 def compute_logits(params: Params, cfg: DecoderConfig, hidden: torch.Tensor) -> torch.Tensor:
@@ -381,11 +397,11 @@ def compute_logits(params: Params, cfg: DecoderConfig, hidden: torch.Tensor) -> 
                 "kernel_q": params["embed_tokens_q"].T, "scale": params["embed_scale"][None],
             }).float()
         else:
-            logits = (hidden @ gather(params["embed_tokens"]).T).float()
+            logits = (hidden @ gather_whole(params["embed_tokens"]).T).float()
     elif "kernel_q" in head:
         logits = proj_apply(hidden, head).float()
     else:
-        logits = (hidden @ gather(head["kernel"])).float()
+        logits = (hidden @ gather_whole(head["kernel"])).float()
     if cfg.final_logit_softcapping:
         cap = cfg.final_logit_softcapping
         logits = torch.tanh(logits / cap) * cap

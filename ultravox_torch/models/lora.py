@@ -21,6 +21,13 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 
 from ultravox_torch.models.config import LoraConfig
+from ultravox_torch.parallel.sharding import (
+    from_tensor,
+    split_of,
+    tensor_cols,
+    tensor_rows,
+    to_tensor,
+)
 
 Params = Dict[str, Any]
 
@@ -150,22 +157,56 @@ def _int8_apply(x: torch.Tensor, p: Params) -> torch.Tensor:
     return out.to(x.dtype).reshape(*x.shape[:-1], N)
 
 
+def _lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, scale, like):
+    # the delta runs in the promoted dtype, as JAX promotes a bf16 x fp32
+    # product, and is cast to the base output's dtype: fp32 adapters over a
+    # bf16 or int8 base must not promote the residual stream
+    dt = torch.promote_types(x.dtype, a.dtype)
+    return (((x.to(dt) @ a.to(dt)) @ b.to(dt)) * scale).to(like.dtype)
+
+
+def _split_proj(x: torch.Tensor, p: Params, sp) -> torch.Tensor:
+    """``proj_apply`` of a kernel split over ``tensor`` (Megatron). A row
+    split (dim -2) takes this rank's slice of the input, its partial sum
+    (with its LoRA's: ``lora_a``'s rows) is all-reduced and the bias added
+    once after; a column split (dim -1) gives this rank's output columns,
+    of the bias and of ``lora_b`` too; a kept leaf (``cols``) gives the
+    columns its K/V heads. The caller passes a column split's input
+    through ``to_tensor``; the whole LoRA factors and biases pass through
+    it here, so their gradients are whole on every tensor rank."""
+    if sp.dim == -2:
+        out = x @ p["kernel"]
+        if "lora_a" in p:
+            out = out + _lora_delta(x, tensor_rows(p["lora_a"], sp), to_tensor(p["lora_b"], sp),
+                                    p["lora_scale"], out)
+        out = from_tensor(out, sp)
+        return out + p["bias"] if "bias" in p else out
+    kernel = p["kernel"] if sp.dim is not None else tensor_cols(p["kernel"], sp)
+    out = x @ kernel
+    if "bias" in p:
+        bias = p["bias"]
+        out = out + (bias if split_of(bias) is not None else tensor_cols(bias, sp))
+    if "lora_a" in p:
+        out = out + _lora_delta(x, to_tensor(p["lora_a"], sp), tensor_cols(p["lora_b"], sp),
+                                p["lora_scale"], out)
+    return out
+
+
 def proj_apply(x: torch.Tensor, p: Params) -> torch.Tensor:
     """Linear projection with optional bias (added in the product's dtype),
     int8 storage and LoRA path, as the reference computes them. LoRA leaves
     may be per layer ((in, r), a scalar scale), per request from a bank
     ((in, r), scale (1, 1)) or per row from a bank ((B, in, r), scale (B, 1,
-    1) against x (B, T, in))."""
+    1) against x (B, T, in)). A kernel split over ``tensor`` runs its
+    slice (``_split_proj``)."""
+    sp = split_of(p.get("kernel"))
+    if sp is not None:
+        return _split_proj(x, p, sp)
     out = _int8_apply(x, p) if "kernel_q" in p else x @ p["kernel"]
     if "bias" in p:
         out = out + p["bias"]
     if "lora_a" in p:
-        # the delta runs in the promoted dtype, as JAX promotes a bf16 x fp32
-        # product, and is cast to the base output's dtype: fp32 adapters over
-        # a bf16 or int8 base must not promote the residual stream
-        dt = torch.promote_types(x.dtype, p["lora_a"].dtype)
-        delta = ((x.to(dt) @ p["lora_a"].to(dt)) @ p["lora_b"].to(dt)) * p["lora_scale"]
-        out = out + delta.to(out.dtype)
+        out = out + _lora_delta(x, p["lora_a"], p["lora_b"], p["lora_scale"], out)
     return out
 
 

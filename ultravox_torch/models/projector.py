@@ -11,7 +11,7 @@ import torch.nn.functional as F
 
 from ultravox_torch.models.config import UltravoxConfig
 from ultravox_torch.ops.norms import rms_norm
-from ultravox_torch.parallel.sharding import gather
+from ultravox_torch.parallel.sharding import gather_whole
 
 Params = Dict[str, Any]
 
@@ -56,10 +56,13 @@ def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def projector_forward(params: Params, cfg: UltravoxConfig, audio_features: torch.Tensor) -> torch.Tensor:
-    """(B, T_enc, C) encoder states -> (B, ceil(T_enc / S), D_text)."""
+    """(B, T_enc, C) encoder states -> (B, ceil(T_enc / S), D_text). The
+    kernels are read whole (gathered over fsdp and ``tensor``): SwiGLU
+    halves ``linear_1``'s output and ``ln_mid`` normalises all of it, so a
+    column split of it would not hold a rank's own units."""
     x = stack_audio_frames(audio_features, cfg.stack_factor)
     x = rms_norm(x, params["ln_pre"])
-    x = _matmul(x, gather(params["linear_1"]["kernel"]))
+    x = _matmul(x, gather_whole(params["linear_1"]["kernel"]))
     if cfg.projector_act == "swiglu":
         val, gate = x.chunk(2, dim=-1)
         x = F.silu(gate) * val
@@ -71,7 +74,7 @@ def projector_forward(params: Params, cfg: UltravoxConfig, audio_features: torch
         raise ValueError(f"unsupported projector_act {cfg.projector_act}")
     if "ln_mid" in params:
         x = rms_norm(x, params["ln_mid"])
-    x = _matmul(x, gather(params["linear_2"]["kernel"]))
+    x = _matmul(x, gather_whole(params["linear_2"]["kernel"]))
     if "ln_post" in params:
         x = rms_norm(x, params["ln_post"])
     return x

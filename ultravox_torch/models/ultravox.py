@@ -6,7 +6,12 @@ In a multi-process run each process holds its own rows of the global
 batch (``parallel/multihost.py``): given the processes' ``batch_group``, a
 loss divides its local sum by the count summed over the group, so the
 processes' losses (and gradients) add up to the one loss over the global
-batch, as the JAX package computes it.
+batch, as the JAX package computes it. Tensor peers hold the same rows and
+are not in that group, so they are counted once. The processes of the group
+run the audio tower's collectives (its fsdp gathers and reduce-scatters)
+alike whatever their own rows carry: when any of them has audio, one without
+runs the tower and the projector on a dummy chunk whose output enters
+nothing but a zero (``ultravox_embed``).
 
 The losses use fixed-shape masked reductions: masked rows are compacted by
 index writes into a buffer with one spare slot that is dropped, never by
@@ -20,6 +25,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ultravox_torch.models import decoder as decoder_lib
 from ultravox_torch.models import projector as projector_lib
@@ -131,6 +137,23 @@ def prepare_audio_embeds(
     )
 
 
+def _any_audio(has_audio: bool, device, group) -> bool:
+    """Whether any process of ``group`` has audio in its rows."""
+    flag = torch.tensor([int(has_audio)], dtype=torch.int32, device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return bool(flag.item())
+
+
+def dummy_audio_chunk(cfg: UltravoxConfig, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One short chunk of zeros as the tower takes it: (1, n_mels, 16) mel
+    frames, or (1, 1, 800) samples for wav2vec2, and its length."""
+    if cfg.audio_arch == "wav2vec2":
+        values = torch.zeros((1, 1, 800), dtype=dtype, device=device)
+    else:
+        values = torch.zeros((1, cfg.audio_config.num_mel_bins, 16), dtype=dtype, device=device)
+    return values, torch.full((1,), values.shape[-1], dtype=torch.int32, device=device)
+
+
 def ultravox_embed(
     params: Params,
     cfg: UltravoxConfig,
@@ -139,10 +162,19 @@ def ultravox_embed(
     *,
     remat: bool = False,
     encoder_attn_impl: str = "xla",
+    batch_group=None,
 ) -> torch.Tensor:
-    """Token embeddings with audio spliced in when the batch carries audio."""
+    """Token embeddings with audio spliced in when the batch carries audio.
+    With ``batch_group``, a process without audio whose group has some
+    runs the tower and the projector on ``dummy_audio_chunk``, so that it
+    issues the same collectives as the others; the output is not spliced
+    and adds exactly zero to the embeddings (and so to the loss and every
+    gradient), times 0 so that the backward still runs through it."""
     inputs_embeds = decoder_lib.embed_lookup(params["language_model"], input_ids)
-    if batch.get("audio_values") is not None:
+    has_audio = batch.get("audio_values") is not None
+    dummy = (batch_group is not None and "audio_tower" in params
+             and _any_audio(has_audio, inputs_embeds.device, batch_group) and not has_audio)
+    if has_audio:
         inputs_embeds = prepare_audio_embeds(
             params, cfg, inputs_embeds,
             batch["audio_values"], batch["audio_lens"],
@@ -150,6 +182,11 @@ def ultravox_embed(
             batch["audio_chunk_batch_idx"],
             remat=remat, encoder_attn_impl=encoder_attn_impl,
         )
+    elif dummy:
+        values, lens = dummy_audio_chunk(cfg, inputs_embeds.dtype, inputs_embeds.device)
+        out = encode_audio(params, cfg, values, lens, remat=remat,
+                           encoder_attn_impl=encoder_attn_impl)
+        inputs_embeds = inputs_embeds + (out.sum() * 0).to(inputs_embeds.dtype)
     return inputs_embeds
 
 
@@ -162,6 +199,7 @@ def ultravox_forward(
     attn_impl: str = "xla",  # "flash" = the differentiable kernel in both towers
     return_hidden: bool = False,  # final hidden states instead of logits
     pipe_mesh=None,
+    batch_group=None,  # the processes splitting the batch (ultravox_embed)
 ) -> torch.Tensor:
     """Full-sequence forward: fp32 logits (B, T, V), or with
     ``return_hidden`` the final hidden states (B, T, D) for the chunked
@@ -169,11 +207,11 @@ def ultravox_forward(
     optionally the audio fields of ``ultravox_embed``."""
     if pipe_mesh is not None:
         raise NotImplementedError(
-            "pipeline-parallel decoders are not ported yet (ROADMAP.md queue A item 7b)")
+            "pipeline-parallel decoders are not ported yet (ROADMAP.md queue A item 7b-ii)")
     input_ids = batch["input_ids"]
     inputs_embeds = ultravox_embed(
         params, cfg, input_ids, batch, remat=remat,
-        encoder_attn_impl="flash" if attn_impl == "flash" else "xla",
+        encoder_attn_impl="flash" if attn_impl == "flash" else "xla", batch_group=batch_group,
     )
     B, T = input_ids.shape
     positions = torch.arange(T, device=inputs_embeds.device)[None].expand(B, T)
@@ -437,7 +475,7 @@ def ultravox_loss(
     batch's: its local sum over the global count."""
     chunked = vocab_chunk is not None and vocab_chunk > 0
     out = ultravox_forward(params, cfg, batch, remat=remat, attn_impl=attn_impl,
-                           return_hidden=chunked, pipe_mesh=pipe_mesh)
+                           return_hidden=chunked, pipe_mesh=pipe_mesh, batch_group=batch_group)
     lm = params["language_model"]
     if loss_config.loss_function == LossFunction.CROSS_ENTROPY:
         if chunked:

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ultravox_torch.models.config import WhisperEncoderConfig
-from ultravox_torch.models.decoder import _quantize_kernel
+from ultravox_torch.models.decoder import _quantize_kernel, _split
 from ultravox_torch.models.lora import proj_apply
 from ultravox_torch.models.remat import remat as checkpoint_remat
 from ultravox_torch.ops.attention import NEG_INF, block_causal_bias, length_mask_bias, mha
@@ -49,7 +49,14 @@ from ultravox_torch.ops.kernels.fused_attention import (
 )
 from ultravox_torch.ops.kernels.layer_norm import fused_layer_norm
 from ultravox_torch.ops.norms import layer_norm
-from ultravox_torch.parallel.sharding import gather, gather_layer
+from ultravox_torch.parallel.sharding import (
+    from_tensor,
+    gather,
+    gather_layer,
+    split_of,
+    tensor_cols,
+    to_tensor,
+)
 
 Params = Dict[str, Any]
 ENCODER_ATTN_IMPLS = ("xla", "fused", "flash")  # encoder_forward's attn_impl
@@ -134,9 +141,12 @@ def _layer(layers: Params, l: int) -> Params:
 
 
 def _encoder_layer(cfg, x, bias, p, *, attn_fn=None, attn_qkv_fn=None, ln_fn=None, approx_gelu=False):
-    """One pre-norm transformer layer on x (B, T, D)."""
+    """One pre-norm transformer layer on x (B, T, D). Under a tensor split
+    (Megatron) the heads and the FFN columns are the rank's own: the normed
+    input enters them through ``to_tensor``, and ``out_proj`` and ``fc2``
+    all-reduce their partial sums before adding their biases once."""
     B, T, D = x.shape
-    H, Dh = cfg.num_heads, cfg.head_dim
+    Dh = cfg.head_dim
     ln = ln_fn or layer_norm
     if "qkv_proj" in p and attn_qkv_fn is not None:
         qp = p["qkv_proj"]
@@ -150,33 +160,34 @@ def _encoder_layer(cfg, x, bias, p, *, attn_fn=None, attn_qkv_fn=None, ln_fn=Non
         else:  # int8 or LoRA q/k/v: proj_apply handles both
             h = ln(x, p["attn_ln"]["scale"], p["attn_ln"]["bias"])
             qkv_t = qkv_head_transpose(proj_apply(h, qp), Dh)
-        attn_t = attn_qkv_fn(qkv_t)  # (B, H, T, Dh)
+        attn_t = attn_qkv_fn(qkv_t)  # (B, H, T, Dh): the rank's own heads
         op = p["out_proj"]
         if "kernel" in op and "lora_a" not in op:
-            out = torch.einsum("bhtd,hdm->btm", attn_t, op["kernel"].reshape(H, Dh, D))
+            out = torch.einsum("bhtd,hdm->btm", attn_t, op["kernel"].reshape(-1, Dh, D))
+            out = from_tensor(out, split_of(op["kernel"]))
             if "bias" in op:
                 out = out + op["bias"]
         else:
-            out = proj_apply(attn_t.transpose(1, 2).reshape(B, T, D), op)
+            out = proj_apply(attn_t.transpose(1, 2).reshape(B, T, -1), op)
         x = x + out
         return _encoder_ffn(x, p, ln, approx_gelu)
-    h = ln(x, p["attn_ln"]["scale"], p["attn_ln"]["bias"])
+    h = to_tensor(ln(x, p["attn_ln"]["scale"], p["attn_ln"]["bias"]), _split(p, "q_proj"))
     if "qkv_proj" in p:
-        qkv = proj_apply(h, p["qkv_proj"]).reshape(B, T, 3, D)
+        qkv = proj_apply(h, p["qkv_proj"]).reshape(B, T, 3, -1)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     else:
         q, k, v = (proj_apply(h, p[n]) for n in ("q_proj", "k_proj", "v_proj"))
-    q, k, v = (t.reshape(B, T, H, Dh) for t in (q, k, v))
+    q, k, v = (t.reshape(B, T, -1, Dh) for t in (q, k, v))
     if attn_fn is not None:
         attn = attn_fn(q, k, v)
     else:
         attn = mha(q, k, v, bias=bias, scale=Dh**-0.5)
-    x = x + proj_apply(attn.reshape(B, T, D), p["out_proj"])
+    x = x + proj_apply(attn.reshape(B, T, -1), p["out_proj"])
     return _encoder_ffn(x, p, ln, approx_gelu)
 
 
 def _encoder_ffn(x, p, ln, approx_gelu):
-    h = ln(x, p["final_ln"]["scale"], p["final_ln"]["bias"])
+    h = to_tensor(ln(x, p["final_ln"]["scale"], p["final_ln"]["bias"]), _split(p, "fc1"))
     h = F.gelu(proj_apply(h, p["fc1"]), approximate="tanh" if approx_gelu else "none")
     return x + proj_apply(h, p["fc2"])
 
@@ -187,7 +198,10 @@ def fuse_encoder_inference_params(params: Params) -> Params:
     launch casts them. q/k/v are concatenated into one ``qkv_proj`` (the k
     third of the bias is zeros: Whisper's k_proj has none; an int8 tree's
     ``kernel_q`` and ``scale`` are concatenated), unless they are already
-    fused or carry LoRA."""
+    fused or carry LoRA. Under a tensor split the fused leaf is the
+    concatenation of this rank's q, k and v slices (the biases' columns
+    taken to match): (D, 3 * H/t * Dh), never a contiguous cut of a whole
+    fused leaf."""
     ly = dict(params["layers"])
     for n in ("attn_ln", "final_ln"):
         ly[n] = {k: v.float() for k, v in ly[n].items()}
@@ -197,8 +211,12 @@ def fuse_encoder_inference_params(params: Params) -> Params:
         leaves = ("kernel_q", "scale") if "kernel_q" in q else ("kernel",)
         fused = {n: torch.cat([q[n], k[n], v[n]], dim=-1) for n in leaves}
         if "bias" in q:
-            kb = k.get("bias", torch.zeros_like(q["bias"]))
-            fused["bias"] = torch.cat([q["bias"], kb, v["bias"]], dim=-1)
+            sp = split_of(q.get("kernel"))
+            qb, vb = q["bias"], v["bias"]
+            if sp is not None and split_of(qb) is None:
+                qb, vb = tensor_cols(qb, sp), tensor_cols(vb, sp)
+            kb = k.get("bias", torch.zeros_like(qb))
+            fused["bias"] = torch.cat([qb, kb, vb], dim=-1)
         ly["qkv_proj"] = fused
     out = dict(params)
     out["layers"] = ly
@@ -262,7 +280,7 @@ def encoder_forward(
             if feat_lens is None:
                 feat_lens = torch.full((B,), T, dtype=torch.int32, device=x.device)
             attn_qkv_fn = lambda qkv_t: attention_headmajor(  # noqa: E731
-                qkv_t, feat_lens, n_heads=cfg.num_heads, scale=scale, latency_block=lat
+                qkv_t, feat_lens, n_heads=qkv_t.shape[1] // 3, scale=scale, latency_block=lat
             )
         else:
             attn_fn = lambda q, k, v: fused_attention(  # noqa: E731
@@ -318,8 +336,10 @@ class EncoderStreamState:
     pos: int = 0
 
     @classmethod
-    def zeros(cls, cfg: WhisperEncoderConfig, dtype=torch.float32, device=None):
-        shape = (cfg.num_layers, cfg.max_source_positions, cfg.num_heads, cfg.head_dim)
+    def zeros(cls, cfg: WhisperEncoderConfig, dtype=torch.float32, device=None,
+              heads: Optional[int] = None):
+        """``heads``: a tensor rank's local heads (default all)."""
+        shape = (cfg.num_layers, cfg.max_source_positions, heads or cfg.num_heads, cfg.head_dim)
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
@@ -354,7 +374,7 @@ def encoder_stream_step(
     garbage that the audio token count excludes, as the batch path's
     padding positions are. The activations run in the window's dtype."""
     C, pos = block_size, state.pos
-    H, Dh, D = cfg.num_heads, cfg.head_dim, cfg.d_model
+    Dh = cfg.head_dim
     x = F.gelu(_conv1d_valid(mel_window[None], params["conv1"]["kernel"],
                              params["conv1"]["bias"], cfg.conv1_stride))
     if pos == 0:
@@ -374,17 +394,17 @@ def encoder_stream_step(
     for l in range(cfg.num_layers):
         p = _layer(layers, l)
         h = layer_norm(x, p["attn_ln"]["scale"], p["attn_ln"]["bias"])
-        if "qkv_proj" in p:  # the inference-fused tower
-            qkv = proj_apply(h, p["qkv_proj"]).reshape(1, C, 3, D)
+        if "qkv_proj" in p:  # the inference-fused tower (a rank's own heads)
+            qkv = proj_apply(h, p["qkv_proj"]).reshape(1, C, 3, -1)
             q, k, v = qkv[:, :, 0], qkv[0, :, 1], qkv[0, :, 2]
         else:
             q, k, v = (proj_apply(h, p[n]) for n in ("q_proj", "k_proj", "v_proj"))
             k, v = k[0], v[0]
-        state.k[l, pos: pos + C] = k.reshape(C, H, Dh)
-        state.v[l, pos: pos + C] = v.reshape(C, H, Dh)
-        attn = mha(q.reshape(1, C, H, Dh), state.k[l][None], state.v[l][None], bias=bias,
+        state.k[l, pos: pos + C] = k.reshape(C, -1, Dh)
+        state.v[l, pos: pos + C] = v.reshape(C, -1, Dh)
+        attn = mha(q.reshape(1, C, -1, Dh), state.k[l][None], state.v[l][None], bias=bias,
                    scale=Dh**-0.5)
-        x = x + proj_apply(attn.reshape(1, C, D), p["out_proj"])
+        x = x + proj_apply(attn.reshape(1, C, -1), p["out_proj"])
         h = layer_norm(x, p["final_ln"]["scale"], p["final_ln"]["bias"])
         x = x + proj_apply(F.gelu(proj_apply(h, p["fc1"])), p["fc2"])
     out = layer_norm(x, params["layer_norm"]["scale"], params["layer_norm"]["bias"])[0]

@@ -11,8 +11,11 @@ axes, with a process group for each axis and one for the batch axes
 - ``fsdp``: parameter sharding (ZeRO-3): each process holds a 1/fsdp slice
   of every leaf whose rule names ``fsdp`` and gathers it whole just before
   use (``sharding.py``); the batch is split over it too;
-- ``tensor`` and ``pipe`` (Megatron splits, GPipe stages) raise
-  ``NotImplementedError``: ROADMAP.md queue A item 7b.
+- ``tensor``: Megatron splits of the attention heads and the FFN inside
+  both towers' layers (``sharding.py``); tensor peers hold the same rows
+  of the batch;
+- ``pipe`` (GPipe stages) raises ``NotImplementedError``: ROADMAP.md
+  queue A item 7b-ii.
 
 A process is launched by ``torchrun`` (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``) or given the JAX config's
@@ -40,7 +43,7 @@ logger = logging.getLogger(__name__)
 
 AXES = ("data", "fsdp", "tensor", "pipe")
 BATCH_AXES = ("data", "fsdp")
-NEXT_SLICE = "ROADMAP.md queue A item 7b"
+NEXT_SLICE = "ROADMAP.md queue A item 7b-ii"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +89,12 @@ class Mesh:
     def batch_shards(self) -> int:
         return self.shape["data"] * self.shape["fsdp"]
 
+    @property
+    def batch_index(self) -> int:
+        """This process's shard of the batch: its (data, fsdp) coordinate,
+        row-major; tensor peers share it and read the same rows."""
+        return self.coords["data"] * self.shape["fsdp"] + self.coords["fsdp"]
+
     @classmethod
     def local(cls, config: Optional[MeshConfig] = None, n_devices: int = 1) -> "Mesh":
         """The mesh's shape seen from rank 0 with no process group: what
@@ -123,10 +132,9 @@ def make_mesh(config: Optional[MeshConfig] = None) -> Mesh:
     config = config or MeshConfig()
     world = process_count()
     shape = config.resolve(world)
-    if shape[2] > 1 or shape[3] > 1:
+    if shape[3] > 1:
         raise NotImplementedError(
-            f"tensor and pipe axes (mesh {dict(zip(AXES, shape))}) are not ported yet "
-            f"({NEXT_SLICE})")
+            f"the pipe axis (mesh {dict(zip(AXES, shape))}) is not ported yet ({NEXT_SLICE})")
     if math.prod(shape) != world:
         raise ValueError(f"mesh {dict(zip(AXES, shape))} must cover all {world} processes "
                          "(one device a process)")

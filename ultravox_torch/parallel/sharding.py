@@ -1,21 +1,33 @@
-"""Parameter sharding rules: regex path -> spec, and the fsdp gathers and
-reductions the JAX package leaves to XLA.
+"""Parameter sharding rules: regex path -> spec, and the collectives the
+JAX package leaves to XLA.
 
 Every parameter leaf gets a spec from a rules table keyed on its tree path
 (a tuple with one entry per dim: a mesh axis name or None), as the JAX
 package's ``parallel/sharding.py`` does. There XLA inserts the
 collectives; here they are written out:
 
-- ``shard_params`` keeps, on each process, only its 1/fsdp slice of every
-  leaf whose spec names ``fsdp``, tagged with how it was cut (``Shard``);
-  ``data`` and axes of size 1 replicate;
-- the models take each sharded leaf whole through ``gather`` (or
+- ``shard_params`` cuts, on each process, a leaf whose spec names
+  ``tensor`` to this rank's slice (``TensorSplit``), on head boundaries
+  for the attention leaves, then a leaf whose spec names ``fsdp`` to its
+  1/fsdp slice (``Shard``); ``data`` and axes of size 1 replicate. Where
+  ``tensor`` does not divide the KV heads but the KV heads divide it, a
+  rank keeps the whole K/V projections and reads the heads its query
+  heads read (a ``TensorSplit`` with ``cols``);
+- the models take each fsdp shard whole through ``gather`` (or
   ``gather_layer`` for one layer of a stacked leaf) just before its use:
   an all-gather over the fsdp group, differentiable for a trainable leaf
-  (its backward reduce-scatters the gradient);
+  (its backward reduce-scatters the gradient). A tensor split stays split
+  inside a layer (Megatron): ``to_tensor`` (identity forward, all-reduce
+  backward) enters a column-split product, ``from_tensor`` (all-reduce
+  forward, identity backward) leaves a row-split one, and the leaves read
+  whole outside the layers (embedding, head, projector) are gathered
+  over ``tensor`` too (``gather_whole``, whose backward keeps this rank's
+  slice of a gradient every tensor peer computes alike);
 - ``reduce_gradients`` sums each gradient over the processes that hold
-  the same leaf, and ``sq_sum`` counts every element of a sharded tree
-  once, so the global norm is the full gradient's.
+  the same leaf and split the batch (never over ``tensor``: a split
+  leaf's peers hold other slices, a whole leaf's the same gradient), and
+  ``sq_sum`` counts every element of a sharded tree once, so the global
+  norm is the full gradient's.
 
 Paths look like "language_model/layers/q_proj/kernel"; layer-stacked
 leaves have a leading L axis, which is never sharded (it is looped over).
@@ -67,7 +79,7 @@ def rules_for_mesh(mesh: Mesh) -> List[Tuple[str, Spec]]:
     """DEFAULT_RULES, with the decoder layer stack's leading L axis over
     ``pipe`` when the mesh carries pipeline stages (each stage holds only
     its own layers). ``make_mesh`` refuses such a mesh until the GPipe
-    schedule is ported (ROADMAP.md queue A item 7b); the table is kept."""
+    schedule is ported (ROADMAP.md queue A item 7b-ii); the table is kept."""
     if mesh.shape.get("pipe", 1) <= 1:
         return DEFAULT_RULES
     out: List[Tuple[str, Spec]] = []
@@ -168,14 +180,15 @@ def param_pspecs(params: Any, rules: Sequence[Tuple[str, Spec]] = DEFAULT_RULES,
 
 
 # --------------------------------------------------------------------------
-# fsdp shards
+# placements: the tensor split, then the fsdp shard
 # --------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Shard:
     """How a leaf is cut over the fsdp axis: this process holds chunk
-    ``index`` of ``size`` along ``dim`` of the whole ``full_shape``."""
+    ``index`` of ``size`` along ``dim`` of ``full_shape``, the leaf as the
+    tensor axis left it (the whole leaf without a tensor split)."""
 
     dim: int
     full_shape: Tuple[int, ...]
@@ -184,61 +197,177 @@ class Shard:
     group: Any
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class TensorSplit:
+    """How a leaf sits on the tensor axis. With ``dim`` (negative, so a
+    layer of a stacked leaf keeps it), this process holds chunk ``index``
+    of ``size`` along it of the whole ``full_shape``. With ``dim`` None it
+    holds the whole leaf and reads its last-axis elements ``cols`` (the
+    K/V heads its query heads read)."""
+
+    dim: Optional[int]
+    full_shape: Tuple[int, ...]
+    size: int
+    index: int
+    group: Any
+    cols: Optional[Tuple[int, int]] = None
+
+
 _ATTR = "_fsdp_shard"
+_TP_ATTR = "_tensor_split"
 
 
 def shard_of(t) -> Optional[Shard]:
-    """The leaf's Shard, None for a whole leaf."""
+    """The leaf's fsdp Shard, None for a leaf whole over fsdp."""
     return getattr(t, _ATTR, None)
+
+
+def split_of(t) -> Optional[TensorSplit]:
+    """The leaf's TensorSplit, None for a leaf the tensor axis leaves alone."""
+    return getattr(t, _TP_ATTR, None)
+
+
+def _cut_over_tensor(t) -> Optional[TensorSplit]:
+    sp = split_of(t)
+    return sp if sp is not None and sp.dim is not None else None
+
+
+def is_placed(t) -> bool:
+    """Whether this process holds only a part of the leaf."""
+    return shard_of(t) is not None or _cut_over_tensor(t) is not None
+
+
+def _tag(t: torch.Tensor, shard: Optional[Shard], split: Optional[TensorSplit]) -> torch.Tensor:
+    if shard is not None:
+        setattr(t, _ATTR, shard)
+    if split is not None:
+        setattr(t, _TP_ATTR, split)
+    return t
 
 
 def carry_shard(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """``dst`` (a copy of ``src``, moved or detached) tagged as ``src`` is."""
-    s = shard_of(src)
-    if s is not None:
-        setattr(dst, _ATTR, s)
-    return dst
+    return _tag(dst, shard_of(src), split_of(src))
 
 
 def full_shape(t: torch.Tensor) -> Tuple[int, ...]:
+    """The whole leaf's shape."""
+    sp = _cut_over_tensor(t)
+    if sp is not None:
+        return sp.full_shape
     s = shard_of(t)
     return tuple(t.shape) if s is None else s.full_shape
 
 
-def local_slice(full: torch.Tensor, shard: Shard) -> torch.Tensor:
-    """This process's chunk of a whole leaf, in storage of its own, tagged."""
-    out = full.chunk(shard.size, shard.dim)[shard.index].clone(
-        memory_format=torch.contiguous_format)
-    setattr(out, _ATTR, shard)
+def _chunk(t: torch.Tensor, dim: int, size: int, index: int) -> torch.Tensor:
+    return t.chunk(size, dim)[index]
+
+
+def cut_as(whole: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """This process's part of a whole tensor, cut as the leaf ``like`` is,
+    in storage of its own and tagged; ``whole`` itself where ``like`` is
+    whole or ``whole`` has another shape (an optimizer's step count)."""
+    if not is_placed(like) or tuple(whole.shape) != full_shape(like):
+        return whole
+    sp, s = _cut_over_tensor(like), shard_of(like)
+    out = whole if sp is None else _chunk(whole, sp.dim, sp.size, sp.index)
+    if s is not None:
+        out = _chunk(out, s.dim, s.size, s.index)
+    return _tag(out.clone(memory_format=torch.contiguous_format), s, split_of(like))
+
+
+def local_kv_heads(num_kv_heads: int, tensor: int) -> int:
+    """The KV heads a tensor rank holds: its 1/tensor share, or the one
+    head its query heads read where ``tensor`` is a multiple of them."""
+    if num_kv_heads % tensor == 0:
+        return num_kv_heads // tensor
+    if tensor % num_kv_heads == 0:
+        return 1
+    raise ValueError(f"tensor {tensor} neither divides nor is a multiple of the "
+                     f"{num_kv_heads} KV heads")
+
+
+def _head_leaves(cfg) -> List[Tuple[str, int, int, bool]]:
+    """(path regex, heads, head_dim, kv) of the leaves whose tensor dim
+    runs over attention heads: the tensor axis cuts them between heads."""
+    tc = cfg.text_config
+    out = [(r".*language_model/layers/(q_proj/(kernel|bias)|o_proj/kernel)$",
+            tc.num_heads, tc.head_dim, False),
+           (r".*language_model/layers/(k|v)_proj/(kernel|bias)$",
+            tc.num_kv_heads, tc.head_dim, True)]
+    ac = getattr(cfg, "audio_config", None)
+    if ac is not None and getattr(cfg, "audio_arch", "whisper") != "wav2vec2":
+        out.append((r".*audio_tower/layers/((q|k|v)_proj|out_proj)/kernel$",
+                    ac.num_heads, ac.head_dim, False))
     return out
 
 
-def shard_params(params: Any, mesh: Mesh, rules: Optional[Sequence[Tuple[str, Spec]]] = None
-                 ) -> Any:
-    """The tree with every leaf whose spec names ``fsdp`` cut to this
-    process's 1/fsdp slice (default rules: ``rules_for_mesh``). Other
-    leaves are the caller's tensors, untouched."""
+def _tensor_split(path: str, leaf, dim: int, mesh: Mesh, cfg) -> Optional[TensorSplit]:
+    """The tensor placement of a leaf whose (shrunk) spec names ``tensor``
+    at ``dim``: cut on head boundaries for the attention leaves; None
+    leaves it whole (a wav2vec2 tower runs whole on every rank)."""
+    t, r, group = mesh.shape["tensor"], mesh.coords["tensor"], mesh.groups["tensor"]
+    shape = tuple(leaf.shape)
+    if path.startswith("audio_tower/") and getattr(cfg, "audio_arch", "whisper") == "wav2vec2":
+        return None
+    for pattern, heads, head_dim, kv in _head_leaves(cfg):
+        if not re.fullmatch(pattern, path):
+            continue
+        if heads % t == 0:
+            break
+        if kv and t % heads == 0:
+            h = r // (t // heads)
+            return TensorSplit(None, shape, t, r, group, cols=(h * head_dim, (h + 1) * head_dim))
+        raise ValueError(f"tensor {t} must divide the {heads} attention heads of {path}")
+    return TensorSplit(dim, shape, t, r, group)
+
+
+def shard_params(params: Any, mesh: Mesh, rules: Optional[Sequence[Tuple[str, Spec]]] = None,
+                 cfg=None) -> Any:
+    """The tree with every leaf whose spec names ``tensor`` cut to this
+    rank's tensor slice and then every leaf whose spec names ``fsdp`` cut
+    to its 1/fsdp slice (default rules: ``rules_for_mesh``). A tensor axis
+    needs the model's ``UltravoxConfig`` (``cfg``) to cut on head
+    boundaries. Leaves left whole are the caller's tensors, untouched."""
     if rules is None:
         rules = rules_for_mesh(mesh)
-    size = mesh.shape["fsdp"]
-    if size == 1:
+    t, f = mesh.shape["tensor"], mesh.shape["fsdp"]
+    if t == 1 and f == 1:
         return params
+    if t > 1 and cfg is None:
+        raise ValueError("a tensor axis cuts on head boundaries: shard_params needs the "
+                         "model's config (cfg=)")
 
     def place(path, leaf):
         spec = _shrink_spec(spec_for_path(path, rules), tuple(leaf.shape), mesh, path)
-        if "fsdp" not in spec:
+        split = shard = None
+        out = leaf.detach()
+        if t > 1 and "tensor" in spec:
+            split = _tensor_split(path, leaf, spec.index("tensor") - leaf.dim(), mesh, cfg)
+            if split is not None and split.dim is not None:
+                out = _chunk(out, split.dim, t, split.index)
+        if f > 1 and "fsdp" in spec:
+            shard = Shard(spec.index("fsdp"), tuple(out.shape), f, mesh.coords["fsdp"],
+                          mesh.groups["fsdp"])
+            out = _chunk(out, shard.dim, f, shard.index)
+        if split is None and shard is None:
             return leaf
-        shard = Shard(spec.index("fsdp"), tuple(leaf.shape), size, mesh.coords["fsdp"],
-                      mesh.groups["fsdp"])
-        return local_slice(leaf.detach(), shard)
+        if shard is not None or split.dim is not None:
+            out = out.clone(memory_format=torch.contiguous_format)
+        return _tag(out, shard, split)  # a kept leaf: a tagged view of the caller's
 
     return map_paths(place, params)
 
 
-def _all_gather(local: torch.Tensor, dim: int, s: Shard) -> torch.Tensor:
+# --------------------------------------------------------------------------
+# gathers
+# --------------------------------------------------------------------------
+
+
+def _all_gather(local: torch.Tensor, dim: int, size: int, group) -> torch.Tensor:
     x = local.movedim(dim, 0).contiguous()
-    out = x.new_empty((s.size * x.shape[0], *x.shape[1:]))
-    dist.all_gather_into_tensor(out, x, group=s.group)
+    out = x.new_empty((size * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
     return out.movedim(0, dim)
 
 
@@ -256,41 +385,160 @@ class _GatherShards(torch.autograd.Function):
     @staticmethod
     def forward(ctx, local, dim, shard):
         ctx.dim, ctx.shard = dim, shard
-        return _all_gather(local, dim, shard)
+        return _all_gather(local, dim, shard.size, shard.group)
 
     @staticmethod
     def backward(ctx, grad):
         return _reduce_scatter(grad, ctx.dim, ctx.shard), None, None
 
 
+class _GatherSplit(torch.autograd.Function):
+    """All-gather over ``tensor`` forward; backward keeps this rank's slice
+    of the gradient, which every tensor peer computes alike (the leaf is
+    used whole, on the same rows, on each of them)."""
+
+    @staticmethod
+    def forward(ctx, local, split):
+        ctx.split = split
+        return _all_gather(local, split.dim, split.size, split.group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        sp = ctx.split
+        return _chunk(grad, sp.dim, sp.size, sp.index).contiguous(), None
+
+
+def _grad_on(t: torch.Tensor) -> bool:
+    return t.requires_grad and torch.is_grad_enabled()
+
+
 def _gather(local: torch.Tensor, dim: int, s: Shard) -> torch.Tensor:
-    if local.requires_grad and torch.is_grad_enabled():
+    if _grad_on(local):
         return _GatherShards.apply(local, dim, s)
-    return _all_gather(local, dim, s)
+    return _all_gather(local, dim, s.size, s.group)
 
 
 def gather(t):
-    """The whole leaf: ``t`` itself unless it is an fsdp shard."""
+    """The leaf whole over fsdp (``t`` itself unless it is an fsdp shard),
+    still tagged with its tensor split."""
     s = shard_of(t)
-    return t if s is None else _gather(t, s.dim, s)
+    return t if s is None else _tag(_gather(t, s.dim, s), None, split_of(t))
 
 
 def gather_layer(t, l: int):
-    """Layer ``l`` of a leaf stacked on its leading L axis, whole."""
+    """Layer ``l`` of a leaf stacked on its leading L axis, whole over fsdp,
+    still tagged with its tensor split."""
     s = shard_of(t)
-    return t[l] if s is None else _gather(t[l], s.dim - 1, s)
+    out = t[l] if s is None else _gather(t[l], s.dim - 1, s)
+    return _tag(out, None, split_of(t))
+
+
+def gather_whole(t):
+    """The whole leaf, over fsdp and over ``tensor``: for the leaves the
+    models read whole (the embedding, the head, the projector)."""
+    out = gather(t)
+    sp = _cut_over_tensor(t)
+    if sp is None:
+        return out
+    if _grad_on(out):
+        return _GatherSplit.apply(out, sp)
+    return _all_gather(out, sp.dim, sp.size, sp.group)
 
 
 def gather_as(t: torch.Tensor, like) -> torch.Tensor:
     """``t``, shaped as the leaf ``like`` is held (its optimizer moments,
-    its gradient buffer), whole: a shard's is gathered, without autograd."""
-    s = shard_of(like)
-    return t if s is None else _all_gather(t.detach(), s.dim, s)
+    its gradient buffer), whole: gathered over fsdp and then over
+    ``tensor``, without autograd."""
+    s, sp = shard_of(like), _cut_over_tensor(like)
+    out = t.detach() if (s is not None or sp is not None) else t
+    if s is not None:
+        out = _all_gather(out, s.dim, s.size, s.group)
+    if sp is not None:
+        out = _all_gather(out, sp.dim, sp.size, sp.group)
+    return out
 
 
 def gather_tree(tree: Any) -> Any:
-    """Every leaf whole (every process of the fsdp group must call it)."""
-    return map_paths(lambda _, leaf: gather(leaf).detach() if shard_of(leaf) else leaf, tree)
+    """Every leaf whole (every process of the mesh must call it)."""
+    return map_paths(lambda _, leaf: gather_as(leaf, leaf) if is_placed(leaf) else leaf, tree)
+
+
+def whole_outside_layers(tree: Any) -> Any:
+    """The tree with every placed leaf outside the towers' ``layers``
+    (embedding, head, projector, positions) gathered whole once, for an
+    engine that reads them at every step; the layers stay placed."""
+    return map_paths(lambda path, leaf: leaf if "/layers/" in f"/{path}" or not is_placed(leaf)
+                     else gather_as(leaf, leaf), tree)
+
+
+# --------------------------------------------------------------------------
+# Megatron: the products inside a layer
+# --------------------------------------------------------------------------
+
+
+class _ToTensor(torch.autograd.Function):
+    """Identity forward, all-reduce (sum) over ``tensor`` backward: what a
+    value used whole by every tensor rank's slice of a product needs."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _FromTensor(torch.autograd.Function):
+    """All-reduce (sum) over ``tensor`` forward, identity backward: the
+    partial sums of a row-split product made whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def to_tensor(x: torch.Tensor, split: Optional[TensorSplit]) -> torch.Tensor:
+    """``x`` entering the tensor-split products of ``split``'s group: the
+    same value, whose gradient is summed over the group."""
+    if split is None or split.group is None or not _grad_on(x):
+        return x
+    return _ToTensor.apply(x, split.group)
+
+
+def from_tensor(x: torch.Tensor, split: Optional[TensorSplit]) -> torch.Tensor:
+    """A row-split product's partial sums added over ``split``'s group."""
+    if split is None or split.group is None:
+        return x
+    if _grad_on(x):
+        return _FromTensor.apply(x, split.group)
+    x = x.contiguous()
+    dist.all_reduce(x, group=split.group)
+    return x
+
+
+def tensor_cols(t: torch.Tensor, split: TensorSplit) -> torch.Tensor:
+    """This rank's last-axis elements of a whole leaf beside a column-split
+    one (a bias the rules keep whole, a LoRA factor), or the K/V heads of
+    a kept leaf; its gradient is summed over the group."""
+    t = to_tensor(t, split)
+    if split.cols is not None:
+        return t[..., split.cols[0]:split.cols[1]]
+    return _chunk(t, -1, split.size, split.index)
+
+
+def tensor_rows(t: torch.Tensor, split: TensorSplit) -> torch.Tensor:
+    """This rank's rows (dim -2) of a whole leaf beside a row-split one."""
+    return _chunk(to_tensor(t, split), -2, split.size, split.index)
 
 
 # --------------------------------------------------------------------------
@@ -306,10 +554,12 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
 
 def reduce_gradients(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                      mesh: Mesh) -> List[torch.Tensor]:
-    """Each gradient summed over the processes that hold the same leaf: a
-    shard's (already summed over fsdp by its gather's backward) over
-    ``data``, a whole leaf's over the batch axes. One all-reduce per group
-    and dtype, on a flat buffer."""
+    """Each gradient summed over the processes that hold the same leaf and
+    split the batch: an fsdp shard's (already summed over fsdp by its
+    gather's backward) over ``data``, any other leaf's over the batch axes.
+    Never over ``tensor``: a split leaf's peers hold other slices, and a
+    whole leaf's peers the same gradient. One all-reduce per group and
+    dtype, on a flat buffer."""
     out = list(grads)
     buckets: List[Tuple[Any, torch.dtype, List[int]]] = []
     for i, (p, g) in enumerate(zip(params, grads)):
@@ -333,17 +583,25 @@ def reduce_gradients(params: Sequence[torch.Tensor], grads: Sequence[torch.Tenso
 def sq_sum(tensors: Iterable[torch.Tensor], like: Sequence[torch.Tensor]) -> torch.Tensor:
     """fp32 sum of squares of every element of the whole leaves, from
     ``tensors`` shaped as the leaves ``like`` hold them: a whole leaf
-    counts once, the shards' sums are added over the fsdp group."""
-    whole, parts, group = [], [], None
+    counts once, the parts' sums are added over their fsdp group and over
+    their tensor group."""
+    whole, f_parts, t_parts, ft_parts = [], [], [], []
+    f_group = t_group = None
     for t, p in zip(tensors, like):
         sq = (t.float() * t.float()).sum()
-        s = shard_of(p)
-        if s is None:
-            whole.append(sq)
-        else:
-            parts.append(sq)
-            group = s.group
+        s, sp = shard_of(p), _cut_over_tensor(p)
+        if s is not None:
+            f_group = s.group
+        if sp is not None:
+            t_group = sp.group
+        {(False, False): whole, (True, False): f_parts, (False, True): t_parts,
+         (True, True): ft_parts}[(s is not None, sp is not None)].append(sq)
     total = sum(whole)
-    if parts:
-        total = total + all_reduce_(sum(parts), group)
+    if f_parts:
+        total = total + all_reduce_(sum(f_parts), f_group)
+    if t_parts or ft_parts:
+        part = sum(t_parts) if t_parts else 0
+        if ft_parts:
+            part = part + all_reduce_(sum(ft_parts), f_group)
+        total = total + all_reduce_(part, t_group)
     return total

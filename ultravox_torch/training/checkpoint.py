@@ -17,11 +17,12 @@ changes, so it is adapter-sized:
 The JAX package writes orbax directories; this format is the port's own.
 
 A checkpoint does not depend on the number of processes that wrote it:
-over an fsdp mesh every process joins the gathers of its shards (leaves,
-AdamW moments, accumulation buffer), the master writes exactly what one
-process writes, and all meet at a barrier; a restore reads the whole
-file on every process and cuts each shard again from the state it is
-given. The export is the master's, after the same gathers.
+over an fsdp and tensor mesh every process joins the gathers of its
+leaves' parts (leaves, AdamW moments, accumulation buffer: over fsdp,
+then over tensor), the master writes exactly what one process writes,
+and all meet at a barrier; a restore reads the whole file on every
+process and cuts each part again from the state it is given. The export
+is the master's, after the same gathers.
 """
 
 from __future__ import annotations
@@ -36,13 +37,7 @@ import torch
 
 from ultravox_torch.models.weights import save_safetensors
 from ultravox_torch.parallel.collectives import is_global_master, sync_hosts
-from ultravox_torch.parallel.sharding import (
-    carry_shard,
-    full_shape,
-    gather_as,
-    local_slice,
-    shard_of,
-)
+from ultravox_torch.parallel.sharding import carry_shard, cut_as, full_shape, gather_as, is_placed
 from ultravox_torch.training.train_step import OptState, TrainState
 
 logger = logging.getLogger(__name__)
@@ -55,10 +50,10 @@ def _ckpt_dir(base: str, step: int) -> str:
 
 
 def _whole_adamw(adamw: torch.optim.Optimizer, leaves) -> Dict:
-    """The AdamW state dict with each shard's moments gathered whole."""
+    """The AdamW state dict with each part's moments gathered whole."""
     sd = adamw.state_dict()
     for i, p in enumerate(leaves):
-        if shard_of(p) is not None and i in sd["state"]:
+        if is_placed(p) and i in sd["state"]:
             sd["state"][i] = {k: gather_as(v, p) if v.shape == p.shape and v.dim() else v
                               for k, v in sd["state"][i].items()}
     return sd
@@ -100,15 +95,9 @@ def latest_checkpoint(base_dir: str) -> Optional[str]:
     return best
 
 
-def _local(saved: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """A whole saved tensor cut as ``like``'s leaf is (itself if whole)."""
-    s = shard_of(like)
-    return saved if s is None or tuple(saved.shape) != s.full_shape else local_slice(saved, s)
-
-
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """The checkpoint at ``path`` in the structure of ``state``, on the
-    device of its trainable leaves, each shard cut from the whole as the
+    device of its trainable leaves, each part cut from the whole as the
     state's leaf is; ``state`` itself is left as it was."""
     leaves = list(state.trainable.values())
     dev = leaves[0].device if leaves else torch.device("cpu")
@@ -126,19 +115,19 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
         if tuple(saved[k].shape) != full_shape(cur) or saved[k].dtype != cur.dtype:
             raise ValueError(f"checkpoint {path}: {k} is {saved[k].dtype} "
                              f"{tuple(saved[k].shape)}, the state's {cur.dtype} {full_shape(cur)}")
-        trainable[k] = carry_shard(cur, _local(saved[k], cur).to(dev, copy=True)
+        trainable[k] = carry_shard(cur, cut_as(saved[k], cur).to(dev, copy=True)
                                    .requires_grad_(True))
     cur_leaves = list(state.trainable.values())
     adamw_sd = payload["adamw"]
     for i, p in enumerate(cur_leaves):
-        if shard_of(p) is not None and i in adamw_sd["state"]:
-            adamw_sd["state"][i] = {k: _local(v, p) for k, v in adamw_sd["state"][i].items()}
+        if is_placed(p) and i in adamw_sd["state"]:
+            adamw_sd["state"][i] = {k: cut_as(v, p) for k, v in adamw_sd["state"][i].items()}
     # the saved param groups carry every setting (lr, betas, eps, decay)
     adamw = type(state.opt_state.adamw)(list(trainable.values()))
     adamw.load_state_dict(adamw_sd)
     acc = payload["acc"]
     if acc is not None:
-        acc = [_local(a, p).to(dev) for a, p in zip(acc, cur_leaves)]
+        acc = [cut_as(a, p).to(dev) for a, p in zip(acc, cur_leaves)]
     if (acc is None) != (state.opt_state.acc is None):
         raise ValueError(f"checkpoint {path} was written with another grad_accum_steps")
     opt = OptState(adamw, count=payload["count"], mini_step=payload["mini_step"], acc=acc)

@@ -160,9 +160,9 @@ class TrainConfig:
     # materialize. None/0 = dense loss.
     vocab_loss_chunk: Optional[int] = 256
     # the parallel layout of the JAX package's recipes: one process a
-    # device over the data and fsdp axes (torchrun's environment or the
-    # three keys below); pipeline or tensor stages raise (ROADMAP.md queue
-    # A item 7b)
+    # device over the data, fsdp and tensor axes (torchrun's environment or
+    # the three keys below); pipeline stages raise (ROADMAP.md queue A item
+    # 7b-ii)
     mesh_data: int = 1
     mesh_fsdp: int = -1
     mesh_tensor: int = 1

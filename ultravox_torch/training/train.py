@@ -12,13 +12,14 @@ its latest checkpoint. ``--device cpu`` runs the plain versions of the
 kernels on the CPU; left unset, it trains on the card.
 
 Several processes, one a device, train one model over the ``mesh_data`` x
-``mesh_fsdp`` mesh (``parallel/``): launched by ``torchrun --nproc_per_node
-N -m ultravox_torch.training.train --config_path <yaml>`` (or given
-``coordinator_address``, ``num_processes`` and ``process_id``), each process
-loads a mod-N shard of the samples and runs ``batch_size / N`` rows of
-every global batch, holds its 1/fsdp slice of the sharded leaves, and only
-the master writes the config, the logs and the files. Pipeline or tensor
-stages raise (ROADMAP.md queue A item 7b).
+``mesh_fsdp`` x ``mesh_tensor`` mesh (``parallel/``): launched by ``torchrun
+--nproc_per_node N -m ultravox_torch.training.train --config_path <yaml>``
+(or given ``coordinator_address``, ``num_processes`` and ``process_id``),
+each process loads the mod-S shard of the samples of its batch coordinate
+(S = data x fsdp shards; tensor peers read the same rows) and runs
+``batch_size / S`` rows of every global batch, holds its tensor and fsdp
+slice of the sharded leaves, and only the master writes the config, the
+logs and the files. Pipeline stages raise (ROADMAP.md queue A item 7b-ii).
 """
 
 from __future__ import annotations
@@ -232,11 +233,10 @@ def prepare_train_dataset(config: TrainConfig, model_pack):
 
 
 def _check_single_process(config: TrainConfig) -> None:
-    """Refuse the layouts that are not ported: pipeline and tensor stages
-    (the data and fsdp axes run over any number of processes)."""
-    if config.mesh_pipe > 1 or config.mesh_tensor > 1:
-        raise NotImplementedError(
-            f"pipeline and tensor stages are not ported yet ({NEXT_SLICE})")
+    """Refuse the layout that is not ported: pipeline stages (the data,
+    fsdp and tensor axes run over any number of processes)."""
+    if config.mesh_pipe > 1:
+        raise NotImplementedError(f"pipeline stages are not ported yet ({NEXT_SLICE})")
 
 
 def to_device(batch: Dict[str, np.ndarray], dev: torch.device) -> Dict[str, torch.Tensor]:
@@ -256,10 +256,19 @@ def _mesh(config: TrainConfig):
                          device=dev)
     mesh = make_mesh(MeshConfig(config.mesh_data, config.mesh_fsdp, config.mesh_tensor,
                                 config.mesh_pipe))
-    n_proc = process_count()
-    if config.batch_size % n_proc:
-        raise ValueError(f"batch_size {config.batch_size} not divisible by {n_proc} processes")
+    if config.batch_size % mesh.batch_shards:
+        raise ValueError(f"batch_size {config.batch_size} not divisible by the "
+                         f"{mesh.batch_shards} batch shards (data x fsdp)")
     return mesh, rank_device(dev)
+
+
+def _batch_shard(ds, mesh):
+    """The rank's share of a dataset: the mod-S shard of its batch
+    coordinate (S = data x fsdp shards; tensor peers read the same rows,
+    as the JAX package's ``needs_replicated_feed`` demands)."""
+    if mesh.batch_shards == 1:
+        return ds
+    return multihost.ShardedDataset(ds, mesh.batch_shards, mesh.batch_index)
 
 
 def make_augmentation(config: TrainConfig):
@@ -312,7 +321,7 @@ def train(config: TrainConfig) -> Dict[str, float]:
             json.dump(dataclasses.asdict(config), f, indent=2, default=str)
 
     model_pack = create_model_pack(config)
-    params = shard_params(model_pack.params, mesh)
+    params = shard_params(model_pack.params, mesh, cfg=model_pack.config)
 
     # -- optimizer & state ---------------------------------------------------
     optimizer = make_train_optimizer(config)
@@ -347,12 +356,10 @@ def train(config: TrainConfig) -> Dict[str, float]:
     )
 
     # -- data -----------------------------------------------------------------
-    # each process loads a mod-N shard of the samples and collates its own
-    # rows of every global batch
-    train_ds = prepare_train_dataset(config, model_pack)
-    local_batch_size = config.batch_size // n_proc
-    if n_proc > 1:
-        train_ds = multihost.ShardedDataset(train_ds, n_proc, process_index())
+    # each batch shard loads a mod-S shard of the samples and collates its
+    # own rows of every global batch
+    train_ds = _batch_shard(prepare_train_dataset(config, model_pack), mesh)
+    local_batch_size = config.batch_size // mesh.batch_shards
     batches = Prefetcher(batch_iterator(train_ds, model_pack.collator, local_batch_size))
 
     # -- loop -------------------------------------------------------------------
@@ -448,18 +455,20 @@ def validate(config, model_pack, state, template, mesh=None) -> Dict[str, float]
     """Weighted val loss over the configured val sets (reference:
     evaluation/validate.py semantics), through the train step's attention
     and vocabulary chunking. Over several processes each runs a mod-N
-    shard of the set in ``batch_size / N`` rows, the same number of
-    forwards on every process (the short ones run a batch that supervises
-    nothing, since a forward gathers fsdp shards), and the (sum, count)
-    pairs are summed over the batch axes."""
+    shard of the set in ``batch_size / N`` rows (N batch shards; tensor
+    peers run the same rows), the same number of forwards on every process
+    (the short ones run a batch that supervises nothing, since a forward
+    gathers fsdp shards), and the (sum, count) pairs are summed over the
+    batch axes."""
     eval_fn = ts.make_eval_step(
         model_pack.config, config.loss_config, template,
         vocab_chunk=config.vocab_loss_chunk,
         attn_impl=config.attn_impl,
+        mesh=mesh,
     )
     dev = next(iter(state.frozen.values())).device
     group = mesh.batch_group if mesh is not None else None
-    n_proc = process_count()
+    n_proc = mesh.batch_shards if mesh is not None else 1
     out: Dict[str, float] = {}
     args = data_types.ValDatasetArgs()
     for name in config.val_sets:
@@ -468,7 +477,7 @@ def validate(config, model_pack, state, template, mesh=None) -> Dict[str, float]
             num_samples=config.val_num_samples,
         )
         if n_proc > 1:
-            ds = multihost.ShardedDataset(ds, n_proc, process_index())
+            ds = multihost.ShardedDataset(ds, n_proc, mesh.batch_index)
         local = list(batch_iterator(ds, model_pack.collator, config.batch_size // n_proc,
                                     infinite=False))
         n = len(local)

@@ -21,12 +21,14 @@ the optimizer, and clipping and the AdamW update run on that mean every
 k-th call only. The schedule counts updates (``OptState.count``).
 
 Over several processes (``mesh``), each process runs its own rows of the
-global batch: the loss is its share of the global batch's
-(``models/ultravox.py``), the gradients are summed over the processes
-that hold the same leaf (``parallel/sharding.py::reduce_gradients``; a
-fsdp shard's gather already summed it over its group), and the norms
-count every element of the whole leaves once. A shard's AdamW moments
-and accumulation buffer are the shard's own.
+global batch (tensor peers the same rows): the loss is its share of the
+global batch's (``models/ultravox.py``), the gradients are summed over
+the processes that hold the same leaf and split the batch
+(``parallel/sharding.py::reduce_gradients``; a fsdp shard's gather
+already summed it over its group, and tensor peers hold other slices or
+the same whole gradient), and the norms count every element of the whole
+leaves once. A shard's AdamW moments and accumulation buffer are the
+shard's own.
 """
 
 from __future__ import annotations
@@ -309,13 +311,16 @@ def make_eval_step(
     vocab_chunk: Optional[int] = None,
     attn_impl: str = "xla",
     pipe_mesh=None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable:
     """Validation loss step: (state, batch) -> (nll sum, label count), for
-    weighted averaging; ``vocab_chunk`` and ``attn_impl`` as in the train
-    step."""
+    weighted averaging; ``vocab_chunk``, ``attn_impl`` and ``mesh`` as in
+    the train step (the sums are this process's; the caller adds them over
+    the batch group)."""
     if pipe_mesh is not None:
         raise NotImplementedError(
             f"pipeline-parallel evaluation is not ported yet ({NEXT_SLICE})")
+    group = mesh.batch_group if mesh is not None else None
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -323,10 +328,11 @@ def make_eval_step(
         labels = batch["labels"]
         if vocab_chunk:
             hidden = uv.ultravox_forward(params, cfg, batch, return_hidden=True,
-                                         attn_impl=attn_impl)
+                                         attn_impl=attn_impl, batch_group=group)
             return uv.chunked_nll_sums(params["language_model"], cfg.text_config, hidden,
                                        labels, chunk=vocab_chunk)
-        logits = uv.ultravox_forward(params, cfg, batch, attn_impl=attn_impl)
+        logits = uv.ultravox_forward(params, cfg, batch, attn_impl=attn_impl,
+                                     batch_group=group)
         shift = labels[:, 1:]
         valid = shift != -100
         logp = torch.log_softmax(logits[:, :-1], dim=-1)
