@@ -243,6 +243,19 @@ Phases, each fatal on failure:
      decode step's logits within a relative RMS of one process's, token
      agreement, TTFT and tok/s beside one process's. ``--phases 15`` runs
      the build and this phase alone, without a result line.
+ 16. the pipe axis (see _pipe_main_path): two ranks of this script on the
+     one card over a gloo group, mesh data 1 x fsdp 1 x tensor 1 x pipe 2,
+     the model of v0.6_llama3_70b_pipe_tpu.yaml (Llama-3.3-70B widths, 8
+     layers, 4 a stage; whisper-large-v3-turbo's encoder): one validation
+     batch and 3 KL train steps of 8 rows in 4 microbatches (the GPipe
+     schedule of parallel/pipeline.py, 5 steps a pass); the
+     ranks' losses, grad norms and validation sums equal and within bf16
+     tolerance of one process's; #13 on each rank's encoder (64 forward and
+     32 x 3 backward launches a step, 32 in the validation batch), no other
+     kernel; the GB each rank holds, its peak and its step ms beside one
+     process's, and a fourth step traced (the card's ms by kernel kind).
+     ``--phases 16`` runs the build and this phase alone,
+     without a result line.
 
 Each phase prints its seconds. Phases 4-7 also hold ln_matmul_gelu, attn_out_proj_residual,
 decode_matmul, attn_v2 and attn_nt at 0 launches: no engine calls them.
@@ -2971,6 +2984,9 @@ def main() -> None:
     if sys.argv[1:] == ["--phases", "15"]:
         _phase15_only(tc, uv, dev)
         return
+    if sys.argv[1:] == ["--phases", "16"]:
+        _phase16_only(tc, uv, dev)
+        return
 
     # 2. kernels against their plain versions
     t0 = time.perf_counter()
@@ -3193,6 +3209,14 @@ def main() -> None:
                 row.setdefault("launches_per_path", {"main": row["launches"]})[
                     f"tensor 2 {path} (phase 15, a rank)"] = launched[row["name"]]
 
+    # 16. the pipe axis: two ranks on the card, the decoder stack in GPipe stages
+    pipe, pp_launches = _pipe_main_path(tc, uv, _kernel_counters(), smi, dev)
+    for row in rows:
+        for path, launched in pp_launches.items():
+            if launched.get(row["name"]):
+                row.setdefault("launches_per_path", {"main": row["launches"]})[
+                    f"pipe 2 {path} (phase 16, a rank)"] = launched[row["name"]]
+
     print(f"chip_smoke: {time.perf_counter() - t_script:.2f} s in all", flush=True)
     print(smi, flush=True)
     print(json.dumps({
@@ -3201,7 +3225,7 @@ def main() -> None:
         "scan_kernel_decode_tok_s": seg_tps, "serving": serving, "training": training,
         "lora_int8": lora_int8, "probes": probes, "checkpoint": checkpoint, "voice": voice,
         "front_doors": front_doors, "train_loop": train_loop, "wav2vec2": wav2vec2,
-        "multiprocess": multiprocess, "tensor": tensor,
+        "multiprocess": multiprocess, "tensor": tensor, "pipe": pipe,
         "total_s": time.perf_counter() - t_script,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6584,12 +6608,13 @@ def _tp_config(tc):
     )
 
 
-def _tp_params(tc, uv, cfg, dev):
-    """Phase 15's weights from the seed (bf16, the fp32 audio LoRA of the
-    recipe: r 8 on q_proj / v_proj), whole: the same in every process."""
+def _tp_params(tc, uv, cfg, dev, seed=TP_SEED):
+    """Phase 15's (and 16's) weights from the seed (bf16, the fp32 audio
+    LoRA of the recipe: r 8 on q_proj / v_proj), whole: the same in every
+    process."""
     from ultravox_torch.models import lora
 
-    gen = torch.Generator(device=dev).manual_seed(TP_SEED)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     params = uv.init_params(cfg, gen, torch.bfloat16, dev)
     return lora.apply_lora_to_model(
         params, tc.LoraConfig(), tc.LoraConfig(r=8, lora_alpha=8.0,
@@ -6612,13 +6637,13 @@ def _tp_mel(n, seconds, rng, dev):
                                num_mel_filters=128)
 
 
-def _tp_train_batch(cfg, step: int, dev):
-    """A KL batch of 2 rows of 10 s audio (1000 mel frames of 128 bins, 63
+def _tp_train_batch(cfg, step: int, dev, B: int = 2, seed: int = TP_SEED):
+    """A KL batch of B rows of 10 s audio (1000 mel frames of 128 bins, 63
     audio tokens at position 4), T 191, T2 128, 40 labelled tokens."""
-    B, mel_frames = 2, 1000
+    mel_frames = 1000
     n_tok = -(-mel_frames // 2 // 8)
     T, T2 = 64 + n_tok + 64, 128
-    rng = np.random.default_rng(TP_SEED + 100 + step)
+    rng = np.random.default_rng(seed + 100 + step)
     labels = np.full((B, T), -100, np.int64)
     labels[:, -40:] = rng.integers(1, cfg.vocab_size, (B, 40))
     alt_labels = np.full((B, T2), -100, np.int64)
@@ -6994,10 +7019,289 @@ def _phase15_only(tc, uv, dev) -> None:
     print("chip_smoke: phase 15 only, no result", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 16: the pipe axis (GPipe over the decoder stack), two ranks
+# --------------------------------------------------------------------------
+
+PP_SEED = 16
+PP_TRAIN_STEPS = 3
+PP_BATCH, PP_MICRO = 8, 4
+
+
+def _pp_config(tc):
+    """The model of v0.6_llama3_70b_pipe_tpu.yaml: Llama-3.3-70B at its
+    published widths (8 of its 80 layers), whisper-large-v3-turbo's
+    encoder, the 4096-wide projector with ln_mid over stacks of 8 frames."""
+    return tc.UltravoxConfig(
+        audio_config=tc.WhisperEncoderConfig(
+            num_mel_bins=128, d_model=1280, num_layers=32, num_heads=20, ffn_dim=5120,
+            max_source_positions=1500,
+        ),
+        text_config=tc.DecoderConfig(
+            arch="llama", vocab_size=128256, hidden_size=8192, intermediate_size=28672,
+            num_layers=8, num_heads=64, num_kv_heads=8, head_dim=128, rope_theta=500000.0,
+            rope_scaling=(8.0, 1.0, 4.0, 8192), rms_norm_eps=1e-5, tie_word_embeddings=False,
+            max_position_embeddings=131072,
+        ),
+        hidden_size=4096,
+        stack_factor=8,
+        projector_ln_mid=True,
+    )
+
+
+def _pp_train(tc, cfg, params, counters, dev, mesh=None):
+    """The validation step on one batch, then PP_TRAIN_STEPS KL steps of
+    PP_BATCH rows (projector + audio LoRA trained, remat, vocab_chunk 256,
+    flash in the encoder, the recipe's kl_temperature 2), each timed
+    between two synchronisations; with ``mesh`` pipelined in PP_MICRO
+    microbatches. The validation runs first, so that it reads the same
+    weights as one process does. Returns (losses, grad norms, step ms,
+    (nll sum, count), launches)."""
+    from ultravox_torch.training import train_step as ts
+
+    pipe = mesh if mesh is not None and mesh.n_stages > 1 else None
+    loss_cfg = tc.LossConfig(loss_function=tc.LossFunction.KL_DIVERGENCE, kl_temperature=2.0)
+    opt = ts.make_optimizer(1e-4, warmup_steps=0, total_steps=100)
+    state, template = ts.init_train_state(params, opt, TRAINABLE, device=dev)
+    step = ts.make_train_step(cfg, loss_cfg, opt, template, remat=True, attn_impl="flash",
+                              vocab_chunk=256, pipe_mesh=pipe, pipe_micro=PP_MICRO, mesh=mesh)
+    eval_step = ts.make_eval_step(cfg, loss_cfg, template, vocab_chunk=256, attn_impl="flash",
+                                  pipe_mesh=pipe, pipe_micro=PP_MICRO, mesh=mesh)
+    batches = [_tp_train_batch(cfg, s, dev, B=PP_BATCH, seed=PP_SEED)
+               for s in range(PP_TRAIN_STEPS + 1)]
+    losses, norms, step_ms = [], [], []
+
+    def run():
+        nonlocal state
+        s, c = eval_step(state, batches[-1])
+        for b in batches[:-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        return float(s), int(c)
+
+    val, launches = _count_launches(counters, run)
+    trace = _pp_trace(lambda: step(state, batches[0]))
+    del state, step, eval_step
+    torch.cuda.empty_cache()
+    return losses, norms, step_ms, val, launches, trace
+
+
+PP_KERNEL_KINDS = (("#13 flash", ("flash_",)), ("products", ("gemm", "nvjet", "cutlass", "xmma")),
+                   ("copies", ("Memcpy", "Memset")))
+
+
+def _pp_trace(fn) -> dict:
+    """One more step under torch.profiler (after the counted ones): its
+    wall ms, the ms the card ran this process's kernels, and those ms by
+    kind (#13, matrix products, copies, the rest)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    by = dict.fromkeys([k for k, _ in PP_KERNEL_KINDS] + ["other"], 0.0)
+    for e in evs:
+        kind = next((k for k, marks in PP_KERNEL_KINDS if any(m in e.key for m in marks)),
+                    "other")
+        by[kind] += e.self_device_time_total / 1e3
+    return {"wall_ms": wall_ms, "busy_ms": sum(by.values()), "by_kind_ms": by}
+
+
+def _phase16_rank(spec_path: str) -> None:
+    """One rank of phase 16, started by _pipe_main_path with torchrun's
+    environment and LOCAL_RANK 0 (two ranks share the one card): a gloo
+    group opened here (NCCL refuses two ranks on one device), the mesh
+    data 1 x fsdp 1 x tensor 1 x pipe 2, the model cut to this stage's
+    layers, then the validation batch and the train steps. Writes its facts
+    to <out>.<rank> (JSON)."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ultravox_torch.models import config as tc
+    from ultravox_torch.models import ultravox as uv
+    from ultravox_torch.parallel import mesh as pm
+    from ultravox_torch.parallel import pipeline
+    from ultravox_torch.parallel.sharding import path_items, shard_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, dev = int(os.environ["RANK"]), "cuda"
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+                            world_size=2, rank=rank)
+    pm.initialize_multihost(device=dev)  # the open group is left alone
+    mesh = pm.make_mesh(pm.MeshConfig(1, 1, 1, 2))
+    counters = _kernel_counters()
+    cfg = _pp_config(tc)
+    t0 = time.perf_counter()
+    for turn in range(2):  # one rank at a time holds the whole model on the shared card
+        if turn == rank:
+            whole = _tp_params(tc, uv, cfg, dev, seed=PP_SEED)
+            whole_bytes = sum(_nbytes(t) for _, t in path_items(whole))
+            params = shard_params(whole, mesh, cfg=cfg)
+            del whole
+            torch.cuda.empty_cache()
+        dist.barrier()
+    held = sum(t.untyped_storage().nbytes() for _, t in path_items(params))
+    M = pipeline.default_n_micro(PP_BATCH, 2) if PP_MICRO is None else PP_MICRO
+    out = {"rank": rank, "backend": dist.get_backend(), "mesh": mesh.shape,
+           "coords": mesh.coords, "stage": mesh.stage, "whole_gb": whole_bytes / 1e9,
+           "held_gb": held / 1e9, "init_s": time.perf_counter() - t0, "n_micro": M,
+           "schedule_steps": M + mesh.n_stages - 1}
+    print(f"phase 16 rank {rank}: mesh {mesh.shape} at {mesh.coords}, backend "
+          f"{out['backend']}; stage {mesh.stage} holds {held / 1e9:.3f} GB of the "
+          f"{whole_bytes / 1e9:.3f} GB model", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_ms, val, launches, trace = _pp_train(tc, cfg, params, counters, dev,
+                                                             mesh)
+    out["train"] = {"losses": losses, "grad_norms": norms, "step_ms": step_ms, "val": val,
+                    "launches": launches, "trace": trace,
+                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    with open(f"{spec['out']}.{rank}", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _pipe_main_path(tc, uv, counters, smi, dev):
+    """Phase 16: the pipe axis on the one card. Two ranks of this script
+    share cuda:0 over a gloo group of their own (each hop crosses a pinned
+    host buffer), the mesh data 1 x fsdp 1 x tensor 1 x pipe 2 over the
+    model of v0.6_llama3_70b_pipe_tpu.yaml (Llama-3.3-70B at its published
+    widths, 8 of its 80 layers, 4 a stage; whisper-large-v3-turbo's
+    encoder; random weights from the seed), through the user's entry
+    points: one validation batch, then PP_TRAIN_STEPS train steps (KL at
+    temperature 2, projector + audio LoRA trained, flash in the encoder,
+    remat, vocab_chunk 256, B PP_BATCH in PP_MICRO microbatches, so M + P -
+    1 = 5 schedule steps). Held: the two ranks' losses, grad norms and
+    validation sums equal; each within FLASH_E2E_LOSS_RTOL /
+    FLASH_E2E_GRAD_RTOL (bf16) of one process on the same weights and
+    batches (this process, after the ranks; its decoder runs #13, the
+    stages the plain attention of the JAX package's pipelined layer); #13
+    launched 2 x 32 forward (the encoder's forward and its recompute) and
+    32 backward (x BWD_LAUNCHES) a step on each rank (every stage runs the
+    tower), 32 forward in the validation batch, and no other kernel.
+    Printed: the GB each rank holds and its peak against one process's,
+    the step ms a rank against one process's, and a fourth step traced on
+    each rank and in one process (wall ms, the card's ms on its kernels,
+    by kind).
+
+    Returns (metrics, {path: launches})."""
+    import shutil
+    import tempfile
+
+    from ultravox_torch.ops.kernels import flash_attention as fl
+
+    t_phase = time.perf_counter()
+    cfg = _pp_config(tc)
+    print(f"phase 16: 2 ranks on cuda:0 over gloo, mesh data 1 x fsdp 1 x tensor 1 x pipe 2; "
+          f"{smi}", flush=True)
+    root = tempfile.mkdtemp(prefix="pipe_")
+    try:
+        spec = {"out": os.path.join(root, "result.json")}
+        t0 = time.perf_counter()
+        ranks = _run_ranks(spec, root, 2, phase=16, one_card=True)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0, r1 = ranks
+    if (r0["backend"], r1["backend"]) != ("gloo", "gloo") or [r["stage"] for r in ranks] != [0, 1]:
+        _fail(f"phase 16: the ranks ran as {[(r['backend'], r['coords']) for r in ranks]}")
+    L_enc = cfg.audio_config.num_layers
+    want = {name: 0 for name in r0["train"]["launches"]}
+    want["flash_attention"] = PP_TRAIN_STEPS * 2 * L_enc + L_enc
+    want["flash_attention_bwd"] = PP_TRAIN_STEPS * L_enc * fl.BWD_LAUNCHES
+    for r in ranks:
+        if r["train"]["launches"] != want:
+            _fail(f"phase 16: rank {r['rank']} launches {r['train']['launches']}, "
+                  f"expected {want}")
+    keys = ("losses", "grad_norms", "val")
+    if [r0["train"][k] for k in keys] != [r1["train"][k] for k in keys]:
+        _fail(f"phase 16: the ranks' results differ: {r0['train']} / {r1['train']}")
+    whole = _tp_params(tc, uv, cfg, dev, seed=PP_SEED)
+    whole_gb = sum(_nbytes(t) for t in _leaves(whole)) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ref_losses, ref_norms, ref_ms, ref_val, _, ref_trace = _pp_train(tc, cfg, whole, counters,
+                                                                      dev)
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9
+    del whole
+    torch.cuda.empty_cache()
+    val, ref_v = r0["train"]["val"][0] / r0["train"]["val"][1], ref_val[0] / ref_val[1]
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(r0["train"]["losses"] + [val],
+                                                        ref_losses + [ref_v]))
+    rel_norm = max(abs(a - b) / abs(b) for a, b in zip(r0["train"]["grad_norms"], ref_norms))
+    print(f"phase 16: losses {r0['train']['losses']} and validation loss {val} (both ranks "
+          f"equal) against one process's {ref_losses} / {ref_v}: largest relative difference "
+          f"{rel_loss:.3g} (tolerance {FLASH_E2E_LOSS_RTOL}); grad norms "
+          f"{r0['train']['grad_norms']} against {ref_norms}: {rel_norm:.3g} "
+          f"({FLASH_E2E_GRAD_RTOL}); validation labels {r0['train']['val'][1]} / "
+          f"{ref_val[1]}; {smi}", flush=True)
+    if (not rel_loss <= FLASH_E2E_LOSS_RTOL or not rel_norm <= FLASH_E2E_GRAD_RTOL
+            or r0["train"]["val"][1] != ref_val[1]):
+        _fail(f"phase 16: pipe 2 against one process: loss {rel_loss}, grad norm {rel_norm}")
+    print(f"phase 16: {r0['n_micro']} microbatches of {PP_BATCH // r0['n_micro']} rows, "
+          f"{r0['schedule_steps']} schedule steps (M + P - 1) a pass; #13 a rank "
+          f"{want['flash_attention']} forward, {want['flash_attention_bwd']} backward launches "
+          f"({PP_TRAIN_STEPS} steps and a validation batch)", flush=True)
+    for r in ranks:
+        print(f"phase 16: rank {r['rank']} (stage {r['stage']}) holds {r['held_gb']:.3f} GB of "
+              f"the {r['whole_gb']:.3f} GB model ({r['held_gb'] / r['whole_gb']:.3f}); peak "
+              f"memory {r['train']['peak_memory_gb']:.3f} GB (one process {ref_peak:.3f} GB, "
+              f"holding {whole_gb:.3f}); step ms {[round(t, 3) for t in r['train']['step_ms']]} "
+              f"(one process {[round(t, 3) for t in ref_ms]}); {smi}", flush=True)
+    for label, tr in [(f"rank {r['rank']}", r["train"]["trace"]) for r in ranks] + [
+            ("one process", ref_trace)]:
+        kinds = ", ".join(f"{k} {v:.3f}" for k, v in tr["by_kind_ms"].items())
+        print(f"phase 16 traced step, {label}: {tr['wall_ms']:.3f} ms, the card ran its kernels "
+              f"{tr['busy_ms']:.3f} ms ({kinds}); {smi}", flush=True)
+    metrics = {
+        "ranks_s": ranks_s, "held_gb": [r["held_gb"] for r in ranks], "whole_gb": r0["whole_gb"],
+        "peak_memory_gb": [r["train"]["peak_memory_gb"] for r in ranks],
+        "traced_step": [r["train"]["trace"] for r in ranks], "one_process_traced_step": ref_trace,
+        "one_process_peak_memory_gb": ref_peak, "n_micro": r0["n_micro"],
+        "schedule_steps": r0["schedule_steps"],
+        "train": {"losses": r0["train"]["losses"], "grad_norms": r0["train"]["grad_norms"],
+                  "val_loss": val, "one_process_losses": ref_losses,
+                  "one_process_grad_norms": ref_norms, "one_process_val_loss": ref_v,
+                  "max_rel_loss": rel_loss, "max_rel_grad_norm": rel_norm,
+                  "step_ms": [r["train"]["step_ms"] for r in ranks],
+                  "one_process_step_ms": ref_ms},
+        "launches_a_rank": want,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(f"phase 16: {metrics['phase_s']:.2f} s", flush=True)
+    return metrics, {"train": r0["train"]["launches"]}
+
+
+def _phase16_only(tc, uv, dev) -> None:
+    """Phase 16 alone, after the build (``--phases 16``). No result line."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    _pipe_main_path(tc, uv, _kernel_counters(), smi, dev)
+    print("chip_smoke: phase 16 only, no result", flush=True)
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--phase14-rank":
         _phase14_rank(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "--phase15-rank":
         _phase15_rank(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--phase16-rank":
+        _phase16_rank(sys.argv[2])
     else:
         main()

@@ -11,8 +11,8 @@
 - the helpers' single-process behaviour: every collective a no-op, the
   mesh of ones without groups (with or without a process group of one),
   ``shard_params`` the identity;
-- ``make_mesh`` refusing the pipe axis (ROADMAP.md queue A item 7b-ii)
-  and laying out a tensor axis.
+- ``make_mesh`` laying out a pipe axis (each rank's stage and its
+  neighbours) and a tensor axis.
 
 The multi-process semantics are in tests/test_torch_parallel_train.py.
 """
@@ -160,12 +160,26 @@ def test_collectives_are_noops_in_one_process():
 
 
 def test_make_mesh_refuses_tensor_and_pipe(monkeypatch):
-    """Only the pipe axis is refused (item 7b-ii); tensor 2 lays out (no
-    process group here, so no groups)."""
+    """Neither axis is refused any more: pipe 2 and tensor 2 lay out (no
+    process group here, so no groups). Pipe is the last axis, so a rank's
+    stage neighbours are the ranks beside it, and pipe peers read the same
+    rows."""
     monkeypatch.setattr(tmesh, "process_count", lambda: 2)
     monkeypatch.setattr(tmesh, "process_index", lambda: 1)
-    with pytest.raises(NotImplementedError, match="item 7b-ii"):
-        tmesh.make_mesh(tmesh.MeshConfig(1, 1, 1, 2))
+    mesh = tmesh.make_mesh(tmesh.MeshConfig(1, 1, 1, 2))
+    assert mesh.shape == {"data": 1, "fsdp": 1, "tensor": 1, "pipe": 2}
+    assert mesh.coords == {"data": 0, "fsdp": 0, "tensor": 0, "pipe": 1}
+    assert (mesh.rank, mesh.stage, mesh.n_stages) == (1, 1, 2)
+    assert (mesh.prev_stage_rank, mesh.next_stage_rank) == (0, None)
+    assert mesh.batch_shards == 1 and mesh.batch_index == 0
+    monkeypatch.setattr(tmesh, "process_count", lambda: 8)
+    monkeypatch.setattr(tmesh, "process_index", lambda: 5)
+    mesh = tmesh.make_mesh(tmesh.MeshConfig(1, 2, 1, 4))  # fsdp 2 x pipe 4
+    assert mesh.coords == {"data": 0, "fsdp": 1, "tensor": 0, "pipe": 1}
+    assert (mesh.stage, mesh.prev_stage_rank, mesh.next_stage_rank) == (1, 4, 6)
+    assert mesh.batch_shards == 2 and mesh.batch_index == 1
+    monkeypatch.setattr(tmesh, "process_count", lambda: 2)
+    monkeypatch.setattr(tmesh, "process_index", lambda: 1)
     mesh = tmesh.make_mesh(tmesh.MeshConfig(1, 1, 2, 1))
     assert mesh.shape == {"data": 1, "fsdp": 1, "tensor": 2, "pipe": 1}
     assert mesh.coords["tensor"] == 1 and mesh.batch_shards == 1 and mesh.batch_index == 0

@@ -17,9 +17,9 @@ run's model factory output, handed to the port through
   transpose of its checkpoint's kernels;
 - KL and CE; ``attn_impl: flash`` (the plain version of #13, the CPU route of
   the kernel wrapper) against the JAX loop at ``"xla"``, the same attention;
-- the layouts the port raises ``NotImplementedError`` (pipeline) or
-  ``ValueError`` (more processes than the run has, tensor 2 included)
-  for, and the card as the default device.
+- the layouts the port raises ``ValueError`` for (more processes than the
+  run has: pipeline and tensor stages included), before any work, and the
+  card as the default device.
 
 Gradient accumulation, resume, validation and the latency-block mask are in
 ``tests/test_torch_train_resume.py``.
@@ -175,16 +175,17 @@ def test_flash_loop_matches_xla(kl_runs, tmp_path, tokenizer_dir):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"mesh_pipe": 2}, "item 7b"),
-    ({"mesh_pipe": 4}, "item 7b"),
-    ({"mesh_pipe": 2, "mesh_tensor": 2}, "item 7b"),
+    ({"mesh_pipe": 2}, r"mesh \[1, 1, 1, 2\] needs more than the 1 available devices"),
+    ({"mesh_pipe": 4}, r"mesh \[1, 1, 1, 4\] needs more than the 1 available devices"),
+    ({"mesh_pipe": 2, "mesh_tensor": 2},
+     r"mesh \[1, 1, 2, 2\] needs more than the 1 available devices"),
 ])
 def test_single_process_only(tmp_path, tokenizer_dir, overrides, match):
-    """The layout that is not ported (pipeline stages; 4 as
-    v0.6_llama3_70b_pipe_tpu.yaml asks) raises before any work, naming the
-    slice that ports it (item 7b-ii); with tensor stages too (which run,
-    over processes enough: tests/test_torch_parallel_tensor.py)."""
-    with pytest.raises(NotImplementedError, match=match):
+    """A pipeline layout (4 stages as v0.6_llama3_70b_pipe_tpu.yaml asks;
+    with tensor stages too) over fewer processes than it needs raises
+    before any work, naming the process count; over processes enough it
+    runs (tests/test_torch_parallel_pipe.py)."""
+    with pytest.raises(ValueError, match=match):
         run_port(tmp_path / "out", tokenizer_dir, **overrides)
     assert not os.path.exists(tmp_path / "out")  # raised before any work
 

@@ -14,11 +14,14 @@ reports per-rank facts).
 Tasks:
 
 - ``step``: from JAX parameters as numpy, shard over the (data, fsdp,
-  tensor) mesh, run the train step on each step's batch of the rank's
+  tensor, pipe) mesh, run the train step on each step's batch of the rank's
   batch coordinate (tensor peers share it), and report the metrics, the
   whole trainable leaves after the steps, each frozen leaf's bytes on this
   rank, and optionally resume from / save a checkpoint and export; a run
   may plant a fault, or run the validation step instead (``eval``);
+- ``pipe``: jobs on meshes with pipeline stages, each on its own mesh in
+  one process group: ``pipelined_decoder_hidden`` against given
+  embeddings (and its gradients), or the ``step`` task's runs;
 - ``serve``: ``ServingEngine(mesh=)`` runs (rank 0 submits, every rank
   reports the tokens its copies of the requests emitted) and
   ``UltravoxInference(mesh=)`` on a checkpoint directory, every rank
@@ -124,20 +127,30 @@ def task_step(spec, rank, world):
     """Each of ``spec["runs"]`` from the same initial parameters, one
     process group for all: {"batches": [[per-rank batch] a step], "accum",
     "fault", "resume", "save"}."""
+    from ultravox_torch.parallel import mesh as pm
+
+    _join(spec)
+    mesh = pm.make_mesh(pm.MeshConfig(spec["data"], spec["fsdp"], spec.get("tensor", 1),
+                                      spec.get("pipe", 1)))
+    results, facts = _step_runs(spec, mesh, world)
+    torch.save(facts, f"{spec['out']}.{rank}")
+    if rank == 0:
+        torch.save({"runs": results, "mesh": mesh.shape}, spec["out"])
+
+
+def _step_runs(spec, mesh, world):
+    """``spec["runs"]`` on ``mesh``: (rank 0's results, this rank's facts)."""
+    from ultravox_torch.models import decoder
     from ultravox_torch.models import ultravox as uv
     from ultravox_torch.models.weights import from_jax_params
-    from ultravox_torch.parallel import mesh as pm
     from ultravox_torch.parallel import sharding
     from ultravox_torch.training import checkpoint as ckpt
     from ultravox_torch.training import train_step as ts
 
-    from ultravox_torch.models import decoder
-
-    _join(spec)
-    mesh = pm.make_mesh(pm.MeshConfig(spec["data"], spec["fsdp"], spec.get("tensor", 1)))
     cfg = spec["cfg"]
-    global_count, proj_apply = uv._global, decoder.proj_apply
-    results, facts, splits = [], [], []
+    pipe_mesh = mesh if mesh.shape["pipe"] > 1 else None
+    global_count, proj_apply, reduce_gradients = uv._global, decoder.proj_apply, ts.reduce_gradients
+    results, facts, splits, stages = [], [], [], []
     for run in spec["runs"]:
         params = sharding.shard_params(from_jax_params(spec["params"], cfg), mesh, cfg=cfg)
         opt = ts.make_optimizer(spec["lr"], **spec["opt"])
@@ -149,6 +162,8 @@ def task_step(spec, rank, world):
                       for k, v in state.frozen.items()})
         splits.append({k: getattr(sharding.split_of(v), "dim", None)
                        for k, v in state.frozen.items()})
+        stages.append({k: (getattr(sharding.stage_of(v), "offset", None), tuple(v.shape))
+                       for k, v in {**state.trainable, **state.frozen}.items()})
         if run.get("resume"):
             state = ckpt.restore_checkpoint(run["resume"], state)
         if run.get("fault") == "mean_of_means":  # each rank's mean, averaged over the ranks
@@ -163,13 +178,22 @@ def task_step(spec, rank, world):
                 return proj_apply(x, p)
 
             decoder.proj_apply = faulty
+        if run.get("fault") == "pipe_p_times":  # a whole leaf's gradient counted on every stage
+            def p_times(params, grads, mesh):
+                out = reduce_gradients(params, grads, mesh)
+                return [g * mesh.shape["pipe"] if sharding.stage_of(p) is None else g
+                        for p, g in zip(params, out)]
+
+            ts.reduce_gradients = p_times
         step = ts.make_train_step(cfg, spec["loss_config"], opt, template, remat=True,
                                   attn_impl="flash", vocab_chunk=spec.get("vocab_chunk"),
+                                  pipe_mesh=pipe_mesh, pipe_micro=spec.get("pipe_micro"),
                                   mesh=mesh)
         metrics = []
         if run.get("eval"):  # the validation step's (sum, count), added over the batch axes
             eval_fn = ts.make_eval_step(cfg, spec["loss_config"], template,
                                         vocab_chunk=spec.get("vocab_chunk"), attn_impl="flash",
+                                        pipe_mesh=pipe_mesh, pipe_micro=spec.get("pipe_micro"),
                                         mesh=mesh)
             for per_shard in run["batches"]:
                 s, c = eval_fn(state, _tensors(per_shard[mesh.batch_index]))
@@ -181,15 +205,84 @@ def task_step(spec, rank, world):
             state, m = step(state, _tensors(per_shard[mesh.batch_index]))
             metrics.append({k: float(v) for k, v in m.items()})
         uv._global, decoder.proj_apply = global_count, proj_apply
+        ts.reduce_gradients = reduce_gradients
         trainable = {k: sharding.gather_as(v, v).detach().clone()
                      for k, v in state.trainable.items()}
         if run.get("save"):
+            if run.get("late") and mesh.rank != 0:  # the master writes before this rank looks
+                time.sleep(1.0)
             ckpt.save_checkpoint(run["save"], state)
             ckpt.export_safetensors(state, os.path.join(run["save"], "model.safetensors"))
         results.append({"metrics": metrics, "trainable": trainable, "step": state.step})
-    torch.save({"held": facts, "split": splits}, f"{spec['out']}.{rank}")
+    return results, {"held": facts, "split": splits, "stage": stages,
+                     "rows": (mesh.batch_index, mesh.batch_shards), "coords": mesh.coords}
+
+
+def task_pipe(spec, rank, world):
+    """Each of ``spec["jobs"]`` on its own mesh (``"mesh"``: data, fsdp,
+    tensor, pipe), one process group for all: "hidden" runs
+    ``pipelined_decoder_hidden`` (and its gradients), "step" the train
+    step's runs as ``task_step`` does."""
+    from ultravox_torch.parallel import mesh as pm
+
+    _join(spec)
+    results, facts = [], []
+    for job in spec["jobs"]:
+        mesh = pm.make_mesh(pm.MeshConfig(*job["mesh"]))
+        if job["kind"] == "hidden":
+            results.append(_pipe_hidden(job, mesh))
+            facts.append(None)
+        else:
+            out, fact = _step_runs(job, mesh, world)
+            results.append({"runs": out, "mesh": mesh.shape})
+            facts.append(fact)
+    torch.save(facts, f"{spec['out']}.{rank}")
     if rank == 0:
-        torch.save({"runs": results, "mesh": mesh.shape}, spec["out"])
+        torch.save({"jobs": results}, spec["out"])
+
+
+def _pipe_hidden(job, mesh):
+    """``pipelined_decoder_hidden`` on the job's decoder (JAX numpy tree)
+    and embeddings: the last stage's hidden states and, with "grads", the
+    gradients of mean(h^2) for every leaf (whole) and the embeddings,
+    summed over the stages; a "fault" runs each stage's layers with
+    stage-local indices."""
+    from ultravox_torch.parallel import pipeline, sharding
+
+    cfg = job["cfg"]
+    lm = sharding.map_paths(lambda _, a: torch.from_numpy(a.copy()), job["params"])
+    lm = sharding.shard_params({"language_model": lm}, mesh)["language_model"]
+    leaves = dict(sharding.path_items(lm))
+    for v in leaves.values():
+        v.requires_grad_(job.get("grads", False))
+    embeds = torch.from_numpy(job["embeds"]).requires_grad_(job.get("grads", False))
+    first = pipeline._first_layer
+    if job.get("fault") == "local_index":
+        pipeline._first_layer = lambda mesh, n: 0
+    try:
+        h = pipeline.pipelined_decoder_hidden(
+            lm, cfg, embeds, torch.from_numpy(job["positions"]), torch.from_numpy(job["valid"]),
+            mesh=mesh, n_micro=job.get("n_micro"), remat=job.get("remat", False))
+    finally:
+        pipeline._first_layer = first
+    last = mesh.stage == mesh.n_stages - 1
+    group = mesh.groups["pipe"]
+    out = {"hidden": sharding.all_reduce_(h.detach().clone() if last else torch.zeros_like(h),
+                                          group)}
+    if job.get("grads"):
+        loss = (h.float() ** 2).mean() if last else h.float().sum() * 0
+        names = list(leaves)
+        grads = torch.autograd.grad(loss, [embeds] + [leaves[k] for k in names],
+                                    allow_unused=True, materialize_grads=True)
+        whole = {}
+        for k, g in zip(names, grads[1:]):
+            leaf = leaves[k]
+            whole[k] = (sharding.gather_as(g, leaf) if sharding.is_placed(leaf)
+                        else sharding.all_reduce_(g.clone(), group))
+        out["loss"] = float(sharding.all_reduce_(loss.detach().clone(), group))
+        out["grads"] = whole
+        out["d_embeds"] = sharding.all_reduce_(grads[0].clone(), group)
+    return out
 
 
 def task_train(spec, rank, world):
@@ -318,7 +411,7 @@ def main():
     spec = torch.load(path, weights_only=False)
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     {"step": task_step, "train": task_train, "eval": task_eval,
-     "serve": task_serve}[task](spec, rank, world)
+     "serve": task_serve, "pipe": task_pipe}[task](spec, rank, world)
     import torch.distributed as dist
 
     if dist.is_initialized():

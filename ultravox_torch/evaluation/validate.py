@@ -1,9 +1,10 @@
 """Standalone val-loss CLI (reference: evaluation/validate.py:22-226):
 teacher-forcing forward over the configured datasets, label-count-weighted
 loss, on the card unless ``--device cpu``; under torchrun each process runs
-a mod-N shard of every set over the config's data x fsdp x tensor mesh
-(N batch shards; tensor peers run the same rows), and the
-master prints the sums' ratio.
+a mod-N shard of every set over the config's data x fsdp x tensor x pipe
+mesh (N batch shards; tensor and pipe peers run the same rows, pipeline
+stages run the decoder stack as a GPipe schedule), and the master prints
+the sums' ratio.
 
 Usage: ``python -m ultravox_torch.evaluation.validate --config_path <train yaml>
 [--val_sets ...]``.
@@ -20,13 +21,12 @@ from ultravox_torch.parallel.sharding import shard_params
 from ultravox_torch.training import train_step as ts
 from ultravox_torch.training.config import get_train_config
 from ultravox_torch.training.model_factory import create_model_pack
-from ultravox_torch.training.train import _check_single_process, _mesh, validate
+from ultravox_torch.training.train import _mesh, validate
 
 
 def main():
     logging.basicConfig(level=logging.INFO)
     config = get_train_config()
-    _check_single_process(config)
     mesh, dev = _mesh(config)
     model_pack = create_model_pack(config)
     optimizer = ts.make_optimizer(config.lr)

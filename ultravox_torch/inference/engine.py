@@ -91,6 +91,9 @@ def place_params(params, cfg: UltravoxConfig, mesh, device):
     if mesh is not None and mesh.shape["data"] > 1:
         raise ValueError("an engine shards over fsdp and tensor (mesh data 1); serve each data "
                          "replica with an engine of its own")
+    if mesh is not None and mesh.shape["pipe"] > 1:
+        raise ValueError("an engine runs every decoder layer on each process (mesh pipe 1): "
+                         "pipeline stages train and validate only, as in the JAX package")
     params = _to_device(params, device)
     if mesh is None:
         return params

@@ -6,12 +6,20 @@ In a multi-process run each process holds its own rows of the global
 batch (``parallel/multihost.py``): given the processes' ``batch_group``, a
 loss divides its local sum by the count summed over the group, so the
 processes' losses (and gradients) add up to the one loss over the global
-batch, as the JAX package computes it. Tensor peers hold the same rows and
-are not in that group, so they are counted once. The processes of the group
+batch, as the JAX package computes it. Tensor and pipe peers hold the
+same rows and are not in that group, so they are counted once. The processes of the group
 run the audio tower's collectives (its fsdp gathers and reduce-scatters)
 alike whatever their own rows carry: when any of them has audio, one without
 runs the tower and the projector on a dummy chunk whose output enters
 nothing but a zero (``ultravox_embed``).
+
+With ``pipe_mesh`` the decoder layer stack runs over the mesh's pipeline
+stages (``parallel/pipeline.py``), the student's and the KL teacher's.
+The encoder, projector and embedding stay outside the pipeline and run on
+every stage (pipe peers hold the same rows); only stage 0's enter it. The
+final hidden states are the last stage's, and so is the loss: the other
+stages' loss is a zero tied to their pipeline output, so that their
+backward schedule runs; the train step sums the metrics over ``pipe``.
 
 The losses use fixed-shape masked reductions: masked rows are compacted by
 index writes into a buffer with one spare slot that is dropped, never by
@@ -33,6 +41,7 @@ from ultravox_torch.models import wav2vec2_encoder as w2v_lib
 from ultravox_torch.models import whisper_encoder as encoder_lib
 from ultravox_torch.models.config import LossConfig, LossFunction, UltravoxConfig
 from ultravox_torch.models.remat import remat as _remat
+from ultravox_torch.parallel.pipeline import pipelined_decoder_hidden
 from ultravox_torch.parallel.sharding import all_reduce_, carry_shard
 
 Params = Dict[str, Any]
@@ -198,16 +207,16 @@ def ultravox_forward(
     remat: bool = False,
     attn_impl: str = "xla",  # "flash" = the differentiable kernel in both towers
     return_hidden: bool = False,  # final hidden states instead of logits
-    pipe_mesh=None,
+    pipe_mesh=None,  # a Mesh with pipe > 1: GPipe the decoder layer stack
+    pipe_micro: Optional[int] = None,
     batch_group=None,  # the processes splitting the batch (ultravox_embed)
 ) -> torch.Tensor:
     """Full-sequence forward: fp32 logits (B, T, V), or with
     ``return_hidden`` the final hidden states (B, T, D) for the chunked
     losses. ``batch``: input_ids, attention_mask (right-padded) and
-    optionally the audio fields of ``ultravox_embed``."""
-    if pipe_mesh is not None:
-        raise NotImplementedError(
-            "pipeline-parallel decoders are not ported yet (ROADMAP.md queue A item 7b-ii)")
+    optionally the audio fields of ``ultravox_embed``. With ``pipe_mesh``
+    (every stage calls it) the output is the last stage's; the other
+    stages get the head applied to zeros (see the module docstring)."""
     input_ids = batch["input_ids"]
     inputs_embeds = ultravox_embed(
         params, cfg, input_ids, batch, remat=remat,
@@ -216,12 +225,29 @@ def ultravox_forward(
     B, T = input_ids.shape
     positions = torch.arange(T, device=inputs_embeds.device)[None].expand(B, T)
     seq_lens = batch["attention_mask"].sum(dim=-1).to(torch.int32)
+    if _pipelined(pipe_mesh):
+        hidden = pipelined_decoder_hidden(
+            params["language_model"], cfg.text_config, inputs_embeds, positions, seq_lens,
+            mesh=pipe_mesh, n_micro=pipe_micro, remat=remat)
+        if return_hidden:
+            return hidden
+        return decoder_lib.compute_logits(params["language_model"], cfg.text_config, hidden)
     out, _ = decoder_lib.decoder_forward(
         params["language_model"], cfg.text_config, inputs_embeds=inputs_embeds,
         positions=positions, kv_valid_len=seq_lens, remat=remat, attn_impl=attn_impl,
         return_hidden=return_hidden,
     )
     return out
+
+
+def _pipelined(pipe_mesh) -> bool:
+    return pipe_mesh is not None and pipe_mesh.shape.get("pipe", 1) > 1
+
+
+def computes_loss(pipe_mesh) -> bool:
+    """Whether this process computes the loss: every process without
+    pipeline stages, else the last stage alone."""
+    return not _pipelined(pipe_mesh) or pipe_mesh.stage == pipe_mesh.n_stages - 1
 
 
 # --------------------------------------------------------------------------
@@ -464,6 +490,7 @@ def ultravox_loss(
     attn_impl: str = "xla",
     vocab_chunk: Optional[int] = None,
     pipe_mesh=None,
+    pipe_micro: Optional[int] = None,
     batch_group=None,
 ) -> torch.Tensor:
     """Training loss: CE, or KL distillation against the text-only teacher
@@ -472,12 +499,21 @@ def ultravox_loss(
     vocabulary ``vocab_chunk`` positions at a time; the same value and
     gradients as the dense path. With ``batch_group`` (the processes that
     split the batch) the loss is this process's share of the global
-    batch's: its local sum over the global count."""
+    batch's: its local sum over the global count. With ``pipe_mesh`` the
+    student and the teacher run pipelined and the loss is the last
+    stage's; the other stages return a zero tied to their pipeline."""
     chunked = vocab_chunk is not None and vocab_chunk > 0
+    pipe = _pipelined(pipe_mesh)
     out = ultravox_forward(params, cfg, batch, remat=remat, attn_impl=attn_impl,
-                           return_hidden=chunked, pipe_mesh=pipe_mesh, batch_group=batch_group)
+                           return_hidden=chunked or pipe, pipe_mesh=pipe_mesh,
+                           pipe_micro=pipe_micro, batch_group=batch_group)
     lm = params["language_model"]
+    last = computes_loss(pipe_mesh)
+    if pipe and not chunked and last:
+        out = decoder_lib.compute_logits(lm, cfg.text_config, out)
     if loss_config.loss_function == LossFunction.CROSS_ENTROPY:
+        if not last:
+            return out.float().sum() * 0
         if chunked:
             return causal_lm_loss_chunked(lm, cfg.text_config, out, batch["labels"],
                                           chunk=vocab_chunk, batch_group=batch_group)
@@ -485,13 +521,24 @@ def ultravox_loss(
 
     alt_ids = batch["alt_input_ids"]
     B, T2 = alt_ids.shape
+    positions = torch.arange(T2, device=alt_ids.device)[None].expand(B, T2)
+    alt_lens = batch["alt_attention_mask"].sum(dim=-1).to(torch.int32)
     with torch.no_grad():
-        teacher_out, _ = decoder_lib.decoder_forward(
-            _detached(lm), cfg.text_config, input_ids=alt_ids,
-            positions=torch.arange(T2, device=alt_ids.device)[None].expand(B, T2),
-            kv_valid_len=batch["alt_attention_mask"].sum(dim=-1).to(torch.int32),
-            remat=remat, attn_impl=attn_impl, return_hidden=chunked,
-        )
+        if pipe:
+            teacher_lm = _detached(lm)
+            teacher_out = pipelined_decoder_hidden(
+                teacher_lm, cfg.text_config, decoder_lib.embed_lookup(teacher_lm, alt_ids),
+                positions, alt_lens, mesh=pipe_mesh, n_micro=pipe_micro, remat=remat)
+            if not chunked and last:
+                teacher_out = decoder_lib.compute_logits(teacher_lm, cfg.text_config,
+                                                         teacher_out)
+        else:
+            teacher_out, _ = decoder_lib.decoder_forward(
+                _detached(lm), cfg.text_config, input_ids=alt_ids, positions=positions,
+                kv_valid_len=alt_lens, remat=remat, attn_impl=attn_impl, return_hidden=chunked,
+            )
+    if not last:
+        return out.float().sum() * 0
     if chunked:
         return kl_distillation_loss_chunked(lm, cfg.text_config, out, batch["labels"],
                                             teacher_out, batch["alt_labels"], loss_config,

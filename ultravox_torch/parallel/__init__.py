@@ -1,5 +1,5 @@
-"""Process mesh, sharding rules and multi-process collectives (the data,
-fsdp and tensor axes; pipe is ROADMAP.md queue A item 7b-ii)."""
+"""Process mesh, sharding rules, multi-process collectives and the GPipe
+schedule (the data, fsdp, tensor and pipe axes)."""
 
 from ultravox_torch.parallel.mesh import Mesh, MeshConfig, initialize_multihost, make_mesh  # noqa: F401
 from ultravox_torch.parallel.sharding import (  # noqa: F401
@@ -9,4 +9,8 @@ from ultravox_torch.parallel.sharding import (  # noqa: F401
     gather_whole,
     param_pspecs,
     shard_params,
+)
+from ultravox_torch.parallel.pipeline import (  # noqa: F401
+    pipeline_layers,
+    pipelined_decoder_hidden,
 )

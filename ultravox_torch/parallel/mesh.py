@@ -14,8 +14,9 @@ axes, with a process group for each axis and one for the batch axes
 - ``tensor``: Megatron splits of the attention heads and the FFN inside
   both towers' layers (``sharding.py``); tensor peers hold the same rows
   of the batch;
-- ``pipe`` (GPipe stages) raises ``NotImplementedError``: ROADMAP.md
-  queue A item 7b-ii.
+- ``pipe``: GPipe stages over the decoder layer stack (``pipeline.py``):
+  each stage holds L/pipe contiguous layers; pipe peers are adjacent ranks
+  (the last axis) and hold the same rows of the batch.
 
 A process is launched by ``torchrun`` (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``) or given the JAX config's
@@ -43,7 +44,6 @@ logger = logging.getLogger(__name__)
 
 AXES = ("data", "fsdp", "tensor", "pipe")
 BATCH_AXES = ("data", "fsdp")
-NEXT_SLICE = "ROADMAP.md queue A item 7b-ii"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,8 +92,34 @@ class Mesh:
     @property
     def batch_index(self) -> int:
         """This process's shard of the batch: its (data, fsdp) coordinate,
-        row-major; tensor peers share it and read the same rows."""
+        row-major; tensor and pipe peers share it and read the same rows."""
         return self.coords["data"] * self.shape["fsdp"] + self.coords["fsdp"]
+
+    @property
+    def rank(self) -> int:
+        """This process's rank: its coordinates, row-major over AXES."""
+        return int(np.ravel_multi_index([self.coords[a] for a in AXES],
+                                        [self.shape[a] for a in AXES]))
+
+    @property
+    def stage(self) -> int:
+        """This process's pipeline stage (its ``pipe`` coordinate)."""
+        return self.coords["pipe"]
+
+    @property
+    def n_stages(self) -> int:
+        return self.shape["pipe"]
+
+    @property
+    def prev_stage_rank(self) -> Optional[int]:
+        """The rank of the stage before this one (pipe is the last axis,
+        so it is the rank before), None on the first stage."""
+        return self.rank - 1 if self.stage > 0 else None
+
+    @property
+    def next_stage_rank(self) -> Optional[int]:
+        """The rank of the stage after this one, None on the last stage."""
+        return self.rank + 1 if self.stage < self.n_stages - 1 else None
 
     @classmethod
     def local(cls, config: Optional[MeshConfig] = None, n_devices: int = 1) -> "Mesh":
@@ -132,9 +158,6 @@ def make_mesh(config: Optional[MeshConfig] = None) -> Mesh:
     config = config or MeshConfig()
     world = process_count()
     shape = config.resolve(world)
-    if shape[3] > 1:
-        raise NotImplementedError(
-            f"the pipe axis (mesh {dict(zip(AXES, shape))}) is not ported yet ({NEXT_SLICE})")
     if math.prod(shape) != world:
         raise ValueError(f"mesh {dict(zip(AXES, shape))} must cover all {world} processes "
                          "(one device a process)")

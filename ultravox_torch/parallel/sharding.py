@@ -6,13 +6,15 @@ Every parameter leaf gets a spec from a rules table keyed on its tree path
 package's ``parallel/sharding.py`` does. There XLA inserts the
 collectives; here they are written out:
 
-- ``shard_params`` cuts, on each process, a leaf whose spec names
-  ``tensor`` to this rank's slice (``TensorSplit``), on head boundaries
-  for the attention leaves, then a leaf whose spec names ``fsdp`` to its
-  1/fsdp slice (``Shard``); ``data`` and axes of size 1 replicate. Where
-  ``tensor`` does not divide the KV heads but the KV heads divide it, a
-  rank keeps the whole K/V projections and reads the heads its query
-  heads read (a ``TensorSplit`` with ``cols``);
+- ``shard_params`` cuts, on each process, a decoder layer leaf to its
+  stage's L/pipe layers when the mesh has pipeline stages
+  (``StageSlice``), then a leaf whose spec names ``tensor`` to this rank's
+  slice (``TensorSplit``), on head boundaries for the attention leaves,
+  then a leaf whose spec names ``fsdp`` to its 1/fsdp slice (``Shard``);
+  ``data`` and axes of size 1 replicate. Where ``tensor`` does not divide
+  the KV heads but the KV heads divide it, a rank keeps the whole K/V
+  projections and reads the heads its query heads read (a
+  ``TensorSplit`` with ``cols``);
 - the models take each fsdp shard whole through ``gather`` (or
   ``gather_layer`` for one layer of a stacked leaf) just before its use:
   an all-gather over the fsdp group, differentiable for a trainable leaf
@@ -22,15 +24,20 @@ collectives; here they are written out:
   forward, identity backward) leaves a row-split one, and the leaves read
   whole outside the layers (embedding, head, projector) are gathered
   over ``tensor`` too (``gather_whole``, whose backward keeps this rank's
-  slice of a gradient every tensor peer computes alike);
+  slice of a gradient every tensor peer computes alike). A stage slice is
+  never gathered in a step: each stage runs its own layers
+  (``pipeline.py``);
 - ``reduce_gradients`` sums each gradient over the processes that hold
   the same leaf and split the batch (never over ``tensor``: a split
-  leaf's peers hold other slices, a whole leaf's the same gradient), and
-  ``sq_sum`` counts every element of a sharded tree once, so the global
-  norm is the full gradient's.
+  leaf's peers hold other slices, a whole leaf's the same gradient), and a
+  leaf every stage holds whole over ``pipe`` too (each stage's part of
+  its gradient, zero where the stage did not use it); a stage slice's
+  never. ``sq_sum`` counts every element of a sharded tree once, so the
+  global norm is the full gradient's.
 
 Paths look like "language_model/layers/q_proj/kernel"; layer-stacked
-leaves have a leading L axis, which is never sharded (it is looped over).
+leaves have a leading L axis, which only ``pipe`` cuts (a stage loops over
+its own layers).
 """
 
 from __future__ import annotations
@@ -77,9 +84,9 @@ DEFAULT_RULES: List[Tuple[str, Spec]] = [
 
 def rules_for_mesh(mesh: Mesh) -> List[Tuple[str, Spec]]:
     """DEFAULT_RULES, with the decoder layer stack's leading L axis over
-    ``pipe`` when the mesh carries pipeline stages (each stage holds only
-    its own layers). ``make_mesh`` refuses such a mesh until the GPipe
-    schedule is ported (ROADMAP.md queue A item 7b-ii); the table is kept."""
+    ``pipe`` when the mesh carries pipeline stages: each stage holds only
+    its own layers (``shard_params``, ``StageSlice``), which
+    ``pipeline.py`` runs."""
     if mesh.shape.get("pipe", 1) <= 1:
         return DEFAULT_RULES
     out: List[Tuple[str, Spec]] = []
@@ -213,8 +220,22 @@ class TensorSplit:
     cols: Optional[Tuple[int, int]] = None
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class StageSlice:
+    """How a decoder layer leaf sits on the pipe axis: this process holds
+    layers ``offset`` to ``offset + L / size`` of the ``layers`` (L) on its
+    leading axis, stage ``index`` of ``size``."""
+
+    offset: int
+    layers: int
+    size: int
+    index: int
+    group: Any
+
+
 _ATTR = "_fsdp_shard"
 _TP_ATTR = "_tensor_split"
+_PP_ATTR = "_stage_slice"
 
 
 def shard_of(t) -> Optional[Shard]:
@@ -227,6 +248,11 @@ def split_of(t) -> Optional[TensorSplit]:
     return getattr(t, _TP_ATTR, None)
 
 
+def stage_of(t) -> Optional[StageSlice]:
+    """The leaf's StageSlice, None for a leaf every stage holds whole."""
+    return getattr(t, _PP_ATTR, None)
+
+
 def _cut_over_tensor(t) -> Optional[TensorSplit]:
     sp = split_of(t)
     return sp if sp is not None and sp.dim is not None else None
@@ -234,29 +260,31 @@ def _cut_over_tensor(t) -> Optional[TensorSplit]:
 
 def is_placed(t) -> bool:
     """Whether this process holds only a part of the leaf."""
-    return shard_of(t) is not None or _cut_over_tensor(t) is not None
+    return (shard_of(t) is not None or _cut_over_tensor(t) is not None
+            or stage_of(t) is not None)
 
 
-def _tag(t: torch.Tensor, shard: Optional[Shard], split: Optional[TensorSplit]) -> torch.Tensor:
+def _tag(t: torch.Tensor, shard: Optional[Shard], split: Optional[TensorSplit],
+         stage: Optional[StageSlice] = None) -> torch.Tensor:
     if shard is not None:
         setattr(t, _ATTR, shard)
     if split is not None:
         setattr(t, _TP_ATTR, split)
+    if stage is not None:
+        setattr(t, _PP_ATTR, stage)
     return t
 
 
 def carry_shard(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """``dst`` (a copy of ``src``, moved or detached) tagged as ``src`` is."""
-    return _tag(dst, shard_of(src), split_of(src))
+    return _tag(dst, shard_of(src), split_of(src), stage_of(src))
 
 
 def full_shape(t: torch.Tensor) -> Tuple[int, ...]:
     """The whole leaf's shape."""
-    sp = _cut_over_tensor(t)
-    if sp is not None:
-        return sp.full_shape
-    s = shard_of(t)
-    return tuple(t.shape) if s is None else s.full_shape
+    sp, s, st = _cut_over_tensor(t), shard_of(t), stage_of(t)
+    shape = sp.full_shape if sp is not None else tuple(t.shape) if s is None else s.full_shape
+    return shape if st is None else (st.layers,) + shape[1:]
 
 
 def _chunk(t: torch.Tensor, dim: int, size: int, index: int) -> torch.Tensor:
@@ -269,11 +297,13 @@ def cut_as(whole: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     whole or ``whole`` has another shape (an optimizer's step count)."""
     if not is_placed(like) or tuple(whole.shape) != full_shape(like):
         return whole
-    sp, s = _cut_over_tensor(like), shard_of(like)
-    out = whole if sp is None else _chunk(whole, sp.dim, sp.size, sp.index)
+    sp, s, st = _cut_over_tensor(like), shard_of(like), stage_of(like)
+    out = whole if st is None else _chunk(whole, 0, st.size, st.index)
+    if sp is not None:
+        out = _chunk(out, sp.dim, sp.size, sp.index)
     if s is not None:
         out = _chunk(out, s.dim, s.size, s.index)
-    return _tag(out.clone(memory_format=torch.contiguous_format), s, split_of(like))
+    return _tag(out.clone(memory_format=torch.contiguous_format), s, split_of(like), st)
 
 
 def local_kv_heads(num_kv_heads: int, tensor: int) -> int:
@@ -324,15 +354,17 @@ def _tensor_split(path: str, leaf, dim: int, mesh: Mesh, cfg) -> Optional[Tensor
 
 def shard_params(params: Any, mesh: Mesh, rules: Optional[Sequence[Tuple[str, Spec]]] = None,
                  cfg=None) -> Any:
-    """The tree with every leaf whose spec names ``tensor`` cut to this
-    rank's tensor slice and then every leaf whose spec names ``fsdp`` cut
-    to its 1/fsdp slice (default rules: ``rules_for_mesh``). A tensor axis
-    needs the model's ``UltravoxConfig`` (``cfg``) to cut on head
-    boundaries. Leaves left whole are the caller's tensors, untouched."""
+    """The tree with every decoder layer leaf cut to this stage's layers
+    (a spec that starts with ``pipe``), then every leaf whose spec names
+    ``tensor`` cut to this rank's tensor slice and then every leaf whose
+    spec names ``fsdp`` cut to its 1/fsdp slice (default rules:
+    ``rules_for_mesh``). A tensor axis needs the model's
+    ``UltravoxConfig`` (``cfg``) to cut on head boundaries. Leaves left
+    whole are the caller's tensors, untouched."""
     if rules is None:
         rules = rules_for_mesh(mesh)
-    t, f = mesh.shape["tensor"], mesh.shape["fsdp"]
-    if t == 1 and f == 1:
+    t, f, pp = mesh.shape["tensor"], mesh.shape["fsdp"], mesh.shape["pipe"]
+    if t == 1 and f == 1 and pp == 1:
         return params
     if t > 1 and cfg is None:
         raise ValueError("a tensor axis cuts on head boundaries: shard_params needs the "
@@ -340,21 +372,25 @@ def shard_params(params: Any, mesh: Mesh, rules: Optional[Sequence[Tuple[str, Sp
 
     def place(path, leaf):
         spec = _shrink_spec(spec_for_path(path, rules), tuple(leaf.shape), mesh, path)
-        split = shard = None
+        split = shard = stage = None
         out = leaf.detach()
+        if pp > 1 and spec[:1] == ("pipe",):
+            n = leaf.shape[0] // pp
+            stage = StageSlice(mesh.stage * n, leaf.shape[0], pp, mesh.stage, mesh.groups["pipe"])
+            out = _chunk(out, 0, pp, stage.index)
         if t > 1 and "tensor" in spec:
-            split = _tensor_split(path, leaf, spec.index("tensor") - leaf.dim(), mesh, cfg)
+            split = _tensor_split(path, out, spec.index("tensor") - leaf.dim(), mesh, cfg)
             if split is not None and split.dim is not None:
                 out = _chunk(out, split.dim, t, split.index)
         if f > 1 and "fsdp" in spec:
             shard = Shard(spec.index("fsdp"), tuple(out.shape), f, mesh.coords["fsdp"],
                           mesh.groups["fsdp"])
             out = _chunk(out, shard.dim, f, shard.index)
-        if split is None and shard is None:
+        if split is None and shard is None and stage is None:
             return leaf
-        if shard is not None or split.dim is not None:
+        if shard is not None or stage is not None or split.dim is not None:
             out = out.clone(memory_format=torch.contiguous_format)
-        return _tag(out, shard, split)  # a kept leaf: a tagged view of the caller's
+        return _tag(out, shard, split, stage)  # a kept leaf: a tagged view of the caller's
 
     return map_paths(place, params)
 
@@ -447,14 +483,16 @@ def gather_whole(t):
 
 def gather_as(t: torch.Tensor, like) -> torch.Tensor:
     """``t``, shaped as the leaf ``like`` is held (its optimizer moments,
-    its gradient buffer), whole: gathered over fsdp and then over
-    ``tensor``, without autograd."""
-    s, sp = shard_of(like), _cut_over_tensor(like)
-    out = t.detach() if (s is not None or sp is not None) else t
+    its gradient buffer), whole: gathered over fsdp, then over ``tensor``,
+    then over ``pipe`` (the stages' layers in order), without autograd."""
+    s, sp, st = shard_of(like), _cut_over_tensor(like), stage_of(like)
+    out = t.detach() if is_placed(like) else t
     if s is not None:
         out = _all_gather(out, s.dim, s.size, s.group)
     if sp is not None:
         out = _all_gather(out, sp.dim, sp.size, sp.group)
+    if st is not None:
+        out = _all_gather(out, 0, st.size, st.group)
     return out
 
 
@@ -552,43 +590,53 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     return t
 
 
+def _bucketed_all_reduce(out: List[torch.Tensor], groups: Sequence[Tuple[int, Any]]) -> None:
+    """Sum ``out[i]`` over its group for each (i, group), in place of the
+    list: one all-reduce per group and dtype, on a flat buffer."""
+    buckets: List[Tuple[Any, torch.dtype, List[int]]] = []
+    for i, group in groups:
+        for b in buckets:
+            if b[0] is group and b[1] == out[i].dtype:
+                b[2].append(i)
+                break
+        else:
+            buckets.append((group, out[i].dtype, [i]))
+    for group, _, idx in buckets:
+        flat = torch.cat([out[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=group)
+        for i, part in zip(idx, flat.split([out[i].numel() for i in idx])):
+            out[i] = part.view_as(out[i])
+
+
 def reduce_gradients(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                      mesh: Mesh) -> List[torch.Tensor]:
     """Each gradient summed over the processes that hold the same leaf and
     split the batch: an fsdp shard's (already summed over fsdp by its
     gather's backward) over ``data``, any other leaf's over the batch axes.
     Never over ``tensor``: a split leaf's peers hold other slices, and a
-    whole leaf's peers the same gradient. One all-reduce per group and
-    dtype, on a flat buffer."""
+    whole leaf's peers the same gradient. Then a leaf every stage holds is
+    summed over ``pipe`` (each stage computed its own part: the embedding
+    side on the stages that fed the pipeline, the head side on the last
+    one, zero elsewhere); a stage slice's gradient is its stage's alone.
+    One all-reduce per group and dtype, on a flat buffer."""
     out = list(grads)
-    buckets: List[Tuple[Any, torch.dtype, List[int]]] = []
-    for i, (p, g) in enumerate(zip(params, grads)):
-        group = mesh.groups["data"] if shard_of(p) is not None else mesh.batch_group
-        if group is None:
-            continue
-        for b in buckets:
-            if b[0] is group and b[1] == g.dtype:
-                b[2].append(i)
-                break
-        else:
-            buckets.append((group, g.dtype, [i]))
-    for group, _, idx in buckets:
-        flat = torch.cat([out[i].reshape(-1) for i in idx])
-        dist.all_reduce(flat, group=group)
-        for i, part in zip(idx, flat.split([out[i].numel() for i in idx])):
-            out[i] = part.view_as(out[i])
+    batch = [(i, mesh.groups["data"] if shard_of(p) is not None else mesh.batch_group)
+             for i, p in enumerate(params)]
+    _bucketed_all_reduce(out, [(i, g) for i, g in batch if g is not None])
+    pipe = mesh.groups["pipe"]
+    if pipe is not None:
+        _bucketed_all_reduce(out, [(i, pipe) for i, p in enumerate(params)
+                                   if stage_of(p) is None])
     return out
 
 
-def sq_sum(tensors: Iterable[torch.Tensor], like: Sequence[torch.Tensor]) -> torch.Tensor:
-    """fp32 sum of squares of every element of the whole leaves, from
-    ``tensors`` shaped as the leaves ``like`` hold them: a whole leaf
-    counts once, the parts' sums are added over their fsdp group and over
-    their tensor group."""
+def _sq_sum(sqs: Sequence[torch.Tensor], like: Sequence[torch.Tensor]):
+    """The squares' sums ``sqs`` of the leaves ``like`` added into one:
+    a whole leaf's counts once, the parts' are added over their fsdp
+    group and over their tensor group."""
     whole, f_parts, t_parts, ft_parts = [], [], [], []
     f_group = t_group = None
-    for t, p in zip(tensors, like):
-        sq = (t.float() * t.float()).sum()
+    for sq, p in zip(sqs, like):
         s, sp = shard_of(p), _cut_over_tensor(p)
         if s is not None:
             f_group = s.group
@@ -605,3 +653,18 @@ def sq_sum(tensors: Iterable[torch.Tensor], like: Sequence[torch.Tensor]) -> tor
             part = part + all_reduce_(sum(ft_parts), f_group)
         total = total + all_reduce_(part, t_group)
     return total
+
+
+def sq_sum(tensors: Iterable[torch.Tensor], like: Sequence[torch.Tensor]) -> torch.Tensor:
+    """fp32 sum of squares of every element of the whole leaves, from
+    ``tensors`` shaped as the leaves ``like`` hold them: a whole leaf
+    counts once, the parts' sums are added over their fsdp group and over
+    their tensor group, and the stage slices' over ``pipe``."""
+    sqs = [(t.float() * t.float()).sum() for t in tensors]
+    staged = [stage_of(p) is not None for p in like]
+    if not any(staged):
+        return _sq_sum(sqs, like)
+    pick = lambda xs, flag: [x for x, s in zip(xs, staged) if s == flag]  # noqa: E731
+    part = _sq_sum(pick(sqs, True), pick(like, True))
+    group = next(stage_of(p) for p in like if stage_of(p) is not None).group
+    return _sq_sum(pick(sqs, False), pick(like, False)) + all_reduce_(part, group)

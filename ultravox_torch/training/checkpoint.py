@@ -17,9 +17,10 @@ changes, so it is adapter-sized:
 The JAX package writes orbax directories; this format is the port's own.
 
 A checkpoint does not depend on the number of processes that wrote it:
-over an fsdp and tensor mesh every process joins the gathers of its
+over an fsdp, tensor and pipe mesh every process joins the gathers of its
 leaves' parts (leaves, AdamW moments, accumulation buffer: over fsdp,
-then over tensor), the master writes exactly what one process writes,
+then over tensor, then a stage's layers over pipe), the master writes
+exactly what one process writes,
 and all meet at a barrier; a restore reads the whole file on every
 process and cuts each part again from the state it is given. The export
 is the master's, after the same gathers.
@@ -62,7 +63,11 @@ def _whole_adamw(adamw: torch.optim.Optimizer, leaves) -> Dict:
 def save_checkpoint(base_dir: str, state: TrainState) -> str:
     """Write ``checkpoint-<step>``; every process of the run must call it."""
     path = _ckpt_dir(base_dir, state.step)
-    if os.path.exists(path):  # idempotent per step (e.g. save_steps + final)
+    # every process looks before the master writes: one that looked after
+    # the write would skip the barrier below that the others wait at
+    done = os.path.exists(path)
+    sync_hosts("checkpoint")
+    if done:  # idempotent per step (e.g. save_steps + final)
         return path
     opt = state.opt_state
     leaves = list(state.trainable.values())

@@ -160,9 +160,11 @@ class TrainConfig:
     # materialize. None/0 = dense loss.
     vocab_loss_chunk: Optional[int] = 256
     # the parallel layout of the JAX package's recipes: one process a
-    # device over the data, fsdp and tensor axes (torchrun's environment or
-    # the three keys below); pipeline stages raise (ROADMAP.md queue A item
-    # 7b-ii)
+    # device over the data, fsdp, tensor and pipe axes (torchrun's
+    # environment or the three keys below); mesh_pipe stages each hold
+    # num_layers / mesh_pipe decoder layers and run pipe_microbatches
+    # microbatches a pass (None: the largest of 4/3/2/1 x stages dividing
+    # the global batch) through the GPipe schedule of parallel/pipeline.py
     mesh_data: int = 1
     mesh_fsdp: int = -1
     mesh_tensor: int = 1

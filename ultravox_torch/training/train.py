@@ -12,14 +12,17 @@ its latest checkpoint. ``--device cpu`` runs the plain versions of the
 kernels on the CPU; left unset, it trains on the card.
 
 Several processes, one a device, train one model over the ``mesh_data`` x
-``mesh_fsdp`` x ``mesh_tensor`` mesh (``parallel/``): launched by ``torchrun
---nproc_per_node N -m ultravox_torch.training.train --config_path <yaml>``
-(or given ``coordinator_address``, ``num_processes`` and ``process_id``),
-each process loads the mod-S shard of the samples of its batch coordinate
-(S = data x fsdp shards; tensor peers read the same rows) and runs
-``batch_size / S`` rows of every global batch, holds its tensor and fsdp
-slice of the sharded leaves, and only the master writes the config, the
-logs and the files. Pipeline stages raise (ROADMAP.md queue A item 7b-ii).
+``mesh_fsdp`` x ``mesh_tensor`` x ``mesh_pipe`` mesh (``parallel/``):
+launched by ``torchrun --nproc_per_node N -m ultravox_torch.training.train
+--config_path <yaml>`` (or given ``coordinator_address``, ``num_processes``
+and ``process_id``), each process loads the mod-S shard of the samples of
+its batch coordinate (S = data x fsdp shards; tensor and pipe peers read
+the same rows) and runs ``batch_size / S`` rows of every global batch,
+holds its stage's layers and its tensor and fsdp slice of the sharded
+leaves, and only the master writes the config, the logs and the files.
+Pipeline stages run the decoder stack as a GPipe schedule of
+``pipe_microbatches`` microbatches (``parallel/pipeline.py``), in the train
+step and in validation.
 """
 
 from __future__ import annotations
@@ -45,13 +48,7 @@ from ultravox_torch.data.datasets import InterleaveDataset, Range
 from ultravox_torch.inference.engine import resolve_device
 from ultravox_torch.parallel import multihost
 from ultravox_torch.parallel.collectives import is_global_master, process_count, process_index
-from ultravox_torch.parallel.mesh import (
-    NEXT_SLICE,
-    MeshConfig,
-    initialize_multihost,
-    make_mesh,
-    rank_device,
-)
+from ultravox_torch.parallel.mesh import MeshConfig, initialize_multihost, make_mesh, rank_device
 from ultravox_torch.parallel.sharding import (
     all_reduce_,
     full_shape,
@@ -232,13 +229,6 @@ def prepare_train_dataset(config: TrainConfig, model_pack):
     )
 
 
-def _check_single_process(config: TrainConfig) -> None:
-    """Refuse the layout that is not ported: pipeline stages (the data,
-    fsdp and tensor axes run over any number of processes)."""
-    if config.mesh_pipe > 1:
-        raise NotImplementedError(f"pipeline stages are not ported yet ({NEXT_SLICE})")
-
-
 def to_device(batch: Dict[str, np.ndarray], dev: torch.device) -> Dict[str, torch.Tensor]:
     """A collated numpy batch as tensors on ``dev``: on the card copied
     from pinned host memory without waiting for the copy."""
@@ -264,8 +254,8 @@ def _mesh(config: TrainConfig):
 
 def _batch_shard(ds, mesh):
     """The rank's share of a dataset: the mod-S shard of its batch
-    coordinate (S = data x fsdp shards; tensor peers read the same rows,
-    as the JAX package's ``needs_replicated_feed`` demands)."""
+    coordinate (S = data x fsdp shards; tensor and pipe peers read the
+    same rows, as the JAX package's ``needs_replicated_feed`` demands)."""
     if mesh.batch_shards == 1:
         return ds
     return multihost.ShardedDataset(ds, mesh.batch_shards, mesh.batch_index)
@@ -310,7 +300,6 @@ def train(config: TrainConfig) -> Dict[str, float]:
         format="%(asctime)s %(levelname)s %(message)s",
     )
     t_start = time.time()
-    _check_single_process(config)
     mesh, dev = _mesh(config)
     n_proc = process_count()
     logger.info("process %d/%d, device: %s", process_index(), n_proc,
@@ -352,6 +341,8 @@ def train(config: TrainConfig) -> Dict[str, float]:
         remat=config.remat,
         attn_impl=config.attn_impl,
         vocab_chunk=config.vocab_loss_chunk,
+        pipe_mesh=mesh if config.mesh_pipe > 1 else None,
+        pipe_micro=config.pipe_microbatches,
         mesh=mesh,
     )
 
@@ -456,7 +447,7 @@ def validate(config, model_pack, state, template, mesh=None) -> Dict[str, float]
     evaluation/validate.py semantics), through the train step's attention
     and vocabulary chunking. Over several processes each runs a mod-N
     shard of the set in ``batch_size / N`` rows (N batch shards; tensor
-    peers run the same rows), the same number of forwards on every process
+    and pipe peers run the same rows), the same number of forwards on every process
     (the short ones run a batch that supervises nothing, since a forward
     gathers fsdp shards), and the (sum, count) pairs are summed over the
     batch axes."""
@@ -464,6 +455,8 @@ def validate(config, model_pack, state, template, mesh=None) -> Dict[str, float]
         model_pack.config, config.loss_config, template,
         vocab_chunk=config.vocab_loss_chunk,
         attn_impl=config.attn_impl,
+        pipe_mesh=mesh if config.mesh_pipe > 1 else None,
+        pipe_micro=config.pipe_microbatches,
         mesh=mesh,
     )
     dev = next(iter(state.frozen.values())).device

@@ -21,14 +21,21 @@ the optimizer, and clipping and the AdamW update run on that mean every
 k-th call only. The schedule counts updates (``OptState.count``).
 
 Over several processes (``mesh``), each process runs its own rows of the
-global batch (tensor peers the same rows): the loss is its share of the
-global batch's (``models/ultravox.py``), the gradients are summed over
+global batch (tensor and pipe peers the same rows): the loss is its share
+of the global batch's (``models/ultravox.py``), the gradients are summed over
 the processes that hold the same leaf and split the batch
 (``parallel/sharding.py::reduce_gradients``; a fsdp shard's gather
 already summed it over its group, and tensor peers hold other slices or
 the same whole gradient), and the norms count every element of the whole
 leaves once. A shard's AdamW moments and accumulation buffer are the
 shard's own.
+
+With pipeline stages (``pipe_mesh``, a mesh with pipe > 1) the decoder
+layer stack runs as a GPipe schedule (``parallel/pipeline.py``): each
+stage holds and trains its own layers, the loss is the last stage's, a
+leaf every stage holds gets the sum of the stages' parts of its gradient,
+and the loss metric (and the validation sums) are summed over ``pipe``,
+so every process reads the global batch's.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ import torch
 from ultravox_torch.inference.engine import resolve_device
 from ultravox_torch.models import ultravox as uv
 from ultravox_torch.models.config import LossConfig, UltravoxConfig
-from ultravox_torch.parallel.mesh import NEXT_SLICE, Mesh
+from ultravox_torch.parallel.mesh import Mesh
 from ultravox_torch.parallel.sharding import all_reduce_, carry_shard, reduce_gradients, sq_sum
 from ultravox_torch.parallel.sharding import map_paths as _map_paths
 from ultravox_torch.parallel.sharding import path_items as _path_items
@@ -270,7 +277,8 @@ def make_train_step(
     remat: bool = True,
     attn_impl: str = "xla",
     vocab_chunk: Optional[int] = None,
-    pipe_mesh=None,
+    pipe_mesh: Optional[Mesh] = None,
+    pipe_micro: Optional[int] = None,
     mesh: Optional[Mesh] = None,
 ) -> Callable:
     """The train step: (state, batch) -> (state, metrics), metrics ``loss``,
@@ -278,25 +286,31 @@ def make_train_step(
     ``param_norm`` (after the update, if this call made one).
     ``batch`` holds tensors on the state's device: with ``mesh``, this
     process's rows of the global batch, and the metrics are the global
-    batch's."""
-    if pipe_mesh is not None:
-        raise NotImplementedError(f"pipeline-parallel training is not ported yet ({NEXT_SLICE})")
+    batch's. ``pipe_mesh`` (the mesh, when it has pipeline stages) runs the
+    decoder stack as a GPipe schedule of ``pipe_micro`` microbatches."""
+    mesh = mesh if mesh is not None else pipe_mesh
     group = mesh.batch_group if mesh is not None else None
+    pipe_group = _pipe_group(pipe_mesh)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = merge_params(params_template, state.trainable, state.frozen)
         loss = uv.ultravox_loss(params, cfg, batch, loss_config, remat=remat,
                                 attn_impl=attn_impl, vocab_chunk=vocab_chunk,
-                                batch_group=group)
+                                pipe_mesh=pipe_mesh, pipe_micro=pipe_micro, batch_group=group)
         leaves = list(state.trainable.values())
-        grads = torch.autograd.grad(loss, leaves)
+        if pipe_group is None:
+            grads = torch.autograd.grad(loss, leaves)
+        elif loss.requires_grad:  # a stage's loss reaches only some leaves
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        else:
+            grads = [torch.zeros_like(p) for p in leaves]
         if mesh is not None:
             grads = reduce_gradients(leaves, grads, mesh)
         grad_norm = global_norm(grads, leaves)
         optimizer.update(state.opt_state, leaves, grads, grad_norm)
         with torch.no_grad():
             param_norm = global_norm(leaves, leaves)
-        loss = all_reduce_(loss.detach().clone(), group)
+        loss = all_reduce_(all_reduce_(loss.detach().clone(), group), pipe_group)
         metrics = {"loss": loss, "grad_norm": grad_norm, "param_norm": param_norm}
         return dataclasses.replace(state, step=state.step + 1), metrics
 
@@ -310,33 +324,53 @@ def make_eval_step(
     *,
     vocab_chunk: Optional[int] = None,
     attn_impl: str = "xla",
-    pipe_mesh=None,
+    pipe_mesh: Optional[Mesh] = None,
+    pipe_micro: Optional[int] = None,
     mesh: Optional[Mesh] = None,
 ) -> Callable:
     """Validation loss step: (state, batch) -> (nll sum, label count), for
-    weighted averaging; ``vocab_chunk``, ``attn_impl`` and ``mesh`` as in
-    the train step (the sums are this process's; the caller adds them over
+    weighted averaging; ``vocab_chunk``, ``attn_impl``, ``pipe_mesh``,
+    ``pipe_micro`` and ``mesh`` as in the train step (the sums are this
+    process's, the last stage's on every stage; the caller adds them over
     the batch group)."""
-    if pipe_mesh is not None:
-        raise NotImplementedError(
-            f"pipeline-parallel evaluation is not ported yet ({NEXT_SLICE})")
+    mesh = mesh if mesh is not None else pipe_mesh
     group = mesh.batch_group if mesh is not None else None
+    pipe_group = _pipe_group(pipe_mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = merge_params(params_template, state.trainable, state.frozen)
         labels = batch["labels"]
-        if vocab_chunk:
-            hidden = uv.ultravox_forward(params, cfg, batch, return_hidden=True,
-                                         attn_impl=attn_impl, batch_group=group)
-            return uv.chunked_nll_sums(params["language_model"], cfg.text_config, hidden,
-                                       labels, chunk=vocab_chunk)
-        logits = uv.ultravox_forward(params, cfg, batch, attn_impl=attn_impl,
-                                     batch_group=group)
-        shift = labels[:, 1:]
-        valid = shift != -100
-        logp = torch.log_softmax(logits[:, :-1], dim=-1)
-        nll = -torch.gather(logp, -1, torch.where(valid, shift, 0).long()[..., None])[..., 0]
-        return torch.where(valid, nll, 0.0).sum(), valid.sum()
+        pipe = pipe_group is not None
+        out = uv.ultravox_forward(params, cfg, batch, return_hidden=bool(vocab_chunk) or pipe,
+                                  attn_impl=attn_impl, pipe_mesh=pipe_mesh,
+                                  pipe_micro=pipe_micro, batch_group=group)
+        lm = params["language_model"]
+        if not uv.computes_loss(pipe_mesh):
+            s, c = out.new_zeros((), dtype=torch.float32), labels.new_zeros(())
+        elif vocab_chunk:
+            s, c = uv.chunked_nll_sums(lm, cfg.text_config, out, labels, chunk=vocab_chunk)
+        else:
+            if pipe:
+                out = uv.decoder_lib.compute_logits(lm, cfg.text_config, out)
+            s, c = _dense_nll_sums(out, labels)
+        if not pipe:
+            return s, c
+        sums = all_reduce_(torch.stack([s.double(), c.double()]), pipe_group)
+        return sums[0].float(), sums[1].long()
 
     return eval_step
+
+
+def _pipe_group(pipe_mesh: Optional[Mesh]):
+    """The pipe group of a mesh with pipeline stages, else None."""
+    return pipe_mesh.groups["pipe"] if pipe_mesh is not None and pipe_mesh.n_stages > 1 else None
+
+
+def _dense_nll_sums(logits, labels):
+    """(nll sum, label count) of fp32 logits (B, T, V)."""
+    shift = labels[:, 1:]
+    valid = shift != -100
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    nll = -torch.gather(logp, -1, torch.where(valid, shift, 0).long()[..., None])[..., 0]
+    return torch.where(valid, nll, 0.0).sum(), valid.sum()
