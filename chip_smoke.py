@@ -241,8 +241,12 @@ Phases, each fatal on failure:
      speculative decoding, 4 requests of 10 s x 32 tokens, both ranks'
      tokens identical, launches checked at the local shapes, the first
      decode step's logits within a relative RMS of one process's, token
-     agreement, TTFT and tok/s beside one process's. ``--phases 15`` runs
-     the build and this phase alone, without a result line.
+     agreement, TTFT and tok/s beside one process's; each rank's held
+     bytes, its slots engine's bytes, the collectives' MB a step and the
+     gathers that made a vocabulary leaf whole, which must be 0.
+     ``--phases 15`` runs the build and this phase alone, without a result
+     line; ``--phases 15 --baseline DIR`` runs the package of another
+     checkout (DIR, its root) in two ranks first and prints both layouts.
  16. the pipe axis (see _pipe_main_path): two ranks of this script on the
      one card over a gloo group, mesh data 1 x fsdp 1 x tensor 1 x pipe 2,
      the model of v0.6_llama3_70b_pipe_tpu.yaml (Llama-3.3-70B widths, 8
@@ -256,6 +260,16 @@ Phases, each fatal on failure:
      process's, and a fourth step traced (the card's ms by kernel kind).
      ``--phases 16`` runs the build and this phase alone,
      without a result line.
+ 17. run_serving_eval and the host tools (see _serving_eval_main_path), on
+     phase 4's weights remade from the seed: the flagship published with
+     save_pretrained(include_code=True) (the hub files and auto_map
+     checked), served by run_serving_eval.start_server and scored over
+     HTTP (16 synthetic-asr samples x 32 tokens, a finite score, launches
+     against the engine's counters, samples/s), averaged with a second
+     tree (seed 1) and loaded back (sampled tensors bit-equal to the bf16
+     of the fp64 mean, generate runs), and the projector up-projected to a
+     4096-wide embedding on the card against the CPU. ``--phases 17``
+     runs the build and this phase alone, without a result line.
 
 Each phase prints its seconds. Phases 4-7 also hold ln_matmul_gelu, attn_out_proj_residual,
 decode_matmul, attn_v2 and attn_nt at 0 launches: no engine calls them.
@@ -2981,11 +2995,14 @@ def main() -> None:
     if sys.argv[1:] == ["--phases", "12,14"]:  # a developer's short run: no result line
         _phases_12_14(tc, uv, dev)
         return
-    if sys.argv[1:] == ["--phases", "15"]:
-        _phase15_only(tc, uv, dev)
+    if sys.argv[1:3] == ["--phases", "15"] and len(sys.argv) in (3, 5):
+        _phase15_only(tc, uv, dev, sys.argv[4] if sys.argv[3:4] == ["--baseline"] else None)
         return
     if sys.argv[1:] == ["--phases", "16"]:
         _phase16_only(tc, uv, dev)
+        return
+    if sys.argv[1:] == ["--phases", "17"]:
+        _phase17_only(tc, uv, dev)
         return
 
     # 2. kernels against their plain versions
@@ -3217,6 +3234,13 @@ def main() -> None:
                 row.setdefault("launches_per_path", {"main": row["launches"]})[
                     f"pipe 2 {path} (phase 16, a rank)"] = launched[row["name"]]
 
+    # 17. run_serving_eval's server and the host tools at the flagship width
+    serving_eval, se_launches = _serving_eval_main_path(tc, uv, _kernel_counters(), smi, dev)
+    for row in rows:
+        if se_launches.get(row["name"]):
+            row.setdefault("launches_per_path", {"main": row["launches"]})[
+                "run_serving_eval (phase 17)"] = se_launches[row["name"]]
+
     print(f"chip_smoke: {time.perf_counter() - t_script:.2f} s in all", flush=True)
     print(smi, flush=True)
     print(json.dumps({
@@ -3226,7 +3250,7 @@ def main() -> None:
         "lora_int8": lora_int8, "probes": probes, "checkpoint": checkpoint, "voice": voice,
         "front_doors": front_doors, "train_loop": train_loop, "wav2vec2": wav2vec2,
         "multiprocess": multiprocess, "tensor": tensor, "pipe": pipe,
-        "total_s": time.perf_counter() - t_script,
+        "serving_eval": serving_eval, "total_s": time.perf_counter() - t_script,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -4002,7 +4026,7 @@ def _checkpoint_main_path(tc, uv, cfg, counters, per_call, phase5, dev):
 
 
 def _check_serving_launches(label, launches, counters, encoder, disp, steps, chunks, K, L_dec,
-                            single_k, block_k):
+                            single_k, block_k, mixed=True):
     """Launches of a serving run against the engine's own counters:
 
         blocks  = (decode steps - decode dispatches) / (K - 1)
@@ -4012,8 +4036,8 @@ def _check_serving_launches(label, launches, counters, encoder, disp, steps, chu
         fused_attention = L_dec x prefill chunks, the encoder's kernels as
         given, every other counter 0.
 
-    Fails on a mismatch or a run without both single steps and blocks.
-    Returns (singles, blocks)."""
+    Fails on a mismatch, on a run without blocks, or (``mixed``) without
+    single steps. Returns (singles, blocks)."""
     if (steps - disp) % (K - 1):
         _fail(f"serving {label}: {steps} steps in {disp} dispatches is no mix of 1 and {K}")
     blocks = (steps - disp) // (K - 1)
@@ -4032,8 +4056,8 @@ def _check_serving_launches(label, launches, counters, encoder, disp, steps, chu
     for name, n in launches.items():
         if n != want[name]:
             _fail(f"serving {label}: {name} launched {n} times, expected {want[name]}")
-    if blocks == 0 or singles == 0:
-        _fail(f"serving {label}: expected both single steps and blocks")
+    if blocks == 0 or (mixed and singles == 0):
+        _fail(f"serving {label}: expected {'both single steps and ' if mixed else ''}blocks")
     return singles, blocks
 
 
@@ -6739,7 +6763,8 @@ def _tp_serve(cfg, params, counters, dev, label, kw, mesh=None, leader=True):
                         encoder_attn_impl="fused", prefill_attn_impl="fused",
                         decode_attn_impl="kernel", block_attn_impl="kernel", mesh=mesh,
                         device=dev, **kw)
-    out = {}
+    out = {"held_gb": _held_bytes(eng.params) / 1e9,
+           "vocab_gb": _held_bytes(eng.params, VOCAB_PATHS) / 1e9}
 
     def run():
         if leader:
@@ -6798,17 +6823,76 @@ def _tp_serve(cfg, params, counters, dev, label, kw, mesh=None, leader=True):
     return out
 
 
+# the paths of the vocabulary leaves, which tensor splits on the vocabulary
+VOCAB_PATHS = r"language_model/(embed_tokens|lm_head/kernel)"
+
+
+def _held_bytes(tree, paths: str = ".*") -> int:
+    """Bytes of the storages that the leaves of ``tree`` whose path matches
+    ``paths`` hold, each storage counted once."""
+    from ultravox_torch.parallel.sharding import path_items
+
+    seen, total = set(), 0
+    for path, t in path_items(tree):
+        store = t.untyped_storage()
+        if re.fullmatch(paths, path) and store.data_ptr() not in seen:
+            seen.add(store.data_ptr())
+            total += store.nbytes()
+    return total
+
+
+def _collective_tally(vocab_shape) -> collections.Counter:
+    """Count, from here on in this process, the calls to torch.distributed's
+    all_reduce, all_gather_into_tensor, reduce_scatter_tensor and broadcast
+    (the collectives ultravox_torch issues; broadcast_object_list's inner
+    ones are not seen) under "<name> calls", the bytes of each one's buffer
+    (all_reduce's and broadcast's tensor, the all-gather's output, the
+    reduce-scatter's input) under "<name> bytes", and under "vocab gathers"
+    the all-gathers whose output is a whole vocabulary leaf
+    (``vocab_shape``, (V, D): how either leaf's gather over ``tensor``
+    comes out). Returns the Counter the counts go into; the counts of a
+    window are the Counter after it less a copy taken before it."""
+    import torch.distributed as dist
+
+    tally = collections.Counter()
+
+    def wrap(name, buffer):
+        real = getattr(dist, name)
+
+        def counted(*args, **kwargs):
+            t = buffer(*args)
+            tally[f"{name} bytes"] += t.numel() * t.element_size()
+            tally[f"{name} calls"] += 1
+            if name == "all_gather_into_tensor" and tuple(t.shape) == tuple(vocab_shape):
+                tally["vocab gathers"] += 1
+            return real(*args, **kwargs)
+
+        setattr(dist, name, counted)
+
+    wrap("all_reduce", lambda t, *_: t)
+    wrap("all_gather_into_tensor", lambda out, *_: out)
+    wrap("reduce_scatter_tensor", lambda out, inp, *_: inp)
+    wrap("broadcast", lambda t, *_: t)
+    return tally
+
+
 def _phase15_rank(spec_path: str) -> None:
     """One rank of phase 15, started by _tensor_main_path with torchrun's
     environment and LOCAL_RANK 0 (two ranks share the one card): a gloo
     group opened here (NCCL refuses two ranks on one device; make_mesh
     leaves an open group alone), the mesh data 1 x fsdp 1 x tensor 2, the
     model cut over it, then (a) the train steps, (b) the serving runs and
-    the first decode step's logits. Writes its facts to <out>.<rank> (JSON)
-    and its logits to <out>.<rank>.pt."""
+    the first decode step's logits, the collectives counted throughout
+    (``_collective_tally``). With the spec's "baseline" (a checkout's root)
+    the rank imports that checkout's ultravox_torch instead of this one's.
+    Writes its facts to <out>.<rank> (JSON) and its logits to
+    <out>.<rank>.pt."""
     import torch.distributed as dist
 
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    with open(spec_path) as f:
+        spec = json.load(f)
+    # the package of this checkout, or of the tree it is compared with
+    sys.path.insert(0, spec.get("baseline") or os.path.dirname(os.path.abspath(__file__)))
     from ultravox_torch.models import config as tc
     from ultravox_torch.models import ultravox as uv
     from ultravox_torch.parallel import mesh as pm
@@ -6816,8 +6900,6 @@ def _phase15_rank(spec_path: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    with open(spec_path) as f:
-        spec = json.load(f)
     rank, dev = int(os.environ["RANK"]), "cuda"
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
@@ -6839,17 +6921,27 @@ def _phase15_rank(spec_path: str) -> None:
     print(f"phase 15 rank {rank}: mesh {mesh.shape} at {mesh.coords}, backend "
           f"{out['backend']}; holds {held / 1e9:.3f} GB of the {whole_bytes / 1e9:.3f} GB model",
           flush=True)
+    tally = _collective_tally((cfg.text_config.vocab_size, cfg.text_config.hidden_size))
     torch.cuda.reset_peak_memory_stats()
+    before = collections.Counter(tally)
     losses, norms, step_ms, launches = _tp_train(tc, uv, cfg, params, counters, dev, mesh)
+    sent = tally - before
     out["train"] = {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
                     "launches": launches,
-                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "collective_mb_per_step": {k[:-6]: v / 1e6 / TP_TRAIN_STEPS
+                                               for k, v in sent.items() if k.endswith(" bytes")},
+                    "collectives_per_step": {k[:-6]: v / TP_TRAIN_STEPS
+                                             for k, v in sent.items() if k.endswith(" calls")},
+                    "vocab_gathers": sent["vocab gathers"]}
     out["serving"] = {}
     base = _tp_base(params)
+    before = collections.Counter(tally)
     for label, kw in TP_SERVING:
         out["serving"][label] = _tp_serve(cfg, base, counters, dev, label, kw, mesh,
                                           leader=rank == 0)
     logits = _tp_first_logits(cfg, base, dev, mesh)
+    out["engines_vocab_gathers"] = (tally - before)["vocab gathers"]
     torch.save(logits, f"{spec['out']}.{rank}.pt")
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     with open(f"{spec['out']}.{rank}", "w") as f:
@@ -6858,7 +6950,20 @@ def _phase15_rank(spec_path: str) -> None:
     dist.destroy_process_group()
 
 
-def _tensor_main_path(tc, uv, counters, smi, dev):
+def _tp_rank_facts(r: dict) -> dict:
+    """What phase 15 holds a rank's layout to, from its facts."""
+    slots = r["serving"]["slots"]
+    return {"held_gb": r["held_gb"], "engine_gb": slots["held_gb"],
+            "engine_vocab_gb": slots["vocab_gb"], "train_peak_gb": r["train"]["peak_memory_gb"],
+            "collective_mb_per_step": sum(r["train"]["collective_mb_per_step"].values()),
+            "all_gather_mb_per_step": r["train"]["collective_mb_per_step"].get(
+                "all_gather_into_tensor", 0.0),
+            "vocab_gathers_train": r["train"]["vocab_gathers"],
+            "vocab_gathers_engines": r["engines_vocab_gathers"],
+            "step_ms": r["train"]["step_ms"]}
+
+
+def _tensor_main_path(tc, uv, counters, smi, dev, baseline=None):
     """Phase 15: the tensor axis on the one card. Two ranks of this script
     share cuda:0 over a gloo group of their own (each rank's collectives
     carry CUDA tensors through the host), the mesh data 1 x fsdp 1 x tensor
@@ -6888,6 +6993,15 @@ def _tensor_main_path(tc, uv, counters, smi, dev):
           ranks and, against one process's fp32 logits, at most
           TP_LOGITS_FACTOR times one process's own bf16 relative RMS.
 
+    Each rank also reports what it holds and sends: the bytes of its tree
+    and of its slots ServingEngine's parameters (the vocabulary leaves
+    apart), the train steps' peak memory, the collectives' bytes a step,
+    and the all-gathers that made a vocabulary leaf whole, in the steps
+    and in the engines: there must be none. With ``baseline`` (the root of
+    another checkout, whose kernels this build serves) two ranks of that
+    checkout's package run first, and the two layouts are printed side by
+    side.
+
     Returns (metrics, {path: launches})."""
     import shutil
     import tempfile
@@ -6898,6 +7012,12 @@ def _tensor_main_path(tc, uv, counters, smi, dev):
           flush=True)
     root = tempfile.mkdtemp(prefix="tensor_")
     try:
+        base_facts = None
+        if baseline is not None:
+            os.makedirs(os.path.join(root, "baseline"))
+            spec = {"out": os.path.join(root, "baseline", "result.json"), "baseline": baseline}
+            base_facts = [_tp_rank_facts(r) for r in _run_ranks(
+                spec, os.path.join(root, "baseline"), 2, phase=15, one_card=True)]
         spec = {"out": os.path.join(root, "result.json")}
         t0 = time.perf_counter()
         ranks = _run_ranks(spec, root, 2, phase=15, one_card=True)
@@ -6905,6 +7025,21 @@ def _tensor_main_path(tc, uv, counters, smi, dev):
         logits = [torch.load(f"{spec['out']}.{r}.pt") for r in range(2)]
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    facts = [_tp_rank_facts(r) for r in ranks]
+    for rank, f in enumerate(facts):
+        print(f"phase 15: rank {rank} holds {f['held_gb']:.3f} GB, its slots ServingEngine "
+              f"{f['engine_gb']:.3f} GB ({f['engine_vocab_gb']:.3f} GB of them the embedding "
+              f"and the head); train peak {f['train_peak_gb']:.3f} GB; collectives "
+              f"{f['collective_mb_per_step']:.3f} MB a step ({f['all_gather_mb_per_step']:.3f} "
+              f"MB of all-gathers); whole-vocabulary gathers {f['vocab_gathers_train']} in "
+              f"{TP_TRAIN_STEPS} steps, {f['vocab_gathers_engines']} in the engines; {smi}",
+              flush=True)
+        if base_facts is not None:
+            b = base_facts[rank]
+            print(f"phase 15: rank {rank}, the baseline against this tree: "
+                  + "; ".join(f"{k} {b[k]} / {f[k]}" for k in f) + f"; {smi}", flush=True)
+        if f["vocab_gathers_train"] or f["vocab_gathers_engines"]:
+            _fail(f"phase 15: rank {rank} gathered a vocabulary leaf whole: {f}")
     r0, r1 = ranks
     if (r0["backend"], r1["backend"]) != ("gloo", "gloo") or [r["coords"]["tensor"]
                                                               for r in ranks] != [0, 1]:
@@ -6994,6 +7129,7 @@ def _tensor_main_path(tc, uv, counters, smi, dev):
     torch.cuda.empty_cache()
     metrics = {
         "ranks_s": ranks_s, "held_gb": [r["held_gb"] for r in ranks], "whole_gb": r0["whole_gb"],
+        "layout": facts, "baseline_layout": base_facts,
         "peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
         "train": {"losses": r0["train"]["losses"], "grad_norms": r0["train"]["grad_norms"],
                   "one_process_losses": ref_losses, "one_process_grad_norms": ref_norms,
@@ -7009,13 +7145,28 @@ def _tensor_main_path(tc, uv, counters, smi, dev):
     return metrics, launched
 
 
-def _phase15_only(tc, uv, dev) -> None:
-    """Phase 15 alone, after the build (``--phases 15``). No result line."""
+def _phase15_only(tc, uv, dev, baseline=None) -> None:
+    """Phase 15 alone, after the build (``--phases 15 [--baseline DIR]``,
+    DIR another checkout's root inside this one, as a ``git archive`` of
+    the parent into ``scratch_tree/``, whose csrc/ this build serves: its
+    build/ directory gets this one's libraries). No result line."""
+    import shutil
+
+    from ultravox_torch.ops.kernels import _build
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    _tensor_main_path(tc, uv, _kernel_counters(), smi, dev)
+    if baseline is not None:
+        baseline = os.path.realpath(baseline)
+        here = os.path.dirname(os.path.realpath(__file__))
+        if os.path.commonpath([baseline, here]) != here or baseline == here:
+            _fail(f"phase 15: --baseline {baseline} is not a directory inside {here}; this "
+                  f"phase writes the kernels it builds into the baseline's tree")
+        shutil.copytree(_build.BUILD_DIR, os.path.join(
+            baseline, "ultravox_torch", "ops", "kernels", "build"), dirs_exist_ok=True)
+    _tensor_main_path(tc, uv, _kernel_counters(), smi, dev, baseline=baseline)
     print("chip_smoke: phase 15 only, no result", flush=True)
 
 
@@ -7294,6 +7445,224 @@ def _phase16_only(tc, uv, dev) -> None:
     ).stdout.strip()
     _pipe_main_path(tc, uv, _kernel_counters(), smi, dev)
     print("chip_smoke: phase 16 only, no result", flush=True)
+
+
+# --------------------------------------------------------------------------
+# phase 17: run_serving_eval and the host tools at the flagship width
+# --------------------------------------------------------------------------
+
+SE_SAMPLES, SE_BATCH, SE_TOKENS = 16, 8, 32
+# the up-projected projector on the card against the same call on the CPU:
+# both fit in fp64, then one fp32 product of 1536 terms each side
+UPPROJECT_TOL = 1e-5
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _serving_eval_main_path(tc, uv, counters, smi, dev):
+    """Phase 17: the flagship (phase 4's weights, remade from the seed)
+    through run_serving_eval and the host tools:
+
+      (b) save_pretrained(include_code=True) writes it (bf16, with
+          _write_flagship_tokenizer's tokenizer): the five hub files and
+          config.json's auto_map must be there (loading them needs
+          ``transformers``, which the CPU tests hold; this machine has none);
+      (a) run_serving_eval.start_server serves that directory on the card
+          (its CLI's 16 slots and 4096 positions, every attention flag
+          "auto") until /health says ok, then eval_datasets drives it
+          through OpenAIInference over HTTP: SE_SAMPLES synthetic-asr
+          samples in batches of SE_BATCH, SE_TOKENS tokens each; the score
+          must be finite, and the kernels' launches in that run must match
+          the engine's own counters (_check_serving_launches; the client
+          sends one request at a time, so the decode may run in blocks
+          alone). Samples/s;
+      (c) average_checkpoints of that directory and a second flagship tree
+          (seed 1): sampled tensors bit-equal to the bf16 of their fp64
+          mean, the average loaded back by load_ultravox_checkpoint (its
+          embedding bit-equal to the file's) and run by
+          GenerationEngine.generate;
+      (d) upproject_adapter of the flagship projector from its 2048-wide
+          embedding to a random 4096-wide one over the 128256 ids, on the
+          card, against the same call on the CPU (both fit in fp64): the
+          largest difference of the new linear_2 within UPPROJECT_TOL of
+          its largest value; the seconds of each.
+
+    Returns (metrics, {name: launches of (a)})."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from ultravox_torch.evaluation.eval import EvalConfig, eval_datasets
+    from ultravox_torch.hub import AUTO_MAP, HUB_CODE_FILES
+    from ultravox_torch.inference import run_serving_eval as rse
+    from ultravox_torch.inference.engine import GenerationEngine
+    from ultravox_torch.inference.ultravox_infer import load_ultravox_checkpoint
+    from ultravox_torch.models.weights import load_safetensors_dir
+    from ultravox_torch.ops.mel import log_mel_spectrogram
+    from ultravox_torch.tools.infer_api import OpenAIInference
+    from ultravox_torch.tools.model_averaging import average_checkpoints
+    from ultravox_torch.tools.projector_tools import upproject_adapter
+    from ultravox_torch.tools.publish import save_pretrained
+
+    t_phase = time.perf_counter()
+    cfg = _flagship_config(tc)
+    metrics = {}
+    root = tempfile.mkdtemp(prefix="serving_eval_")
+    try:
+        # (b) published with the hub code
+        params = uv.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                                torch.bfloat16, dev)
+        ckpt = os.path.join(root, "seed0")
+        t0 = time.perf_counter()
+        save_pretrained(params, cfg, ckpt, include_code=True, dtype=None)
+        write_s = time.perf_counter() - t0
+        _write_flagship_tokenizer(ckpt)
+        with open(os.path.join(ckpt, "config.json")) as f:
+            auto_map = json.load(f).get("auto_map")
+        missing = [n for n in HUB_CODE_FILES if not os.path.isfile(os.path.join(ckpt, n))]
+        if missing or auto_map != AUTO_MAP:
+            _fail(f"phase 17 (b): hub files missing {missing}, auto_map {auto_map}")
+        print(f"phase 17 (b): save_pretrained(include_code=True) wrote the flagship in "
+              f"{write_s:.3f} s with {len(HUB_CODE_FILES)} hub files and auto_map {auto_map}",
+              flush=True)
+
+        # (a) run_serving_eval's server, driven over HTTP
+        server, engine, port = rse.start_server(ckpt, num_slots=16, max_seq_len=4096)
+        try:
+            rse.wait_healthy(port)
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=10) as r:
+                health = json.load(r)
+            flags = engine.resolved_flags
+            paged = flags["cache_mode"] == "paged"
+            if (flags["decode_attn_impl"], flags["prefill_attn_impl"],
+                    flags["encoder_attn_impl"]) != ("kernel", "fused", "fused") or (
+                    not paged and flags["block_attn_impl"] != "kernel"):
+                _fail(f"phase 17 (a): the server resolved {flags}")
+            stats0 = (engine.stat_decode_dispatches, engine.stat_decode_steps,
+                      engine.stat_prefill_chunks)
+            client = OpenAIInference(f"http://127.0.0.1:{port}", timeout=600)
+            config = EvalConfig(eval_sets=["synthetic-asr"], num_samples=SE_SAMPLES,
+                                batch_size=SE_BATCH, max_tokens=SE_TOKENS,
+                                output_dir=os.path.join(root, "eval"))
+            t0 = time.perf_counter()
+            scores, launches = _count_launches(counters, lambda: eval_datasets(client, config))
+            eval_s = time.perf_counter() - t0
+            disp, steps, chunks = (engine.stat_decode_dispatches - stats0[0],
+                                   engine.stat_decode_steps - stats0[1],
+                                   engine.stat_prefill_chunks - stats0[2])
+            K = engine.decode_block_steps
+        finally:
+            server.shutdown()
+            server.server_close()
+            engine.stop()
+        del engine
+        torch.cuda.empty_cache()
+        got = scores.get("synthetic-asr", {})
+        if (health.get("status") != "ok" or got.get("num_samples") != SE_SAMPLES
+                or not np.isfinite(got.get("score", float("nan")))):
+            _fail(f"phase 17 (a): /health {health}, scores {scores}")
+        L_enc, L_dec = cfg.audio_config.num_layers, cfg.text_config.num_layers
+        enc = {"fused_layer_norm": L_enc * SE_SAMPLES, "ln_qkv_head_fused": L_enc * SE_SAMPLES,
+               "attention_headmajor": L_enc * SE_SAMPLES}
+        block = flags["block_attn_impl"] == "kernel"
+        singles, blocks = _check_serving_launches(
+            "phase 17 (a)", {k: v for k, v in launches.items() if k in counters}, counters,
+            enc, disp, steps, chunks, K, L_dec,
+            "paged_decode_attention" if paged else "decode_attention",
+            ("paged_segment_tail_attention" if paged else "segment_tail_attention")
+            if block else None, mixed=False)
+        metrics["serving_eval"] = {"samples_per_s": SE_SAMPLES / eval_s, "seconds": eval_s,
+                                   "score": got["score"], "metric": got["metric"],
+                                   "health": health, "flags": flags, "singles": singles,
+                                   "blocks": blocks, "chunks": chunks}
+        print(f"phase 17 (a): run_serving_eval's server ({flags}), /health {health}: "
+              f"{SE_SAMPLES} synthetic-asr samples in batches of {SE_BATCH} x {SE_TOKENS} "
+              f"tokens over HTTP in {eval_s:.3f} s, {SE_SAMPLES / eval_s:.3f} samples/s; "
+              f"{got['metric']} {got['score']}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; {smi}", flush=True)
+
+        # (c) two flagship trees averaged
+        proj, embed = params["projector"], params["language_model"]["embed_tokens"]
+        other = uv.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 1),
+                               torch.bfloat16, dev)
+        ckpt1 = os.path.join(root, "seed1")
+        save_pretrained(other, cfg, ckpt1, dtype=None)
+        del other
+        avg_dir = os.path.join(root, "average")
+        t0 = time.perf_counter()
+        average_checkpoints([ckpt, ckpt1], avg_dir)
+        avg_s = time.perf_counter() - t0
+        a, b, m = (load_safetensors_dir(d) for d in (ckpt, ckpt1, avg_dir))
+        keys = ["language_model.model.embed_tokens.weight",
+                f"language_model.model.layers.{L_dec // 2}.self_attn.q_proj.weight",
+                f"language_model.model.layers.{L_dec - 1}.mlp.down_proj.weight",
+                f"audio_tower.layers.{L_enc // 2}.fc1.weight",
+                "multi_modal_projector.linear_1.weight"]
+        for k in keys:
+            want = ((a[k].double() + b[k].double()) / 2).to(torch.bfloat16)
+            if m[k].dtype != torch.bfloat16 or not torch.equal(m[k].view(torch.int16),
+                                                               want.view(torch.int16)):
+                _fail(f"phase 17 (c): {k} is not the bf16 of the fp64 mean")
+        _, avg_params, _ = load_ultravox_checkpoint(avg_dir, torch.bfloat16)
+        if not torch.equal(avg_params["language_model"]["embed_tokens"].cpu(), m[keys[0]]):
+            _fail("phase 17 (c): the loaded average's embedding is not the file's")
+        del a, b, m
+        gen_engine = GenerationEngine(avg_params, cfg, max_cache_len=1024)
+        rng = np.random.default_rng(SEED + 17)
+        mel = log_mel_spectrogram(torch.from_numpy(_audio(2, 5.0, rng)).to(dev))
+        ids = gen_engine.generate(_batch(cfg, mel, 64, rng), max_new_tokens=8).token_ids
+        if [len(r) for r in ids] != [8, 8] or any(not 0 <= t < cfg.vocab_size
+                                                  for r in ids for t in r):
+            _fail(f"phase 17 (c): generate on the average gave {ids}")
+        del gen_engine, avg_params
+        torch.cuda.empty_cache()
+        metrics["average"] = {"seconds": avg_s, "keys_checked": len(keys)}
+        print(f"phase 17 (c): average_checkpoints of seeds 0 and 1 in {avg_s:.3f} s; "
+              f"{len(keys)} sampled tensors bit-equal to the bf16 of the fp64 mean; loaded "
+              f"and generated {ids[0]}; {smi}", flush=True)
+
+        # (d) the projector up-projected to a 4096-wide embedding
+        big = (torch.randn((cfg.vocab_size, 4096), generator=torch.Generator(
+            device=dev).manual_seed(SEED + 4), device=dev) * 0.02).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = upproject_adapter(proj, embed, big)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = upproject_adapter(_tree_to(proj, "cpu"), embed.cpu(), big.cpu())
+        cpu_s = time.perf_counter() - t0
+        want = host["linear_2"]["kernel"]
+        err = float((card["linear_2"]["kernel"].cpu() - want).abs().max() / want.abs().max())
+        if tuple(want.shape) != (proj["linear_2"]["kernel"].shape[0], 4096) or not (
+                err <= UPPROJECT_TOL):
+            _fail(f"phase 17 (d): linear_2 {tuple(want.shape)}, card against CPU {err}")
+        metrics["upproject"] = {"card_s": card_s, "cpu_s": cpu_s, "rel_err": err}
+        print(f"phase 17 (d): upproject_adapter of the projector to a 4096-wide embedding "
+              f"over {cfg.vocab_size} ids: card {card_s:.3f} s, CPU {cpu_s:.3f} s, linear_2 "
+              f"{tuple(want.shape)} within {err:.3g} of the CPU's largest value (tolerance "
+              f"{UPPROJECT_TOL}); {smi}", flush=True)
+        del params, proj, embed, big, card, host
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 17: {metrics['phase_s']:.2f} s", flush=True)
+    return metrics, launches
+
+
+def _phase17_only(tc, uv, dev) -> None:
+    """Phase 17 alone, after the build (``--phases 17``). No result line."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    _serving_eval_main_path(tc, uv, _kernel_counters(), smi, dev)
+    print("chip_smoke: phase 17 only, no result", flush=True)
 
 
 if __name__ == "__main__":

@@ -24,7 +24,8 @@ in this process meanwhile. Held:
   against JAX's step on the same ``MeshConfig``: loss, grad norm and param
   norm within rtol 1e-5, trainables within 1e-5 (the fsdp tests'
   tolerances); a planted fault that counts a whole leaf's gradient on
-  every stage (P times) fails that check;
+  every stage (P times) fails that check; at tensor 2 x pipe 2 no rank
+  gathers the embedding or the head whole over ``tensor``;
 - each rank holds only its stage's layers of every
   ``language_model/layers/`` leaf (JAX's spec puts ``pipe`` on their L
   axis), and pipe peers read the same rows (the same batch coordinate);
@@ -334,7 +335,8 @@ def world4(tmp_path_factory):
     for world in ("world4-fsdp2xpipe2", "world4-tensor2xpipe2"):
         b = WORLDS[world][0]
         jobs.append(_step_job(world, [{"batches": [b(0)]},
-                                      {"batches": [b(0), b(1)], "accum": 2}]))
+                                      {"batches": [b(0), b(1)], "accum": 2},
+                                      {"batches": [b(0)], "eval": True}]))
     return start("pipe", {"jobs": jobs}, d, world=4, timeout=400)
 
 
@@ -429,6 +431,20 @@ def test_each_rank_holds_its_stage_layers_and_reads_its_rows(world2, world4, wor
     assert len(rows) == data * fsdp
     for peers in rows.values():  # tensor and pipe peers read one batch coordinate
         assert len(peers) == 1
+
+
+def test_tensor2_pipe2_gathers_no_vocabulary_leaf_whole(world4):
+    """At tensor 2 x pipe 2 the last stage's loss runs on each rank's
+    vocabulary slice: no rank of either stage gathers the embedding or the
+    head whole over ``tensor`` in the step, the accumulated update or the
+    validation step, and each holds half of either leaf."""
+    ranks = world4.result()["per_rank"]
+    job = W4_JOBS["world4-tensor2xpipe2"]
+    for rank, facts in enumerate(ranks):
+        assert facts[job]["vocab_gathers"] == [0, 0, 0], rank
+        for path in ("language_model/embed_tokens", "language_model/lm_head/kernel"):
+            storage, _, full, _ = facts[job]["held"][0][path]
+            assert storage * 2 == int(np.prod(full)) * 4, (rank, path)
 
 
 def test_validation_at_pipe2_matches_one_process(world2):

@@ -14,6 +14,16 @@ fixture a world). Held:
   trainables within 1e-5 (as the fsdp tests hold them);
 - each rank holds 1/tensor (x 1/fsdp) of the bytes of every leaf JAX
   splits over ``tensor``, cut on the same dim;
+- the vocabulary over ``tensor``: CE and KL, the vocabulary in chunks and
+  dense, at world 2 and world 4, one step each against JAX's (rtol 1e-5,
+  trainables within 1e-5), and the validation step's sums chunked and
+  dense against JAX's; the same for a gemma-2-style config (tied head,
+  final logit softcap) and for a 385-word vocabulary, which tensor 2 does
+  not divide (the leaves stay whole, as in JAX); no rank gathers the
+  embedding or the head whole over ``tensor`` in any step of any run
+  (every all-gather's output is recorded by the worker). A scratch copy
+  with ``compute_logits`` gathering the head whole again fails that
+  check;
 - a config with one KV head at tensor 2 (each rank keeps the whole K/V
   projections and reads the one head) matches JAX's step;
 - a planted fault (the all-reduce after ``o_proj`` dropped) fails the
@@ -29,10 +39,12 @@ fixture a world). Held:
   speculative decoding, and with multi-LoRA (LM adapters, and encoder
   adapters on the fused encoder), and ``UltravoxInference(mesh=)`` on
   ``tests/assets/tiny_ultravox``: the greedy tokens of JAX's unsharded
-  offline engine, equal on both ranks;
+  offline engine, equal on both ranks; each engine holds half of the
+  embedding's and the head's bytes and never gathers either whole;
 - ``quantize="int8"`` together with ``mesh=`` raises in every engine.
 """
 
+import dataclasses
 import functools
 import json
 import os
@@ -51,6 +63,7 @@ from tests.test_torch_lora_serving import _lora_tower
 from tests.test_torch_parallel_train import (
     CHUNK,
     LR,
+    METRIC_RTOL,
     OPT,
     PARAM_ATOL,
     TRAINABLE,
@@ -69,12 +82,14 @@ from tests.torch_dist_worker import start
 from tests.torch_parity import make_configs, make_params, synth_audio
 from ultravox_torch.inference.engine import GenerationEngine
 from ultravox_torch.inference.serving.engine import ServingEngine
+from ultravox_torch.models import config as tc
 from ultravox_torch.parallel import mesh as tmesh
 from ultravox_torch.training import config as ttcfg
 from ultravox_torch.training import train as ttrain
 from ultravox_tpu.data.sample import VoiceSample as JVoiceSample
 from ultravox_tpu.inference.engine import GenerationEngine as JEngine
 from ultravox_tpu.inference.ultravox_infer import UltravoxInference as JUltravoxInference
+from ultravox_tpu.models import config as jc
 from ultravox_tpu.models.lora import DECODER_TARGETS, ENCODER_TARGETS
 from ultravox_tpu.parallel import mesh as jmesh
 from ultravox_tpu.parallel import multihost as jmh
@@ -90,18 +105,62 @@ def tensor2_batches(step):
     return [local_batch(10 * step + 5, 2, 32, 20, [0, 0, 1], [160, 96, 144])]
 
 
+def _text_configs(**kw):
+    """configs() with the decoder's fields ``kw`` replaced."""
+    return tuple(dataclasses.replace(c, text_config=dataclasses.replace(c.text_config, **kw))
+                 for c in configs())
+
+
 def kv1_configs():
     """configs() with one KV head."""
-    import dataclasses
+    return _text_configs(num_kv_heads=1)
 
-    return tuple(dataclasses.replace(c, text_config=dataclasses.replace(
-        c.text_config, num_kv_heads=1)) for c in configs())
+
+def gemma_configs():
+    """configs() as gemma-2 builds its decoder: the head tied to the
+    embedding, the embedding scaled, plus-one and post norms, GELU, the
+    final logits softcapped."""
+    return _text_configs(arch="gemma2", tie_word_embeddings=True, scale_embeddings=True,
+                         use_post_norms=True, hidden_act="gelu_pytorch_tanh",
+                         final_logit_softcapping=30.0)
+
+
+def v385_configs():
+    """configs() with a vocabulary that tensor 2 does not divide."""
+    return _text_configs(vocab_size=385)
 
 
 # name: (configs, batches, data, fsdp, tensor)
 WORLDS = {"world2-tensor2": (configs, tensor2_batches, 1, 1, 2),
           "world4-fsdp2xtensor2": (configs, world2_batches, 1, 2, 2),
-          "world2-tensor2-kv1": (kv1_configs, tensor2_batches, 1, 1, 2)}
+          "world2-tensor2-kv1": (kv1_configs, tensor2_batches, 1, 1, 2),
+          "world2-tensor2-gemma": (gemma_configs, tensor2_batches, 1, 1, 2),
+          "world2-tensor2-v385": (v385_configs, tensor2_batches, 1, 1, 2)}
+# name: (loss, vocabulary chunk) of the losses held against JAX; KL at the
+# default temperature, 2
+LOSSES = {"kl-chunked": ("kl", CHUNK), "kl-dense": ("kl", None),
+          "ce-chunked": ("ce", CHUNK), "ce-dense": ("ce", None)}
+
+
+def loss_params(world, loss):
+    """jax_params() of the world's config, for a step of ``loss``. The CE
+    steps and the gemma-2-style config's run on its decoder halved (2x the
+    init, as tests/test_torch_parallel_pipe.py runs it): at 4x, JAX's fp32
+    gradient norm on tensor2_batches(0) is 1.5e-5 (CE) and 1.1e-5 (the
+    gemma-2-style KL) from a float64 evaluation of the port (the port's own
+    fp32, in one process, 1.9e-6 and 1.6e-6), which no rtol of 1e-5 can
+    hold; at 2x both are within 7e-7 of it."""
+    jcfg, _ = WORLDS[world][0]()
+    jp = jax_params(jcfg)
+    if LOSSES[loss][0] == "kl" and world != "world2-tensor2-gemma":
+        return jp
+    return dict(jp, language_model=jax.tree.map(lambda a: a * 0.5 if a.ndim >= 2 else a,
+                                                jp["language_model"]))
+
+
+def _loss_config(c, loss):
+    return c.LossConfig(loss_function=c.LossFunction.KL_DIVERGENCE if LOSSES[loss][0] == "kl"
+                        else c.LossFunction.CROSS_ENTROPY)
 
 
 def _jax_mesh(data, fsdp, tensor):
@@ -110,22 +169,22 @@ def _jax_mesh(data, fsdp, tensor):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_run(world, steps, accum=1):
+def jax_run(world, steps, accum=1, loss="kl-chunked"):
     """JAX's steps on the world's mesh, on the global batches of its first
     ``steps`` steps: (metrics, trainables, the clipped gradient's
     magnitude read off Adam's first update), as test_torch_parallel_train
     computes them."""
     mk, batches, data, fsdp, tensor = WORLDS[world]
     jcfg, _ = mk()
-    jp = jax_params(jcfg)
+    jp = loss_params(world, loss)
     mesh = _jax_mesh(data, fsdp, tensor)
     opt = jts.make_optimizer(LR, **OPT)
     if accum > 1:
         opt = optax.MultiSteps(opt, accum)
     state, template = jts.init_train_state(jsh.shard_params(jp, mesh), opt, TRAINABLE)
     p0 = {k: np.asarray(v) for k, v in state.trainable.items()}
-    step = jax.jit(jts.make_train_step(jcfg, _loss_configs()[0], opt, template, remat=False,
-                                       attn_impl="xla", vocab_chunk=CHUNK))
+    step = jax.jit(jts.make_train_step(jcfg, _loss_config(jc, loss), opt, template, remat=False,
+                                       attn_impl="xla", vocab_chunk=LOSSES[loss][1]))
     metrics = []
     for s in range(steps):
         state, m = step(state, jmh.make_global_batch(concat(batches(s)), mesh))
@@ -137,12 +196,45 @@ def jax_run(world, steps, accum=1):
     return metrics, p1, {k: eps * r / (1 - r) for k, r in ratio.items()}
 
 
+@functools.lru_cache(maxsize=None)
+def jax_eval(world, chunk):
+    """JAX's validation step on the world's mesh and its first global
+    batch, from the initial weights: (NLL sum, label count)."""
+    mk, batches, data, fsdp, tensor = WORLDS[world]
+    jcfg, _ = mk()
+    mesh = _jax_mesh(data, fsdp, tensor)
+    state, template = jts.init_train_state(jsh.shard_params(jax_params(jcfg), mesh),
+                                           jts.make_optimizer(LR, **OPT), TRAINABLE)
+    s, c = jax.jit(jts.make_eval_step(jcfg, _loss_config(jc, "kl-chunked"), template,
+                                      vocab_chunk=chunk))(
+        state, jmh.make_global_batch(concat(batches(0)), mesh))
+    return float(s), int(c)
+
+
 def _step_spec(world, runs):
     mk, _, data, fsdp, tensor = WORLDS[world]
     jcfg, tcfg = mk()
     return dict(params=jax.tree.map(np.asarray, jax_params(jcfg)), cfg=tcfg, data=data, fsdp=fsdp,
                 tensor=tensor, lr=LR, opt=OPT, trainable=TRAINABLE,
                 loss_config=_loss_configs()[1], vocab_chunk=CHUNK, runs=runs)
+
+
+def _loss_runs(world, losses):
+    """One step a loss of ``losses``, then the validation step chunked and
+    dense (runs of the worker's ``step`` task)."""
+    batches = WORLDS[world][1]
+    out = [{"batches": [batches(0)], "loss_config": _loss_config(tc, loss),
+            "vocab_chunk": LOSSES[loss][1],
+            "params": jax.tree.map(np.asarray, loss_params(world, loss))} for loss in losses]
+    return out + [{"batches": [batches(0)], "eval": True, "vocab_chunk": chunk}
+                  for chunk in (CHUNK, None)]
+
+
+# the runs of each world after its first ones, and the index of the first
+W2_LOSSES = ("kl-dense", "ce-chunked", "ce-dense")
+W4_LOSSES = ("kl-dense", "ce-chunked", "ce-dense")
+VOCAB_WORLDS = {"world2-tensor2-gemma": ("kl-chunked", "kl-dense"),
+                "world2-tensor2-v385": ("kl-chunked", "ce-dense")}
 
 
 @pytest.fixture(scope="module")
@@ -170,9 +262,9 @@ def world2(world1, tmp_path_factory):
         {"batches": [b(0)], "fault": "no_o_proj_reduce"},
         {"batches": [b(0), b(1)], "save": save},
         {"batches": [b(2)], "resume": os.path.join(world1[0], "checkpoint-2")},
-    ]
+    ] + _loss_runs("world2-tensor2", W2_LOSSES)
     return start("step", _step_spec("world2-tensor2", runs), os.path.join(d, "run"),
-                 world=2), save
+                 world=2, timeout=400), save
 
 
 @pytest.fixture(scope="module")
@@ -180,7 +272,21 @@ def world4(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("fsdp2xtensor2"))
     runs = [{"batches": [world2_batches(0)]},
             {"batches": [world2_batches(0), world2_batches(1)], "accum": 2}]
-    return start("step", _step_spec("world4-fsdp2xtensor2", runs), d, world=4)
+    runs += _loss_runs("world4-fsdp2xtensor2", W4_LOSSES)
+    return start("step", _step_spec("world4-fsdp2xtensor2", runs), d, world=4, timeout=400)
+
+
+@pytest.fixture(scope="module")
+def vocab_worlds(tmp_path_factory):
+    """One gloo group of 2 ranks (tensor 2) running each of VOCAB_WORLDS'
+    configs on its own mesh: a step a loss, and the validation step."""
+    d = str(tmp_path_factory.mktemp("vocab"))
+    jobs = []
+    for world, losses in VOCAB_WORLDS.items():
+        _, _, data, fsdp, tensor = WORLDS[world]
+        job = _step_spec(world, _loss_runs(world, losses))
+        jobs.append(dict(job, kind="step", mesh=(data, fsdp, tensor, 1)))
+    return start("pipe", {"jobs": jobs}, d, world=2, timeout=400)
 
 
 @pytest.fixture(scope="module")
@@ -236,6 +342,84 @@ def test_each_rank_holds_its_tensor_slice(request, world):
                      "language_model/lm_head/kernel", "audio_tower/layers/fc1/bias",
                      "audio_tower/layers/out_proj/kernel"):
             assert path in split, path
+
+
+def _loss_result(request, world):
+    """(rank 0's runs, each rank's facts) of the world's loss runs (from
+    ``_loss_runs``), in order, then the validation step's two."""
+    if world in VOCAB_WORLDS:
+        out = request.getfixturevalue("vocab_worlds").result()
+        i = list(VOCAB_WORLDS).index(world)
+        return out["jobs"][i]["runs"], [f[i] for f in out["per_rank"]]
+    out = _ranks(request, world).result()
+    first = {"world2-tensor2": 5, "world4-fsdp2xtensor2": 2}[world]
+    return out["runs"][first:], [{k: v[first:] if isinstance(v, list) else v
+                                  for k, v in f.items()} for f in out["per_rank"]]
+
+
+def _losses_of(world):
+    return {"world2-tensor2": W2_LOSSES, "world4-fsdp2xtensor2": W4_LOSSES}.get(
+        world) or VOCAB_WORLDS[world]
+
+
+@pytest.mark.parametrize("world", ["world2-tensor2", "world4-fsdp2xtensor2",
+                                   "world2-tensor2-gemma", "world2-tensor2-v385"])
+def test_losses_on_the_vocabulary_slice_match_jax(request, world):
+    """CE and KL (temperature 2), with the vocabulary in chunks and
+    dense, each one step against JAX's: loss, grad norm and param norm
+    within rtol 1e-5, the updated trainables within 1e-5; the gemma-2-style
+    config has a tied head and softcapped logits; the 385-word vocabulary
+    stays whole on each rank, as JAX leaves it."""
+    losses = _losses_of(world)
+    want = [jax_run(world, 1, 1, loss) for loss in losses]
+    runs, _ = _loss_result(request, world)
+    for loss, run, (jm, jtr, grad) in zip(losses, runs, want):
+        assert jm[0]["grad_norm"] > OPT["max_grad_norm"], loss  # clipping ran
+        assert_metrics(run["metrics"], jm)
+        assert_trainables(run["trainable"], jtr, grad)
+
+
+@pytest.mark.parametrize("world", ["world2-tensor2", "world4-fsdp2xtensor2",
+                                   "world2-tensor2-gemma", "world2-tensor2-v385"])
+def test_validation_on_the_vocabulary_slice_matches_jax(request, world):
+    """The validation step's NLL sum (rtol 1e-5) and label count, the
+    vocabulary in chunks and dense, against JAX's chunked one."""
+    runs, _ = _loss_result(request, world)
+    n = len(_losses_of(world))
+    for chunk, run in zip((CHUNK, None), runs[n:]):
+        s, c = jax_eval(world, CHUNK)
+        assert run["metrics"][0]["count"] == c, chunk
+        np.testing.assert_allclose(run["metrics"][0]["nll_sum"], s, rtol=METRIC_RTOL,
+                                   err_msg=str(chunk))
+
+
+@pytest.mark.parametrize("world", ["world2-tensor2", "world4-fsdp2xtensor2",
+                                   "world2-tensor2-gemma", "world2-tensor2-v385"])
+def test_no_step_gathers_a_vocabulary_leaf_whole(request, world):
+    """No train or validation step gathers the embedding or the head whole
+    over ``tensor`` on any rank; the 385-word vocabulary's leaves are
+    whole on every rank (the rule dropped, as in JAX) and never gathered
+    either."""
+    mk, _, _, fsdp, tensor = WORLDS[world]
+    _, facts = _loss_result(request, world)
+    if world in VOCAB_WORLDS:
+        out = request.getfixturevalue("vocab_worlds").result()
+        i = list(VOCAB_WORLDS).index(world)
+        held = [f[i]["held"][0] for f in out["per_rank"]]
+    else:  # every run of the world, the planted fault's and the resumed one's too
+        facts = _ranks(request, world).result()["per_rank"]
+        held = [f["held"][0] for f in facts]
+    for rank, f in enumerate(facts):
+        assert f["vocab_gathers"] and not any(f["vocab_gathers"]), (rank, f["vocab_gathers"])
+    _, tcfg = mk()
+    parts = 1 if tcfg.text_config.vocab_size % tensor else tensor
+    for rank, h in enumerate(held):
+        for path in ("language_model/embed_tokens", "language_model/lm_head/kernel"):
+            if path not in h:  # a tied head
+                assert tcfg.text_config.tie_word_embeddings
+                continue
+            storage, _, full, _ = h[path]
+            assert storage == int(np.prod(full)) * 4 // (parts * fsdp), (rank, path)
 
 
 def _path_items(tree, prefix=""):
@@ -438,6 +622,25 @@ def test_ultravox_inference_mesh_matches_jax_on_both_ranks(serving):
     for facts in out["per_rank"]:
         assert facts["infer"] == want
     assert all(t for t, _, _ in want)
+
+
+def test_engines_hold_their_vocabulary_slice(serving):
+    """Each rank's ServingEngine(mesh=) and UltravoxInference(mesh=) hold
+    half of the embedding's and the head's bytes at tensor 2 (the tied
+    model of the serving runs has no head), and no rank ever gathers
+    either leaf whole over ``tensor``."""
+    ranks, names, _, _ = serving
+    out = ranks.result()
+    for rank, facts in enumerate(out["per_rank"]):
+        assert facts["vocab_gathers"] == 0, rank
+        assert facts["infer_vocab_gathers"] == 0, rank
+        held = [run["vocab_bytes"] for run in facts["runs"]] + [facts["infer_bytes"]]
+        assert sorted(held[0]) == ["language_model/embed_tokens"]
+        assert sorted(held[-1]) == ["language_model/embed_tokens",
+                                    "language_model/lm_head/kernel"]
+        for name, h in zip(names + ["infer"], held):
+            for path, (storage, whole) in h.items():
+                assert storage * 2 == whole, (rank, name, path)
 
 
 def test_quantize_with_mesh_raises():

@@ -460,15 +460,17 @@ def test_save_pretrained_merges_lora(tmp_path):
 
 
 def test_unported_parts_raise_and_checkpoints_resolve(tmp_path, monkeypatch):
-    """include_code raises NotImplementedError (wav2vec2 towers are ported:
+    """include_code writes the hub code beside the weights (wav2vec2 towers are ported:
     a state dict without a wav2vec2 tower's keys converts to None, as in the
     JAX package); a local directory resolves to itself, a missing one
     raises; hf:// and wandb:// go to their (lazily imported) downloaders."""
     Wav2Vec2EncoderConfig = type("Wav2Vec2EncoderConfig", (), {})
     assert tw.convert_audio_tower_checkpoint({}, Wav2Vec2EncoderConfig()) is None
     cfg, params, _ = tinfer.load_ultravox_checkpoint(FIXTURE, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="include_code"):
-        tpub.save_pretrained(params, cfg, str(tmp_path / "x"), include_code=True)
+    tpub.save_pretrained(params, cfg, str(tmp_path / "x"), include_code=True)
+    for fname in ("ultravox_config.py", "ultravox_model.py", "ultravox_processing.py",
+                  "ultravox_tokenizer.py", "ultravox_pipeline.py"):
+        assert (tmp_path / "x" / fname).is_file(), fname
     assert tinfer.resolve_checkpoint(FIXTURE) == FIXTURE
     with pytest.raises(FileNotFoundError):
         tinfer.resolve_checkpoint(str(tmp_path / "missing"))

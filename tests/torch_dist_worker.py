@@ -17,15 +17,18 @@ Tasks:
   tensor, pipe) mesh, run the train step on each step's batch of the rank's
   batch coordinate (tensor peers share it), and report the metrics, the
   whole trainable leaves after the steps, each frozen leaf's bytes on this
-  rank, and optionally resume from / save a checkpoint and export; a run
-  may plant a fault, or run the validation step instead (``eval``);
+  rank, the all-gathers that made a vocabulary leaf whole in the steps,
+  and optionally resume from / save a checkpoint and export; a run may
+  plant a fault, bring its own parameters, loss config and vocabulary
+  chunk, or run the validation step instead (``eval``);
 - ``pipe``: jobs on meshes with pipeline stages, each on its own mesh in
   one process group: ``pipelined_decoder_hidden`` against given
   embeddings (and its gradients), or the ``step`` task's runs;
 - ``serve``: ``ServingEngine(mesh=)`` runs (rank 0 submits, every rank
   reports the tokens its copies of the requests emitted) and
   ``UltravoxInference(mesh=)`` on a checkpoint directory, every rank
-  calling ``infer`` with the same samples;
+  calling ``infer`` with the same samples; each engine's vocabulary bytes
+  and the all-gathers that made a vocabulary leaf whole;
 - ``train``: ``training/train.py::main`` on the given argv, the model
   pack's parameters replaced by the given numpy tree when there is one;
 - ``eval``: ``evaluation/eval.py::eval_datasets`` through
@@ -34,7 +37,9 @@ Tasks:
 
 from __future__ import annotations
 
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -116,6 +121,30 @@ def _tensors(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
+# the output shape of every all_gather_into_tensor this rank issued, in
+# order (``main`` installs the spy)
+GATHERED: list = []
+
+
+def _spy_gathers():
+    import torch.distributed as dist
+
+    real = dist.all_gather_into_tensor
+
+    def spy(out, inp, *args, **kwargs):
+        GATHERED.append(tuple(out.shape))
+        return real(out, inp, *args, **kwargs)
+
+    dist.all_gather_into_tensor = spy
+
+
+def _vocab_gathers(cfg, since: int) -> int:
+    """The gathers since ``GATHERED[since]`` that made a vocabulary leaf
+    whole over ``tensor``: either leaf's tensor gather gives (V, D)."""
+    tc = cfg.text_config
+    return sum(s == (tc.vocab_size, tc.hidden_size) for s in GATHERED[since:])
+
+
 def _join(spec):
     from ultravox_torch.parallel.mesh import initialize_multihost
 
@@ -150,9 +179,12 @@ def _step_runs(spec, mesh, world):
     cfg = spec["cfg"]
     pipe_mesh = mesh if mesh.shape["pipe"] > 1 else None
     global_count, proj_apply, reduce_gradients = uv._global, decoder.proj_apply, ts.reduce_gradients
-    results, facts, splits, stages = [], [], [], []
+    results, facts, splits, stages, vocab = [], [], [], [], []
     for run in spec["runs"]:
-        params = sharding.shard_params(from_jax_params(spec["params"], cfg), mesh, cfg=cfg)
+        params = sharding.shard_params(from_jax_params(run.get("params", spec["params"]), cfg),
+                                       mesh, cfg=cfg)
+        loss_config = run.get("loss_config", spec["loss_config"])
+        vocab_chunk = run.get("vocab_chunk", spec.get("vocab_chunk"))
         opt = ts.make_optimizer(spec["lr"], **spec["opt"])
         if run.get("accum", 1) > 1:
             opt = ts.multi_steps(opt, run["accum"])
@@ -185,14 +217,15 @@ def _step_runs(spec, mesh, world):
                         for p, g in zip(params, out)]
 
             ts.reduce_gradients = p_times
-        step = ts.make_train_step(cfg, spec["loss_config"], opt, template, remat=True,
-                                  attn_impl="flash", vocab_chunk=spec.get("vocab_chunk"),
+        step = ts.make_train_step(cfg, loss_config, opt, template, remat=True,
+                                  attn_impl="flash", vocab_chunk=vocab_chunk,
                                   pipe_mesh=pipe_mesh, pipe_micro=spec.get("pipe_micro"),
                                   mesh=mesh)
         metrics = []
+        since = len(GATHERED)
         if run.get("eval"):  # the validation step's (sum, count), added over the batch axes
-            eval_fn = ts.make_eval_step(cfg, spec["loss_config"], template,
-                                        vocab_chunk=spec.get("vocab_chunk"), attn_impl="flash",
+            eval_fn = ts.make_eval_step(cfg, loss_config, template,
+                                        vocab_chunk=vocab_chunk, attn_impl="flash",
                                         pipe_mesh=pipe_mesh, pipe_micro=spec.get("pipe_micro"),
                                         mesh=mesh)
             for per_shard in run["batches"]:
@@ -204,6 +237,7 @@ def _step_runs(spec, mesh, world):
         for per_shard in run["batches"]:  # one batch a batch coordinate
             state, m = step(state, _tensors(per_shard[mesh.batch_index]))
             metrics.append({k: float(v) for k, v in m.items()})
+        vocab.append(_vocab_gathers(cfg, since))
         uv._global, decoder.proj_apply = global_count, proj_apply
         ts.reduce_gradients = reduce_gradients
         trainable = {k: sharding.gather_as(v, v).detach().clone()
@@ -214,7 +248,7 @@ def _step_runs(spec, mesh, world):
             ckpt.save_checkpoint(run["save"], state)
             ckpt.export_safetensors(state, os.path.join(run["save"], "model.safetensors"))
         results.append({"metrics": metrics, "trainable": trainable, "step": state.step})
-    return results, {"held": facts, "split": splits, "stage": stages,
+    return results, {"held": facts, "split": splits, "stage": stages, "vocab_gathers": vocab,
                      "rows": (mesh.batch_index, mesh.batch_shards), "coords": mesh.coords}
 
 
@@ -340,6 +374,7 @@ def _serving_run(run, params, cfg, mesh, rank):
 
     eng = ServingEngine(params, cfg, mesh=mesh, device="cpu", cache_dtype=torch.float32,
                         **run["kw"])
+    held = _vocab_bytes(eng.params)
     eng.start()
     try:
         if rank == 0:
@@ -367,8 +402,19 @@ def _serving_run(run, params, cfg, mesh, rank):
                     break
                 ids.append(ev.token_id)
             out.append((ids, finish))
-    return {"tokens": out, "spec_dispatches": eng.spec_dispatches,
+    return {"tokens": out, "spec_dispatches": eng.spec_dispatches, "vocab_bytes": held,
             "blocks": eng.stat_decode_steps > eng.stat_decode_dispatches}
+
+
+def _vocab_bytes(params):
+    """{path: (bytes held, the whole leaf's bytes)} of an engine's
+    vocabulary leaves."""
+    from ultravox_torch.parallel import sharding
+
+    return {path: (leaf.untyped_storage().nbytes(),
+                   math.prod(sharding.full_shape(leaf)) * leaf.element_size())
+            for path, leaf in sharding.path_items(params)
+            if re.fullmatch(sharding.VOCAB_LEAVES, path)}
 
 
 def task_serve(spec, rank, world):
@@ -384,6 +430,7 @@ def task_serve(spec, rank, world):
     _join(spec)
     mesh = pm.make_mesh(pm.MeshConfig(1, spec.get("fsdp", 1), spec["tensor"]))
     cfg = spec["cfg"]
+    since = len(GATHERED)
     runs = []
     for run in spec["runs"]:
         params = from_jax_params(spec["params"], cfg)
@@ -393,14 +440,20 @@ def task_serve(spec, rank, world):
         runs.append(_serving_run(run, params, cfg, mesh, rank))
     infer = []
     if spec.get("infer"):
+        infer_since = len(GATHERED)  # the constructor places the tree: count it too
         inf = UltravoxInference(spec["ckpt"], dtype=torch.float32, max_cache_len=256,
                                 device="cpu", mesh=mesh)
+        infer_bytes = _vocab_bytes(inf.engine.params)
         for text, audio in spec["infer"]:
             sample = (VoiceSample.from_prompt(text) if audio is None
                       else VoiceSample.from_prompt_and_audio(text, audio, 16000))
             o = inf.infer(sample, max_tokens=spec["max_tokens"])
             infer.append((o.text, o.input_tokens, o.output_tokens))
-    torch.save({"runs": runs, "infer": infer}, f"{spec['out']}.{rank}")
+        infer_gathers = _vocab_gathers(inf.cfg, infer_since)
+    facts = {"runs": runs, "infer": infer, "vocab_gathers": _vocab_gathers(cfg, since)}
+    if spec.get("infer"):
+        facts.update(infer_bytes=infer_bytes, infer_vocab_gathers=infer_gathers)
+    torch.save(facts, f"{spec['out']}.{rank}")
     if rank == 0:
         torch.save({"runs": runs, "infer": infer}, spec["out"])
 
@@ -410,6 +463,7 @@ def main():
     torch.set_num_threads(1)
     spec = torch.load(path, weights_only=False)
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    _spy_gathers()
     {"step": task_step, "train": task_train, "eval": task_eval,
      "serve": task_serve, "pipe": task_pipe}[task](spec, rank, world)
     import torch.distributed as dist

@@ -49,7 +49,14 @@ from ultravox_torch.ops.kernels.segment_attention import (
 )
 from ultravox_torch.ops.norms import rms_norm
 from ultravox_torch.ops.rope import apply_rope, rope_cos_sin, rope_frequencies
-from ultravox_torch.parallel.sharding import gather_layer, gather_whole, split_of, to_tensor
+from ultravox_torch.parallel.sharding import (
+    gather,
+    gather_layer,
+    gather_logits,
+    split_of,
+    to_tensor,
+    vocab_lookup,
+)
 
 Params = Dict[str, Any]
 
@@ -361,51 +368,75 @@ def make_attention_bias(
 
 def embed_lookup(params: Params, ids: torch.Tensor) -> torch.Tensor:
     """Token-embedding rows, dequantized (in the scales' dtype) from int8
-    storage when the tree has it."""
+    storage when the tree has it; an embedding split over ``tensor`` is
+    read in its slices (``vocab_lookup``)."""
     ids = ids.long()
     if "embed_tokens_q" in params:
         scales = params["embed_scale"][ids]
         return params["embed_tokens_q"][ids].to(scales.dtype) * scales[..., None]
-    return gather_whole(params["embed_tokens"])[ids]
+    return vocab_lookup(params["embed_tokens"], ids)
+
+
+def _uses_head(params: Params, cfg: DecoderConfig) -> bool:
+    """Whether the logits come from ``lm_head`` (else the tied embedding):
+    an int8 tree carries a pretransposed head even for a tied model."""
+    head = params.get("lm_head")
+    return head is not None and (not cfg.tie_word_embeddings or "kernel_q" in head)
 
 
 def gathered_head(params: Params, cfg: DecoderConfig) -> Params:
-    """``params`` with the leaf ``compute_logits`` reads gathered whole
-    once (over fsdp and ``tensor``), for a caller that projects chunk after
-    chunk: the processes of an fsdp group then gather the same number of
-    times, whatever their chunk counts."""
-    head = params.get("lm_head")
-    if head is not None and (not cfg.tie_word_embeddings or "kernel_q" in head):
+    """``params`` with the leaf ``compute_logits`` reads gathered over fsdp
+    once, for a caller that projects chunk after chunk: the processes of an
+    fsdp group then gather the same number of times, whatever their chunk
+    counts. A split over ``tensor`` stays."""
+    if _uses_head(params, cfg):
+        head = params["lm_head"]
         if "kernel" not in head:
             return params
-        return dict(params, lm_head=dict(head, kernel=gather_whole(head["kernel"])))
+        return dict(params, lm_head=dict(head, kernel=gather(head["kernel"])))
     if "embed_tokens" not in params:
         return params
-    return dict(params, embed_tokens=gather_whole(params["embed_tokens"]))
+    return dict(params, embed_tokens=gather(params["embed_tokens"]))
 
 
-def compute_logits(params: Params, cfg: DecoderConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """LM head: hidden (..., D) -> fp32 logits (..., V), with gemma's final
-    softcap. The product runs in the weights' dtype and is then widened, as
-    in the reference. A tied model uses the embedding, except an int8 tree,
-    which carries a pretransposed int8 head (``quantize_decoder_int8``)."""
-    head = params.get("lm_head")
-    use_head = head is not None and (not cfg.tie_word_embeddings or "kernel_q" in head)
-    if not use_head:
+def head_split(params: Params, cfg: DecoderConfig):
+    """The ``tensor`` split of the leaf the logits come from (None where
+    every rank holds the whole vocabulary)."""
+    if _uses_head(params, cfg):
+        return split_of(params["lm_head"].get("kernel"))
+    return split_of(params.get("embed_tokens"))
+
+
+def local_logits(params: Params, cfg: DecoderConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """LM head: hidden (..., D) -> fp32 logits (..., V) of this rank's
+    vocabulary slice (all of it without a split over ``tensor``), with
+    gemma's final softcap. The product runs in the weights' dtype and is
+    then widened, as in the reference. A tied model uses the embedding,
+    except an int8 tree, which carries a pretransposed int8 head
+    (``quantize_decoder_int8``)."""
+    if not _uses_head(params, cfg):
         if "embed_tokens_q" in params:
             logits = proj_apply(hidden, {
                 "kernel_q": params["embed_tokens_q"].T, "scale": params["embed_scale"][None],
             }).float()
         else:
-            logits = (hidden @ gather_whole(params["embed_tokens"]).T).float()
-    elif "kernel_q" in head:
-        logits = proj_apply(hidden, head).float()
+            w = params["embed_tokens"]
+            logits = (to_tensor(hidden, split_of(w)) @ gather(w).T).float()
+    elif "kernel_q" in params["lm_head"]:
+        logits = proj_apply(hidden, params["lm_head"]).float()
     else:
-        logits = (hidden @ gather_whole(head["kernel"])).float()
+        w = params["lm_head"]["kernel"]
+        logits = (to_tensor(hidden, split_of(w)) @ gather(w)).float()
     if cfg.final_logit_softcapping:
         cap = cfg.final_logit_softcapping
         logits = torch.tanh(logits / cap) * cap
     return logits
+
+
+def compute_logits(params: Params, cfg: DecoderConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """fp32 logits (..., V) of the whole vocabulary: ``local_logits``, its
+    slices gathered over ``tensor`` (the rows, never the weights)."""
+    return gather_logits(local_logits(params, cfg, hidden), head_split(params, cfg))
 
 
 def fuse_inference_params(params: Params, cfg: DecoderConfig) -> Params:

@@ -295,6 +295,97 @@ def _chunks(x: torch.Tensor, chunk: int, fill) -> torch.Tensor:
     return x.reshape(n, chunk, *x.shape[1:])
 
 
+# --- the chunked losses on this rank's vocabulary slice ---------------------
+#
+# With the head split over ``tensor`` (Megatron's vocabulary-parallel
+# losses) each rank holds logits of its slice alone: a row's max, its sum of
+# exponentials and the label's logit are all-reduced over the group, and
+# the loss is a value every peer holds alike. The gradient of the local
+# logits needs no collective: the head's product (``to_tensor``) adds the
+# peers' parts of the hidden state's gradient once. A rank that holds the
+# whole vocabulary takes autograd's path through the same formulas, so its
+# gradients round as they always have.
+
+
+def _log_softmax(x: torch.Tensor, group) -> torch.Tensor:
+    """log-softmax over the whole vocabulary of this rank's slice ``x``
+    (rows, V_local), from the max and the sum of exponentials all-reduced."""
+    m = all_reduce_(x.amax(dim=-1), group, op=dist.ReduceOp.MAX)
+    shifted = x - m[:, None]
+    z = all_reduce_(torch.exp(shifted).sum(dim=-1), group)
+    return shifted - torch.log(z)[:, None]
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Per-row NLL of ``labels`` (-100 = none) from this rank's slice of
+    the logits (rows, V_local), whose first id is ``offset``; the
+    gradient is softmax - onehot on the slice."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, offset: int, group):
+        logp = _log_softmax(logits, group)
+        valid = labels != -100
+        local = labels.long() - offset
+        mine = valid & (local >= 0) & (local < logits.shape[-1])
+        local = torch.where(mine, local, 0)[:, None]
+        picked = torch.where(mine, torch.gather(logp, -1, local)[:, 0], 0.0)
+        nll = -all_reduce_(picked, group)
+        ctx.save_for_backward(logp, local, mine, valid)
+        return torch.where(valid, nll, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        logp, local, mine, valid = ctx.saved_tensors
+        g = torch.where(valid, g, 0.0)
+        grad = torch.exp(logp) * g[:, None]
+        grad.scatter_add_(-1, local, -torch.where(mine, g, 0.0)[:, None])
+        return grad, None, None, None
+
+
+class _VocabKL(torch.autograd.Function):
+    """Per-row KL(teacher || student) at ``temperature`` from this rank's
+    slices of both streams' logits; the teacher takes no gradient, the
+    student's slice (p_s * sum(p_t) - p_t) / T."""
+
+    @staticmethod
+    def forward(ctx, s_logits, t_logits, temperature: float, group):
+        s_logp = _log_softmax(s_logits / temperature, group)
+        t_logp = _log_softmax(t_logits / temperature, group)
+        p_t = torch.exp(t_logp)
+        both = all_reduce_(torch.stack([(p_t * (t_logp - s_logp)).sum(dim=-1),
+                                        p_t.sum(dim=-1)]), group)
+        ctx.save_for_backward(s_logp, p_t, both[1])
+        ctx.temperature = temperature
+        return both[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        s_logp, p_t, p_sum = ctx.saved_tensors
+        grad = (torch.exp(s_logp) * p_sum[:, None] - p_t) * (g / ctx.temperature)[:, None]
+        return grad, None, None, None
+
+
+def _nll_rows(logits, labels, offset: int = 0, group=None) -> torch.Tensor:
+    """Per-row NLL of ``labels`` (-100 = none, 0) from fp32 logits of the
+    whole vocabulary, or with ``group`` of this rank's slice."""
+    if group is not None:
+        return _VocabNLL.apply(logits, labels, offset, group)
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = labels != -100
+    safe = torch.where(valid, labels, 0).long()
+    lbl_logit = torch.gather(logits, -1, safe[:, None])[:, 0]
+    return torch.where(valid, lse - lbl_logit, 0.0)
+
+
+def _head_group(lm_params: Params, tc):
+    """(tensor group, first vocabulary id) of this rank's head slice;
+    (None, 0) for a whole head."""
+    split = decoder_lib.head_split(lm_params, tc)
+    if split is None:
+        return None, 0
+    return split.group, split.index * (split.full_shape[split.dim] // split.size)
+
+
 def chunked_nll_sums(
     lm_params: Params,
     tc,
@@ -305,20 +396,18 @@ def chunked_nll_sums(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum of next-token NLL, count of supervised positions) from hidden
     states, projecting to the vocabulary ``chunk`` positions at a time
-    (each chunk checkpointed): the (B, T, V) logits never exist. The same
-    fp32 logsumexp as the dense loss."""
+    (each chunk checkpointed): the (B, T, V) logits never exist, and with
+    a head split over ``tensor`` each rank projects its slice alone
+    (``_VocabNLL``)."""
     lm_params = decoder_lib.gathered_head(lm_params, tc)
+    group, offset = _head_group(lm_params, tc)
     D = hidden.shape[-1]
     hs = _chunks(hidden[:, :-1].reshape(-1, D), chunk, 0)
     lbl = _chunks(labels[:, 1:].reshape(-1), chunk, -100)
 
     def body(h_c, l_c):
-        logits = decoder_lib.compute_logits(lm_params, tc, h_c)  # (chunk, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        valid = l_c != -100
-        safe = torch.where(valid, l_c, 0).long()
-        lbl_logit = torch.gather(logits, -1, safe[:, None])[:, 0]
-        return torch.where(valid, lse - lbl_logit, 0.0).sum()
+        logits = decoder_lib.local_logits(lm_params, tc, h_c)  # (chunk, V_local)
+        return _nll_rows(logits, l_c, offset, group).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(hs.shape[0]):
@@ -365,7 +454,11 @@ def _common_rows(s_mask: torch.Tensor, t_mask: torch.Tensor, length: int) -> tor
     return torch.arange(length, device=s_mask.device)[None] < n_common[:, None]
 
 
-def _kl_rows(s_logits, t_logits, temperature: float) -> torch.Tensor:
+def _kl_rows(s_logits, t_logits, temperature: float, group=None) -> torch.Tensor:
+    """Per-row KL(teacher || student) at ``temperature`` from fp32 logits
+    of the whole vocabulary, or with ``group`` of this rank's slice."""
+    if group is not None:
+        return _VocabKL.apply(s_logits, t_logits, temperature, group)
     s_logp = torch.log_softmax(s_logits / temperature, dim=-1)
     t_logp = torch.log_softmax(t_logits / temperature, dim=-1)
     return (torch.exp(t_logp) * (t_logp - s_logp)).sum(dim=-1)
@@ -406,8 +499,9 @@ def _masked_kl_chunked(
 ) -> torch.Tensor:
     """``_masked_kl`` with the vocabulary projected lazily: both streams'
     hidden states are compacted to the common masked rows (B, rows, D),
-    and the logits exist one checkpointed ``chunk`` of rows at a time.
-    ``lm_s`` and ``lm_t`` carry their heads whole (``gathered_head``)."""
+    and the logits exist one checkpointed ``chunk`` of rows at a time, of
+    this rank's vocabulary slice. ``lm_s`` and ``lm_t`` carry their heads
+    gathered over fsdp (``gathered_head``)."""
     D = h_s.shape[-1]
     R = min(h_s.shape[1], h_t.shape[1]) if rows is None else rows
     sf = _compact_rows(h_s, s_mask, R).reshape(-1, D)
@@ -416,9 +510,11 @@ def _masked_kl_chunked(
     ch = min(chunk, sf.shape[0])
     sf, tf, rv = _chunks(sf, ch, 0), _chunks(tf, ch, 0), _chunks(row_valid, ch, False)
 
+    group, _ = _head_group(lm_s, tc)
+
     def body(s_c, t_c, v_c):
-        kl = _kl_rows(decoder_lib.compute_logits(lm_s, tc, s_c),
-                      decoder_lib.compute_logits(lm_t, tc, t_c), temperature)
+        kl = _kl_rows(decoder_lib.local_logits(lm_s, tc, s_c),
+                      decoder_lib.local_logits(lm_t, tc, t_c), temperature, group)
         return torch.where(v_c, kl, 0.0).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=h_s.device)

@@ -21,12 +21,15 @@ collectives; here they are written out:
   (its backward reduce-scatters the gradient). A tensor split stays split
   inside a layer (Megatron): ``to_tensor`` (identity forward, all-reduce
   backward) enters a column-split product, ``from_tensor`` (all-reduce
-  forward, identity backward) leaves a row-split one, and the leaves read
-  whole outside the layers (embedding, head, projector) are gathered
-  over ``tensor`` too (``gather_whole``, whose backward keeps this rank's
-  slice of a gradient every tensor peer computes alike). A stage slice is
-  never gathered in a step: each stage runs its own layers
-  (``pipeline.py``);
+  forward, identity backward) leaves a row-split one. The vocabulary
+  leaves (``VOCAB_LEAVES``: the embedding and the head) stay split too:
+  ``vocab_lookup`` reads this rank's rows and one all-reduce adds the
+  ranks' parts, the head gives this rank's slice of the logits, which the
+  losses use as they are (``models/ultravox.py``) and a sampler takes
+  whole through ``gather_logits``. The projector is gathered over
+  ``tensor`` (``gather_whole``, whose backward keeps this rank's slice of
+  a gradient every tensor peer computes alike). A stage slice is never
+  gathered in a step: each stage runs its own layers (``pipeline.py``);
 - ``reduce_gradients`` sums each gradient over the processes that hold
   the same leaf and split the batch (never over ``tensor``: a split
   leaf's peers hold other slices, a whole leaf's the same gradient), and a
@@ -80,6 +83,8 @@ DEFAULT_RULES: List[Tuple[str, Spec]] = [
     # ---- everything else (norms, convs, biases) replicated ----
     (r".*", ()),
 ]
+# the leaves whose vocabulary dim the rules split over ``tensor``
+VOCAB_LEAVES = r"(.*/)?language_model/(embed_tokens|lm_head/kernel)"
 
 
 def rules_for_mesh(mesh: Mesh) -> List[Tuple[str, Spec]]:
@@ -430,8 +435,8 @@ class _GatherShards(torch.autograd.Function):
 
 class _GatherSplit(torch.autograd.Function):
     """All-gather over ``tensor`` forward; backward keeps this rank's slice
-    of the gradient, which every tensor peer computes alike (the leaf is
-    used whole, on the same rows, on each of them)."""
+    of the gradient, which every tensor peer computes alike (the leaf or
+    the logits are used whole, on the same rows, on each of them)."""
 
     @staticmethod
     def forward(ctx, local, split):
@@ -471,7 +476,7 @@ def gather_layer(t, l: int):
 
 def gather_whole(t):
     """The whole leaf, over fsdp and over ``tensor``: for the leaves the
-    models read whole (the embedding, the head, the projector)."""
+    models read whole (the projector)."""
     out = gather(t)
     sp = _cut_over_tensor(t)
     if sp is None:
@@ -503,10 +508,54 @@ def gather_tree(tree: Any) -> Any:
 
 def whole_outside_layers(tree: Any) -> Any:
     """The tree with every placed leaf outside the towers' ``layers``
-    (embedding, head, projector, positions) gathered whole once, for an
-    engine that reads them at every step; the layers stay placed."""
-    return map_paths(lambda path, leaf: leaf if "/layers/" in f"/{path}" or not is_placed(leaf)
-                     else gather_as(leaf, leaf), tree)
+    (projector, positions) gathered whole once, for an engine that reads
+    them at every step; the layers stay placed, and a vocabulary leaf
+    split over ``tensor`` keeps its slice (gathered over fsdp alone)."""
+
+    def one(path, leaf):
+        if "/layers/" in f"/{path}" or not is_placed(leaf):
+            return leaf
+        sp, s = _cut_over_tensor(leaf), shard_of(leaf)
+        if sp is None or not re.fullmatch(VOCAB_LEAVES, path):
+            return gather_as(leaf, leaf)
+        if s is None:
+            return leaf
+        return _tag(_all_gather(leaf.detach(), s.dim, s.size, s.group), None, sp)
+
+    return map_paths(one, tree)
+
+
+# --------------------------------------------------------------------------
+# the vocabulary over ``tensor``
+# --------------------------------------------------------------------------
+
+def vocab_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of the embedding ``table`` (V, D): with a vocabulary
+    split (``split_of``; none where ``tensor`` does not divide V, as in
+    JAX), each rank reads the ids of its own slice, zeroes the others,
+    and one all-reduce over ``tensor`` adds the parts (its backward is the
+    identity: each rank's rows take their own gradient)."""
+    w = gather(table)
+    sp = split_of(table)
+    if sp is None:
+        return w[ids]
+    n = w.shape[sp.dim]
+    local = ids - sp.index * n
+    mine = (local >= 0) & (local < n)
+    rows = torch.where(mine[..., None], w[torch.where(mine, local, 0)], 0)
+    return from_tensor(rows, sp)
+
+
+def gather_logits(logits: torch.Tensor, split: Optional[TensorSplit]) -> torch.Tensor:
+    """The whole vocabulary rows of this rank's slice ``logits`` (..., V /
+    tensor) of ``split``'s leaf, gathered over ``tensor``; the backward
+    keeps this rank's slice of a gradient every peer computes alike."""
+    if split is None:
+        return logits
+    sp = dataclasses.replace(split, dim=-1)
+    if _grad_on(logits):
+        return _GatherSplit.apply(logits, sp).contiguous()
+    return _all_gather(logits, -1, sp.size, sp.group).contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -583,10 +632,10 @@ def tensor_rows(t: torch.Tensor, split: TensorSplit) -> torch.Tensor:
 # reductions
 # --------------------------------------------------------------------------
 
-def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum ``t`` in place over ``group``; nothing without one."""
+def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum (or ``op``) ``t`` in place over ``group``; nothing without one."""
     if group is not None:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=op, group=group)
     return t
 
 

@@ -12,10 +12,12 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 from typing import Any
 
 import torch
 
+from ultravox_torch import hub
 from ultravox_torch.models import weights as weights_lib
 from ultravox_torch.models.config import UltravoxConfig
 from ultravox_torch.models.lora import merge_lora
@@ -138,16 +140,20 @@ def save_pretrained(
     LoRA adapters are merged into the kernels first. Tensors are written in
     ``dtype`` (fp32, as the reference writes; None keeps each leaf's
     dtype), in one file or ``shards`` files with an index.
-    ``include_code=True`` (the standalone torch model code of the JAX
-    package's ``hub`` directory) is not ported."""
-    if include_code:
-        raise NotImplementedError(
-            "include_code=True ships the JAX package's hub code, which the port may not "
-            "import (ROADMAP.md queue A)")
+    ``include_code`` also ships the standalone torch model code
+    (``ultravox_torch/hub``) with ``auto_map`` entries in ``config.json``,
+    so the directory loads with ``AutoModel.from_pretrained(dir,
+    trust_remote_code=True)`` where only ``transformers`` is installed."""
     params = merge_lora(params)
     os.makedirs(out_dir, exist_ok=True)
+    hf_dict = config_to_hf_dict(cfg)
+    if include_code:
+        hf_dict["auto_map"] = dict(hub.AUTO_MAP)
+        for fname in hub.HUB_CODE_FILES:
+            shutil.copyfile(os.path.join(hub.HUB_CODE_DIR, fname + hub.STORED_SUFFIX),
+                            os.path.join(out_dir, fname))
     with open(os.path.join(out_dir, "config.json"), "w") as f:
-        json.dump(config_to_hf_dict(cfg), f, indent=2)
+        json.dump(hf_dict, f, indent=2)
 
     sd: dict = {}
     if "projector" in params:
