@@ -268,8 +268,15 @@ Phases, each fatal on failure:
      against the engine's counters, samples/s), averaged with a second
      tree (seed 1) and loaded back (sampled tensors bit-equal to the bf16
      of the fp64 mean, generate runs), and the projector up-projected to a
-     4096-wide embedding on the card against the CPU. ``--phases 17``
-     runs the build and this phase alone, without a result line.
+     4096-wide embedding on the card against the CPU; inside the server's
+     lifetime, (e) the GPT judge (boolq, audiobench_scalar and
+     voicebench_open, 4 samples each from (a)'s answers) and (f) ds_tool's
+     textgen through DatasetChunkProcessor, run again from its disk cache,
+     both asking the served flagship over /v1/chat/completions (12 judge
+     requests, each result its parsed reply, #1-#3 at 0 launches, launches
+     against the engine's counters; 0 requests and an equal column from
+     the cache). ``--phases 17`` runs the build and this phase alone,
+     without a result line.
 
 Each phase prints its seconds. Phases 4-7 also hold ln_matmul_gelu, attn_out_proj_residual,
 decode_matmul, attn_v2 and attn_nt at 0 launches: no engine calls them.
@@ -3237,9 +3244,10 @@ def main() -> None:
     # 17. run_serving_eval's server and the host tools at the flagship width
     serving_eval, se_launches = _serving_eval_main_path(tc, uv, _kernel_counters(), smi, dev)
     for row in rows:
-        if se_launches.get(row["name"]):
-            row.setdefault("launches_per_path", {"main": row["launches"]})[
-                "run_serving_eval (phase 17)"] = se_launches[row["name"]]
+        for path, launched in se_launches.items():
+            if launched.get(row["name"]):
+                row.setdefault("launches_per_path", {"main": row["launches"]})[path] = (
+                    launched[row["name"]])
 
     print(f"chip_smoke: {time.perf_counter() - t_script:.2f} s in all", flush=True)
     print(smi, flush=True)
@@ -7452,9 +7460,52 @@ def _phase16_only(tc, uv, dev) -> None:
 # --------------------------------------------------------------------------
 
 SE_SAMPLES, SE_BATCH, SE_TOKENS = 16, 8, 32
+# phase 17 (e): (metric, the port's parser of its reply), JUDGE_SAMPLES each
+JUDGE_SET = (("boolq", "parse_binary"), ("audiobench_scalar", "parse_scalar"),
+             ("voicebench_open", "parse_scalar"))
+JUDGE_SAMPLES = 4
+# phase 17 (f): ds_tool's textgen
+TEXTGEN_ROWS, TEXTGEN_CHUNK, TEXTGEN_TOKENS = 6, 4, 32
+JUDGE_TEXTGEN_LIMIT_S = 60.0
 # the up-projected projector on the card against the same call on the CPU:
 # both fit in fp64, then one fp32 product of 1536 terms each side
 UPPROJECT_TOL = 1e-5
+
+
+class _ChatClient:
+    """An OpenAI-compatible chat client over urllib, for the judge and
+    ds_tool's textgen (phase 17 (e), (f)): ``chat.completions.create(**kw)``
+    POSTs ``kw`` as the body of /v1/chat/completions and returns an object
+    with ``.choices[0].message.content``. Thread-safe; ``requests`` counts
+    the requests sent and ``replies`` keeps each (messages, reply) in the
+    order the replies came."""
+
+    def __init__(self, base_url: str, timeout: float = 600.0):
+        import threading
+        import types
+
+        self.url = base_url.rstrip("/") + "/v1/chat/completions"
+        self.timeout = timeout
+        self.requests = 0
+        self.replies = []
+        self._lock = threading.Lock()
+        self.chat = types.SimpleNamespace(
+            completions=types.SimpleNamespace(create=self._create))
+
+    def _create(self, **body):
+        import types
+        import urllib.request
+
+        with self._lock:
+            self.requests += 1
+        req = urllib.request.Request(self.url, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=self.timeout) as r:
+            content = json.load(r)["choices"][0]["message"]["content"]
+        with self._lock:
+            self.replies.append((body["messages"], content))
+        message = types.SimpleNamespace(content=content)
+        return types.SimpleNamespace(choices=[types.SimpleNamespace(message=message)])
 
 
 def _tree_to(tree, device):
@@ -7489,9 +7540,10 @@ def _serving_eval_main_path(tc, uv, counters, smi, dev):
           embedding to a random 4096-wide one over the 128256 ids, on the
           card, against the same call on the CPU (both fit in fp64): the
           largest difference of the new linear_2 within UPPROJECT_TOL of
-          its largest value; the seconds of each.
+          its largest value; the seconds of each;
+      (e), (f) inside (a)'s server lifetime: see _judge_and_textgen.
 
-    Returns (metrics, {name: launches of (a)})."""
+    Returns (metrics, {path: {name: launches}}) for (a), (e) and (f)."""
     import shutil
     import tempfile
     import urllib.request
@@ -7555,6 +7607,10 @@ def _serving_eval_main_path(tc, uv, counters, smi, dev):
                                    engine.stat_decode_steps - stats0[1],
                                    engine.stat_prefill_chunks - stats0[2])
             K = engine.decode_block_steps
+            with open(os.path.join(root, "eval", "synthetic-asr.json")) as f:
+                answers = [s["generated_answer"] for s in json.load(f)["samples"]]
+            judged, judge_launches = _judge_and_textgen(
+                engine, port, counters, answers, root, cfg.text_config.num_layers, smi)
         finally:
             server.shutdown()
             server.server_close()
@@ -7650,9 +7706,188 @@ def _serving_eval_main_path(tc, uv, counters, smi, dev):
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    metrics.update(judged)
     metrics["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 17: {metrics['phase_s']:.2f} s", flush=True)
-    return metrics, launches
+    return metrics, {"run_serving_eval (phase 17)": launches, **judge_launches}
+
+
+def _judge_run(port: int, answers: list):
+    """Phase 17 (e) without the card's checks: the port's GPT judge asks
+    the server on ``port`` through a _ChatClient, JUDGE_SAMPLES samples of
+    each of JUDGE_SET's metrics made from ``answers`` (a marker in each
+    question and reference makes every prompt distinct). Fails unless the
+    client sent one request a sample and each EvalResult equals the
+    metric's parser applied to the reply the client kept. Returns (client,
+    {metric: evaluate_answers' result}, seconds)."""
+    from ultravox_torch.evaluation import gpt_eval
+    from ultravox_torch.evaluation import metrics as metrics_lib
+    from ultravox_torch.evaluation import voicebench  # noqa: F401  (registers voicebench_open)
+
+    client = _ChatClient(f"http://127.0.0.1:{port}")
+    gpt_eval.gpt_evaluator.client = client
+    samples = {metric: [metrics_lib.EvalSample(
+        i, f"[judge sample {m}{i}] What did the speaker say?",
+        f"[judge sample {m}{i}] {'True' if i % 2 else 'False'}", answers[i % len(answers)])
+        for i in range(JUDGE_SAMPLES)] for m, (metric, _) in enumerate(JUDGE_SET)}
+    t0 = time.perf_counter()
+    try:
+        results = {metric: metrics_lib.evaluate_answers(samples[metric], metric)
+                   for metric, _ in JUDGE_SET}
+    finally:
+        gpt_eval.gpt_evaluator.client = None
+    seconds = time.perf_counter() - t0
+    n = len(JUDGE_SET) * JUDGE_SAMPLES
+    if client.requests != n or len(client.replies) != n:
+        _fail(f"phase 17 (e): the judge sent {client.requests} requests "
+              f"({len(client.replies)} replies), expected {n}")
+    for m, (metric, parser_name) in enumerate(JUDGE_SET):
+        parser = getattr(gpt_eval, parser_name)
+        for i, got in enumerate(results[metric]["per_sample"]):
+            mark = f"[judge sample {m}{i}]"
+            replies = [r for msgs, r in client.replies if mark in msgs[-1]["content"]]
+            if len(replies) != 1 or got != parser(replies[0]):
+                _fail(f"phase 17 (e): {metric} sample {i} scored {got}, its replies {replies}")
+    return client, results, seconds
+
+
+def _textgen_task(client, root: str, rows: list):
+    """Phase 17 (f)'s split and task: ``rows`` written as a local
+    JSON-lines split and loaded into memory by the port's HF loader
+    (``data/datasets.py::_load_hf_dataset``, its Arrow cache under
+    ``root``), and TextGenerationTask (TEXTGEN_TOKENS tokens) asking
+    through ``client`` with a disk cache under ``root``."""
+    from ultravox_torch.data.datasets import _load_hf_dataset
+    from ultravox_torch.tools.ds_tool.ds_tool import TextGenerationTask
+
+    src = os.path.join(root, "textgen_src")
+    os.makedirs(src, exist_ok=True)
+    with open(os.path.join(src, "train.jsonl"), "w") as f:
+        for i, text in enumerate(rows):
+            f.write(json.dumps({"id": i, "text": text}) + "\n")
+    split = _load_hf_dataset(src, split="train", streaming=False,
+                             cache_dir=os.path.join(root, "hf_cache"), keep_in_memory=True)
+    return split, TextGenerationTask(client=client, max_tokens=TEXTGEN_TOKENS,
+                                     cache_dir=os.path.join(root, "chat_cache"))
+
+
+def _textgen_pass(split, task, client, out_dir: str, want_requests: int, first=None):
+    """One pass of phase 17 (f): ``task`` through DatasetChunkProcessor
+    (chunks of TEXTGEN_CHUNK) over ``split`` into ``out_dir``. Fails unless
+    the client sent ``want_requests`` requests, every chunk was saved, and
+    (given the first pass's result) the generated column equals the
+    first's. Returns {"seconds", "column"}."""
+    from ultravox_torch.tools.ds_tool.ds_tool import DatasetChunkProcessor
+
+    class _Kept:
+        """The task, keeping each chunk it returns."""
+
+        def __init__(self):
+            self.chunks = []
+
+        def map_split(self, dataset, num_proc=1):
+            self.chunks.append(task.map_split(dataset, num_proc))
+            return self.chunks[-1]
+
+    kept, sent = _Kept(), client.requests
+    proc = DatasetChunkProcessor(task=kept, output_dir=out_dir, chunk_size=TEXTGEN_CHUNK)
+    t0 = time.perf_counter()
+    saved = proc.process_split(split, "train")
+    seconds = time.perf_counter() - t0
+    column = [t for chunk in kept.chunks for t in chunk[task.new_column_name]]
+    if (client.requests - sent != want_requests or len(saved) != -(-len(split) // TEXTGEN_CHUNK)
+            or not all(os.path.isfile(os.path.join(d, "state.json")) for d in saved)
+            or len(column) != len(split) or not all(isinstance(t, str) for t in column)):
+        _fail(f"phase 17 (f): {out_dir} sent {client.requests - sent} requests (expected "
+              f"{want_requests}), saved {saved}, column {column}")
+    if first is not None and column != first["column"]:
+        _fail(f"phase 17 (f): the cached column {column} is not the first {first['column']}")
+    return {"seconds": seconds, "column": column}
+
+
+def _judge_and_textgen(engine, port, counters, answers, root, L_dec, smi):
+    """Phase 17 (e) and (f), inside (a)'s server lifetime, asking the served
+    flagship over /v1/chat/completions (the server serves its model for
+    any model name: the judge sends ``gpt-4o``, textgen ``gpt-4o-mini``).
+    The card's machine has ``openai`` 2.36.0, ``requests`` 2.33.1,
+    ``datasets`` 4.6.1 and ``huggingface_hub`` 1.14.0; the client is
+    _ChatClient all the same, so that it counts its requests and keeps its
+    replies, and (f) runs on HF ``datasets``.
+
+      (e) _judge_run: JUDGE_SAMPLES x 3 judge requests of 256 tokens each,
+          from evaluate_answers' 8 threads (the server batches them). The
+          kernels' launches must match the engine's counters
+          (_check_serving_launches with no encoder: #1-#3 at 0, since the
+          requests carry no audio; #4 = decoder layers x prefill chunks,
+          and at least one chunk a request; the decode kernels (a)'s flags
+          select, blocks required). Requests/s and seconds.
+      (f) _textgen_task and _textgen_pass over TEXTGEN_ROWS rows made from
+          (a)'s answers, one request at a time: the first pass's launches
+          against the engine's counters as in (e); the second pass, into a
+          fresh directory with the same cache, sends no request, launches
+          no kernel, moves none of the engine's counters and gives the
+          same column.
+
+    (e) and (f) together must take at most JUDGE_TEXTGEN_LIMIT_S. Returns
+    ({"judge": ..., "textgen": ...}, {path: {name: launches}})."""
+    t_all = time.perf_counter()
+
+    def stats():
+        return (engine.stat_decode_dispatches, engine.stat_decode_steps,
+                engine.stat_prefill_chunks)
+
+    def check(label, launches, before, requests):
+        disp, steps, chunks = (a - b for a, b in zip(stats(), before))
+        if chunks < requests:
+            _fail(f"{label}: {chunks} prefill chunks for {requests} requests")
+        paged = engine.resolved_flags["cache_mode"] == "paged"
+        block = engine.resolved_flags["block_attn_impl"] == "kernel"
+        singles, blocks = _check_serving_launches(
+            label, {k: v for k, v in launches.items() if k in counters}, counters, {}, disp,
+            steps, chunks, engine.decode_block_steps, L_dec,
+            "paged_decode_attention" if paged else "decode_attention",
+            ("paged_segment_tail_attention" if paged else "segment_tail_attention")
+            if block else None, mixed=False)
+        return {"singles": singles, "blocks": blocks, "chunks": chunks, "steps": steps}
+
+    before = stats()
+    (client, results, judge_s), judge_launches = _count_launches(
+        counters, lambda: _judge_run(port, answers))
+    judge = check("phase 17 (e)", judge_launches, before, client.requests)
+    judge.update(seconds=judge_s, requests=client.requests,
+                 requests_per_s=client.requests / judge_s,
+                 scores={m: r["score"] for m, r in results.items()})
+    print(f"phase 17 (e): the GPT judge ({', '.join(m for m, _ in JUDGE_SET)}, "
+          f"{JUDGE_SAMPLES} samples each) asked the served flagship {client.requests} times "
+          f"in {judge_s:.3f} s, {client.requests / judge_s:.3f} requests/s; each result its "
+          f"parsed reply; scores {judge['scores']}; launches "
+          f"{ {k: v for k, v in judge_launches.items() if v} }; {smi}", flush=True)
+
+    rows = [f"Row {i}: {answers[i % len(answers)][:200]}" for i in range(TEXTGEN_ROWS)]
+    split, task = _textgen_task(client, root, rows)
+    before = stats()
+    first, tg_launches = _count_launches(counters, lambda: _textgen_pass(
+        split, task, client, os.path.join(root, "textgen_first"), TEXTGEN_ROWS))
+    textgen = check("phase 17 (f)", tg_launches, before, TEXTGEN_ROWS)
+    before = stats()
+    cached, cached_launches = _count_launches(counters, lambda: _textgen_pass(
+        split, task, client, os.path.join(root, "textgen_cached"), 0, first))
+    if stats() != before or any(cached_launches.values()):
+        _fail(f"phase 17 (f): the cached run moved the engine's counters {before} -> "
+              f"{stats()} and launched {cached_launches}")
+    textgen.update(first_s=first["seconds"], cached_s=cached["seconds"],
+                   rows=TEXTGEN_ROWS, tokens=TEXTGEN_TOKENS)
+    print(f"phase 17 (f): ds_tool textgen over {TEXTGEN_ROWS} rows in chunks of "
+          f"{TEXTGEN_CHUNK}, {TEXTGEN_TOKENS} tokens each: {TEXTGEN_ROWS} requests in "
+          f"{first['seconds']:.3f} s; again from the disk cache into a fresh directory: 0 "
+          f"requests, no prefill, no launch, the same column, {cached['seconds']:.3f} s; "
+          f"launches { {k: v for k, v in tg_launches.items() if v} }; {smi}", flush=True)
+    seconds = time.perf_counter() - t_all
+    if seconds > JUDGE_TEXTGEN_LIMIT_S:
+        _fail(f"phase 17 (e) and (f) took {seconds:.1f} s, over {JUDGE_TEXTGEN_LIMIT_S} s")
+    print(f"phase 17 (e) and (f): {seconds:.2f} s", flush=True)
+    return ({"judge": judge, "textgen": textgen, "judge_textgen_s": seconds},
+            {"judge (phase 17 (e))": judge_launches, "textgen (phase 17 (f))": tg_launches})
 
 
 def _phase17_only(tc, uv, dev) -> None:

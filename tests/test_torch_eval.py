@@ -4,8 +4,8 @@ one process and over two (gloo).
 - Every metric of the registries (``wer``, ``cer``, ``bleu``, the sample
   metrics, VoiceBench's rule-based scorers, ``ifeval``) and the English
   normaliser on the inputs of tests/test_evaluation.py and
-  tests/test_ifeval.py: the same scores, exactly; the GPT-judge metrics
-  raise ``NotImplementedError`` naming ROADMAP.md.
+  tests/test_ifeval.py: the same scores, exactly (the GPT-judge metrics
+  are held in tests/test_torch_judge.py).
 - ``eval_datasets`` on ``synthetic-asr`` (6 samples, batch 2, greedy, 4
   tokens, with and without the ``null`` augmentation) through both
   packages' ``UltravoxInference`` on the checkpoint of
@@ -160,12 +160,6 @@ def test_ifeval_checkers_match_jax():
     ]
     for strict in (True, False):
         assert tifeval.ifeval_score(samples, strict) == jifeval.ifeval_score(samples, strict)
-
-
-@pytest.mark.parametrize("metric", ["voicebench_open", "instruct", "boolq", "conversation"])
-def test_judge_metrics_raise(metric):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmetrics.evaluate_answers(_samples(tmetrics)[:1], metric)
 
 
 def test_unknown_metric_raises_key_error():

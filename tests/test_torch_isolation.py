@@ -4,9 +4,12 @@ the JAX package (the machine with the card has no JAX), nor ``transformers``,
 serving modules, the offline front doors, the tokenizer loader and the
 training loop import and run without them (the loader needs only
 ``tokenizers`` and ``jinja2``, the training config ``yaml``, all on the
-card's machine), HF ``datasets`` is imported in one function only
-(``data/datasets.py::_load_hf_dataset``, for HF-hosted sets), and importing
-the package builds or loads no kernel. ``parallel/`` and ``evaluation/``
+card's machine), HF ``datasets`` is imported in four functions only
+(``data/datasets.py::_load_hf_dataset``, for HF-hosted sets, and the
+dataset factory's ``AudioMixTask._pool_segments``,
+``TimestampTask.map_split`` and ``main``), ``openai``, ``requests`` and
+``huggingface_hub`` only inside the functions that call them, and
+importing the package builds or loads no kernel. ``parallel/`` and ``evaluation/``
 use ``torch.distributed`` and nothing of the above (the evaluation suite
 scores WER with its own copy of Whisper's English normaliser); the
 multi-process entry points join NCCL, never gloo, where CUDA is present
@@ -29,8 +32,13 @@ FORBIDDEN = ("jax", "jaxlib", "ultravox_tpu", "flax", "optax", "orbax", "transfo
 # (PyYAML 6.0.3 on the card's machine, read there by the first chip call of
 # the training loop's PR), all on the card's machine
 ALLOWED_THIRD_PARTY = ("tokenizers", "jinja2", "yaml")
-# (file, function) of the one place the port imports HF ``datasets``
-HF_DATASETS_SITE = ("ultravox_torch/data/datasets.py", "_load_hf_dataset")
+# (file, qualified function name) of each place the port imports HF ``datasets``
+HF_DATASETS_SITES = (
+    ("ultravox_torch/data/datasets.py", "_load_hf_dataset"),
+    ("ultravox_torch/tools/ds_tool/ds_tool.py", "AudioMixTask._pool_segments"),
+    ("ultravox_torch/tools/ds_tool/ds_tool.py", "TimestampTask.map_split"),
+    ("ultravox_torch/tools/ds_tool/ds_tool.py", "main"),
+)
 
 
 def _imports(path: Path):
@@ -52,13 +60,16 @@ def test_no_jax_or_reference_imports(path):
 
 
 def _hf_datasets_sites(path: Path):
-    """(function name or None) of each import of the top-level ``datasets``."""
+    """(qualified function name or None) of each import of the top-level
+    ``datasets``; a class's name qualifies its methods."""
     tree = ast.parse(path.read_text(), filename=str(path))
     sites = []
 
     def visit(node, func):
         for child in ast.iter_child_nodes(node):
-            inner = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            inner = func
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                inner = f"{func}.{child.name}" if func else child.name
             if isinstance(child, ast.Import) and any(
                     a.name.split(".")[0] == "datasets" for a in child.names):
                 sites.append(func)
@@ -77,15 +88,17 @@ def test_hf_datasets_only_in_its_loader():
         sites = _hf_datasets_sites(path)
         if sites:
             found[str(path.relative_to(ROOT))] = sites
-    file, func = HF_DATASETS_SITE
-    assert found == {file: [func]}
+    want = {}
+    for file, func in HF_DATASETS_SITES:
+        want.setdefault(file, []).append(func)
+    assert found == want
 
 
 def test_package_imports_without_jax_and_builds_nothing():
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'ultravox_tpu', 'triton', 'safetensors', 'transformers',"
-        " 'optax', 'orbax', 'datasets'):\n"
+        " 'optax', 'orbax', 'datasets', 'openai', 'requests', 'huggingface_hub'):\n"
         "    sys.modules[m] = None\n"
         "import ultravox_torch\n"
         "import ultravox_torch.inference.engine\n"
@@ -126,6 +139,16 @@ def test_package_imports_without_jax_and_builds_nothing():
         "import ultravox_torch.evaluation.eval\n"
         "import ultravox_torch.evaluation.voicebench\n"
         "from ultravox_torch.evaluation import string_metrics\n"
+        "import ultravox_torch.utils.retry\n"
+        "import ultravox_torch.evaluation.gpt_eval\n"
+        "import ultravox_torch.tools.ds_tool\n"
+        "import ultravox_torch.tools.ds_tool.caching\n"
+        "import ultravox_torch.tools.ds_tool.tts\n"
+        "import ultravox_torch.tools.ds_tool.ds_tool\n"
+        "import ultravox_torch.tools.update_hf_models\n"
+        "import ultravox_torch.training.prefetch_weights\n"
+        "from ultravox_torch.tools.ds_tool.tts import AzureTts\n"
+        "AzureTts()\n"
         "assert string_metrics.wer(['it costs $25'], ['It costs twenty-five dollars!']) == 0.0\n"
         "from ultravox_torch.ops.kernels import _build\n"
         "assert _build.library.cache_info().currsize == 0\n"

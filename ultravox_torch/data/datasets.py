@@ -195,9 +195,14 @@ def _load_hf_dataset(
     audio_field: Optional[str] = None,
     shuffle: bool = False,
     shuffle_seed: int = 42,
+    cache_dir: Optional[str] = None,
+    keep_in_memory: Optional[bool] = None,
 ):
-    """An HF ``datasets`` set, the one place the package imports it (an
-    optional dependency: without it, an HF set raises ImportError)."""
+    """An HF ``datasets`` set, the data loader's one import of it (an
+    optional dependency: without it, an HF set raises ImportError).
+    ``cache_dir`` (default: HF's) holds the prepared Arrow files;
+    ``keep_in_memory`` loads the split into memory, so later ``map`` calls
+    keep no cache files of their own."""
     import datasets as hf_datasets
 
     ds = hf_datasets.load_dataset(
@@ -206,6 +211,8 @@ def _load_hf_dataset(
         split=split,
         streaming=streaming,
         download_config=hf_datasets.DownloadConfig(max_retries=10),
+        cache_dir=cache_dir,
+        keep_in_memory=keep_in_memory,
     )
     if audio_field is not None:
         ds = ds.cast_column(

@@ -6,9 +6,9 @@ Two kinds:
 - sample metrics (``METRIC_REGISTRY``): one score per (expected, generated)
   pair, fanned out over a thread pool, then mean-aggregated.
 
-The GPT-judge metrics (``gpt_eval.py`` in the JAX package) call a network
-judge and are not ported: asking for one raises ``NotImplementedError``
-(ROADMAP.md queue A item 8).
+The GPT-judge metrics (``gpt_eval.JUDGE_PROMPTS``) register on the first
+request for a metric not yet registered; they ask an OpenAI-compatible
+endpoint at scoring time.
 """
 
 from __future__ import annotations
@@ -92,16 +92,13 @@ def register_corpus_metric(name: str, fn: CorpusMetric) -> None:
     CORPUS_METRIC_REGISTRY[name] = fn
 
 
-# the JAX package's GPT-judge metrics (gpt_eval.JUDGE_PROMPTS), which need a
-# network judge
-JUDGE_METRICS = ("audiobench_binary", "audiobench_scalar", "bigbench", "boolq",
-                 "conversation", "instruct")
+def _register_gpt_metrics():
+    """The GPT-judge metrics, registered lazily (they need an
+    OpenAI-compatible endpoint at eval time)."""
+    from ultravox_torch.evaluation import gpt_eval
 
-
-def judge_not_ported(name: str):
-    return NotImplementedError(
-        f"metric {name!r} asks a network judge (GPT-judge metrics), which is not ported "
-        "(ROADMAP.md queue A item 8)")
+    for name in gpt_eval.JUDGE_PROMPTS:
+        METRIC_REGISTRY[name] = gpt_eval.make_judge_metric(name)
 
 
 def evaluate_answers(
@@ -119,8 +116,8 @@ def evaluate_answers(
             "per_sample": None,
         }
     if metric not in METRIC_REGISTRY:
-        if metric in JUDGE_METRICS:
-            raise judge_not_ported(metric)
+        _register_gpt_metrics()
+    if metric not in METRIC_REGISTRY:
         raise KeyError(f"unknown metric {metric!r}")
     fn = METRIC_REGISTRY[metric]
     with concurrent.futures.ThreadPoolExecutor(max_workers=max_workers) as pool:

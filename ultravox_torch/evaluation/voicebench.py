@@ -2,13 +2,13 @@
 
 Re-design of the reference's ``gpt_eval_voicebench.py`` (~1K LoC) +
 ``ifeval_voicebench.py``: the answer-extraction regex battery for MCQ and
-reference-QA tasks, the open-ended GPT judge (not ported), the harm/refusal
+reference-QA tasks, the open-ended GPT judge, the harm/refusal
 detector, and the IFEval bridge. Registered as sample metrics:
 
 - ``voicebench_mcq``  — extract the chosen letter, compare to the reference;
 - ``voicebench_qa``   — reference-answer containment with normalisation;
-- ``voicebench_open`` — the 1-5 GPT-judge rating: it needs a network judge
-  and raises ``NotImplementedError`` (ROADMAP.md queue A item 8);
+- ``voicebench_open`` — the 1-5 GPT-judge rating (``gpt_eval.gpt_evaluator``,
+  parsed by ``gpt_eval.parse_scalar``; -1 when the endpoint fails);
 - ``voicebench_harm`` — refusal detection (higher = safer);
 - ``voicebench_ifeval`` — strict+loose instruction following mean.
 """
@@ -22,7 +22,6 @@ from ultravox_torch.evaluation import ifeval
 from ultravox_torch.evaluation.metrics import (
     EvalResult,
     EvalSample,
-    judge_not_ported,
     register_sample_metric,
 )
 
@@ -79,7 +78,21 @@ def voicebench_qa(sample: EvalSample, args: Dict[str, Any]) -> EvalResult:
 
 
 def voicebench_open(sample: EvalSample, args: Dict[str, Any]) -> EvalResult:
-    raise judge_not_ported("voicebench_open")
+    from ultravox_torch.evaluation import gpt_eval
+
+    user = (
+        f"Question: {sample.question}\n"
+        f"Assistant response: {sample.generated_answer}\n\n"
+        "Rate the response's helpfulness, relevance and correctness on a "
+        "1-5 scale. Respond with 'Rating: <n>' and a one-sentence reason."
+    )
+    try:
+        text = gpt_eval.gpt_evaluator.ask(
+            "You are a strict evaluator of voice assistant responses.", user
+        )
+    except Exception as e:  # noqa: BLE001
+        return EvalResult(score=-1.0, reason=str(e))
+    return gpt_eval.parse_scalar(text)
 
 
 # -- harm / refusal ----------------------------------------------------------
