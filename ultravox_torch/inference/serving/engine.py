@@ -81,6 +81,11 @@ pages, the prefix cache, speculation, sampling) then follows from the same
 state and the same tokens on every rank; the other ranks' copies of the
 requests are in ``mirrored``, their events in their queues. ``stop()`` on
 rank 0 ends every rank's loop; on another rank it waits for that.
+
+What the loop did and when: each request carries marks of its way to the
+first token (``admit_time`` ... ``first_emit_time``), the engine counters of
+host time (``stat_*``), and while ``spans`` holds a ``SpanRecorder`` the
+loop records its spans (``spans.py``), each counter summing its spans.
 """
 
 from __future__ import annotations
@@ -107,6 +112,7 @@ from ultravox_torch.inference.engine import (
     place_params,
     resolve_device,
 )
+from ultravox_torch.inference.serving.spans import SpanRecorder
 from ultravox_torch.models import decoder as decoder_lib
 from ultravox_torch.models import lora as lora_lib
 from ultravox_torch.models import ultravox as uv
@@ -161,7 +167,17 @@ class Request:
     slot: int = -1
     prompt_len: int = 0
     generated: int = 0
+    # the way to the first token, each a time.monotonic() mark: the start of
+    # the _admit call that queued the prefill (a deferred request is still
+    # queued), the prefill job queued (tower and splice dispatched), the
+    # first chunk's dispatch begun, the first token sampled (on _inflight),
+    # the first event handed to out_queue. The engine's TTFT is
+    # first_emit_time - submit_time
+    admit_time: Optional[float] = None
+    admitted_time: Optional[float] = None
+    prefill_start_time: Optional[float] = None
     first_token_time: Optional[float] = None
+    first_emit_time: Optional[float] = None
     finish_time: Optional[float] = None  # when the terminal event was emitted
     emitted_ids: List[int] = dataclasses.field(default_factory=list)
     reused_prefix: int = 0  # tokens served from a retained slot cache
@@ -565,9 +581,11 @@ class ServingEngine:
         self.stat_prefill_chunks = 0  # prompt chunks dispatched
         self.stat_fetch_wait_s = 0.0  # host time blocked fetching results
         self.stat_dispatch_s = 0.0  # host time issuing decode dispatches
-        # optional measurement hook: set to a list and _emit appends one
-        # monotonic timestamp per emitted token, on the loop thread
-        self.token_time_log: Optional[list] = None
+        self.stat_admit_s = 0.0  # host time in _admit
+        self.stat_prefill_s = 0.0  # host time dispatching prefill chunks
+        # the loop's spans (spans.py), recorded while a SpanRecorder is set
+        # here; each counter of host time sums the spans of its code
+        self.spans: Optional[SpanRecorder] = None
 
         # prompt-lookup speculative decoding: drafts come from a token
         # history on the card, so consecutive speculative dispatches need no
@@ -906,6 +924,8 @@ class ServingEngine:
 
     def _loop_body(self):
         while self._sync_plan() if self._group is not None else self._running:
+            sp = self.spans
+            tick = sp.open("tick") if sp is not None else -1
             try:
                 self._loop_tick()
             except Exception:  # noqa: BLE001 - the scheduler itself raised
@@ -920,6 +940,8 @@ class ServingEngine:
                     for req in list(self._requests.values()):
                         req.out_queue.put(StreamEvent(token_id=None, finish_reason="error"))
                     self._requests.clear()
+            if sp is not None:
+                sp.close(tick)
         # loop exit (stop()): deliver whatever was already computed
         try:
             self._drain_decodes()
@@ -959,6 +981,7 @@ class ServingEngine:
 
     def _loop_tick(self):
         did_work = False
+        sp = self.spans
         # admissions and cancellations change slot and page ownership:
         # retire in-flight decode work first, so lagged finishes free their
         # slots and pages and cancelled requests get their final tokens
@@ -980,8 +1003,10 @@ class ServingEngine:
                 req = self._pending.get_nowait()
             except queue.Empty:
                 break
+            t0 = time.monotonic_ns()
+            span = sp.open("admit", req.request_id, t0) if sp is not None else -1
             try:
-                self._admit(req)
+                self._admit(req, t0)
             except Exception:  # noqa: BLE001 - fail the request, not the loop
                 logger.exception("admit failed for request %d", req.request_id)
                 if req.slot >= 0:
@@ -989,6 +1014,10 @@ class ServingEngine:
                     req.slot = -1
                 req.out_queue.put(StreamEvent(token_id=None, finish_reason="error"))
                 self._requests.pop(req.request_id, None)
+            t1 = time.monotonic_ns()
+            self.stat_admit_s += (t1 - t0) * 1e-9
+            if sp is not None:
+                sp.close(span, end=t1)
             admitted += 1
             did_work = True
 
@@ -1043,7 +1072,10 @@ class ServingEngine:
             if self._inflight:
                 self._drain_decodes()
                 return
+            span = sp.open("wait") if sp is not None else -1
             self._wake.wait(timeout=0.01)
+            if sp is not None:
+                sp.close(span)
             self._wake.clear()
 
     def _pad_request(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -1062,7 +1094,12 @@ class ServingEngine:
                 batch["audio_chunk_batch_idx"] = np.zeros((mel.shape[0],), np.int32)
         return batch
 
-    def _admit(self, req: Request):
+    def _admit(self, req: Request, t0: int):
+        """Embed the request's prompt and queue its prefill job, or settle
+        it at once (cancelled, unknown adapter, too long), or requeue it
+        while slots or pages are short (``defer_or_fail``). ``t0``: the
+        call's start (``time.monotonic_ns``), the request's ``admit_time``
+        once its job is queued."""
         if req.cancelled:
             self._finish_cancelled(req)
             return
@@ -1205,6 +1242,8 @@ class ServingEngine:
             self.reused_prefix_tokens += start
             padded = self._pad_request(req.batch)
             adapter = self._lora_index.get(req.lora, 0)  # 0: the base model
+            sp = self.spans
+            span = sp.open("embed", req.request_id) if sp is not None else -1
             if req.audio_embeds is not None:
                 embeds = self._embed_with_precomputed(padded, req.audio_embeds)
             else:
@@ -1217,6 +1256,8 @@ class ServingEngine:
                 # splice); the LLM prefill then proceeds in chunks
                 embeds = _embed_prompt(self.params, batch, self._enc_lora_banks, enc_idx,
                                        cfg=self.cfg, encoder_attn_impl=self.encoder_attn_impl)
+            if sp is not None:
+                sp.close(span)
             lora_idx = None
             if self._lora_banks is not None:
                 lora_idx = self._upload(np.asarray([adapter], np.int32))
@@ -1256,6 +1297,8 @@ class ServingEngine:
                 lora_idx=lora_idx,
             )
         )
+        req.admit_time = t0 * 1e-9
+        req.admitted_time = time.monotonic()
 
     def _embed_with_precomputed(self, padded: Dict[str, np.ndarray], audio_embeds):
         """Prompt embeddings with precomputed audio token embeddings spliced
@@ -1275,6 +1318,20 @@ class ServingEngine:
     def _prefill_one_chunk(self, job: PrefillJob) -> bool:
         """Run one prompt chunk through the LLM into the job's cache row.
         Returns True when the prompt is fully prefilled (request active)."""
+        t0 = time.monotonic_ns()
+        if job.req.prefill_start_time is None:
+            job.req.prefill_start_time = t0 * 1e-9
+        sp = self.spans
+        span = sp.open("prefill_chunk", job.req.request_id, t0) if sp is not None else -1
+        try:
+            return self._run_prefill_chunk(job)
+        finally:
+            t1 = time.monotonic_ns()
+            self.stat_prefill_s += (t1 - t0) * 1e-9
+            if sp is not None:
+                sp.close(span, job.chunk, t1)
+
+    def _run_prefill_chunk(self, job: PrefillJob) -> bool:
         req = job.req
         C = job.chunk
         T_padded = job.embeds.shape[1]
@@ -1416,7 +1473,9 @@ class ServingEngine:
         """Queue one decode call (single step or K-step block) for the
         current active set; its device result and the active-set snapshot go
         on ``_inflight`` for lagged processing."""
-        t_disp = time.monotonic()
+        t_disp = time.monotonic_ns()
+        sp = self.spans
+        span = sp.open("decode_dispatch", start=t_disp) if sp is not None else -1
         self._hist_dirty = True  # the card's histories miss these tokens
         self._dispatch_count += 1
         self.stat_decode_dispatches += 1
@@ -1485,7 +1544,10 @@ class ServingEngine:
                 self.generator, sampled, filtered, *extra,
                 n_steps=n_steps, attn_impl=self._seg_attn_impl,
             )
-        self.stat_dispatch_s += time.monotonic() - t_disp
+        t_end = time.monotonic_ns()
+        self.stat_dispatch_s += (t_end - t_disp) * 1e-9
+        if sp is not None:
+            sp.close(span, n_steps, t_end)
         self._inflight.append(("decode", toks, snapshot, n_steps, lp))
 
     def _reset_spec_guard(self):
@@ -1565,28 +1627,36 @@ class ServingEngine:
         case, else one round. Returns False when the drain before the
         history upload finished every active request."""
         key = tuple((s, self._active[s].request_id) for s in sorted(self._active))
+        sp = self.spans
         if self._hist_dirty or self._spec_key != key:
             # the card's history is stale: retire in-flight work so the
             # host's tokens are exact, then upload
-            t_sync = time.monotonic()
+            t_sync = time.monotonic_ns()
+            span = sp.open("spec_sync", start=t_sync) if sp is not None else -1
             self.spec_syncs += 1
             self._drain_decodes()
+            if self._active:
+                headroom = self.max_seq_len - 1 - max(
+                    r.prompt_len + r.generated for r in self._active.values())
+            # at the cache edge a round could lose accepted tokens' k/v
+            upload = bool(self._active) and headroom >= self.spec_k + 1
+            if upload:
+                self._sync_spec_hist()
+                # the set the upload covered (the drain may have finished some)
+                key = tuple((s, self._active[s].request_id) for s in sorted(self._active))
+                self._spec_key = key
+            t_end = time.monotonic_ns()
+            self.spec_sync_s += (t_end - t_sync) * 1e-9
+            if sp is not None:
+                sp.close(span, end=t_end)
             if not self._active:
                 return False
-            headroom = self.max_seq_len - 1 - max(
-                r.prompt_len + r.generated for r in self._active.values())
-            if headroom < self.spec_k + 1:
-                # the drain brought a request to the cache edge, where a
-                # round could lose accepted tokens' k/v
-                self.spec_sync_s += time.monotonic() - t_sync
+            if not upload:
+                # the drain brought a request to the cache edge
                 self._dispatch_decode(1)
                 return True
-            self._sync_spec_hist()
-            # the set the upload covered (the drain may have finished some)
-            key = tuple((s, self._active[s].request_id) for s in sorted(self._active))
-            self._spec_key = key
-            self.spec_sync_s += time.monotonic() - t_sync
-        t_disp = time.monotonic()
+        t_disp = time.monotonic_ns()
+        span = sp.open("spec_dispatch", start=t_disp) if sp is not None else -1
         worst = self.spec_k + 1
         n_rounds = 1
         if self._spec_probe_mode:
@@ -1639,7 +1709,10 @@ class ServingEngine:
             )
         self.spec_dispatches += n_rounds
         self._dispatch_count += 1
-        self.stat_dispatch_s += time.monotonic() - t_disp
+        t_end = time.monotonic_ns()
+        self.stat_dispatch_s += (t_end - t_disp) * 1e-9
+        if sp is not None:
+            sp.close(span, n_rounds, t_end)
         self._inflight.append(("spec", out, accepted, snapshot, worst))
         return True
 
@@ -1647,31 +1720,62 @@ class ServingEngine:
         """Fetch the oldest in-flight result and emit its tokens. Slots whose
         request finished in an earlier (lagged) dispatch, or was replaced by
         a newer admission, drop their columns."""
-        t_fetch = time.monotonic()
+        t_fetch = time.monotonic_ns()
+        sp = self.spans
+        span = -1
+        if sp is not None:
+            head = self._inflight[0]  # a first token's fetch carries its request
+            span = sp.open("fetch", head[2].request_id if head[0] == "first" else -1, t_fetch)
         try:
-            self._process_oldest_decode_inner()
+            self._process_oldest_decode_inner(sp)
         finally:
             # the read-back waits for the card: this is where the loop
             # waits; everything else is dispatch
-            self.stat_fetch_wait_s += time.monotonic() - t_fetch
+            t_end = time.monotonic_ns()
+            self.stat_fetch_wait_s += (t_end - t_fetch) * 1e-9
+            if sp is not None:
+                sp.close(span, end=t_end)
 
-    def _process_oldest_decode_inner(self):
+    def _process_oldest_decode_inner(self, sp: Optional[SpanRecorder]):
+        """The oldest in-flight entry's results read back to the host (the
+        loop's only waits for the card), then handed out."""
         entry = self._inflight.popleft()
+        span = sp.open("readback") if sp is not None else -1
+        if entry[0] == "first":
+            lp1 = entry[3]
+            host = (int(entry[1].cpu()[0]),
+                    None if lp1 is None else tuple(x.cpu().numpy() for x in lp1))
+        elif entry[0] == "spec":
+            host = (entry[1].cpu().numpy(), entry[2].cpu().numpy())
+        else:
+            lp = entry[4]
+            host = (entry[1].cpu().numpy(),
+                    None if lp is None else tuple(x.cpu().numpy() for x in lp))
+        if sp is not None:
+            sp.close(span)
+            span = sp.open("emit")
+        n = self._emit_fetched(entry, *host)
+        if sp is not None:
+            sp.close(span, n)
+
+    def _emit_fetched(self, entry, values, extra) -> int:
+        """Emit an in-flight entry's read-back tokens (``values``, with
+        ``extra`` its logprobs or, for a speculative entry, its accepted
+        counts). Returns the number of ``_emit`` calls."""
         if entry[0] == "first":
             # a prefill-completion token (stream order holds: the queue is
             # FIFO and this was appended before any decode of the slot)
-            _, tok, req, lp1 = entry
-            tok_i = int(tok.cpu()[0])
-            lp_np = None if lp1 is None else tuple(x.cpu().numpy() for x in lp1)
-            if self._active.get(req.slot) is req:
-                self._emit(req, tok_i, lp=_lp_row(lp_np, 0))
-            return
+            req = entry[2]
+            if self._active.get(req.slot) is not req:
+                return 0
+            self._emit(req, values, lp=_lp_row(extra, 0))
+            return 1
+        n = 0
         if entry[0] == "spec":
             # each slot's accepted tokens, 1 to K+1 a round; a request that
             # finished in an earlier (lagged) dispatch drops its columns
-            _, out, accepted, snapshot, _ = entry
-            out_np = out.cpu().numpy()
-            acc_np = accepted.cpu().numpy()
+            snapshot = entry[3]
+            out_np, acc_np = values, extra
             if out_np.ndim == 2:  # one round: (1, B, K+1)
                 out_np, acc_np = out_np[None], acc_np[None]
             n_rounds = out_np.shape[0]
@@ -1690,18 +1794,20 @@ class ServingEngine:
                             # a stop token finishes without being delivered
                             self.spec_emitted_tokens += 1
                         self._emit(req, tok)
-            return
-        _, toks, snapshot, _, lp = entry
-        toks_np = toks.cpu().numpy()
+                        n += 1
+            return n
+        snapshot = entry[2]
+        toks_np, lp_np = values, extra
         if toks_np.ndim == 1:
             toks_np = toks_np[:, None]
-        lp_np = None if lp is None else tuple(x.cpu().numpy() for x in lp)
         for s, req in snapshot:
             for j in range(toks_np.shape[1]):
                 if self._active.get(s) is not req:
                     break  # finished; later columns are dropped
                 row = _lp_row(lp_np, s) if req.logprobs else None
                 self._emit(req, int(toks_np[s, j]), lp=row)
+                n += 1
+        return n
 
     def _drain_decodes(self):
         while self._inflight:
@@ -1744,15 +1850,14 @@ class ServingEngine:
         self._requests.pop(req.request_id, None)
 
     def _emit(self, req: Request, token_id: int, lp=None):
+        if req.first_emit_time is None:
+            req.first_emit_time = time.monotonic()
         finish = None
         if token_id in req.stop_token_ids:
             finish = "stop"
         else:
             req.generated += 1
             req.emitted_ids.append(token_id)
-            log = self.token_time_log  # read once: another thread may reset it
-            if log is not None:
-                log.append(time.monotonic())
             ev = StreamEvent(token_id=token_id)
             if lp is not None:
                 ev.logprob = lp[0]
@@ -1767,7 +1872,8 @@ class ServingEngine:
         if finish is None:
             return
         req.finish_time = time.monotonic()
-        ttft = req.first_token_time - req.submit_time if req.first_token_time else None
+        # the TTFT a client sees: to the first event handed to its queue
+        ttft = req.first_emit_time - req.submit_time
         req.out_queue.put(StreamEvent(token_id=None, finish_reason=finish, ttft_s=ttft))
         if req.slot in self._active:
             del self._active[req.slot]
